@@ -1,0 +1,291 @@
+"""The port's serving slice as a whole against the JAX package, on the
+CPU: darknet bytes -> load -> letterbox -> Darknet -> fused head ->
+un-letterbox, plus the HTTP server and the "no jax" import contract.
+
+Both packages load the same .weights bytes (He-scaled seeded weights, so
+logits are O(1) and boxes and scores are not saturated). fp32 in both;
+the convs sum in different orders (oneDNN vs XLA), so scores agree to
+1e-4 and pixel boxes to 1e-2 px on a 640-pixel image, and the kept set
+(valid, classes) exactly.
+
+bf16 in both: logits differ by a few bf16 ulps (tests/test_torch_graph.py),
+enough to reorder near-equal scores, so the kept sets are compared as
+sets: every detection scoring >= conf + 0.05 in one package has a
+same-class partner at IoU >= 0.5 in the other. All of them must match.
+That holds on weights shaped like a trained detector's (boxes near their
+anchors' size, most cells empty). On plain He weights, boxes cover the
+image or collapse to zero width and the JAX package's own bf16 and fp32
+runs match only 70-100% of them (measured at 160x160, seeds 0-2), so
+those are not used for the bf16 check."""
+
+import dataclasses
+import http.client
+import io
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tests.torch_port import he_weights as _he_weights
+from tests.torch_port import to_jax_config
+from yolo_tpu.io import darknet_weights as jdw
+from yolo_tpu.models import graph as jgraph
+from yolo_tpu.models.predict import make_detector as jax_make_detector
+import yolo_tpu_torch
+from yolo_tpu_torch.configs import get_variant
+from yolo_tpu_torch.models.predict import detect_raw, make_detector
+from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_params(cfg, path):
+    params, _ = jdw.load(path, cfg.layers)
+    return jgraph.params_to_jax(jgraph.fold_params(cfg.layers, params,
+                                                   cfg.bn_eps))
+
+
+def _images(seed, b=2):
+    return np.random.default_rng(seed).integers(0, 256, (b, 120, 160, 3),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.parametrize("variant", ["coco", "tiny-voc"])
+def test_slice_matches_jax_fused_detector(tmp_path, variant):
+    """Full width (YOLOv2-COCO: 80 classes, 5 anchors, all 31 layers;
+    tiny-voc) at 160x160, batch 2, head="fused" in both packages."""
+    cfg = dataclasses.replace(get_variant(variant), input_size=160)
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path)
+    imgs = _images(1)
+
+    want = jax_make_detector(to_jax_config(cfg), compute_dtype=jnp.float32,
+                             head="fused")(_jax_params(to_jax_config(cfg), path),
+                                           jnp.asarray(imgs))
+
+    model = yolo_tpu_torch.load(path, variant, device="cpu",
+                                precision="fp32", input_size=160)
+    assert model.cfg == cfg
+    got = make_detector(cfg, head="fused")(model.params,
+                                           torch.from_numpy(imgs))
+    v = np.asarray(want["valid"])
+    assert v.sum() >= 4
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_array_equal(got["classes"].numpy()[v],
+                                  np.asarray(want["classes"])[v])
+    np.testing.assert_allclose(got["scores"].numpy(),
+                               np.asarray(want["scores"]), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["boxes"].numpy()[v],
+                               np.asarray(want["boxes"])[v], rtol=0,
+                               atol=1e-2)
+    # the API's default head on the CPU is the exact reference path; at
+    # this threshold the fused head is exact, so they agree
+    ref = model(imgs)
+    assert torch.equal(ref["valid"], got["valid"])
+    torch.testing.assert_close(ref["scores"], got["scores"], rtol=0,
+                               atol=1e-6)
+
+
+def test_stretch_resize_path_matches_jax(tmp_path):
+    cfg = get_variant("tiny-voc", input_size=96)
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path, seed=3)
+    imgs = _images(2)
+    jcfg = to_jax_config(cfg)
+    want = jax_make_detector(jcfg, head="reference", nms_impl="xla",
+                             resize="stretch")(_jax_params(jcfg, path),
+                                               jnp.asarray(imgs))
+    model = yolo_tpu_torch.load(path, "tiny-voc", device="cpu",
+                                precision="fp32", input_size=96)
+    got = make_detector(cfg, resize="stretch")(model.params,
+                                               torch.from_numpy(imgs))
+    v = np.asarray(want["valid"])
+    assert v.sum() >= 2
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_allclose(got["boxes"].numpy()[v],
+                               np.asarray(want["boxes"])[v], rtol=0,
+                               atol=1e-2)
+
+
+def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path):
+    cfg = get_variant("tiny-voc")
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path)
+    model = yolo_tpu_torch.load(path, device="cpu", input_size=64)
+    assert model.cfg.name == "tiny-yolov2-voc"
+    assert model.params.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="precision"):
+        yolo_tpu_torch.load(path, device="cpu", precision="int8")
+    with pytest.raises(NotImplementedError, match="A12"):
+        yolo_tpu_torch.load("zoo://yolov2-coco", device="cpu")
+    with pytest.raises(NotImplementedError, match="B3"):
+        detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
+                   entry="fused")
+    with pytest.raises(ValueError, match="entry"):
+        detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
+                   entry="torch")
+    with pytest.raises(NotImplementedError, match="A8"):
+        yolo_tpu_torch.load(path, "yolov3", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            yolo_tpu_torch.load(path)
+
+
+def _matched(a, b, conf):
+    """(matched, total) over a's detections scoring >= conf + 0.05: a
+    same-class box of b at IoU >= 0.5 matches."""
+    def iou(p, q):
+        iw = max(0.0, min(p[2], q[2]) - max(p[0], q[0]))
+        ih = max(0.0, min(p[3], q[3]) - max(p[1], q[1]))
+        union = ((p[2] - p[0]) * (p[3] - p[1]) + (q[2] - q[0]) * (q[3] - q[1])
+                 - iw * ih)
+        return iw * ih / union if union > 0 else 0.0
+
+    hit = total = 0
+    for bi in range(len(a["valid"])):
+        kept = [(int(c), box) for c, box, v in zip(
+            b["classes"][bi], b["boxes"][bi].astype(np.float64),
+            b["valid"][bi]) if v]
+        for c, s, box, v in zip(a["classes"][bi], a["scores"][bi],
+                                a["boxes"][bi].astype(np.float64),
+                                a["valid"][bi]):
+            if v and s >= conf + 0.05:
+                total += 1
+                hit += any(c == c2 and iou(box, box2) >= 0.5
+                           for c2, box2 in kept)
+    return hit, total
+
+
+@pytest.mark.parametrize("variant", ["coco", "tiny-voc"])
+def test_slice_bf16_matches_jax_bf16(tmp_path, variant):
+    """The default precision against the JAX package's bf16 detector, on
+    the same shaped weights and images, kept sets compared as sets."""
+    cfg = get_variant(variant, input_size=160)
+    jcfg = to_jax_config(cfg)
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path, box_scale=0.1, objectness_shift=-2.0)
+    imgs = _images(1)
+    want = jax_make_detector(jcfg, compute_dtype=jnp.bfloat16, head="fused")(
+        _jax_params(jcfg, path), jnp.asarray(imgs))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    model = yolo_tpu_torch.load(path, variant, device="cpu", input_size=160)
+    assert model.params.compute_dtype == torch.bfloat16
+    got = make_detector(cfg, head="fused")(model.params,
+                                           torch.from_numpy(imgs))
+    got = {k: v.numpy() for k, v in got.items()}
+    for a, b in ((want, got), (got, want)):
+        hit, total = _matched(a, b, cfg.conf_threshold)
+        assert total >= 5 and hit == total
+
+
+def test_import_and_cpu_detection_load_no_jax(tmp_path):
+    cfg = get_variant("tiny-voc")
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path)
+    code = f"""
+import json, sys
+import numpy as np
+import yolo_tpu_torch
+import yolo_tpu_torch.api, yolo_tpu_torch.serve, yolo_tpu_torch.ops.head
+import yolo_tpu_torch.ops.cuda.build, yolo_tpu_torch.ops.cuda.nms_kernel
+model = yolo_tpu_torch.load({path!r}, "tiny-voc", device="cpu",
+                            input_size=64)
+out = model(np.zeros((1, 48, 80, 3), np.uint8))
+print(json.dumps({{"jax": "jax" in sys.modules,
+                   "yolo_tpu": [m for m in sys.modules
+                                if m.split(".")[0] == "yolo_tpu"],
+                   "shape": list(out["boxes"].shape)}}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"jax": False, "yolo_tpu": [], "shape": [1, 100, 4]}
+
+
+def _request(port, method, path, body=None, ctype=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": ctype} if ctype else {})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _npy(arr):
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def test_server_answers_npy_and_png_like_direct_calls(tmp_path):
+    cfg = get_variant("tiny-voc", input_size=64)
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path)
+    model = yolo_tpu_torch.load(path, "tiny-voc", device="cpu",
+                                precision="fp32", input_size=64,
+                                conf_threshold=0.3)
+    imgs = _images(5, 3)
+    server = DetectionServer(model.cfg, model.params, port=0,
+                             conf_threshold=0.3)
+    server.start()
+    try:
+        assert _request(server.port, "GET", "/healthz") == \
+            (200, {"status": "ok", "model": "tiny-yolov2-voc"})
+        responses = []
+        for img in imgs:
+            status, body = _request(server.port, "POST", "/detect", _npy(img),
+                                    "application/x-npy")
+            assert status == 200
+            responses.append(body["detections"])
+        import cv2
+
+        ok, png = cv2.imencode(".png", cv2.cvtColor(imgs[0],
+                                                    cv2.COLOR_RGB2BGR))
+        assert ok
+        status, body = _request(server.port, "POST", "/detect", png.tobytes(),
+                                "image/png")
+        assert status == 200 and body["detections"] == responses[0]
+        status, body = _request(server.port, "POST", "/detect",
+                                _npy(imgs[0].astype(np.float32)),
+                                "application/x-npy")
+        assert status == 400 and "uint8" in body["error"]
+        for bad in (b"", _npy(imgs[0])[:-7]):
+            status, _ = _request(server.port, "POST", "/detect", bad,
+                                 "application/x-npy")
+            assert status == 400
+        status, _ = _request(server.port, "POST", "/detect", b"not an image",
+                             "image/jpeg")
+        assert status == 400
+        status, _ = _request(server.port, "POST", "/classify", b"x")
+        assert status == 400
+        status, stats = _request(server.port, "GET", "/stats")
+        assert status == 200 and stats["requests"] == 4
+        assert stats["errors"] == 0
+    finally:
+        server.stop()
+    direct = [detections_to_json(model(img[None]), cfg.class_names)[0]
+              for img in imgs]
+    assert responses == direct
+    assert sum(len(d) for d in direct) > 0
+
+
+def test_server_rejects_what_is_not_ported(tmp_path):
+    cfg = get_variant("tiny-voc", input_size=64)
+    path = str(tmp_path / "w.weights")
+    _he_weights(cfg, path)
+    model = yolo_tpu_torch.load(path, "tiny-voc", device="cpu",
+                                input_size=64)
+    with pytest.raises(NotImplementedError, match="A12"):
+        DetectionServer(model.cfg, model.params, mesh=object())

@@ -1,0 +1,22 @@
+"""yolo_tpu_torch — the PyTorch/CUDA port of yolo_tpu, for one NVIDIA
+H100 (sm_90a).
+
+The JAX package ``yolo_tpu`` stays the reference; this package imports
+nothing of it (its configs and darknet weights I/O are ported under
+``configs/`` and ``io/``) and never imports ``jax``. Plain tensor code is PyTorch; each Pallas kernel
+of the JAX package on the ported path has a hand-written CUDA kernel
+under ``csrc/``, built by ``ops/cuda/build.py`` at first use.
+
+    import yolo_tpu_torch
+    model = yolo_tpu_torch.load("yolov2.weights", "coco")   # device="cuda"
+    detections = model(images_u8)            # (B, H, W, 3) raw RGB
+"""
+
+__version__ = "0.1.0"
+
+
+def load(*args, **kw):
+    """See yolo_tpu_torch.api.load — weights file -> callable detector."""
+    from yolo_tpu_torch.api import load as _load
+
+    return _load(*args, **kw)

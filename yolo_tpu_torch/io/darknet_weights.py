@@ -1,0 +1,189 @@
+"""Darknet ``.weights`` binary I/O for the yolov2 layer set (port of
+yolo_tpu/io/darknet_weights.py, conv layers only).
+
+File format (darknet ``parse.c`` save/load order):
+  header: int32 major, minor, revision; then ``seen`` — int64 if
+  major*10+minor >= 2 (20-byte header), else int32 (16 bytes).
+  per conv layer, in cfg order:
+    biases[oc]                       (BN beta when bn=True)
+    if bn: scales[oc] (gamma), rolling_mean[oc], rolling_var[oc]
+    kernel fp32, darknet (oc, ic, kh, kw) order -> HWIO here.
+
+Params list, ordered like ``weighted_specs(layers)``:
+  [{"kernel": HWIO f32, "bias": (oc,)}                     bn=False convs,
+   {"kernel": HWIO f32, "gamma","beta","mean","var": (oc,)} bn=True convs]
+the JAX package's layout, byte for byte the same files.
+"""
+
+from __future__ import annotations
+
+from typing import BinaryIO, List, Sequence
+
+import numpy as np
+
+from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
+                                          Route, resolve_route,
+                                          weighted_specs)
+
+
+def _conv_in_channels(layers: Sequence[LayerSpec],
+                      input_channels: int = 3) -> List[int]:
+    """Input channel count of each conv, walking the layer graph."""
+    out_ch: List[int] = []
+    conv_in: List[int] = []
+    prev = input_channels
+    for idx, layer in enumerate(layers):
+        if isinstance(layer, Conv):
+            conv_in.append(prev)
+            prev = layer.filters
+        elif isinstance(layer, Reorg):
+            prev = prev * layer.stride * layer.stride
+        elif isinstance(layer, Route):
+            prev = sum(out_ch[resolve_route(idx, r)] for r in layer.layers)
+        elif not isinstance(layer, MaxPool):
+            raise NotImplementedError(
+                f"layer {idx}: {type(layer).__name__} is not a layer of the "
+                f"yolov2 set (ROADMAP A8)")
+        out_ch.append(prev)
+    return conv_in
+
+
+def expected_bytes(layers: Sequence[LayerSpec], input_channels: int = 3
+                   ) -> int:
+    """Exact .weights file size for a topology, with the 20-byte header."""
+    n = sum(conv.filters * (4 if conv.bn else 1)
+            + conv.filters * ic * conv.size * conv.size
+            for conv, ic in zip(weighted_specs(tuple(layers)),
+                                _conv_in_channels(layers, input_channels)))
+    return 20 + 4 * n
+
+
+def load(path_or_file, layers: Sequence[LayerSpec], input_channels: int = 3):
+    """Load a darknet .weights file into a params list for ``layers``.
+    The file must hold every conv and end exactly after the last one.
+    Returns (params, header)."""
+    if hasattr(path_or_file, "read"):
+        data = path_or_file.read()
+    else:
+        with open(path_or_file, "rb") as f:
+            data = f.read()
+    if len(data) < 16:
+        raise ValueError(f"weights file too short ({len(data)} bytes "
+                         f"— no header)")
+    major, minor, revision = np.frombuffer(data, np.int32, 3)
+    if major > 1000 or minor > 1000:
+        # parse.c: versions > 1000 flag the old transposed format
+        raise ValueError(
+            f"weights header major={major} minor={minor}: the "
+            f"pre-2016 transposed format is not supported")
+    if major * 10 + minor >= 2:
+        seen = int(np.frombuffer(data, np.int64, 1, 12)[0])
+        offset = 20
+    else:
+        seen = int(np.frombuffer(data, np.int32, 1, 12)[0])
+        offset = 16
+    if (len(data) - offset) % 4:
+        raise ValueError("weights file truncated mid-float "
+                         f"({len(data) - offset} payload bytes)")
+    floats = np.frombuffer(data, np.float32, offset=offset)
+
+    pos = 0
+    params = []
+    for conv, ic in zip(weighted_specs(tuple(layers)),
+                        _conv_in_channels(layers, input_channels)):
+        oc, k = conv.filters, conv.size
+        need = oc * (4 if conv.bn else 1) + oc * ic * k * k
+        if pos + need > floats.size:
+            raise ValueError(
+                f"weights file too short: conv {len(params)} needs {need} "
+                f"floats, {floats.size - pos} remain")
+        p = {}
+        if conv.bn:
+            for key in ("beta", "gamma", "mean", "var"):
+                p[key] = floats[pos:pos + oc].copy()
+                pos += oc
+        else:
+            p["bias"] = floats[pos:pos + oc].copy()
+            pos += oc
+        kern = floats[pos:pos + oc * ic * k * k].reshape(oc, ic, k, k)
+        pos += oc * ic * k * k
+        p["kernel"] = np.ascontiguousarray(kern.transpose(2, 3, 1, 0))
+        params.append(p)
+    if pos != floats.size:
+        raise ValueError(
+            f"weights file not fully consumed: read {pos} of "
+            f"{floats.size} floats — layer spec does not match file")
+    header = {"major": int(major), "minor": int(minor),
+              "revision": int(revision), "seen": seen}
+    return params, header
+
+
+def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
+         version=(0, 2, 0)) -> None:
+    """Write params out in darknet format (HWIO -> OIHW)."""
+    specs = weighted_specs(tuple(layers))
+    if len(params) != len(specs):
+        raise ValueError(f"save: {len(params)} param blocks for "
+                         f"{len(specs)} convs")
+    own = not hasattr(path_or_file, "write")
+    f: BinaryIO = open(path_or_file, "wb") if own else path_or_file
+    try:
+        major, minor, revision = version
+        f.write(np.asarray([major, minor, revision], np.int32).tobytes())
+        seen_dtype = np.int64 if major * 10 + minor >= 2 else np.int32
+        f.write(np.asarray([seen], seen_dtype).tobytes())
+        for conv, p in zip(specs, params):
+            keys = ("beta", "gamma", "mean", "var") if conv.bn else ("bias",)
+            for key in keys:
+                f.write(np.asarray(p[key], np.float32).tobytes())
+            kernel = np.asarray(p["kernel"], np.float32)
+            f.write(np.ascontiguousarray(
+                kernel.transpose(3, 2, 0, 1)).tobytes())
+    finally:
+        if own:
+            f.close()
+
+
+def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
+                  input_channels: int = 3, scale: float = 0.1):
+    """Random params in load()'s layout, drawn in the JAX package's order
+    (the same generator state gives the same params there)."""
+    params = []
+    for conv, ic in zip(weighted_specs(tuple(layers)),
+                        _conv_in_channels(layers, input_channels)):
+        oc, k = conv.filters, conv.size
+        p = {"kernel": rng.normal(0, scale, (k, k, ic, oc)).astype(np.float32)}
+        if conv.bn:
+            p["gamma"] = rng.uniform(0.5, 1.5, oc).astype(np.float32)
+            p["beta"] = rng.normal(0, 0.1, oc).astype(np.float32)
+            p["mean"] = rng.normal(0, 0.1, oc).astype(np.float32)
+            p["var"] = rng.uniform(0.5, 1.5, oc).astype(np.float32)
+        else:
+            p["bias"] = rng.normal(0, 0.1, oc).astype(np.float32)
+        params.append(p)
+    return params
+
+
+def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
+                              objectness_shift: float = -2.0):
+    """Seeded random weights for a region-head detector, for runs without
+    trained weights.
+
+    random_params' std 0.1 at every layer overflows exp(tw) on yolov2
+    (mean |logit| ~1e9), so kernels are rescaled to He's std
+    sqrt(2/fan_in) and logits are O(1). The head's box channels are then
+    scaled by ``box_scale``, so boxes stay near their anchors' size
+    instead of covering the image or collapsing to zero width, and the
+    objectness bias is shifted by ``objectness_shift``, so that, as in a
+    trained detector, most cells hold no object. box_scale=1 and
+    objectness_shift=0 give plain He weights."""
+    params = random_params(cfg.layers, np.random.default_rng(seed),
+                           input_channels=cfg.in_channels)
+    for p in params:
+        k = p["kernel"]
+        p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:3])) / 0.1)) \
+            .astype(np.float32)
+    a, c = cfg.num_anchors, cfg.num_classes
+    params[-1]["kernel"].reshape(-1, a, 5 + c)[..., :4] *= box_scale
+    params[-1]["bias"].reshape(a, 5 + c)[:, 4] += objectness_shift
+    return params

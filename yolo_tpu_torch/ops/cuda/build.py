@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Every ``yolo_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface. The library
+is named by a hash of the sources and flags and written to
+``build/yolo_tpu_torch/`` beside the package (git-ignored), at first use.
+A process that finds the library already built loads it without
+compiling. Without ``nvcc`` the build raises: the port never runs a CUDA
+tensor without its kernel.
+
+Plain C + ctypes instead of ``torch.utils.cpp_extension.load``: a source
+that includes PyTorch's headers compiles far longer than this plain-C
+one, and every fresh machine builds anew.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "yolo_tpu_torch")
+
+# -fmad=false: the NMS IoU must round exactly as the plain PyTorch
+# version does (no multiply-add contraction); IEEE division is nvcc's
+# default without --use_fast_math, which is never passed
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs, sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(
+        "cannot build the yolo_tpu_torch CUDA kernels: nvcc is not on "
+        f"PATH and not at {path} (set CUDA_HOME to the CUDA toolkit)")
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    srcs, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs + headers:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"yolo_tpu_torch_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple:
+    """Compile the kernels if their library is missing.
+    Returns (library path, seconds spent compiling; 0.0 if cached)."""
+    out = library_path()
+    with _lock:
+        if os.path.exists(out):
+            return out, 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        srcs, _ = _sources()
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        # atomic publish: concurrent builders each write their own tmp
+        os.replace(tmp, out)
+        return out, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    lib.yolo_nms_suppress.restype = ctypes.c_int
+    lib.yolo_nms_suppress.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    return lib

@@ -1,0 +1,64 @@
+"""Fused detection head (port of yolo_tpu/ops/head.py::detect_head).
+
+score = sigmoid(obj) * softmax(cls) <= sigmoid(obj), so:
+  1. objectness sigmoid over all H*W*A boxes
+  2. top-KB boxes by objectness
+  3. decode + softmax only those KB boxes
+  4. global top-K (box, class) candidates
+  5. same-class greedy suppression (the CUDA kernel on the card)
+
+Identical to the reference decode + per-class NMS whenever fewer than KB
+boxes have objectness >= conf_threshold and fewer than K (box, class)
+pairs clear it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yolo_tpu_torch.ops.nms import _geom, _package, _suppress, _top_k
+
+
+def detect_head(logits: torch.Tensor, anchors, num_classes: int, *,
+                conf_threshold: float, iou_threshold: float,
+                pre_top_k: int = 256, max_detections: int = 100,
+                use_kernel: bool = True, nms_kind: str = "greedy",
+                beta_nms: float = 0.6):
+    """logits (B, H, W, A*(5+C)) -> fixed-shape detections dict (boxes
+    in net-normalized xywh)."""
+    b, h, w, _ = logits.shape
+    a = len(anchors)
+    c = num_classes
+    n = h * w * a
+    t = logits.to(torch.float32).reshape(b, n, 5 + c)
+    anchors_t = torch.as_tensor(anchors, dtype=torch.float32,
+                                device=logits.device)
+
+    # 1-2: objectness prefilter
+    conf_all = torch.sigmoid(t[..., 4])                       # (B, N)
+    kb = min(pre_top_k, n)
+    conf_k, nidx = _top_k(conf_all, kb)                       # (B, KB)
+    tk = torch.gather(t, 1, nidx[..., None].expand(-1, -1, 5 + c))
+
+    # 3: decode the survivors (flat index n = (cj*W + ci)*A + ai)
+    ai = nidx % a
+    ci = (nidx // a) % w
+    cj = nidx // (a * w)
+    bx = (torch.sigmoid(tk[..., 0]) + ci.to(torch.float32)) / w
+    by = (torch.sigmoid(tk[..., 1]) + cj.to(torch.float32)) / h
+    bw = anchors_t[ai, 0] * torch.exp(tk[..., 2]) / w
+    bh = anchors_t[ai, 1] * torch.exp(tk[..., 3]) / h
+    boxes_kb = torch.stack([bx, by, bw, bh], dim=-1)          # (B, KB, 4)
+    scores_kb = conf_k[..., None] * torch.softmax(tk[..., 5:], dim=-1)
+
+    # 4: global top-K (box, class) candidates
+    scores_k, idx = _top_k(scores_kb.reshape(b, kb * c), kb)  # (B, K)
+    box_idx = idx // c
+    classes_k = (idx % c).to(torch.int32)
+    boxes_k = torch.gather(boxes_kb, 1, box_idx[..., None].expand(-1, -1, 4))
+
+    # 5: suppression + packaging (shared with ops/nms.py)
+    keep = _suppress(_geom(boxes_k), scores_k, classes_k, conf_threshold,
+                     iou_threshold, use_kernel=use_kernel, kind=nms_kind,
+                     beta=beta_nms)
+    return _package(boxes_k, scores_k, classes_k, keep, max_detections)

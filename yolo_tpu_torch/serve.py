@@ -1,0 +1,305 @@
+"""Serving endpoint for one device: HTTP in, boxes out (port of
+yolo_tpu/serve.py, detection models).
+
+POST /detect with an image body -> JSON detections; GET /healthz for
+liveness, GET /stats for counters. Bodies are
+  * ``Content-Type: application/x-npy``: a uint8 (H, W, C) array in .npy
+    format, the form that needs no image decoder on the host;
+  * anything else: JPEG/PNG bytes, decoded with cv2 where it imports
+    (the JAX server's fallback decoder; its native decoder is not
+    ported).
+
+Requests are micro-batched: a collector thread groups same-shape images
+arriving within ``batch_window_ms`` (up to ``max_batch``) into one device
+call. The window adapts to load: queued backlog is drained without
+waiting, and the timed wait engages only when the recent average batch
+size (EWMA) says traffic is concurrent, so a lone client keeps batch-1
+latency. PyTorch runs eagerly, so batches are not padded to compile
+buckets.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+NPY_CONTENT_TYPE = "application/x-npy"
+
+
+class _Pending:
+    __slots__ = ("image", "event", "result", "error")
+
+    def __init__(self, image: np.ndarray):
+        self.image = image
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[str] = None
+
+
+def _decode_npy(data: bytes, channels: int) -> np.ndarray:
+    """.npy body -> (H, W, channels) uint8; ValueError or EOFError on
+    anything else (no pickles)."""
+    arr = np.load(io.BytesIO(data), allow_pickle=False)
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != channels \
+            or arr.shape[0] < 1 or arr.shape[1] < 1:
+        raise ValueError(f"expected a uint8 (H, W, {channels}) array, got "
+                         f"{arr.dtype} {arr.shape}")
+    return arr
+
+
+def _decode_image(data: bytes, gray: bool) -> Optional[np.ndarray]:
+    """JPEG/PNG bytes -> RGB (or gray) uint8 through cv2; None when the
+    bytes do not decode. Raises ImportError when cv2 is missing."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+    if img is None:
+        return None
+    return img[..., None] if gray else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def detections_to_json(out: Dict[str, torch.Tensor],
+                       names) -> List[List[dict]]:
+    """A detector's output -> the per-image result lists /detect returns."""
+    # one device->host copy per output tensor
+    valid_np = out["valid"].cpu().numpy()
+    classes_np = out["classes"].cpu().numpy()
+    scores_np = out["scores"].cpu().numpy()
+    boxes_np = out["boxes"].cpu().numpy()
+    return [[{
+        "class": names[int(classes_np[bi][i])],
+        "score": round(float(scores_np[bi][i]), 4),
+        "box_xyxy": [round(float(v), 1) for v in boxes_np[bi][i]],
+    } for i in np.nonzero(valid_np[bi])[0]] for bi in range(len(valid_np))]
+
+
+class DetectionServer:
+    def __init__(self, cfg, params, *, host: str = "127.0.0.1",
+                 port: int = 8000, batch_window_ms: float = 5.0,
+                 max_batch: int = 32, adaptive_window: bool = True,
+                 conf_threshold: Optional[float] = None,
+                 request_timeout: float = 120.0, mesh=None,
+                 resize: str = "letterbox"):
+        """``params``: the Darknet module (yolo_tpu_torch.load(...).params);
+        the compute dtype is its own."""
+        from yolo_tpu_torch.models.predict import make_detector
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving is not ported yet (ROADMAP A12)")
+        self.cfg = cfg
+        self.params = params
+        self.host, self.port = host, port
+        self.batch_window = batch_window_ms / 1000.0
+        self.max_batch = max_batch
+        self.adaptive_window = adaptive_window
+        self._ewma_batch = 1.0  # recent average batch size
+        self.request_timeout = request_timeout
+        self._detector = make_detector(cfg, conf_threshold=conf_threshold,
+                                       resize=resize)
+        self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._stop = threading.Event()
+        self._det_names = cfg.detection_names()
+        self.stats = {"requests": 0, "batches": 0, "errors": 0,
+                      "max_batch_seen": 0, "window_skips": 0,
+                      "ewma_batch": 1.0}
+
+    # -- batching ----------------------------------------------------------
+
+    def _window(self) -> float:
+        """Collection wait for the current batch: wait only when recent
+        traffic was concurrent."""
+        if not self.adaptive_window:
+            return self.batch_window
+        return self.batch_window if self._ewma_batch >= 1.5 else 0.0
+
+    def _collect(self) -> List[_Pending]:
+        first = self._q.get()
+        if first is None:
+            return []
+        batch = [first]
+        # greedy drain: queued backlog batches immediately, no timer
+        while len(batch) < self.max_batch:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                self._q.put(None)
+                return batch
+            batch.append(item)
+
+        window = self._window()
+        if window > 0 and len(batch) < self.max_batch:
+            deadline_t = time.monotonic() + window
+            while len(batch) < self.max_batch:
+                remaining = deadline_t - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    self._q.put(None)
+                    break
+                batch.append(item)
+        elif window == 0:
+            self.stats["window_skips"] += 1
+
+        self._ewma_batch += 0.2 * (len(batch) - self._ewma_batch)
+        self.stats["ewma_batch"] = round(self._ewma_batch, 3)
+        return batch
+
+    def _worker(self) -> None:
+        try:
+            self._worker_loop()
+        finally:
+            # fail any requests still queued when the worker exits
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    item.error = "server shutting down"
+                    item.event.set()
+
+    def _run_batch(self, items: List[_Pending]) -> None:
+        images = torch.from_numpy(np.stack([i.image for i in items])) \
+            .to(self.params.device)
+        out = self._detector(self.params, images)
+        for item, result in zip(items, detections_to_json(out,
+                                                          self._det_names)):
+            item.result = result
+
+    def _worker_loop(self) -> None:
+        while not self._stop.is_set():
+            batch = self._collect()
+            if not batch:
+                return
+            # one device call per source-shape bucket
+            buckets: Dict[Tuple[int, int], List[_Pending]] = {}
+            for item in batch:
+                buckets.setdefault(item.image.shape[:2], []).append(item)
+            for items in buckets.values():
+                self.stats["batches"] += 1
+                self.stats["requests"] += len(items)
+                self.stats["max_batch_seen"] = max(
+                    self.stats["max_batch_seen"], len(items))
+                try:
+                    self._run_batch(items)
+                except Exception as e:  # surface to the waiting requests
+                    self.stats["errors"] += len(items)
+                    for item in items:
+                        item.error = f"{type(e).__name__}: {e}"
+                for item in items:
+                    item.event.set()
+
+    # -- http --------------------------------------------------------------
+
+    def _handler_class(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _send(self, code: int, payload: dict):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._send(200, {"status": "ok",
+                                     "model": server.cfg.name})
+                elif self.path == "/stats":
+                    self._send(200, dict(server.stats))
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path != "/detect":
+                    if self.path == "/classify":
+                        self._send(400, {"error": f"{server.cfg.name} "
+                                         f"serves /detect"})
+                    else:
+                        self._send(404, {"error": "not found"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                except ValueError:
+                    self._send(400, {"error": "bad Content-Length"})
+                    return
+                data = self.rfile.read(length)
+                channels = server.cfg.in_channels
+                ctype = self.headers.get("Content-Type", "")
+                if ctype.split(";")[0].strip() == NPY_CONTENT_TYPE:
+                    try:
+                        rgb = _decode_npy(data, channels)
+                    except (ValueError, EOFError) as e:
+                        self._send(400, {"error": f"bad .npy body: {e}"})
+                        return
+                else:
+                    try:
+                        rgb = _decode_image(data, gray=channels == 1)
+                    except ImportError:
+                        self._send(415, {"error": "no image decoder on "
+                                         f"this host; send {NPY_CONTENT_TYPE}"})
+                        return
+                    if rgb is None:
+                        self._send(400, {"error": "cannot decode image"})
+                        return
+                pending = _Pending(rgb)
+                server._q.put(pending)
+                # bounded wait: a dead/stopped worker must yield 503,
+                # not a forever-blocked handler thread
+                if not pending.event.wait(timeout=server.request_timeout):
+                    self._send(503, {"error": "detection timed out"})
+                elif pending.error is not None:
+                    self._send(500, {"error": pending.error})
+                else:
+                    self._send(200, {"detections": pending.result})
+
+        return Handler
+
+    def start(self) -> None:
+        self._httpd = ThreadingHTTPServer((self.host, self.port),
+                                          self._handler_class())
+        self.port = self._httpd.server_address[1]  # resolve port 0
+        self._worker_thread = threading.Thread(target=self._worker,
+                                               daemon=True)
+        self._worker_thread.start()
+        self._serve_thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True)
+        self._serve_thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._q.put(None)
+        if self._httpd:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        if getattr(self, "_worker_thread", None) is not None:
+            self._worker_thread.join(timeout=self.request_timeout)
+
+    def serve_forever(self) -> None:
+        self.start()
+        try:
+            self._serve_thread.join()
+        except KeyboardInterrupt:
+            self.stop()
