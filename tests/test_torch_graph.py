@@ -39,6 +39,7 @@ from yolo_tpu_torch.configs import (VARIANTS, Conv, MaxPool, Reorg, Route,
                                     get_variant)
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.models import graph as tgraph
+from yolo_tpu_torch.ops.precision import no_tf32
 
 torch.set_num_threads(1)
 
@@ -285,14 +286,14 @@ def test_tf32_guard_restores_the_flag_across_overlapping_forwards():
     release = threading.Event()
 
     def other_forward():
-        with tgraph._no_tf32():
+        with no_tf32():
             inside.set()
             release.wait(timeout=30)
 
     t = threading.Thread(target=other_forward)
     t.start()
     assert inside.wait(timeout=30)
-    with tgraph._no_tf32():
+    with no_tf32():
         assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cudnn.allow_tf32  # the thread is still in
     release.set()

@@ -33,6 +33,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.torch_port import he_weights as _he_weights
+from tests.torch_port import matched as _matched
 from tests.torch_port import to_jax_config
 from yolo_tpu.io import darknet_weights as jdw
 from yolo_tpu.models import graph as jgraph
@@ -126,9 +127,14 @@ def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path):
         yolo_tpu_torch.load(path, device="cpu", precision="int8")
     with pytest.raises(NotImplementedError, match="A12"):
         yolo_tpu_torch.load("zoo://yolov2-coco", device="cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
-        detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
-                   entry="fused")
+    # the fused entry route is ported (tests/test_torch_entry.py holds it
+    # against the JAX package): same fixed-shape result as the default
+    fused = detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
+                       entry="fused")
+    default = detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)))
+    assert {k: v.shape for k, v in fused.items()} == \
+        {k: v.shape for k, v in default.items()}
+    assert bool(torch.isfinite(fused["boxes"]).all())
     with pytest.raises(ValueError, match="entry"):
         detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
                    entry="torch")
@@ -137,31 +143,6 @@ def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             yolo_tpu_torch.load(path)
-
-
-def _matched(a, b, conf):
-    """(matched, total) over a's detections scoring >= conf + 0.05: a
-    same-class box of b at IoU >= 0.5 matches."""
-    def iou(p, q):
-        iw = max(0.0, min(p[2], q[2]) - max(p[0], q[0]))
-        ih = max(0.0, min(p[3], q[3]) - max(p[1], q[1]))
-        union = ((p[2] - p[0]) * (p[3] - p[1]) + (q[2] - q[0]) * (q[3] - q[1])
-                 - iw * ih)
-        return iw * ih / union if union > 0 else 0.0
-
-    hit = total = 0
-    for bi in range(len(a["valid"])):
-        kept = [(int(c), box) for c, box, v in zip(
-            b["classes"][bi], b["boxes"][bi].astype(np.float64),
-            b["valid"][bi]) if v]
-        for c, s, box, v in zip(a["classes"][bi], a["scores"][bi],
-                                a["boxes"][bi].astype(np.float64),
-                                a["valid"][bi]):
-            if v and s >= conf + 0.05:
-                total += 1
-                hit += any(c == c2 and iou(box, box2) >= 0.5
-                           for c2, box2 in kept)
-    return hit, total
 
 
 @pytest.mark.parametrize("variant", ["coco", "tiny-voc"])
@@ -196,6 +177,7 @@ import numpy as np
 import yolo_tpu_torch
 import yolo_tpu_torch.api, yolo_tpu_torch.serve, yolo_tpu_torch.ops.head
 import yolo_tpu_torch.ops.cuda.build, yolo_tpu_torch.ops.cuda.nms_kernel
+import yolo_tpu_torch.ops.cuda.conv_kernel, yolo_tpu_torch.ops.cuda.entry_kernel
 model = yolo_tpu_torch.load({path!r}, "tiny-voc", device="cpu",
                             input_size=64)
 out = model(np.zeros((1, 48, 80, 3), np.uint8))

@@ -3,8 +3,18 @@
 
 import dataclasses
 
+import jax.numpy as jnp
+import numpy as np
+import torch
+
 from yolo_tpu.configs import specs as jspecs
+from yolo_tpu.io import darknet_weights as jdw
+from yolo_tpu.models import graph as jgraph
+from yolo_tpu.models import predict as jpredict
+from yolo_tpu_torch.configs import get_variant
 from yolo_tpu_torch.io import darknet_weights as dw
+from yolo_tpu_torch.models import graph as tgraph
+from yolo_tpu_torch.models import predict as tpredict
 
 
 def to_jax_config(cfg):
@@ -23,3 +33,78 @@ def he_weights(cfg, path, seed=0, box_scale=1.0, objectness_shift=0.0):
     plain He by default) written as a darknet .weights file."""
     dw.save(path, cfg.layers, dw.synthetic_detector_params(
         cfg, seed, box_scale=box_scale, objectness_shift=objectness_shift))
+
+
+def matched(a, b, conf):
+    """(matched, total) over a's detections scoring >= conf + 0.05: a
+    same-class box of b at IoU >= 0.5 matches. a and b are detection
+    dicts of numpy arrays."""
+    def iou(p, q):
+        iw = max(0.0, min(p[2], q[2]) - max(p[0], q[0]))
+        ih = max(0.0, min(p[3], q[3]) - max(p[1], q[1]))
+        union = ((p[2] - p[0]) * (p[3] - p[1]) + (q[2] - q[0]) * (q[3] - q[1])
+                 - iw * ih)
+        return iw * ih / union if union > 0 else 0.0
+
+    hit = total = 0
+    for bi in range(len(a["valid"])):
+        kept = [(int(c), box) for c, box, v in zip(
+            b["classes"][bi], b["boxes"][bi].astype(np.float64),
+            b["valid"][bi]) if v]
+        for c, s, box, v in zip(a["classes"][bi], a["scores"][bi],
+                                a["boxes"][bi].astype(np.float64),
+                                a["valid"][bi]):
+            if v and s >= conf + 0.05:
+                total += 1
+                hit += any(c == c2 and iou(box, box2) >= 0.5
+                           for c2, box2 in kept)
+    return hit, total
+
+
+def check_fused_entry_route(tmp_path, variant, size, dtype, conf):
+    """detect_raw(entry="fused") in both packages on the same .weights
+    bytes and images, batch 2 at 120x160 (called eagerly on the JAX side,
+    so the Pallas kernel's interpret-mode compile is cached across calls
+    of one shape). fp32: exact on valid and classes, scores atol 1e-4,
+    pixel boxes atol 1e-2 (tests/test_torch_predict.py's fp32 bounds).
+    bf16, on weights shaped like a trained detector's: at box level,
+    every detection at conf + 0.05 matched both ways."""
+    tdt, jdt = {"fp32": (torch.float32, jnp.float32),
+                "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    cfg = dataclasses.replace(get_variant(variant, input_size=size),
+                              conf_threshold=conf)
+    jcfg = to_jax_config(cfg)
+    path = str(tmp_path / "w.weights")
+    if dtype == "fp32":
+        he_weights(cfg, path)
+    else:
+        he_weights(cfg, path, box_scale=0.1, objectness_shift=-2.0)
+    imgs = np.random.default_rng(1).integers(0, 256, (2, 120, 160, 3),
+                                             dtype=np.uint8)
+    jparams, _ = jdw.load(path, jcfg.layers)
+    jparams = jgraph.params_to_jax(jgraph.fold_params(jcfg.layers, jparams,
+                                                      jcfg.bn_eps))
+    want = jpredict.detect_raw(jcfg, jparams,
+                               jnp.asarray(imgs), compute_dtype=jdt,
+                               entry="fused", head="fused")
+    want = {k: np.asarray(v) for k, v in want.items()}
+    params, _ = dw.load(path, cfg.layers)
+    net = tgraph.Darknet(cfg.layers,
+                         tgraph.fold_params(cfg.layers, params, cfg.bn_eps),
+                         device="cpu", dtype=tdt)
+    got = tpredict.make_detector(cfg, entry="fused", head="fused")(
+        net, torch.from_numpy(imgs))
+    got = {k: v.numpy() for k, v in got.items()}
+    if dtype == "fp32":
+        v = want["valid"]
+        assert v.sum() >= 4
+        np.testing.assert_array_equal(got["valid"], v)
+        np.testing.assert_array_equal(got["classes"][v], want["classes"][v])
+        np.testing.assert_allclose(got["scores"], want["scores"], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["boxes"][v], want["boxes"][v],
+                                   rtol=0, atol=1e-2)
+    else:
+        for a, b in ((want, got), (got, want)):
+            hit, total = matched(a, b, cfg.conf_threshold)
+            assert total >= 5 and hit == total

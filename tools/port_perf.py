@@ -5,11 +5,12 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
     python3 tools/port_perf.py weights W.weights
         write chip_smoke.py's seeded YOLOv2-COCO weights to W.weights
     python3 tools/port_perf.py time --weights W.weights [--tree DIR]
+                                    [--route ROUTE]
         end-to-end detector latency, CUDA-event median of 20 synchronized
         calls after 3 warm-up calls, at batch 1/32/128 (raw 480x640 uint8 on the card, bf16).
         --tree DIR times the yolo_tpu_torch of another checkout (an A/B:
         run parent, change, change, parent in one machine session)
-    python3 tools/port_perf.py profile
+    python3 tools/port_perf.py profile [--route ROUTE]
         torch.profiler breakdown of the same calls (5 calls after 3
         warm-up calls): device time per call by kernel class, wall time,
         busy share, peak memory
@@ -17,6 +18,10 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         the seeded weights' head shaping (box scale x objectness shift):
         detections per image and the box-level agreement rates that
         chip_smoke.py checks, for each setting
+
+ROUTE is the detector route: "default" (letterbox + F.conv2d),
+"conv_impl=cuda" (the fused conv kernel on the eligible convs) or
+"entry=fused" (the fused entry kernel).
 
 Every command prints one JSON object per line, each with the card's
 nvidia-smi name and power limit.
@@ -70,27 +75,43 @@ def cmd_weights(args, card) -> None:
     _emit({"weights": args.path, "card": card})
 
 
+ROUTES = ("default", "conv_impl=cuda", "entry=fused")
+
+
+def _detector(model, route: str):
+    """The loaded model's detector on ``route`` (ROUTES)."""
+    if route == "default":
+        return model
+    from yolo_tpu_torch.models.predict import detect_raw
+
+    kw = {"conv_impl": "cuda"} if route == "conv_impl=cuda" \
+        else {"entry": "fused"}
+    return lambda images: detect_raw(model.cfg, model.params, images, **kw)
+
+
 def cmd_time(args, card) -> None:
     import torch
     import yolo_tpu_torch
 
     model = yolo_tpu_torch.load(args.weights, "coco", device="cuda")
+    detector = _detector(model, args.route)
     for b in BATCHES:
         images = _images(torch, b)
         for _ in range(WARMUP):
-            model(images)
+            detector(images)
         torch.cuda.synchronize()
         times = []
         for _ in range(REPS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            model(images)
+            detector(images)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
         _emit({"what": "detector_e2e_bf16", "tree": args.tree or ".",
+               "route": args.route,
                "package": os.path.dirname(yolo_tpu_torch.__file__),
                "batch": b, "ms": ms, "img_per_s": b * 1000 / ms,
                "reps": REPS, "card": card})
@@ -100,6 +121,10 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "nms_suppress" in n:
         return "nms_kernel"
+    if "conv_bf16_kernel" in n or "conv_f32_kernel" in n:
+        return "conv_kernel"
+    if "entry_conv_pool" in n:
+        return "entry_kernel"
     if "memcpy" in n or "memset" in n:
         return "copy"
     if "fprop" in n or "conv" in n or "winograd" in n or "dgrad" in n:
@@ -129,17 +154,18 @@ def cmd_profile(args, card) -> None:
         path = os.path.join(tmp, "w.weights")
         _write_weights(path)
         model = yolo_tpu_torch.load(path, "coco", device="cuda")
+    detector = _detector(model, args.route)
     for b in BATCHES:
         images = _images(torch, b)
         for _ in range(WARMUP):
-            model(images)
+            detector(images)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILED_CALLS):
-                model(images)
+                detector(images)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000 / PROFILED_CALLS
         by_class, by_name = {}, {}
@@ -153,7 +179,8 @@ def cmd_profile(args, card) -> None:
         n = PROFILED_CALLS * 1000.0  # us -> ms per call
         device_ms = sum(by_class.values()) / n
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        _emit({"what": "profile_bf16", "batch": b, "calls": PROFILED_CALLS,
+        _emit({"what": "profile_bf16", "route": args.route, "batch": b,
+               "calls": PROFILED_CALLS,
                "wall_ms_per_call": wall_ms,
                "device_ms_per_call": device_ms,
                "busy_share": device_ms / wall_ms,
@@ -219,7 +246,9 @@ def main() -> int:
     t = sub.add_parser("time")
     t.add_argument("--weights", required=True)
     t.add_argument("--tree", default=None)
-    sub.add_parser("profile")
+    t.add_argument("--route", choices=ROUTES, default="default")
+    prof = sub.add_parser("profile")
+    prof.add_argument("--route", choices=ROUTES, default="default")
     sub.add_parser("sweep")
     args = ap.parse_args()
     # the package under test: another checkout's for `time --tree`

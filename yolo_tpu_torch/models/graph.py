@@ -17,21 +17,27 @@ Precision, as in the JAX package:
     to bf16 before the bias, so the conv runs in fp32 on the bf16
     values instead: products of bf16 values are exact in fp32, and in
     TF32 too (10 mantissa bits hold bf16's 7), so TF32 may stay on.
+
+Conv routes (``conv_impl``, the JAX package's "xla" | "pallas"): "torch"
+runs every conv as above (ops/conv.py); "cuda" sends the convs that the
+fused conv kernel takes (stride 1, 1x1 or 3x3, CIN and CO multiples of
+128) through it (ops/cuda/conv_kernel.py), which reads bf16 kernels in
+bf16 mode, and the others as above.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
                                           Route, resolve_route,
                                           weighted_specs)
+from yolo_tpu_torch.ops import conv as conv_ops
+from yolo_tpu_torch.ops import entry as entry_ops
+from yolo_tpu_torch.ops.cuda import conv_kernel
 from yolo_tpu_torch.ops.pool import maxpool_nchw
 from yolo_tpu_torch.ops.reorg import reorg_nchw
 
@@ -104,40 +110,15 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
     return out
 
 
-class _NoTF32:
-    """Keeps cuDNN's TF32 off while any fp32 forward runs. The flag is
-    process-wide, so overlapping forwards (the server's worker thread and
-    a caller's) share one save/restore, counted under a lock."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = True
-
-    @contextlib.contextmanager
-    def __call__(self):
-        with self._lock:
-            if self._depth == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
-                torch.backends.cudnn.allow_tf32 = False
-            self._depth += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._depth -= 1
-                if self._depth == 0:
-                    torch.backends.cudnn.allow_tf32 = self._saved
-
-
-_no_tf32 = _NoTF32()
-
-
 class Darknet(torch.nn.Module):
     """The yolov2 layer set with folded weights held as buffers on
     ``device``; forward computes in ``dtype`` (float32 or bfloat16).
     Kernels are held in fp32 either way, in bf16 mode rounded to bf16
-    values (see the module docstring)."""
+    values (see the module docstring). Two more sets serve the kernel
+    routes: in bf16 mode a bf16 copy of each kernel the fused conv kernel
+    takes, and, when the net starts with a fusable entry, conv1's
+    unrounded fp32 kernel (OIHW contiguous), which the entry kernel reads
+    in both modes as the JAX package's does."""
 
     def __init__(self, layers: Sequence[LayerSpec], params: NumpyParams, *,
                  device, dtype=torch.float32):
@@ -149,48 +130,76 @@ class Darknet(torch.nn.Module):
         self.layers = tuple(layers)
         self.compute_dtype = dtype
         self.device = torch.device(device)
+        convs = weighted_specs(layers)
+        # the convs the fused kernel takes (graph.py::conv_block's route:
+        # folded bias, leaky or linear, and conv_kernel.eligible)
+        self.kernel_eligible = tuple(
+            conv_ops.eligible(np.asarray(p["kernel"]), spec.stride)
+            for spec, p in zip(convs, params))
         for i, p in enumerate(params_from_numpy(layers, params, self.device,
                                                 dtype)):
             self.register_buffer(f"kernel{i}", p["kernel"].float())
             self.register_buffer(f"bias{i}", p["bias"])
+            if dtype == torch.bfloat16 and self.kernel_eligible[i]:
+                self.register_buffer(f"kernel{i}_bf16", p["kernel"])
+        if entry_ops.eligible(self.layers):
+            self.register_buffer("entry_kernel", torch.from_numpy(
+                np.ascontiguousarray(np.asarray(
+                    params[0]["kernel"], np.float32).transpose(3, 2, 0, 1)))
+                .to(self.device))
         # outputs a later Route reads; the rest are dropped as they go
         self._routed = {resolve_route(idx, r)
                         for idx, l in enumerate(layers)
                         if isinstance(l, Route) for r in l.layers}
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *,
+                conv_impl: str = "torch") -> torch.Tensor:
         """x (B, H, W, C) in [0, 1] -> logits (B, H/32, W/32, A*(5+C))
-        fp32."""
-        dt = self.compute_dtype
-        x = x.to(dt).permute(0, 3, 1, 2).contiguous(
+        fp32. conv_impl="cuda" runs the convs that the fused conv kernel
+        takes through it (on a CPU tensor: through its plain version),
+        the rest through F.conv2d, as the JAX package's
+        conv_impl="pallas"; "torch" runs every conv through F.conv2d."""
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
+        return self.run(x, conv_impl=conv_impl)
+
+    @torch.no_grad()
+    def run(self, x: torch.Tensor, *, start: int = 0,
+            conv_impl: str = "torch") -> torch.Tensor:
+        """Layers ``start``.. on x, the (B, C, H, W) channels_last output
+        of layer ``start - 1`` in the compute dtype (the input image for
+        start=0) -> logits (B, H', W', A*(5+C)) fp32. Routes must not
+        reach back before ``start``."""
+        if conv_impl not in ("torch", "cuda"):
+            raise ValueError(f"unknown conv_impl {conv_impl!r} "
+                             f"(torch | cuda)")
         outputs: Dict[int, torch.Tensor] = {}
-        conv_i = 0
-        precision = _no_tf32() if dt == torch.float32 \
-            else contextlib.nullcontext()
-        with precision:
-            for idx, layer in enumerate(self.layers):
-                if isinstance(layer, Conv):
-                    # fp32 conv of the bf16 values (a no-op cast in fp32)
-                    y = F.conv2d(x.float(), getattr(self, f"kernel{conv_i}"),
-                                 stride=layer.stride, padding=layer.size // 2)
-                    # fp32 epilogue, in place on the conv's fresh output
-                    y.add_(getattr(self, f"bias{conv_i}")[None, :, None,
-                                                          None])
-                    if layer.act == "leaky":
-                        F.leaky_relu(y, 0.1, inplace=True)
-                    x = y.to(dt)
-                    conv_i += 1
-                elif isinstance(layer, MaxPool):
-                    x = maxpool_nchw(x, layer.size, layer.stride)
-                elif isinstance(layer, Reorg):
-                    x = reorg_nchw(x, layer.stride).contiguous(
-                        memory_format=torch.channels_last)
-                else:  # Route
-                    srcs = [outputs[resolve_route(idx, r)]
-                            for r in layer.layers]
-                    x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-                if idx in self._routed:
-                    outputs[idx] = x
+        conv_i = sum(isinstance(l, Conv) for l in self.layers[:start])
+        for idx in range(start, len(self.layers)):
+            layer = self.layers[idx]
+            if isinstance(layer, Conv):
+                bias = getattr(self, f"bias{conv_i}")
+                if conv_impl == "cuda" and self.kernel_eligible[conv_i]:
+                    kernel = getattr(self, f"kernel{conv_i}_bf16"
+                                     if x.dtype == torch.bfloat16
+                                     else f"kernel{conv_i}")
+                    x = conv_kernel.fused_conv_bias_act(
+                        x.contiguous(memory_format=torch.channels_last),
+                        kernel, bias, act=layer.act)
+                else:
+                    x = conv_ops.fused_conv_bias_act(
+                        x, getattr(self, f"kernel{conv_i}"), bias,
+                        act=layer.act, stride=layer.stride)
+                conv_i += 1
+            elif isinstance(layer, MaxPool):
+                x = maxpool_nchw(x, layer.size, layer.stride)
+            elif isinstance(layer, Reorg):
+                x = reorg_nchw(x, layer.stride).contiguous(
+                    memory_format=torch.channels_last)
+            else:  # Route
+                srcs = [outputs[resolve_route(idx, r)]
+                        for r in layer.layers]
+                x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+            if idx in self._routed:
+                outputs[idx] = x
         return x.permute(0, 2, 3, 1).to(torch.float32)

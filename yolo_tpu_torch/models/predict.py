@@ -6,6 +6,11 @@
 PyTorch runs eagerly, so there is no jit cache: make_detector returns a
 plain function. The compute dtype is the Darknet module's (``net``), and
 the letterbox runs in it too.
+
+Two routes reach the fused kernels, as in the JAX package:
+``detect_raw(..., conv_impl="cuda")`` sends the eligible convs through
+the fused conv kernel, and ``entry="fused"`` replaces letterbox + conv1
++ pool1 with the fused entry kernel.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ from typing import Optional
 
 import torch
 
-from yolo_tpu_torch.configs.specs import ModelConfig
+from yolo_tpu_torch.configs.specs import ModelConfig, Route
 from yolo_tpu_torch.models.graph import Darknet
+from yolo_tpu_torch.ops import entry as entry_ops
+from yolo_tpu_torch.ops.cuda import entry_kernel
 from yolo_tpu_torch.ops.decode import decode
 from yolo_tpu_torch.ops.letterbox import (letterbox, stretch_resize,
                                           unletterbox_boxes_xyxy,
@@ -23,24 +30,27 @@ from yolo_tpu_torch.ops.letterbox import (letterbox, stretch_resize,
 from yolo_tpu_torch.ops.nms import nms_batch
 
 
-def forward(cfg: ModelConfig, net: Darknet,
-            images_01: torch.Tensor) -> torch.Tensor:
-    """Preprocessed (B, S, S, 3) [0, 1] -> raw head logits (fp32). The
-    convs run through F.conv2d; the fused conv kernel is ROADMAP B2."""
-    return net(images_01)
+def forward(cfg: ModelConfig, net: Darknet, images_01: torch.Tensor, *,
+            conv_impl: str = "torch") -> torch.Tensor:
+    """Preprocessed (B, S, S, 3) [0, 1] -> raw head logits (fp32).
+    conv_impl="torch" runs every conv through F.conv2d; "cuda" runs the
+    eligible ones through the fused conv kernel (Darknet.forward)."""
+    return net(images_01, conv_impl=conv_impl)
 
 
 def detect(cfg: ModelConfig, net: Darknet, images_01: torch.Tensor, *,
            conf_threshold: Optional[float] = None,
            nms_threshold: Optional[float] = None,
            top_k: int = 128, max_detections: int = 100,
-           nms_impl: str = "auto", head: str = "auto"):
+           nms_impl: str = "auto", head: str = "auto",
+           conv_impl: str = "torch"):
     """Preprocessed images -> fixed-shape detections (net-space xywh).
 
     head="fused" runs the objectness-prefiltered decode + NMS
     (ops/head.py, exact at production thresholds, the CUDA default);
-    head="reference" runs full decode + per-class NMS."""
-    logits = forward(cfg, net, images_01)
+    head="reference" runs full decode + per-class NMS. conv_impl: see
+    forward."""
+    logits = forward(cfg, net, images_01, conv_impl=conv_impl)
     return _postprocess(cfg, logits, conf_threshold=conf_threshold,
                         nms_threshold=nms_threshold, top_k=top_k,
                         max_detections=max_detections, nms_impl=nms_impl,
@@ -81,29 +91,74 @@ def _postprocess(cfg: ModelConfig, logits: torch.Tensor, *,
         kind=cfg.nms_kind, beta=cfg.beta_nms)
 
 
+def _entry_fusable(cfg: ModelConfig) -> bool:
+    """The entry fusion applies (predict.py::_entry_fusable): a conv3x3 +
+    pool2x2 entry, 3 input channels, and routes that resolve without
+    layers 0-1 (relative, never reaching back before layer 2). The
+    port's params are always folded and it has no int8 kernels."""
+    return (entry_ops.eligible(cfg.layers) and cfg.in_channels == 3
+            and all(r < 0 and idx + r >= 2
+                    for idx, l in enumerate(cfg.layers)
+                    if isinstance(l, Route) for r in l.layers))
+
+
 def detect_raw(cfg: ModelConfig, net: Darknet, images_u8: torch.Tensor, *,
-               entry: str = "auto", resize: str = "letterbox", **kw):
+               entry: str = "auto", resize: str = "letterbox",
+               conv_impl: str = "torch", **kw):
     """Raw RGB (B, H, W, 3) uint8 -> detections with boxes mapped back to
     original-image pixel xyxy.
 
     resize="stretch" is the aspect-ignoring bilinear resize (AlexeyAB
-    letter_box=0); "letterbox" (default) matches pjreddie darknet."""
-    if entry == "fused":
-        raise NotImplementedError(
-            "entry='fused' needs the fused entry kernel, which is not "
-            "ported yet (ROADMAP B3)")
-    if entry != "auto":
+    letter_box=0); "letterbox" (default) matches pjreddie darknet.
+
+    entry="fused" replaces letterbox + conv1 + pool1 with the letterbox
+    of ops/entry.py and the fused entry kernel, then runs layers 2..
+    with conv_impl="torch", as the JAX package's fused branch does;
+    "auto" is the plain letterbox + Darknet. conv_impl: see forward; the
+    fused entry does not take "cuda" (the JAX package's fused branch has
+    no conv_impl either)."""
+    if entry not in ("auto", "fused"):
         raise ValueError(f"unknown entry {entry!r} (auto | fused)")
     _, h, w, _ = images_u8.shape
     if resize == "stretch":
+        if entry == "fused":
+            raise ValueError("entry='fused' implements letterbox only")
         x = stretch_resize(images_u8, cfg.input_hw, dtype=net.compute_dtype)
-        dets = detect(cfg, net, x, **kw)
+        dets = detect(cfg, net, x, conv_impl=conv_impl, **kw)
         dets["boxes"] = unstretch_boxes_xyxy(dets["boxes"], src_h=h, src_w=w)
         return dets
     if resize != "letterbox":
         raise ValueError(f"unknown resize {resize!r} (letterbox | stretch)")
-    x = letterbox(images_u8, cfg.input_hw, dtype=net.compute_dtype)
-    dets = detect(cfg, net, x, **kw)
+    if entry == "fused":
+        if conv_impl != "torch":
+            raise ValueError(
+                f"entry='fused' runs layers 2.. with conv_impl='torch', "
+                f"got conv_impl={conv_impl!r}: the reference's fused "
+                f"entry route has no conv kernel route")
+        if not _entry_fusable(cfg):
+            raise ValueError("entry='fused' needs a conv3x3+pool2x2 "
+                             "entry and folded-BN params")
+        net_h, net_w = cfg.input_hw
+        if net_h != net_w:
+            # kept for parity: the TPU kernel's plane packing is
+            # square-only
+            raise ValueError(
+                f"entry='fused' supports square nets only ({net_w}x{net_h} "
+                f"is rectangular); use the default entry='auto'")
+        if net_h > 416:
+            # kept for parity: the TPU kernel holds a whole image in VMEM
+            raise ValueError(
+                f"entry='fused' supports net sizes <= 416 ({net_h} exceeds "
+                f"it); use the default entry='auto'")
+        dt = net.compute_dtype
+        xpad = entry_ops.letterbox_padded(images_u8, net_h, interp_dtype=dt)
+        x = entry_kernel.fused_entry(xpad, net.entry_kernel, net.bias0,
+                                     out_dtype=dt)
+        logits = net.run(x, start=2)
+        dets = _postprocess(cfg, logits, **kw)
+    else:
+        x = letterbox(images_u8, cfg.input_hw, dtype=net.compute_dtype)
+        dets = detect(cfg, net, x, conv_impl=conv_impl, **kw)
     dets["boxes"] = unletterbox_boxes_xyxy(
         dets["boxes"], src_h=h, src_w=w, net_size=cfg.input_hw)
     return dets

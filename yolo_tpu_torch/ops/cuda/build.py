@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every ``yolo_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface. The library
+Every ``yolo_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for ``sm_90a``, all at once, and the objects are linked into one shared
+library with a plain C interface. The library
 is named by a hash of the sources and flags and written to
 ``build/yolo_tpu_torch/`` beside the package (git-ignored), at first use.
 A process that finds the library already built loads it without
@@ -25,6 +26,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -32,10 +35,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolo_tpu_torch")
 
 # -fmad=false: the NMS IoU must round exactly as the plain PyTorch
-# version does (no multiply-add contraction); IEEE division is nvcc's
+# version does (no multiply-add contraction); the conv and entry kernels
+# spell their multiply-adds as __fmaf_rn instead. IEEE division is nvcc's
 # default without --use_fast_math, which is never passed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 
@@ -71,6 +75,12 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"yolo_tpu_torch_{h.hexdigest()[:16]}.so")
 
 
+def _check(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n"
+                           f"{log}")
+
+
 def build() -> tuple:
     """Compile the kernels if their library is missing.
     Returns (library path, seconds spent compiling; 0.0 if cached)."""
@@ -81,16 +91,42 @@ def build() -> tuple:
         os.makedirs(BUILD_DIR, exist_ok=True)
         srcs, _ = _sources()
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+        # one nvcc per source, started together, then one link
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+        cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            _check(cmd, p.returncode, log)
+        link = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(link, proc.returncode, proc.stdout + proc.stderr)
+        for obj in objs:
+            os.remove(obj)
         # atomic publish: concurrent builders each write their own tmp
         os.replace(tmp, out)
         return out, time.perf_counter() - t0
+
+
+def check_tensor(name: str, t: torch.Tensor, device, dtype,
+                 channels_last: bool) -> None:
+    """Raises ValueError unless the torch tensor ``t`` is what a kernel of
+    the library may read or write through its bare pointer: on
+    ``device``, of ``dtype``, dense in channels_last (NHWC bytes) or
+    row-major order, and 16-byte aligned for vector loads."""
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    if not t.is_contiguous(memory_format=fmt):
+        raise ValueError(f"{name} must be contiguous in {fmt}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 @functools.lru_cache(maxsize=1)
@@ -103,4 +139,11 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.yolo_conv_bias_act.restype = i32
+    lib.yolo_conv_bias_act.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.yolo_entry_conv_pool.restype = i32
+    lib.yolo_entry_conv_pool.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     return lib
