@@ -8,7 +8,9 @@ yolo_tpu_torch/csrc/ into build/yolo_tpu_torch/). Phases, each printing
 JSON lines; any failed check raises and the script exits non-zero:
 
   1. device   nvidia-smi name and power limit, torch and CUDA versions
-  2. build    compile the CUDA kernels from the checkout
+  2. build    compile the CUDA kernels from the checkout; count the
+              HGMMA (wgmma) instructions of each kernel in the library
+              (cuobjdump --dump-sass): every bf16 conv kernel must have some
   3. kernel   CUDA greedy-NMS suppress vs its plain PyTorch version on
               crowded scenes at the served shapes: identical keep masks
   4. serve    YOLOv2-COCO 416 (full width, seeded random weights written
@@ -22,7 +24,8 @@ JSON lines; any failed check raises and the script exits non-zero:
               in, bf16)
   6. conv     CUDA fused conv + bias + leaky/linear vs its plain version
               at each distinct shape of YOLOv2-COCO 416's 16 eligible
-              convs, bf16 and fp32, batch 8, and one batch-1 case
+              convs, bf16 and fp32, batch 8 and batch 1 (the split-K
+              plans); two calls on the same inputs give the same bytes
   7. entry    CUDA fused conv1 + bias + leaky + maxpool vs its plain
               version at 416x416 -> 208x208x32, bf16 and fp32
   8. routes   the same seeded YOLOv2-COCO 416 through
@@ -30,9 +33,12 @@ JSON lines; any failed check raises and the script exits non-zero:
               entry="fused"), bf16 and fp32: 16 conv launches and 1
               entry launch per forward (and the NMS kernel's 1);
               box-level agreement with the fp32 plain path
-  9. times    each kernel vs its plain version per shape (batch 32);
-              both routes end to end beside the default route at batch
-              1/32/128
+  9. times    each kernel vs its plain version, the one PyTorch call
+              that computes the same function where there is one
+              (library_ms: F.conv2d with bias, cuDNN) and the card's bound
+              for the same work (bound_ms), per conv shape at batch 1 and
+              32 and summed over the 16 convs; both routes end to end
+              beside the default route at batch 1/32/128
 
 Tolerances of phases 6-7, kernel vs plain on the same inputs:
   * fp32: 1e-5 of the output's scale (max |plain|). Both sides form
@@ -43,6 +49,14 @@ Tolerances of phases 6-7, kernel vs plain on the same inputs:
     where an output lies near zero its own ulp is finer than the sums'
     noise, hence the added fp32 bound.
 
+A kernel's time is the device time per call: CUDA events around a run
+of back-to-back calls that the host queues while the stream is held busy
+(torch.cuda._sleep), so that at batch 1 the host's launch rate does not
+set it. bound_ms is the larger of the bytes the function must move (each
+input read once, each output written once) at 3.35 TB/s and its
+operations at the card's peak for their type (989 TFLOP/s bf16 tensor,
+67 TFLOP/s fp32), computed from this run's inputs.
+
 Then the kernels line, the nvidia-smi line and, last, the device line
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when CUDA is not available.
@@ -52,6 +66,7 @@ import http.client
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +76,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import yolo_tpu_torch
 from yolo_tpu_torch.configs import get_variant
@@ -68,7 +84,7 @@ from yolo_tpu_torch.configs.specs import (Conv, MaxPool, Reorg,
                                           resolve_route)
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.models.predict import detect_raw, make_detector
-from yolo_tpu_torch.ops import conv, entry
+from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
@@ -90,10 +106,14 @@ E2E_BATCHES = (1, 32, 128)
 MARGIN = 0.05
 MATCH_IOU = 0.5
 MIN_MATCH = 0.9
-CONV_BATCH = 8            # phase 6-7 checks
-CONV_BATCH_1 = (13, 1024, 1024, 3)   # the batch-1 conv case
-TIMED_BATCH = 32          # phase 9 per-shape kernel times
+CONV_BATCHES = (8, 1)     # phase 6 checks; batch 1 takes split-K plans
+TIMED_BATCH = 32          # phase 9: the kernels line's batch
+CONV_TIMED_BATCHES = (1, TIMED_BATCH)   # phase 9 per-shape conv times
 ROUTE_CONVS = 16          # YOLOv2-COCO convs with CIN, CO % 128 == 0
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+NMS_PAIR_FLOP = 13        # one IoU and its test (nms_suppress.cu)
 
 
 def emit(obj) -> None:
@@ -110,6 +130,57 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bound_ms(flop: float, nbytes: float, dtype) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    at the card's peak for dtype and the bytes at its memory rate."""
+    t_ops = flop / PEAK_FLOP_S[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def hgmma_counts(lib: str) -> dict:
+    """{kernel: HGMMA instructions} of every kernel in the built library,
+    from cuobjdump --dump-sass (template arguments kept, e.g.
+    conv_bf16_kernel<128,256,4>)."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            counts.setdefault(name, 0)
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def _kernel_name(mangled: str) -> str:
+    """conv_bf16_kernel<128,256,4> from its Itanium-mangled name: the
+    identifier ending in _kernel whose length prefix matches it, then its
+    integer template arguments."""
+    end = mangled.find("_kernel") + len("_kernel")
+    if end < len("_kernel"):
+        return mangled
+    for start in range(end - 1, 0, -1):
+        if mangled[start].isalpha() and \
+                mangled[:start].endswith(str(end - start)):
+            break
+    else:
+        return mangled
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
+    if not args:
+        return mangled[start:end]
+    nums = ",".join(re.findall(r"[0-9]+", args.group(1)))
+    return f"{mangled[start:end]}<{nums}>"
 
 
 def crowded_rows(rng, g, k, per_class):
@@ -134,11 +205,18 @@ def crowded_rows(rng, g, k, per_class):
 
 def cuda_ms_per_call(fn, calls: int, warmup: int = 2) -> float:
     """Device time per call: CUDA events around a run of back-to-back
-    calls, divided by their number (a kernel's own time once launches
-    queue faster than the device drains them)."""
-    for _ in range(warmup):
+    calls, divided by their number. The stream is first held busy for
+    1.5x the host time of the calls (torch.cuda._sleep, ~2 GHz cycles,
+    at most 0.1 s), so that the host has queued them before the first
+    one runs and the events time the device, not the host."""
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * host_s * calls, 0.1) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -328,9 +406,15 @@ def phase_times(rng, model, card: str) -> dict:
             iou_threshold=IOU), calls=200)
         plain_ms = cuda_ms_per_call(lambda: _suppress_torch(
             geom, scores, classes, CONF, IOU), calls=5)
-        timed[(g, k)] = (ms, plain_ms)
+        # the IoUs the function needs: pairs of candidates above conf
+        above = (scores >= CONF).sum(dim=1).double()
+        flop = NMS_PAIR_FLOP * float((above * (above - 1) / 2).sum())
+        bound, bound_by = bound_ms(flop, nbytes(geom, scores, classes)
+                                   + 4 * g * k, torch.float32)
+        timed[(g, k)] = (ms, plain_ms, bound, bound_by)
         emit({"phase": "times", "what": "suppress", "shape": [g, 5, k],
-              "kernel_ms": ms, "plain_ms": plain_ms, "card": card})
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": bound, "bound_by": bound_by, "card": card})
     for b in E2E_BATCHES:
         images = torch.from_numpy(np.random.default_rng(b).integers(
             0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
@@ -414,19 +498,29 @@ DTYPES = ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))
 
 def phase_conv(gen, shapes) -> float:
     worst = 0.0
-    cases = [(CONV_BATCH, s) for s in sorted(shapes)] + [(1, CONV_BATCH_1)]
-    for b, (hw, cin, co, ks) in cases:
-        for dtype, name in DTYPES:
-            x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
-            got = conv_kernel.fused_conv_bias_act(x, k, bias, act="leaky")
-            torch.cuda.synchronize()
-            want = conv.fused_conv_bias_act(x, k, bias, act="leaky")
-            err = kernel_err(got, want, f"conv {b}x{hw}^2 {cin}->{co} "
-                             f"{ks}x{ks} {name}")
-            worst = max(worst, err)
-            emit({"phase": "conv", "batch": b, "hw": hw, "cin": cin,
-                  "co": co, "ks": ks, "dtype": name, "max_abs_err": err,
-                  "out_scale": float(want.float().abs().max())})
+    for b in CONV_BATCHES:
+        for hw, cin, co, ks in sorted(shapes):
+            for dtype, name in DTYPES:
+                x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
+                got = conv_kernel.fused_conv_bias_act(x, k, bias,
+                                                      act="leaky")
+                again = conv_kernel.fused_conv_bias_act(x, k, bias,
+                                                        act="leaky")
+                torch.cuda.synchronize()
+                want = conv.fused_conv_bias_act(x, k, bias, act="leaky")
+                what = f"conv {b}x{hw}^2 {cin}->{co} {ks}x{ks} {name}"
+                err = kernel_err(got, want, what)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = torch.equal(got.view(bits), again.view(bits))
+                check(same, f"{what}: two calls on the same inputs differ")
+                worst = max(worst, err)
+                emit({"phase": "conv", "batch": b, "hw": hw, "cin": cin,
+                      "co": co, "ks": ks, "dtype": name,
+                      "plan": list(conv_kernel.plan(
+                          b, hw, hw, cin, co, ks,
+                          bf16=dtype == torch.bfloat16)[:3]),
+                      "max_abs_err": err, "deterministic": same,
+                      "out_scale": float(want.float().abs().max())})
     return worst
 
 
@@ -487,42 +581,82 @@ def phase_routes(model, model32, images, ref) -> dict:
     return counts
 
 
+def conv_library_call(x, k, bias):
+    """The one PyTorch call closest to the conv kernel's function: cuDNN's
+    conv with bias (no leaky) on the same channels_last tensors, bf16 on
+    the tensor cores, fp32 with TF32 off. A yardstick: the port never
+    calls it."""
+    with precision.exact_for(x.dtype):
+        return F.conv2d(x, k, bias.to(x.dtype), padding=k.shape[-1] // 2)
+
+
 def phase_kernel_times(gen, shapes, images, card) -> dict:
-    """Per-call device time of each kernel and its plain version. The
-    conv pair's sum over YOLOv2-COCO's 16 eligible convs (bf16, batch
-    32) and the bf16 entry pair at batch 32 go to the kernels line."""
-    conv_sum = [0.0, 0.0]
-    for (hw, cin, co, ks), n in sorted(shapes.items()):
-        for dtype, name in DTYPES:
-            x, k, bias = conv_inputs(gen, TIMED_BATCH, hw, cin, co, ks, dtype)
-            ms = cuda_ms_per_call(lambda: conv_kernel.fused_conv_bias_act(
-                x, k, bias, act="leaky"), calls=20)
-            plain_ms = cuda_ms_per_call(lambda: conv.fused_conv_bias_act(
-                x, k, bias, act="leaky"), calls=20)
-            gflop = 2 * TIMED_BATCH * hw * hw * ks * ks * cin * co / 1e9
-            emit({"phase": "times", "what": "conv", "batch": TIMED_BATCH,
-                  "hw": hw, "cin": cin, "co": co, "ks": ks, "dtype": name,
-                  "layers": n, "kernel_ms": ms, "plain_ms": plain_ms,
-                  "kernel_tflops": gflop / ms, "plain_tflops": gflop / plain_ms,
-                  "card": card})
-            if dtype == torch.bfloat16:
-                conv_sum[0] += n * ms
-                conv_sum[1] += n * plain_ms
-    emit({"phase": "times", "what": "conv_16_layers_bf16",
-          "batch": TIMED_BATCH, "kernel_ms": conv_sum[0],
-          "plain_ms": conv_sum[1], "card": card})
+    """Per-call device time of each kernel, its plain version and the
+    library call, beside the bound. The conv sums over YOLOv2-COCO's 16
+    eligible convs (bf16, batch 32) and the bf16 entry at batch 32 go to
+    the kernels line."""
+    sums, bound_kinds = {}, {}
+    for b in CONV_TIMED_BATCHES:
+        for (hw, cin, co, ks), n in sorted(shapes.items()):
+            for dtype, name in DTYPES:
+                x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
+                out = conv_library_call(x, k, bias)
+                ms = cuda_ms_per_call(lambda: conv_kernel.fused_conv_bias_act(
+                    x, k, bias, act="leaky"), calls=20)
+                plain_ms = cuda_ms_per_call(lambda: conv.fused_conv_bias_act(
+                    x, k, bias, act="leaky"), calls=20)
+                library_ms = cuda_ms_per_call(
+                    lambda: conv_library_call(x, k, bias), calls=20)
+                flop = 2 * b * hw * hw * ks * ks * cin * co
+                bound, bound_by = bound_ms(flop, nbytes(x, k, bias, out),
+                                           dtype)
+                emit({"phase": "times", "what": "conv", "batch": b,
+                      "hw": hw, "cin": cin, "co": co, "ks": ks,
+                      "dtype": name, "layers": n,
+                      "plan": list(conv_kernel.plan(
+                          b, hw, hw, cin, co, ks,
+                          bf16=dtype == torch.bfloat16)[:3]),
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound,
+                      "bound_by": bound_by,
+                      "kernel_tflops": flop / ms / 1e9,
+                      "library_tflops": flop / library_ms / 1e9,
+                      "share_of_bound": bound / ms, "card": card})
+                total = sums.setdefault((b, name), [0.0] * 4)
+                for i, t in enumerate((ms, plain_ms, library_ms, bound)):
+                    total[i] += n * t
+                by = bound_kinds.setdefault((b, name), {})
+                by[bound_by] = by.get(bound_by, 0.0) + n * bound
+    for (b, name), (ms, plain_ms, library_ms, bound) in sorted(sums.items()):
+        # what bounds most of the summed bound
+        by = max(bound_kinds[(b, name)].items(), key=lambda kv: kv[1])[0]
+        emit({"phase": "times", "what": f"conv_16_layers_{name}",
+              "batch": b, "kernel_ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+              "share_of_bound": bound / ms, "card": card})
     xpad, k, bias = entry_inputs(gen, images)
     entry_times = {}
     for dtype, name in DTYPES:
+        out = entry_kernel.fused_entry(xpad, k, bias, out_dtype=dtype)
         ms = cuda_ms_per_call(lambda: entry_kernel.fused_entry(
             xpad, k, bias, out_dtype=dtype), calls=20)
         plain_ms = cuda_ms_per_call(lambda: entry.fused_entry(
             xpad, k, bias, out_dtype=dtype), calls=20)
-        entry_times[name] = (ms, plain_ms)
+        # 3x3x3 MACs per conv1 output; the pool and the epilogue are
+        # comparisons and adds of a lower order
+        flop = 2 * 27 * out.shape[0] * 32 * (2 * out.shape[2]) \
+            * (2 * out.shape[3])
+        bound, bound_by = bound_ms(flop, nbytes(xpad, k, bias, out),
+                                   torch.float32)
+        entry_times[name] = (ms, plain_ms, bound, bound_by)
         emit({"phase": "times", "what": "entry", "batch": len(images),
               "dtype": name, "kernel_ms": ms, "plain_ms": plain_ms,
+              "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
               "card": card})
-    return {"conv": tuple(conv_sum), "entry": entry_times["bf16"]}
+    kinds = bound_kinds[(TIMED_BATCH, "bf16")]
+    return {"conv": (*sums[(TIMED_BATCH, "bf16")],
+                     max(kinds.items(), key=lambda kv: kv[1])[0]),
+            "entry": entry_times["bf16"]}
 
 
 def phase_route_times(model, card) -> None:
@@ -558,10 +692,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib, compile_s = build.build()
     build.library()
+    hgmma = hgmma_counts(lib)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": compile_s,
           "library": os.path.relpath(lib, os.path.dirname(
-              os.path.abspath(__file__)))})
+              os.path.abspath(__file__))), "hgmma": hgmma})
+    bf16_convs = [n for n in hgmma if n.startswith("conv_bf16_kernel")]
+    check(bf16_convs and all(hgmma[n] > 0 for n in bf16_convs),
+          f"the bf16 conv kernels must run on wgmma (HGMMA): {hgmma}")
 
     rng = np.random.default_rng(SEED)
     worst = phase_kernel(rng)
@@ -579,7 +717,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     conv_worst = phase_conv(gen, shapes)
     entry_images = torch.from_numpy(rng.integers(
-        0, 256, (CONV_BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
+        0, 256, (CONV_BATCHES[0], *SRC_HW, 3), dtype=np.uint8)).cuda()
     entry_worst = phase_entry(gen, entry_images)
     route_launches = phase_routes(model, model32,
                                   torch.from_numpy(images).cuda(), ref)
@@ -591,24 +729,28 @@ def main() -> int:
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu"))
     check(not foreign, f"the port loaded JAX or the JAX package: {foreign}")
-    ms, plain_ms = timed[TIMED_SHAPE]
+    nms = timed[TIMED_SHAPE]
+    conv_t = kernel_times["conv"]
+    entry_t = kernel_times["entry"]
     emit({"kernels": [
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
          "launches": launches, "max_abs_err": worst,
-         "ms": ms, "plain_ms": plain_ms},
+         "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
+         "bound_by": nms[3], "library_ms": None},
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"], "max_abs_err": conv_worst,
-         "ms": kernel_times["conv"][0], "plain_ms": kernel_times["conv"][1]},
+         "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
+         "bound_by": conv_t[4], "library_ms": conv_t[2]},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",
          "launches": route_launches["entry"], "max_abs_err": entry_worst,
-         "ms": kernel_times["entry"][0],
-         "plain_ms": kernel_times["entry"][1]}]})
+         "ms": entry_t[0], "plain_ms": entry_t[1], "bound_ms": entry_t[2],
+         "bound_by": entry_t[3], "library_ms": None}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

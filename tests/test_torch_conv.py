@@ -19,6 +19,7 @@ Tolerances:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -103,6 +104,77 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert torch.equal(got, conv.fused_conv_bias_act(x, k, b, act="leaky"))
     with pytest.raises(ValueError, match="act"):
         conv.fused_conv_bias_act(x, k, b, act="mish")
+
+
+# the (H=W, CIN, CO, ks) of YOLOv2-COCO 416's 16 convs on the kernel
+COCO_SHAPES = [(52, 128, 256, 3), (52, 256, 128, 1), (26, 256, 512, 3),
+               (26, 512, 256, 1), (13, 512, 1024, 3), (13, 1024, 512, 1),
+               (13, 1024, 1024, 3), (13, 1280, 1024, 3)]
+
+
+def _check_plan(batch, h, w, cin, co, ks):
+    """The plan's invariants, which the kernel's C entry point also
+    checks: a tile the bf16 kernel is built for, BN divides CO, each split
+    a run of whole BK chunks, the splits covering K once, the workspace
+    of the splits."""
+    p = conv_kernel.plan(batch, h, w, cin, co, ks)
+    m, k = batch * h * w, ks * ks * cin
+    assert (p.bm, p.bn) in conv_kernel.TILES and co % p.bn == 0
+    steps = k // conv_kernel.BK
+    ranges = conv_kernel.split_steps(steps, p.splits)
+    assert len(ranges) == p.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == steps
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(end > begin for begin, end in ranges)
+    for begin, end in ranges:
+        for c in range(begin, end):  # a BK chunk lies inside one tap
+            k0 = c * conv_kernel.BK
+            assert k0 // cin == (k0 + conv_kernel.BK - 1) // cin
+    assert p.workspace_bytes == (4 * p.splits * m * co if p.splits > 1
+                                 else 0)
+    return p, math.ceil(m / p.bm) * (co // p.bn)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32, 128])
+@pytest.mark.parametrize("hw,cin,co,ks", COCO_SHAPES)
+def test_plan_of_the_coco_convs(batch, hw, cin, co, ks):
+    """At batch 32 and 128 the output tiles alone fill the card: no split.
+    Batch 1 splits K until the 13x13 layers have >= 132 blocks."""
+    p, tiles = _check_plan(batch, hw, hw, cin, co, ks)
+    m = batch * hw * hw
+    if batch >= 32:
+        assert p.splits == 1
+        assert max(math.ceil(m / bm) * (co // bn) for bm, bn in
+                   conv_kernel.TILES if co % bn == 0) >= conv_kernel.SMS
+    if batch == 1 and hw == 13:
+        assert tiles * p.splits >= conv_kernel.SMS and p.splits > 1
+
+
+@pytest.mark.parametrize("batch,h,w,cin,co,ks", [
+    (3, 7, 7, 128, 128, 3), (1, 1, 1, 128, 128, 3), (2, 9, 9, 384, 128, 3),
+    (1, 5, 11, 256, 512, 3), (1, 13, 13, 256, 256, 1),
+    (1, 1, 1, 128, 128, 1), (5, 3, 17, 640, 384, 3),
+    (64, 13, 13, 1280, 1024, 3)])
+def test_plan_of_ragged_shapes(batch, h, w, cin, co, ks):
+    p, tiles = _check_plan(batch, h, w, cin, co, ks)
+    steps = ks * ks * cin // conv_kernel.BK
+    # a split only where the tiles leave SMs idle, and never more splits
+    # than K chunks
+    assert p.splits == 1 or tiles < conv_kernel.SMS
+    assert p.splits <= steps
+
+
+def test_plan_of_fp32_is_its_one_unsplit_tile():
+    for hw, cin, co, ks in COCO_SHAPES:
+        assert conv_kernel.plan(1, hw, hw, cin, co, ks, bf16=False) == \
+            conv_kernel.Plan(64, 64, 1, 0)
+
+
+def test_split_steps_cover_k_once_when_splits_do_not_divide_it():
+    assert conv_kernel.split_steps(18, 5) == [(0, 3), (3, 7), (7, 10),
+                                              (10, 14), (14, 18)]
+    assert conv_kernel.split_steps(4, 4) == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert conv_kernel.split_steps(144, 1) == [(0, 144)]
 
 
 @pytest.mark.parametrize("bad", [None, "device", "dtype", "nchw-bytes",

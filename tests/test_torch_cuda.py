@@ -113,12 +113,24 @@ def _conv_inputs(seed, b, hw, cin, co, ks, dtype, device):
             k.contiguous(memory_format=torch.channels_last), bias)
 
 
+# the (H=W, CIN, CO, ks) of YOLOv2-COCO 416's 16 convs on the kernel
+COCO_SHAPES = [(52, 128, 256, 3), (52, 256, 128, 1), (26, 256, 512, 3),
+               (26, 512, 256, 1), (13, 512, 1024, 3), (13, 1024, 512, 1),
+               (13, 1024, 1024, 3), (13, 1280, 1024, 3)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,hw,cin,co,ks,act", [
     (1, 7, 128, 128, 3, "leaky"), (3, 7, 256, 128, 1, "leaky"),
     (3, 7, 128, 256, 3, "linear"), (1, 13, 256, 256, 1, "linear"),
-    (2, 9, 384, 128, 3, "leaky"), (1, 1, 128, 128, 3, "leaky")])
+    (2, 9, 384, 128, 3, "leaky"), (1, 1, 128, 128, 3, "leaky"),
+    # ragged M: 3 x 7 x 7 = 147 rows, 1 x 5 x 11 = 55 rows
+    (3, 7, 128, 128, 3, "leaky"), (1, 5, 256, 512, 3, "linear"),
+    # act="linear" at a split batch-1 shape
+    (1, 13, 1024, 1024, 3, "linear"),
+    # batch 1 at each YOLOv2-COCO shape (the split plans)
+    *[(1, *s, "leaky") for s in COCO_SHAPES]])
 def test_conv_kernel_matches_plain(cuda, b, hw, cin, co, ks, act, dtype):
     x, k, bias = _conv_inputs(b * 100 + hw, b, hw, cin, co, ks, dtype, cuda)
     before = conv_kernel.launches
@@ -127,6 +139,62 @@ def test_conv_kernel_matches_plain(cuda, b, hw, cin, co, ks, act, dtype):
     assert conv_kernel.launches == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     _assert_within(got, conv.fused_conv_bias_act(x, k, bias, act=act))
+
+
+@pytest.mark.parametrize("bm,bn", sorted(conv_kernel.TILES))
+@pytest.mark.parametrize("splits", [1, 5, 18])
+def test_conv_kernel_takes_every_tile_and_uneven_splits(cuda, monkeypatch,
+                                                        bm, bn, splits):
+    """Each tile shape of the bf16 kernel, forced in place of the plan, at
+    a ragged M (2 x 9 x 9 = 162 rows) and K = 18 chunks: unsplit, cut 5
+    ways (3 or 4 chunks each: uneven) and 18 ways (1 chunk each)."""
+    b, hw, cin, co, ks = 2, 9, 128, 256, 3
+    x, k, bias = _conv_inputs(splits, b, hw, cin, co, ks, torch.bfloat16,
+                              cuda)
+    p = conv_kernel.Plan(bm, bn, splits, conv_kernel.workspace_bytes(
+        b * hw * hw, co, splits))
+    monkeypatch.setattr(conv_kernel, "plan", lambda *a, **kw: p)
+    got = conv_kernel.fused_conv_bias_act(x, k, bias)
+    torch.cuda.synchronize()
+    _assert_within(got, conv.fused_conv_bias_act(x, k, bias))
+
+
+@pytest.mark.parametrize("b,hw,cin,co,ks", [(1, 13, 1024, 1024, 3),
+                                            (1, 26, 512, 256, 1),
+                                            (8, 13, 1024, 512, 1),
+                                            (32, 13, 1280, 1024, 3)])
+def test_conv_kernel_is_deterministic(cuda, b, hw, cin, co, ks):
+    """Two calls on the same inputs give the same bytes: split-K sums its
+    partials in split order, without atomics."""
+    x, k, bias = _conv_inputs(7, b, hw, cin, co, ks, torch.bfloat16, cuda)
+    first = conv_kernel.fused_conv_bias_act(x, k, bias)
+    second = conv_kernel.fused_conv_bias_act(x, k, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_conv_kernel_returns_an_empty_batch_without_a_launch(cuda):
+    x, k, bias = _conv_inputs(0, 0, 13, 256, 256, 3, torch.bfloat16, cuda)
+    before = conv_kernel.launches
+    got = conv_kernel.fused_conv_bias_act(x, k, bias)
+    assert tuple(got.shape) == (0, 256, 13, 13)
+    assert conv_kernel.launches == before
+
+
+def test_conv_wrapper_rejects_a_plan_the_kernel_does_not_take(cuda,
+                                                             monkeypatch):
+    x, k, bias = _conv_inputs(0, 1, 5, 128, 128, 3, torch.bfloat16, cuda)
+    before = conv_kernel.launches
+    for bad, error in (
+            (conv_kernel.Plan(128, 128, 2, 0), ValueError),  # no workspace
+            (conv_kernel.Plan(128, 256, 1, 0), RuntimeError),  # BN > CO
+            (conv_kernel.Plan(32, 128, 1, 0), RuntimeError),  # no such tile
+            (conv_kernel.Plan(64, 128, 19, conv_kernel.workspace_bytes(
+                25, 128, 19)), RuntimeError)):  # more splits than chunks
+        monkeypatch.setattr(conv_kernel, "plan", lambda *a, **kw: bad)
+        with pytest.raises(error, match="plan|workspace"):
+            conv_kernel.fused_conv_bias_act(x, k, bias)
+    assert conv_kernel.launches == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "device", "contiguous", "cin",

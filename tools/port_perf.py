@@ -18,6 +18,11 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         the seeded weights' head shaping (box scale x objectness shift):
         detections per image and the box-level agreement rates that
         chip_smoke.py checks, for each setting
+    python3 tools/port_perf.py tiles
+        the bf16 conv kernel at each YOLOv2-COCO conv shape, batch 1 and
+        32, under every tile shape it is built for (unsplit at batch 32,
+        split to fill the card at batch 1): device ms per call, TFLOP/s,
+        and the tile conv_kernel.plan picks (its cost model's data)
 
 ROUTE is the detector route: "default" (letterbox + F.conv2d),
 "conv_impl=cuda" (the fused conv kernel on the eligible convs) or
@@ -121,7 +126,10 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "nms_suppress" in n:
         return "nms_kernel"
-    if "conv_bf16_kernel" in n or "conv_f32_kernel" in n:
+    # the conv kernel's bf16 (wgmma) and fp32 bodies and its split-K
+    # reduction, before cuDNN's "conv" below
+    if ("conv_bf16_kernel" in n or "conv_f32_kernel" in n
+            or "conv_splitk_reduce_kernel" in n):
         return "conv_kernel"
     if "entry_conv_pool" in n:
         return "entry_kernel"
@@ -238,6 +246,48 @@ def cmd_sweep(args, card) -> None:
                    "card": card})
 
 
+# (H=W, CIN, CO, ks) of YOLOv2-COCO 416's 16 convs on the conv kernel
+COCO_CONVS = ((52, 128, 256, 3), (52, 256, 128, 1), (26, 256, 512, 3),
+              (26, 512, 256, 1), (13, 512, 1024, 3), (13, 1024, 512, 1),
+              (13, 1024, 1024, 3), (13, 1280, 1024, 3))
+
+
+def cmd_tiles(args, card) -> None:
+    import math
+
+    import torch
+
+    import chip_smoke
+    from yolo_tpu_torch.ops.cuda import conv_kernel as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    chosen = ck.plan
+    for b in (1, 32):
+        for hw, cin, co, ks in COCO_CONVS:
+            x, k, bias = chip_smoke.conv_inputs(gen, b, hw, cin, co, ks,
+                                                torch.bfloat16)
+            m, steps = b * hw * hw, ks * ks * cin // ck.BK
+            flop = 2 * m * co * cin * ks * ks
+            times = {}
+            for bm, bn in ck.TILES:
+                if co % bn:
+                    continue
+                tiles = math.ceil(m / bm) * (co // bn)
+                splits = 1 if b > 1 else min(steps, math.ceil(ck.SMS / tiles))
+                p = ck.Plan(bm, bn, splits, ck.workspace_bytes(m, co, splits))
+                ck.plan = lambda *a, _p=p, **kw: _p  # this tile, this call
+                try:
+                    ms = chip_smoke.cuda_ms_per_call(
+                        lambda: ck.fused_conv_bias_act(x, k, bias), calls=20)
+                finally:
+                    ck.plan = chosen
+                times[f"{bm}x{bn}/{splits}"] = [ms, flop / ms / 1e9]
+            _emit({"what": "conv_tiles_bf16", "batch": b, "hw": hw,
+                   "cin": cin, "co": co, "ks": ks,
+                   "plan": list(chosen(b, hw, hw, cin, co, ks)[:3]),
+                   "ms_tflops_by_tile": times, "card": card})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -250,6 +300,7 @@ def main() -> int:
     prof = sub.add_parser("profile")
     prof.add_argument("--route", choices=ROUTES, default="default")
     sub.add_parser("sweep")
+    sub.add_parser("tiles")
     args = ap.parse_args()
     # the package under test: another checkout's for `time --tree`
     sys.path.insert(0, os.path.abspath(getattr(args, "tree", None) or REPO))
@@ -262,7 +313,7 @@ def main() -> int:
         return 2
     card = _card()
     {"weights": cmd_weights, "time": cmd_time, "profile": cmd_profile,
-     "sweep": cmd_sweep}[args.cmd](args, card)
+     "sweep": cmd_sweep, "tiles": cmd_tiles}[args.cmd](args, card)
     return 0
 
 

@@ -2,8 +2,8 @@
 
 Every ``yolo_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
 for ``sm_90a``, all at once, and the objects are linked into one shared
-library with a plain C interface. The library
-is named by a hash of the sources and flags and written to
+library with a plain C interface. The library is named by a hash of the
+sources and of every compile and link flag, and written to
 ``build/yolo_tpu_torch/`` beside the package (git-ignored), at first use.
 A process that finds the library already built loads it without
 compiling. Without ``nvcc`` the build raises: the port never runs a CUDA
@@ -40,6 +40,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 # default without --use_fast_math, which is never passed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+# the conv kernel reaches the driver's tensor-map encoders through
+# cudaGetDriverEntryPointByVersion, so the link needs no -lcuda
+LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 
@@ -67,7 +70,7 @@ def nvcc_path() -> str:
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     srcs, headers = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -102,7 +105,7 @@ def build() -> tuple:
         logs = [p.communicate()[0] for p in procs]
         for cmd, p, log in zip(cmds, procs, logs):
             _check(cmd, p.returncode, log)
-        link = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        link = [nvcc_path(), *NVCC_FLAGS, *LINK_FLAGS, "-o", tmp, *objs]
         proc = subprocess.run(link, capture_output=True, text=True)
         _check(link, proc.returncode, proc.stdout + proc.stderr)
         for obj in objs:
@@ -141,8 +144,11 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.yolo_conv_bias_act.restype = i32
+    # x, w, bias, out, workspace; batch, h, w, cin, co, ks, leaky, bf16;
+    # the plan's bm, bn, splits; stream
     lib.yolo_conv_bias_act.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, i32, i32, ptr]
     lib.yolo_entry_conv_pool.restype = i32
     lib.yolo_entry_conv_pool.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
