@@ -10,7 +10,10 @@ JSON lines; any failed check raises and the script exits non-zero:
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    compile the CUDA kernels from the checkout; count the
               HGMMA (wgmma) instructions of each kernel in the library
-              (cuobjdump --dump-sass): every bf16 conv kernel must have some
+              (cuobjdump --dump-sass): every bf16 conv kernel must have some;
+              the registers, stack and local memory that ptxas gave the
+              fp32 conv and NMS kernels (cuobjdump --dump-resource-usage):
+              none may spill (stack and local memory 0)
   3. kernel   CUDA greedy-NMS suppress vs its plain PyTorch version on
               crowded scenes at the served shapes: identical keep masks
   4. serve    YOLOv2-COCO 416 (full width, seeded random weights written
@@ -19,9 +22,11 @@ JSON lines; any failed check raises and the script exits non-zero:
               the kernel's launch counter rose, bf16 agrees with the fp32
               plain path at box level
   5. times    CUDA events: suppress vs plain per call over a run of
-              back-to-back calls; end-to-end detector latency (median of
-              synchronized calls) at batch 1/32/128 (raw 480x640 uint8
-              in, bf16)
+              back-to-back calls, on the crowded rows and on the seeded
+              detector's own suppress inputs at batch 1 and 32 (captured
+              from one forward; identical keep masks); end-to-end
+              detector latency (median of synchronized calls) at batch
+              1/32/128 (raw 480x640 uint8 in, bf16)
   6. conv     CUDA fused conv + bias + leaky/linear vs its plain version
               at each distinct shape of YOLOv2-COCO 416's 16 eligible
               convs, bf16 and fp32, batch 8 and batch 1 (the split-K
@@ -38,7 +43,8 @@ JSON lines; any failed check raises and the script exits non-zero:
               (library_ms: F.conv2d with bias, cuDNN) and the card's bound
               for the same work (bound_ms), per conv shape at batch 1 and
               32 and summed over the 16 convs; both routes end to end
-              beside the default route at batch 1/32/128
+              beside the default route at batch 1/32/128 in bf16, and the
+              default and conv_impl="cuda" routes in fp32 at batch 1/32
 
 Tolerances of phases 6-7, kernel vs plain on the same inputs:
   * fp32: 1e-5 of the output's scale (max |plain|). Both sides form
@@ -52,10 +58,11 @@ Tolerances of phases 6-7, kernel vs plain on the same inputs:
 A kernel's time is the device time per call: CUDA events around a run
 of back-to-back calls that the host queues while the stream is held busy
 (torch.cuda._sleep), so that at batch 1 the host's launch rate does not
-set it. bound_ms is the larger of the bytes the function must move (each
-input read once, each output written once) at 3.35 TB/s and its
-operations at the card's peak for their type (989 TFLOP/s bf16 tensor,
-67 TFLOP/s fp32), computed from this run's inputs.
+set it; the median of TIME_REPEATS such runs. bound_ms is the larger of the
+bytes the function must move (each input read once, each output written
+once) at 3.35 TB/s and its operations at the card's peak for their type
+(989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), computed from this run's
+inputs.
 
 Then the kernels line, the nvidia-smi line and, last, the device line
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
@@ -108,8 +115,13 @@ MATCH_IOU = 0.5
 MIN_MATCH = 0.9
 CONV_BATCHES = (8, 1)     # phase 6 checks; batch 1 takes split-K plans
 TIMED_BATCH = 32          # phase 9: the kernels line's batch
-CONV_TIMED_BATCHES = (1, TIMED_BATCH)   # phase 9 per-shape conv times
-ROUTE_CONVS = 16          # YOLOv2-COCO convs with CIN, CO % 128 == 0
+# phase 5 the detector's own suppress inputs, phase 9 per-shape conv
+# times and fp32 routes
+TIMED_BATCHES = (1, TIMED_BATCH)
+# a kernel time is the median of this many timed runs, so that one
+# transient on the card does not set it
+TIME_REPEATS = 3
+ROUTE_CONVS = 16         # YOLOv2-COCO convs with CIN, CO % 128 == 0
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -144,23 +156,45 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def cuobjdump(lib: str, what: str) -> str:
+    """cuobjdump's `what` dump of the built library."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, what, lib], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
 def hgmma_counts(lib: str) -> dict:
     """{kernel: HGMMA instructions} of every kernel in the built library,
     from cuobjdump --dump-sass (template arguments kept, e.g.
     conv_bf16_kernel<128,256,4>)."""
-    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
-                             "cuobjdump")
-    sass = subprocess.run([cuobjdump, "--dump-sass", lib],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in cuobjdump(lib, "--dump-sass").splitlines():
         if "Function :" in line:
             name = _kernel_name(line.split("Function :")[1].strip())
             counts.setdefault(name, 0)
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
     return counts
+
+
+def resource_usage(lib: str) -> dict:
+    """{kernel: {"registers", "stack", "local"}} of every kernel in the
+    built library, as ptxas allotted them (cuobjdump
+    --dump-resource-usage; kernel names as hgmma_counts gives them). A
+    register spill takes stack or local memory: no spill leaves both 0."""
+    usage, name = {}, None
+    for line in cuobjdump(lib, "--dump-resource-usage").splitlines():
+        func = re.match(r"\s*Function\s+(\S+?):?\s*$", line)
+        regs = re.search(r"\bREG:(\d+)", line)
+        if func:
+            name = _kernel_name(func.group(1))
+        elif name is not None and regs:
+            usage[name] = {
+                "registers": int(regs.group(1)),
+                "stack": int(re.search(r"\bSTACK:(\d+)", line).group(1)),
+                "local": int(re.search(r"\bLOCAL:(\d+)", line).group(1))}
+            name = None
+    return usage
 
 
 def _kernel_name(mangled: str) -> str:
@@ -205,26 +239,31 @@ def crowded_rows(rng, g, k, per_class):
 
 def cuda_ms_per_call(fn, calls: int, warmup: int = 2) -> float:
     """Device time per call: CUDA events around a run of back-to-back
-    calls, divided by their number. The stream is first held busy for
-    1.5x the host time of the calls (torch.cuda._sleep, ~2 GHz cycles,
-    at most 0.1 s), so that the host has queued them before the first
-    one runs and the events time the device, not the host."""
+    calls, divided by their number; the median of TIME_REPEATS such
+    runs. Before each run
+    the stream is held busy for 1.5x the host time of the calls
+    (torch.cuda._sleep, ~2 GHz cycles, at most 0.1 s), so that the host
+    has queued them before the first one runs and the events time the
+    device, not the host."""
     for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(1.5 * host_s * calls, 0.1) * 2e9))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
+    runs = []
+    for _ in range(TIME_REPEATS):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(1.5 * host_s * calls, 0.1) * 2e9))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / calls)
+    return statistics.median(runs)
 
 
 def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -397,24 +436,66 @@ def phase_serve(weights_path: str) -> tuple:
     return launches, model, model32, images, ref
 
 
+def captured_suppress_inputs(model, images) -> tuple:
+    """(geom, scores, classes, conf, iou) that one forward of the
+    detector hands the NMS kernel, copied as the kernel got them."""
+    got = []
+    kernel = nms_kernel.suppress
+
+    def capture(geom, scores, classes, *, conf_threshold, iou_threshold):
+        got.append((geom.clone(), scores.clone(), classes.clone(),
+                    conf_threshold, iou_threshold))
+        return kernel(geom, scores, classes, conf_threshold=conf_threshold,
+                      iou_threshold=iou_threshold)
+
+    nms_kernel.suppress = capture
+    try:
+        model(images)
+    finally:
+        nms_kernel.suppress = kernel
+    check(len(got) == 1, f"one forward made {len(got)} suppress calls")
+    return got[0]
+
+
+def time_suppress(what, geom, scores, classes, conf, iou, card, **extra):
+    """Kernel and plain time of one suppress call, beside its bound;
+    the keep masks must be identical."""
+    g, _, k = geom.shape
+    got = nms_kernel.suppress(geom, scores, classes, conf_threshold=conf,
+                              iou_threshold=iou)
+    check(torch.equal(got, _suppress_torch(geom, scores, classes, conf,
+                                           iou)),
+          f"suppress keep mask differs from the plain version on {what}")
+    ms = cuda_ms_per_call(lambda: nms_kernel.suppress(
+        geom, scores, classes, conf_threshold=conf, iou_threshold=iou),
+        calls=200)
+    plain_ms = cuda_ms_per_call(lambda: _suppress_torch(
+        geom, scores, classes, conf, iou), calls=5)
+    # the IoUs the function needs: pairs of candidates above conf
+    above = (scores >= conf).sum(dim=1).double()
+    flop = NMS_PAIR_FLOP * float((above * (above - 1) / 2).sum())
+    bound, bound_by = bound_ms(flop, nbytes(geom, scores, classes)
+                               + 4 * g * k, torch.float32)
+    emit({"phase": "times", "what": what, "shape": [g, 5, k], **extra,
+          "above_conf": int((scores >= conf).sum()),
+          "kept": int(got.sum()), "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+          "card": card})
+    return ms, plain_ms, bound, bound_by
+
+
 def phase_times(rng, model, card: str) -> dict:
     timed = {}
     for g, k in KERNEL_SHAPES:
         geom, scores, classes = crowded_rows(rng, g, k, per_class=g > 32)
-        ms = cuda_ms_per_call(lambda: nms_kernel.suppress(
-            geom, scores, classes, conf_threshold=CONF,
-            iou_threshold=IOU), calls=200)
-        plain_ms = cuda_ms_per_call(lambda: _suppress_torch(
-            geom, scores, classes, CONF, IOU), calls=5)
-        # the IoUs the function needs: pairs of candidates above conf
-        above = (scores >= CONF).sum(dim=1).double()
-        flop = NMS_PAIR_FLOP * float((above * (above - 1) / 2).sum())
-        bound, bound_by = bound_ms(flop, nbytes(geom, scores, classes)
-                                   + 4 * g * k, torch.float32)
-        timed[(g, k)] = (ms, plain_ms, bound, bound_by)
-        emit({"phase": "times", "what": "suppress", "shape": [g, 5, k],
-              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-              "bound_ms": bound, "bound_by": bound_by, "card": card})
+        timed[(g, k)] = time_suppress("suppress", geom, scores, classes,
+                                      CONF, IOU, card)
+    for b in TIMED_BATCHES:
+        images = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
+        time_suppress("suppress_detector_inputs",
+                      *captured_suppress_inputs(model, images), card,
+                      batch=b)
     for b in E2E_BATCHES:
         images = torch.from_numpy(np.random.default_rng(b).integers(
             0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
@@ -596,7 +677,7 @@ def phase_kernel_times(gen, shapes, images, card) -> dict:
     eligible convs (bf16, batch 32) and the bf16 entry at batch 32 go to
     the kernels line."""
     sums, bound_kinds = {}, {}
-    for b in CONV_TIMED_BATCHES:
+    for b in TIMED_BATCHES:
         for (hw, cin, co, ks), n in sorted(shapes.items()):
             for dtype, name in DTYPES:
                 x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
@@ -656,27 +737,34 @@ def phase_kernel_times(gen, shapes, images, card) -> dict:
     kinds = bound_kinds[(TIMED_BATCH, "bf16")]
     return {"conv": (*sums[(TIMED_BATCH, "bf16")],
                      max(kinds.items(), key=lambda kv: kv[1])[0]),
+            "conv_fp32": sums[(TIMED_BATCH, "fp32")],
             "entry": entry_times["bf16"]}
 
 
-def phase_route_times(model, card) -> None:
+def phase_route_times(model, model32, card) -> None:
     """End-to-end latency of the two kernel routes beside the default
-    route (median of synchronized calls), raw 480x640 uint8 on the card,
-    bf16."""
+    route (median of synchronized calls), raw 480x640 uint8 on the card:
+    bf16 at E2E_BATCHES; fp32, the default and the conv kernel's route,
+    at TIMED_BATCHES."""
     cfg = model.cfg
     fused = make_detector(cfg, entry="fused")
-    routes = (("default", lambda im: model(im)),
-              ("conv_impl=cuda", lambda im: detect_raw(
-                  cfg, model.params, im, conv_impl="cuda")),
-              ("entry=fused", lambda im: fused(model.params, im)))
-    for b in E2E_BATCHES:
-        images = torch.from_numpy(np.random.default_rng(b).integers(
-            0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
-        for route, fn in routes:
-            ms = cuda_median_ms(lambda: fn(images), reps=10)
-            emit({"phase": "times", "what": "route_e2e_bf16", "route": route,
-                  "batch": b, "src_hw": list(SRC_HW), "ms": ms,
-                  "img_per_s": b * 1000 / ms, "card": card})
+    bf16 = (("default", lambda im: model(im)),
+            ("conv_impl=cuda", lambda im: detect_raw(
+                cfg, model.params, im, conv_impl="cuda")),
+            ("entry=fused", lambda im: fused(model.params, im)))
+    fp32 = (("default", lambda im: model32(im)),
+            ("conv_impl=cuda", lambda im: detect_raw(
+                cfg, model32.params, im, conv_impl="cuda")))
+    for name, routes, batches in (("bf16", bf16, E2E_BATCHES),
+                                  ("fp32", fp32, TIMED_BATCHES)):
+        for b in batches:
+            images = torch.from_numpy(np.random.default_rng(b).integers(
+                0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
+            for route, fn in routes:
+                ms = cuda_median_ms(lambda: fn(images), reps=10)
+                emit({"phase": "times", "what": f"route_e2e_{name}",
+                      "route": route, "batch": b, "src_hw": list(SRC_HW),
+                      "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
 
 
 def main() -> int:
@@ -693,13 +781,21 @@ def main() -> int:
     lib, compile_s = build.build()
     build.library()
     hgmma = hgmma_counts(lib)
+    usage = {n: u for n, u in resource_usage(lib).items()
+             if n.startswith(("conv_f32_kernel", "nms_suppress_kernel"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": compile_s,
           "library": os.path.relpath(lib, os.path.dirname(
-              os.path.abspath(__file__))), "hgmma": hgmma})
+              os.path.abspath(__file__))), "hgmma": hgmma,
+          "resources": usage})
     bf16_convs = [n for n in hgmma if n.startswith("conv_bf16_kernel")]
     check(bf16_convs and all(hgmma[n] > 0 for n in bf16_convs),
           f"the bf16 conv kernels must run on wgmma (HGMMA): {hgmma}")
+    check(any(n.startswith("conv_f32_kernel") for n in usage)
+          and "nms_suppress_kernel" in usage and all(
+              u["registers"] > 0 and u["stack"] == 0 and u["local"] == 0
+              for u in usage.values()),
+          f"the fp32 conv and NMS kernels must not spill: {usage}")
 
     rng = np.random.default_rng(SEED)
     worst = phase_kernel(rng)
@@ -724,13 +820,14 @@ def main() -> int:
     timed_images = torch.from_numpy(rng.integers(
         0, 256, (TIMED_BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
     kernel_times = phase_kernel_times(gen, shapes, timed_images, card)
-    phase_route_times(model, card)
+    phase_route_times(model, model32, card)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu"))
     check(not foreign, f"the port loaded JAX or the JAX package: {foreign}")
     nms = timed[TIMED_SHAPE]
     conv_t = kernel_times["conv"]
+    conv32 = kernel_times["conv_fp32"]
     entry_t = kernel_times["entry"]
     emit({"kernels": [
         {"name": "nms_suppress", "route": "cuda",
@@ -744,7 +841,9 @@ def main() -> int:
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"], "max_abs_err": conv_worst,
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
-         "bound_by": conv_t[4], "library_ms": conv_t[2]},
+         "bound_by": conv_t[4], "library_ms": conv_t[2],
+         "fp32_ms": conv32[0], "fp32_plain_ms": conv32[1],
+         "fp32_library_ms": conv32[2], "fp32_bound_ms": conv32[3]},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",

@@ -112,24 +112,26 @@ COCO_SHAPES = [(52, 128, 256, 3), (52, 256, 128, 1), (26, 256, 512, 3),
                (13, 1024, 1024, 3), (13, 1280, 1024, 3)]
 
 
-def _check_plan(batch, h, w, cin, co, ks):
+def _check_plan(batch, h, w, cin, co, ks, bf16=True):
     """The plan's invariants, which the kernel's C entry point also
-    checks: a tile the bf16 kernel is built for, BN divides CO, each split
-    a run of whole BK chunks, the splits covering K once, the workspace
-    of the splits."""
-    p = conv_kernel.plan(batch, h, w, cin, co, ks)
+    checks: a tile the body (bf16 or fp32) is built for, BN divides CO,
+    each split a run of whole K chunks of that body, the splits covering K
+    once, the workspace of the splits."""
+    p = conv_kernel.plan(batch, h, w, cin, co, ks, bf16=bf16)
     m, k = batch * h * w, ks * ks * cin
-    assert (p.bm, p.bn) in conv_kernel.TILES and co % p.bn == 0
-    steps = k // conv_kernel.BK
+    assert (p.bm, p.bn) in conv_kernel.tiles(bf16) and co % p.bn == 0
+    bk = conv_kernel.chunk(bf16)
+    steps = k // bk
     ranges = conv_kernel.split_steps(steps, p.splits)
     assert len(ranges) == p.splits >= 1
     assert ranges[0][0] == 0 and ranges[-1][1] == steps
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     assert all(end > begin for begin, end in ranges)
     for begin, end in ranges:
-        for c in range(begin, end):  # a BK chunk lies inside one tap
-            k0 = c * conv_kernel.BK
-            assert k0 // cin == (k0 + conv_kernel.BK - 1) // cin
+        for c in range(begin, end):  # a K chunk lies inside one tap
+            k0 = c * bk
+            assert k0 // cin == (k0 + bk - 1) // cin
+    assert p.workspace_bytes == conv_kernel.workspace_bytes(m, co, p.splits)
     assert p.workspace_bytes == (4 * p.splits * m * co if p.splits > 1
                                  else 0)
     return p, math.ceil(m / p.bm) * (co // p.bn)
@@ -164,10 +166,36 @@ def test_plan_of_ragged_shapes(batch, h, w, cin, co, ks):
     assert p.splits <= steps
 
 
-def test_plan_of_fp32_is_its_one_unsplit_tile():
-    for hw, cin, co, ks in COCO_SHAPES:
-        assert conv_kernel.plan(1, hw, hw, cin, co, ks, bf16=False) == \
-            conv_kernel.Plan(64, 64, 1, 0)
+def test_the_two_bodies_name_their_chunks_and_tiles():
+    """bf16 chunks K by 64, fp32 by 32: each one 128-byte swizzle row."""
+    assert conv_kernel.chunk(True) == conv_kernel.BK == 64
+    assert conv_kernel.chunk(False) == conv_kernel.F32_BK == 32
+    assert conv_kernel.tiles(True) is conv_kernel.TILES
+    assert conv_kernel.tiles(False) is conv_kernel.F32_TILES
+    assert set(conv_kernel.F32_TILES) == {(128, 128), (64, 128)}
+
+
+@pytest.mark.parametrize("batch,h,w,cin,co,ks", [
+    *[(b, hw, hw, cin, co, ks) for b in (1, 8, 32, 128)
+      for hw, cin, co, ks in COCO_SHAPES],
+    (3, 7, 7, 128, 128, 3), (1, 1, 1, 128, 128, 3), (2, 9, 9, 384, 128, 3),
+    (1, 5, 11, 256, 512, 3), (1, 13, 13, 256, 256, 1),
+    (1, 1, 1, 128, 128, 1), (5, 3, 17, 640, 384, 3),
+    (64, 13, 13, 1280, 1024, 3)])
+def test_plan_of_fp32(batch, h, w, cin, co, ks):
+    """The fp32 body's own tiles and 32-deep chunks: a split only where
+    the tiles leave SMs idle, never more splits than chunks; batch 1 at
+    13x13 and 26x26 splits until tiles x splits fill the card; no split
+    at batch >= 32."""
+    p, tiles = _check_plan(batch, h, w, cin, co, ks, bf16=False)
+    steps = ks * ks * cin // conv_kernel.F32_BK
+    assert p.splits == 1 or tiles < conv_kernel.SMS
+    assert p.splits <= steps
+    if batch >= 32:
+        assert p.splits == 1
+    if batch == 1 and h in (13, 26) and (h, w, cin, co, ks) in [
+            (hw, hw, *rest) for hw, *rest in COCO_SHAPES]:
+        assert tiles * p.splits >= conv_kernel.SMS and p.splits > 1
 
 
 def test_split_steps_cover_k_once_when_splits_do_not_divide_it():

@@ -63,6 +63,54 @@ def test_suppress_kernel_matches_plain(cuda, g, k, n_classes):
     assert torch.equal(got, want)
 
 
+def _edge_rows(case, device):
+    """(geom, scores, classes) of one edge case of the greedy pass: rows
+    of K candidates from _rows, scores sorted desc, then bent so that the
+    stop (the first score below conf 0.3) falls where the case says."""
+    g, k = {"k1": (3, 1), "k33": (4, 33), "k100": (5, 100),
+            "k256": (6, 256), "g2560": (2560, 128)}.get(case, (8, 128))
+    geom, scores, classes = _rows(len(case) * 31 + k, g, k, 2, device)
+    if case == "all_below":
+        scores = scores * 0.29  # every score below conf: stop at 0
+    elif case == "first_few":
+        scores[:, 3:] = scores[:, 3:] * 0.1  # stop at 3
+        scores[:, :3] = torch.tensor([0.95, 0.9, 0.85], device=device)
+    elif case == "nan_first":
+        # torch.topk ranks NaN first: they stop nothing and suppress
+        # nothing, and the boxes at or above conf after them still do
+        scores[:, :5] = float("nan")
+        scores[:, 5:40] = torch.linspace(0.99, 0.5, 35, device=device)
+        scores[:, 40:] = scores[:, 40:] * 0.5  # still sorted after 0.5
+    elif case == "nan_boxes":
+        geom = geom.clone()
+        geom[:, 0, ::7] = float("nan")  # x1
+        geom[:, 4, 3::11] = float("nan")  # area
+        geom[:, 3, 5::13] = float("inf")  # y2
+    return geom.contiguous(), scores.contiguous(), classes
+
+
+@pytest.mark.parametrize("case", ["all_below", "first_few", "nan_first",
+                                  "nan_boxes", "k1", "k33", "k100", "k256",
+                                  "g2560"])
+def test_suppress_kernel_edge_cases(cuda, case):
+    """Identical keep masks where the greedy pass stops early (or at
+    once), behind NaN scores, on NaN boxes, at ragged K and at G = 2560
+    (the per-class grid of batch 32)."""
+    geom, scores, classes = _edge_rows(case, cuda)
+    got = nms_kernel.suppress(geom, scores, classes, conf_threshold=0.3,
+                              iou_threshold=0.45)
+    torch.cuda.synchronize()
+    want = _suppress_torch(geom, scores, classes, 0.3, 0.45)
+    assert torch.equal(got, want)
+    kept = int(want.sum())
+    if case == "all_below":
+        assert kept == 0
+    elif case == "first_few":
+        assert 0 < kept <= 3 * scores.shape[0]
+    elif case == "nan_first":  # the boxes after the NaNs still suppress
+        assert 0 < kept < int((scores >= 0.3).sum())
+
+
 def test_router_takes_the_kernel_on_cuda(cuda):
     geom, scores, classes = _rows(1, 4, 128, 3, cuda)
     before = nms_kernel.launches
@@ -141,16 +189,19 @@ def test_conv_kernel_matches_plain(cuda, b, hw, cin, co, ks, act, dtype):
     _assert_within(got, conv.fused_conv_bias_act(x, k, bias, act=act))
 
 
-@pytest.mark.parametrize("bm,bn", sorted(conv_kernel.TILES))
+@pytest.mark.parametrize("dtype,bm,bn", [
+    *[(torch.bfloat16, *t) for t in sorted(conv_kernel.TILES)],
+    *[(torch.float32, *t) for t in sorted(conv_kernel.F32_TILES)]],
+    ids=lambda v: {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(v, v))
 @pytest.mark.parametrize("splits", [1, 5, 18])
 def test_conv_kernel_takes_every_tile_and_uneven_splits(cuda, monkeypatch,
-                                                        bm, bn, splits):
-    """Each tile shape of the bf16 kernel, forced in place of the plan, at
-    a ragged M (2 x 9 x 9 = 162 rows) and K = 18 chunks: unsplit, cut 5
-    ways (3 or 4 chunks each: uneven) and 18 ways (1 chunk each)."""
+                                                        dtype, bm, bn,
+                                                        splits):
+    """Each tile shape of each body, forced in place of the plan, at a
+    ragged M (2 x 9 x 9 = 162 rows) and K of 18 bf16 or 36 fp32 chunks:
+    unsplit, cut 5 ways (uneven) and 18 ways."""
     b, hw, cin, co, ks = 2, 9, 128, 256, 3
-    x, k, bias = _conv_inputs(splits, b, hw, cin, co, ks, torch.bfloat16,
-                              cuda)
+    x, k, bias = _conv_inputs(splits, b, hw, cin, co, ks, dtype, cuda)
     p = conv_kernel.Plan(bm, bn, splits, conv_kernel.workspace_bytes(
         b * hw * hw, co, splits))
     monkeypatch.setattr(conv_kernel, "plan", lambda *a, **kw: p)
@@ -159,18 +210,21 @@ def test_conv_kernel_takes_every_tile_and_uneven_splits(cuda, monkeypatch,
     _assert_within(got, conv.fused_conv_bias_act(x, k, bias))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,hw,cin,co,ks", [(1, 13, 1024, 1024, 3),
                                             (1, 26, 512, 256, 1),
                                             (8, 13, 1024, 512, 1),
                                             (32, 13, 1280, 1024, 3)])
-def test_conv_kernel_is_deterministic(cuda, b, hw, cin, co, ks):
+def test_conv_kernel_is_deterministic(cuda, b, hw, cin, co, ks, dtype):
     """Two calls on the same inputs give the same bytes: split-K sums its
     partials in split order, without atomics."""
-    x, k, bias = _conv_inputs(7, b, hw, cin, co, ks, torch.bfloat16, cuda)
+    x, k, bias = _conv_inputs(7, b, hw, cin, co, ks, dtype, cuda)
     first = conv_kernel.fused_conv_bias_act(x, k, bias)
     second = conv_kernel.fused_conv_bias_act(x, k, bias)
     torch.cuda.synchronize()
-    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(first.view(bits), second.view(bits))
 
 
 def test_conv_kernel_returns_an_empty_batch_without_a_launch(cuda):
@@ -193,6 +247,14 @@ def test_conv_wrapper_rejects_a_plan_the_kernel_does_not_take(cuda,
                 25, 128, 19)), RuntimeError)):  # more splits than chunks
         monkeypatch.setattr(conv_kernel, "plan", lambda *a, **kw: bad)
         with pytest.raises(error, match="plan|workspace"):
+            conv_kernel.fused_conv_bias_act(x, k, bias)
+    # fp32: 36 chunks of 32, and only its own two tiles
+    x, k = x.float(), k.float()
+    for bad in (conv_kernel.Plan(192, 256, 1, 0),  # a bf16-only tile
+                conv_kernel.Plan(64, 128, 37, conv_kernel.workspace_bytes(
+                    25, 128, 37))):  # more splits than chunks
+        monkeypatch.setattr(conv_kernel, "plan", lambda *a, **kw: bad)
+        with pytest.raises(RuntimeError, match="plan"):
             conv_kernel.fused_conv_bias_act(x, k, bias)
     assert conv_kernel.launches == before
 

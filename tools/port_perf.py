@@ -19,10 +19,11 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         detections per image and the box-level agreement rates that
         chip_smoke.py checks, for each setting
     python3 tools/port_perf.py tiles
-        the bf16 conv kernel at each YOLOv2-COCO conv shape, batch 1 and
-        32, under every tile shape it is built for (unsplit at batch 32,
-        split to fill the card at batch 1): device ms per call, TFLOP/s,
-        and the tile conv_kernel.plan picks (its cost model's data)
+        the conv kernel's bf16 and fp32 bodies at each YOLOv2-COCO conv
+        shape, batch 1 and 32, under every tile shape each is built for
+        (unsplit at batch 32, split to fill the card at batch 1): device
+        ms per call, TFLOP/s, and the tile conv_kernel.plan picks (its
+        cost model's data)
 
 ROUTE is the detector route: "default" (letterbox + F.conv2d),
 "conv_impl=cuda" (the fused conv kernel on the eligible convs) or
@@ -262,30 +263,36 @@ def cmd_tiles(args, card) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     chosen = ck.plan
-    for b in (1, 32):
-        for hw, cin, co, ks in COCO_CONVS:
-            x, k, bias = chip_smoke.conv_inputs(gen, b, hw, cin, co, ks,
-                                                torch.bfloat16)
-            m, steps = b * hw * hw, ks * ks * cin // ck.BK
-            flop = 2 * m * co * cin * ks * ks
-            times = {}
-            for bm, bn in ck.TILES:
-                if co % bn:
-                    continue
-                tiles = math.ceil(m / bm) * (co // bn)
-                splits = 1 if b > 1 else min(steps, math.ceil(ck.SMS / tiles))
-                p = ck.Plan(bm, bn, splits, ck.workspace_bytes(m, co, splits))
-                ck.plan = lambda *a, _p=p, **kw: _p  # this tile, this call
-                try:
-                    ms = chip_smoke.cuda_ms_per_call(
-                        lambda: ck.fused_conv_bias_act(x, k, bias), calls=20)
-                finally:
-                    ck.plan = chosen
-                times[f"{bm}x{bn}/{splits}"] = [ms, flop / ms / 1e9]
-            _emit({"what": "conv_tiles_bf16", "batch": b, "hw": hw,
-                   "cin": cin, "co": co, "ks": ks,
-                   "plan": list(chosen(b, hw, hw, cin, co, ks)[:3]),
-                   "ms_tflops_by_tile": times, "card": card})
+    for dtype, name in chip_smoke.DTYPES:
+        bf16 = dtype == torch.bfloat16
+        for b in (1, 32):
+            for hw, cin, co, ks in COCO_CONVS:
+                x, k, bias = chip_smoke.conv_inputs(gen, b, hw, cin, co, ks,
+                                                    dtype)
+                m, steps = b * hw * hw, ks * ks * cin // ck.chunk(bf16)
+                flop = 2 * m * co * cin * ks * ks
+                times = {}
+                for bm, bn in ck.tiles(bf16):
+                    if co % bn:
+                        continue
+                    tiles = math.ceil(m / bm) * (co // bn)
+                    splits = 1 if b > 1 else min(steps,
+                                                 math.ceil(ck.SMS / tiles))
+                    p = ck.Plan(bm, bn, splits,
+                                ck.workspace_bytes(m, co, splits))
+                    ck.plan = lambda *a, _p=p, **kw: _p  # this tile only
+                    try:
+                        ms = chip_smoke.cuda_ms_per_call(
+                            lambda: ck.fused_conv_bias_act(x, k, bias),
+                            calls=20)
+                    finally:
+                        ck.plan = chosen
+                    times[f"{bm}x{bn}/{splits}"] = [ms, flop / ms / 1e9]
+                _emit({"what": f"conv_tiles_{name}", "batch": b, "hw": hw,
+                       "cin": cin, "co": co, "ks": ks,
+                       "plan": list(chosen(b, hw, hw, cin, co, ks,
+                                           bf16=bf16)[:3]),
+                       "ms_tflops_by_tile": times, "card": card})
 
 
 def main() -> int:

@@ -63,8 +63,22 @@
 //     the idle ring, then 16-byte stores of whole tile rows; no fp32
 //     activation reaches memory.
 // fp32 design (conv_f32_kernel): true fp32 products (no TF32, as JAX's
-// Precision.HIGHEST), a 64x64 tile per block, each thread a 4x4 block of
-// FFMAs.
+// Precision.HIGHEST) on the CUDA cores, whose FFMA peak (67 TFLOP/s) bounds
+// every YOLOv2-COCO layer even at batch 1 (fp32's ridge is ~20 FLOP per
+// byte; a batch-1 13x13 layer does 84 FLOP per weight byte).
+//   * The same TMA ring as the bf16 body (im2col activations, tiled
+//     weights, full/empty mbarriers per stage, thread 0 issuing the copies
+//     STAGES - 2 chunks ahead, no block barrier per chunk), with K chunks
+//     of 32 fp32: one 128-byte row of the 128B swizzle, inside one tap.
+//   * A register tile that outruns shared memory: an 8x8 block of FFMA
+//     accumulators per thread fed by 16-byte float4 reads along k (16
+//     FFMAs per LDS.128, free of bank conflicts in the swizzle), on
+//     128x128 tiles (256 threads) or 64x128 tiles (128 threads, three
+//     blocks and 12 warps per SM: the extra warps hide the shared-memory
+//     latency that two warps per scheduler leave exposed).
+//   * Split-K for small M, through the same plan and the same in-order
+//     reduction (fp32 output), and an epilogue staged in the idle ring
+//     with 16-byte row stores.
 //
 // The library is built with -fmad=false (the NMS kernel needs its IoU
 // uncontracted). The fp32 path therefore spells its multiply-adds as
@@ -78,6 +92,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -382,12 +397,27 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// four activated outputs, stored in the output's dtype
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 // out = act(sum over s in order of ws[s] + bias), 4 channels per thread
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv_splitk_reduce_kernel(const float* __restrict__ ws,
                           const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, long long mn,
-                          int co, int splits, int leaky) {
+                          T* __restrict__ out, long long mn, int co,
+                          int splits, int leaky) {
   const long long stride = (long long)gridDim.x * blockDim.x * 4;
   for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
        i < mn; i += stride) {
@@ -400,98 +430,177 @@ conv_splitk_reduce_kernel(const float* __restrict__ ws,
       v.w += p.w;
     }
     const float4 b = *reinterpret_cast<const float4*>(bias + i % co);
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(act_fn(v.x + b.x, leaky),
-                                                    act_fn(v.y + b.y, leaky));
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(act_fn(v.z + b.z, leaky),
-                                                    act_fn(v.w + b.w, leaky));
-    uint2 packed;
-    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(out + i) = packed;
+    store4(out + i, make_float4(act_fn(v.x + b.x, leaky),
+                                act_fn(v.y + b.y, leaky),
+                                act_fn(v.z + b.z, leaky),
+                                act_fn(v.w + b.w, leaky)));
   }
 }
 
-// ---- fp32: FFMA --------------------------------------------------------
-constexpr int kFM = 64, kFN = 64, kFK = 16;
-constexpr int kFLd = kFM + 4;  // 272-byte rows keep float4 reads aligned
+// ---- fp32: FFMA on a TMA ring ------------------------------------------
+constexpr int kFBK = 32;  // K chunk: 32 fp32 = one 128-byte row
 
-__global__ void __launch_bounds__(kThreads)
-conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+// 16 bytes of shared memory, issued where the source puts it
+__device__ __forceinline__ void lds4(float (&v)[4], uint32_t addr) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr));
+}
+
+// BM x BN outputs per block of (BM / 8) * (BN / 8) threads, an 8x8 block
+// of FFMA accumulators per thread. A warp is 8 thread rows (tm) by 4
+// thread columns (tn); thread (tm, tn) owns tile rows tm + (BM / 8) * i
+// and columns tn + (BN / 8) * j, i, j < 8. Each step of 4 k reads, per
+// thread, 8 float4 of A and 8 of B along k (16 LDS.128 for 256 FFMA):
+// in the 128B swizzle, row r's 16-byte group q lies at group q ^ (r % 8),
+// so the 8 rows of a warp's A read fall on 8 distinct bank groups (the
+// four quarter-warps read the same 8: a broadcast), and its 4 B rows on
+// 4. Every row of a thread has the same r % 8, so one XOR per step
+// serves all 16 reads.
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__((BM / 8) * (BN / 8), BM == 64 ? 3 : 1)
+conv_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
                 const float* __restrict__ bias, float* __restrict__ out,
-                int batch, int h, int w, int cin, int co, int ks, int leaky) {
-  __shared__ __align__(16) float s_a[kFK][kFLd];  // [k][m]
-  __shared__ __align__(16) float s_b[kFK][kFLd];  // [k][n]
+                float* __restrict__ ws, int batch, int h, int w, int cin,
+                int co, int ks, int leaky, int splits) {
+  constexpr int kTM = BM / 8, kTN = BN / 8;  // the thread grid
+  constexpr int kBlock = kTM * kTN;
+  constexpr int kWarpsM = kTM / 8;
+  static_assert(kTM % 8 == 0 && kTN % 8 == 0 && kBlock % 32 == 0,
+                "warps of 8x4 threads, rows with one swizzle phase");
+  static_assert(STAGES >= 3, "the ring runs STAGES - 2 chunks ahead");
+  constexpr int kA = BM * kRowBytes, kB = BN * kRowBytes;  // stage bytes
+  constexpr int kAhead = STAGES - 2;
+  constexpr int kQ = kFBK / 4;  // 4-deep k steps of a chunk
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  uint8_t* const ring = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t s_a = base, s_b = base + STAGES * kA;
+  const uint32_t s_full = s_b + STAGES * kB, s_empty = s_full + 8 * STAGES;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const long long m_total = (long long)batch * h * w;
-  const long long m0 = (long long)blockIdx.x * kFM;
-  const int n0 = blockIdx.y * kFN;
-  const int pad = ks >> 1;
-  const int k_total = ks * ks * cin;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int steps = ks * ks * cin / kFBK;
+  const int split = blockIdx.z;
+  const int step0 = static_cast<int>((long long)split * steps / splits);
+  const int n_steps =
+      static_cast<int>((long long)(split + 1) * steps / splits) - step0;
 
-  // loader: tile row `row`, 4 consecutive k at kc
-  const int row = tid >> 2, kc = (tid & 3) * 4;
-  const long long m = m0 + row;
-  const bool m_ok = m < m_total;
-  const long long mm = m_ok ? m : 0;
-  const int ax = static_cast<int>(mm % w);
-  const int ay = static_cast<int>((mm / w) % h);
-  const int ab = static_cast<int>(mm / ((long long)w * h));
-  const float* b_row = wt + (size_t)(n0 + row) * k_total + kc;
-
-  // compute: a 4x4 block of outputs, rows ty*4.., columns tx*4..
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[4][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k_total; k0 += kFK) {
-    const int tap = k0 / cin;
-    const int ci0 = k0 - tap * cin;
-    const int iy = ay + tap / ks - pad, ix = ax + tap % ks - pad;
-    float4 av = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (m_ok && iy >= 0 && iy < h && ix >= 0 && ix < w)
-      av = *reinterpret_cast<const float4*>(
-          x + (((size_t)ab * h + iy) * w + ix) * cin + ci0 + kc);
-    const float4 bv = *reinterpret_cast<const float4*>(b_row + k0);
-    __syncthreads();  // the previous tile has been consumed
-    s_a[kc + 0][row] = av.x;
-    s_a[kc + 1][row] = av.y;
-    s_a[kc + 2][row] = av.z;
-    s_a[kc + 3][row] = av.w;
-    s_b[kc + 0][row] = bv.x;
-    s_b[kc + 1][row] = bv.y;
-    s_b[kc + 2][row] = bv.z;
-    s_b[kc + 3][row] = bv.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_a[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&s_b[kk][tx * 4]);
-      const float ar[4] = {a.x, a.y, a.z, a.w};
-      const float br[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(s_full + 8 * s, 1);
+      mbar_init(s_empty + 8 * s, kBlock / 32);  // one arrive per warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 copies K chunk step0 + i into stage i % STAGES, as the bf16
+  // body does: BM pixels of 32 channels in im2col mode, a (BN x 32) box
+  // of the weights. A chunk's activations are the pixels' channels
+  // of a 32-channel run of one tap (ci, tx, ty); thread 0 issues the
+  // chunks in order and steps that position along, with no division
+  const int pad = ks >> 1;
+  const int px = static_cast<int>(m0 % w) - pad;
+  const int py = static_cast<int>((m0 / w) % h) - pad;
+  const int pn = static_cast<int>(m0 / ((long long)w * h));
+  const int tap0 = step0 * kFBK / cin;
+  int ci = step0 * kFBK - tap0 * cin, tx = tap0 % ks, ty = tap0 / ks;
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    if (i >= STAGES) mbar_wait(s_empty + 8 * s, ((i / STAGES) - 1) & 1);
+    const uint32_t bar = s_full + 8 * s;
+    mbar_expect_tx(bar, kA + kB);
+    tma_load_im2col(s_a + s * kA, &xmap, bar, ci, px, py, pn, tx, ty);
+    tma_load_2d(s_b + s * kB, &wmap, bar, (step0 + i) * kFBK, n0);
+    ci += kFBK;
+    if (ci == cin) {
+      ci = 0;
+      if (++tx == ks) {
+        tx = 0;
+        ++ty;
+      }
+    }
+  };
+
+  // the fragments of one 4-deep k step: the thread's 8 A rows and 8 B
+  // rows, a float4 along k each, at the step's swizzled 16-byte group
+  const int tm = (warp % kWarpsM) * 8 + (lane & 7);
+  const int tn = (warp / kWarpsM) * 4 + (lane >> 3);
+  const uint32_t a_row = s_a + tm * kRowBytes, b_row = s_b + tn * kRowBytes;
+  auto fetch = [&](float (&fa)[8][4], float (&fb)[8][4], int stage, int q) {
+    const uint32_t a = a_row + stage * kA + ((q ^ (tm & 7)) << 4);
+    const uint32_t b = b_row + stage * kB + ((q ^ (tn & 7)) << 4);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) lds4(fa[r], a + r * kTM * kRowBytes);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) lds4(fb[c], b + c * kTN * kRowBytes);
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  auto ffma = [&](const float (&fa)[8][4], const float (&fb)[8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[r][c] = __fmaf_rn(fa[r][kk], fb[c][kk], acc[r][c]);
+  };
+
+  if (tid == 0)
+    for (int i = 0; i < kAhead && i < n_steps; ++i) load(i);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % STAGES;
+    // chunk i + kAhead goes to the stage of chunk i - 2, which every warp
+    // has released (below)
+    if (tid == 0 && i + kAhead < n_steps) load(i + kAhead);
+    mbar_wait(s_full + 8 * s, (i / STAGES) & 1);  // both tiles landed
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      float fa[8][4], fb[8][4];
+      fetch(fa, fb, s, q);
+      ffma(fa, fb);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(s_empty + 8 * s);  // this warp read stage s
   }
 
-  const int n = n0 + tx * 4;
-  const float4 bb = *reinterpret_cast<const float4*>(bias + n);
+  // the tile staged in the idle ring (rows padded by 16 bytes: a warp's
+  // scalar stores hit 32 banks), then 16-byte stores of whole rows: the
+  // fp32 partial tile for the reduction, or + bias and leaky
+  constexpr int kOutLd = BN + 4;  // floats per staged row
+  float* staged = reinterpret_cast<float*>(ring);
+  __syncthreads();  // every warp has stopped reading the ring
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long mo = m0 + ty * 4 + i;
-    if (mo < m_total) {
-      float4 v;
-      v.x = act_fn(acc[i][0] + bb.x, leaky);
-      v.y = act_fn(acc[i][1] + bb.y, leaky);
-      v.z = act_fn(acc[i][2] + bb.z, leaky);
-      v.w = act_fn(acc[i][3] + bb.w, leaky);
-      *reinterpret_cast<float4*>(out + mo * co + n) = v;
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      staged[(tm + r * kTM) * kOutLd + tn + c * kTN] = acc[r][c];
+  __syncthreads();
+  constexpr int kRowVecs = BN / 4;  // float4s of a tile row
+  for (int v = tid; v < BM * kRowVecs; v += kBlock) {
+    const int r = v / kRowVecs, q = v % kRowVecs;
+    const long long m = m0 + r;
+    if (m >= m_total) break;  // rows only grow with v
+    float4 o = *reinterpret_cast<const float4*>(staged + r * kOutLd + q * 4);
+    if (splits > 1) {
+      store4(ws + (split * m_total + m) * co + n0 + q * 4, o);
+    } else {
+      const float4 b = *reinterpret_cast<const float4*>(bias + n0 + q * 4);
+      o.x = act_fn(o.x + b.x, leaky);
+      o.y = act_fn(o.y + b.y, leaky);
+      o.z = act_fn(o.z + b.z, leaky);
+      o.w = act_fn(o.w + b.w, leaky);
+      store4(out + m * co + n0 + q * 4, o);
     }
   }
 }
@@ -544,12 +653,77 @@ EncodeIm2colFn encode_im2col() {
   return fn;
 }
 
+// The two tensor maps of a call in element type T, K chunks of one
+// 128-byte row (64 bf16 or 32 fp32) in the 128B swizzle: the weights as a
+// row-major (CO, K) matrix, a (BN x chunk) box each; the activations,
+// NHWC, in im2col mode, BM pixels x chunk channels each. A pixel's window
+// corner runs over [-pad, W - 1 - pad] (the bounding box's corners: -pad
+// from the top left, pad - (ks - 1) from the bottom right), and a tap
+// outside the image reads zeros.
+template <typename T>
+int encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                const void* w, int bm, int bn, int batch, int h, int width,
+                int cin, int co, int ks) {
+  const EncodeTiledFn tiled = encode_tiled();
+  const EncodeIm2colFn im2col = encode_im2col();
+  if (tiled == nullptr || im2col == nullptr) return kErrEntryPoint;
+  constexpr cuuint64_t kElem = sizeof(T);
+  constexpr cuuint32_t kChunk = kRowBytes / sizeof(T);
+  const CUtensorMapDataType dtype = std::is_same<T, float>::value
+                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int k_total = ks * ks * cin;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(k_total),
+                               static_cast<cuuint64_t>(co)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(k_total) * kElem};
+  const cuuint32_t wbox[2] = {kChunk, static_cast<cuuint32_t>(bn)};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (tiled(wmap, dtype, 2, const_cast<void*>(w), wdims, wstrides, wbox,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return kErrTensorMap;
+  const cuuint64_t xdims[4] = {
+      static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(width),
+      static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t xstrides[3] = {
+      static_cast<cuuint64_t>(cin) * kElem,
+      static_cast<cuuint64_t>(cin) * kElem * width,
+      static_cast<cuuint64_t>(cin) * kElem * width * h};
+  const int pad = ks / 2;
+  const int lower[2] = {-pad, -pad};
+  const int upper[2] = {pad - (ks - 1), pad - (ks - 1)};
+  if (im2col(xmap, dtype, 4, const_cast<void*>(x), xdims, xstrides, lower,
+             upper, kChunk, static_cast<cuuint32_t>(bm), ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return kErrTensorMap;
+  return 0;
+}
+
+// The conv kernel of an output type.
 template <int BM, int BN, int STAGES>
-int launch_bf16(const void* x, const void* w, const void* bias, void* out,
-                void* ws, int batch, int h, int width, int cin, int co,
-                int ks, int leaky, int splits, cudaStream_t st) {
+auto body(__nv_bfloat16*) {
+  return conv_bf16_kernel<BM, BN, STAGES>;
+}
+
+template <int BM, int BN, int STAGES>
+auto body(float*) {
+  return conv_f32_kernel<BM, BN, STAGES>;
+}
+
+// One conv in element type T (bf16: conv_bf16_kernel, fp32:
+// conv_f32_kernel) on BM x BN tiles, then, with splits > 1, the reduction
+// of the partial sums into T.
+template <typename T, int BM, int BN, int STAGES>
+int launch(const void* x, const void* w, const void* bias, void* out,
+           void* ws, int batch, int h, int width, int cin, int co, int ks,
+           int leaky, int splits, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kSmem = ring_bytes<BM, BN, STAGES>();
-  auto kernel = conv_bf16_kernel<BM, BN, STAGES>;
+  constexpr int kBlock = kF32 ? (BM / 8) * (BN / 8) : BM * 2;
+  const auto kernel = body<BM, BN, STAGES>(static_cast<T*>(nullptr));
   // above 48 KB of dynamic shared memory only on request: once per device
   static std::atomic<unsigned long long> allowed{0};
   int dev = 0;
@@ -562,60 +736,25 @@ int launch_bf16(const void* x, const void* w, const void* bias, void* out,
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed.fetch_or(1ull << dev);
   }
-
-  const EncodeTiledFn tiled = encode_tiled();
-  const EncodeIm2colFn im2col = encode_im2col();
-  if (tiled == nullptr || im2col == nullptr) return kErrEntryPoint;
-  // weights: a row-major (CO, K) matrix, a (BN x 64) box per chunk
-  const int k_total = ks * ks * cin;
-  CUtensorMap wmap;
-  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(k_total),
-                               static_cast<cuuint64_t>(co)};
-  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(k_total) * 2};
-  const cuuint32_t wbox[2] = {kBK, BN};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (tiled(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-            wdims, wstrides, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return kErrTensorMap;
-  // activations: NHWC in im2col mode, BM pixels x 64 channels per chunk.
-  // A pixel's window corner runs over [-pad, W - 1 - pad] (the bounding
-  // box's corners: -pad from the top left, pad - (ks - 1) from the bottom
-  // right), and a tap outside the image reads zeros
-  CUtensorMap xmap;
-  const cuuint64_t xdims[4] = {
-      static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(width),
-      static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t xstrides[3] = {
-      static_cast<cuuint64_t>(cin) * 2,
-      static_cast<cuuint64_t>(cin) * 2 * width,
-      static_cast<cuuint64_t>(cin) * 2 * width * h};
-  const int pad = ks / 2;
-  const int lower[2] = {-pad, -pad};
-  const int upper[2] = {pad - (ks - 1), pad - (ks - 1)};
-  if (im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(x), xdims, xstrides, lower, upper, kBK, BM,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return kErrTensorMap;
+  CUtensorMap xmap, wmap;
+  const int bad = encode_maps<T>(&xmap, &wmap, x, w, BM, BN, batch, h, width,
+                                 cin, co, ks);
+  if (bad != 0) return bad;
 
   const long long m_total = (long long)batch * h * width;
   const dim3 grid(static_cast<unsigned>((m_total + BM - 1) / BM), co / BN,
                   splits);
-  kernel<<<grid, BM * 2, kSmem, st>>>(
-      xmap, wmap, static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), batch, h,
-      width, cin, co, ks, leaky, splits);
+  kernel<<<grid, kBlock, kSmem, st>>>(
+      xmap, wmap, static_cast<const float*>(bias), static_cast<T*>(out),
+      static_cast<float*>(ws), batch, h, width, cin, co, ks, leaky, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long mn = m_total * co;
   const long long want = (mn / 4 + kThreads - 1) / kThreads;
   const unsigned blocks = static_cast<unsigned>(want < 4096 ? want : 4096);
-  conv_splitk_reduce_kernel<<<blocks, kThreads, 0, st>>>(
+  conv_splitk_reduce_kernel<T><<<blocks, kThreads, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), mn, co, splits, leaky);
+      static_cast<T*>(out), mn, co, splits, leaky);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -627,45 +766,47 @@ int launch_bf16(const void* x, const void* w, const void* bias, void* out,
 // batch * h * w >= 1), the dtypes, the layouts and 16-byte alignment, and
 // allocates `out`. bf16 != 0: x, w and out are bf16; else fp32.
 // The plan (ops/cuda/conv_kernel.py::plan) is checked here: bf16 takes
-// (bm, bn) = (192, 256), (128, 256), (128, 128) or (64, 128) with
-// co % bn == 0 and 1 <= splits <= ks*ks*cin/64, and with splits > 1 a
-// workspace of splits * batch*h*w * co floats; fp32 takes (64, 64) and 1
-// split.
+// (bm, bn) = (192, 256), (128, 256), (128, 128) or (64, 128), fp32 takes
+// (128, 128) or (64, 128); both with co % bn == 0 and 1 <= splits <= the
+// K chunks (ks*ks*cin/64 in bf16, /32 in fp32), and with splits > 1 a
+// workspace of splits * batch*h*w * co floats.
 extern "C" int yolo_conv_bias_act(const void* x, const void* w,
                                   const void* bias, void* out, void* ws,
                                   int batch, int h, int width, int cin, int co,
                                   int ks, int leaky, int bf16, int bm, int bn,
                                   int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16) {
-    if (bm != kFM || bn != kFN || splits != 1) return kErrPlan;
-    const long long m_total = (long long)batch * h * width;
-    const dim3 grid(static_cast<unsigned>((m_total + kFM - 1) / kFM),
-                    co / kFN);
-    conv_f32_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(out), batch, h,
-        width, cin, co, ks, leaky);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int steps = ks * ks * cin / kBK;
+  const int steps = ks * ks * cin / (bf16 ? kBK : kFBK);
   if (bn <= 0 || co % bn != 0 || splits < 1 || splits > steps ||
       (splits > 1 && ws == nullptr))
     return kErrPlan;
+  if (!bf16) {
+    // 132,160 bytes of ring (4 stages) at 128x128: one block per SM, held
+    // there by its registers (184 a thread); 74,800 (3 stages) at 64x128:
+    // three blocks per SM, 12 warps, at most 168 registers a thread
+    if (bm == 128 && bn == 128)
+      return launch<float, 128, 128, 4>(x, w, bias, out, ws, batch, h, width,
+                                        cin, co, ks, leaky, splits, st);
+    if (bm == 64 && bn == 128)
+      return launch<float, 64, 128, 3>(x, w, bias, out, ws, batch, h, width,
+                                       cin, co, ks, leaky, splits, st);
+    return kErrPlan;
+  }
   // each ring fills most of the 227 KB a block may use: 230,464 bytes at
   // 192x256, 197,696 at 128x256, 197,728 at 128x128, and 99,392 at 64x128
   // (two blocks per SM)
+  using bf = __nv_bfloat16;
   if (bm == 192 && bn == 256)
-    return launch_bf16<192, 256, 4>(x, w, bias, out, ws, batch, h, width, cin,
-                                    co, ks, leaky, splits, st);
-  if (bm == 128 && bn == 256)
-    return launch_bf16<128, 256, 4>(x, w, bias, out, ws, batch, h, width, cin,
-                                    co, ks, leaky, splits, st);
-  if (bm == 128 && bn == 128)
-    return launch_bf16<128, 128, 6>(x, w, bias, out, ws, batch, h, width, cin,
-                                    co, ks, leaky, splits, st);
-  if (bm == 64 && bn == 128)
-    return launch_bf16<64, 128, 4>(x, w, bias, out, ws, batch, h, width, cin,
+    return launch<bf, 192, 256, 4>(x, w, bias, out, ws, batch, h, width, cin,
                                    co, ks, leaky, splits, st);
+  if (bm == 128 && bn == 256)
+    return launch<bf, 128, 256, 4>(x, w, bias, out, ws, batch, h, width, cin,
+                                   co, ks, leaky, splits, st);
+  if (bm == 128 && bn == 128)
+    return launch<bf, 128, 128, 6>(x, w, bias, out, ws, batch, h, width, cin,
+                                   co, ks, leaky, splits, st);
+  if (bm == 64 && bn == 128)
+    return launch<bf, 64, 128, 4>(x, w, bias, out, ws, batch, h, width, cin,
+                                  co, ks, leaky, splits, st);
   return kErrPlan;
 }

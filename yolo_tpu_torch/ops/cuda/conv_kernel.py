@@ -1,5 +1,6 @@
 """Fused conv + bias + leaky/linear block: wrapper of
-``csrc/conv_bias_act.cu``, and the launch plan of its bf16 kernel.
+``csrc/conv_bias_act.cu``, and the launch plan of its bf16 and fp32
+bodies.
 
 The CUDA kernel replaces the Pallas TPU kernel
 ``yolo_tpu/ops/pallas/conv_kernel.py::fused_conv_bias_act``. Its plain
@@ -26,31 +27,36 @@ launches = 0
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
 BK = 64            # K chunk of the bf16 kernel: one 128-byte swizzle row
-# (BM, BN) tiles the bf16 kernel is built for, and how many of its blocks
-# fit on one SM (the rings' shared memory: 225, 193, 193 and 97 KB)
+F32_BK = 32        # K chunk of the fp32 kernel: the same 128-byte row
+# (BM, BN) tiles each body is built for, and how many of its blocks fit
+# on one SM: bf16 by the rings' shared memory (225, 193, 193 and 97 KB);
+# fp32 by registers (an 8x8 FFMA block a thread: one 256-thread 128x128
+# block) or, at 64x128, by its three-stage 73 KB ring (three blocks)
 TILES = {(192, 256): 1, (128, 256): 1, (128, 128): 1, (64, 128): 2}
-F32_TILE = (64, 64)
+F32_TILES = {(128, 128): 1, (64, 128): 3}
 
 # A cost model in microseconds that only ranks the candidate plans, fitted
-# to the kernel's times at YOLOv2-COCO's shapes on an H100 80GB HBM3
+# to the kernels' times at YOLOv2-COCO's shapes on an H100 80GB HBM3
 # (700 W; tools/port_perf.py tiles times every tile there): the SM time
 # of one K chunk of a block with the SM full (13x13 1280 -> 1024 at batch
 # 32), a block's fixed cost (the ring's fill and the epilogue: ~2 us +
-# 0.06 us per KB of bf16 output tile), and a split's reduction (a launch
-# and its fp32 traffic at 3.35 TB/s).
+# 0.06 us per KB of output tile), and a split's reduction (a launch and
+# its fp32 traffic at 3.35 TB/s). An SM runs as many blocks at once as
+# the wave gives it, up to the tile's blocks per SM.
 _CHUNK_US = {(192, 256): 0.95, (128, 256): 0.65, (128, 128): 0.51,
              (64, 128): 0.284}
+_F32_CHUNK_US = {(128, 128): 3.2, (64, 128): 1.45}
 _REDUCE_LAUNCH_US = 3.0
 
 
-def _block_us(bm: int, bn: int) -> float:
-    return 2.0 + 0.06 * bm * bn * 2 / 1024
+def _block_us(bm: int, bn: int, elem_bytes: int) -> float:
+    return 2.0 + 0.06 * bm * bn * elem_bytes / 1024
 
 
 class Plan(NamedTuple):
     """How the conv kernel covers one call: BM x BN output tiles, K cut
-    into ``splits`` runs of whole BK chunks, and the fp32 workspace the
-    partial sums need (0 without a split)."""
+    into ``splits`` runs of whole K chunks (BK in bf16, F32_BK in fp32),
+    and the fp32 workspace the partial sums need (0 without a split)."""
     bm: int
     bn: int
     splits: int
@@ -68,12 +74,25 @@ def _tiles(m: int, co: int, bm: int, bn: int) -> int:
     return math.ceil(m / bm) * (co // bn)
 
 
-def _cost(m: int, co: int, steps: int, bm: int, bn: int, splits: int):
+def chunk(bf16: bool) -> int:
+    """The K chunk of the bf16 or the fp32 body, in elements."""
+    return BK if bf16 else F32_BK
+
+
+def tiles(bf16: bool) -> dict:
+    """{(BM, BN): blocks per SM} of the bf16 or the fp32 body."""
+    return TILES if bf16 else F32_TILES
+
+
+def _cost(m: int, co: int, steps: int, bm: int, bn: int, splits: int,
+          bf16: bool):
     blocks = _tiles(m, co, bm, bn) * splits
-    resident = TILES[(bm, bn)]
+    resident = tiles(bf16)[(bm, bn)]
+    chunk_us = (_CHUNK_US if bf16 else _F32_CHUNK_US)[(bm, bn)]
     waves = math.ceil(blocks / (SMS * resident))
-    cost = waves * resident * (math.ceil(steps / splits)
-                               * _CHUNK_US[(bm, bn)] + _block_us(bm, bn))
+    sharing = min(resident, math.ceil(blocks / SMS))  # blocks on one SM
+    cost = waves * sharing * (math.ceil(steps / splits) * chunk_us
+                              + _block_us(bm, bn, 2 if bf16 else 4))
     if splits > 1:
         cost += _REDUCE_LAUNCH_US + (2 * splits + 1) * m * co * 4 / 3.35e6
     return cost
@@ -83,17 +102,15 @@ def _cost(m: int, co: int, steps: int, bm: int, bn: int, splits: int):
 def plan(batch: int, h: int, w: int, cin: int, co: int, ks: int,
          bf16: bool = True) -> Plan:
     """The launch plan of one conv (shapes as ``ops.conv.eligible`` takes
-    them). fp32 runs its one 64x64 tile shape, unsplit. bf16: where some
-    tile shape fills the card (>= SMS tiles) there is no split; else each
-    tile shape splits K until tiles x splits fill it. The cost model
+    them), for the bf16 or the fp32 body, each from its own tiles: where
+    some tile shape fills the card (>= SMS tiles) there is no split; else
+    each tile shape splits K until tiles x splits fill it. The cost model
     picks among the tile shapes, and among the splits that fill the card
     where there are some. Cached: a forward asks for the same few shapes
     on every call."""
     m = batch * h * w
-    steps = ks * ks * cin // BK
-    if not bf16:
-        return Plan(*F32_TILE, 1, 0)
-    shapes = [t for t in TILES if co % t[1] == 0]
+    steps = ks * ks * cin // chunk(bf16)
+    shapes = [t for t in tiles(bf16) if co % t[1] == 0]
     if any(_tiles(m, co, bm, bn) >= SMS for bm, bn in shapes):
         cands = [(bm, bn, 1) for bm, bn in shapes]
     else:
@@ -101,7 +118,7 @@ def plan(batch: int, h: int, w: int, cin: int, co: int, ks: int,
                  for bm, bn in shapes]
         filling = [c for c in cands if _tiles(m, co, *c[:2]) * c[2] >= SMS]
         cands = filling or cands
-    bm, bn, splits = min(cands, key=lambda c: _cost(m, co, steps, *c))
+    bm, bn, splits = min(cands, key=lambda c: _cost(m, co, steps, *c, bf16))
     return Plan(bm, bn, splits, workspace_bytes(m, co, splits))
 
 
