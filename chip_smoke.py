@@ -46,6 +46,35 @@ JSON lines; any failed check raises and the script exits non-zero:
               beside the default route at batch 1/32/128 in bf16, and the
               default and conv_impl="cuda" routes in fp32 at batch 1/32
 
+  10. train   YOLOv2-VOC 416 (full width and depth) fine-tuned from a
+              seeded darknet19 backbone partial file (load_partial, the
+              tail random_params(scale=0.03)) on seeded synthetic VOC
+              scenes (data/synthetic.py: PNG + VOC XML), yolov2-voc.cfg's
+              [net] schedule and augmentation: (a) one fp32 step on the
+              card equals the same step on the CPU made to take the
+              card's discrete choices (HeldChoices), its convs in
+              float64 (float64_convs): loss parts to a relative 1e-4,
+              every trained tensor's update within STEP_BOUND and every
+              rolling BN statistic's within STAT_BOUND, relative L2; the
+              same step with TF32 on exceeds both bounds; (b) 20
+              steps through train_batches -> DevicePrefetcher at batch
+              64, fp32 and bf16, every loss part finite, step times from
+              CUDA events in the loop and alone (ALONE_STEPS more on the
+              last batch); (c) one step at grad_accum=8; (d) Adam
+              overfits 8 fixed scenes: the loss and its coord and class
+              parts fall below OVERFIT_FRACTION of their first values
+  11. eval    quick_map on held-out scenes from the overfit state; the
+              card's collect_detections and the CPU's on the held-out
+              scenes, from the overfit state and from its snapshot after
+              EARLY_STEPS (which keeps >= MIN_EVAL_BOXES detections
+              there), agree at box level (every detection scoring >=
+              conf + MARGIN has a same-class partner at VOC IoU >=
+              MATCH_IOU, both ways) and in mAP to a relative MAP_REL;
+              the NMS kernel ran on the eval path, and holds against its
+              plain version on the eval grid (B*20, 5, 128) at conf
+              0.005 that the path gave it; eval img/s; the overfit
+              model's mAP on its own scenes above the untrained model's
+
 Tolerances of phases 6-7, kernel vs plain on the same inputs:
   * fp32: 1e-5 of the output's scale (max |plain|). Both sides form
     true fp32 products (the plain versions turn TF32 off) and sum them
@@ -69,8 +98,11 @@ Then the kernels line, the nvidia-smi line and, last, the device line
 when CUDA is not available.
 """
 
+import contextlib
+import dataclasses
 import http.client
 import io
+import itertools
 import json
 import os
 import re
@@ -86,15 +118,26 @@ import torch
 import torch.nn.functional as F
 
 import yolo_tpu_torch
-from yolo_tpu_torch.configs import get_variant
+from yolo_tpu_torch.configs import VOC_NAMES, get_variant
 from yolo_tpu_torch.configs.specs import (Conv, MaxPool, Reorg,
-                                          resolve_route)
+                                          resolve_route, weighted_specs)
+from yolo_tpu_torch.data.augment import AugmentConfig
+from yolo_tpu_torch.data.pipeline import DevicePrefetcher, train_batches
+from yolo_tpu_torch.data.synthetic import write_voc_scenes
+from yolo_tpu_torch.eval.runner import (build_ground_truth,
+                                        collect_detections, quick_map)
+from yolo_tpu_torch.eval.voc_map import _iou_xyxy_voc, evaluate
 from yolo_tpu_torch.io import darknet_weights as dw
+from yolo_tpu_torch.models import graph
+from yolo_tpu_torch.models.graph import fold_params
 from yolo_tpu_torch.models.predict import detect_raw, make_detector
 from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
+                                       init_state, make_train_step)
+from yolo_tpu_torch.train.loss import region_loss_config
 
 SEED = 0
 VARIANT = "coco"          # YOLOv2-COCO, 416x416, 80 classes, 5 anchors
@@ -126,6 +169,52 @@ ROUTE_CONVS = 16         # YOLOv2-COCO convs with CIN, CO % 128 == 0
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 NMS_PAIR_FLOP = 13        # one IoU and its test (nms_suppress.cu)
+
+# phases 10-11: fine-tuning YOLOv2-VOC 416 and its VOC mAP
+TRAIN_VARIANT = "voc"     # yolov2-voc.cfg: 20 classes, 5 anchors
+# synthetic VOC scenes: source sizes of VOC images, train and held out
+SCENE_HW = ((375, 500), (500, 333), (480, 640))
+TRAIN_SCENES, HELD_OUT_SCENES = 64, 32
+BACKBONE_LAYERS = 23      # darknet19_448.conv.23: layers 0-22, 18 convs
+# yolov2-voc.cfg [net]: batch 64, subdivisions 8, the steps policy
+TRAIN_BATCH, SUBDIVISIONS = 64, 8
+NET_SCHEDULE = dict(learning_rate=0.001, momentum=0.9, weight_decay=0.0005,
+                    burn_in_steps=1000, lr_decay_steps=(40000, 60000),
+                    lr_decay_scales=(0.1, 0.1))
+NET_AUGMENT = AugmentConfig(jitter=0.3, hue=0.1, saturation=1.5,
+                            exposure=1.5, flip=True)
+TRAIN_STEPS = 20          # per precision, through the prefetcher
+ALONE_STEPS = 5           # then timed on the last batch, no pipeline
+PIPELINE_WORKERS = 8      # the card machine's cores
+CHECK_BATCH = 2           # (a): the card's step against the CPU's
+# (a), per tensor ||update - CPU update|| / ||CPU update||, the largest
+# over the trained tensors (kernel, gamma, beta, bias) and over the
+# rolling statistics. The CPU's step takes the card's discrete choices:
+# on its own, a leaky pre-activation within rounding of zero or a
+# max-pool near-tie (the scenes' flat rectangles) goes the other way,
+# and one such flip moves the update of every conv below it by ~1e-3.
+# Its convs run in float64: the CPU's fp32 weight gradient of conv 0
+# (3 channels summed over 2x416x416 positions) lies 2.2e-3 from float64,
+# cuDNN's 3.3e-5 (tools/port_perf.py stepcheck on an H100 machine).
+# On an H100 the largest errors read 8.5e-5 (update) and 8.7e-6
+# (statistics), and with TF32 on 1.6e-2 and 2.6e-3
+STEP_BOUND, STAT_BOUND = 5e-4, 1e-4
+# (d) and phase 11: quick_map folds the rolling BN statistics, which at
+# momentum 0.99 trail the batch statistics by ~100 steps; after 60 steps
+# the overfit model scored 0.0 mAP on its own scenes (on an H100), so
+# the overfit runs 300
+OVERFIT_SCENES, OVERFIT_STEPS = 8, 300
+# (d): the last loss, and its coord and class parts (the noobj part
+# dominates the first loss), below OVERFIT_FRACTION of their first
+# values (on an H100: 0.006-0.021 after 60 steps, below 3e-4 after 300)
+OVERFIT_FRACTION = 0.1
+EVAL_CONF = 0.005         # the PR-curve threshold of collect_detections
+EVAL_BATCH = 16           # quick_map's batch
+# phase 11, card against CPU: the overfit state keeps few detections on
+# held-out scenes (9-27 >= 0.055 on an H100), so the comparison also
+# runs from the overfit's snapshot after EARLY_STEPS (1394-1803 there),
+# and needs MIN_EVAL_BOXES of them; mAP to a relative MAP_REL
+EARLY_STEPS, MIN_EVAL_BOXES, MAP_REL = 60, 500, 1e-3
 
 
 def emit(obj) -> None:
@@ -767,6 +856,427 @@ def phase_route_times(model, model32, card) -> None:
                       "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
 
 
+def fine_tune_init(cfg, root: str) -> list:
+    """The fine-tuning start (the JAX package's train command): a seeded
+    darknet19 backbone written as a darknet partial file of the first
+    BACKBONE_LAYERS layers, read back with load_partial, and the tail
+    from random_params(scale=0.03)."""
+    n_backbone = len(weighted_specs(cfg.layers[:BACKBONE_LAYERS]))
+    path = os.path.join(root, "darknet19_448.conv.23")
+    dw.save(path, cfg.layers[:BACKBONE_LAYERS],
+            dw.synthetic_detector_params(cfg, SEED)[:n_backbone])
+    params, header, n = dw.load_partial(path, cfg.layers)
+    check(n == n_backbone == 18, f"load_partial read {n} convs, want 18")
+    fresh = dw.random_params(cfg.layers, np.random.default_rng(SEED + 2),
+                             scale=0.03, input_channels=cfg.in_channels)
+    return params + fresh[n:]
+
+
+def host_batches(cfg, pairs, batch, seed, epochs=1, **kw):
+    """train_batches over ``epochs`` passes of pairs, one generator."""
+    rng = np.random.default_rng(seed)
+    return itertools.chain.from_iterable(
+        train_batches(pairs, class_names=cfg.class_names,
+                      anchors=cfg.anchors, num_classes=cfg.num_classes,
+                      net_size=cfg.input_hw, batch_size=batch, rng=rng,
+                      workers=PIPELINE_WORKERS, **kw)
+        for _ in range(epochs))
+
+
+def finite_metrics(metrics, what: str) -> dict:
+    out = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in out.values()),
+          f"{what}: non-finite loss parts {out}")
+    return out
+
+
+def update_err(before, after, ref, keys) -> tuple:
+    """(largest, conv and name) of ||update - reference update|| /
+    ||reference update|| over the tensors named keys of every conv, the
+    updates taken from before (float64 L2 norms)."""
+    errs = []
+    for i, (p0, pa, pb) in enumerate(zip(before, after, ref, strict=True)):
+        for key in sorted(keys & p0.keys()):
+            da = pa[key].astype(np.float64) - p0[key]
+            db = pb[key].astype(np.float64) - p0[key]
+            errs.append((float(np.linalg.norm(da - db)
+                               / max(np.linalg.norm(db), 1e-30)),
+                         f"{i}.{key}"))
+    return max(errs)
+
+
+class HeldChoices:
+    """The discrete choices of DarknetTrain's forward: each leaky unit's
+    side of zero and each 2x2/2 max-pool window's argmax. Under record()
+    a step runs as usual and its choices are kept; under replay()
+    another step takes the kept choices, moved to its device, whatever
+    its own values say, and counts where its own would differ (flips).
+    Two steps that take the same choices differ by fp32 rounding alone.
+    Swaps F.leaky_relu and graph.maxpool_nchw while active."""
+
+    def __init__(self):
+        self.signs, self.argmax = [], []
+        self.flips = {"leaky": 0, "pool": 0}
+
+    @contextlib.contextmanager
+    def _swapped(self, leaky, pool):
+        saved = F.leaky_relu, graph.maxpool_nchw
+        F.leaky_relu, graph.maxpool_nchw = leaky, pool
+        try:
+            yield
+        finally:
+            F.leaky_relu, graph.maxpool_nchw = saved
+
+    @staticmethod
+    def _argmax(x, size, stride):
+        check(size == stride == 2 and x.shape[-1] % 2 == 0
+              and x.shape[-2] % 2 == 0, f"held pool {size}/{stride} on "
+              f"{tuple(x.shape)}")
+        return F.max_pool2d_with_indices(x, size, stride)
+
+    def record(self):
+        leaky_relu = F.leaky_relu
+
+        def leaky(x, slope):
+            self.signs.append((x > 0).detach())
+            return leaky_relu(x, slope)
+
+        def pool(x, size, stride):
+            y, idx = self._argmax(x, size, stride)
+            self.argmax.append(idx)
+            return y
+        return self._swapped(leaky, pool)
+
+    def replay(self):
+        signs, argmax = iter(self.signs), iter(self.argmax)
+
+        def leaky(x, slope):
+            held = next(signs).to(x.device)
+            self.flips["leaky"] += int(((x > 0) != held).sum())
+            return torch.where(held, x, x * slope)
+
+        def pool(x, size, stride):
+            held = next(argmax).to(x.device)
+            self.flips["pool"] += int(
+                (self._argmax(x.detach(), size, stride)[1] != held).sum())
+            return x.flatten(2).gather(2, held.flatten(2)).view(held.shape)
+        return self._swapped(leaky, pool)
+
+
+@contextlib.contextmanager
+def float64_convs():
+    """Every F.conv2d in float64, its output (and through autograd its
+    gradients) rounded to the caller's dtype once: a reference whose
+    convs are exact to that rounding."""
+    conv2d = F.conv2d
+
+    def conv(x, w, *args, **kw):
+        return conv2d(x.double(), w.double(), *args, **kw).to(x.dtype)
+    F.conv2d = conv
+    try:
+        yield
+    finally:
+        F.conv2d = conv2d
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """fp32 convs in TF32, as cuDNN runs them by default: the port's
+    precision.exact_for turns TF32 off, and here it does nothing."""
+    saved = precision.no_tf32, torch.backends.cudnn.allow_tf32
+    precision.no_tf32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        precision.no_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
+    """Phase 10; returns (Adam-overfit train state, its scenes, its
+    params after EARLY_STEPS)."""
+    # (a) one fp32 step, card against CPU, on the same batch of 2, past
+    # the burn-in ramp so that the update is the cfg's lr 0.001. The
+    # CPU's step (float64 convs) replays the card's choices; its step on
+    # its own choices shows what the flips alone move; and the card's
+    # step with TF32 on, against the CPU's step on that step's choices,
+    # must fail the bounds
+    host = next(host_batches(cfg, pairs[:CHECK_BATCH], CHECK_BATCH, SEED,
+                             shuffle=False, augment_cfg=NET_AUGMENT))
+
+    def step_on(dev, name):
+        state = init_state(cfg, params, tcfg, device=dev)
+        state.step = tcfg.burn_in_steps
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        m = finite_metrics(make_train_step(cfg, tcfg)(state, batch),
+                           f"step on {name}")
+        return state.net.to_numpy(), m
+
+    exact, loose = HeldChoices(), HeldChoices()
+    with exact.record():
+        gpu, m_gpu = step_on("cuda", "cuda")
+    with tf32_on(), loose.record():
+        gpu_tf32, _ = step_on("cuda", "cuda, TF32 on")
+    with float64_convs():
+        with exact.replay():
+            cpu, m_cpu = step_on("cpu", "cpu")
+        with loose.replay():
+            cpu_tf32, _ = step_on("cpu", "cpu, TF32 choices")
+        cpu_own, _ = step_on("cpu", "cpu, own choices")
+    loss_rel = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                   for k in m_cpu)
+    trained, stats = {"kernel", "gamma", "beta", "bias"}, {"mean", "var"}
+    err = update_err(params, gpu, cpu, trained)
+    stat_err = update_err(params, gpu, cpu, stats)
+    tf32_err = update_err(params, gpu_tf32, cpu_tf32, trained)
+    tf32_stat_err = update_err(params, gpu_tf32, cpu_tf32, stats)
+    own_err = update_err(params, cpu_own, cpu, trained)
+    emit({"phase": "train", "check": "card_vs_cpu_step", "batch":
+          CHECK_BATCH, "loss_parts_cuda": m_gpu, "loss_parts_cpu": m_cpu,
+          "loss_max_rel_err": loss_rel, "update_rel_err": err,
+          "bn_stat_update_rel_err": stat_err, "card_flips": exact.flips,
+          "tf32_update_rel_err": tf32_err,
+          "tf32_bn_stat_update_rel_err": tf32_stat_err,
+          "tf32_flips": loose.flips, "cpu_own_choices_update_rel_err":
+          own_err, "bounds": {"loss": 1e-4, "update": STEP_BOUND,
+                              "bn_stat_update": STAT_BOUND}})
+    check(loss_rel <= 1e-4, f"card vs CPU loss parts differ by {loss_rel}")
+    check(err[0] <= STEP_BOUND, f"card vs CPU updates differ by {err}")
+    check(stat_err[0] <= STAT_BOUND, f"card vs CPU BN statistic updates "
+          f"differ by {stat_err}")
+    check(tf32_err[0] > STEP_BOUND and tf32_stat_err[0] > STAT_BOUND,
+          f"the bounds do not catch a step in TF32: {tf32_err}, "
+          f"{tf32_stat_err}")
+    del gpu, gpu_tf32, cpu, cpu_tf32, cpu_own, exact, loose
+
+    # (b) TRAIN_STEPS steps a precision through the prefetcher; (c) one
+    # step at the cfg's subdivisions on the last batch
+    last = None
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        state = init_state(cfg, params, tcfg)
+        step = make_train_step(cfg, tcfg, compute_dtype=dtype)
+        epochs = -(-TRAIN_STEPS * TRAIN_BATCH // len(pairs))
+        events, metrics = [], []
+        t0 = time.perf_counter()
+        with DevicePrefetcher(host_batches(cfg, pairs, TRAIN_BATCH,
+                                           SEED + 3, epochs=epochs,
+                                           augment_cfg=NET_AUGMENT),
+                              depth=2) as staged:
+            for last in itertools.islice(staged, TRAIN_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics.append(step(state, last))
+                end.record()
+                events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(metrics) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+              f"{name}: {len(metrics)} steps ran")
+        parts = [finite_metrics(m, f"{name} step {i}")
+                 for i, m in enumerate(metrics)]
+        in_loop = [s.elapsed_time(e) for s, e in events]
+        # the step alone, on the last batch: inside the loop the pipeline's
+        # threads hold the interpreter lock between the step's launches,
+        # and the events time those gaps too
+        alone = []
+        for _ in range(ALONE_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, last)
+            end.record()
+            alone.append((start, end))
+        torch.cuda.synchronize()
+        ms = statistics.median(s.elapsed_time(e) for s, e in alone)
+        emit({"phase": "train", "check": "steps", "precision": name,
+              "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+              "first_loss": parts[0], "last_loss": parts[-1],
+              "step_ms": ms, "img_per_s": TRAIN_BATCH * 1000 / ms,
+              "in_loop_step_ms_median": statistics.median(in_loop),
+              "in_loop_step_ms_min": min(in_loop),
+              "in_loop_step_ms_max": max(in_loop),
+              "loop_img_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "card": card})
+        del state
+    tcfg8 = dataclasses.replace(tcfg, grad_accum=SUBDIVISIONS)
+    state = init_state(cfg, params, tcfg8)
+    m = finite_metrics(make_train_step(cfg, tcfg8)(state, last),
+                       "grad_accum step")
+    emit({"phase": "train", "check": "grad_accum", "grad_accum":
+          SUBDIVISIONS, "batch": TRAIN_BATCH, "loss": m})
+    del state, last
+
+    # (d) Adam overfits a few fixed scenes, no augmentation, no burn-in
+    scenes = pairs[:OVERFIT_SCENES]
+    with DevicePrefetcher(host_batches(cfg, scenes, OVERFIT_SCENES, SEED,
+                                       shuffle=False)) as staged:
+        batch = next(iter(staged))
+    ocfg = TrainConfig(optimizer="adam", learning_rate=1e-3,
+                       weight_decay=0.0005, loss=tcfg.loss)
+    state = init_state(cfg, params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    losses = []
+    for i in range(OVERFIT_STEPS):
+        losses.append(finite_metrics(step(state, batch), f"overfit step {i}"))
+        if i + 1 == EARLY_STEPS:
+            early = ema_params_of(state)
+    first, last = losses[0], losses[-1]
+    emit({"phase": "train", "check": "overfit", "scenes": OVERFIT_SCENES,
+          "steps": OVERFIT_STEPS, "first_loss": first, "last_loss": last,
+          "ratio": {k: last[k] / first[k] for k in first},
+          "fraction": OVERFIT_FRACTION,
+          "loss_every_50": [m["loss"] for m in losses[::50]]})
+    check(all(last[k] < OVERFIT_FRACTION * first[k]
+              for k in ("loss", "coord", "class")),
+          f"overfit loss {first} -> {last}")
+    return state, scenes, early
+
+
+def agreement(a: dict, b: dict, conf: float) -> tuple:
+    """(matched, total) over a's detections scoring >= conf + MARGIN:
+    matched when b's same image holds a same-class box with IoU >=
+    MATCH_IOU, the VOC devkit's +1 pixel IoU, under which a box clipped
+    to a line on the image's edge still matches itself."""
+    hit = tot = 0
+    for img_id, dets in a.items():
+        boxes = np.array([o for _, _, *o in b[img_id]],
+                         np.float64).reshape(-1, 4)
+        classes = np.array([c for c, *_ in b[img_id]])
+        for cls, score, *box in dets:
+            if score < conf + MARGIN:
+                continue
+            same = boxes[classes == cls]
+            tot += 1
+            hit += bool(len(same) and (_iou_xyxy_voc(
+                np.asarray(box, np.float64), same) >= MATCH_IOU).any())
+    return hit, tot
+
+
+def card_vs_cpu_eval(cfg, folded, samples, gt, what: str,
+                     min_boxes: int) -> dict:
+    """collect_detections on the card and on the CPU from the same
+    folded params: every detection scoring >= EVAL_CONF + MARGIN matched
+    both ways, at least min_boxes of them, and mAP to a relative
+    MAP_REL."""
+    dets = {dev: collect_detections(cfg, folded, samples, batch=EVAL_BATCH,
+                                    eval_conf=EVAL_CONF, device=dev)
+            for dev in ("cuda", "cpu")}
+    maps = {dev: evaluate(d, gt, cfg.num_classes)["map"]
+            for dev, d in dets.items()}
+    out = {"map_cuda": maps["cuda"], "map_cpu": maps["cpu"]}
+    for name, (x, y) in (("cuda_in_cpu", ("cuda", "cpu")),
+                         ("cpu_in_cuda", ("cpu", "cuda"))):
+        hit, tot = agreement(dets[x], dets[y], EVAL_CONF)
+        out[name] = [hit, tot]
+        check(tot >= min_boxes and hit == tot, f"eval {what} {name}: "
+              f"{hit}/{tot} detections >= {EVAL_CONF + MARGIN} matched, "
+              f"want all of at least {min_boxes}")
+    check(abs(maps["cuda"] - maps["cpu"]) <= MAP_REL * abs(maps["cpu"]),
+          f"eval {what}: mAP card {maps['cuda']} vs CPU {maps['cpu']}")
+    return out
+
+
+def phase_eval(cfg, state, params, early, held_out, scenes, card) -> tuple:
+    """Phase 11; returns (NMS launches on the eval path, eval-grid
+    suppress times)."""
+    trained = ema_params_of(state)
+    folded = fold_params(cfg.layers, trained, cfg.bn_eps)
+    gt, _ = build_ground_truth(held_out, cfg.class_names)
+    collect_detections(cfg, folded, held_out[:EVAL_BATCH], batch=EVAL_BATCH)
+    torch.cuda.synchronize()   # warm: cuDNN's algorithm choice
+
+    nms_kernel.launches = 0
+    t0 = time.perf_counter()
+    map_quick = quick_map(cfg, trained, held_out, batch=EVAL_BATCH,
+                          eval_conf=EVAL_CONF)
+    wall = time.perf_counter() - t0
+    launches = nms_kernel.launches
+    n_batches = -(-len(held_out) // EVAL_BATCH)
+    check(launches == n_batches, f"the eval path launched the NMS kernel "
+          f"{launches} times for {n_batches} batches")
+
+    # the suppress inputs the eval path hands the kernel, captured
+    got = []
+    kernel = nms_kernel.suppress
+
+    def capture(geom, scores, classes, *, conf_threshold, iou_threshold):
+        got.append((geom.clone(), scores.clone(), classes.clone(),
+                    conf_threshold, iou_threshold))
+        return kernel(geom, scores, classes, conf_threshold=conf_threshold,
+                      iou_threshold=iou_threshold)
+
+    nms_kernel.suppress = capture
+    try:
+        t0 = time.perf_counter()
+        collect_detections(cfg, folded, held_out, batch=EVAL_BATCH,
+                           eval_conf=EVAL_CONF)
+        collect_s = time.perf_counter() - t0
+    finally:
+        nms_kernel.suppress = kernel
+    overfit = card_vs_cpu_eval(cfg, folded, held_out, gt, "overfit", 1)
+    check(abs(map_quick - overfit["map_cuda"]) <= 1e-6, f"quick_map "
+          f"{map_quick} vs collect_detections + evaluate {overfit}")
+    at_early = card_vs_cpu_eval(cfg, fold_params(cfg.layers, early,
+                                                 cfg.bn_eps),
+                                held_out, gt, f"after {EARLY_STEPS} steps",
+                                MIN_EVAL_BOXES)
+    own = quick_map(cfg, trained, scenes, batch=EVAL_BATCH)
+    untrained = quick_map(cfg, params, scenes, batch=EVAL_BATCH)
+    emit({"phase": "eval", "model": cfg.name, "held_out": len(held_out),
+          "batch": EVAL_BATCH, "eval_conf": EVAL_CONF,
+          "card_vs_cpu": {"overfit": overfit, f"after_{EARLY_STEPS}_steps":
+                          at_early},
+          "nms_launches": launches,
+          "eval_img_per_s": len(held_out) / wall,
+          "collect_img_per_s": len(held_out) / collect_s,
+          "map_overfit_own_scenes": own, "map_untrained_own_scenes":
+          untrained, "card": card})
+    check(own > untrained, f"the overfit model's mAP on its own scenes "
+          f"{own} is no better than the untrained model's {untrained}")
+
+    geom, scores, classes, conf, iou = got[0]
+    check(tuple(geom.shape) == (EVAL_BATCH * cfg.num_classes, 5, 128)
+          and conf == EVAL_CONF, f"eval grid {tuple(geom.shape)} at conf "
+          f"{conf}")
+    timed = time_suppress("suppress_eval_grid", geom, scores, classes, conf,
+                          iou, card, batch=EVAL_BATCH)
+    return launches, timed
+
+
+def phase_fine_tune(card) -> tuple:
+    """Phases 10-11 on YOLOv2-VOC 416 over a seeded synthetic VOC set in
+    a temp dir; returns (NMS launches on the eval path, eval-grid
+    suppress times)."""
+    cfg = get_variant(TRAIN_VARIANT)
+    check(cfg.input_hw == (416, 416) and cfg.num_classes == 20
+          and cfg.num_anchors == 5 and len(weighted_specs(cfg.layers)) == 23,
+          f"unexpected config {cfg.name}")
+    tcfg = TrainConfig(**NET_SCHEDULE, loss=region_loss_config(cfg))
+    rng = np.random.default_rng(SEED + 4)
+    palette = rng.integers(0, 256, (len(VOC_NAMES), 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roots = [os.path.join(tmp, d) for d in ("train", "held_out")]
+        for d in roots:
+            os.mkdir(d)
+        pairs, held_out = (
+            write_voc_scenes(d, [SCENE_HW[i % len(SCENE_HW)]
+                                 for i in range(n)], rng, palette=palette)
+            for d, n in zip(roots, (TRAIN_SCENES, HELD_OUT_SCENES)))
+        params = fine_tune_init(cfg, tmp)
+        t1 = time.perf_counter()
+        state, scenes, early = phase_train(cfg, tcfg, params, pairs, card)
+        t2 = time.perf_counter()
+        launches, timed = phase_eval(cfg, state, params, early, held_out,
+                                     scenes, card)
+        emit({"phase": "fine_tune", "data_seconds": t1 - t0,
+              "train_seconds": t2 - t1,
+              "eval_seconds": time.perf_counter() - t2})
+    return launches, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -822,6 +1332,8 @@ def main() -> int:
     kernel_times = phase_kernel_times(gen, shapes, timed_images, card)
     phase_route_times(model, model32, card)
 
+    voc_launches, eval_grid = phase_fine_tune(card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu"))
     check(not foreign, f"the port loaded JAX or the JAX package: {foreign}")
@@ -833,9 +1345,13 @@ def main() -> int:
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
-         "launches": launches, "max_abs_err": worst,
+         "launches": launches + voc_launches, "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
-         "bound_by": nms[3], "library_ms": None},
+         "bound_by": nms[3], "library_ms": None,
+         "eval_grid": [EVAL_BATCH * 20, 5, 128], "eval_grid_ms": eval_grid[0],
+         "eval_grid_plain_ms": eval_grid[1],
+         "eval_grid_bound_ms": eval_grid[2],
+         "eval_grid_bound_by": eval_grid[3]},
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",

@@ -380,3 +380,93 @@ def test_detector_routes_launch_their_kernels(cuda):
     for out in (fused, routed):
         assert out["boxes"].shape == default["boxes"].shape
         assert bool(torch.isfinite(out["boxes"]).all())
+
+
+@pytest.mark.parametrize("batch", [1, 16, 32])
+def test_suppress_kernel_at_the_eval_grid(cuda, batch):
+    """The per-class grid of collect_detections / quick_map: G = B * 20
+    rows of K = 128 candidates, one class per row, at conf 0.005, where
+    most of a row clears the threshold. Keep masks identical, through
+    the router nms_batch(impl="cuda") takes."""
+    rng = np.random.default_rng(batch)
+    g, k = batch * 20, 128
+    geom, _, _ = _rows(batch, g, k, 1, cuda)
+    # sigmoid(obj) * softmax(class)-like scores: many small, a few large
+    scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (g, k)) ** 4,
+                                       axis=1).astype(np.float32)).to(cuda)
+    classes = torch.from_numpy(np.repeat(
+        np.arange(g) % 20, k).reshape(g, k).astype(np.int32)).to(cuda)
+    before = nms_kernel.launches
+    got = _suppress(geom, scores, classes, 0.005, 0.45, use_kernel=True)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    want = _suppress_torch(geom, scores, classes.float(), 0.005, 0.45)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int((scores >= 0.005).sum())
+
+
+def _tiny_train_cfg():
+    from yolo_tpu_torch.configs import ModelConfig
+
+    return ModelConfig(
+        name="tiny-train", input_size=64, class_names=("a", "b", "c"),
+        anchors=((1.0, 1.5), (2.5, 2.0)),
+        layers=(Conv(8), MaxPool(), Conv(16), MaxPool(), Conv(16),
+                MaxPool(), Conv(32), MaxPool(), Conv(32), MaxPool(),
+                Conv(32), Route((-3,)), Conv(8, 1), Reorg(2),
+                Route((-1, -4)), Conv(32),
+                Conv(2 * 8, 1, bn=False, act="linear")))
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One fp32 SGD step (momentum, kernel-only decay) from the same
+    state on the same batch: loss parts to a relative 1e-4; each param
+    and BN-statistic update within 1e-3 of its tensor's largest update
+    (cuDNN and oneDNN sum the convs in other orders)."""
+    from yolo_tpu_torch.data.targets import encode_batch
+    from yolo_tpu_torch.train import loop
+
+    cfg = _tiny_train_cfg()
+    rng = np.random.default_rng(7)
+    params = dw.synthetic_detector_params(cfg, 7)
+    boxes = [np.array([[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.4, 0.2]],
+                      np.float32)] * 4
+    batch = encode_batch(boxes, [np.array([0, 2])] * 4, grid=2,
+                         anchors=cfg.anchors, num_classes=3)
+    batch["images"] = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    tcfg = loop.TrainConfig(learning_rate=1e-3, momentum=0.9,
+                            weight_decay=5e-4)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = loop.init_state(cfg, params, tcfg, device=dev)
+        m = loop.train_step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in batch.items()},
+                            mcfg=cfg, tcfg=tcfg)
+        out[dev.type] = ({k: float(v) for k, v in m.items()},
+                         state.net.to_numpy())
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for k in m_cpu:
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=1e-4)
+    for p0, pa, pb in zip(params, p_gpu, p_cpu, strict=True):
+        for key in p0:
+            da = pa[key].astype(np.float64) - p0[key]
+            db = pb[key].astype(np.float64) - p0[key]
+            assert np.abs(da - db).max() <= 1e-3 * np.abs(db).max(), key
+
+
+def test_prefetcher_delivers_on_the_card_in_order(cuda):
+    """Batches arrive on the card, in order, equal to the host arrays,
+    usable at once on the consumer's stream; metadata stays on the
+    host."""
+    from yolo_tpu_torch.data.pipeline import DevicePrefetcher
+
+    host = [{"images": np.full((4, 32, 32, 3), i, np.float32),
+             "tcls": np.full((4, 2), i, np.int32), "paths": [f"{i}.png"]}
+            for i in range(9)]
+    with DevicePrefetcher(iter(host), depth=3) as staged:
+        got = [(b["images"].sum().item(), b["tcls"].device.type,
+                b["images"].device.type, b["paths"]) for b in staged]
+    assert [g[0] for g in got] == [float(i * 4 * 32 * 32 * 3)
+                                   for i in range(9)]
+    assert all(g[1] == g[2] == "cuda" for g in got)
+    assert [g[3] for g in got] == [[f"{i}.png"] for i in range(9)]

@@ -2,7 +2,6 @@
 (yolo_tpu_torch) against the JAX package."""
 
 import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import torch

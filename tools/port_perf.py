@@ -24,6 +24,16 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         (unsplit at batch 32, split to fill the card at batch 1): device
         ms per call, TFLOP/s, and the tile conv_kernel.plan picks (its
         cost model's data)
+    python3 tools/port_perf.py train
+        torch.profiler breakdown of the YOLOv2-VOC 416 train step at
+        batch 64, fp32 and bf16, on one seeded batch already on the card
+        (no host pipeline), as profile reports it
+    python3 tools/port_perf.py stepcheck
+        chip_smoke.py's card-against-CPU fp32 step (phase 10 (a)), tensor
+        by tensor: each update's relative error, card against the CPU on
+        the card's choices, the CPU on the batch reversed (choices held)
+        and the card with TF32 on; and each conv's weight gradient and
+        output, card and CPU in fp32 against float64 on the same inputs
 
 ROUTE is the detector route: "default" (letterbox + F.conv2d),
 "conv_impl=cuda" (the fused conv kernel on the eligible convs) or
@@ -47,6 +57,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_HW = (480, 640)
 BATCHES = (1, 32, 128)
 WARMUP, REPS, PROFILED_CALLS = 3, 20, 5
+TRAIN_BATCH = 64          # yolov2-voc.cfg's batch
 
 
 def _emit(obj) -> None:
@@ -136,7 +147,8 @@ def _kernel_class(name: str) -> str:
         return "entry_kernel"
     if "memcpy" in n or "memset" in n:
         return "copy"
-    if "fprop" in n or "conv" in n or "winograd" in n or "dgrad" in n:
+    if ("fprop" in n or "conv" in n or "winograd" in n or "dgrad" in n
+            or "wgrad" in n):
         return "conv"
     if "max_pool" in n:
         return "maxpool"
@@ -150,12 +162,49 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def cmd_profile(args, card) -> None:
+def _profiled(fn) -> dict:
+    """torch.profiler over PROFILED_CALLS calls of fn after WARMUP: wall
+    and device ms per call, busy share, device ms by kernel class, the
+    top kernels, peak GiB."""
     import time
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / PROFILED_CALLS
+    by_class, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    n = PROFILED_CALLS * 1000.0  # us -> ms per call
+    device_ms = sum(by_class.values()) / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"calls": PROFILED_CALLS, "wall_ms_per_call": wall_ms,
+            "device_ms_per_call": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "ms_per_call_by_class": {k: v / n for k, v in
+                                     sorted(by_class.items())},
+            "top_kernels_ms": [[k[:120], v / n] for k, v in top],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def cmd_profile(args, card) -> None:
+    import torch
 
     import yolo_tpu_torch
 
@@ -166,38 +215,149 @@ def cmd_profile(args, card) -> None:
     detector = _detector(model, args.route)
     for b in BATCHES:
         images = _images(torch, b)
-        for _ in range(WARMUP):
-            detector(images)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_CALLS):
-                detector(images)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1000 / PROFILED_CALLS
-        by_class, by_name = {}, {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            cls = _kernel_class(e.name)
-            by_class[cls] = by_class.get(cls, 0.0) + us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-        n = PROFILED_CALLS * 1000.0  # us -> ms per call
-        device_ms = sum(by_class.values()) / n
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         _emit({"what": "profile_bf16", "route": args.route, "batch": b,
-               "calls": PROFILED_CALLS,
-               "wall_ms_per_call": wall_ms,
-               "device_ms_per_call": device_ms,
-               "busy_share": device_ms / wall_ms,
-               "ms_per_call_by_class": {k: v / n for k, v in
-                                        sorted(by_class.items())},
-               "top_kernels_ms": [[k[:120], v / n] for k, v in top],
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "card": card})
+               **_profiled(lambda: detector(images)), "card": card})
+
+
+def cmd_train(args, card) -> None:
+    import torch
+
+    from yolo_tpu_torch.configs import get_variant
+    from yolo_tpu_torch.data.targets import encode_batch
+    from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.train.loop import (TrainConfig, init_state,
+                                           make_train_step)
+    from yolo_tpu_torch.train.loss import region_loss_config
+
+    cfg = get_variant("voc")
+    rng = np.random.default_rng(0)
+    boxes = [np.stack([rng.uniform(0.2, 0.8, 3), rng.uniform(0.2, 0.8, 3),
+                       rng.uniform(0.1, 0.5, 3), rng.uniform(0.1, 0.5, 3)],
+                      -1).astype(np.float32) for _ in range(TRAIN_BATCH)]
+    batch = encode_batch(boxes, [rng.integers(0, 20, 3)] * TRAIN_BATCH,
+                         grid=13, anchors=cfg.anchors, num_classes=20)
+    batch["images"] = rng.uniform(
+        0, 1, (TRAIN_BATCH, 416, 416, 3)).astype(np.float32)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    params = dw.synthetic_detector_params(cfg, 0)
+    tcfg = TrainConfig(learning_rate=1e-3, loss=region_loss_config(cfg))
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        state = init_state(cfg, params, tcfg)
+        step = make_train_step(cfg, tcfg, compute_dtype=dtype)
+        _emit({"what": f"profile_train_{name}", "model": cfg.name,
+               "batch": TRAIN_BATCH,
+               **_profiled(lambda: step(state, batch)), "card": card})
+        del state
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-300))
+
+
+def cmd_stepcheck(args, card) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from yolo_tpu_torch.configs import VOC_NAMES, get_variant
+    from yolo_tpu_torch.data.synthetic import write_voc_scenes
+    from yolo_tpu_torch.ops import precision
+    from yolo_tpu_torch.train.loop import (TrainConfig, init_state,
+                                           make_train_step)
+    from yolo_tpu_torch.train.loss import region_loss_config
+
+    cfg = get_variant(cs.TRAIN_VARIANT)
+    tcfg = TrainConfig(**cs.NET_SCHEDULE, loss=region_loss_config(cfg))
+    rng = np.random.default_rng(cs.SEED + 4)
+    palette = rng.integers(0, 256, (len(VOC_NAMES), 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = write_voc_scenes(tmp, cs.SCENE_HW[:cs.CHECK_BATCH], rng,
+                                 palette=palette)
+        params = cs.fine_tune_init(cfg, tmp)
+        host = next(cs.host_batches(cfg, pairs, cs.CHECK_BATCH, cs.SEED,
+                                    shuffle=False,
+                                    augment_cfg=cs.NET_AUGMENT))
+    convs = []
+    conv2d = F.conv2d
+
+    def recording_conv(x, w, **kw):
+        y = conv2d(x, w, **kw)
+        y.retain_grad()
+        convs.append((x.detach(), w.detach(), y, kw))
+        return y
+
+    def step_on(dev, flip=False, record=False):
+        state = init_state(cfg, params, tcfg, device=dev)
+        state.step = tcfg.burn_in_steps
+        order = slice(None, None, -1) if flip else slice(None)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v[order])).to(dev)
+                 for k, v in host.items()}
+        if record:
+            F.conv2d = recording_conv
+        try:
+            make_train_step(cfg, tcfg)(state, batch)
+        finally:
+            F.conv2d = conv2d
+        return state.net.to_numpy()
+
+    def flipped(held):
+        out = cs.HeldChoices()
+        out.signs = [t.flip(0) for t in held.signs]
+        out.argmax = [t.flip(0) for t in held.argmax]
+        return out
+
+    exact, loose = cs.HeldChoices(), cs.HeldChoices()
+    with exact.record():
+        gpu = step_on("cuda", record=True)
+    with cs.tf32_on(), loose.record():
+        gpu_tf32 = step_on("cuda")
+    with exact.replay():
+        cpu = step_on("cpu")
+    reverse = flipped(exact)
+    with reverse.replay():
+        cpu_reversed = step_on("cpu", flip=True)
+    with loose.replay():
+        cpu_tf32 = step_on("cpu")
+    keys = ("kernel", "gamma", "beta", "bias", "mean", "var")
+    for name, (a, b) in {"card_vs_cpu": (gpu, cpu),
+                         "cpu_reversed_vs_cpu": (cpu_reversed, cpu),
+                         "tf32_card_vs_its_cpu": (gpu_tf32, cpu_tf32)
+                         }.items():
+        errs = {}
+        for i, (p0, pa, pb) in enumerate(zip(params, a, b)):
+            for key in keys:
+                if key in p0:
+                    da = torch.from_numpy(pa[key].astype(np.float64) - p0[key])
+                    db = torch.from_numpy(pb[key].astype(np.float64) - p0[key])
+                    errs[f"{i}.{key}"] = _rel(da, db)
+        _emit({"what": "stepcheck_update", "compare": name,
+               "rel_err": errs, "card": card})
+
+    # each conv's weight gradient and output from the card step's own
+    # inputs: cuDNN (TF32 off) and the CPU in fp32 against float64
+    grads = []
+    with precision.no_tf32():
+        for i, (x, w, y, kw) in enumerate(convs):
+            g = y.grad
+            per = {}
+            for dev, dtype in (("cuda", torch.float32),
+                               ("cpu", torch.float32),
+                               ("cpu", torch.float64)):
+                xd, wd, gd = (t.to(dev, dtype) for t in (x, w, g))
+                per[(dev, dtype)] = (
+                    torch.nn.grad.conv2d_weight(xd, w.shape, gd, **kw),
+                    conv2d(xd, wd, **kw))
+            want_w, want_y = per[("cpu", torch.float64)]
+            grads.append({
+                "conv": i, "shape": list(x.shape) + list(w.shape),
+                "wgrad_cuda": _rel(per[("cuda", torch.float32)][0], want_w),
+                "wgrad_cpu": _rel(per[("cpu", torch.float32)][0], want_w),
+                "out_cuda": _rel(per[("cuda", torch.float32)][1], want_y),
+                "out_cpu": _rel(per[("cpu", torch.float32)][1], want_y)})
+    _emit({"what": "stepcheck_convs_vs_float64", "convs": grads,
+           "card": card})
 
 
 def cmd_sweep(args, card) -> None:
@@ -308,6 +468,8 @@ def main() -> int:
     prof.add_argument("--route", choices=ROUTES, default="default")
     sub.add_parser("sweep")
     sub.add_parser("tiles")
+    sub.add_parser("train")
+    sub.add_parser("stepcheck")
     args = ap.parse_args()
     # the package under test: another checkout's for `time --tree`
     sys.path.insert(0, os.path.abspath(getattr(args, "tree", None) or REPO))
@@ -320,7 +482,8 @@ def main() -> int:
         return 2
     card = _card()
     {"weights": cmd_weights, "time": cmd_time, "profile": cmd_profile,
-     "sweep": cmd_sweep, "tiles": cmd_tiles}[args.cmd](args, card)
+     "sweep": cmd_sweep, "tiles": cmd_tiles,
+     "train": cmd_train, "stepcheck": cmd_stepcheck}[args.cmd](args, card)
     return 0
 
 

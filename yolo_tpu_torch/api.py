@@ -64,6 +64,7 @@ def load(weights_path: str, variant: Optional[str] = None, *,
     import os
 
     from yolo_tpu_torch.configs import get_variant
+    from yolo_tpu_torch.device import resolve as resolve_device
     from yolo_tpu_torch.io import darknet_weights as dw
     from yolo_tpu_torch.models.graph import Darknet, fold_params
     from yolo_tpu_torch.models.predict import make_detector
@@ -71,10 +72,7 @@ def load(weights_path: str, variant: Optional[str] = None, *,
     if precision not in _DTYPES:
         raise ValueError(f"precision={precision!r}: the API supports "
                          f"'fp32' | 'bf16'")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
-                           "False; pass device='cpu' to run on the CPU")
+    dev = resolve_device(device)
     if weights_path.startswith("zoo://") or os.path.isdir(weights_path):
         raise NotImplementedError(
             f"{weights_path}: zoo entries and checkpoint dirs are not "

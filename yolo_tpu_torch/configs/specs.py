@@ -79,6 +79,15 @@ class ModelConfig:
     # "greedy" | "diou" (suppression metric IoU - (d/c)^beta_nms)
     nms_kind: str = "greedy"
     beta_nms: float = 0.6
+    # [region] training keys (region_layer.c deltas), the official
+    # yolov2 cfgs' values: thresh is the noobj IoU gate; they reach the
+    # loss through train.loss.region_loss_config
+    region_thresh: float = 0.6
+    region_object_scale: float = 5.0
+    region_noobject_scale: float = 1.0
+    region_class_scale: float = 1.0
+    region_coord_scale: float = 1.0
+    region_rescore: bool = True
 
     @property
     def num_classes(self) -> int:

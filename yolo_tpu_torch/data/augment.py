@@ -1,0 +1,283 @@
+"""Darknet-style training augmentation (port of yolo_tpu/data/augment.py,
+the yolov2 subset: random crop with jitter, horizontal flip, HSV
+distortion, gaussian noise; yolov2-voc.cfg: jitter=0.3, hue=0.1,
+saturation=1.5, exposure=1.5).
+
+Host-side numpy, without OpenCV: the JAX package's cv2 calls are
+replaced by
+  * cv2.copyMakeBorder(BORDER_REPLICATE) -> np.pad(mode="edge"), exact;
+  * cv2's 8-bit RGB -> HSV -> rgb2hsv_u8, cv2's fixed-point division
+    tables (hsv_shift 12), byte for byte;
+  * cv2's 8-bit HSV -> RGB -> hsv2rgb_u8, its float32 sector formula,
+    truncated in the vectorized blocks of a row and rounded in the
+    row's tail as cv2 does; cv2 orders a few float operations otherwise,
+    so a few pixels differ by one level (tests/test_torch_data.py
+    states how many).
+Boxes are normalized (cx, cy, w, h). Blur, mosaic, mixup and the
+classifier rotate/scale crop need cv2 resamplers and are not ported
+(ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+_NOT_PORTED = ("is not ported yet (ROADMAP A9: blur, mosaic, mixup and "
+               "the classifier rotate/scale crop)")
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """The JAX package's AugmentConfig, field for field; blur, mosaic,
+    mixup and the classifier geometry keys raise where they would act."""
+    flip: bool = True
+    jitter: float = 0.3
+    hue: float = 0.1
+    saturation: float = 1.5
+    exposure: float = 1.5
+    min_box_visibility: float = 0.25  # drop boxes mostly cropped away
+    mosaic: bool = False
+    mixup: bool = False
+    angle: float = 0.0
+    aspect: float = 1.0
+    min_crop: int = 0
+    max_crop: int = 0
+    blur: int = 0
+    gaussian_noise: float = 0.0
+
+    @property
+    def classifier_geometry(self) -> bool:
+        """True when any classifier scale/rotation key is active."""
+        return bool(self.angle or self.aspect != 1.0
+                    or self.min_crop or self.max_crop)
+
+
+def _rand_scale(rng: np.random.Generator, s: float) -> float:
+    """darknet rand_scale: uniform in [1, s], inverted half the time;
+    s < 1 samples [s, 1]."""
+    lo, hi = (1.0, s) if s >= 1.0 else (s, 1.0)
+    v = rng.uniform(lo, hi)
+    return v if rng.uniform() < 0.5 else 1.0 / v
+
+
+_HSV_SHIFT = 12
+
+
+def _div_table(num: int) -> np.ndarray:
+    """cv2's RGB2HSV_b tables: saturate_cast<int>(num / i), 0 at i = 0."""
+    i = np.arange(256, dtype=np.float64)
+    t = np.zeros(256, np.int32)
+    t[1:] = np.rint(num / i[1:]).astype(np.int32)
+    return t
+
+
+_SDIV = _div_table(255 << _HSV_SHIFT)
+_HDIV180 = _div_table((180 << _HSV_SHIFT) / 6.0)
+
+
+def rgb2hsv_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_RGB2HSV) for (H, W, 3) uint8: H in
+    [0, 180), S and V in [0, 255]. int32 holds every product."""
+    r, g, b = (img[..., i].astype(np.int32) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    out = np.empty(img.shape, np.uint8)
+    out[..., 1] = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    out[..., 2] = v
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> _HSV_SHIFT
+    h[h < 0] += 180
+    out[..., 0] = h
+    return out
+
+
+# cv2 HSV2RGB: sector -> which tab entry is (b, g, r)
+_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1],
+                    [0, 2, 1], [0, 1, 3], [2, 1, 0]], np.int32)
+# cv2's vectorized HSV2RGB body takes each row in blocks of this many
+# pixels (AVX2 builds) and truncates; the rest of the row goes through
+# its scalar path, which rounds half to even
+_CV2_BLOCK = 32
+
+
+def hsv2rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(hsv, COLOR_HSV2RGB) for (H, W, 3) uint8, hue range
+    180: cv2's float32 sector formula (s and v scaled by 1/255, the
+    result by 255), truncated in the vectorized blocks of each row and
+    rounded in the row's tail."""
+    f32 = np.float32
+    one = f32(1.0)
+    h = hsv[..., 0].astype(f32) * f32(f32(6.0) / f32(180.0))
+    s = hsv[..., 1].astype(f32) * f32(one / f32(255.0))
+    v = hsv[..., 2].astype(f32) * f32(one / f32(255.0))
+    h = np.fmod(h, f32(6.0))
+    sector = np.floor(h)
+    h = h - sector
+    tab = np.stack([v, v * (one - s), v * (one - s * h),
+                    v * (one - s * (one - h))], axis=-1)
+    # gather each pixel's (b, g, r) from its 4 tab entries: flat index
+    # 4 * pixel + _SECTOR[sector]
+    at = np.arange(0, 4 * sector.size, 4, dtype=np.int32)
+    bgr = np.take(tab.reshape(-1), _SECTOR[sector.astype(np.int8)]
+                  + at.reshape(sector.shape)[..., None])
+    scaled = bgr * f32(255.0)
+    body = hsv.shape[1] // _CV2_BLOCK * _CV2_BLOCK
+    tail = np.where((s == 0)[..., None], v[..., None], bgr)[:, body:]
+    out = np.concatenate([np.trunc(scaled[:, :body]),
+                          np.rint(tail * f32(255.0))], axis=1)
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(out[..., ::-1])
+
+
+def distort_hsv(img_u8: np.ndarray, rng: np.random.Generator,
+                cfg: AugmentConfig) -> np.ndarray:
+    """Hue shift, saturation and exposure scales in cv2's 8-bit HSV, the
+    JAX package's draws in its order."""
+    if cfg.hue == 0 and cfg.saturation == 1 and cfg.exposure == 1:
+        return img_u8
+    if img_u8.ndim == 2 or img_u8.shape[-1] == 1:
+        # gray: exposure only; the hue and saturation draws still happen
+        rng.uniform(-cfg.hue, cfg.hue)
+        _rand_scale(rng, cfg.saturation)
+        dexp = _rand_scale(rng, cfg.exposure)
+        return np.clip(np.rint(img_u8.astype(np.float32) * dexp),
+                       0, 255).astype(np.uint8)
+    hsv = rgb2hsv_u8(img_u8).astype(np.float32)
+    hsv[..., 0] = (hsv[..., 0] + rng.uniform(-cfg.hue, cfg.hue) * 180.0) % 180.0
+    hsv[..., 1] = np.clip(hsv[..., 1] * _rand_scale(rng, cfg.saturation), 0, 255)
+    hsv[..., 2] = np.clip(hsv[..., 2] * _rand_scale(rng, cfg.exposure), 0, 255)
+    return hsv2rgb_u8(hsv.astype(np.uint8))
+
+
+def jitter_crop(img_u8: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
+                rng: np.random.Generator, cfg: AugmentConfig):
+    """Random crop with darknet-style jitter on each edge; the window may
+    extend beyond the image (edge replication); boxes re-normalized to
+    the crop, clipped, low-visibility boxes dropped."""
+    h, w = img_u8.shape[:2]
+    dw, dh = int(w * cfg.jitter), int(h * cfg.jitter)
+    left = rng.integers(-dw, dw + 1)
+    right = rng.integers(-dw, dw + 1)
+    top = rng.integers(-dh, dh + 1)
+    bottom = rng.integers(-dh, dh + 1)
+    x1, x2 = int(left), int(w - right)
+    y1, y2 = int(top), int(h - bottom)
+    if x2 - x1 < w // 4 or y2 - y1 < h // 4:
+        return img_u8, boxes, classes
+    pad_l, pad_t = max(0, -x1), max(0, -y1)
+    pad_r, pad_b = max(0, x2 - w), max(0, y2 - h)
+    src = img_u8
+    if pad_l or pad_t or pad_r or pad_b:
+        pad = ((pad_t, pad_b), (pad_l, pad_r)) + ((0, 0),) * (img_u8.ndim - 2)
+        src = np.pad(img_u8, pad, mode="edge")
+    crop = src[y1 + pad_t:y2 + pad_t, x1 + pad_l:x2 + pad_l]
+    cw, ch = x2 - x1, y2 - y1
+
+    if len(boxes) == 0:
+        return crop, boxes, classes
+    b = boxes.astype(np.float64)
+    px1 = np.clip(b[:, 0] * w - b[:, 2] * w / 2 - x1, 0, cw)
+    py1 = np.clip(b[:, 1] * h - b[:, 3] * h / 2 - y1, 0, ch)
+    px2 = np.clip(b[:, 0] * w + b[:, 2] * w / 2 - x1, 0, cw)
+    py2 = np.clip(b[:, 1] * h + b[:, 3] * h / 2 - y1, 0, ch)
+    nw, nh = (px2 - px1) / cw, (py2 - py1) / ch
+    visibility = np.where(
+        b[:, 2] * b[:, 3] > 0,
+        (nw * cw / w / np.maximum(b[:, 2], 1e-9)) *
+        (nh * ch / h / np.maximum(b[:, 3], 1e-9)), 0.0)
+    keep = (nw > 0.001) & (nh > 0.001) & (visibility >= cfg.min_box_visibility)
+    out = np.stack([(px1 + px2) / 2 / cw, (py1 + py2) / 2 / ch, nw, nh],
+                   axis=-1)[keep].astype(np.float32)
+    return crop, out, classes[keep]
+
+
+def flip_horizontal(img_u8: np.ndarray, boxes: np.ndarray):
+    img = img_u8[:, ::-1]
+    if len(boxes):
+        boxes = boxes.copy()
+        boxes[:, 0] = 1.0 - boxes[:, 0]
+    return np.ascontiguousarray(img), boxes
+
+
+def apply_blur(img_u8: np.ndarray, boxes: np.ndarray,
+               rng: np.random.Generator, cfg: AugmentConfig) -> np.ndarray:
+    """[net] blur needs cv2.GaussianBlur: raises when set."""
+    if not cfg.blur:
+        return img_u8
+    raise NotImplementedError(f"[net] blur {_NOT_PORTED}")
+
+
+def apply_gaussian_noise(img_u8: np.ndarray, rng: np.random.Generator,
+                         cfg: AugmentConfig) -> np.ndarray:
+    """[net] gaussian_noise: on a coin flip, additive N(0, sigma) with
+    sigma = min(value, 127), saturated into uint8."""
+    if not cfg.gaussian_noise:
+        return img_u8
+    if int(rng.integers(0, 2)) == 0:
+        return img_u8
+    sigma = min(float(cfg.gaussian_noise), 127.0)
+    noise = rng.normal(0.0, sigma, img_u8.shape)
+    return np.clip(img_u8.astype(np.float64) + noise, 0.0,
+                   255.0).astype(np.uint8)
+
+
+def rotate_scale_crop(*args, **kw):
+    """The classifier rotate/scale crop needs cv2.warpAffine."""
+    raise NotImplementedError(f"rotate_scale_crop {_NOT_PORTED}")
+
+
+def mosaic4(*args, **kw):
+    """The yolov4 mosaic needs cv2.warpAffine."""
+    raise NotImplementedError(f"mosaic {_NOT_PORTED}")
+
+
+def augment(img_u8: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
+            rng: np.random.Generator,
+            cfg: AugmentConfig = AugmentConfig()
+            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full darknet-style augmentation for one training sample, the JAX
+    package's draws in its order."""
+    if cfg.mosaic or cfg.mixup or cfg.classifier_geometry:
+        raise NotImplementedError(f"mosaic, mixup and the classifier "
+                                  f"geometry keys {_NOT_PORTED}")
+    img_u8, boxes, classes = jitter_crop(img_u8, boxes, classes, rng, cfg)
+    if cfg.flip and rng.uniform() < 0.5:
+        img_u8, boxes = flip_horizontal(img_u8, boxes)
+    img_u8 = distort_hsv(img_u8, rng, cfg)
+    img_u8 = apply_blur(img_u8, boxes, rng, cfg)
+    img_u8 = apply_gaussian_noise(img_u8, rng, cfg)
+    return img_u8, boxes, classes
+
+
+# darknet's parse defaults for absent keys (no HSV distortion unless the
+# cfg asks; flip=1; jitter=0.2)
+_DARKNET_PARSE_DEFAULTS = {"jitter": 0.2, "saturation": 1.0,
+                           "exposure": 1.0, "hue": 0.0, "flip": True}
+
+
+def config_from_net_params(net_hp: dict, *, mosaic: bool = False,
+                           mixup: bool = False,
+                           force_defaults: bool = False) -> AugmentConfig:
+    """AugmentConfig from a darknet cfg's training keys ([net]
+    saturation/exposure/hue/flip/... and the head's jitter). Absent keys
+    take darknet's parse defaults; force_defaults=True takes the
+    yolov2-voc values (the field defaults) instead."""
+    kwargs = {} if force_defaults else dict(_DARKNET_PARSE_DEFAULTS)
+    for k in ("jitter", "saturation", "exposure", "hue", "angle", "aspect"):
+        if k in net_hp:
+            kwargs[k] = float(net_hp[k])
+    for k in ("min_crop", "max_crop", "blur"):
+        if k in net_hp:
+            kwargs[k] = int(net_hp[k])
+    if "gaussian_noise" in net_hp:
+        kwargs["gaussian_noise"] = float(net_hp["gaussian_noise"])
+    if "flip" in net_hp:
+        kwargs["flip"] = bool(net_hp["flip"])
+    return AugmentConfig(mosaic=mosaic or bool(net_hp.get("mosaic", 0)),
+                         mixup=mixup or bool(net_hp.get("mixup", 0)),
+                         **kwargs)

@@ -1,0 +1,372 @@
+"""Host data pipeline (port of yolo_tpu/data/pipeline.py): decode,
+augment, letterbox and encode on host threads, then staged copies to the
+card ahead of the consumer.
+
+  training:  decode -> augment -> host letterbox (fp32) -> GT encode
+             -> fixed-shape batch (train_batches)
+  eval:      decode -> host letterbox -> one (net_h, net_w) shape for
+             every source size (inference_batches)
+
+Images decode with OpenCV where it is installed; without it (the card
+machine has none) PNGs decode with data/png.py and other formats raise.
+The host letterbox is the port's ops/letterbox.py in fp32 (cv2
+INTER_LINEAR semantics). Torch runs one intra-op thread in each pool
+worker, so that the workers do not oversubscribe the cores.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures as cf
+import queue as queue_mod
+import sys
+import threading
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from yolo_tpu_torch.data import targets as tgt
+from yolo_tpu_torch.data.augment import augment
+from yolo_tpu_torch.data.png import SIGNATURE, decode_png
+from yolo_tpu_torch.data.voc import parse_annotation
+from yolo_tpu_torch.device import resolve as resolve_device
+from yolo_tpu_torch.ops.letterbox import (as_hw, letterbox,
+                                          letterbox_geometry, stretch_resize)
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def load_image(path: str, channels: int = 3) -> np.ndarray:
+    """Host decode at the model's channel count -> (H, W, C) uint8 RGB
+    (C=3) or gray (C=1), as cv2.imread(IMREAD_COLOR / IMREAD_GRAYSCALE)
+    gives them. Without OpenCV: 8-bit gray and RGB PNGs only (a gray
+    PNG replicates to RGB at channels=3; an RGB PNG at channels=1
+    raises)."""
+    if channels not in (1, 3):
+        raise ValueError(f"channels={channels}: darknet image loading "
+                         f"supports 1 (grayscale) or 3 (RGB)")
+    cv2 = _cv2()
+    if cv2 is not None:
+        flag = cv2.IMREAD_COLOR if channels == 3 else cv2.IMREAD_GRAYSCALE
+        img = cv2.imread(path, flag)
+        if img is None:
+            raise FileNotFoundError(f"cannot decode image: {path}")
+        return (cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if channels == 3
+                else img[..., None])
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != SIGNATURE:
+        raise ValueError(
+            f"{path}: without OpenCV only PNG images decode (install "
+            f"opencv-python for JPEG)")
+    img = decode_png(data)
+    if img.shape[-1] == channels:
+        return img
+    if channels == 3:
+        return np.repeat(img, 3, axis=-1)
+    raise ValueError(f"{path}: an RGB PNG at channels=1 needs OpenCV's "
+                     f"BT.601 conversion")
+
+
+def letterbox_boxes(boxes_xywh: np.ndarray, src_w: int, src_h: int,
+                    net_size) -> np.ndarray:
+    """Normalized source-image xywh boxes -> net-space normalized xywh
+    after letterboxing (ops/letterbox.py's geometry)."""
+    net_h, net_w = as_hw(net_size)
+    scale, rh, rw, px, py = letterbox_geometry(src_h, src_w, net_size)
+    b = np.asarray(boxes_xywh, np.float32).copy()
+    out = np.empty_like(b)
+    out[:, 0] = (b[:, 0] * src_w * scale + px) / net_w
+    out[:, 1] = (b[:, 1] * src_h * scale + py) / net_h
+    out[:, 2] = b[:, 2] * src_w * scale / net_w
+    out[:, 3] = b[:, 3] * src_h * scale / net_h
+    return out
+
+
+def _host_resize(img: np.ndarray, size, resize: str) -> np.ndarray:
+    """(H, W, C) uint8 -> (net_h, net_w, C) float32 in [0, 1]."""
+    x = torch.from_numpy(np.ascontiguousarray(img))[None]
+    if resize == "stretch":
+        return stretch_resize(x, size, dtype=torch.float32)[0].numpy()
+    return letterbox(x, size, dtype=torch.float32)[0].numpy()
+
+
+def _check_resize(resize: str) -> None:
+    if resize not in ("letterbox", "stretch"):
+        raise ValueError(f"unknown resize {resize!r} (letterbox | stretch)")
+
+
+def _one_torch_thread() -> None:
+    """Pool-worker initializer: one intra-op thread for torch ops run in
+    this worker (the OpenMP thread count is per thread)."""
+    torch.set_num_threads(1)
+
+
+class _Pool:
+    """A ThreadPoolExecutor whose workers run torch on one thread; on
+    exit the calling thread's torch thread count is set again, since
+    torch also keeps the last count as the default for new threads."""
+
+    def __init__(self, workers: int):
+        self._saved = torch.get_num_threads()
+        self.pool = cf.ThreadPoolExecutor(workers,
+                                          initializer=_one_torch_thread)
+
+    def __enter__(self):
+        return self.pool
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(self._saved)
+        return False
+
+
+class DevicePrefetcher:
+    """Wrap a host-batch iterator (dicts of numpy arrays and metadata)
+    and keep up to ``depth`` batches staged on ``device`` ahead of the
+    consumer. On CUDA a thread copies each batch from pinned host memory
+    on a side stream and records an event; the consumer's stream waits on
+    that event before the batch is handed over (and the tensors are
+    recorded on that stream), so the copies overlap the consumer's work.
+    Metadata (paths, shapes, pad counts) stays on the host. device:
+    "cuda" by default, raising without a card; "cpu" only when asked
+    for. close() (or a with block) stops the thread early."""
+
+    def __init__(self, host_iter: Iterable, depth: int = 2, device="cuda"):
+        self.device = resolve_device(device)
+        self._q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def stage(batch):
+            out = {}
+            for k, v in batch.items():
+                if not isinstance(v, np.ndarray):
+                    out[k] = v
+                    continue
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(stream)
+            return out, event
+
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def worker():
+            it = iter(host_iter)
+            try:
+                for batch in it:
+                    if not put(stage(batch)):
+                        break
+            except BaseException as e:  # surfaced on next()
+                self._err = e
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+                put(None)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> Iterator[Dict]:
+        while True:
+            item = self._q.get()
+            if item is None:
+                if self._err is not None:
+                    raise self._err
+                return
+            batch, event = item
+            if event is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for v in batch.values():
+                    if isinstance(v, torch.Tensor):
+                        v.record_stream(consumer)
+            yield batch
+
+    def close(self, timeout: float = 60.0) -> None:
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.1)
+            except queue_mod.Empty:
+                pass
+            self._thread.join(timeout=0.1)
+            timeout -= 0.1
+            if timeout <= 0:
+                raise RuntimeError("DevicePrefetcher thread did not stop")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def inference_batches(image_paths: Sequence[str], batch_size: int, *,
+                      net_size, workers: int = 8, skip_errors: bool = True,
+                      resize: str = "letterbox",
+                      channels: int = 3) -> Iterator[Dict]:
+    """Decode and preprocess images in parallel into uniform (B, net_h,
+    net_w, C) float32 batches (the host-preprocess mode: one shape for
+    every source size). Each batch carries its 'paths' and source
+    'shapes' for the box un-mapping; the last is padded to batch_size by
+    repeating its final image, with 'pad' the count."""
+    _check_resize(resize)
+
+    def load(path):
+        try:
+            img = load_image(path, channels)
+        except (FileNotFoundError, OSError, ValueError) as e:
+            if skip_errors:
+                print(f"skipping {path}: {e}", file=sys.stderr)
+                return None
+            raise
+        return path, img.shape[:2], _host_resize(img, net_size, resize)
+
+    with _Pool(workers) as pool:
+        # at most ~4 batches of decodes in flight
+        paths_iter = iter(image_paths)
+        inflight: collections.deque = collections.deque()
+
+        def refill():
+            while len(inflight) < max(workers, batch_size) * 4:
+                p = next(paths_iter, None)
+                if p is None:
+                    return
+                inflight.append(pool.submit(load, p))
+
+        chunk: List = []
+        refill()
+        while inflight:
+            item = inflight.popleft().result()
+            refill()
+            if item is None:
+                continue
+            chunk.append(item)
+            if len(chunk) == batch_size:
+                yield _assemble_preprocessed(chunk, 0)
+                chunk = []
+        if chunk:
+            yield _assemble_preprocessed(chunk, batch_size - len(chunk))
+
+
+def _assemble_preprocessed(chunk, pad: int) -> Dict:
+    """chunk items: (path, src_shape, preprocessed image)."""
+    images = [img for _, _, img in chunk]
+    images += [images[-1]] * pad
+    out = {"images": np.stack(images),
+           "paths": [p for p, _, _ in chunk],
+           "shapes": [s for _, s, _ in chunk]}
+    if pad:
+        out["pad"] = pad
+    return out
+
+
+def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
+                  anchors, num_classes: int, net_size, batch_size: int,
+                  rng: np.random.Generator, workers: int = 8,
+                  shuffle: bool = True, size_for_batch=None,
+                  augment_cfg=None, resize: str = "letterbox",
+                  channels: int = 3) -> Iterator[Dict]:
+    """(image, annotation) pairs -> fixed-shape train batches for the
+    region head: images in [0, 1] and the targets of
+    data.targets.encode_batch. One epoch, the remainder dropped. The
+    annotation is a VOC XML path or a dict in parse_annotation's schema.
+
+    size_for_batch(batch_idx) -> int | None switches the net size
+    (darknet multi-scale); augment_cfg (data.augment.AugmentConfig)
+    turns on jitter/flip/HSV per sample, each sample drawing from its
+    own generator; resize="stretch" trains with the aspect-ignoring
+    resize (normalized boxes need no transform). Mosaic and mixup are
+    not ported (ROADMAP A9)."""
+    _check_resize(resize)
+    if augment_cfg is not None and (augment_cfg.mosaic or augment_cfg.mixup):
+        raise NotImplementedError("mosaic and mixup are not ported yet "
+                                  "(ROADMAP A9)")
+    order = np.arange(len(pairs))
+    if shuffle:
+        rng.shuffle(order)
+    n_batches = len(order) // batch_size
+    if n_batches == 0:
+        raise ValueError(f"dataset has {len(pairs)} images but "
+                         f"batch={batch_size} — need at least one "
+                         f"full batch")
+    aug_base = int(rng.integers(0, 2 ** 31))  # per-sample generators
+    # warn once when the first batches keep no object because every
+    # annotated name is outside the class list (a wrong names list)
+    drop_stats = {"kept": 0, "unknown": 0, "warned": False}
+    lock = threading.Lock()
+
+    def prepare(idx: int, size):
+        img_path, ann = pairs[int(idx)]
+        img = load_image(img_path, channels)
+        if isinstance(ann, dict):
+            keep = np.asarray(ann["difficult"]) == 0
+            boxes, classes = ann["boxes"][keep], ann["classes"][keep]
+        else:
+            ann = parse_annotation(ann, class_names)
+            boxes, classes = ann["boxes"], ann["classes"]
+            with lock:
+                drop_stats["kept"] += len(classes)
+                drop_stats["unknown"] += ann.get("n_unknown", 0)
+        if augment_cfg is not None:
+            img, boxes, classes = augment(
+                img, boxes, classes,
+                np.random.default_rng((aug_base, int(idx))), augment_cfg)
+        h, w = img.shape[:2]
+        image = _host_resize(img, size, resize)
+        if resize == "letterbox":
+            boxes = letterbox_boxes(boxes, w, h, size)
+        return image, boxes, classes
+
+    size = net_size
+    with _Pool(workers) as pool:
+        for bi in range(n_batches):
+            if size_for_batch is not None:
+                size = size_for_batch(bi) or size
+            idxs = order[bi * batch_size:(bi + 1) * batch_size]
+            chunk = list(pool.map(lambda i: prepare(i, size), idxs))
+            if (not drop_stats["warned"] and drop_stats["kept"] == 0
+                    and drop_stats["unknown"] > 0):
+                drop_stats["warned"] = True
+                print(f"WARNING: the first {drop_stats['unknown']} "
+                      "annotated objects were ALL dropped because their "
+                      "class names are not in the model's class list — "
+                      "training would see only background. Check the "
+                      "class names against the dataset.", file=sys.stderr)
+            yield _assemble(chunk, size, anchors, num_classes)
+
+
+def _assemble(chunk, size, anchors, num_classes) -> Dict:
+    """Stack one batch and encode its ground truth for the region head."""
+    images = np.stack([c[0] for c in chunk])
+    boxes, classes = [c[1] for c in chunk], [c[2] for c in chunk]
+    nh, nw = tgt._as_hw(size)
+    enc = tgt.encode_batch(boxes, classes, grid=(nh // 32, nw // 32),
+                           anchors=anchors, num_classes=num_classes)
+    enc["images"] = images
+    return enc

@@ -60,8 +60,27 @@ def expected_bytes(layers: Sequence[LayerSpec], input_channels: int = 3
 
 def load(path_or_file, layers: Sequence[LayerSpec], input_channels: int = 3):
     """Load a darknet .weights file into a params list for ``layers``.
-    The file must hold every conv and end exactly after the last one.
-    Returns (params, header)."""
+    The file must hold every conv and end exactly after the last one;
+    partial backbone files go through load_partial. Returns (params,
+    header)."""
+    params, header, n = load_partial(path_or_file, layers,
+                                     input_channels=input_channels)
+    total = len(weighted_specs(tuple(layers)))
+    if n != total:
+        raise ValueError(
+            f"weights file too short: only {n} of {total} weighted "
+            f"layers present (partial backbone file? use load_partial)")
+    return params, header
+
+
+def load_partial(path_or_file, layers: Sequence[LayerSpec],
+                 input_channels: int = 3):
+    """Load a possibly truncated darknet .weights file, darknet's
+    ``partial`` output (e.g. ``darknet19_448.conv.23``, the backbone that
+    YOLOv2 fine-tuning starts from). Returns (params_prefix, header,
+    n_convs_loaded). The file must end exactly at a conv boundary, as
+    darknet's cutoffs do; anything else raises. A full file loads every
+    conv, as load does."""
     if hasattr(path_or_file, "read"):
         data = path_or_file.read()
     else:
@@ -93,10 +112,13 @@ def load(path_or_file, layers: Sequence[LayerSpec], input_channels: int = 3):
                         _conv_in_channels(layers, input_channels)):
         oc, k = conv.filters, conv.size
         need = oc * (4 if conv.bn else 1) + oc * ic * k * k
+        if pos == floats.size:
+            break  # clean cutoff boundary
         if pos + need > floats.size:
             raise ValueError(
-                f"weights file too short: conv {len(params)} needs {need} "
-                f"floats, {floats.size - pos} remain")
+                f"weights file too short (ends mid-layer): conv "
+                f"{len(params)} needs {need} floats, "
+                f"{floats.size - pos} remain")
         p = {}
         if conv.bn:
             for key in ("beta", "gamma", "mean", "var"):
@@ -115,7 +137,7 @@ def load(path_or_file, layers: Sequence[LayerSpec], input_channels: int = 3):
             f"{floats.size} floats — layer spec does not match file")
     header = {"major": int(major), "minor": int(minor),
               "revision": int(revision), "seen": seen}
-    return params, header
+    return params, header, len(params)
 
 
 def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,

@@ -23,25 +23,45 @@ runs every conv as above (ops/conv.py); "cuda" sends the convs that the
 fused conv kernel takes (stride 1, 1x1 or 3x3, CIN and CO multiples of
 128) through it (ops/cuda/conv_kernel.py), which reads bf16 kernels in
 bf16 mode, and the others as above.
+
+``DarknetTrain`` is the train-mode executor (apply_layers(train=True)):
+unfolded BN with batch statistics, trainable kernels, gamma, beta and
+biases, and the new rolling statistics returned, not written. Its
+numerics are the JAX package's training numerics, which differ from
+inference in two places:
+  * BN normalizes with the Bessel-corrected batch variance var*n/(n-1)
+    and puts that value into the rolling variance, with momentum 0.99 on
+    the OLD value; it is written by hand (F.batch_norm normalizes with
+    the biased variance).
+  * in bf16 the conv emits bf16 (the JAX train conv's
+    preferred_element_type is the compute dtype), so the training conv
+    is a bf16 F.conv2d: fp32 accumulation, one rounding before BN.
+Training convs run no kernel of csrc/: in JAX they are XLA convs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
                                           Route, resolve_route,
                                           weighted_specs)
+from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.ops import conv as conv_ops
 from yolo_tpu_torch.ops import entry as entry_ops
 from yolo_tpu_torch.ops.cuda import conv_kernel
 from yolo_tpu_torch.ops.pool import maxpool_nchw
+from yolo_tpu_torch.ops.precision import exact_for
 from yolo_tpu_torch.ops.reorg import reorg_nchw
 
 NumpyParams = List[Dict[str, np.ndarray]]
+
+BN_MOMENTUM = 0.99
 
 
 def _check_layer(idx: int, layer: LayerSpec) -> None:
@@ -203,3 +223,187 @@ class Darknet(torch.nn.Module):
             if idx in self._routed:
                 outputs[idx] = x
         return x.permute(0, 2, 3, 1).to(torch.float32)
+
+
+def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
+                            device) -> List[Dict[str, torch.Tensor]]:
+    """Unfolded JAX-package params (HWIO numpy kernels; gamma, beta,
+    mean, var or bias) -> fp32 tensors on ``device``: OIHW kernels in
+    channels_last memory, the rest as they are. DarknetTrain.to_numpy is
+    the inverse, exactly."""
+    convs = weighted_specs(layers)
+    if len(params) != len(convs):
+        raise ValueError(f"train_params_from_numpy: {len(params)} param "
+                         f"blocks for {len(convs)} conv layers")
+    out = []
+    for i, (spec, p) in enumerate(zip(convs, params)):
+        want = ({"kernel", "gamma", "beta", "mean", "var"} if spec.bn
+                else {"kernel", "bias"})
+        if set(p) != want:
+            raise ValueError(f"conv {i}: expected unfolded params "
+                             f"{sorted(want)}, got {sorted(p)}")
+        k = np.asarray(p["kernel"], dtype=np.float32)
+        if k.ndim != 4 or k.shape[0] != spec.size or k.shape[3] != spec.filters:
+            raise ValueError(f"conv {i}: kernel {k.shape} does not match "
+                             f"{spec}")
+        t = {key: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+             for key, v in p.items() if key != "kernel"}
+        t["kernel"] = torch.from_numpy(np.ascontiguousarray(
+            k.transpose(3, 2, 0, 1))).to(device).contiguous(
+                memory_format=torch.channels_last)
+        out.append(t)
+    return out
+
+
+def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
+                      spec: Conv, eps: float, compute_dtype,
+                      bn_stats_fp32: bool):
+    """graph.py::conv_block(train=True): conv, BN on batch statistics
+    (or bias), leaky/linear, cast to the compute dtype. Returns (y,
+    new_mean, new_var); the statistics are None without BN."""
+    pad = spec.size // 2
+    if compute_dtype == torch.float32:
+        y = F.conv2d(x, kernel, stride=spec.stride, padding=pad)
+    else:
+        y = F.conv2d(x.to(compute_dtype), kernel.to(compute_dtype),
+                     stride=spec.stride, padding=pad)
+    new_mean = new_var = None
+    if gamma is not None:
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        if bn_stats_fp32 or compute_dtype == torch.float32:
+            y = y.float()
+            m = y.mean(dim=(0, 2, 3))
+            v = (y - m[None, :, None, None]).square().mean(dim=(0, 2, 3))
+        else:
+            # statistics in the compute dtype: reduced in fp32, rounded
+            # once, as jnp.mean / jnp.var do on bf16
+            yf = y.float()
+            mf = yf.mean(dim=(0, 2, 3))
+            m = mf.to(y.dtype)
+            v = (yf - mf[None, :, None, None]).square().mean(
+                dim=(0, 2, 3)).to(y.dtype)
+        # darknet variance_cpu: 1/(n - 1) (Bessel), in the step and in
+        # the rolling variance alike
+        v = v * (n / max(n - 1, 1))
+        new_mean = (BN_MOMENTUM * mean
+                    + (1 - BN_MOMENTUM) * m.detach().float())
+        new_var = BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v.detach().float()
+        scale = gamma * torch.rsqrt(v + eps)
+        y = ((y - m[None, :, None, None]) * scale[None, :, None, None]
+             + beta[None, :, None, None])
+    else:
+        y = y + bias[None, :, None, None]
+    if spec.act == "leaky":
+        y = F.leaky_relu(y, 0.1)
+    if compute_dtype != torch.float32:
+        y = y.to(compute_dtype)
+    return y, new_mean, new_var
+
+
+class DarknetTrain(torch.nn.Module):
+    """The yolov2 layer set in train mode on unfolded params: kernels,
+    gamma, beta and biases are ``nn.Parameter``s, rolling mean and var
+    buffers, all fp32 on ``device`` (``blocks[i]`` holds conv i's).
+
+    forward returns (logits, bn_updates) and writes nothing: bn_updates
+    maps conv index -> {"mean", "var"}, the rolling statistics after
+    this batch, which apply_bn_updates writes into the buffers. Kept
+    functional so that remat (torch.utils.checkpoint re-running a block
+    in the backward) and chained sub-batches each update the statistics
+    exactly once."""
+
+    def __init__(self, layers: Sequence[LayerSpec], params: NumpyParams, *,
+                 device, eps: float = 1e-5):
+        super().__init__()
+        for idx, layer in enumerate(layers):
+            _check_layer(idx, layer)
+        self.layers = tuple(layers)
+        self.eps = eps
+        self.device = resolve_device(device)
+        self.blocks = torch.nn.ModuleList()
+        for p in train_params_from_numpy(layers, params, self.device):
+            block = torch.nn.Module()
+            for key, t in p.items():
+                if key in ("mean", "var"):
+                    block.register_buffer(key, t)
+                else:
+                    setattr(block, key, torch.nn.Parameter(t))
+            self.blocks.append(block)
+        self._routed = {resolve_route(idx, r)
+                        for idx, l in enumerate(layers)
+                        if isinstance(l, Route) for r in l.layers}
+
+    def forward(self, x: torch.Tensor, *, compute_dtype=torch.float32,
+                bn_stats_fp32: bool = True, remat: bool = False):
+        """x (B, H, W, C) in [0, 1] -> (logits (B, H/32, W/32,
+        A*(5+C)) fp32, bn_updates). remat re-runs each conv block in the
+        backward instead of keeping its intermediates."""
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
+        x = x.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        outputs: Dict[int, torch.Tensor] = {}
+        bn_updates: Dict[int, Dict[str, torch.Tensor]] = {}
+        conv_i = 0
+        with exact_for(compute_dtype):
+            for idx, layer in enumerate(self.layers):
+                if isinstance(layer, Conv):
+                    b = self.blocks[conv_i]
+                    args = (x, b.kernel, getattr(b, "gamma", None),
+                            getattr(b, "beta", None), getattr(b, "mean", None),
+                            getattr(b, "var", None), getattr(b, "bias", None))
+                    kw = dict(spec=layer, eps=self.eps,
+                              compute_dtype=compute_dtype,
+                              bn_stats_fp32=bn_stats_fp32)
+                    if remat:
+                        x, mean, var = torch.utils.checkpoint.checkpoint(
+                            _train_conv_block, *args, use_reentrant=False,
+                            **kw)
+                    else:
+                        x, mean, var = _train_conv_block(*args, **kw)
+                    if mean is not None:
+                        bn_updates[conv_i] = {"mean": mean, "var": var}
+                    conv_i += 1
+                elif isinstance(layer, MaxPool):
+                    x = maxpool_nchw(x, layer.size, layer.stride)
+                elif isinstance(layer, Reorg):
+                    x = reorg_nchw(x, layer.stride).contiguous(
+                        memory_format=torch.channels_last)
+                else:  # Route
+                    srcs = [outputs[resolve_route(idx, r)]
+                            for r in layer.layers]
+                    x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+                if idx in self._routed:
+                    outputs[idx] = x
+        return x.permute(0, 2, 3, 1).to(torch.float32), bn_updates
+
+    def to_numpy(self, overrides: Optional[List[Dict[str, torch.Tensor]]]
+                 = None) -> NumpyParams:
+        """The params in the JAX package's unfolded numpy layout (HWIO
+        kernels), exactly; fold_params + Darknet serve them. overrides
+        (per conv, name -> tensor) replace the live values, e.g. an EMA
+        track."""
+        out = []
+        for i, b in enumerate(self.blocks):
+            src = dict(b.named_parameters(recurse=False))
+            src.update(b.named_buffers(recurse=False))
+            if overrides is not None:
+                src.update(overrides[i])
+            p = {k: v.detach().float().cpu().numpy().copy()
+                 for k, v in src.items() if k != "kernel"}
+            p["kernel"] = np.ascontiguousarray(
+                src["kernel"].detach().float().cpu().permute(2, 3, 1, 0)
+                .numpy())
+            out.append(p)
+        return out
+
+
+@torch.no_grad()
+def apply_bn_updates(net: DarknetTrain,
+                     bn_updates: Dict[int, Dict[str, torch.Tensor]]) -> None:
+    """Write the rolling statistics of a train-mode forward into the
+    module's buffers (graph.py::apply_bn_updates, in place)."""
+    for i, stats in bn_updates.items():
+        for key, t in stats.items():
+            getattr(net.blocks[i], key).copy_(t)
