@@ -75,6 +75,38 @@ JSON lines; any failed check raises and the script exits non-zero:
               0.005 that the path gave it; eval img/s; the overfit
               model's mAP on its own scenes above the untrained model's
 
+  12. yolo    the yolov3/v4 family: yolov3, yolov3-spp, yolov3-tiny,
+              yolov4 and yolov4-tiny at their published widths and sizes
+              (416 / 608), seeded (synthetic_detector_params: residual
+              branches scaled, [yolo] heads calibrated on a probe frame)
+              and written as darknet .weights files, loaded by size
+              through yolo_tpu_torch.load: detect_raw on raw 480x640
+              frames in bf16 and fp32, on the default route and on
+              conv_impl="cuda": the conv kernel's launches a forward equal
+              YOLO_KERNEL_CONVS (yolov4's mish convs stay off it), one NMS
+              launch, box-level agreement with the fp32 plain path (VOC
+              +1 pixel IoU: a box in the letterbox's band unletterboxes
+              to a line on the frame's edge), entry="fused" raises; a
+              DetectionServer for YOLO_SERVED answers as direct calls;
+              each conv shape the five have and YOLOv2-COCO does not,
+              at batch 1 and 32 in bf16 and fp32, kernel against plain
+              (phase 6's bounds) and timed as phase 9; end-to-end latency
+              of yolov3 (batch 1/32/128) and yolov4 (1/32) on both routes
+  13. train   20-class heads (each variant's layer builder, VOC names)
+              on seeded synthetic VOC scenes, mosaic off, from seeded
+              darknet partial files (darknet53.conv.74,
+              yolov4.conv.137, yolov4-tiny.conv.29): (a) one fp32 step
+              of yolov3 (mse, 416) and of yolov4 (ciou, mish, SPP, 608)
+              at full width, card against CPU on a micro-batch of
+              CHECK_BATCH images with the card's choices held (leaky
+              sides, the SPP pools' maxima, the loss's ignore gates) and
+              phase 10's bounds (yolov4's update bound 2x, its fp32
+              floor: YOLO_STEP_BOUND), which TF32 on fails; (b) TRAIN_STEPS
+              steps of yolov4 at the cfg's batch 64, subdivisions 8, fp32
+              and bf16; (c) an Adam overfit of yolov4-tiny on
+              YOLO_OVERFIT_SCENES scenes, scored by quick_map, card and
+              CPU held at box level as in phase 11
+
 Tolerances of phases 6-7, kernel vs plain on the same inputs:
   * fp32: 1e-5 of the output's scale (max |plain|). Both sides form
     true fp32 products (the plain versions turn TF32 off) and sum them
@@ -119,8 +151,9 @@ import torch.nn.functional as F
 
 import yolo_tpu_torch
 from yolo_tpu_torch.configs import VOC_NAMES, get_variant
-from yolo_tpu_torch.configs.specs import (Conv, MaxPool, Reorg,
-                                          resolve_route, weighted_specs)
+from yolo_tpu_torch.configs.specs import (Conv, layer_strides,
+                                          weighted_specs)
+from yolo_tpu_torch.configs.variants import LAYER_BUILDERS
 from yolo_tpu_torch.data.augment import AugmentConfig
 from yolo_tpu_torch.data.pipeline import DevicePrefetcher, train_batches
 from yolo_tpu_torch.data.synthetic import write_voc_scenes
@@ -137,7 +170,8 @@ from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        init_state, make_train_step)
-from yolo_tpu_torch.train.loss import region_loss_config
+from yolo_tpu_torch.train import loss as loss_mod
+from yolo_tpu_torch.train.loss import region_loss_config, yolo_loss_config
 
 SEED = 0
 VARIANT = "coco"          # YOLOv2-COCO, 416x416, 80 classes, 5 anchors
@@ -215,6 +249,54 @@ EVAL_BATCH = 16           # quick_map's batch
 # runs from the overfit's snapshot after EARLY_STEPS (1394-1803 there),
 # and needs MIN_EVAL_BOXES of them; mAP to a relative MAP_REL
 EARLY_STEPS, MIN_EVAL_BOXES, MAP_REL = 60, 500, 1e-3
+
+# phases 12-13: the yolov3/v4 family at published widths and sizes
+YOLO_VARIANTS = ("yolov3", "yolov3-spp", "yolov3-tiny", "yolov4",
+                 "yolov4-tiny")
+# kernel convs a forward of each (leaky or linear, CIN and CO multiples
+# of 128; yolov4's 72 mish convs stay on cuDNN)
+YOLO_KERNEL_CONVS = {"yolov3": 60, "yolov3-spp": 61, "yolov3-tiny": 7,
+                     "yolov4": 33, "yolov4-tiny": 11}
+YOLO_IMAGES = 4           # raw 480x640 frames of a route check
+YOLO_SERVED = "yolov4"    # the variant DetectionServer serves
+YOLO_E2E = {"yolov3": E2E_BATCHES, "yolov4": TIMED_BATCHES}
+YOLO_SHAPE_CALLS = 10     # calls a timed run of one conv shape
+# phase 13: the [net] keys of yolov3.cfg and yolov4.cfg; the VOC scenes
+# train each variant's own layer builder with a 20-class head
+YOLO_NETS = {
+    "yolov3": (16, dict(learning_rate=0.001, momentum=0.9,
+                        weight_decay=0.0005, burn_in_steps=1000,
+                        lr_decay_steps=(400000, 450000),
+                        lr_decay_scales=(0.1, 0.1))),
+    "yolov4": (8, dict(learning_rate=0.0013, momentum=0.949,
+                       weight_decay=0.0005, burn_in_steps=1000,
+                       lr_decay_steps=(400000, 450000),
+                       lr_decay_scales=(0.1, 0.1))),
+}                         # (subdivisions, schedule); batch 64 both
+# the darknet partial files their fine-tunes start from: (layers, name,
+# convs)
+YOLO_PARTIALS = {"yolov3": (74, "darknet53.conv.74", 52),
+                 "yolov4": (137, "yolov4.conv.137", 92),
+                 "yolov4-tiny": (29, "yolov4-tiny.conv.29", 17)}
+YOLO_OVERFIT_SCENES = 24  # "a few dozen"
+# the loss and its class part fall below OVERFIT_FRACTION of their first
+# values as in phase 10 (on an H100: 6.5e-4 and 2.3e-4 after 600
+# steps); the ciou box term (x0.07) does not: it levels off at 0.16-0.23
+# of its first from step 300 on (1 - CIoU of boxes already at ~0.9
+# IoU; Adam and cuDNN's training make it vary between runs), and is
+# held below YOLO_OVERFIT_COORD of it
+YOLO_OVERFIT_STEPS, YOLO_OVERFIT_COORD = 600, 0.3
+# (a)'s update bound for yolov4, 2x phase 10's: fp32 arithmetic alone
+# puts its step ~6e-4 from a float64 step (the card's, with cuDNN or
+# without; the CPU's, convs in float64, 3.2e-4), in the early convs'
+# updates, which the noobj term's uniform push at 22743 anchors an
+# image reaches through 100 BN layers that cancel it (tools/port_perf.py
+# step64 on an H100); TF32 on reads ~0.8. yolov3 keeps STEP_BOUND.
+YOLO_STEP_BOUND = {"yolov3": STEP_BOUND, "yolov4": 1e-3}
+YOLO_AUGMENT = AugmentConfig(jitter=0.3, hue=0.1, saturation=1.5,
+                             exposure=1.5, flip=True)
+YOLO_TIMED = "yolov4"     # 20 timed steps at the cfg's batch, 608
+YOLO_OVERFIT = "yolov4-tiny"
 
 
 def emit(obj) -> None:
@@ -405,23 +487,35 @@ def _iou(a, b) -> float:
     return inter / union if union > 0 else 0.0
 
 
-def match_rate(ref: list, other: list, conf: float) -> tuple:
+def _iou_voc(a, b) -> float:
+    """The VOC devkit's +1 pixel IoU: a box clipped to a line on the
+    frame's edge (a [yolo] box in the letterbox's band) matches
+    itself."""
+    iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]) + 1)
+    ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]) + 1)
+    union = ((a[2] - a[0] + 1) * (a[3] - a[1] + 1)
+             + (b[2] - b[0] + 1) * (b[3] - b[1] + 1) - iw * ih)
+    return iw * ih / union
+
+
+def match_rate(ref: list, other: list, conf: float, iou=_iou) -> tuple:
     """(matched, total) over ref's detections scoring >= conf + MARGIN:
     matched when other holds a same-class box with IoU >= MATCH_IOU."""
     sure = [d for d in ref if d["score"] >= conf + MARGIN]
     hit = sum(any(o["class"] == d["class"]
-                  and _iou(o["box_xyxy"], d["box_xyxy"]) >= MATCH_IOU
+                  and iou(o["box_xyxy"], d["box_xyxy"]) >= MATCH_IOU
                   for o in other) for d in sure)
     return hit, len(sure)
 
 
-def check_agree(a: list, b: list, conf: float, what: str) -> dict:
+def check_agree(a: list, b: list, conf: float, what: str,
+                iou=_iou) -> dict:
     """Box-level agreement both ways over per-image result lists."""
     stats = {}
     for name, (x, y) in (("a_in_b", (a, b)), ("b_in_a", (b, a))):
         hit = tot = 0
         for xi, yi in zip(x, y):
-            h, t = match_rate(xi, yi, conf)
+            h, t = match_rate(xi, yi, conf, iou)
             hit, tot = hit + h, tot + t
         check(tot > 0, f"{what}: no detection above conf + margin")
         stats[name] = hit / tot
@@ -597,26 +691,21 @@ def phase_times(rng, model, card: str) -> dict:
 
 def eligible_conv_shapes(cfg) -> dict:
     """{(hw, cin, co, ks): count} of the convs the fused conv kernel
-    takes (ops.conv.eligible), from the layer list at the config's input
-    size."""
-    shapes, outs = {}, {}
-    hw, ch = cfg.input_size, cfg.in_channels
+    takes (leaky or linear, ops.conv.eligible), from the layer list at
+    the config's input size."""
+    strides = layer_strides(cfg.layers)
+    cins = iter(dw._conv_in_channels(cfg.layers, cfg.in_channels))
+    shapes = {}
     for idx, layer in enumerate(cfg.layers):
         if isinstance(layer, Conv):
+            cin = next(cins)
             hwio = np.broadcast_to(np.float32(0), (layer.size, layer.size,
-                                                   ch, layer.filters))
-            if conv.eligible(hwio, layer.stride):
-                key = (hw, ch, layer.filters, layer.size)
+                                                   cin, layer.filters))
+            if layer.act in ("leaky", "linear") and conv.eligible(
+                    hwio, layer.stride):
+                hw = cfg.input_size // (strides[idx - 1] if idx else 1)
+                key = (hw, cin, layer.filters, layer.size)
                 shapes[key] = shapes.get(key, 0) + 1
-            hw, ch = hw // layer.stride, layer.filters
-        elif isinstance(layer, MaxPool):
-            hw //= layer.stride
-        elif isinstance(layer, Reorg):
-            hw, ch = hw // layer.stride, ch * layer.stride ** 2
-        else:  # Route
-            srcs = [outs[resolve_route(idx, r)] for r in layer.layers]
-            hw, ch = srcs[0][0], sum(c for _, c in srcs)
-        outs[idx] = (hw, ch)
     return shapes
 
 
@@ -856,30 +945,35 @@ def phase_route_times(model, model32, card) -> None:
                       "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
 
 
-def fine_tune_init(cfg, root: str) -> list:
+def fine_tune_init(cfg, root: str, cutoff: int = BACKBONE_LAYERS,
+                   name: str = "darknet19_448.conv.23",
+                   n_convs: int = 18) -> list:
     """The fine-tuning start (the JAX package's train command): a seeded
-    darknet19 backbone written as a darknet partial file of the first
-    BACKBONE_LAYERS layers, read back with load_partial, and the tail
-    from random_params(scale=0.03)."""
-    n_backbone = len(weighted_specs(cfg.layers[:BACKBONE_LAYERS]))
-    path = os.path.join(root, "darknet19_448.conv.23")
-    dw.save(path, cfg.layers[:BACKBONE_LAYERS],
+    backbone (synthetic_detector_params' He-scaled trunk) written as the
+    darknet partial file ``name`` of the first ``cutoff`` layers, read
+    back with load_partial (``n_convs`` convs), and the tail from
+    random_params(scale=0.03)."""
+    n_backbone = len(weighted_specs(cfg.layers[:cutoff]))
+    path = os.path.join(root, name)
+    dw.save(path, cfg.layers[:cutoff],
             dw.synthetic_detector_params(cfg, SEED)[:n_backbone])
     params, header, n = dw.load_partial(path, cfg.layers)
-    check(n == n_backbone == 18, f"load_partial read {n} convs, want 18")
+    check(n == n_backbone == n_convs, f"load_partial read {n} convs from "
+          f"{name}, want {n_convs}")
     fresh = dw.random_params(cfg.layers, np.random.default_rng(SEED + 2),
                              scale=0.03, input_channels=cfg.in_channels)
     return params + fresh[n:]
 
 
 def host_batches(cfg, pairs, batch, seed, epochs=1, **kw):
-    """train_batches over ``epochs`` passes of pairs, one generator."""
+    """train_batches over ``epochs`` passes of pairs, one generator,
+    targets encoded for cfg's head kind."""
     rng = np.random.default_rng(seed)
     return itertools.chain.from_iterable(
         train_batches(pairs, class_names=cfg.class_names,
                       anchors=cfg.anchors, num_classes=cfg.num_classes,
                       net_size=cfg.input_hw, batch_size=batch, rng=rng,
-                      workers=PIPELINE_WORKERS, **kw)
+                      workers=PIPELINE_WORKERS, model_cfg=cfg, **kw)
         for _ in range(epochs))
 
 
@@ -906,49 +1000,62 @@ def update_err(before, after, ref, keys) -> tuple:
 
 
 class HeldChoices:
-    """The discrete choices of DarknetTrain's forward: each leaky unit's
-    side of zero and each 2x2/2 max-pool window's argmax. Under record()
+    """The discrete choices of DarknetTrain's forward and the [yolo]
+    loss: each leaky unit's side of zero, each max-pool window's argmax
+    (2x2/2 and the stride-1 SPP pools, over darknet's -inf padding) and
+    each anchor's ignore gate (best IoU < ignore_thresh). Under record()
     a step runs as usual and its choices are kept; under replay()
     another step takes the kept choices, moved to its device, whatever
     its own values say, and counts where its own would differ (flips).
     Two steps that take the same choices differ by fp32 rounding alone.
-    Swaps F.leaky_relu and graph.maxpool_nchw while active."""
+    Swaps F.leaky_relu, graph.maxpool_nchw and loss._ignore_gate while
+    active."""
 
     def __init__(self):
-        self.signs, self.argmax = [], []
-        self.flips = {"leaky": 0, "pool": 0}
+        self.signs, self.argmax, self.gates = [], [], []
+        self.flips = {"leaky": 0, "pool": 0, "ignore": 0}
 
     @contextlib.contextmanager
-    def _swapped(self, leaky, pool):
-        saved = F.leaky_relu, graph.maxpool_nchw
-        F.leaky_relu, graph.maxpool_nchw = leaky, pool
+    def _swapped(self, leaky, pool, gate):
+        saved = F.leaky_relu, graph.maxpool_nchw, loss_mod._ignore_gate
+        F.leaky_relu, graph.maxpool_nchw, loss_mod._ignore_gate = \
+            leaky, pool, gate
         try:
             yield
         finally:
-            F.leaky_relu, graph.maxpool_nchw = saved
+            F.leaky_relu, graph.maxpool_nchw, loss_mod._ignore_gate = saved
 
     @staticmethod
-    def _argmax(x, size, stride):
-        check(size == stride == 2 and x.shape[-1] % 2 == 0
-              and x.shape[-2] % 2 == 0, f"held pool {size}/{stride} on "
-              f"{tuple(x.shape)}")
-        return F.max_pool2d_with_indices(x, size, stride)
+    def _padded(x, size):
+        """x with ops/pool.py's darknet padding: size - 1 rows and
+        columns of -inf, (size - 1) // 2 of them before."""
+        pad = size - 1
+        lead = pad // 2
+        return F.pad(x, (lead, pad - lead, lead, pad - lead),
+                     value=float("-inf"))
 
     def record(self):
-        leaky_relu = F.leaky_relu
+        leaky_relu, gate_of = F.leaky_relu, loss_mod._ignore_gate
 
         def leaky(x, slope):
             self.signs.append((x > 0).detach())
             return leaky_relu(x, slope)
 
         def pool(x, size, stride):
-            y, idx = self._argmax(x, size, stride)
+            y, idx = F.max_pool2d_with_indices(self._padded(x, size), size,
+                                               stride)
             self.argmax.append(idx)
             return y
-        return self._swapped(leaky, pool)
+
+        def gate(best_iou, thresh):
+            g = gate_of(best_iou, thresh)
+            self.gates.append(g.detach())
+            return g
+        return self._swapped(leaky, pool, gate)
 
     def replay(self):
         signs, argmax = iter(self.signs), iter(self.argmax)
+        gates, gate_of = iter(self.gates), loss_mod._ignore_gate
 
         def leaky(x, slope):
             held = next(signs).to(x.device)
@@ -957,10 +1064,17 @@ class HeldChoices:
 
         def pool(x, size, stride):
             held = next(argmax).to(x.device)
-            self.flips["pool"] += int(
-                (self._argmax(x.detach(), size, stride)[1] != held).sum())
-            return x.flatten(2).gather(2, held.flatten(2)).view(held.shape)
-        return self._swapped(leaky, pool)
+            xp = self._padded(x, size)
+            self.flips["pool"] += int((F.max_pool2d_with_indices(
+                xp.detach(), size, stride)[1] != held).sum())
+            return xp.flatten(2).gather(2, held.flatten(2)).view(held.shape)
+
+        def gate(best_iou, thresh):
+            held = next(gates).to(best_iou.device)
+            self.flips["ignore"] += int(
+                (gate_of(best_iou, thresh) != held).sum())
+            return held
+        return self._swapped(leaky, pool, gate)
 
 
 @contextlib.contextmanager
@@ -992,18 +1106,15 @@ def tf32_on():
         precision.no_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
-    """Phase 10; returns (Adam-overfit train state, its scenes, its
-    params after EARLY_STEPS)."""
-    # (a) one fp32 step, card against CPU, on the same batch of 2, past
-    # the burn-in ramp so that the update is the cfg's lr 0.001. The
-    # CPU's step (float64 convs) replays the card's choices; its step on
-    # its own choices shows what the flips alone move; and the card's
-    # step with TF32 on, against the CPU's step on that step's choices,
-    # must fail the bounds
-    host = next(host_batches(cfg, pairs[:CHECK_BATCH], CHECK_BATCH, SEED,
-                             shuffle=False, augment_cfg=NET_AUGMENT))
-
+def card_vs_cpu_step(cfg, tcfg, params, host, phase: str,
+                     own_choices: bool = True,
+                     step_bound: float = STEP_BOUND) -> dict:
+    """One fp32 step on the card against the same step on the CPU, on
+    one host batch, past the burn-in ramp so that the update is the
+    cfg's lr. The CPU's step (float64 convs) replays the card's
+    choices; with own_choices, its step on its own choices shows what
+    the flips alone move; and the card's step with TF32 on, against the
+    CPU's step on that step's choices, must fail the bounds."""
     def step_on(dev, name):
         state = init_state(cfg, params, tcfg, device=dev)
         state.step = tcfg.burn_in_steps
@@ -1017,12 +1128,14 @@ def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
         gpu, m_gpu = step_on("cuda", "cuda")
     with tf32_on(), loose.record():
         gpu_tf32, _ = step_on("cuda", "cuda, TF32 on")
+    cpu_own = None
     with float64_convs():
         with exact.replay():
             cpu, m_cpu = step_on("cpu", "cpu")
         with loose.replay():
             cpu_tf32, _ = step_on("cpu", "cpu, TF32 choices")
-        cpu_own, _ = step_on("cpu", "cpu, own choices")
+        if own_choices:
+            cpu_own, _ = step_on("cpu", "cpu, own choices")
     loss_rel = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
                    for k in m_cpu)
     trained, stats = {"kernel", "gamma", "beta", "bias"}, {"mean", "var"}
@@ -1030,39 +1143,50 @@ def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
     stat_err = update_err(params, gpu, cpu, stats)
     tf32_err = update_err(params, gpu_tf32, cpu_tf32, trained)
     tf32_stat_err = update_err(params, gpu_tf32, cpu_tf32, stats)
-    own_err = update_err(params, cpu_own, cpu, trained)
-    emit({"phase": "train", "check": "card_vs_cpu_step", "batch":
-          CHECK_BATCH, "loss_parts_cuda": m_gpu, "loss_parts_cpu": m_cpu,
-          "loss_max_rel_err": loss_rel, "update_rel_err": err,
-          "bn_stat_update_rel_err": stat_err, "card_flips": exact.flips,
-          "tf32_update_rel_err": tf32_err,
-          "tf32_bn_stat_update_rel_err": tf32_stat_err,
-          "tf32_flips": loose.flips, "cpu_own_choices_update_rel_err":
-          own_err, "bounds": {"loss": 1e-4, "update": STEP_BOUND,
-                              "bn_stat_update": STAT_BOUND}})
-    check(loss_rel <= 1e-4, f"card vs CPU loss parts differ by {loss_rel}")
-    check(err[0] <= STEP_BOUND, f"card vs CPU updates differ by {err}")
-    check(stat_err[0] <= STAT_BOUND, f"card vs CPU BN statistic updates "
+    out = {"phase": phase, "check": "card_vs_cpu_step", "model": cfg.name,
+           "input_hw": list(cfg.input_hw), "batch": len(host["images"]),
+           "loss_parts_cuda": m_gpu, "loss_parts_cpu": m_cpu,
+           "loss_max_rel_err": loss_rel, "update_rel_err": err,
+           "bn_stat_update_rel_err": stat_err, "card_flips": exact.flips,
+           "tf32_update_rel_err": tf32_err,
+           "tf32_bn_stat_update_rel_err": tf32_stat_err,
+           "tf32_flips": loose.flips,
+           "bounds": {"loss": 1e-4, "update": step_bound,
+                      "bn_stat_update": STAT_BOUND}}
+    if cpu_own is not None:
+        out["cpu_own_choices_update_rel_err"] = update_err(
+            params, cpu_own, cpu, trained)
+    emit(out)
+    what = f"{cfg.name} card vs CPU"
+    check(loss_rel <= 1e-4, f"{what} loss parts differ by {loss_rel}")
+    check(err[0] <= step_bound, f"{what} updates differ by {err}")
+    check(stat_err[0] <= STAT_BOUND, f"{what} BN statistic updates "
           f"differ by {stat_err}")
-    check(tf32_err[0] > STEP_BOUND and tf32_stat_err[0] > STAT_BOUND,
-          f"the bounds do not catch a step in TF32: {tf32_err}, "
+    check(tf32_err[0] > step_bound and tf32_stat_err[0] > STAT_BOUND,
+          f"{what}: the bounds do not catch a step in TF32: {tf32_err}, "
           f"{tf32_stat_err}")
-    del gpu, gpu_tf32, cpu, cpu_tf32, cpu_own, exact, loose
+    return out
 
-    # (b) TRAIN_STEPS steps a precision through the prefetcher; (c) one
-    # step at the cfg's subdivisions on the last batch
+
+def timed_steps(cfg, tcfg, params, pairs, batch, steps, card, phase: str,
+                augment_cfg, **emit_kw):
+    """``steps`` steps a precision, fp32 then bf16, through
+    train_batches -> DevicePrefetcher at ``batch``; each step's time
+    from CUDA events in the loop and, on the last batch, ALONE_STEPS
+    more without the pipeline. Returns the last batch."""
     last = None
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         state = init_state(cfg, params, tcfg)
         step = make_train_step(cfg, tcfg, compute_dtype=dtype)
-        epochs = -(-TRAIN_STEPS * TRAIN_BATCH // len(pairs))
+        epochs = -(-steps * batch // len(pairs))
         events, metrics = [], []
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with DevicePrefetcher(host_batches(cfg, pairs, TRAIN_BATCH,
-                                           SEED + 3, epochs=epochs,
-                                           augment_cfg=NET_AUGMENT),
+        with DevicePrefetcher(host_batches(cfg, pairs, batch, SEED + 3,
+                                           epochs=epochs,
+                                           augment_cfg=augment_cfg),
                               depth=2) as staged:
-            for last in itertools.islice(staged, TRAIN_STEPS):
+            for last in itertools.islice(staged, steps):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -1071,9 +1195,9 @@ def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
                 events.append((start, end))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check(len(metrics) == TRAIN_STEPS and state.step == TRAIN_STEPS,
-              f"{name}: {len(metrics)} steps ran")
-        parts = [finite_metrics(m, f"{name} step {i}")
+        check(len(metrics) == steps and state.step == steps,
+              f"{cfg.name} {name}: {len(metrics)} steps ran")
+        parts = [finite_metrics(m, f"{cfg.name} {name} step {i}")
                  for i, m in enumerate(metrics)]
         in_loop = [s.elapsed_time(e) for s, e in events]
         # the step alone, on the last batch: inside the loop the pipeline's
@@ -1089,17 +1213,33 @@ def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
             alone.append((start, end))
         torch.cuda.synchronize()
         ms = statistics.median(s.elapsed_time(e) for s, e in alone)
-        emit({"phase": "train", "check": "steps", "precision": name,
-              "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        emit({"phase": phase, "check": "steps", "model": cfg.name,
+              "input_hw": list(cfg.input_hw), "precision": name,
+              "batch": batch, "grad_accum": tcfg.grad_accum, "steps": steps,
               "first_loss": parts[0], "last_loss": parts[-1],
-              "step_ms": ms, "img_per_s": TRAIN_BATCH * 1000 / ms,
+              "step_ms": ms, "img_per_s": batch * 1000 / ms,
               "in_loop_step_ms_median": statistics.median(in_loop),
               "in_loop_step_ms_min": min(in_loop),
               "in_loop_step_ms_max": max(in_loop),
-              "loop_img_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
+              "loop_img_per_s": steps * batch / wall,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-              "card": card})
+              "card": card, **emit_kw})
         del state
+    return last
+
+
+def phase_train(cfg, tcfg, params, pairs, card) -> tuple:
+    """Phase 10; returns (Adam-overfit train state, its scenes, its
+    params after EARLY_STEPS)."""
+    # (a) one fp32 step, card against CPU, on the same batch of 2
+    host = next(host_batches(cfg, pairs[:CHECK_BATCH], CHECK_BATCH, SEED,
+                             shuffle=False, augment_cfg=NET_AUGMENT))
+    card_vs_cpu_step(cfg, tcfg, params, host, "train")
+
+    # (b) TRAIN_STEPS steps a precision through the prefetcher; (c) one
+    # step at the cfg's subdivisions on the last batch
+    last = timed_steps(cfg, tcfg, params, pairs, TRAIN_BATCH, TRAIN_STEPS,
+                       card, "train", NET_AUGMENT)
     tcfg8 = dataclasses.replace(tcfg, grad_accum=SUBDIVISIONS)
     state = init_state(cfg, params, tcfg8)
     m = finite_metrics(make_train_step(cfg, tcfg8)(state, last),
@@ -1277,6 +1417,289 @@ def phase_fine_tune(card) -> tuple:
     return launches, timed
 
 
+def voc_variant(variant: str):
+    """A variant's own layer builder with a 20-class head (3 * (5 + 20)
+    filters a [yolo] head) and the VOC names, as a VOC fine-tune cfg of
+    that model sets them."""
+    cfg = get_variant(variant)
+    return dataclasses.replace(cfg, name=f"{cfg.name[:-5]}-voc",
+                               layers=LAYER_BUILDERS[variant](3 * 25),
+                               class_names=VOC_NAMES)
+
+
+def frames(seed: int, b: int) -> torch.Tensor:
+    """Seeded raw 480x640 uint8 frames on the card."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
+
+
+def phase_yolo_serve(tmp: str, card: str) -> dict:
+    """Phase 12 (a): the five variants, seeded and written as darknet
+    .weights files, loaded by size through yolo_tpu_torch.load at their
+    published sizes, on both routes in bf16 and fp32; (b) a
+    DetectionServer for YOLO_SERVED. Returns the kernel launches and the
+    loaded models of the end-to-end timings."""
+    launches = {"conv": 0, "nms": 0}
+    images = frames(SEED + 12, YOLO_IMAGES)
+    kept = {}
+    for variant in YOLO_VARIANTS:
+        cfg = get_variant(variant)
+        path = os.path.join(tmp, f"{variant}-seed.weights")
+        t0 = time.perf_counter()
+        dw.save(path, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+        seed_s = time.perf_counter() - t0
+        model = yolo_tpu_torch.load(path, device="cuda")
+        model32 = yolo_tpu_torch.load(path, device="cuda", precision="fp32")
+        check(model.cfg == cfg, f"load inferred {model.cfg.name} from "
+              f"{variant}'s file")
+        names, conf = cfg.detection_names(), cfg.conf_threshold
+        # fp32 through the plain path: full decode + exact per-class NMS
+        # in plain PyTorch, fp32 convs without TF32
+        plain = make_detector(cfg, head="reference", nms_impl="torch")
+        ref = detections_to_json(plain(model32.params, images), names)
+        rows = []
+        for net, precision in ((model.params, "bf16"),
+                               (model32.params, "fp32")):
+            for route, n_conv in (("default", 0), ("conv_impl=cuda",
+                                                   YOLO_KERNEL_CONVS[variant])):
+                kw = {"conv_impl": "cuda"} if n_conv else {}
+                conv_kernel.launches = nms_kernel.launches = 0
+                out = detect_raw(cfg, net, images, **kw)
+                torch.cuda.synchronize()
+                got = (conv_kernel.launches, nms_kernel.launches)
+                what = f"{cfg.name} {route} {precision}"
+                check(got == (n_conv, 1), f"{what}: (conv, NMS) launches "
+                      f"{got}, want {(n_conv, 1)} for one forward")
+                launches["conv"] += got[0]
+                launches["nms"] += got[1]
+                check(tuple(out["boxes"].shape) == (YOLO_IMAGES, 100, 4)
+                      and bool(torch.isfinite(out["boxes"]).all())
+                      and bool(torch.isfinite(out["scores"]).all()),
+                      f"{what}: bad detections")
+                dets = detections_to_json(out, names)
+                rows.append({"route": route, "precision": precision,
+                             "conv_launches": got[0],
+                             "nms_launches": got[1],
+                             "detections_per_image": [len(d) for d in dets],
+                             "vs_fp32_plain": check_agree(
+                                 ref, dets, conf, f"{what} vs fp32 plain",
+                                 iou=_iou_voc)})
+        try:
+            detect_raw(cfg, model.params, images, entry="fused")
+            fused_raises = False
+        except ValueError:
+            fused_raises = True
+        check(fused_raises, f"{cfg.name}: entry='fused' did not raise")
+        emit({"phase": "yolo_serve", "model": cfg.name,
+              "input_hw": list(cfg.input_hw),
+              "weights_bytes": os.path.getsize(path),
+              "seed_weights_s": seed_s, "routes": rows,
+              "plain_detections_per_image": [len(d) for d in ref],
+              "entry_fused_raises": fused_raises,
+              "agreement_rule": {"margin": MARGIN, "voc_iou": MATCH_IOU,
+                                 "min_match": MIN_MATCH}})
+        if variant in YOLO_E2E or variant == YOLO_SERVED:
+            kept[variant] = model
+        del model32
+
+    model = kept[YOLO_SERVED]
+    cfg, names = model.cfg, model.cfg.detection_names()
+    served = images.cpu().numpy()
+    server = DetectionServer(cfg, model.params, port=0, max_batch=32)
+    server.start()
+    try:
+        nms_kernel.launches = 0
+        responses = [post_npy(server.port, img) for img in served]
+        launches["nms"] += nms_kernel.launches
+        stats = dict(server.stats)
+    finally:
+        server.stop()
+    direct = [detections_to_json(model(served[i:i + 1]), names)[0]
+              for i in range(len(served))]
+    check(stats["errors"] == 0, f"server errors: {stats}")
+    for i, resp in enumerate(responses):
+        check(resp == direct[i], f"{cfg.name}: response {i} differs from "
+              f"the direct detector call")
+    emit({"phase": "yolo_serve", "check": "http", "model": cfg.name,
+          "requests": stats["requests"], "responses_equal_direct": True,
+          "detections_per_image": [len(d) for d in direct]})
+    return launches, kept
+
+
+def phase_yolo_conv(gen, card) -> tuple:
+    """Phase 12 (c): each conv shape of the five variants that
+    YOLOv2-COCO 416 does not have, at batch 1 and TIMED_BATCH in bf16
+    and fp32: the kernel against its plain version with phase 6's
+    bounds (two calls give the same bytes), and timed as phase 9 times a
+    shape. Returns (worst |kernel - plain|, shapes)."""
+    per_variant = {v: eligible_conv_shapes(get_variant(v))
+                   for v in YOLO_VARIANTS}
+    for v, shapes in per_variant.items():
+        check(sum(shapes.values()) == YOLO_KERNEL_CONVS[v],
+              f"{v}: {sum(shapes.values())} kernel convs")
+    coco = eligible_conv_shapes(get_variant(VARIANT))
+    new = sorted(set().union(*per_variant.values()) - set(coco))
+    worst = 0.0
+    for b in TIMED_BATCHES:
+        for hw, cin, co, ks in new:
+            for dtype, name in DTYPES:
+                x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
+                got = conv_kernel.fused_conv_bias_act(x, k, bias,
+                                                      act="leaky")
+                again = conv_kernel.fused_conv_bias_act(x, k, bias,
+                                                        act="leaky")
+                torch.cuda.synchronize()
+                want = conv.fused_conv_bias_act(x, k, bias, act="leaky")
+                what = f"yolo conv {b}x{hw}^2 {cin}->{co} {ks}x{ks} {name}"
+                err = kernel_err(got, want, what)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                check(torch.equal(got.view(bits), again.view(bits)),
+                      f"{what}: two calls on the same inputs differ")
+                worst = max(worst, err)
+                out = conv_library_call(x, k, bias)
+                ms = cuda_ms_per_call(lambda: conv_kernel.fused_conv_bias_act(
+                    x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
+                plain_ms = cuda_ms_per_call(lambda: conv.fused_conv_bias_act(
+                    x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
+                library_ms = cuda_ms_per_call(
+                    lambda: conv_library_call(x, k, bias),
+                    calls=YOLO_SHAPE_CALLS)
+                flop = 2 * b * hw * hw * ks * ks * cin * co
+                bound, bound_by = bound_ms(flop, nbytes(x, k, bias, out),
+                                           dtype)
+                emit({"phase": "yolo_conv", "batch": b, "hw": hw, "cin": cin,
+                      "co": co, "ks": ks, "dtype": name,
+                      "layers": {v: s[(hw, cin, co, ks)]
+                                 for v, s in per_variant.items()
+                                 if (hw, cin, co, ks) in s},
+                      "plan": list(conv_kernel.plan(
+                          b, hw, hw, cin, co, ks,
+                          bf16=dtype == torch.bfloat16)[:3]),
+                      "max_abs_err": err,
+                      "out_scale": float(want.float().abs().max()),
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "share_of_bound": bound / ms,
+                      "card": card})
+    return worst, new
+
+
+def phase_yolo_times(kept, card) -> None:
+    """Phase 12 (d): end-to-end latency (median of synchronized calls)
+    of the YOLO_E2E variants on both routes, bf16, raw 480x640 frames."""
+    for variant, batches in YOLO_E2E.items():
+        model = kept[variant]
+        cfg = model.cfg
+        for b in batches:
+            images = frames(b, b)
+            for route, fn in (("default", lambda im: model(im)),
+                              ("conv_impl=cuda", lambda im: detect_raw(
+                                  cfg, model.params, im, conv_impl="cuda"))):
+                ms = cuda_median_ms(lambda: fn(images), reps=5)
+                emit({"phase": "times", "what": "yolo_e2e_bf16",
+                      "model": cfg.name, "input_hw": list(cfg.input_hw),
+                      "route": route, "batch": b, "src_hw": list(SRC_HW),
+                      "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
+
+
+def phase_yolo_train(card) -> int:
+    """Phase 13 on seeded synthetic VOC scenes, mosaic off (yolov4.cfg
+    sets mosaic=1: ROADMAP A9f); returns the NMS launches of its eval.
+    (a) one fp32 step of yolov3 (mse, 416) and of yolov4 (ciou, mish,
+    SPP, 608) at full width from seeded weights, card against CPU, on a
+    micro-batch of CHECK_BATCH images (the CPU's float64 step at 608 is
+    what it costs), every discrete choice of the card's step held
+    (leaky sides, the SPP pools' maxima, the yolo loss's ignore gates),
+    with phase 10's bounds (yolov4's update bound YOLO_STEP_BOUND),
+    which the same step with TF32 on fails;
+    (b) TRAIN_STEPS steps of YOLO_TIMED at the cfg's batch 64 and
+    subdivisions 8, fp32 and bf16; (c) an Adam overfit of YOLO_OVERFIT
+    scored by quick_map, card and CPU held at box level as phase 11."""
+    rng = np.random.default_rng(SEED + 13)
+    palette = rng.integers(0, 256, (len(VOC_NAMES), 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = [os.path.join(tmp, d) for d in ("train", "held_out")]
+        for d in roots:
+            os.mkdir(d)
+        pairs, held_out = (
+            write_voc_scenes(d, [SCENE_HW[i % len(SCENE_HW)]
+                                 for i in range(n)], rng, palette=palette)
+            for d, n in zip(roots, (TRAIN_SCENES, HELD_OUT_SCENES)))
+        for variant, (subdivisions, schedule) in YOLO_NETS.items():
+            cfg = voc_variant(variant)
+            tcfg = TrainConfig(**schedule, grad_accum=subdivisions,
+                               yolo_loss=yolo_loss_config(cfg))
+            params = fine_tune_init(cfg, tmp, *YOLO_PARTIALS[variant])
+            host = next(host_batches(cfg, pairs[:CHECK_BATCH], CHECK_BATCH,
+                                     SEED, shuffle=False,
+                                     augment_cfg=YOLO_AUGMENT))
+            card_vs_cpu_step(cfg, dataclasses.replace(tcfg, grad_accum=1),
+                             params, host, "yolo_train", own_choices=False,
+                             step_bound=YOLO_STEP_BOUND[variant])
+            if variant == YOLO_TIMED:
+                timed_steps(cfg, tcfg, params, pairs, TRAIN_BATCH,
+                            TRAIN_STEPS, card, "yolo_train", YOLO_AUGMENT)
+            del params
+        cfg = voc_variant(YOLO_OVERFIT)
+        params = fine_tune_init(cfg, tmp, *YOLO_PARTIALS[YOLO_OVERFIT])
+        return yolo_overfit(cfg, params, pairs, held_out, card)
+
+
+def yolo_overfit(cfg, params, pairs, held_out, card) -> int:
+    """Phase 13 (c); returns the NMS launches of its quick_map."""
+    scenes = pairs[:YOLO_OVERFIT_SCENES]
+    with DevicePrefetcher(host_batches(cfg, scenes, YOLO_OVERFIT_SCENES,
+                                       SEED, shuffle=False)) as staged:
+        batch = next(iter(staged))
+    ocfg = TrainConfig(optimizer="adam", learning_rate=1e-3,
+                       weight_decay=0.0005, yolo_loss=yolo_loss_config(cfg))
+    state = init_state(cfg, params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    losses = []
+    for i in range(YOLO_OVERFIT_STEPS):
+        losses.append(finite_metrics(step(state, batch), f"overfit step {i}"))
+        if i + 1 == EARLY_STEPS:
+            early = ema_params_of(state)
+    first, last = losses[0], losses[-1]
+    emit({"phase": "yolo_train", "check": "overfit_loss", "model": cfg.name,
+          "steps": YOLO_OVERFIT_STEPS, "first_loss": first,
+          "last_loss": last, "ratio": {k: last[k] / first[k] for k in first},
+          "loss_every_50": [m["loss"] for m in losses[::50]],
+          "coord_every_50": [m["coord"] for m in losses[::50]]})
+    check(all(last[k] < OVERFIT_FRACTION * first[k]
+              for k in ("loss", "class"))
+          and last["coord"] < YOLO_OVERFIT_COORD * first["coord"],
+          f"{cfg.name} overfit loss {first} -> {last}")
+    trained = ema_params_of(state)
+    gt, _ = build_ground_truth(held_out, cfg.class_names)
+    nms_kernel.launches = 0
+    map_quick = quick_map(cfg, trained, held_out, batch=EVAL_BATCH)
+    launches = nms_kernel.launches
+    check(launches == -(-len(held_out) // EVAL_BATCH),
+          f"{cfg.name}: quick_map launched the NMS kernel {launches} times")
+    overfit = card_vs_cpu_eval(cfg, fold_params(cfg.layers, trained,
+                                                cfg.bn_eps),
+                               held_out, gt, f"{cfg.name} overfit", 1)
+    check(abs(map_quick - overfit["map_cuda"]) <= 1e-6,
+          f"quick_map {map_quick} vs {overfit}")
+    at_early = card_vs_cpu_eval(cfg, fold_params(cfg.layers, early,
+                                                 cfg.bn_eps), held_out, gt,
+                                f"{cfg.name} after {EARLY_STEPS} steps", 1)
+    own = quick_map(cfg, trained, scenes, batch=EVAL_BATCH)
+    untrained = quick_map(cfg, params, scenes, batch=EVAL_BATCH)
+    emit({"phase": "yolo_train", "check": "overfit", "model": cfg.name,
+          "input_hw": list(cfg.input_hw), "scenes": YOLO_OVERFIT_SCENES,
+          "steps": YOLO_OVERFIT_STEPS,
+          "card_vs_cpu": {"overfit": overfit,
+                          f"after_{EARLY_STEPS}_steps": at_early},
+          "nms_launches": launches, "map_overfit_own_scenes": own,
+          "map_untrained_own_scenes": untrained, "card": card})
+    check(own > untrained, f"{cfg.name}: the overfit model's mAP on its "
+          f"own scenes {own} is no better than the untrained model's "
+          f"{untrained}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1334,6 +1757,17 @@ def main() -> int:
 
     voc_launches, eval_grid = phase_fine_tune(card)
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        yolo_launches, kept = phase_yolo_serve(tmp, card)
+    yolo_worst, yolo_shapes = phase_yolo_conv(gen, card)
+    phase_yolo_times(kept, card)
+    del kept
+    t1 = time.perf_counter()
+    yolo_eval_launches = phase_yolo_train(card)
+    emit({"phase": "yolo", "serve_seconds": t1 - t0,
+          "train_seconds": time.perf_counter() - t1})
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu"))
     check(not foreign, f"the port loaded JAX or the JAX package: {foreign}")
@@ -1345,7 +1779,8 @@ def main() -> int:
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
-         "launches": launches + voc_launches, "max_abs_err": worst,
+         "launches": launches + voc_launches + yolo_launches["nms"]
+         + yolo_eval_launches, "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
          "eval_grid": [EVAL_BATCH * 20, 5, 128], "eval_grid_ms": eval_grid[0],
@@ -1355,11 +1790,13 @@ def main() -> int:
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
-         "launches": route_launches["conv"], "max_abs_err": conv_worst,
+         "launches": route_launches["conv"] + yolo_launches["conv"],
+         "max_abs_err": max(conv_worst, yolo_worst),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
          "bound_by": conv_t[4], "library_ms": conv_t[2],
          "fp32_ms": conv32[0], "fp32_plain_ms": conv32[1],
-         "fp32_library_ms": conv32[2], "fp32_bound_ms": conv32[3]},
+         "fp32_library_ms": conv32[2], "fp32_bound_ms": conv32[3],
+         "yolo_shapes": len(yolo_shapes)},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",

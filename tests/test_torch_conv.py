@@ -102,8 +102,12 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     got = conv_kernel.fused_conv_bias_act(x, k, b, act="leaky")
     assert conv_kernel.launches == before  # no kernel on the CPU
     assert torch.equal(got, conv.fused_conv_bias_act(x, k, b, act="leaky"))
+    # the kernel's epilogue is leaky/linear: a mish conv raises at the
+    # wrapper, on the CPU as on the card; the plain block takes mish
     with pytest.raises(ValueError, match="act"):
-        conv.fused_conv_bias_act(x, k, b, act="mish")
+        conv_kernel.fused_conv_bias_act(x, k, b, act="mish")
+    with pytest.raises(ValueError, match="act"):
+        conv.fused_conv_bias_act(x, k, b, act="swish")
 
 
 # the (H=W, CIN, CO, ks) of YOLOv2-COCO 416's 16 convs on the kernel
@@ -368,3 +372,116 @@ def test_coco_416_kernel_convs_match_the_jax_pallas_route(monkeypatch,
     else:
         assert routed == port[:-1] and port[-1] == (3, 3, 1280, 1024)
         assert not jck.feasible((1, 13, 13, 1280), port[-1], 4)
+
+
+# --- the yolov3/v4 family -----------------------------------------------------
+
+# the (H=W, CIN, CO, ks) of the five yolov3/v4 variants' kernel convs at
+# their published sizes that YOLOv2-COCO 416 does not have
+YOLO_SHAPES = [
+    (13, 256, 128, 1), (13, 256, 512, 3), (13, 512, 256, 1),
+    (13, 512, 512, 3), (13, 1024, 256, 1), (19, 512, 256, 1),
+    (19, 512, 1024, 3), (19, 1024, 512, 1), (19, 2048, 512, 1),
+    (26, 128, 128, 3), (26, 128, 256, 3), (26, 256, 128, 1),
+    (26, 256, 256, 1), (26, 256, 256, 3), (26, 384, 256, 3),
+    (26, 768, 256, 1), (38, 256, 128, 1), (38, 256, 512, 3),
+    (38, 512, 256, 1), (38, 768, 256, 1), (52, 128, 128, 1),
+    (52, 128, 128, 3), (52, 384, 128, 1), (76, 128, 256, 3),
+    (76, 256, 128, 1), (76, 384, 128, 1)]
+# kernel convs per forward of the port (either precision), and of the
+# JAX package's bf16 and fp32 routes, which also ask the TPU VMEM gate
+# conv_kernel.feasible: in bf16 it turns down one of yolov3-spp's 76x76
+# 128 -> 256 3x3 convs at 608, in fp32 also the larger 13-76 convs
+YOLO_ROUTED = {"yolov3": (60, 60, 59), "yolov3-spp": (61, 60, 39),
+               "yolov3-tiny": (7, 7, 7), "yolov4": (33, 33, 26),
+               "yolov4-tiny": (11, 11, 11)}
+
+
+def _kernel_conv_shapes(cfg):
+    """[(hw, cin, co, ks)] of the convs Darknet sends to the kernel, in
+    layer order, at the config's input size."""
+    from yolo_tpu_torch.configs import layer_strides
+
+    strides = layer_strides(cfg.layers)
+    cins = iter(dw._conv_in_channels(cfg.layers))
+    out = []
+    for idx, l in enumerate(cfg.layers):
+        if isinstance(l, Conv):
+            cin = next(cins)
+            hwio = np.broadcast_to(np.float32(0), (l.size, l.size, cin,
+                                                   l.filters))
+            if l.act in ("leaky", "linear") and conv.eligible(hwio,
+                                                              l.stride):
+                hw = cfg.input_size // (strides[idx - 1] if idx else 1)
+                out.append((hw, cin, l.filters, l.size))
+    return out
+
+
+def test_yolo_shapes_are_the_new_kernel_shapes():
+    new = set()
+    for variant in YOLO_ROUTED:
+        shapes = _kernel_conv_shapes(get_variant(variant))
+        assert len(shapes) == YOLO_ROUTED[variant][0]
+        new |= set(shapes)
+    assert sorted(new - set(COCO_SHAPES)) == YOLO_SHAPES
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("batch", [1, 8, 32, 128])
+@pytest.mark.parametrize("hw,cin,co,ks", YOLO_SHAPES)
+def test_plan_of_the_yolo_convs(hw, cin, co, ks, batch, bf16):
+    """The yolov3/v4 shapes (76x76 and 19x19 grids, CIN 384/768/2048,
+    CO 128): every plan covers K once in whole chunks, BN divides CO,
+    a split only where the tiles leave SMs idle and never more splits
+    than chunks, and the split workspace stays under 256 MiB."""
+    p, tiles = _check_plan(batch, hw, hw, cin, co, ks, bf16=bf16)
+    steps = ks * ks * cin // conv_kernel.chunk(bf16)
+    assert p.splits == 1 or tiles < conv_kernel.SMS
+    assert p.splits <= steps
+    assert p.workspace_bytes <= 256 << 20
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("variant", sorted(YOLO_ROUTED))
+def test_yolo_kernel_convs_match_the_jax_pallas_route(monkeypatch, variant,
+                                                      dtype):
+    """The convs of each yolov3/v4 variant at its published size that
+    the JAX package's apply_layers(conv_impl="pallas") sends to its
+    kernel, traced by shape only (jax.eval_shape, the kernel stubbed),
+    against the port's (leaky/linear, CIN and CO multiples of 128; mish
+    convs stay off): the JAX route also asks the TPU VMEM gate
+    (feasible), which the port does not port, so it takes YOLO_ROUTED's
+    counts, in order a subsequence of the port's convs (all of them
+    where the counts agree)."""
+    _, jdt = DTYPES[dtype]
+    cfg = get_variant(variant)
+    convs = weighted_specs(cfg.layers)
+    shapes = [(c.size, c.size, cin, c.filters) for c, cin in
+              zip(convs, dw._conv_in_channels(cfg.layers))]
+    routed = []
+
+    def stub(x, kernel, bias, *, act="leaky", interpret=False):
+        routed.append(tuple(kernel.shape))
+        return jnp.zeros(x.shape[:3] + kernel.shape[-1:], x.dtype)
+
+    monkeypatch.setattr(jck, "fused_conv_bias_act", stub)
+    params = [{"kernel": jax.ShapeDtypeStruct(s, jnp.float32),
+               "bias": jax.ShapeDtypeStruct(s[-1:], jnp.float32)}
+              for s in shapes]
+    size = cfg.input_size
+    out = jax.eval_shape(lambda p, x: jgraph.apply_layers(
+        to_jax_config(cfg).layers, p, x, eps=cfg.bn_eps, compute_dtype=jdt,
+        conv_impl="pallas"), params,
+        jax.ShapeDtypeStruct((1, size, size, 3), jnp.float32))
+    assert len(out) == len(cfg.yolo_heads)
+    folded = [{"kernel": np.broadcast_to(np.float32(0), s),
+               "bias": np.zeros(s[-1], np.float32)} for s in shapes]
+    eligible = [ok and c.act in ("leaky", "linear") for c, ok in zip(
+        convs, (conv.eligible(p["kernel"], c.stride)
+                for c, p in zip(convs, folded)))]
+    port = [s for s, ok in zip(shapes, eligible) if ok]
+    n_port, n_bf16, n_fp32 = YOLO_ROUTED[variant]
+    assert len(port) == n_port
+    assert len(routed) == (n_bf16 if dtype == "bf16" else n_fp32)
+    it = iter(port)
+    assert all(s in it for s in routed)   # a subsequence

@@ -470,3 +470,60 @@ def test_prefetcher_delivers_on_the_card_in_order(cuda):
                                    for i in range(9)]
     assert all(g[1] == g[2] == "cuda" for g in got)
     assert [g[3] for g in got] == [[f"{i}.png"] for i in range(9)]
+
+
+@pytest.mark.parametrize("hw,cin,co,ks", [
+    (76, 128, 256, 3), (19, 2048, 512, 1), (26, 768, 256, 1),
+    (52, 384, 128, 1), (13, 512, 512, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 2])
+def test_conv_kernel_matches_plain_at_yolo_shapes(cuda, b, hw, cin, co, ks,
+                                                  dtype):
+    """Shapes of the yolov3/v4 family: a 76x76 grid, CIN 2048 at CO 512
+    (split-K at batch 1), CO 128 (no 256-wide tile), the route concats'
+    CIN 768 and 384; a non-contiguous input (a grouped route's channel
+    slice) is copied to channels_last by the route."""
+    gen = torch.Generator(device=cuda).manual_seed(hw + cin)
+    x = torch.randn(b, 2 * cin, hw, hw, generator=gen, device=cuda).to(
+        dtype).contiguous(memory_format=torch.channels_last)[:, cin:]
+    k = (torch.randn(co, cin, ks, ks, generator=gen, device=cuda)
+         * (2.0 / (ks * ks * cin)) ** 0.5).to(dtype).contiguous(
+             memory_format=torch.channels_last)
+    bias = torch.randn(co, generator=gen, device=cuda) * 0.5
+    with pytest.raises(ValueError):
+        conv_kernel.fused_conv_bias_act(x, k, bias)   # not contiguous
+    x = x.contiguous(memory_format=torch.channels_last)
+    got = conv_kernel.fused_conv_bias_act(x, k, bias, act="linear")
+    want = conv.fused_conv_bias_act(x, k, bias, act="linear")
+    g, w = got.float(), want.float()
+    tol = 1e-5 * w.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    assert bool(((g - w).abs() <= tol).all())
+    with pytest.raises(ValueError, match="act"):
+        conv_kernel.fused_conv_bias_act(x, k, bias, act="mish")
+
+
+def test_yolo_routes_launch_their_kernels(cuda):
+    """yolov4-tiny at 160 through detect_raw(conv_impl="cuda"): one conv
+    launch per kernel-eligible conv (11, as at 416) and one NMS launch a
+    call; the fused entry raises."""
+    from yolo_tpu_torch.models.predict import detect_raw
+
+    cfg = get_variant("yolov4-tiny", input_size=160)
+    params = tgraph.fold_params(
+        cfg.layers, dw.synthetic_detector_params(cfg, 0), cfg.bn_eps)
+    net = tgraph.Darknet(cfg.layers, params, device=cuda,
+                         dtype=torch.bfloat16)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 120, 160, 3), dtype=np.uint8)).to(cuda)
+    default = detect_raw(cfg, net, imgs)
+    c0, n0 = conv_kernel.launches, nms_kernel.launches
+    routed = detect_raw(cfg, net, imgs, conv_impl="cuda")
+    torch.cuda.synchronize()
+    assert conv_kernel.launches - c0 == sum(net.kernel_eligible) == 11
+    assert nms_kernel.launches - n0 == 1
+    assert routed["boxes"].shape == default["boxes"].shape
+    assert bool(torch.isfinite(routed["boxes"]).all())
+    with pytest.raises(ValueError, match="entry"):
+        detect_raw(cfg, net, imgs, entry="fused")

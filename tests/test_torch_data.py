@@ -155,10 +155,28 @@ def test_jitter_pads_by_edge_replication():
 @pytest.mark.parametrize("kw", [dict(blur=3), dict(mosaic=True),
                                 dict(mixup=True), dict(angle=7.0)])
 def test_augment_modes_without_a_port_raise(kw):
-    img = np.zeros((32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="A9"):
-        taug.augment(img, np.zeros((0, 4), np.float32), np.zeros(0, np.int64),
-                     np.random.default_rng(0), taug.AugmentConfig(**kw))
+    """Blur needs cv2's resampler and raises (ROADMAP A9). augment()
+    does not act on mosaic, mixup (pipeline-level) or the classifier
+    geometry keys, in the JAX package as in the port: the sample equals
+    JAX's under the same generator (train_batches raises for mosaic and
+    mixup, tests/test_torch_yolo_train.py)."""
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)
+    boxes = np.asarray([[0.5, 0.5, 0.4, 0.3]], np.float32)
+    classes = np.asarray([2])
+    if "blur" in kw:
+        with pytest.raises(NotImplementedError, match="A9"):
+            taug.augment(img, boxes, classes, np.random.default_rng(0),
+                         taug.AugmentConfig(**kw))
+        return
+    got = taug.augment(img, boxes, classes, np.random.default_rng(0),
+                       taug.AugmentConfig(**kw))
+    want = jaug.augment(img, boxes, classes, np.random.default_rng(0),
+                        jaug.AugmentConfig(**kw))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[0].shape == want[0].shape and got[0].dtype == np.uint8
+    assert _image_share(got[0], want[0]) <= 1e-3
 
 
 def test_config_from_net_params_matches_jax():

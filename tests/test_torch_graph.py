@@ -66,8 +66,8 @@ def test_variant_matches_jax_config(variant):
 
 
 def test_unported_variant_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_variant("yolov3")
+    with pytest.raises(NotImplementedError, match="A10"):
+        get_variant("darknet53")
 
 
 @pytest.mark.parametrize("variant", ["tiny-voc", "coco"])
@@ -263,12 +263,14 @@ def test_darknet_matches_golden_full_yolov2_checksum():
 
 
 @pytest.mark.parametrize("layer,item", [
-    (jspecs.Shortcut(-2), "A8"), (jspecs.Upsample(2), "A8"),
-    (jspecs.Conv(8, groups=2), "A8"), (Conv(8, act="mish"), "A8"),
-    (jspecs.Route((-1,), groups=2), "A8")])
+    (jspecs.Shortcut(-2, weights_type="per_feature"), "A8b"),
+    (jspecs.Sam(-2), "A8b"), (jspecs.Conv(8, groups=2), "A8b"),
+    (jspecs.AvgPool(), "A10"),
+    (jspecs.YoloHead((0,), new_coords=True), "A8b")])
 def test_layers_outside_the_slice_raise(layer, item):
-    """The port's own specs are the yolov2 set; the JAX package's specs
-    (yolov3/v4 layers among them) are not layers of the port."""
+    """The JAX package's specs are not layers of the port: the options
+    only a custom .cfg sets (weighted shortcut, sam, conv groups,
+    new_coords) are ROADMAP A8b, the classifier layers A10."""
     layers = (Conv(8), Conv(8), layer)
     with pytest.raises(NotImplementedError, match=item):
         tgraph._check_layer(2, layer)

@@ -10,10 +10,13 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         calls after 3 warm-up calls, at batch 1/32/128 (raw 480x640 uint8 on the card, bf16).
         --tree DIR times the yolo_tpu_torch of another checkout (an A/B:
         run parent, change, change, parent in one machine session)
-    python3 tools/port_perf.py profile [--route ROUTE]
+    python3 tools/port_perf.py profile [--route ROUTE] [--variant V]
+                                       [--batches B ...]
         torch.profiler breakdown of the same calls (5 calls after 3
         warm-up calls): device time per call by kernel class, wall time,
-        busy share, peak memory
+        busy share, peak memory; --variant profiles another built-in
+        variant (seeded weights, its published size), e.g. yolov3 or
+        yolov4
     python3 tools/port_perf.py sweep
         the seeded weights' head shaping (box scale x objectness shift):
         detections per image and the box-level agreement rates that
@@ -28,6 +31,12 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         torch.profiler breakdown of the YOLOv2-VOC 416 train step at
         batch 64, fp32 and bf16, on one seeded batch already on the card
         (no host pipeline), as profile reports it
+    python3 tools/port_perf.py step64 [--variant V]
+        chip_smoke.py phase 13 (a)'s fp32 step of a yolo variant
+        (yolov4 by default: its 20-class head, fine-tune start and
+        batch), on the card (cuDNN, and cuDNN off) and on the CPU (its
+        convs in float64), each against a float64 CPU step on the card
+        step's choices: the largest per-tensor update errors
     python3 tools/port_perf.py stepcheck
         chip_smoke.py's card-against-CPU fp32 step (phase 10 (a)), tensor
         by tensor: each update's relative error, card against the CPU on
@@ -44,6 +53,7 @@ nvidia-smi name and power limit.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -76,13 +86,14 @@ def _images(torch, b: int):
         0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
 
 
-def _write_weights(path: str, **shaping) -> None:
-    """chip_smoke.py's seeded YOLOv2-COCO weights; ``shaping`` overrides
-    synthetic_detector_params' head shaping (the sweep)."""
+def _write_weights(path: str, variant: str = "coco", **shaping) -> None:
+    """chip_smoke.py's seeded weights of ``variant`` (YOLOv2-COCO by
+    default); ``shaping`` overrides synthetic_detector_params' head
+    shaping (the sweep)."""
     from yolo_tpu_torch.configs import get_variant
     from yolo_tpu_torch.io import darknet_weights as dw
 
-    cfg = get_variant("coco")
+    cfg = get_variant(variant)
     dw.save(path, cfg.layers, dw.synthetic_detector_params(cfg, 0,
                                                            **shaping))
 
@@ -210,13 +221,15 @@ def cmd_profile(args, card) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "w.weights")
-        _write_weights(path)
-        model = yolo_tpu_torch.load(path, "coco", device="cuda")
+        _write_weights(path, args.variant)
+        model = yolo_tpu_torch.load(path, args.variant, device="cuda")
     detector = _detector(model, args.route)
-    for b in BATCHES:
+    for b in args.batches:
         images = _images(torch, b)
-        _emit({"what": "profile_bf16", "route": args.route, "batch": b,
-               **_profiled(lambda: detector(images)), "card": card})
+        _emit({"what": "profile_bf16", "model": model.cfg.name,
+               "input_hw": list(model.cfg.input_hw), "route": args.route,
+               "batch": b, **_profiled(lambda: detector(images)),
+               "card": card})
 
 
 def cmd_train(args, card) -> None:
@@ -360,6 +373,91 @@ def cmd_stepcheck(args, card) -> None:
            "card": card})
 
 
+@contextlib.contextmanager
+def _cpu_float64():
+    """Every fp32 cast on the CPU made float64, for a float64 reference
+    step through the port's fp32 training code: Tensor.float() on CPU
+    tensors and Tensor.to(torch.float32) anywhere (the CPU step's own
+    tensors only, as the card's step has run by then)."""
+    import torch
+
+    to_float, to = torch.Tensor.float, torch.Tensor.to
+
+    def to64(self, *a, **kw):
+        a = tuple(torch.float64 if x is torch.float32 else x for x in a)
+        if kw.get("dtype") is torch.float32:
+            kw["dtype"] = torch.float64
+        return to(self, *a, **kw)
+
+    torch.Tensor.float = lambda self: (to_float(self).double()
+                                       if self.device.type == "cpu"
+                                       else to_float(self))
+    torch.Tensor.to = to64
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.Tensor.to = to_float, to
+
+
+def cmd_step64(args, card) -> None:
+    import torch
+
+    import chip_smoke as cs
+
+    subdivisions, schedule = cs.YOLO_NETS[args.variant]
+    cfg = cs.voc_variant(args.variant)
+    tcfg = cs.TrainConfig(**schedule, yolo_loss=cs.yolo_loss_config(cfg))
+    rng = np.random.default_rng(cs.SEED + 13)
+    palette = rng.integers(0, 256, (20, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = cs.write_voc_scenes(
+            tmp, cs.SCENE_HW[:cs.CHECK_BATCH], rng, palette=palette)
+        params = cs.fine_tune_init(cfg, tmp, *cs.YOLO_PARTIALS[args.variant])
+        host = next(cs.host_batches(cfg, pairs, cs.CHECK_BATCH, cs.SEED,
+                                    shuffle=False,
+                                    augment_cfg=cs.YOLO_AUGMENT))
+
+    def step_on(dev, f64=False):
+        state = cs.init_state(cfg, params, tcfg, device=dev)
+        if f64:
+            state.net.double()
+        state.step = tcfg.burn_in_steps
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        cs.make_train_step(cfg, tcfg)(state, batch)
+        return state.net.to_numpy()
+
+    held = cs.HeldChoices()
+    with held.record():
+        card_step = step_on("cuda")
+
+    def replay():
+        h = cs.HeldChoices()
+        h.signs, h.argmax, h.gates = held.signs, held.argmax, held.gates
+        return h.replay()
+
+    with replay(), _cpu_float64():
+        ref = step_on("cpu", f64=True)
+    with replay(), cs.float64_convs():
+        cpu = step_on("cpu")
+    with replay(), torch.backends.cudnn.flags(enabled=False,
+                                              allow_tf32=False):
+        native = step_on("cuda")
+    for name, got in (("card", card_step), ("card_cudnn_off", native),
+                      ("cpu_fp32_float64_convs", cpu)):
+        for keys in ({"kernel", "gamma", "beta", "bias"}, {"mean", "var"}):
+            top = []
+            for i, (p0, pa, pb) in enumerate(zip(params, got, ref)):
+                for key in sorted(keys & p0.keys()):
+                    da = pa[key].astype(np.float64) - p0[key]
+                    db = pb[key].astype(np.float64) - p0[key]
+                    top.append((float(np.linalg.norm(da - db) / max(
+                        np.linalg.norm(db), 1e-30)), f"{i}.{key}"))
+            top.sort(reverse=True)
+            _emit({"what": "step64", "model": cfg.name, "step": name,
+                   "tensors": "stats" if "mean" in keys else "trained",
+                   "top": top[:6], "card": card})
+
+
 def cmd_sweep(args, card) -> None:
     import torch
 
@@ -466,10 +564,14 @@ def main() -> int:
     t.add_argument("--route", choices=ROUTES, default="default")
     prof = sub.add_parser("profile")
     prof.add_argument("--route", choices=ROUTES, default="default")
+    prof.add_argument("--variant", default="coco")
+    prof.add_argument("--batches", type=int, nargs="+", default=BATCHES)
     sub.add_parser("sweep")
     sub.add_parser("tiles")
     sub.add_parser("train")
     sub.add_parser("stepcheck")
+    s64 = sub.add_parser("step64")
+    s64.add_argument("--variant", default="yolov4")
     args = ap.parse_args()
     # the package under test: another checkout's for `time --tree`
     sys.path.insert(0, os.path.abspath(getattr(args, "tree", None) or REPO))
@@ -483,7 +585,8 @@ def main() -> int:
     card = _card()
     {"weights": cmd_weights, "time": cmd_time, "profile": cmd_profile,
      "sweep": cmd_sweep, "tiles": cmd_tiles,
-     "train": cmd_train, "stepcheck": cmd_stepcheck}[args.cmd](args, card)
+     "train": cmd_train, "stepcheck": cmd_stepcheck,
+     "step64": cmd_step64}[args.cmd](args, card)
     return 0
 
 

@@ -32,7 +32,8 @@ _NOT_PORTED = ("is not ported yet (ROADMAP A9: blur, mosaic, mixup and "
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """The JAX package's AugmentConfig, field for field; blur, mosaic,
-    mixup and the classifier geometry keys raise where they would act."""
+    mixup and the classifier rotate/scale crop raise where they would
+    act (apply_blur, train_batches, mosaic4, rotate_scale_crop)."""
     flip: bool = True
     jitter: float = 0.3
     hue: float = 0.1
@@ -241,10 +242,9 @@ def augment(img_u8: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
             cfg: AugmentConfig = AugmentConfig()
             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Full darknet-style augmentation for one training sample, the JAX
-    package's draws in its order."""
-    if cfg.mosaic or cfg.mixup or cfg.classifier_geometry:
-        raise NotImplementedError(f"mosaic, mixup and the classifier "
-                                  f"geometry keys {_NOT_PORTED}")
+    package's draws in its order. As there, the classifier geometry keys
+    (angle, aspect, min_crop, max_crop) and mosaic/mixup, which act at
+    the pipeline level, do not act here."""
     img_u8, boxes, classes = jitter_crop(img_u8, boxes, classes, rng, cfg)
     if cfg.flip and rng.uniform() < 0.5:
         img_u8, boxes = flip_horizontal(img_u8, boxes)

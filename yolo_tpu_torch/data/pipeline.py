@@ -290,12 +290,15 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
                   anchors, num_classes: int, net_size, batch_size: int,
                   rng: np.random.Generator, workers: int = 8,
                   shuffle: bool = True, size_for_batch=None,
-                  augment_cfg=None, resize: str = "letterbox",
+                  augment_cfg=None, model_cfg=None,
+                  resize: str = "letterbox",
                   channels: int = 3) -> Iterator[Dict]:
-    """(image, annotation) pairs -> fixed-shape train batches for the
-    region head: images in [0, 1] and the targets of
-    data.targets.encode_batch. One epoch, the remainder dropped. The
-    annotation is a VOC XML path or a dict in parse_annotation's schema.
+    """(image, annotation) pairs -> fixed-shape train batches: images in
+    [0, 1] and the encoded targets, by model_cfg's head kind
+    (data.targets.encode_batch_for; without model_cfg, the region
+    head's encode_batch from anchors and num_classes). One epoch, the
+    remainder dropped. The annotation is a VOC XML path or a dict in
+    parse_annotation's schema.
 
     size_for_batch(batch_idx) -> int | None switches the net size
     (darknet multi-scale); augment_cfg (data.augment.AugmentConfig)
@@ -358,15 +361,20 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
                       "class names are not in the model's class list — "
                       "training would see only background. Check the "
                       "class names against the dataset.", file=sys.stderr)
-            yield _assemble(chunk, size, anchors, num_classes)
+            yield _assemble(chunk, size, anchors, num_classes, model_cfg)
 
 
-def _assemble(chunk, size, anchors, num_classes) -> Dict:
-    """Stack one batch and encode its ground truth for the region head."""
+def _assemble(chunk, size, anchors, num_classes, model_cfg=None) -> Dict:
+    """Stack one batch and encode its ground truth: by model_cfg's head
+    kind, or for the region head from (anchors, num_classes)."""
     images = np.stack([c[0] for c in chunk])
     boxes, classes = [c[1] for c in chunk], [c[2] for c in chunk]
     nh, nw = tgt._as_hw(size)
-    enc = tgt.encode_batch(boxes, classes, grid=(nh // 32, nw // 32),
-                           anchors=anchors, num_classes=num_classes)
+    if model_cfg is not None:
+        enc = tgt.encode_batch_for(model_cfg, boxes, classes,
+                                   input_size=(nh, nw))
+    else:
+        enc = tgt.encode_batch(boxes, classes, grid=(nh // 32, nw // 32),
+                               anchors=anchors, num_classes=num_classes)
     enc["images"] = images
     return enc

@@ -54,8 +54,8 @@ def collect_detections(cfg, folded_params,
                        samples: Sequence[Tuple[str, object]], *,
                        batch: int = 32, eval_conf: float = 0.005,
                        compute_dtype=torch.float32,
-                       resize: str = "letterbox", device="cuda",
-                       workers: int = 8) -> Dict[int, List]:
+                       resize: str = "letterbox",
+                       device="cuda") -> Dict[int, List]:
     """Run the reference decode + exact per-class NMS over the samples
     -> {img_id: [(cls, score, x1, y1, x2, y2) pixel], ...}.
 
@@ -74,7 +74,7 @@ def collect_detections(cfg, folded_params,
         path_to_ids.setdefault(p, []).append(i)
     host_iter = inference_batches(list(path_to_ids), batch,
                                   net_size=cfg.input_hw, resize=resize,
-                                  channels=cfg.in_channels, workers=workers)
+                                  channels=cfg.in_channels)
     detections: Dict[int, List] = {}
     with DevicePrefetcher(host_iter, depth=2, device=net.device) as staged:
         for b in staged:

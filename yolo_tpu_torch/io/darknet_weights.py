@@ -1,5 +1,6 @@
-"""Darknet ``.weights`` binary I/O for the yolov2 layer set (port of
-yolo_tpu/io/darknet_weights.py, conv layers only).
+"""Darknet ``.weights`` binary I/O for the port's layer set (port of
+yolo_tpu/io/darknet_weights.py, conv layers only: the port's other
+layers carry no weights).
 
 File format (darknet ``parse.c`` save/load order):
   header: int32 major, minor, revision; then ``seen`` — int64 if
@@ -22,13 +23,16 @@ from typing import BinaryIO, List, Sequence
 import numpy as np
 
 from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
-                                          Route, resolve_route,
+                                          Route, Shortcut, Upsample,
+                                          YoloHead, resolve_route,
                                           weighted_specs)
 
 
 def _conv_in_channels(layers: Sequence[LayerSpec],
                       input_channels: int = 3) -> List[int]:
-    """Input channel count of each conv, walking the layer graph."""
+    """Input channel count of each conv, walking the layer graph: a
+    grouped route keeps 1/groups of each source; shortcut, upsample,
+    maxpool and [yolo] keep the count."""
     out_ch: List[int] = []
     conv_in: List[int] = []
     prev = input_channels
@@ -39,11 +43,12 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
         elif isinstance(layer, Reorg):
             prev = prev * layer.stride * layer.stride
         elif isinstance(layer, Route):
-            prev = sum(out_ch[resolve_route(idx, r)] for r in layer.layers)
-        elif not isinstance(layer, MaxPool):
+            prev = sum(out_ch[resolve_route(idx, r)] // layer.groups
+                       for r in layer.layers)
+        elif not isinstance(layer, (MaxPool, Shortcut, Upsample, YoloHead)):
             raise NotImplementedError(
                 f"layer {idx}: {type(layer).__name__} is not a layer of the "
-                f"yolov2 set (ROADMAP A8)")
+                f"port (ROADMAP A8b/A10)")
         out_ch.append(prev)
     return conv_in
 
@@ -186,26 +191,120 @@ def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
     return params
 
 
+# seeded weights: the residual branches' last convs are scaled by this
+RESIDUAL_SCALE = 0.1
+# seeded [yolo] heads, calibrated on the probe: this many boxes of the
+# probe image reach objectness logit SURE_LOGIT (sigmoid 0.88) and four
+# times as many 0 (sigmoid 0.5); one class logit in C reaches SURE_LOGIT
+# and three in C reach 0
+PROBE_OBJECTS, SURE_LOGIT = 8, 2.0
+
+
+def _probe_head_outputs(cfg, params, seed: int):
+    """Each [yolo] head conv's output without its bias, (positions, C)
+    float64, from one fp32 forward of the port's executor on the CPU
+    over a seeded probe at the config's input size: the letterbox of a
+    3:4 uniform-noise frame (gray 0.5 bands above and below, as a
+    480x640 frame gives them)."""
+    import torch
+
+    from yolo_tpu_torch.models.graph import Darknet, fold_params
+
+    folded = fold_params(cfg.layers, params, cfg.bn_eps)
+    size = cfg.input_size
+    band = size // 8
+    x = np.full((1, size, size, cfg.in_channels), 0.5, np.float32)
+    x[:, band:size - band] = np.random.default_rng((seed, size)).uniform(
+        0, 1, (1, size - 2 * band, size, cfg.in_channels))
+    heads = Darknet(cfg.layers, folded, device="cpu")(torch.from_numpy(x))
+    convs = [sum(isinstance(l, Conv) for l in cfg.layers[:i]) - 1
+             for i, l in enumerate(cfg.layers) if isinstance(l, YoloHead)]
+    return [h.numpy().reshape(-1, h.shape[-1]).astype(np.float64)
+            - folded[ci]["bias"] for h, ci in zip(heads, convs, strict=True)]
+
+
+def _calibrate_yolo_heads(cfg, params, heads, seed: int,
+                          box_scale: float) -> None:
+    """[yolo] head shaping, in place: each head conv's channels are
+    made affine in z, their zero-mean unit-spread value on the probe:
+    box channels box_scale * z; objectness and class logits
+    SURE_LOGIT * (z - t0) / (t1 - t0), t1 and t0 the quantiles of z that
+    PROBE_OBJECTS and 4 * PROBE_OBJECTS probe boxes reach (classes: 1/C
+    and 3/C of the class logits)."""
+    c = cfg.num_classes
+    z, norm = [], []
+    for (i, a), v in zip(heads, _probe_head_outputs(cfg, params, seed),
+                         strict=True):
+        mean, std = v.mean(axis=0), v.std(axis=0)
+        z.append(((v - mean) / std).reshape(-1, a, 5 + c))
+        norm.append((mean, std))
+    obj = np.sort(np.concatenate([h[..., 4].ravel() for h in z]))
+    cls = np.concatenate([h[..., 5:].ravel() for h in z])
+    # (gain, offset) of the objectness and class logits in z
+    spans = [(obj[-PROBE_OBJECTS], obj[-4 * PROBE_OBJECTS]),
+             tuple(np.quantile(cls, [1.0 - 1.0 / c, 1.0 - 3.0 / c]))]
+    (g_obj, t_obj), (g_cls, t_cls) = [
+        (SURE_LOGIT / (hi - lo), lo) for hi, lo in spans]
+    for (i, a), (mean, std) in zip(heads, norm):
+        gain = np.ones((a, 5 + c))
+        gain[:, :4], gain[:, 4], gain[:, 5:] = box_scale, g_obj, g_cls
+        shift = np.zeros((a, 5 + c))
+        shift[:, 4], shift[:, 5:] = -g_obj * t_obj, -g_cls * t_cls
+        gain, shift = gain.reshape(-1), shift.reshape(-1)
+        p = params[i]
+        p["kernel"] = (p["kernel"] * (gain / std)).astype(np.float32)
+        p["bias"] = (-mean / std * gain + shift).astype(np.float32)
+
+
 def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
                               objectness_shift: float = -2.0):
-    """Seeded random weights for a region-head detector, for runs without
-    trained weights.
+    """Seeded random weights for a detector, for runs without trained
+    weights.
 
     random_params' std 0.1 at every layer overflows exp(tw) on yolov2
     (mean |logit| ~1e9), so kernels are rescaled to He's std
-    sqrt(2/fan_in) and logits are O(1). The head's box channels are then
-    scaled by ``box_scale``, so boxes stay near their anchors' size
-    instead of covering the image or collapsing to zero width, and the
-    objectness bias is shifted by ``objectness_shift``, so that, as in a
-    trained detector, most cells hold no object. box_scale=1 and
-    objectness_shift=0 give plain He weights."""
+    sqrt(2/fan_in) and logits are O(1). The head conv's box channels are
+    then scaled by ``box_scale``, so boxes stay near their anchors' size
+    instead of covering the image or collapsing to zero width. For the
+    region head, the objectness biases are shifted by
+    ``objectness_shift``, so that, as in a trained detector, most cells
+    hold no object; box_scale=1 and objectness_shift=0 give plain He
+    weights.
+
+    A residual add (Shortcut) sums branch and trunk, so at plain He
+    scale the trunk's variance doubles with every block, and yolov3's 23
+    blocks take the logits to ~1e3 and exp(tw) past fp32's range; the
+    last conv of each residual branch is scaled by RESIDUAL_SCALE, which
+    keeps every head's mean |logit| O(1). The deep [yolo] nets still end
+    with an objectness spread of 2-8 that differs by variant and input
+    size (the folded BN scale and mish raise the second moment layer by
+    layer), so a fixed shift would put a third of their boxes above
+    objectness 0.5, or none. Their heads are calibrated on a seeded
+    probe frame instead (_calibrate_yolo_heads, which ignores
+    objectness_shift): on noise frames of the probe's kind a few dozen
+    boxes an image clear objectness 0.5, far fewer than the fused head's
+    prefilter keeps, and the detectors keep 10-100 detections an image
+    at conf 0.5."""
     params = random_params(cfg.layers, np.random.default_rng(seed),
                            input_channels=cfg.in_channels)
     for p in params:
         k = p["kernel"]
         p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:3])) / 0.1)) \
             .astype(np.float32)
-    a, c = cfg.num_anchors, cfg.num_classes
+    conv_of = {}   # layer index -> conv index
+    for idx, layer in enumerate(cfg.layers):
+        if isinstance(layer, Conv):
+            conv_of[idx] = len(conv_of)
+    for idx, layer in enumerate(cfg.layers):
+        if isinstance(layer, Shortcut) and idx - 1 in conv_of:
+            params[conv_of[idx - 1]]["kernel"] *= np.float32(RESIDUAL_SCALE)
+    if cfg.head_kind == "yolo":
+        _calibrate_yolo_heads(cfg, params, [
+            (conv_of[idx - 1], len(layer.mask))
+            for idx, layer in enumerate(cfg.layers)
+            if isinstance(layer, YoloHead)], seed, box_scale)
+        return params
+    c, a = cfg.num_classes, cfg.num_anchors
     params[-1]["kernel"].reshape(-1, a, 5 + c)[..., :4] *= box_scale
     params[-1]["bias"].reshape(a, 5 + c)[:, 4] += objectness_shift
     return params

@@ -1,11 +1,14 @@
-"""Executor for the yolov2 layer set (port of yolo_tpu/models/graph.py).
+"""Executor for the port's layer set (port of yolo_tpu/models/graph.py).
 
 ``Darknet`` interprets a ``ModelConfig.layers`` tuple of Conv / MaxPool /
-Route / Reorg specs with BN folded into each conv, so every conv block is
-conv + bias + leaky (or linear). The JAX package's NHWC layout is kept at
-the boundary: input (B, S, S, C), logits (B, S/32, S/32, A*(5+C)) fp32.
-Inside, activations are NCHW tensors in ``torch.channels_last`` memory
-and routes concatenate on dim 1.
+Route / Reorg / Shortcut / Upsample / YoloHead specs with BN folded into
+each conv, so every conv block is conv + bias + activation (leaky,
+linear or mish). The JAX package's NHWC layout is kept at the boundary:
+input (B, S, S, C); the output is the region head's logits (B, S/32,
+S/32, A*(5+C)) fp32, or, for a net with [yolo] heads, the tuple of the
+heads' inputs (B, S/s, S/s, A*(5+C)) fp32 in layer order (coarsest first
+in the official cfgs). Inside, activations are NCHW tensors in
+``torch.channels_last`` memory and routes concatenate on dim 1.
 
 Precision, as in the JAX package:
   * float32: full fp32 convs. cuDNN runs fp32 convs in TF32 by default,
@@ -20,9 +23,10 @@ Precision, as in the JAX package:
 
 Conv routes (``conv_impl``, the JAX package's "xla" | "pallas"): "torch"
 runs every conv as above (ops/conv.py); "cuda" sends the convs that the
-fused conv kernel takes (stride 1, 1x1 or 3x3, CIN and CO multiples of
-128) through it (ops/cuda/conv_kernel.py), which reads bf16 kernels in
-bf16 mode, and the others as above.
+fused conv kernel takes (leaky or linear, stride 1, 1x1 or 3x3, CIN and
+CO multiples of 128) through it (ops/cuda/conv_kernel.py), which reads
+bf16 kernels in bf16 mode, and the others (mish convs among them) as
+above.
 
 ``DarknetTrain`` is the train-mode executor (apply_layers(train=True)):
 unfolded BN with batch statistics, trainable kernels, gamma, beta and
@@ -49,7 +53,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
-                                          Route, resolve_route,
+                                          Route, Shortcut, Upsample,
+                                          YoloHead, resolve_route,
                                           weighted_specs)
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.ops import conv as conv_ops
@@ -64,16 +69,84 @@ NumpyParams = List[Dict[str, np.ndarray]]
 BN_MOMENTUM = 0.99
 
 
+# layer kinds of the JAX package the port lacks, by ROADMAP item; any
+# other foreign spec (a JAX Conv with groups, a weighted Shortcut, sam,
+# scale_channels, ...) is a custom-.cfg option, A8b
+_UNPORTED = {"AvgPool": "A10", "Connected": "A10", "SoftmaxHead": "A10",
+             "Dropout": "A10", "Crop": "A10", "Local": "A10",
+             "DetectionHead": "A10"}
+_LAYERS = (Conv, MaxPool, Route, Reorg, Shortcut, Upsample, YoloHead)
+
+
 def _check_layer(idx: int, layer: LayerSpec) -> None:
-    if isinstance(layer, Conv):
-        if layer.act not in ("leaky", "linear"):
-            raise NotImplementedError(
-                f"layer {idx}: activation {layer.act!r} is not ported yet "
-                f"(ROADMAP A8)")
-    elif not isinstance(layer, (MaxPool, Route, Reorg)):
+    """The port's own specs validate their options when built; anything
+    else (the JAX package's specs among them) is not a layer of the
+    port."""
+    if not isinstance(layer, _LAYERS):
+        name = type(layer).__name__
         raise NotImplementedError(
-            f"layer {idx}: {type(layer).__name__} is not a layer of the "
-            f"yolov2 set (ROADMAP A8)")
+            f"layer {idx}: {name} is not a layer of the port (ROADMAP "
+            f"{_UNPORTED.get(name, 'A8b')})")
+
+
+def _routed_layers(layers: Sequence[LayerSpec]) -> set:
+    """Outputs a later Route or Shortcut reads; the rest are dropped as
+    the executors go."""
+    out = set()
+    for idx, l in enumerate(layers):
+        if isinstance(l, Route):
+            out.update(resolve_route(idx, r) for r in l.layers)
+        elif isinstance(l, Shortcut):
+            out.add(resolve_route(idx, l.frm))
+    return out
+
+
+def _weightless_layer(idx: int, layer: LayerSpec, x: torch.Tensor,
+                      outputs: Dict[int, torch.Tensor],
+                      heads: List[torch.Tensor]) -> torch.Tensor:
+    """Every layer but Conv, alike in both executors and both precisions
+    (apply_layers' branches): x (B, C, H, W) channels_last in the
+    compute dtype. A [yolo] head appends its input to ``heads`` as fp32
+    NHWC and passes it on."""
+    if isinstance(layer, MaxPool):
+        return maxpool_nchw(x, layer.size, layer.stride)
+    if isinstance(layer, Reorg):
+        return reorg_nchw(x, layer.stride).contiguous(
+            memory_format=torch.channels_last)
+    if isinstance(layer, Route):
+        srcs = [outputs[resolve_route(idx, r)] for r in layer.layers]
+        if layer.groups > 1:
+            # darknet route_layer slices each source before the concat
+            srcs = [s[:, layer.group_id * (s.shape[1] // layer.groups):
+                      (layer.group_id + 1) * (s.shape[1] // layer.groups)]
+                    for s in srcs]
+        return srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+    if isinstance(layer, Shortcut):
+        src = outputs[resolve_route(idx, layer.frm)]
+        if src.shape[1] == x.shape[1]:
+            y = x + src
+        else:
+            # darknet shortcut_cpu: add over min(c1, c2) channels, the
+            # rest of the input passes through
+            m = min(src.shape[1], x.shape[1])
+            y = torch.cat([x[:, :m] + src[:, :m], x[:, m:]], dim=1)
+        return conv_ops.activate(y, layer.act)
+    if isinstance(layer, Upsample):
+        y = F.interpolate(x, scale_factor=layer.stride, mode="nearest")
+        if layer.scale != 1.0:
+            # the scale rounded to the compute dtype first, as jnp does
+            y = y * torch.tensor(layer.scale, dtype=y.dtype)
+        return y
+    if isinstance(layer, YoloHead):
+        heads.append(x.permute(0, 2, 3, 1).to(torch.float32))
+        return x
+    raise TypeError(f"layer {idx}: unknown layer spec {layer!r}")
+
+
+def _result(x: torch.Tensor, heads: List[torch.Tensor]):
+    """The [yolo] heads' logits as a tuple, else the last layer's output
+    as fp32 NHWC (apply_layers' return)."""
+    return tuple(heads) if heads else x.permute(0, 2, 3, 1).to(torch.float32)
 
 
 def fold_params(layers: Sequence[LayerSpec], params: NumpyParams,
@@ -131,7 +204,7 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
 
 
 class Darknet(torch.nn.Module):
-    """The yolov2 layer set with folded weights held as buffers on
+    """The port's layer set with folded weights held as buffers on
     ``device``; forward computes in ``dtype`` (float32 or bfloat16).
     Kernels are held in fp32 either way, in bf16 mode rounded to bf16
     values (see the module docstring). Two more sets serve the kernel
@@ -154,7 +227,8 @@ class Darknet(torch.nn.Module):
         # the convs the fused kernel takes (graph.py::conv_block's route:
         # folded bias, leaky or linear, and conv_kernel.eligible)
         self.kernel_eligible = tuple(
-            conv_ops.eligible(np.asarray(p["kernel"]), spec.stride)
+            spec.act in ("leaky", "linear")
+            and conv_ops.eligible(np.asarray(p["kernel"]), spec.stride)
             for spec, p in zip(convs, params))
         for i, p in enumerate(params_from_numpy(layers, params, self.device,
                                                 dtype)):
@@ -167,15 +241,12 @@ class Darknet(torch.nn.Module):
                 np.ascontiguousarray(np.asarray(
                     params[0]["kernel"], np.float32).transpose(3, 2, 0, 1)))
                 .to(self.device))
-        # outputs a later Route reads; the rest are dropped as they go
-        self._routed = {resolve_route(idx, r)
-                        for idx, l in enumerate(layers)
-                        if isinstance(l, Route) for r in l.layers}
+        self._routed = _routed_layers(self.layers)
 
-    def forward(self, x: torch.Tensor, *,
-                conv_impl: str = "torch") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, conv_impl: str = "torch"):
         """x (B, H, W, C) in [0, 1] -> logits (B, H/32, W/32, A*(5+C))
-        fp32. conv_impl="cuda" runs the convs that the fused conv kernel
+        fp32, or the tuple of [yolo] head logits. conv_impl="cuda" runs
+        the convs that the fused conv kernel
         takes through it (on a CPU tensor: through its plain version),
         the rest through F.conv2d, as the JAX package's
         conv_impl="pallas"; "torch" runs every conv through F.conv2d."""
@@ -185,15 +256,17 @@ class Darknet(torch.nn.Module):
 
     @torch.no_grad()
     def run(self, x: torch.Tensor, *, start: int = 0,
-            conv_impl: str = "torch") -> torch.Tensor:
+            conv_impl: str = "torch"):
         """Layers ``start``.. on x, the (B, C, H, W) channels_last output
         of layer ``start - 1`` in the compute dtype (the input image for
-        start=0) -> logits (B, H', W', A*(5+C)) fp32. Routes must not
-        reach back before ``start``."""
+        start=0) -> logits (B, H', W', A*(5+C)) fp32, or the tuple of
+        [yolo] head logits. Routes must not reach back before
+        ``start``."""
         if conv_impl not in ("torch", "cuda"):
             raise ValueError(f"unknown conv_impl {conv_impl!r} "
                              f"(torch | cuda)")
         outputs: Dict[int, torch.Tensor] = {}
+        heads: List[torch.Tensor] = []
         conv_i = sum(isinstance(l, Conv) for l in self.layers[:start])
         for idx in range(start, len(self.layers)):
             layer = self.layers[idx]
@@ -211,18 +284,11 @@ class Darknet(torch.nn.Module):
                         x, getattr(self, f"kernel{conv_i}"), bias,
                         act=layer.act, stride=layer.stride)
                 conv_i += 1
-            elif isinstance(layer, MaxPool):
-                x = maxpool_nchw(x, layer.size, layer.stride)
-            elif isinstance(layer, Reorg):
-                x = reorg_nchw(x, layer.stride).contiguous(
-                    memory_format=torch.channels_last)
-            else:  # Route
-                srcs = [outputs[resolve_route(idx, r)]
-                        for r in layer.layers]
-                x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+            else:
+                x = _weightless_layer(idx, layer, x, outputs, heads)
             if idx in self._routed:
                 outputs[idx] = x
-        return x.permute(0, 2, 3, 1).to(torch.float32)
+        return _result(x, heads)
 
 
 def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
@@ -259,7 +325,7 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
                       spec: Conv, eps: float, compute_dtype,
                       bn_stats_fp32: bool):
     """graph.py::conv_block(train=True): conv, BN on batch statistics
-    (or bias), leaky/linear, cast to the compute dtype. Returns (y,
+    (or bias), the activation, cast to the compute dtype. Returns (y,
     new_mean, new_var); the statistics are None without BN."""
     pad = spec.size // 2
     if compute_dtype == torch.float32:
@@ -293,19 +359,19 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
              + beta[None, :, None, None])
     else:
         y = y + bias[None, :, None, None]
-    if spec.act == "leaky":
-        y = F.leaky_relu(y, 0.1)
+    y = conv_ops.activate(y, spec.act)
     if compute_dtype != torch.float32:
         y = y.to(compute_dtype)
     return y, new_mean, new_var
 
 
 class DarknetTrain(torch.nn.Module):
-    """The yolov2 layer set in train mode on unfolded params: kernels,
+    """The port's layer set in train mode on unfolded params: kernels,
     gamma, beta and biases are ``nn.Parameter``s, rolling mean and var
     buffers, all fp32 on ``device`` (``blocks[i]`` holds conv i's).
 
-    forward returns (logits, bn_updates) and writes nothing: bn_updates
+    forward returns (logits, bn_updates) and writes nothing (logits: the
+    tuple of head logits for a [yolo] net, as Darknet's): bn_updates
     maps conv index -> {"mean", "var"}, the rolling statistics after
     this batch, which apply_bn_updates writes into the buffers. Kept
     functional so that remat (torch.utils.checkpoint re-running a block
@@ -329,9 +395,7 @@ class DarknetTrain(torch.nn.Module):
                 else:
                     setattr(block, key, torch.nn.Parameter(t))
             self.blocks.append(block)
-        self._routed = {resolve_route(idx, r)
-                        for idx, l in enumerate(layers)
-                        if isinstance(l, Route) for r in l.layers}
+        self._routed = _routed_layers(self.layers)
 
     def forward(self, x: torch.Tensor, *, compute_dtype=torch.float32,
                 bn_stats_fp32: bool = True, remat: bool = False):
@@ -344,6 +408,7 @@ class DarknetTrain(torch.nn.Module):
         x = x.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         outputs: Dict[int, torch.Tensor] = {}
+        heads: List[torch.Tensor] = []
         bn_updates: Dict[int, Dict[str, torch.Tensor]] = {}
         conv_i = 0
         with exact_for(compute_dtype):
@@ -365,18 +430,11 @@ class DarknetTrain(torch.nn.Module):
                     if mean is not None:
                         bn_updates[conv_i] = {"mean": mean, "var": var}
                     conv_i += 1
-                elif isinstance(layer, MaxPool):
-                    x = maxpool_nchw(x, layer.size, layer.stride)
-                elif isinstance(layer, Reorg):
-                    x = reorg_nchw(x, layer.stride).contiguous(
-                        memory_format=torch.channels_last)
-                else:  # Route
-                    srcs = [outputs[resolve_route(idx, r)]
-                            for r in layer.layers]
-                    x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+                else:
+                    x = _weightless_layer(idx, layer, x, outputs, heads)
                 if idx in self._routed:
                     outputs[idx] = x
-        return x.permute(0, 2, 3, 1).to(torch.float32), bn_updates
+        return _result(x, heads), bn_updates
 
     def to_numpy(self, overrides: Optional[List[Dict[str, torch.Tensor]]]
                  = None) -> NumpyParams:

@@ -19,11 +19,11 @@ from typing import Optional
 
 import torch
 
-from yolo_tpu_torch.configs.specs import ModelConfig, Route
+from yolo_tpu_torch.configs.specs import ModelConfig, Route, Shortcut
 from yolo_tpu_torch.models.graph import Darknet
 from yolo_tpu_torch.ops import entry as entry_ops
 from yolo_tpu_torch.ops.cuda import entry_kernel
-from yolo_tpu_torch.ops.decode import decode
+from yolo_tpu_torch.ops.decode import decode, decode_yolo
 from yolo_tpu_torch.ops.letterbox import (letterbox, stretch_resize,
                                           unletterbox_boxes_xyxy,
                                           unstretch_boxes_xyxy)
@@ -31,8 +31,9 @@ from yolo_tpu_torch.ops.nms import nms_batch
 
 
 def forward(cfg: ModelConfig, net: Darknet, images_01: torch.Tensor, *,
-            conv_impl: str = "torch") -> torch.Tensor:
-    """Preprocessed (B, S, S, 3) [0, 1] -> raw head logits (fp32).
+            conv_impl: str = "torch"):
+    """Preprocessed (B, S, S, 3) [0, 1] -> raw head logits (fp32; a
+    tuple, one per head, for [yolo] heads).
     conv_impl="torch" runs every conv through F.conv2d; "cuda" runs the
     eligible ones through the fused conv kernel (Darknet.forward)."""
     return net(images_01, conv_impl=conv_impl)
@@ -57,33 +58,53 @@ def detect(cfg: ModelConfig, net: Darknet, images_01: torch.Tensor, *,
                         head=head)
 
 
-def _postprocess(cfg: ModelConfig, logits: torch.Tensor, *,
+def _postprocess(cfg: ModelConfig, logits, *,
                  conf_threshold: Optional[float] = None,
                  nms_threshold: Optional[float] = None,
                  top_k: int = 128, max_detections: int = 100,
                  nms_impl: str = "auto", head: str = "auto"):
     conf_t = cfg.conf_threshold if conf_threshold is None else conf_threshold
     iou_t = cfg.nms_threshold if nms_threshold is None else nms_threshold
-    on_cuda = logits.device.type == "cuda"
+    yolo = cfg.head_kind == "yolo"
+    on_cuda = (logits[0] if yolo else logits).device.type == "cuda"
     if head == "auto":
         # fused heads are exact only while few boxes clear the
         # threshold; at PR-curve thresholds take the reference path
         head = "fused" if on_cuda and conf_t >= 0.1 else "reference"
+    if head not in ("fused", "reference"):
+        raise ValueError(f"unknown head {head!r} (auto | fused | reference)")
+    # prefilter budget of the fused heads: top_k suffices at high
+    # thresholds; near the exactness boundary spend 2x so the objectness
+    # cut can't drop passing boxes
+    pre = top_k if conf_t >= 0.3 else 2 * top_k
+    if yolo:
+        masks = [h.mask for h in cfg.yolo_heads]
+        scales = [h.scale_xy for h in cfg.yolo_heads]
+        if head == "fused":
+            from yolo_tpu_torch.ops.head import detect_head_yolo
+
+            return detect_head_yolo(
+                logits, cfg.anchors, masks, cfg.num_classes, cfg.input_hw,
+                conf_threshold=conf_t, iou_threshold=iou_t,
+                pre_top_k=pre, max_detections=max_detections,
+                use_kernel=on_cuda, scales=scales, nms_kind=cfg.nms_kind,
+                beta_nms=cfg.beta_nms)
+        boxes, scores = decode_yolo(logits, cfg.anchors, masks,
+                                    cfg.num_classes, cfg.input_hw,
+                                    scales=scales)
+        return nms_batch(
+            boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
+            top_k=top_k, max_detections=max_detections, impl=nms_impl,
+            kind=cfg.nms_kind, beta=cfg.beta_nms)
     if head == "fused":
         from yolo_tpu_torch.ops.head import detect_head
 
-        # prefilter budget: top_k suffices at high thresholds; near the
-        # exactness boundary spend 2x so the objectness cut can't drop
-        # passing boxes
-        pre = top_k if conf_t >= 0.3 else 2 * top_k
         return detect_head(
             logits, cfg.anchors, cfg.num_classes,
             conf_threshold=conf_t, iou_threshold=iou_t,
             pre_top_k=pre, max_detections=max_detections,
             use_kernel=on_cuda, nms_kind=cfg.nms_kind,
             beta_nms=cfg.beta_nms)
-    if head != "reference":
-        raise ValueError(f"unknown head {head!r} (auto | fused | reference)")
     boxes, scores = decode(logits, cfg.anchors, cfg.num_classes)
     return nms_batch(
         boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
@@ -93,13 +114,17 @@ def _postprocess(cfg: ModelConfig, logits: torch.Tensor, *,
 
 def _entry_fusable(cfg: ModelConfig) -> bool:
     """The entry fusion applies (predict.py::_entry_fusable): a conv3x3 +
-    pool2x2 entry, 3 input channels, and routes that resolve without
-    layers 0-1 (relative, never reaching back before layer 2). The
-    port's params are always folded and it has no int8 kernels."""
+    pool2x2 entry, 3 input channels, and routes and shortcuts that
+    resolve without layers 0-1 (relative, never reaching back before
+    layer 2). The port's params are always folded and it has no int8
+    kernels."""
+    def refs(layer):
+        return layer.layers if isinstance(layer, Route) else (layer.frm,)
+
     return (entry_ops.eligible(cfg.layers) and cfg.in_channels == 3
             and all(r < 0 and idx + r >= 2
                     for idx, l in enumerate(cfg.layers)
-                    if isinstance(l, Route) for r in l.layers))
+                    if isinstance(l, (Route, Shortcut)) for r in refs(l)))
 
 
 def detect_raw(cfg: ModelConfig, net: Darknet, images_u8: torch.Tensor, *,

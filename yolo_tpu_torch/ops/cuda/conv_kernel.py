@@ -141,10 +141,12 @@ def fused_conv_bias_act(x: torch.Tensor, kernel: torch.Tensor,
     padding; only shapes that ``ops.conv.eligible`` takes. The launch
     follows ``plan(...)``."""
     global launches
-    if x.device.type == "cpu":
-        return conv.fused_conv_bias_act(x, kernel, bias, act=act)
+    # the kernel's epilogue knows leaky and linear only: a mish conv
+    # raises here, on the CPU as on the card, rather than run linear
     if act not in ("leaky", "linear"):
         raise ValueError(f"act must be 'leaky' or 'linear', got {act!r}")
+    if x.device.type == "cpu":
+        return conv.fused_conv_bias_act(x, kernel, bias, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA or CPU tensor, got {x.device}")
     if x.dim() != 4 or kernel.dim() != 4:

@@ -1,16 +1,24 @@
-"""Region-layer decode (port of yolo_tpu/ops/decode.py, flat classes only).
+"""Region and [yolo] decode (port of yolo_tpu/ops/decode.py, flat
+classes only).
 
+[region] (yolov2), anchors in cell units:
   bx = (sigmoid(tx) + cx) / W,  by = (sigmoid(ty) + cy) / H
   bw = pw * exp(tw) / W,        bh = ph * exp(th) / H
   conf = sigmoid(to), p = softmax(tc), score = conf * p
+[yolo] (yolov3/v4), anchors in pixels of the net input, scale_x_y s:
+  bx = (sigmoid(tx) * s - (s - 1) / 2 + cx) / W
+  bw = pw * exp(tw) / net_w,    bh = ph * exp(th) / net_h
+  conf = sigmoid(to), p = sigmoid(tc) per class, score = conf * p
 
 No tw/th clamp, as in the JAX package. YOLO9000 tree decode is ROADMAP
-A10.
+A10; new_coords and Gaussian [yolo] heads are A8b.
 """
 
 from __future__ import annotations
 
 import torch
+
+from yolo_tpu_torch.ops.letterbox import as_hw
 
 
 def decode(logits: torch.Tensor, anchors, num_classes: int):
@@ -42,4 +50,45 @@ def decode_region_boxes(sx, sy, tw, th, anchors, h: int, w: int):
     by = (sy + cy) / h
     bw = a[None, None, None, :, 0] * torch.exp(tw) / w
     bh = a[None, None, None, :, 1] * torch.exp(th) / h
+    return torch.stack([bx, by, bw, bh], dim=-1)
+
+
+def decode_yolo(head_logits, anchors_px, masks, num_classes: int,
+                net_size, scales=None):
+    """[yolo] decode of every head, merged: head_logits a sequence of
+    (B, Hs, Ws, As*(5+C)); masks per-head indices into anchors_px;
+    net_size int or (net_h, net_w); scales per-head scale_x_y (default
+    1). Returns boxes (B, N, 4) net-normalized xywh and scores (B, N, C),
+    N the heads' Hs*Ws*As in head order, fp32."""
+    scales = scales or [1.0] * len(masks)
+    all_boxes, all_scores = [], []
+    for logits, mask, s_xy in zip(head_logits, masks, scales, strict=True):
+        b, h, w, _ = logits.shape
+        t = logits.to(torch.float32).reshape(b, h, w, len(mask),
+                                             5 + num_classes)
+        boxes = decode_head_boxes(t, anchors_px, mask, s_xy, net_size)
+        scores = torch.sigmoid(t[..., 4])[..., None] \
+            * torch.sigmoid(t[..., 5:])
+        all_boxes.append(boxes.reshape(b, -1, 4))
+        all_scores.append(scores.reshape(b, -1, num_classes))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+
+
+def decode_head_boxes(t, anchors_px, mask, s_xy: float, net_size):
+    """(B, H, W, A, 5+C) fp32 head activations -> (B, H, W, A, 4)
+    normalized xywh: the [yolo] box math, shared by decode_yolo and the
+    training loss's ignore gate and iou-family box terms."""
+    net_h, net_w = as_hw(net_size)
+    _, h, w, _, _ = t.shape
+    anch = torch.as_tensor(anchors_px, dtype=torch.float32,
+                           device=t.device)[list(mask)]
+    cx = torch.arange(w, dtype=torch.float32,
+                      device=t.device)[None, None, :, None]
+    cy = torch.arange(h, dtype=torch.float32,
+                      device=t.device)[None, :, None, None]
+    off = (s_xy - 1.0) / 2.0
+    bx = (torch.sigmoid(t[..., 0]) * s_xy - off + cx) / w
+    by = (torch.sigmoid(t[..., 1]) * s_xy - off + cy) / h
+    bw = anch[None, None, None, :, 0] * torch.exp(t[..., 2]) / net_w
+    bh = anch[None, None, None, :, 1] * torch.exp(t[..., 3]) / net_h
     return torch.stack([bx, by, bw, bh], dim=-1)

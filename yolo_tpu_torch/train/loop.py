@@ -1,4 +1,5 @@
-"""Training step for the region head (port of yolo_tpu/train/loop.py).
+"""Training step for the region and [yolo] heads (port of
+yolo_tpu/train/loop.py).
 
   state = init_state(mcfg, params, tcfg)          # device="cuda"
   step = make_train_step(mcfg, tcfg, compute_dtype=torch.bfloat16)
@@ -34,7 +35,8 @@ from yolo_tpu_torch.configs.specs import ModelConfig
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.models.graph import DarknetTrain, apply_bn_updates
 from yolo_tpu_torch.ops.precision import exact_for
-from yolo_tpu_torch.train.loss import LossConfig, region_loss
+from yolo_tpu_torch.train.loss import (LossConfig, YoloLossConfig,
+                                       region_loss, yolo_loss)
 
 # Darknet multi-scale training sizes (yolov2.cfg random=1: {320..608}/32).
 MULTISCALE_SIZES = tuple(range(320, 609, 32))
@@ -42,10 +44,12 @@ MULTISCALE_SIZES = tuple(range(320, 609, 32))
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig, less its yolov3 loss config and
-    the multi-scale and lr_random_seed knobs that only its train command
-    reads (ROADMAP A9). See yolo_tpu/train/loop.py for each policy's
-    darknet source."""
+    """The JAX package's TrainConfig, less the multi-scale and
+    lr_random_seed knobs that only its train command reads (ROADMAP A9).
+    loss is the region head's, yolo_loss the [yolo] heads'
+    (train.loss.region_loss_config / yolo_loss_config build them from a
+    ModelConfig). See yolo_tpu/train/loop.py for each policy's darknet
+    source."""
     learning_rate: float = 1e-4
     optimizer: str = "sgd"          # "sgd" (darknet) | "adam"
     adam_b1: float = 0.9
@@ -70,6 +74,8 @@ class TrainConfig:
     lr_min: float = 1e-5
     lr_random: bool = False         # policy=random: not ported (ROADMAP A9)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    yolo_loss: YoloLossConfig = dataclasses.field(
+        default_factory=YoloLossConfig)
     ema_alpha: float = 0.0
     ema_start_step: int = 0
     grad_accum: int = 1
@@ -208,8 +214,22 @@ def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int, *,
     logits, bn_updates = state.net(
         sub["images"], compute_dtype=compute_dtype,
         bn_stats_fp32=tcfg.bn_stats_fp32, remat=tcfg.remat)
-    total, parts = region_loss(logits, sub, mcfg.anchors, mcfg.num_classes,
-                               tcfg.loss, seen)
+    if mcfg.head_kind == "yolo":
+        if mcfg.objectness_smooth:
+            # as the JAX package's train_step: no reference source pins
+            # the IoU-derived objectness targets
+            raise NotImplementedError(
+                "[yolo] objectness_smooth=1 training is not supported")
+        heads = mcfg.yolo_heads
+        total, parts = yolo_loss(
+            logits, sub, mcfg.anchors, [h.mask for h in heads],
+            mcfg.num_classes, tuple(sub["images"].shape[1:3]),
+            tcfg.yolo_loss, scales=[h.scale_xy for h in heads],
+            max_deltas=[h.max_delta for h in heads],
+            smooth_eps=[h.label_smooth_eps for h in heads])
+    else:
+        total, parts = region_loss(logits, sub, mcfg.anchors,
+                                   mcfg.num_classes, tcfg.loss, seen)
     return total, parts, bn_updates
 
 
@@ -217,7 +237,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
                mcfg: ModelConfig, tcfg: TrainConfig,
                compute_dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """One optimizer step, in place on ``state``. batch: 'images' (B, S,
-    S, 3) in [0, 1] and the targets of data.targets.encode_batch, as
+    S, 3) in [0, 1] and the targets of data.targets.encode_batch_for, as
     tensors on the state's device. Returns the loss and its parts as
     0-d tensors (no host sync)."""
     net = state.net
@@ -281,6 +301,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig,
     """``fn(state, batch) -> metrics``, train_step bound to its configs."""
     if tcfg.lr_random:
         lr_schedule(tcfg)   # raises: not ported
+
     return partial(train_step, mcfg=mcfg, tcfg=tcfg,
                    compute_dtype=compute_dtype)
 

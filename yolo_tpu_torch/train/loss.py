@@ -1,5 +1,5 @@
-"""YOLOv2 region loss (port of yolo_tpu/train/loss.py, the region head
-with flat classes).
+"""YOLOv2 region loss and the yolov3/v4 [yolo] loss (port of
+yolo_tpu/train/loss.py, flat classes).
 
 Darknet region-layer semantics, each squared error weighted once by its
 scale:
@@ -15,18 +15,21 @@ scale:
 
 Every term is computed from the raw head logits in fp32 and divided by
 the batch size. The rescore target and the noobj gate carry no gradient,
-as darknet's deltas. YOLO9000 tree classes and the yolov3/v4 losses are
-ROADMAP A8/A10.
+as darknet's deltas. yolo_loss is documented at YoloLossConfig. YOLO9000
+tree classes are ROADMAP A10; new_coords and Gaussian heads A8b.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from yolo_tpu_torch.ops.decode import decode_region_boxes
+from yolo_tpu_torch.ops.decode import decode_head_boxes, decode_region_boxes
+from yolo_tpu_torch.ops.letterbox import as_hw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +73,11 @@ def _iou_xywh_pairwise(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
-def _diag_iou(p: torch.Tensor, g: torch.Tensor,
-              eps: float = 1e-9) -> torch.Tensor:
-    """Elementwise IoU of matching (..., 4) xywh boxes."""
+def _diag_iou_variant(p: torch.Tensor, g: torch.Tensor, kind: str,
+                      eps: float = 1e-9) -> torch.Tensor:
+    """Elementwise IoU / GIoU / DIoU / CIoU of matching (..., 4) xywh
+    boxes (GIoU arXiv:1902.09630; D/CIoU arXiv:1911.08287). CIoU's
+    alpha carries no gradient, as the JAX package's stop_gradient."""
     px1, py1 = p[..., 0] - p[..., 2] / 2, p[..., 1] - p[..., 3] / 2
     px2, py2 = p[..., 0] + p[..., 2] / 2, p[..., 1] + p[..., 3] / 2
     gx1, gy1 = g[..., 0] - g[..., 2] / 2, g[..., 1] - g[..., 3] / 2
@@ -81,7 +86,30 @@ def _diag_iou(p: torch.Tensor, g: torch.Tensor,
     ih = (torch.minimum(py2, gy2) - torch.maximum(py1, gy1)).clamp_min(0.0)
     inter = iw * ih
     union = p[..., 2] * p[..., 3] + g[..., 2] * g[..., 3] - inter
-    return inter / (union + eps)
+    iou = inter / (union + eps)
+    if kind == "iou":
+        return iou
+    cw = torch.maximum(px2, gx2) - torch.minimum(px1, gx1)  # enclosing box
+    ch = torch.maximum(py2, gy2) - torch.minimum(py1, gy1)
+    if kind == "giou":
+        area_c = cw * ch + eps
+        return iou - (area_c - union) / area_c
+    rho2 = (p[..., 0] - g[..., 0]) ** 2 + (p[..., 1] - g[..., 1]) ** 2
+    c2 = cw ** 2 + ch ** 2 + eps
+    if kind == "diou":
+        return iou - rho2 / c2
+    if kind != "ciou":
+        raise ValueError(f"unknown iou_loss {kind!r}")
+    v = (4.0 / math.pi ** 2) * (
+        torch.atan(g[..., 2] / (g[..., 3] + eps))
+        - torch.atan(p[..., 2] / (p[..., 3] + eps))) ** 2
+    alpha = (v / (1.0 - iou + v + eps)).detach()
+    return iou - rho2 / c2 - alpha * v
+
+
+def _diag_iou(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of matching (..., 4) xywh boxes."""
+    return _diag_iou_variant(p, g, "iou")
 
 
 def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
@@ -143,5 +171,229 @@ def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
         "class": loss_cls / b,
         "warmup": loss_warm / b,
     }
+    total = sum(parts.values())
+    return total, parts
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloLossConfig:
+    """yolov3/yolov4 [yolo]-layer loss (darknet yolo_layer semantics),
+    the JAX package's YoloLossConfig field for field.
+
+    Darknet's deltas on the sigmoid outputs (target - sigmoid) are the
+    BCE gradient with respect to the logit, so the xy, objectness and
+    class terms are sigmoid BCE, and wh is 0.5*MSE on the raw logits.
+    Anchors whose predicted box overlaps any truth above ignore_thresh
+    pay no objectness penalty. iou_loss != "mse" (yolov4: ciou) puts
+    iou_normalizer * (1 - IoU_kind) on the decoded boxes in place of the
+    xy/wh terms. With obj_normalizer None, cls_normalizer scales the
+    objectness terms (classic AlexeyAB); a float obj_normalizer scales
+    objectness and cls_normalizer then scales the class BCE. max_delta
+    clamps each box-term gradient element (darknet clips the per-image
+    delta, so the bound here is max_delta / batch); label_smooth_eps
+    smooths class targets to y*(1 - eps) + eps/2; focal_loss swaps the
+    class BCE for the focal loss (gamma 2, alpha 0.5); truth_thresh < 1
+    trains anchors whose best predicted-box IoU beats it as positives
+    toward that truth."""
+    ignore_thresh: float = 0.7
+    iou_loss: str = "mse"  # "mse" (yolov3) | "iou"|"giou"|"diou"|"ciou"
+    iou_normalizer: float = 1.0
+    cls_normalizer: float = 1.0
+    obj_normalizer: Optional[float] = None
+    max_delta: float = 0.0
+    label_smooth_eps: float = 0.0
+    focal_loss: bool = False
+    truth_thresh: float = 1.0
+
+
+def yolo_loss_config(mcfg) -> YoloLossConfig:
+    """YoloLossConfig from a ModelConfig's [yolo] training keys, as the
+    JAX package's train command builds it (cli/train_cmd.py)."""
+    return YoloLossConfig(ignore_thresh=mcfg.ignore_thresh,
+                          iou_loss=mcfg.iou_loss,
+                          iou_normalizer=mcfg.iou_normalizer,
+                          cls_normalizer=mcfg.cls_normalizer,
+                          obj_normalizer=mcfg.obj_normalizer,
+                          focal_loss=mcfg.focal_loss,
+                          truth_thresh=mcfg.truth_thresh)
+
+
+def _bce(logit: torch.Tensor, target) -> torch.Tensor:
+    """Sigmoid binary cross-entropy, elementwise, from the raw logit."""
+    return (logit.clamp_min(0.0) - logit * target
+            + torch.log1p(torch.exp(-logit.abs())))
+
+
+class _ClipGrad(torch.autograd.Function):
+    """Identity forward; the backward clamps the incoming gradient to
+    [-m, m] per element (darknet max_delta clips l.delta the same
+    way)."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m = m
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.m, ctx.m), None
+
+
+def _clip_grad(x: torch.Tensor, m: float) -> torch.Tensor:
+    return _ClipGrad.apply(x, m)
+
+
+def _ignore_gate(best_iou: torch.Tensor, thresh: float) -> torch.Tensor:
+    """1.0 where an anchor's best predicted-box IoU with any truth is
+    below the ignore threshold (it pays the noobj term), else 0.0."""
+    return (best_iou < thresh).to(torch.float32)
+
+
+def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
+              masks, num_classes: int, net_size, cfg: YoloLossConfig,
+              scales=None, max_deltas=None, smooth_eps=None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Multi-head [yolo] loss. head_logits: the tuple of (B, S, S,
+    A*(5+C)) raw outputs (DarknetTrain's); targets from
+    data.targets.encode_batch_yolo as tensors on the logits' device;
+    net_size int or (net_h, net_w). scales: per-head scale_x_y (the mse
+    xy term becomes 0.5*MSE on the scaled sigmoid where != 1).
+    max_deltas / smooth_eps: per-head overrides of cfg.max_delta /
+    cfg.label_smooth_eps (None falls back to the cfg; an explicit 0
+    disables). Returns (total loss per image, parts dict with coord /
+    obj / noobj / class)."""
+    net_h, net_w = as_hw(net_size)
+    c = num_classes
+    b = head_logits[0].shape[0]
+    dev = head_logits[0].device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    parts = {"coord": zero, "obj": zero, "noobj": zero, "class": zero}
+    n_heads = len(masks)
+    scales = scales or [1.0] * n_heads
+    max_deltas = max_deltas or [None] * n_heads
+    smooth_eps = smooth_eps or [None] * n_heads
+    if cfg.focal_loss and (cfg.label_smooth_eps
+                           or any(e for e in smooth_eps if e)):
+        raise NotImplementedError(
+            "[yolo] focal_loss=1 with label_smooth_eps is not supported "
+            "(the focal p_t is undefined for soft targets)")
+    # classic AlexeyAB: cls_normalizer scales objectness; with
+    # obj_normalizer set it scales objectness and cls_normalizer the
+    # class term
+    on = (cfg.cls_normalizer if cfg.obj_normalizer is None
+          else cfg.obj_normalizer)
+    cls_n = 1.0 if cfg.obj_normalizer is None else cfg.cls_normalizer
+
+    def cls_elem(t_cls, onehot):
+        if cfg.focal_loss:
+            p = torch.sigmoid(t_cls)
+            pt = onehot * p + (1.0 - onehot) * (1.0 - p)
+            return 0.5 * (1.0 - pt) ** 2 * _bce(t_cls, onehot)
+        return _bce(t_cls, onehot)
+
+    for h, (logits, mask, s_xy) in enumerate(zip(head_logits, masks, scales,
+                                                 strict=True)):
+        _, sh, sw, _ = logits.shape
+        a = len(mask)
+        t = logits.to(torch.float32).reshape(b, sh, sw, a, 5 + c)
+        md = max_deltas[h] if max_deltas[h] is not None else cfg.max_delta
+        # the clamp reaches the box terms only; obj and class keep t
+        t_box = (torch.cat([_clip_grad(t[..., :4], md / b), t[..., 4:]],
+                           dim=-1) if md else t)
+        obj = targets[f"obj_mask_{h}"]
+        tc = targets[f"tcoord_{h}"]
+        coord_w = targets[f"coord_w_{h}"]
+
+        pred_boxes = decode_head_boxes(t_box, anchors_px, mask, s_xy,
+                                       net_size)
+        off = (s_xy - 1.0) / 2.0
+        iou_all = _iou_xywh_pairwise(pred_boxes.reshape(b, -1, 4),
+                                     targets["gt_boxes"])
+        iou_all = iou_all * targets["gt_mask"][:, None, :]
+        best_iou = iou_all.amax(dim=-1).reshape(b, sh, sw, a).detach()
+
+        mt = None
+        if cfg.truth_thresh < 1.0:
+            best_g = iou_all.detach().argmax(dim=-1)            # (B, N)
+            mt = (best_iou > cfg.truth_thresh).to(torch.float32) * (1.0 - obj)
+
+        noobj_mask = (1.0 - obj) * _ignore_gate(best_iou, cfg.ignore_thresh)
+        if mt is not None:
+            noobj_mask = noobj_mask * (1.0 - mt)
+        obj_bce = _bce(t[..., 4], 1.0)
+        noobj_bce = _bce(t[..., 4], 0.0)
+        parts["obj"] = parts["obj"] + on * torch.sum(obj * obj_bce) / b
+        parts["noobj"] = (parts["noobj"]
+                          + on * torch.sum(noobj_mask * noobj_bce) / b)
+
+        if cfg.iou_loss != "mse":
+            iou_k = _diag_iou_variant(pred_boxes, targets[f"tbox_{h}"],
+                                      cfg.iou_loss)
+            parts["coord"] = parts["coord"] + cfg.iou_normalizer * torch.sum(
+                obj * (1.0 - iou_k)) / b
+        else:
+            if s_xy == 1.0:
+                xy = _bce(t_box[..., 0], tc[..., 0]) \
+                    + _bce(t_box[..., 1], tc[..., 1])
+            else:
+                px = torch.sigmoid(t_box[..., 0]) * s_xy - off
+                py = torch.sigmoid(t_box[..., 1]) * s_xy - off
+                xy = 0.5 * ((px - tc[..., 0]) ** 2 + (py - tc[..., 1]) ** 2)
+            wh = 0.5 * ((t_box[..., 2] - tc[..., 2]) ** 2
+                        + (t_box[..., 3] - tc[..., 3]) ** 2)
+            parts["coord"] = parts["coord"] + torch.sum(
+                obj * coord_w * (xy + wh)) / b
+
+        onehot = F.one_hot(targets[f"tcls_{h}"].long(), c).to(torch.float32)
+        eps = (smooth_eps[h] if smooth_eps[h] is not None
+               else cfg.label_smooth_eps)
+        if eps:
+            onehot = onehot * (1.0 - eps) + 0.5 * eps
+        parts["class"] = parts["class"] + cls_n * torch.sum(
+            obj[..., None] * cls_elem(t[..., 5:], onehot)) / b
+
+        if mt is not None:
+            # positives toward the best truth, at the anchor's own cell
+            gtb = torch.gather(targets["gt_boxes"], 1,
+                               best_g[..., None].expand(-1, -1, 4)
+                               ).reshape(b, sh, sw, a, 4).detach()
+            gtc = torch.gather(targets["gt_cls"].long(), 1,
+                               best_g).reshape(b, sh, sw, a)
+            parts["obj"] = parts["obj"] + on * torch.sum(mt * obj_bce) / b
+            onehot_mt = F.one_hot(gtc, c).to(torch.float32)
+            if eps:
+                onehot_mt = onehot_mt * (1.0 - eps) + 0.5 * eps
+            parts["class"] = parts["class"] + cls_n * torch.sum(
+                mt[..., None] * cls_elem(t[..., 5:], onehot_mt)) / b
+            if cfg.iou_loss != "mse":
+                iou_mt = _diag_iou_variant(pred_boxes, gtb, cfg.iou_loss)
+                parts["coord"] = (parts["coord"] + cfg.iou_normalizer
+                                  * torch.sum(mt * (1.0 - iou_mt)) / b)
+            else:
+                cxi = torch.arange(sw, dtype=torch.float32,
+                                   device=dev)[None, None, :, None]
+                cyj = torch.arange(sh, dtype=torch.float32,
+                                   device=dev)[None, :, None, None]
+                txm = gtb[..., 0] * sw - cxi
+                tym = gtb[..., 1] * sh - cyj
+                aw = torch.tensor([anchors_px[m][0] for m in mask],
+                                  dtype=torch.float32, device=dev)
+                ah = torch.tensor([anchors_px[m][1] for m in mask],
+                                  dtype=torch.float32, device=dev)
+                twm = torch.log((gtb[..., 2] * net_w / aw).clamp_min(1e-9))
+                thm = torch.log((gtb[..., 3] * net_h / ah).clamp_min(1e-9))
+                if s_xy == 1.0:
+                    xy_mt = _bce(t_box[..., 0], txm) + _bce(t_box[..., 1],
+                                                            tym)
+                else:
+                    pxm = torch.sigmoid(t_box[..., 0]) * s_xy - off
+                    pym = torch.sigmoid(t_box[..., 1]) * s_xy - off
+                    xy_mt = 0.5 * ((pxm - txm) ** 2 + (pym - tym) ** 2)
+                wh_mt = 0.5 * ((t_box[..., 2] - twm) ** 2
+                               + (t_box[..., 3] - thm) ** 2)
+                w_mt = 2.0 - gtb[..., 2] * gtb[..., 3]
+                parts["coord"] = parts["coord"] + torch.sum(
+                    mt * w_mt * (xy_mt + wh_mt)) / b
+
     total = sum(parts.values())
     return total, parts
