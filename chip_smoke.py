@@ -107,6 +107,40 @@ JSON lines; any failed check raises and the script exits non-zero:
               YOLO_OVERFIT_SCENES scenes, scored by quick_map, card and
               CPU held at box level as in phase 11
 
+  14. images  real image files through the port's own host decoder
+              (yolo_tpu_torch/native/: JPEG and PNG in C, built by the
+              host C compiler in phase 2): (a) no OpenCV loaded; (b) the
+              fixtures of tests/data/torch_jpeg/ decode to the sha256 of
+              cv2's output recorded beside them; (c) decode rates of a
+              480x640 4:2:0 q90 JPEG, ms an image on one thread and img/s
+              on IMAGE_THREADS threads (8 threads at least twice one,
+              where the host has 4 cores), the host letterbox of the
+              frame to 416 on one thread, and a 480x640 Paeth PNG's
+              unfilter in C against the Python version; (d) yolov3 @416,
+              COCO-80, seeded weights (as phase 12), on COCO_SCENES
+              COCO-format JPEG scenes (data/synthetic.py
+              write_coco_scenes): load_coco -> build_ground_truth ->
+              collect_detections on the card (NMS kernel; again with
+              conv_impl="cuda", the two routes matched at phase 12's
+              rate) -> evaluate_coco's 12 cells; on
+              COCO_CPU_SCENES of them card and CPU agree at box level
+              (phase 11's rule, both ways) and in every cell to a
+              relative COCO_REL, against the scenes' ground truth (the
+              seeded detector finds none of their objects: every cell
+              0) and against pseudo ground truth made from the CPU's
+              detections (pseudo_ground_truth: cells in (0, 1));
+              the NMS kernel holds against its plain
+              version on the COCO eval grid and is timed there; JPEG
+              files -> inference_batches -> DevicePrefetcher ->
+              make_detector_preprocessed at batch COCO_BATCH in bf16 on
+              both routes, beside the same frames fed from the card's
+              memory and the host pipeline alone; (e) HTTP_BODIES JPEG
+              bodies to a yolov3 DetectionServer answer as direct calls
+              on the frames decode_image_bytes gives
+
+Phase 10's training scenes are PNGs whose rows cycle through all five
+filters (Paeth and Average included), and its held-out scenes are JPEGs.
+
 Tolerances of phases 6-7, kernel vs plain on the same inputs:
   * fp32: 1e-5 of the output's scale (max |plain|). Both sides form
     true fp32 products (the plain versions turn TF32 off) and sum them
@@ -126,12 +160,15 @@ once) at 3.35 TB/s and its operations at the card's peak for their type
 inputs.
 
 Then the kernels line, the nvidia-smi line and, last, the device line
-{"ok": true, "device": {...}}. Exits non-zero without printing a result
+{"ok": true, "device": {...}}; the line before the kernels line gives the
+script's total seconds. Exits non-zero without printing a result
 when CUDA is not available.
 """
 
+import concurrent.futures as cf
 import contextlib
 import dataclasses
+import hashlib
 import http.client
 import io
 import itertools
@@ -144,6 +181,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -155,15 +193,26 @@ from yolo_tpu_torch.configs.specs import (Conv, layer_strides,
                                           weighted_specs)
 from yolo_tpu_torch.configs.variants import LAYER_BUILDERS
 from yolo_tpu_torch.data.augment import AugmentConfig
-from yolo_tpu_torch.data.pipeline import DevicePrefetcher, train_batches
-from yolo_tpu_torch.data.synthetic import write_voc_scenes
+from yolo_tpu_torch.data.coco import load_coco
+from yolo_tpu_torch.data.pipeline import (DevicePrefetcher, _host_resize,
+                                          _Pool, get_decoder,
+                                          inference_batches, train_batches)
+from yolo_tpu_torch.data.png import (SIGNATURE, encode_png, unfilter,
+                                     unfilter_plain)
+from yolo_tpu_torch.data.synthetic import (coco_scene, encode_jpeg,
+                                           write_coco_scenes,
+                                           write_voc_scenes)
+from yolo_tpu_torch.eval.coco_map import evaluate_coco
 from yolo_tpu_torch.eval.runner import (build_ground_truth,
                                         collect_detections, quick_map)
 from yolo_tpu_torch.eval.voc_map import _iou_xyxy_voc, evaluate
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.models import graph
-from yolo_tpu_torch.models.graph import fold_params
-from yolo_tpu_torch.models.predict import detect_raw, make_detector
+from yolo_tpu_torch.models.graph import Darknet, fold_params
+from yolo_tpu_torch.models.predict import (detect_raw, make_detector,
+                                           make_detector_preprocessed)
+from yolo_tpu_torch.native import build as native_build
+from yolo_tpu_torch.native.preproc import decode_image, decode_image_bytes
 from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
@@ -173,6 +222,7 @@ from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
 from yolo_tpu_torch.train import loss as loss_mod
 from yolo_tpu_torch.train.loss import region_loss_config, yolo_loss_config
 
+STARTED = time.perf_counter()
 SEED = 0
 VARIANT = "coco"          # YOLOv2-COCO, 416x416, 80 classes, 5 anchors
 SRC_HW = (480, 640)
@@ -297,6 +347,24 @@ YOLO_AUGMENT = AugmentConfig(jitter=0.3, hue=0.1, saturation=1.5,
                              exposure=1.5, flip=True)
 YOLO_TIMED = "yolov4"     # 20 timed steps at the cfg's batch, 608
 YOLO_OVERFIT = "yolov4-tiny"
+
+# phase 14: real images through the port's host decoder, and yolov3's
+# COCO mAP@[.5:.95] on COCO-format JPEG scenes
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_jpeg")
+IMAGE_THREADS = (1, 4, 8)
+IMAGE_DECODES = 128       # decodes a timed thread-pool run
+COCO_VARIANT = "yolov3"   # 416, COCO-80
+COCO_SCENES = 256
+# source sizes, cycled: mostly 480x640, as COCO's most common size
+COCO_SIZES = ((480, 640),) * 5 + ((640, 480), (427, 640), (375, 500))
+COCO_BATCH = 32
+COCO_CPU_SCENES = 8       # card against CPU
+COCO_REL = 1e-3           # each of the 12 cells, card against CPU
+# the seeded detector finds none of the scenes' objects, so card and CPU
+# are also scored against ground truth made from the CPU's detections
+PSEUDO_GT, PSEUDO_JITTER = 20, 0.15
+HTTP_BODIES = 8
 
 
 def emit(obj) -> None:
@@ -463,19 +531,23 @@ def seeded_coco_weights(cfg, path: str) -> None:
     dw.save(path, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
 
 
+def post_body(port: int, body: bytes, ctype: str) -> list:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/detect", body=body,
+                     headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        answer = json.loads(resp.read())
+    finally:
+        conn.close()
+    check(resp.status == 200, f"/detect returned {resp.status}: {answer}")
+    return answer["detections"]
+
+
 def post_npy(port: int, image) -> list:
     buf = io.BytesIO()
     np.save(buf, image)
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    try:
-        conn.request("POST", "/detect", body=buf.getvalue(),
-                     headers={"Content-Type": "application/x-npy"})
-        resp = conn.getresponse()
-        body = json.loads(resp.read())
-    finally:
-        conn.close()
-    check(resp.status == 200, f"/detect returned {resp.status}: {body}")
-    return body["detections"]
+    return post_body(port, buf.getvalue(), "application/x-npy")
 
 
 def _iou(a, b) -> float:
@@ -1401,10 +1473,14 @@ def phase_fine_tune(card) -> tuple:
         roots = [os.path.join(tmp, d) for d in ("train", "held_out")]
         for d in roots:
             os.mkdir(d)
+        # training PNGs in all five row filters, held-out JPEGs (4:2:0)
         pairs, held_out = (
             write_voc_scenes(d, [SCENE_HW[i % len(SCENE_HW)]
-                                 for i in range(n)], rng, palette=palette)
-            for d, n in zip(roots, (TRAIN_SCENES, HELD_OUT_SCENES)))
+                                 for i in range(n)], rng, palette=palette,
+                             **kw)
+            for d, n, kw in zip(roots, (TRAIN_SCENES, HELD_OUT_SCENES),
+                                ({"filters": (0, 1, 2, 3, 4)},
+                                 {"jpeg_quality": 90})))
         params = fine_tune_init(cfg, tmp)
         t1 = time.perf_counter()
         state, scenes, early = phase_train(cfg, tcfg, params, pairs, card)
@@ -1700,6 +1776,337 @@ def yolo_overfit(cfg, params, pairs, held_out, card) -> int:
     return launches
 
 
+def phase_fixtures() -> int:
+    """Phase 14 (b): every fixture decodes to the sha256 and shape of
+    cv2's output recorded beside it, at 3 and 1 channels."""
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        recorded = json.load(f)
+    for name, want in sorted(recorded["files"].items()):
+        for key, channels in (("rgb", 3), ("gray", 1)):
+            img = decode_image(os.path.join(FIXTURES, name), channels)
+            digest = hashlib.sha256(img.tobytes()).hexdigest()
+            check(list(img.shape) == want[key]["shape"]
+                  and digest == want[key]["sha256"],
+                  f"fixture {name} ({key}): {img.shape} {digest}, want "
+                  f"{want[key]}")
+    emit({"phase": "images", "check": "fixtures",
+          "files": len(recorded["files"]), "hashes_equal": True,
+          "recorded_from": recorded["decoder"]})
+    return len(recorded["files"])
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median ms of fn on a pipeline worker thread (one torch thread)."""
+    def timed():
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    with _Pool(1) as pool:
+        return pool.submit(timed).result()
+
+
+def phase_decode_rates(card: str) -> dict:
+    """Phase 14 (c): a 480x640 4:2:0 q90 JPEG decoded on one thread and
+    on thread pools, beside the host letterbox of its frame to 416; a
+    480x640 Paeth PNG's unfilter in C and in Python."""
+    img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
+    cores = os.cpu_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.jpg")
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(img, 90, "420"))
+        one = host_ms(lambda: decode_image(path))
+        letterbox_ms = host_ms(lambda: _host_resize(img, (416, 416),
+                                                    "letterbox"))
+        rates = {}
+        for n in IMAGE_THREADS:
+            with cf.ThreadPoolExecutor(n) as pool:
+                list(pool.map(decode_image, [path] * n))
+                t0 = time.perf_counter()
+                list(pool.map(decode_image, [path] * IMAGE_DECODES))
+                rates[n] = IMAGE_DECODES / (time.perf_counter() - t0)
+        png = encode_png(img, filters=(4,))
+    raw = zlib.decompress(b"".join(
+        png[i + 8:i + 8 + int.from_bytes(png[i:i + 4], "big")]
+        for i in range(len(SIGNATURE), len(png) - 12)
+        if png[i + 4:i + 8] == b"IDAT"))
+    h, stride = SRC_HW[0], SRC_HW[1] * 3
+    t0 = time.perf_counter()
+    c_rows = unfilter(raw, h, stride, 3)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py_rows = unfilter_plain(raw, h, stride, 3)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(c_rows, py_rows) and np.array_equal(
+        c_rows.reshape(*SRC_HW, 3), img), "the Paeth PNG's rows differ")
+    out = {"jpeg_ms_one_thread": one,
+           "host_letterbox_416_ms_one_thread": letterbox_ms,
+           "jpeg_img_per_s": {str(n): r for n, r in rates.items()},
+           "host_cores": cores, "paeth_png_unfilter_c_ms": c_ms,
+           "paeth_png_unfilter_python_ms": py_ms}
+    emit({"phase": "images", "check": "decode_rates", "src_hw":
+          list(SRC_HW), "jpeg": "4:2:0 q90", **out, "card": card})
+    if cores >= 4:
+        check(rates[8] >= 2 * rates[1], f"8 decode threads reach "
+              f"{rates[8]:.1f} img/s against {rates[1]:.1f} on one: the "
+              f"decoder holds the interpreter lock")
+    return out
+
+
+def coco_cells(dets, gt, cfg) -> dict:
+    cells = evaluate_coco(dets, gt, cfg.num_classes)
+    return {k: v for k, v in cells.items() if k != "ap"}
+
+
+def check_cells(a: dict, b: dict, what: str) -> None:
+    bad = {k: (a[k], b[k]) for k in a
+           if abs(a[k] - b[k]) > COCO_REL * abs(b[k])}
+    check(not bad, f"{what}: COCO cells differ beyond a relative "
+          f"{COCO_REL}: {bad}")
+
+
+def pseudo_ground_truth(dets: dict, seed: int) -> dict:
+    """Ground truth made from one run's detections, so that two runs'
+    COCO cells can be compared where the seeded detector finds none of
+    the scenes' objects (every cell 0): each image's PSEUDO_GT highest
+    detections, corners moved by up to PSEUDO_JITTER of the box's side
+    (IoUs across COCO's thresholds), a tenth marked crowd, areas at
+    0.5-1 of the box's (all three area ranges)."""
+    rng = np.random.default_rng(seed)
+    gt = {}
+    for img_id, d in sorted(dets.items()):
+        top = sorted(d, key=lambda x: -x[1])[:PSEUDO_GT]
+        boxes = np.array([b for _, _, *b in top], np.float64).reshape(-1, 4)
+        side = np.tile(boxes[:, 2:] - boxes[:, :2], 2)
+        boxes = boxes + rng.uniform(-PSEUDO_JITTER, PSEUDO_JITTER,
+                                    boxes.shape) * side
+        boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 1)
+        gt[img_id] = {
+            "boxes": boxes, "classes": np.array([c for c, *_ in top]),
+            "difficult": (rng.uniform(size=len(top)) < 0.1).astype(int),
+            "areas": np.prod(boxes[:, 2:] - boxes[:, :2], -1)
+            * rng.uniform(0.5, 1.0, len(top))}
+    return gt
+
+
+def check_both_ways(a: dict, b: dict, what: str) -> dict:
+    """Phase 11's rule: every detection scoring >= EVAL_CONF + MARGIN of
+    each run has a same-class partner in the other (VOC IoU >=
+    MATCH_IOU)."""
+    out = {}
+    for name, (x, y) in (("a_in_b", (a, b)), ("b_in_a", (b, a))):
+        hit, tot = agreement(x, y, EVAL_CONF)
+        out[name] = [hit, tot]
+        check(tot > 0 and hit == tot, f"{what} {name}: {hit}/{tot} "
+              f"detections >= {EVAL_CONF + MARGIN} matched")
+    return out
+
+
+def files_to_boxes(cfg, net, paths, route: str, card: str) -> tuple:
+    """Phase 14 (d): JPEG files -> inference_batches -> DevicePrefetcher
+    -> make_detector_preprocessed at COCO_BATCH, beside the same frames
+    fed from the card's memory and the host pipeline alone. Returns the
+    (NMS, conv) kernel launches of the pass from files."""
+    det = make_detector_preprocessed(cfg, conv_impl=route)
+
+    def host():
+        return inference_batches(paths, COCO_BATCH, net_size=cfg.input_hw,
+                                 workers=PIPELINE_WORKERS)
+
+    t0 = time.perf_counter()
+    host_batches_ = list(host())
+    host_s = time.perf_counter() - t0
+    frames_ = [torch.from_numpy(b["images"]).cuda() for b in host_batches_]
+    det(net, frames_[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in frames_:
+        out = det(net, x)
+    torch.cuda.synchronize()
+    memory_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(out["boxes"]).all()), f"{route}: bad boxes")
+    nms_kernel.launches = conv_kernel.launches = 0
+    t0 = time.perf_counter()
+    n = 0
+    with DevicePrefetcher(host(), depth=2) as staged:
+        for b in staged:
+            out = det(net, b["images"])
+            n += len(b["paths"])
+    torch.cuda.synchronize()
+    files_s = time.perf_counter() - t0
+    launches = (nms_kernel.launches, conv_kernel.launches)
+    check(n == len(paths), f"{route}: {n} of {len(paths)} files detected")
+    emit({"phase": "images", "check": "files_to_boxes", "model": cfg.name,
+          "route": f"conv_impl={route}", "precision": "bf16",
+          "batch": COCO_BATCH, "images": n,
+          "files_img_per_s": n / files_s,
+          "memory_img_per_s": n / memory_s,
+          "host_pipeline_img_per_s": n / host_s,
+          "pipeline_workers": PIPELINE_WORKERS,
+          "host_cores": os.cpu_count(), "card": card})
+    return launches
+
+
+def phase_coco(card: str) -> tuple:
+    """Phase 14 (d)-(e): yolov3 @416 on COCO-format JPEG scenes, scored
+    by evaluate_coco; returns ({kernel: launches}, COCO eval-grid
+    suppress times, the grid's shape)."""
+    cfg = get_variant(COCO_VARIANT)
+    check(cfg.input_hw == (416, 416) and cfg.num_classes == 80,
+          f"unexpected config {cfg.name}")
+    params = dw.synthetic_detector_params(cfg, SEED)
+    folded = fold_params(cfg.layers, params, cfg.bn_eps)
+    n_batches = -(-COCO_SCENES // COCO_BATCH)
+    launches = {"nms": 0, "conv": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sizes = [COCO_SIZES[i % len(COCO_SIZES)] for i in range(COCO_SCENES)]
+        json_path = write_coco_scenes(tmp, sizes, SEED + 14)
+        write_s = time.perf_counter() - t0
+        samples = load_coco(json_path, cfg.class_names, tmp)
+        gt, _ = build_ground_truth(samples, cfg.class_names)
+        check(len(samples) == COCO_SCENES
+              and all("areas" in g for g in gt.values()),
+              "load_coco -> build_ground_truth lost images or areas")
+        collect_detections(cfg, folded, samples[:COCO_BATCH],
+                           batch=COCO_BATCH)
+        torch.cuda.synchronize()   # warm: cuDNN's algorithm choice
+
+        got = []
+        kernel = nms_kernel.suppress
+
+        def capture(geom, scores, classes, *, conf_threshold,
+                    iou_threshold):
+            if not got:
+                got.append((geom.clone(), scores.clone(), classes.clone(),
+                            conf_threshold, iou_threshold))
+            return kernel(geom, scores, classes,
+                          conf_threshold=conf_threshold,
+                          iou_threshold=iou_threshold)
+
+        routes = {}
+        for route in ("torch", "cuda"):
+            nms_kernel.launches = conv_kernel.launches = 0
+            nms_kernel.suppress = capture
+            try:
+                t0 = time.perf_counter()
+                dets = collect_detections(cfg, folded, samples,
+                                          batch=COCO_BATCH, conv_impl=route)
+                wall = time.perf_counter() - t0
+            finally:
+                nms_kernel.suppress = kernel
+            want_conv = YOLO_KERNEL_CONVS[COCO_VARIANT] * n_batches \
+                if route == "cuda" else 0
+            check((nms_kernel.launches, conv_kernel.launches)
+                  == (n_batches, want_conv),
+                  f"COCO eval conv_impl={route}: (NMS, conv) launches "
+                  f"{(nms_kernel.launches, conv_kernel.launches)}, want "
+                  f"{(n_batches, want_conv)}")
+            launches["nms"] += nms_kernel.launches
+            launches["conv"] += conv_kernel.launches
+            routes[route] = (dets, coco_cells(dets, gt, cfg), wall)
+        dets, cells, wall = routes["torch"]
+        n_dets = sum(len(d) for d in dets.values())
+        check(n_dets > 0 and all(np.isfinite(v) for v in cells.values()),
+              f"COCO eval: {n_dets} detections, cells {cells}")
+        # the two routes over every scene: the rate of phases 8 and 12
+        routes_agree = {}
+        for name, (x, y) in (("cuda_in_torch", ("cuda", "torch")),
+                             ("torch_in_cuda", ("torch", "cuda"))):
+            hit, tot = agreement(routes[x][0], routes[y][0], EVAL_CONF)
+            routes_agree[name] = [hit, tot]
+            check(tot > 0 and hit >= MIN_MATCH * tot, f"COCO eval routes "
+                  f"{name}: {hit}/{tot} detections matched")
+
+        sub = samples[:COCO_CPU_SCENES]
+        gt8, _ = build_ground_truth(sub, cfg.class_names)
+        nms_kernel.launches = 0
+        on = {dev: collect_detections(cfg, folded, sub,
+                                      batch=COCO_CPU_SCENES, device=dev)
+              for dev in ("cuda", "cpu")}
+        launches["nms"] += nms_kernel.launches
+        cpu_agree = check_both_ways(on["cuda"], on["cpu"],
+                                    "COCO eval card vs CPU")
+        cells8 = {dev: coco_cells(d, gt8, cfg) for dev, d in on.items()}
+        check_cells(cells8["cuda"], cells8["cpu"], "COCO eval card vs CPU")
+        pseudo = pseudo_ground_truth(on["cpu"], SEED + 14)
+        cells_pseudo = {dev: coco_cells(d, pseudo, cfg)
+                        for dev, d in on.items()}
+        check(all(0 < cells_pseudo["cpu"][k] < 1
+                  for k in ("map", "map50", "map75", "ar1", "ar")),
+              f"pseudo ground truth cells {cells_pseudo['cpu']}")
+        check_cells(cells_pseudo["cuda"], cells_pseudo["cpu"],
+                    "COCO eval card vs CPU, pseudo ground truth")
+        emit({"phase": "images", "check": "coco_eval", "model": cfg.name,
+              "input_hw": list(cfg.input_hw), "scenes": COCO_SCENES,
+              "batch": COCO_BATCH, "eval_conf": EVAL_CONF,
+              "write_scenes_s": write_s, "detections": n_dets,
+              "cells": cells, "eval_img_per_s": COCO_SCENES / wall,
+              "conv_impl_cuda": {"cells": routes["cuda"][1],
+                                 "eval_img_per_s":
+                                 COCO_SCENES / routes["cuda"][2],
+                                 "agreement": routes_agree},
+              "card_vs_cpu": {"scenes": COCO_CPU_SCENES,
+                              "agreement": cpu_agree, "cells": cells8,
+                              "cells_pseudo_ground_truth": cells_pseudo},
+              "decoder": get_decoder(), "card": card})
+
+        geom, scores, classes, conf, iou = got[0]
+        grid = list(geom.shape)
+        check(grid[0] == COCO_BATCH * cfg.num_classes and conf == EVAL_CONF,
+              f"COCO eval grid {grid} at conf {conf}")
+        timed = time_suppress("suppress_coco_eval_grid", geom, scores,
+                              classes, conf, iou, card, batch=COCO_BATCH)
+
+        paths = [p for p, _ in samples]
+        net = Darknet(cfg.layers, folded, device="cuda",
+                      dtype=torch.bfloat16)
+        for route in ("torch", "cuda"):
+            got_nms, got_conv = files_to_boxes(cfg, net, paths, route, card)
+            want_conv = YOLO_KERNEL_CONVS[COCO_VARIANT] * n_batches \
+                if route == "cuda" else 0
+            check((got_nms, got_conv) == (n_batches, want_conv),
+                  f"files -> boxes conv_impl={route}: (NMS, conv) launches "
+                  f"{(got_nms, got_conv)}, want {(n_batches, want_conv)}")
+            launches["nms"] += got_nms
+            launches["conv"] += got_conv
+        del net
+
+        weights = os.path.join(tmp, f"{COCO_VARIANT}-seed.weights")
+        dw.save(weights, cfg.layers, params)
+        model = yolo_tpu_torch.load(weights, device="cuda")
+        bodies = []
+        for p in paths[:HTTP_BODIES]:
+            with open(p, "rb") as f:
+                bodies.append(f.read())
+        server = DetectionServer(cfg, model.params, port=0, max_batch=32)
+        server.start()
+        try:
+            nms_kernel.launches = 0
+            answers = [post_body(server.port, b, "image/jpeg")
+                       for b in bodies]
+            launches["nms"] += nms_kernel.launches
+            stats = dict(server.stats)
+        finally:
+            server.stop()
+        check(stats["errors"] == 0, f"server errors: {stats}")
+        names = cfg.detection_names()
+        for i, body in enumerate(bodies):
+            direct = detections_to_json(
+                model(decode_image_bytes(body)[None]), names)[0]
+            check(answers[i] == direct, f"JPEG body {i}: the answer differs "
+                  f"from the direct call on its decoded frame")
+        emit({"phase": "images", "check": "http_jpeg", "model": cfg.name,
+              "requests": stats["requests"], "responses_equal_direct": True,
+              "detections_per_image": [len(a) for a in answers]})
+    return launches, timed, grid
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1710,6 +2117,13 @@ def main() -> int:
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
+    t0 = time.perf_counter()
+    native_lib, cc_s = native_build.build()
+    native_build.library()
+    emit({"phase": "build", "what": "host C library (native/*.c)",
+          "seconds": time.perf_counter() - t0, "cc_seconds": cc_s,
+          "library": os.path.relpath(native_lib, os.path.dirname(
+              os.path.abspath(__file__)))})
     t0 = time.perf_counter()
     lib, compile_s = build.build()
     build.library()
@@ -1768,9 +2182,18 @@ def main() -> int:
     emit({"phase": "yolo", "serve_seconds": t1 - t0,
           "train_seconds": time.perf_counter() - t1})
 
+    t0 = time.perf_counter()
+    check(get_decoder() == "native", f"decoder {get_decoder()}")
+    phase_fixtures()
+    phase_decode_rates(card)
+    coco_launches, coco_grid, coco_shape = phase_coco(card)
+    emit({"phase": "images", "seconds": time.perf_counter() - t0})
+
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "yolo_tpu"))
-    check(not foreign, f"the port loaded JAX or the JAX package: {foreign}")
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
+    check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
+          f"{foreign}")
+    emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
     nms = timed[TIMED_SHAPE]
     conv_t = kernel_times["conv"]
     conv32 = kernel_times["conv_fp32"]
@@ -1780,17 +2203,23 @@ def main() -> int:
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
          "launches": launches + voc_launches + yolo_launches["nms"]
-         + yolo_eval_launches, "max_abs_err": worst,
+         + yolo_eval_launches + coco_launches["nms"],
+         "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
          "eval_grid": [EVAL_BATCH * 20, 5, 128], "eval_grid_ms": eval_grid[0],
          "eval_grid_plain_ms": eval_grid[1],
          "eval_grid_bound_ms": eval_grid[2],
-         "eval_grid_bound_by": eval_grid[3]},
+         "eval_grid_bound_by": eval_grid[3],
+         "coco_eval_grid": coco_shape, "coco_eval_grid_ms": coco_grid[0],
+         "coco_eval_grid_plain_ms": coco_grid[1],
+         "coco_eval_grid_bound_ms": coco_grid[2],
+         "coco_eval_grid_bound_by": coco_grid[3]},
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
-         "launches": route_launches["conv"] + yolo_launches["conv"],
+         "launches": route_launches["conv"] + yolo_launches["conv"]
+         + coco_launches["conv"],
          "max_abs_err": max(conv_worst, yolo_worst),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
          "bound_by": conv_t[4], "library_ms": conv_t[2],

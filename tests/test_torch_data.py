@@ -222,23 +222,32 @@ def test_png_decoder_every_row_filter(tmp_path, channels):
 
 
 def test_load_image_without_cv2(tmp_path, monkeypatch):
+    """Without OpenCV the default (native) decoder reads PNG and JPEG at
+    both channel counts as cv2 does; asking for the cv2 decoder raises."""
     rng = np.random.default_rng(0)
     rgb, gray = (str(tmp_path / "rgb.png"), str(tmp_path / "gray.png"))
     cv2.imwrite(rgb, rng.integers(0, 256, (9, 13, 3), dtype=np.uint8))
     cv2.imwrite(gray, rng.integers(0, 256, (9, 13), dtype=np.uint8))
     jpg = str(tmp_path / "a.jpg")
     cv2.imwrite(jpg, rng.integers(0, 256, (9, 13, 3), dtype=np.uint8))
-    with_cv2 = {(p, c): tpipe.load_image(p, c)
-                for p, c in ((rgb, 3), (gray, 3), (gray, 1))}
+    cases = [(p, c) for p in (rgb, gray, jpg) for c in (1, 3)]
+    tpipe.set_decoder("cv2")
+    try:
+        with_cv2 = {(p, c): tpipe.load_image(p, c) for p, c in cases}
+    finally:
+        tpipe.set_decoder("native")
     np.testing.assert_array_equal(with_cv2[(rgb, 3)],
                                   jpipe.load_image(rgb, 3))
-    monkeypatch.setattr(tpipe, "_cv2", lambda: None)
+
+    def no_cv2():
+        raise ImportError("No module named 'cv2'")
+
+    monkeypatch.setattr(tpipe, "_cv2", no_cv2)
     for (p, c), want in with_cv2.items():
         np.testing.assert_array_equal(tpipe.load_image(p, c), want)
-    with pytest.raises(ValueError, match="only PNG"):
-        tpipe.load_image(jpg)
-    with pytest.raises(ValueError, match="BT.601"):
-        tpipe.load_image(rgb, 1)
+    with pytest.raises(ImportError, match="cv2"):
+        tpipe.set_decoder("cv2")
+    assert tpipe.get_decoder() == "native"
 
 
 # --- batch streams -------------------------------------------------------------

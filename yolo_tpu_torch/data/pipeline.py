@@ -7,9 +7,10 @@ card ahead of the consumer.
   eval:      decode -> host letterbox -> one (net_h, net_w) shape for
              every source size (inference_batches)
 
-Images decode with OpenCV where it is installed; without it (the card
-machine has none) PNGs decode with data/png.py and other formats raise.
-The host letterbox is the port's ops/letterbox.py in fp32 (cv2
+Images decode with the port's own decoder by default on every host
+(native/preproc.py: JPEG and PNG, the bytes cv2.imread gives), so that
+the tests run the code the card runs; set_decoder("cv2") selects OpenCV
+where it is installed. The host letterbox is the port's ops/letterbox.py in fp32 (cv2
 INTER_LINEAR semantics). Torch runs one intra-op thread in each pool
 worker, so that the workers do not oversubscribe the cores.
 """
@@ -28,51 +29,57 @@ import torch
 
 from yolo_tpu_torch.data import targets as tgt
 from yolo_tpu_torch.data.augment import augment
-from yolo_tpu_torch.data.png import SIGNATURE, decode_png
 from yolo_tpu_torch.data.voc import parse_annotation
 from yolo_tpu_torch.device import resolve as resolve_device
+from yolo_tpu_torch.native.preproc import decode_image
 from yolo_tpu_torch.ops.letterbox import (as_hw, letterbox,
                                           letterbox_geometry, stretch_resize)
 
 
+# Host image decoder: "native" (native/preproc.py, the default on every
+# host) or "cv2" (OpenCV, only when asked for; it reads the progressive,
+# CMYK, 12-bit and arithmetic JPEGs the native decoder raises for)
+_DECODER = "native"
+
+
 def _cv2():
-    try:
-        import cv2
-    except ImportError:
-        return None
+    import cv2
+
     return cv2
+
+
+def set_decoder(name: str) -> None:
+    """Select the host image decoder for this process ("native" |
+    "cv2"). "cv2" raises ImportError where OpenCV is not installed."""
+    global _DECODER
+    if name not in ("native", "cv2"):
+        raise ValueError(f"unknown decoder {name!r} (native | cv2)")
+    if name == "cv2":
+        _cv2()
+    _DECODER = name
+
+
+def get_decoder() -> str:
+    return _DECODER
 
 
 def load_image(path: str, channels: int = 3) -> np.ndarray:
     """Host decode at the model's channel count -> (H, W, C) uint8 RGB
     (C=3) or gray (C=1), as cv2.imread(IMREAD_COLOR / IMREAD_GRAYSCALE)
-    gives them. Without OpenCV: 8-bit gray and RGB PNGs only (a gray
-    PNG replicates to RGB at channels=3; an RGB PNG at channels=1
-    raises)."""
+    gives them, through the selected decoder. The native decoder raises
+    ValueError for what it does not decode (native/preproc.py)."""
     if channels not in (1, 3):
         raise ValueError(f"channels={channels}: darknet image loading "
                          f"supports 1 (grayscale) or 3 (RGB)")
+    if _DECODER == "native":
+        return decode_image(path, channels)
     cv2 = _cv2()
-    if cv2 is not None:
-        flag = cv2.IMREAD_COLOR if channels == 3 else cv2.IMREAD_GRAYSCALE
-        img = cv2.imread(path, flag)
-        if img is None:
-            raise FileNotFoundError(f"cannot decode image: {path}")
-        return (cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if channels == 3
-                else img[..., None])
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != SIGNATURE:
-        raise ValueError(
-            f"{path}: without OpenCV only PNG images decode (install "
-            f"opencv-python for JPEG)")
-    img = decode_png(data)
-    if img.shape[-1] == channels:
-        return img
-    if channels == 3:
-        return np.repeat(img, 3, axis=-1)
-    raise ValueError(f"{path}: an RGB PNG at channels=1 needs OpenCV's "
-                     f"BT.601 conversion")
+    flag = cv2.IMREAD_COLOR if channels == 3 else cv2.IMREAD_GRAYSCALE
+    img = cv2.imread(path, flag)
+    if img is None:
+        raise FileNotFoundError(f"cannot decode image: {path}")
+    return (cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if channels == 3
+            else img[..., None])
 
 
 def letterbox_boxes(boxes_xywh: np.ndarray, src_w: int, src_h: int,

@@ -1,18 +1,31 @@
-"""PNG decoding with the standard library's zlib and numpy, for hosts
-without OpenCV: 8-bit gray and RGB images, not interlaced, all five row
-filters (PNG specification, section 9). cv2.imread gives the same bytes
-for these files (tests/test_torch_data.py). encode_png writes such files
-(synthetic datasets, tests)."""
+"""PNG decoding with the standard library's zlib and the port's C
+unfilter (native/png.c), for hosts without OpenCV. Every non-interlaced
+PNG decodes: gray, RGB, palette, gray + alpha and RGBA, at bit depths
+1-16, with the pixels cv2.imread gives (alpha dropped, 16-bit samples
+cut to their high byte, palettes expanded; RGB to gray as libpng's
+png_set_rgb_to_gray computes it for OpenCV). Interlaced (Adam7) files
+raise, as do colour files at channels=1 that carry gamma or colour
+space information, whose gray libpng computes in linear light.
+encode_png writes gray and RGB files with any row filter (synthetic
+datasets, tests). _unfilter_sequential is the plain Python version of
+the Average and Paeth rows, kept for the tests of the C unfilter.
+"""
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}   # color type -> channels: gray, RGB
+# color type -> (samples a pixel, the bit depths the specification allows)
+_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+# chunks that make libpng convert colour to gray in linear light
+_GAMMA_CHUNKS = (b"gAMA", b"sRGB", b"iCCP", b"cHRM")
+_ERR_LEN = 256
 
 
 def _unfilter_sequential(ft: int, line: bytearray, prior: bytes,
@@ -32,38 +45,9 @@ def _unfilter_sequential(ft: int, line: bytearray, prior: bytes,
         line[x] = (line[x] + pred) & 0xFF
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8, C = 1 (gray) or 3 (RGB). Raises
-    ValueError for any other kind of PNG."""
-    if data[:8] != SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if len(body) != length:
-            raise ValueError("PNG truncated mid-chunk")
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None or not idat:
-        raise ValueError("PNG without IHDR or IDAT")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
-        raise ValueError(
-            f"PNG bit depth {depth}, color type {color}, interlace "
-            f"{interlace}: only 8-bit gray or RGB, not interlaced, decodes "
-            f"without OpenCV")
-    c = _CHANNELS[color]
-    stride = w * c
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"PNG data holds {len(raw)} bytes, expected "
-                         f"{h * (stride + 1)}")
+def unfilter_plain(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The plain version of the C unfilter: h rows of a filter byte and
+    stride bytes -> (h, stride) uint8, in numpy and Python."""
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -72,19 +56,105 @@ def decode_png(data: bytes) -> np.ndarray:
         if ft == 0:
             rec = line
         elif ft == 1:
-            rec = np.cumsum(line.reshape(w, c), axis=0,
-                            dtype=np.uint8).reshape(-1)
+            buf = bytearray(line.tobytes())
+            for x in range(bpp, stride):
+                buf[x] = (buf[x] + buf[x - bpp]) & 0xFF
+            rec = np.frombuffer(bytes(buf), np.uint8)
         elif ft == 2:
             rec = line + prior
         elif ft in (3, 4):
             buf = bytearray(line.tobytes())
-            _unfilter_sequential(ft, buf, prior.tobytes(), c)
+            _unfilter_sequential(ft, buf, prior.tobytes(), bpp)
             rec = np.frombuffer(bytes(buf), np.uint8)
         else:
             raise ValueError(f"PNG row {y}: unknown filter type {ft}")
         out[y] = rec
         prior = out[y]
-    return out.reshape(h, w, c)
+    return out
+
+
+def unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """h rows of a filter byte and stride bytes -> (h, stride) uint8,
+    through the C unfilter (the interpreter lock released)."""
+    from yolo_tpu_torch.native.build import library
+
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected "
+                         f"{h * (stride + 1)}")
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty((h, stride), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_png_unfilter(src.ctypes.data, h, stride, bpp,
+                                   out.ctypes.data, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def decode_png(data: bytes, channels=None) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 as cv2.imread gives them: C = 3 (RGB,
+    IMREAD_COLOR) or 1 (IMREAD_GRAYSCALE); channels=None keeps the
+    file's own: 1 for gray (with or without alpha), else 3. Raises
+    ValueError for interlaced, corrupt or truncated files."""
+    from yolo_tpu_torch.native.build import library
+
+    if data[:8] != SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat, palette, gamma = 8, None, [], b"", False
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError("PNG truncated mid-chunk")
+        if kind in (b"IHDR", b"PLTE", b"IDAT") and struct.unpack(
+                ">I", crc)[0] != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG {kind.decode()} chunk: CRC mismatch")
+        pos += 12 + length
+        if kind == b"IHDR":
+            if length != 13:
+                raise ValueError("PNG IHDR chunk of the wrong length")
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind in _GAMMA_CHUNKS:
+            gamma = True
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _TYPES or depth not in _TYPES[color][1]:
+        raise ValueError(f"PNG bit depth {depth} with color type {color}")
+    if interlace:
+        raise ValueError("PNG interlaced (Adam7): not supported")
+    if w == 0 or h == 0:
+        raise ValueError("PNG of zero width or height")
+    if color == 3 and not palette:
+        raise ValueError("PNG palette image without a PLTE chunk")
+    if channels is None:
+        channels = 1 if color in (0, 4) else 3
+    if channels not in (1, 3):
+        raise ValueError(f"channels={channels} (1 or 3)")
+    if channels == 1 and color in (2, 3, 6) and gamma:
+        raise ValueError(
+            "a colour PNG with gAMA/sRGB/iCCP/cHRM at channels=1: libpng "
+            "converts it to gray in linear light, which is not ported")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG data does not inflate: {e}") from None
+    pal = np.zeros(768, np.uint8)
+    pal[:min(len(palette), 768)] = np.frombuffer(palette[:768], np.uint8)
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty((h, w, channels), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_png_decode_rows(src.ctypes.data, len(raw), h, w, depth,
+                                      color, pal.ctypes.data, channels,
+                                      out.ctypes.data, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -92,20 +162,20 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def encode_png(img, filters=(0,)) -> bytes:
-    """(H, W), (H, W, 1) or (H, W, 3) uint8 -> 8-bit gray or RGB PNG
-    bytes; row y takes filters[y % len(filters)] (0 None, 1 Sub, 2 Up,
-    3 Average, 4 Paeth), each computed from the raw rows."""
-    img = np.asarray(img, np.uint8)
-    if img.ndim == 2:
-        img = img[..., None]
-    h, w, c = img.shape
-    if c not in (1, 3):
-        raise ValueError(f"encode_png: {c} channels, want 1 or 3")
-    cur = img.reshape(h, w * c).astype(np.int64)
-    up = np.concatenate([np.zeros((1, w * c), np.int64), cur[:-1]])
-    left = np.concatenate([np.zeros((h, c), np.int64), cur[:, :-c]], 1)
-    ul = np.concatenate([np.zeros((h, c), np.int64), up[:, :-c]], 1)
+def encode_png_rows(rows, width: int, depth: int, color: int,
+                    filters=(0,), palette=None, chunks=()) -> bytes:
+    """(H, stride) uint8 sample bytes of any colour type and bit depth
+    -> PNG bytes; row y takes filters[y % len(filters)] (0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth), each computed from the raw rows. palette:
+    (N, 3) uint8 for colour type 3; chunks: extra (type, body) pairs
+    written before the image data."""
+    cur = np.asarray(rows, np.uint8).astype(np.int64)
+    h, stride = cur.shape
+    bpp = max(1, _TYPES[color][0] * depth // 8)
+    zeros = np.zeros((h, min(bpp, stride)), np.int64)
+    up = np.concatenate([np.zeros((1, stride), np.int64), cur[:-1]])
+    left = np.concatenate([zeros, cur[:, :-bpp]], 1)[:, :stride]
+    ul = np.concatenate([zeros, up[:, :-bpp]], 1)[:, :stride]
     p = left + up - ul
     pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
     paeth = np.where((pa <= pb) & (pa <= pc), left,
@@ -114,8 +184,24 @@ def encode_png(img, filters=(0,)) -> bytes:
     kind = np.asarray(filters, np.int64)[np.arange(h) % len(filters)]
     body = (cur - pred[kind, np.arange(h)]) % 256
     raw = np.concatenate([kind[:, None], body], 1).astype(np.uint8)
-    return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                          2 if c == 3 else 0, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+    out = SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, h,
+                                                  depth, color, 0, 0, 0))
+    for kind_, chunk_body in chunks:
+        out += _chunk(kind_, chunk_body)
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (out + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def encode_png(img, filters=(0,)) -> bytes:
+    """(H, W), (H, W, 1) or (H, W, 3) uint8 -> 8-bit gray or RGB PNG
+    bytes, row filters as encode_png_rows takes them."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    if c not in (1, 3):
+        raise ValueError(f"encode_png: {c} channels, want 1 or 3")
+    return encode_png_rows(img.reshape(h, w * c), w, 8, 2 if c == 3 else 0,
+                           filters)

@@ -1,5 +1,6 @@
 """Evaluation: dataset -> ground truth, model -> detections, VOC mAP
-(port of yolo_tpu/eval/runner.py).
+(port of yolo_tpu/eval/runner.py); COCO mAP@[.5:.95] scores the same
+detections with eval/coco_map.py.
 
 collect_detections runs the exact reference head (full decode and
 per-class NMS) at the PR-curve threshold 0.005, where the fused head's
@@ -29,7 +30,8 @@ def build_ground_truth(samples: Sequence[Tuple[str, object]],
                        class_names) -> Tuple[Dict, Dict]:
     """(image_path, annotation) samples -> ({img_id: gt}, {img_id:
     original image id}). Annotations are VOC XML paths or dicts in
-    parse_annotation's schema; difficult flags kept."""
+    parse_annotation's schema (data/coco.py's carry ``areas`` too);
+    difficult (crowd) flags kept."""
     gt, orig_ids = {}, {}
     for img_id, (_path, ann) in enumerate(samples):
         if not isinstance(ann, dict):
@@ -47,6 +49,11 @@ def build_ground_truth(samples: Sequence[Tuple[str, object]],
         gt[img_id] = {"boxes": xyxy, "classes": ann["classes"],
                       "difficult": ann["difficult"],
                       "width": int(w), "height": int(h)}
+        if "areas" in ann:
+            # COCO segmentation areas: pycocotools' areaRng buckets by
+            # ann['area'], not the box's area; VOC XML has none, and the
+            # COCO evaluator falls back to box areas without the key
+            gt[img_id]["areas"] = ann["areas"]
     return gt, orig_ids
 
 
@@ -55,19 +62,23 @@ def collect_detections(cfg, folded_params,
                        batch: int = 32, eval_conf: float = 0.005,
                        compute_dtype=torch.float32,
                        resize: str = "letterbox",
-                       device="cuda") -> Dict[int, List]:
+                       device="cuda",
+                       conv_impl: str = "torch") -> Dict[int, List]:
     """Run the reference decode + exact per-class NMS over the samples
     -> {img_id: [(cls, score, x1, y1, x2, y2) pixel], ...}.
 
     folded_params: fold_params output (numpy). device: "cuda" by
     default, raising without a card, where the suppression is the CUDA
     NMS kernel; "cpu" only when asked for, with the plain suppression.
-    Images are preprocessed on the host to one (net_h, net_w) shape."""
+    conv_impl="cuda" sends the eligible convs through the conv kernel
+    (models/predict.py forward). Images are preprocessed on the host to
+    one (net_h, net_w) shape."""
     net = Darknet(cfg.layers, folded_params, device=resolve_device(device),
                   dtype=compute_dtype)
     det = make_detector_preprocessed(
         cfg, conf_threshold=eval_conf, head="reference",
-        nms_impl="cuda" if net.device.type == "cuda" else "torch")
+        nms_impl="cuda" if net.device.type == "cuda" else "torch",
+        conv_impl=conv_impl)
     # duplicate paths must all receive the detections of their image
     path_to_ids: Dict[str, List[int]] = {}
     for i, (p, _) in enumerate(samples):

@@ -209,15 +209,17 @@ def make_detector_preprocessed(cfg: ModelConfig, *,
                                conf_threshold: Optional[float] = None,
                                nms_threshold: Optional[float] = None,
                                top_k: int = 128, max_detections: int = 100,
-                               nms_impl: str = "auto", head: str = "auto"):
+                               nms_impl: str = "auto", head: str = "auto",
+                               conv_impl: str = "torch"):
     """Detector for host-preprocessed (B, net_h, net_w, 3) [0, 1] input,
     one shape whatever the source sizes (data/pipeline.py
     inference_batches): ``fn(net, images_01) -> detections`` with
-    net-space xywh boxes, un-letterboxed per image by the caller."""
+    net-space xywh boxes, un-letterboxed per image by the caller.
+    conv_impl: see forward."""
     def fn(net: Darknet, images_01: torch.Tensor):
         return detect(cfg, net, images_01.to(net.compute_dtype),
                       conf_threshold=conf_threshold,
                       nms_threshold=nms_threshold, top_k=top_k,
                       max_detections=max_detections, nms_impl=nms_impl,
-                      head=head)
+                      head=head, conv_impl=conv_impl)
     return fn

@@ -1,0 +1,31 @@
+/* The host image decoders' C interface (ctypes: native/preproc.py).
+ * Each function returns 0, or -1 with a message in err; no function
+ * keeps state between calls. */
+#ifndef YOLO_TPU_TORCH_NATIVE_H
+#define YOLO_TPU_TORCH_NATIVE_H
+
+#include <stddef.h>
+#include <stdint.h>
+
+/* JPEG bytes -> *out, a malloc'd (*h, *w, channels) uint8 image (RGB or
+ * gray) that the caller frees with yolo_native_free. */
+int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
+                     uint8_t **out, int *h, int *w, char *err,
+                     size_t errlen);
+
+/* PNG rows after inflate (h rows of a filter byte + stride bytes) ->
+ * out, h * stride unfiltered bytes; bpp is the filter's byte distance. */
+int yolo_png_unfilter(const uint8_t *raw, int h, size_t stride, int bpp,
+                      uint8_t *out, char *err, size_t errlen);
+
+/* Inflated PNG rows of an h x w image of the given bit depth and colour
+ * type -> out, (h, w, channels) uint8 as cv2.imread gives them; palette:
+ * 256 RGB entries, zero past the PLTE chunk's. */
+int yolo_png_decode_rows(const uint8_t *raw, size_t rawlen, int h, int w,
+                         int depth, int color, const uint8_t *palette,
+                         int channels, uint8_t *out, char *err,
+                         size_t errlen);
+
+void yolo_native_free(void *p);
+
+#endif

@@ -5,9 +5,10 @@ POST /detect with an image body -> JSON detections; GET /healthz for
 liveness, GET /stats for counters. Bodies are
   * ``Content-Type: application/x-npy``: a uint8 (H, W, C) array in .npy
     format, the form that needs no image decoder on the host;
-  * anything else: JPEG/PNG bytes, decoded with cv2 where it imports
-    (the JAX server's fallback decoder; its native decoder is not
-    ported).
+  * anything else: JPEG/PNG bytes, decoded by the host decoder that
+    data.pipeline.set_decoder selects (the port's own by default,
+    native/preproc.py; cv2 when asked for). A body that does not decode
+    gets a 400.
 
 Requests are micro-batched: a collector thread groups same-shape images
 arriving within ``batch_window_ms`` (up to ``max_batch``) into one device
@@ -56,10 +57,19 @@ def _decode_npy(data: bytes, channels: int) -> np.ndarray:
 
 
 def _decode_image(data: bytes, gray: bool) -> Optional[np.ndarray]:
-    """JPEG/PNG bytes -> RGB (or gray) uint8 through cv2; None when the
-    bytes do not decode. Raises ImportError when cv2 is missing."""
-    import cv2
+    """JPEG/PNG bytes -> RGB (or gray) uint8 through the selected host
+    decoder; None when the bytes do not decode. Raises ImportError when
+    the cv2 decoder is selected and cv2 is missing."""
+    from yolo_tpu_torch.data import pipeline
+    from yolo_tpu_torch.native.preproc import decode_image_bytes
 
+    channels = 1 if gray else 3
+    if pipeline.get_decoder() == "native":
+        try:
+            return decode_image_bytes(data, channels)
+        except ValueError:
+            return None
+    cv2 = pipeline._cv2()
     img = cv2.imdecode(np.frombuffer(data, np.uint8),
                        cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
     if img is None:
