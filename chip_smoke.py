@@ -138,6 +138,30 @@ JSON lines; any failed check raises and the script exits non-zero:
               bodies to a yolov3 DetectionServer answer as direct calls
               on the frames decode_image_bytes gives
 
+  15. cfg     darknet .cfg files through yolo_tpu_torch.load(weights,
+              cfg=..., names=...): (a) cfg_to_string of YOLOv2-COCO,
+              yolov3, yolov4 and yolov4-tiny at their published sizes,
+              loaded on the seeded .weights of phases 4 and 12: the
+              config is get_variant's and the detections equal the
+              built-in variant's (torch.equal), bf16 and fp32, on both
+              routes; (b) yolov4's topology with yolov4-csp-swish.cfg's
+              head conventions (swish, logistic head convs, new_coords,
+              scale_x_y 2) at [net] 640x384 and (c) yolov3 with
+              [Gaussian_yolo] heads (COCO-80, 267-filter head convs),
+              seeded: both routes in bf16 and fp32 (the conv kernel's
+              launches a forward equal the gate's count, one NMS launch,
+              phase 12's box-level rule against the fp32 plain path),
+              entry="fused" refused, a DetectionServer answering as
+              direct calls; (d) every other option (grouped, depthwise
+              and dilated convs, weighted shortcuts, sam, an SE block,
+              relu, ramp) in one net at 416, card against CPU: logits
+              within CFG_LOGIT_REL, boxes at box level; (e) 20-class (b)
+              and (c), TrainConfig from train_config_from_cfg: one fp32
+              step card against CPU as phase 13 (a), then CFG_TRAIN_STEPS
+              bf16 steps at batch CFG_TRAIN_BATCH; (f) their end-to-end
+              latency at batch 1 and 32, and (b)'s rectangular conv
+              shapes held against plain and timed as phase 12 (c)
+
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
 
@@ -189,7 +213,11 @@ import torch.nn.functional as F
 
 import yolo_tpu_torch
 from yolo_tpu_torch.configs import VOC_NAMES, get_variant
-from yolo_tpu_torch.configs.specs import (Conv, layer_strides,
+from yolo_tpu_torch.configs.darknet_cfg import cfg_to_string
+from yolo_tpu_torch.configs.specs import (AvgPool, Conv, MaxPool,
+                                          ModelConfig, Route, Sam,
+                                          ScaleChannels, Shortcut,
+                                          YoloHead, layer_strides,
                                           weighted_specs)
 from yolo_tpu_torch.configs.variants import LAYER_BUILDERS
 from yolo_tpu_torch.data.augment import AugmentConfig
@@ -218,6 +246,7 @@ from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
+                                       train_config_from_cfg,
                                        init_state, make_train_step)
 from yolo_tpu_torch.train import loss as loss_mod
 from yolo_tpu_torch.train.loss import region_loss_config, yolo_loss_config
@@ -365,6 +394,30 @@ COCO_REL = 1e-3           # each of the 12 cells, card against CPU
 # are also scored against ground truth made from the CPU's detections
 PSEUDO_GT, PSEUDO_JITTER = 20, 0.15
 HTTP_BODIES = 8
+
+# phase 15: darknet .cfg files through yolo_tpu_torch.load(cfg=...)
+CFG_ROUND_TRIP = ("coco", "yolov3", "yolov4", "yolov4-tiny")   # (a)
+CFG_SCALED_HW = (384, 640)    # (b): [net] height=384 width=640
+CFG_IMAGES = 4                # raw 480x640 frames of a route check
+CFG_TRAIN_STEPS, CFG_TRAIN_BATCH = 3, 8   # (e): bf16 steps
+# (d), card against CPU in fp32: each head's logits within this share
+# of its scale (the executor tolerance of tests/test_torch_custom.py)
+CFG_LOGIT_REL = 1e-4
+# (e)'s update bound: (c) keeps phase 13 (a)'s yolov3 bound; (b) twice
+# yolov4's: fp32 alone puts its step 7.6e-4 (the card) and 6.4e-4 (the
+# CPU, convs in float64) from a float64 step, in conv 0's gamma and beta
+# (tools/port_perf.py step64 --heads csp-swish on an H100), so the two
+# differ by up to ~1e-3 (9.6e-4 read); TF32 on reads ~1.2
+CFG_STEP_BOUND = {"yolov4": 2e-3, "yolov3": STEP_BOUND}
+# the [net] training keys of yolov4.cfg and yolov3.cfg, written into
+# (b)'s and (c)'s cfg files and read back by train_config_from_cfg
+CFG_NET_KEYS = {
+    "yolov4": "batch=64\nsubdivisions=8\nmomentum=0.949\ndecay=0.0005\n"
+              "learning_rate=0.0013\nburn_in=1000\nmax_batches=500500\n"
+              "policy=steps\nsteps=400000,450000\nscales=.1,.1\n",
+    "yolov3": "batch=64\nsubdivisions=16\nmomentum=0.9\ndecay=0.0005\n"
+              "learning_rate=0.001\nburn_in=1000\nmax_batches=500200\n"
+              "policy=steps\nsteps=400000,450000\nscales=.1,.1\n"}
 
 
 def emit(obj) -> None:
@@ -761,24 +814,39 @@ def phase_times(rng, model, card: str) -> dict:
     return timed
 
 
-def eligible_conv_shapes(cfg) -> dict:
-    """{(hw, cin, co, ks): count} of the convs the fused conv kernel
-    takes (leaky or linear, ops.conv.eligible), from the layer list at
-    the config's input size."""
+def kernel_conv_shapes(cfg) -> dict:
+    """{(h, w, cin, co, ks): count} of the convs the fused conv kernel
+    takes, from the layer list at the config's (net_h, net_w), by the
+    JAX package's gate: leaky or linear, groups 1, dilation 1
+    (graph.py::conv_block) and ops.conv.eligible (stride 1, 1x1 or 3x3,
+    CIN and CO multiples of 128)."""
     strides = layer_strides(cfg.layers)
     cins = iter(dw._conv_in_channels(cfg.layers, cfg.in_channels))
     shapes = {}
     for idx, layer in enumerate(cfg.layers):
-        if isinstance(layer, Conv):
-            cin = next(cins)
-            hwio = np.broadcast_to(np.float32(0), (layer.size, layer.size,
-                                                   cin, layer.filters))
-            if layer.act in ("leaky", "linear") and conv.eligible(
-                    hwio, layer.stride):
-                hw = cfg.input_size // (strides[idx - 1] if idx else 1)
-                key = (hw, cin, layer.filters, layer.size)
-                shapes[key] = shapes.get(key, 0) + 1
+        if isinstance(layer, Shortcut) and layer.weights_type != "none":
+            next(cins)
+        if not isinstance(layer, Conv):
+            continue
+        cin = next(cins)
+        hwio = np.broadcast_to(np.float32(0), (layer.size, layer.size,
+                                               cin, layer.filters))
+        if (layer.act in ("leaky", "linear") and layer.groups == 1
+                and layer.dilation == 1
+                and conv.eligible(hwio, layer.stride)):
+            s = strides[idx - 1] if idx else 1
+            key = (cfg.input_h // s, cfg.input_w // s, cin, layer.filters,
+                   layer.size)
+            shapes[key] = shapes.get(key, 0) + 1
     return shapes
+
+
+def eligible_conv_shapes(cfg) -> dict:
+    """{(hw, cin, co, ks): count} of kernel_conv_shapes on a square
+    net."""
+    check(cfg.input_h == cfg.input_w, f"{cfg.name} is rectangular")
+    return {(h, cin, co, ks): n
+            for (h, _, cin, co, ks), n in kernel_conv_shapes(cfg).items()}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -805,8 +873,10 @@ def kernel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 
 def conv_inputs(gen, b, hw, cin, co, ks, dtype) -> tuple:
     """Seeded activations (B, CIN, H, W) and He-scaled kernels, both
-    channels_last in dtype, and an fp32 bias, on the card."""
-    x = torch.randn(b, cin, hw, hw, generator=gen, device="cuda")
+    channels_last in dtype, and an fp32 bias, on the card. hw: H = W,
+    or (H, W)."""
+    h, w = hw if isinstance(hw, tuple) else (hw, hw)
+    x = torch.randn(b, cin, h, w, generator=gen, device="cuda")
     k = torch.randn(co, cin, ks, ks, generator=gen, device="cuda") \
         * (2.0 / (ks * ks * cin)) ** 0.5
     bias = torch.randn(co, generator=gen, device="cuda") * 0.5
@@ -1509,6 +1579,84 @@ def frames(seed: int, b: int) -> torch.Tensor:
         0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
 
 
+def check_routes(cfg, model, model32, images, n_kernel: int,
+                 launches: dict) -> list:
+    """detect_raw of cfg on the card in bf16 and fp32, on the default
+    route and on conv_impl="cuda": each forward launches the conv kernel
+    0 and n_kernel times and the NMS kernel once (counts set to 0 just
+    before and read just after, added to launches), gives finite
+    fixed-shape detections, and agrees with the fp32 plain path (full
+    decode + exact per-class NMS in plain PyTorch, convs without TF32)
+    at box level by phase 12's rule. Returns the rows to emit."""
+    names, conf = cfg.detection_names(), cfg.conf_threshold
+    plain = make_detector(cfg, head="reference", nms_impl="torch")
+    ref = detections_to_json(plain(model32.params, images), names)
+    rows = []
+    for net, precision in ((model.params, "bf16"), (model32.params, "fp32")):
+        for route, kw, n_conv in (("default", {}, 0),
+                                  ("conv_impl=cuda", {"conv_impl": "cuda"},
+                                   n_kernel)):
+            conv_kernel.launches = nms_kernel.launches = 0
+            out = detect_raw(cfg, net, images, **kw)
+            torch.cuda.synchronize()
+            got = (conv_kernel.launches, nms_kernel.launches)
+            what = f"{cfg.name} {route} {precision}"
+            check(got == (n_conv, 1), f"{what}: (conv, NMS) launches "
+                  f"{got}, want {(n_conv, 1)} for one forward")
+            launches["conv"] += got[0]
+            launches["nms"] += got[1]
+            check(tuple(out["boxes"].shape) == (len(images), 100, 4)
+                  and bool(torch.isfinite(out["boxes"]).all())
+                  and bool(torch.isfinite(out["scores"]).all()),
+                  f"{what}: bad detections")
+            dets = detections_to_json(out, names)
+            rows.append({"route": route, "precision": precision,
+                         "conv_launches": got[0], "nms_launches": got[1],
+                         "detections_per_image": [len(d) for d in dets],
+                         "vs_fp32_plain": check_agree(
+                             ref, dets, conf, f"{what} vs fp32 plain",
+                             iou=_iou_voc)})
+    rows.append({"route": "plain", "precision": "fp32",
+                 "detections_per_image": [len(d) for d in ref]})
+    return rows
+
+
+def entry_fused_raises(cfg, model, images) -> bool:
+    """entry="fused" refuses cfg with ValueError, as the JAX package's
+    fused branch does."""
+    try:
+        detect_raw(cfg, model.params, images, entry="fused")
+    except ValueError:
+        return True
+    return False
+
+
+def check_http(model, images, launches: dict, phase: str) -> None:
+    """A DetectionServer for model answers each frame, posted as an
+    application/x-npy body, as a direct call on that frame does; its NMS
+    launches are added to launches."""
+    cfg, names = model.cfg, model.cfg.detection_names()
+    served = images.cpu().numpy()
+    server = DetectionServer(cfg, model.params, port=0, max_batch=32)
+    server.start()
+    try:
+        nms_kernel.launches = 0
+        responses = [post_npy(server.port, img) for img in served]
+        launches["nms"] += nms_kernel.launches
+        stats = dict(server.stats)
+    finally:
+        server.stop()
+    direct = [detections_to_json(model(served[i:i + 1]), names)[0]
+              for i in range(len(served))]
+    check(stats["errors"] == 0, f"server errors: {stats}")
+    for i, resp in enumerate(responses):
+        check(resp == direct[i], f"{cfg.name}: response {i} differs from "
+              f"the direct detector call")
+    emit({"phase": phase, "check": "http", "model": cfg.name,
+          "requests": stats["requests"], "responses_equal_direct": True,
+          "detections_per_image": [len(d) for d in direct]})
+
+
 def phase_yolo_serve(tmp: str, card: str) -> dict:
     """Phase 12 (a): the five variants, seeded and written as darknet
     .weights files, loaded by size through yolo_tpu_torch.load at their
@@ -1528,77 +1676,21 @@ def phase_yolo_serve(tmp: str, card: str) -> dict:
         model32 = yolo_tpu_torch.load(path, device="cuda", precision="fp32")
         check(model.cfg == cfg, f"load inferred {model.cfg.name} from "
               f"{variant}'s file")
-        names, conf = cfg.detection_names(), cfg.conf_threshold
-        # fp32 through the plain path: full decode + exact per-class NMS
-        # in plain PyTorch, fp32 convs without TF32
-        plain = make_detector(cfg, head="reference", nms_impl="torch")
-        ref = detections_to_json(plain(model32.params, images), names)
-        rows = []
-        for net, precision in ((model.params, "bf16"),
-                               (model32.params, "fp32")):
-            for route, n_conv in (("default", 0), ("conv_impl=cuda",
-                                                   YOLO_KERNEL_CONVS[variant])):
-                kw = {"conv_impl": "cuda"} if n_conv else {}
-                conv_kernel.launches = nms_kernel.launches = 0
-                out = detect_raw(cfg, net, images, **kw)
-                torch.cuda.synchronize()
-                got = (conv_kernel.launches, nms_kernel.launches)
-                what = f"{cfg.name} {route} {precision}"
-                check(got == (n_conv, 1), f"{what}: (conv, NMS) launches "
-                      f"{got}, want {(n_conv, 1)} for one forward")
-                launches["conv"] += got[0]
-                launches["nms"] += got[1]
-                check(tuple(out["boxes"].shape) == (YOLO_IMAGES, 100, 4)
-                      and bool(torch.isfinite(out["boxes"]).all())
-                      and bool(torch.isfinite(out["scores"]).all()),
-                      f"{what}: bad detections")
-                dets = detections_to_json(out, names)
-                rows.append({"route": route, "precision": precision,
-                             "conv_launches": got[0],
-                             "nms_launches": got[1],
-                             "detections_per_image": [len(d) for d in dets],
-                             "vs_fp32_plain": check_agree(
-                                 ref, dets, conf, f"{what} vs fp32 plain",
-                                 iou=_iou_voc)})
-        try:
-            detect_raw(cfg, model.params, images, entry="fused")
-            fused_raises = False
-        except ValueError:
-            fused_raises = True
+        rows = check_routes(cfg, model, model32, images,
+                            YOLO_KERNEL_CONVS[variant], launches)
+        fused_raises = entry_fused_raises(cfg, model, images)
         check(fused_raises, f"{cfg.name}: entry='fused' did not raise")
         emit({"phase": "yolo_serve", "model": cfg.name,
               "input_hw": list(cfg.input_hw),
               "weights_bytes": os.path.getsize(path),
               "seed_weights_s": seed_s, "routes": rows,
-              "plain_detections_per_image": [len(d) for d in ref],
               "entry_fused_raises": fused_raises,
               "agreement_rule": {"margin": MARGIN, "voc_iou": MATCH_IOU,
                                  "min_match": MIN_MATCH}})
         if variant in YOLO_E2E or variant == YOLO_SERVED:
             kept[variant] = model
         del model32
-
-    model = kept[YOLO_SERVED]
-    cfg, names = model.cfg, model.cfg.detection_names()
-    served = images.cpu().numpy()
-    server = DetectionServer(cfg, model.params, port=0, max_batch=32)
-    server.start()
-    try:
-        nms_kernel.launches = 0
-        responses = [post_npy(server.port, img) for img in served]
-        launches["nms"] += nms_kernel.launches
-        stats = dict(server.stats)
-    finally:
-        server.stop()
-    direct = [detections_to_json(model(served[i:i + 1]), names)[0]
-              for i in range(len(served))]
-    check(stats["errors"] == 0, f"server errors: {stats}")
-    for i, resp in enumerate(responses):
-        check(resp == direct[i], f"{cfg.name}: response {i} differs from "
-              f"the direct detector call")
-    emit({"phase": "yolo_serve", "check": "http", "model": cfg.name,
-          "requests": stats["requests"], "responses_equal_direct": True,
-          "detections_per_image": [len(d) for d in direct]})
+    check_http(kept[YOLO_SERVED], images, launches, "yolo_serve")
     return launches, kept
 
 
@@ -1619,45 +1711,53 @@ def phase_yolo_conv(gen, card) -> tuple:
     for b in TIMED_BATCHES:
         for hw, cin, co, ks in new:
             for dtype, name in DTYPES:
-                x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
-                got = conv_kernel.fused_conv_bias_act(x, k, bias,
-                                                      act="leaky")
-                again = conv_kernel.fused_conv_bias_act(x, k, bias,
-                                                        act="leaky")
-                torch.cuda.synchronize()
-                want = conv.fused_conv_bias_act(x, k, bias, act="leaky")
-                what = f"yolo conv {b}x{hw}^2 {cin}->{co} {ks}x{ks} {name}"
-                err = kernel_err(got, want, what)
-                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-                check(torch.equal(got.view(bits), again.view(bits)),
-                      f"{what}: two calls on the same inputs differ")
+                err, row = conv_shape_row(gen, b, (hw, hw), cin, co, ks,
+                                          dtype, card)
                 worst = max(worst, err)
-                out = conv_library_call(x, k, bias)
-                ms = cuda_ms_per_call(lambda: conv_kernel.fused_conv_bias_act(
-                    x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
-                plain_ms = cuda_ms_per_call(lambda: conv.fused_conv_bias_act(
-                    x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
-                library_ms = cuda_ms_per_call(
-                    lambda: conv_library_call(x, k, bias),
-                    calls=YOLO_SHAPE_CALLS)
-                flop = 2 * b * hw * hw * ks * ks * cin * co
-                bound, bound_by = bound_ms(flop, nbytes(x, k, bias, out),
-                                           dtype)
-                emit({"phase": "yolo_conv", "batch": b, "hw": hw, "cin": cin,
-                      "co": co, "ks": ks, "dtype": name,
+                emit({"phase": "yolo_conv", **row,
                       "layers": {v: s[(hw, cin, co, ks)]
                                  for v, s in per_variant.items()
-                                 if (hw, cin, co, ks) in s},
-                      "plan": list(conv_kernel.plan(
-                          b, hw, hw, cin, co, ks,
-                          bf16=dtype == torch.bfloat16)[:3]),
-                      "max_abs_err": err,
-                      "out_scale": float(want.float().abs().max()),
-                      "kernel_ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "share_of_bound": bound / ms,
-                      "card": card})
+                                 if (hw, cin, co, ks) in s}})
     return worst, new
+
+
+def conv_shape_row(gen, b, hw, cin, co, ks, dtype, card) -> tuple:
+    """One conv shape at batch b: the kernel against its plain version
+    with phase 6's bounds (two calls give the same bytes), then timed as
+    phase 9 times a shape, beside the library call and the bound.
+    hw: (H, W). Returns (|kernel - plain|, the row to emit)."""
+    h, w = hw
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    x, k, bias = conv_inputs(gen, b, hw, cin, co, ks, dtype)
+    got = conv_kernel.fused_conv_bias_act(x, k, bias, act="leaky")
+    again = conv_kernel.fused_conv_bias_act(x, k, bias, act="leaky")
+    torch.cuda.synchronize()
+    want = conv.fused_conv_bias_act(x, k, bias, act="leaky")
+    what = f"conv {b}x{h}x{w} {cin}->{co} {ks}x{ks} {name}"
+    err = kernel_err(got, want, what)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    check(torch.equal(got.view(bits), again.view(bits)),
+          f"{what}: two calls on the same inputs differ")
+    out = conv_library_call(x, k, bias)
+    ms = cuda_ms_per_call(lambda: conv_kernel.fused_conv_bias_act(
+        x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
+    plain_ms = cuda_ms_per_call(lambda: conv.fused_conv_bias_act(
+        x, k, bias, act="leaky"), calls=YOLO_SHAPE_CALLS)
+    library_ms = cuda_ms_per_call(lambda: conv_library_call(x, k, bias),
+                                  calls=YOLO_SHAPE_CALLS)
+    flop = 2 * b * h * w * ks * ks * cin * co
+    bound, bound_by = bound_ms(flop, nbytes(x, k, bias, out), dtype)
+    return err, {"batch": b, "hw": h if h == w else [h, w], "cin": cin,
+                 "co": co, "ks": ks, "dtype": name,
+                 "plan": list(conv_kernel.plan(
+                     b, h, w, cin, co, ks,
+                     bf16=dtype == torch.bfloat16)[:3]),
+                 "max_abs_err": err,
+                 "out_scale": float(want.float().abs().max()),
+                 "kernel_ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": bound,
+                 "bound_by": bound_by, "share_of_bound": bound / ms,
+                 "card": card}
 
 
 def phase_yolo_times(kept, card) -> None:
@@ -2107,11 +2207,380 @@ def phase_coco(card: str) -> tuple:
     return launches, timed, grid
 
 
+def csp_swish_heads(base: str, hw) -> ModelConfig:
+    """Phase 15 (b): base's topology with the head conventions of
+    AlexeyAB's yolov4-csp-swish.cfg: swish where base has mish, a
+    logistic conv before each [yolo], new_coords=1 and scale_x_y=2.0 on
+    each head, at [net] (height, width) hw."""
+    cfg = get_variant(base)
+    head_convs = {i - 1 for i, l in enumerate(cfg.layers)
+                  if isinstance(l, YoloHead)}
+    layers = []
+    for i, l in enumerate(cfg.layers):
+        if isinstance(l, Conv) and l.act == "mish":
+            l = dataclasses.replace(l, act="swish")
+        if i in head_convs:
+            l = dataclasses.replace(l, act="logistic")
+        if isinstance(l, YoloHead):
+            l = dataclasses.replace(l, new_coords=True, scale_xy=2.0)
+        layers.append(l)
+    return dataclasses.replace(
+        cfg, name=f"{base}-topology-csp-swish-heads",
+        layers=tuple(layers)).with_input_hw(*hw)
+
+
+def gaussian_heads(base: str) -> ModelConfig:
+    """Phase 15 (c): base with [Gaussian_yolo] heads, 9+C channels an
+    anchor (yolov3 COCO-80: 3 * (9 + 80) = 267 filters a head conv)."""
+    cfg = get_variant(base)
+    return dataclasses.replace(cfg, name=f"gaussian-{base}",
+                               layers=with_head_kind(cfg, gaussian=True))
+
+
+def with_head_kind(cfg, *, gaussian=None, classes=None) -> tuple:
+    """cfg's layers with each [yolo] head (and its conv's filters) made
+    Gaussian or classic, and sized for ``classes`` classes (default
+    cfg's)."""
+    c = cfg.num_classes if classes is None else classes
+    layers = list(cfg.layers)
+    for i, l in enumerate(layers):
+        if isinstance(l, YoloHead):
+            ga = l.gaussian if gaussian is None else gaussian
+            layers[i] = dataclasses.replace(l, gaussian=ga)
+            layers[i - 1] = dataclasses.replace(
+                layers[i - 1], filters=len(l.mask) * ((9 if ga else 5) + c))
+    return tuple(layers)
+
+
+def voc_heads(cfg) -> ModelConfig:
+    """cfg with 20-class heads and the VOC names, for phase 15 (e)."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-voc",
+                               layers=with_head_kind(cfg, classes=20),
+                               class_names=VOC_NAMES)
+
+
+def every_option() -> ModelConfig:
+    """Phase 15 (d): every remaining option of a custom .cfg in one net
+    at 416 of reduced depth, COCO-80 heads at strides 32 and 16: grouped
+    and depthwise convs, a dilated conv (CIN = CO = 128, leaky: the gate
+    keeps it off the conv kernel), weighted shortcuts (per_feature/relu,
+    per_channel/softmax), [sam], an SE block ([avgpool] -> 1x1 convs ->
+    [scale_channels]), relu and ramp; convs 12, 13 and 19 take the conv
+    kernel's route."""
+    yolo = get_variant("yolov3")
+    layers = (
+        Conv(32), MaxPool(2, 2), Conv(64, stride=2),              # 0-2 /4
+        Conv(64, groups=2, act="relu"),                           # 3
+        Conv(64, groups=64, act="ramp"),                          # 4
+        Shortcut(-3, weights_type="per_feature", weights_norm="relu"),
+        Conv(128, stride=2),                                      # 6 /8
+        Conv(128, dilation=2),                                    # 7
+        Shortcut(-2, weights_type="per_channel", weights_norm="softmax"),
+        Conv(128, 1, act="logistic"), Sam(-2),                    # 9-10
+        Conv(256, stride=2),                                      # 11 /16
+        Conv(128, 1), Conv(256),                                  # 12-13
+        AvgPool(), Conv(32, 1, act="relu"),                       # 14-15
+        Conv(256, 1, act="logistic"), ScaleChannels(-4),          # 16-17
+        Conv(512, stride=2), Conv(256, 1),                        # 18-19 /32
+        Conv(3 * 85, 1, bn=False, act="linear"),
+        YoloHead((6, 7, 8)),                                      # 20-21
+        Route((17,)), Conv(3 * 85, 1, bn=False, act="linear"),
+        YoloHead((3, 4, 5)))                                      # 22-24 /16
+    return ModelConfig(name="every-option-416", layers=layers,
+                       anchors=yolo.anchors, class_names=yolo.class_names,
+                       input_size=416)
+
+
+def write_cfg(root: str, cfg, net_keys: str = "") -> tuple:
+    """cfg_to_string(cfg), with net_keys added to its [net] section, and
+    cfg's names as darknet .cfg / .names files under root -> (cfg path,
+    names path)."""
+    path = os.path.join(root, f"{cfg.name}.cfg")
+    text = cfg_to_string(cfg)
+    with open(path, "w") as f:
+        f.write(text.replace("[net]\n", "[net]\n" + net_keys, 1))
+    names = os.path.join(root, f"{cfg.name}.names")
+    with open(names, "w") as f:
+        f.write("\n".join(cfg.class_names) + "\n")
+    return path, names
+
+
+def same_config(parsed, cfg) -> bool:
+    """The parsed config is cfg's, up to its name and, where the loss is
+    mse, iou_normalizer: cfg_to_string omits iou_normalizer=1 and the
+    parser defaults it to 0.75, as the JAX package's do; the mse loss
+    never reads it (ROADMAP C5)."""
+    parsed = dataclasses.replace(parsed, name=cfg.name)
+    if cfg.iou_loss == "mse":
+        parsed = dataclasses.replace(parsed,
+                                     iou_normalizer=cfg.iou_normalizer)
+    return parsed == cfg
+
+
+def phase_cfg_round_trip(root: str, seeded: dict) -> dict:
+    """Phase 15 (a): cfg_to_string of each CFG_ROUND_TRIP variant at its
+    published size, written to a file and loaded by
+    yolo_tpu_torch.load(weights, cfg=..., names=...) on the seeded
+    .weights of phases 4 and 12: the config is get_variant's, and on raw
+    frames its detections equal the built-in variant's (torch.equal),
+    bf16 and fp32, on the default route and on conv_impl="cuda". Returns
+    the kernel launches."""
+    launches = {"conv": 0, "nms": 0}
+    images = frames(SEED + 15, CFG_IMAGES)
+    for variant in CFG_ROUND_TRIP:
+        cfg = get_variant(variant)
+        path, names = write_cfg(root, cfg)
+        rows = []
+        for precision in ("bf16", "fp32"):
+            built = yolo_tpu_torch.load(seeded[variant], variant,
+                                        device="cuda", precision=precision)
+            parsed = yolo_tpu_torch.load(seeded[variant], cfg=path,
+                                         names=names, device="cuda",
+                                         precision=precision)
+            check(same_config(parsed.cfg, cfg), f"{path} parses to "
+                  f"{parsed.cfg}, not {cfg}")
+            for route in ("torch", "cuda"):
+                conv_kernel.launches = nms_kernel.launches = 0
+                want = detect_raw(cfg, built.params, images, conv_impl=route)
+                got = detect_raw(parsed.cfg, parsed.params, images,
+                                 conv_impl=route)
+                torch.cuda.synchronize()
+                launches["conv"] += conv_kernel.launches
+                launches["nms"] += nms_kernel.launches
+                equal = all(torch.equal(got[k], want[k]) for k in want)
+                check(equal, f"{variant} {precision} conv_impl={route}: "
+                      f"load(cfg=...) detections differ from the "
+                      f"built-in variant's")
+                rows.append({"precision": precision, "conv_impl": route,
+                             "equal": equal, "conv_launches":
+                             conv_kernel.launches,
+                             "detections": int(got["valid"].sum())})
+            del built, parsed
+        emit({"phase": "cfg", "part": "a_round_trip", "model": cfg.name,
+              "input_hw": list(cfg.input_hw), "cfg_bytes":
+              os.path.getsize(path), "config_equal": True, "rows": rows})
+    return launches
+
+
+def phase_cfg_serve(root: str, cfg, launches: dict):
+    """Phase 15 (b) / (c): cfg, seeded and written as .cfg / .names /
+    .weights files, through yolo_tpu_torch.load(cfg=...): the routes
+    (check_routes: the conv kernel's launches a forward equal
+    kernel_conv_shapes' count, the swish and logistic convs off it),
+    entry="fused" refused, a DetectionServer answering as direct calls.
+    Returns the bf16 model."""
+    path, names = write_cfg(root, cfg)
+    wpath = os.path.join(root, f"{cfg.name}.weights")
+    t0 = time.perf_counter()
+    dw.save(wpath, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+    seed_s = time.perf_counter() - t0
+    model = yolo_tpu_torch.load(wpath, cfg=path, names=names, device="cuda")
+    model32 = yolo_tpu_torch.load(wpath, cfg=path, names=names,
+                                  device="cuda", precision="fp32")
+    check(same_config(model.cfg, cfg), f"{path} parses to {model.cfg}")
+    n_kernel = sum(kernel_conv_shapes(cfg).values())
+    images = frames(SEED + 15, CFG_IMAGES)
+    rows = check_routes(model.cfg, model, model32, images, n_kernel,
+                        launches)
+    fused_raises = entry_fused_raises(model.cfg, model, images)
+    check(fused_raises, f"{cfg.name}: entry='fused' did not raise")
+    heads = cfg.yolo_heads
+    emit({"phase": "cfg", "part": "serve", "model": cfg.name,
+          "input_hw": list(cfg.input_hw), "weights_bytes":
+          os.path.getsize(wpath), "seed_weights_s": seed_s,
+          "new_coords": [h.new_coords for h in heads],
+          "gaussian": [h.gaussian for h in heads],
+          "scale_x_y": [h.scale_xy for h in heads],
+          "kernel_convs": n_kernel,
+          "acts": sorted({l.act for l in cfg.layers if isinstance(l, Conv)}),
+          "routes": rows, "entry_fused_raises": fused_raises,
+          "agreement_rule": {"margin": MARGIN, "voc_iou": MATCH_IOU,
+                             "min_match": MIN_MATCH}})
+    check_http(model, images, launches, "cfg")
+    return model
+
+
+def phase_cfg_options(root: str, launches: dict) -> None:
+    """Phase 15 (d): every_option() through load(cfg=...) in fp32 on the
+    card and on the CPU, on the same frames: each head's logits within
+    CFG_LOGIT_REL of its scale, detections agreeing at box level both
+    ways (phase 12's rule); conv_impl="cuda" launches the kernel for the
+    gate's convs only and agrees with the default route likewise."""
+    cfg = every_option()
+    path, names_path = write_cfg(root, cfg)
+    wpath = os.path.join(root, f"{cfg.name}.weights")
+    dw.save(wpath, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+    card = yolo_tpu_torch.load(wpath, cfg=path, names=names_path, device="cuda",
+                               precision="fp32")
+    host = yolo_tpu_torch.load(wpath, cfg=path, names=names_path, device="cpu",
+                               precision="fp32")
+    check(same_config(card.cfg, cfg), f"{path} parses to {card.cfg}")
+    images = frames(SEED + 16, CFG_IMAGES)
+    x = torch.from_numpy(np.random.default_rng(SEED + 16).uniform(
+        0, 1, (2, *cfg.input_hw, 3)).astype(np.float32))
+    errs = []
+    for got, want in zip(card.params(x.cuda()), host.params(x),
+                         strict=True):
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        errs.append(err / scale)
+        check(err <= CFG_LOGIT_REL * scale, f"{cfg.name}: head logits "
+              f"card vs CPU {err} beyond {CFG_LOGIT_REL} of {scale}")
+    conv_kernel.launches = nms_kernel.launches = 0
+    on_card = detect_raw(card.cfg, card.params, images)
+    torch.cuda.synchronize()
+    nms = nms_kernel.launches
+    on_cpu = detect_raw(host.cfg, host.params, images.cpu())
+    n_kernel = sum(kernel_conv_shapes(cfg).values())
+    conv_kernel.launches = nms_kernel.launches = 0
+    routed = detect_raw(card.cfg, card.params, images, conv_impl="cuda")
+    torch.cuda.synchronize()
+    n_conv, nms = conv_kernel.launches, nms + nms_kernel.launches
+    check(n_conv == n_kernel == 3 and nms == 2, f"{cfg.name}: (conv, NMS) "
+          f"launches {(n_conv, nms)}, want ({n_kernel}, 2)")
+    launches["conv"] += n_conv
+    launches["nms"] += nms
+    names = cfg.detection_names()
+    ref = detections_to_json(on_cpu, names)
+    agree = {route: check_agree(ref, detections_to_json(out, names),
+                                cfg.conf_threshold, f"{cfg.name} {route} "
+                                f"vs CPU", iou=_iou_voc)
+             for route, out in (("default", on_card),
+                                ("conv_impl=cuda", routed))}
+    emit({"phase": "cfg", "part": "d_options", "model": cfg.name,
+          "input_hw": list(cfg.input_hw),
+          "layers": sorted({type(l).__name__ for l in cfg.layers}),
+          "acts": sorted({l.act for l in cfg.layers if isinstance(l, Conv)}),
+          "logits_rel_err": errs, "logits_bound": CFG_LOGIT_REL,
+          "kernel_convs": n_conv, "vs_cpu": agree,
+          "detections_per_image": [len(d) for d in ref]})
+
+
+def phase_cfg_train(root: str, card: str) -> None:
+    """Phase 15 (e): (b) and (c) with 20-class heads on seeded synthetic
+    VOC scenes, their TrainConfig from train_config_from_cfg on cfg
+    files that carry yolov4.cfg's / yolov3.cfg's [net] keys: one fp32
+    step, card against CPU, on a micro-batch of CHECK_BATCH seeded VOC
+    scenes as phase 13 (a)'s, with the card's choices held and phase
+    13 (a)'s bounds (card_vs_cpu_step, whose TF32 step must fail them;
+    (b)'s update bound is CFG_STEP_BOUND, its fp32 floor); then
+    CFG_TRAIN_STEPS bf16 steps at batch CFG_TRAIN_BATCH, every loss
+    part finite."""
+    rng = np.random.default_rng(SEED + 15)
+    palette = rng.integers(0, 256, (len(VOC_NAMES), 3), dtype=np.uint8)
+    scenes = os.path.join(root, "scenes")
+    os.mkdir(scenes)
+    pairs = write_voc_scenes(scenes, [SCENE_HW[i % len(SCENE_HW)]
+                                      for i in range(CFG_TRAIN_BATCH)],
+                             rng, palette=palette)
+    for base, cfg in (("yolov4", voc_heads(csp_swish_heads(
+            "yolov4", CFG_SCALED_HW))), ("yolov3", voc_heads(
+                gaussian_heads("yolov3")))):
+        path, _ = write_cfg(root, cfg, CFG_NET_KEYS[base])
+        tcfg = train_config_from_cfg(path, cfg)
+        subdivisions, schedule = YOLO_NETS[base]
+        check(tcfg == TrainConfig(**schedule, grad_accum=subdivisions,
+                                  ema_start_step=tcfg.ema_start_step,
+                                  yolo_loss=yolo_loss_config(cfg),
+                                  loss=region_loss_config(cfg)),
+              f"{path}: train_config_from_cfg gave {tcfg}")
+        tcfg = dataclasses.replace(tcfg, grad_accum=1)
+        params = fine_tune_init(cfg, root, *YOLO_PARTIALS[base])
+        host = next(host_batches(cfg, pairs[:CHECK_BATCH], CHECK_BATCH, SEED,
+                                 shuffle=False, augment_cfg=YOLO_AUGMENT))
+        card_vs_cpu_step(cfg, tcfg, params, host, "cfg", own_choices=False,
+                         step_bound=CFG_STEP_BOUND[base])
+        state = init_state(cfg, params, tcfg)
+        step = make_train_step(cfg, tcfg, compute_dtype=torch.bfloat16)
+        losses = []
+        with DevicePrefetcher(host_batches(
+                cfg, pairs, CFG_TRAIN_BATCH, SEED + 5, epochs=CFG_TRAIN_STEPS,
+                augment_cfg=YOLO_AUGMENT), depth=2) as staged:
+            for i, batch in enumerate(itertools.islice(staged,
+                                                       CFG_TRAIN_STEPS)):
+                losses.append(finite_metrics(step(state, batch),
+                                             f"{cfg.name} bf16 step {i}"))
+        check(len(losses) == CFG_TRAIN_STEPS, f"{cfg.name}: "
+              f"{len(losses)} bf16 steps ran")
+        emit({"phase": "cfg", "part": "e_train", "model": cfg.name,
+              "input_hw": list(cfg.input_hw), "precision": "bf16",
+              "batch": CFG_TRAIN_BATCH, "losses": losses, "card": card})
+        del state, params
+
+
+def phase_cfg_times(gen, models: dict, card: str) -> tuple:
+    """Phase 15 (f): end-to-end latency (median of synchronized calls)
+    of (b) and (c) at TIMED_BATCHES in bf16 on both routes; each conv
+    shape of (b)'s rectangular grids at batch 1 and TIMED_BATCH, bf16
+    and fp32, kernel against plain and timed (conv_shape_row), and the
+    sums over (b)'s kernel convs at TIMED_BATCH. Returns (worst
+    |kernel - plain|, the number of shapes, the bf16 sums)."""
+    for model in models.values():
+        cfg = model.cfg
+        for b in TIMED_BATCHES:
+            images = frames(b, b)
+            for route, kw in (("default", {}),
+                              ("conv_impl=cuda", {"conv_impl": "cuda"})):
+                ms = cuda_median_ms(lambda: detect_raw(
+                    cfg, model.params, images, **kw), reps=5)
+                emit({"phase": "times", "what": "cfg_e2e_bf16",
+                      "model": cfg.name, "input_hw": list(cfg.input_hw),
+                      "route": route, "batch": b, "src_hw": list(SRC_HW),
+                      "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
+    shapes = kernel_conv_shapes(models["b"].cfg)
+    worst, sums = 0.0, {}
+    for b in TIMED_BATCHES:
+        for (h, w, cin, co, ks), n in sorted(shapes.items()):
+            for dtype, name in DTYPES:
+                err, row = conv_shape_row(gen, b, (h, w), cin, co, ks, dtype,
+                                          card)
+                worst = max(worst, err)
+                emit({"phase": "cfg", "part": "f_conv", "layers": n, **row})
+                total = sums.setdefault((b, name), [0.0] * 4)
+                for i, key in enumerate(("kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms")):
+                    total[i] += n * row[key]
+    for (b, name), (ms, plain_ms, library_ms, bound) in sorted(sums.items()):
+        emit({"phase": "times", "what": f"conv_rect_layers_{name}",
+              "model": models["b"].cfg.name, "batch": b,
+              "layers": sum(shapes.values()), "kernel_ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": bound, "share_of_bound": bound / ms, "card": card})
+    return worst, len(shapes), sums[(TIMED_BATCH, "bf16")]
+
+
+def phase_cfg(gen, seeded: dict, card: str) -> dict:
+    """Phase 15: darknet .cfg files on the card; returns the kernel
+    launches and the conv kernel's worst |kernel - plain| and shapes."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        launches = phase_cfg_round_trip(root, seeded)
+        models = {"b": phase_cfg_serve(root, csp_swish_heads(
+                      "yolov4", CFG_SCALED_HW), launches),
+                  "c": phase_cfg_serve(root, gaussian_heads("yolov3"),
+                                       launches)}
+        phase_cfg_options(root, launches)
+        t1 = time.perf_counter()
+        phase_cfg_train(root, card)
+        t2 = time.perf_counter()
+    worst, n_shapes, rect = phase_cfg_times(gen, models, card)
+    emit({"phase": "cfg", "seconds": time.perf_counter() - t0,
+          "train_seconds": t2 - t1, "launches": launches})
+    return {"launches": launches, "worst": worst, "shapes": n_shapes,
+            "rect_bf16": rect}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    # the seeded .weights files of phases 4 and 12, read again in 15
+    with tempfile.TemporaryDirectory() as seeded:
+        return run(seeded)
+
+
+def run(seeded: str) -> int:
     card = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
@@ -2147,10 +2616,9 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     worst = phase_kernel(rng)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "yolov2-coco-seed.weights")
-        seeded_coco_weights(get_variant(VARIANT), weights)
-        launches, model, model32, images, ref = phase_serve(weights)
+    weights = os.path.join(seeded, "yolov2-coco-seed.weights")
+    seeded_coco_weights(get_variant(VARIANT), weights)
+    launches, model, model32, images, ref = phase_serve(weights)
 
     timed = phase_times(rng, model, card)
 
@@ -2172,8 +2640,7 @@ def main() -> int:
     voc_launches, eval_grid = phase_fine_tune(card)
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        yolo_launches, kept = phase_yolo_serve(tmp, card)
+    yolo_launches, kept = phase_yolo_serve(seeded, card)
     yolo_worst, yolo_shapes = phase_yolo_conv(gen, card)
     phase_yolo_times(kept, card)
     del kept
@@ -2189,6 +2656,11 @@ def main() -> int:
     coco_launches, coco_grid, coco_shape = phase_coco(card)
     emit({"phase": "images", "seconds": time.perf_counter() - t0})
 
+    cfg_run = phase_cfg(gen, {
+        v: os.path.join(seeded, "yolov2-coco-seed.weights" if v == VARIANT
+                        else f"{v}-seed.weights") for v in CFG_ROUND_TRIP},
+        card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
     check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
@@ -2203,7 +2675,8 @@ def main() -> int:
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
          "launches": launches + voc_launches + yolo_launches["nms"]
-         + yolo_eval_launches + coco_launches["nms"],
+         + yolo_eval_launches + coco_launches["nms"]
+         + cfg_run["launches"]["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -2219,13 +2692,18 @@ def main() -> int:
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"] + yolo_launches["conv"]
-         + coco_launches["conv"],
-         "max_abs_err": max(conv_worst, yolo_worst),
+         + coco_launches["conv"] + cfg_run["launches"]["conv"],
+         "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
          "bound_by": conv_t[4], "library_ms": conv_t[2],
          "fp32_ms": conv32[0], "fp32_plain_ms": conv32[1],
          "fp32_library_ms": conv32[2], "fp32_bound_ms": conv32[3],
-         "yolo_shapes": len(yolo_shapes)},
+         "yolo_shapes": len(yolo_shapes),
+         "rect_shapes": cfg_run["shapes"],
+         "rect_ms": cfg_run["rect_bf16"][0],
+         "rect_plain_ms": cfg_run["rect_bf16"][1],
+         "rect_library_ms": cfg_run["rect_bf16"][2],
+         "rect_bound_ms": cfg_run["rect_bf16"][3]},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",

@@ -102,12 +102,15 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     got = conv_kernel.fused_conv_bias_act(x, k, b, act="leaky")
     assert conv_kernel.launches == before  # no kernel on the CPU
     assert torch.equal(got, conv.fused_conv_bias_act(x, k, b, act="leaky"))
-    # the kernel's epilogue is leaky/linear: a mish conv raises at the
-    # wrapper, on the CPU as on the card; the plain block takes mish
+    # the kernel's epilogue is leaky/linear: a mish or swish conv raises
+    # at the wrapper, on the CPU as on the card; the plain block takes
+    # every darknet activation of the JAX package, and no other
+    for act in ("mish", "swish"):
+        with pytest.raises(ValueError, match="act"):
+            conv_kernel.fused_conv_bias_act(x, k, b, act=act)
+        assert conv.fused_conv_bias_act(x, k, b, act=act).shape == got.shape
     with pytest.raises(ValueError, match="act"):
-        conv_kernel.fused_conv_bias_act(x, k, b, act="mish")
-    with pytest.raises(ValueError, match="act"):
-        conv.fused_conv_bias_act(x, k, b, act="swish")
+        conv.fused_conv_bias_act(x, k, b, act="elu")
 
 
 # the (H=W, CIN, CO, ks) of YOLOv2-COCO 416's 16 convs on the kernel

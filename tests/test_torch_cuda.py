@@ -527,3 +527,112 @@ def test_yolo_routes_launch_their_kernels(cuda):
     assert bool(torch.isfinite(routed["boxes"]).all())
     with pytest.raises(ValueError, match="entry"):
         detect_raw(cfg, net, imgs, entry="fused")
+
+
+# the (H, W, CIN, CO, ks) of the conv kernel's convs in yolov4's topology
+# at a rectangular [net] width=640 height=384 (grids 80x48, 40x24, 20x12)
+RECT_SHAPES = [(12, 20, 512, 256, 1), (12, 20, 512, 1024, 3),
+               (12, 20, 1024, 512, 1), (12, 20, 2048, 512, 1),
+               (24, 40, 256, 128, 1), (24, 40, 256, 512, 3),
+               (24, 40, 512, 256, 1), (48, 80, 128, 256, 3),
+               (48, 80, 256, 128, 1)]
+
+
+@pytest.mark.parametrize("h,w,cin,co,ks", RECT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b", [1, 32])
+def test_conv_kernel_matches_plain_at_rect_shapes(cuda, b, h, w, cin, co,
+                                                  ks, dtype):
+    """H != W: the TMA im2col map's halo, the M tiling over B*H*W and
+    the split-K plan at the rectangular grids of a 640x384 yolov4."""
+    gen = torch.Generator(device=cuda).manual_seed(h * w + cin)
+    x = torch.randn(b, cin, h, w, generator=gen, device=cuda).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    k = (torch.randn(co, cin, ks, ks, generator=gen, device=cuda)
+         * (2.0 / (ks * ks * cin)) ** 0.5).to(dtype).contiguous(
+             memory_format=torch.channels_last)
+    bias = torch.randn(co, generator=gen, device=cuda) * 0.5
+    before = conv_kernel.launches
+    got = conv_kernel.fused_conv_bias_act(x, k, bias, act="leaky")
+    torch.cuda.synchronize()
+    assert conv_kernel.launches == before + 1
+    assert tuple(got.shape) == (b, co, h, w)
+    _assert_within(got, conv.fused_conv_bias_act(x, k, bias, act="leaky"))
+
+
+def _custom_head_net(cuda, kind):
+    """A small rectangular net ending in a new_coords or a Gaussian head,
+    seeded detector weights."""
+    from yolo_tpu_torch.configs import ModelConfig, YoloHead
+
+    c = 4
+    head = (Conv(2 * (5 + c), 1, bn=False, act="logistic")
+            if kind == "new_coords"
+            else Conv(2 * (9 + c), 1, bn=False, act="linear"))
+    cfg = ModelConfig(
+        name=kind, layers=(Conv(16, stride=2), Conv(32, stride=2),
+                           Conv(32, stride=2), head,
+                           YoloHead((0, 1), scale_xy=2.0,
+                                    new_coords=kind == "new_coords",
+                                    gaussian=kind == "gaussian")),
+        anchors=((10, 14), (23, 27)), class_names=tuple("abcd"),
+        input_size=96, input_width=160)
+    params = tgraph.fold_params(cfg.layers,
+                                dw.synthetic_detector_params(cfg, 0))
+    return cfg, params
+
+
+@pytest.mark.parametrize("kind", ["new_coords", "gaussian"])
+def test_custom_heads_launch_the_nms_kernel_once(cuda, kind):
+    """A new_coords or a Gaussian head on the card: one NMS launch a
+    forward, and the same detections as the CPU at box level (every
+    detection at conf + 0.05 has a same-class partner at IoU >= 0.5)."""
+    from tests.torch_port import matched
+    from yolo_tpu_torch.models.predict import detect_raw
+
+    cfg, params = _custom_head_net(cuda, kind)
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 120, 200, 3), dtype=np.uint8))
+    net = tgraph.Darknet(cfg.layers, params, device=cuda)
+    before = nms_kernel.launches
+    got = detect_raw(cfg, net, imgs.to(cuda))
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    want = detect_raw(cfg, tgraph.Darknet(cfg.layers, params, device="cpu"),
+                      imgs)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.numpy() for k, v in want.items()}
+    for a, b in ((want, got), (got, want)):
+        hit, total = matched(a, b, cfg.conf_threshold)
+        assert total >= 1 and hit == total
+
+
+@pytest.mark.parametrize("variant", ["yolov3-tiny", "yolov4-tiny"])
+def test_load_cfg_on_the_card_equals_the_builtin_variant(cuda, tmp_path,
+                                                        variant):
+    """load(weights, cfg=cfg_to_string(variant)) on the card gives the
+    built-in variant's detections bit for bit, on both routes."""
+    import yolo_tpu_torch
+    from yolo_tpu_torch.configs.darknet_cfg import cfg_to_string
+    from yolo_tpu_torch.models.predict import detect_raw
+
+    cfg = get_variant(variant, input_size=160)
+    wpath = str(tmp_path / "w.weights")
+    dw.save(wpath, cfg.layers, dw.synthetic_detector_params(cfg, 0))
+    path = tmp_path / "v.cfg"
+    path.write_text(cfg_to_string(cfg))
+    names = tmp_path / "v.names"
+    names.write_text("\n".join(cfg.class_names) + "\n")
+    imgs = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 120, 160, 3), dtype=np.uint8)).to(cuda)
+    for precision in ("bf16", "fp32"):
+        built = yolo_tpu_torch.load(wpath, variant, input_size=160,
+                                    precision=precision)
+        parsed = yolo_tpu_torch.load(wpath, cfg=str(path), names=str(names),
+                                     precision=precision)
+        assert parsed.params.device.type == "cuda"
+        for route in ("torch", "cuda"):
+            a = detect_raw(cfg, built.params, imgs, conv_impl=route)
+            b = detect_raw(parsed.cfg, parsed.params, imgs, conv_impl=route)
+            assert all(torch.equal(a[k], b[k]) for k in a), (precision, route)

@@ -36,7 +36,7 @@ from yolo_tpu.io import darknet_weights as jdw
 from yolo_tpu.io import zoo as jzoo
 from yolo_tpu.models import graph as jgraph
 from yolo_tpu_torch.configs import (VARIANTS, Conv, MaxPool, Reorg, Route,
-                                    get_variant)
+                                    Shortcut, get_variant, specs)
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.models import graph as tgraph
 from yolo_tpu_torch.ops.precision import no_tf32
@@ -265,17 +265,39 @@ def test_darknet_matches_golden_full_yolov2_checksum():
 @pytest.mark.parametrize("layer,item", [
     (jspecs.Shortcut(-2, weights_type="per_feature"), "A8b"),
     (jspecs.Sam(-2), "A8b"), (jspecs.Conv(8, groups=2), "A8b"),
-    (jspecs.AvgPool(), "A10"),
+    (jspecs.Connected(4), "A10"),
     (jspecs.YoloHead((0,), new_coords=True), "A8b")])
 def test_layers_outside_the_slice_raise(layer, item):
-    """The JAX package's specs are not layers of the port: the options
-    only a custom .cfg sets (weighted shortcut, sam, conv groups,
-    new_coords) are ROADMAP A8b, the classifier layers A10."""
+    """The JAX package's specs are not layers of the port: its classifier
+    layers are ROADMAP A10 and raise so, any other JAX spec is refused
+    as a foreign object. The options only a custom .cfg sets (ROADMAP
+    A8b: weighted shortcut, sam, conv groups, new_coords) are ported:
+    the port's own spec of the same name and fields builds, and the
+    net matches the JAX package's in fp32 (rtol 1e-5 of its scale)."""
     layers = (Conv(8), Conv(8), layer)
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "A10":
+        with pytest.raises(NotImplementedError, match="A10"):
+            tgraph._check_layer(2, layer)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tgraph.Darknet(layers, [], device="cpu")
+        return
+    with pytest.raises(TypeError, match="not a spec"):
         tgraph._check_layer(2, layer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.Darknet(layers, [], device="cpu")
+    port = getattr(specs, type(layer).__name__)(**dataclasses.asdict(layer))
+    tlayers = (Conv(8), Conv(8), port)
+    rng = np.random.default_rng(5)
+    params = dw.random_params(tlayers, rng, scale=0.3)
+    if isinstance(port, Shortcut):
+        params[-1]["weights"] = np.array([[0.7], [1.3]], np.float32)
+    folded = tgraph.fold_params(tlayers, params)
+    x = rng.uniform(-1, 1, (1, 12, 12, 3)).astype(np.float32)
+    got = tgraph.Darknet(tlayers, folded, device="cpu")(torch.from_numpy(x))
+    got = got[0] if isinstance(got, tuple) else got
+    want = jgraph.apply_layers((jspecs.Conv(8), jspecs.Conv(8), layer),
+                               jgraph.params_to_jax(folded), jnp.asarray(x))
+    want = np.asarray(want[0] if isinstance(want, tuple) else want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 def test_tf32_guard_restores_the_flag_across_overlapping_forwards():

@@ -116,7 +116,8 @@ def test_stretch_resize_path_matches_jax(tmp_path):
                                atol=1e-2)
 
 
-def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path):
+def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path,
+                                                           monkeypatch):
     cfg = get_variant("tiny-voc")
     path = str(tmp_path / "w.weights")
     _he_weights(cfg, path)
@@ -125,8 +126,14 @@ def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path):
     assert model.params.compute_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="precision"):
         yolo_tpu_torch.load(path, device="cpu", precision="int8")
-    with pytest.raises(NotImplementedError, match="A12"):
-        yolo_tpu_torch.load("zoo://yolov2-coco", device="cpu")
+    # zoo entries are local files under YOLO_TPU_WEIGHTS_DIR: an absent
+    # one raises with its public URL (tests/test_torch_cfg.py holds the
+    # zoo against the JAX package's); checkpoint directories are A9g
+    monkeypatch.setenv("YOLO_TPU_WEIGHTS_DIR", str(tmp_path / "zoo"))
+    with pytest.raises(FileNotFoundError, match="pjreddie.com"):
+        yolo_tpu_torch.load("zoo://yolov2", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9g"):
+        yolo_tpu_torch.load(str(tmp_path), "tiny-voc", device="cpu")
     # the fused entry route is ported (tests/test_torch_entry.py holds it
     # against the JAX package): same fixed-shape result as the default
     fused = detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),

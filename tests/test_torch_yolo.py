@@ -226,9 +226,44 @@ def test_load_partial_takes_a_darknet53_cutoff(tmp_path):
     lambda: YoloHead((0,), new_coords=True),
     lambda: YoloHead((0,), gaussian=True)])
 def test_custom_cfg_options_raise_when_built(make):
-    """Options only a custom .cfg sets are ROADMAP A8b."""
-    with pytest.raises(NotImplementedError, match="A8b"):
-        make()
+    """Options only a custom .cfg sets (ROADMAP A8b) used to raise when
+    built; now each builds, and a small net with it matches the JAX
+    package: the executor in fp32 (rtol 1e-5 of the output's scale) and,
+    for the two head options, decode_yolo (rtol 1e-6)."""
+    spec = make()
+    rng = np.random.default_rng(11)
+    if isinstance(spec, YoloHead):
+        head_conv = Conv((9 if spec.gaussian else 5) + 1, 1, bn=False,
+                         act="logistic" if spec.new_coords else "linear")
+        layers = (Conv(8), head_conv, spec)
+    elif isinstance(spec, Shortcut):
+        layers = (Conv(8), Conv(8), spec)
+    else:
+        layers = (Conv(8), spec)
+    cfg = ModelConfig(name="option", layers=layers,
+                      anchors=SMALL_ANCHORS[:1], class_names=("a",),
+                      input_size=32)
+    params = dw.random_params(layers, rng, scale=0.3)
+    if isinstance(spec, Shortcut):
+        params[-1]["weights"] = rng.normal(1, 0.5, (2, 8)).astype(np.float32)
+    folded = tgraph.fold_params(layers, params)
+    x = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    got, want = _both(cfg, folded, x, "fp32")
+    for g, w in zip(got, want, strict=True):
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * scale)
+    if isinstance(spec, YoloHead):
+        flags = dict(new_coords=[spec.new_coords], gaussian=[spec.gaussian])
+        boxes, scores = tdecode.decode_yolo(
+            [torch.from_numpy(got[0])], cfg.anchors, [spec.mask], 1,
+            cfg.input_hw, **flags)
+        jboxes, jscores = jdecode.decode_yolo(
+            [jnp.asarray(got[0])], cfg.anchors, [spec.mask], 1,
+            cfg.input_hw, **flags)
+        np.testing.assert_allclose(boxes.numpy(), np.asarray(jboxes),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(scores.numpy(), np.asarray(jscores),
+                                   rtol=1e-6, atol=1e-7)
 
 
 def test_narrow_configs_carry_over_to_jax():

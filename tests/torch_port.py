@@ -27,6 +27,27 @@ def to_jax_config(cfg):
     return jspecs.ModelConfig(**fields)
 
 
+def to_port_config(jcfg):
+    """The port's ModelConfig for a JAX package ModelConfig, every spec
+    and port field carried over by name; None when it holds a layer the
+    port lacks (the classifier and yolov1 layers, ROADMAP A10) or a
+    YOLO9000 tree."""
+    from yolo_tpu_torch.configs import specs as tspecs
+
+    if jcfg.tree is not None:
+        return None
+    layers = []
+    for l in jcfg.layers:
+        cls = getattr(tspecs, type(l).__name__, None)
+        if cls is None or not dataclasses.is_dataclass(cls):
+            return None
+        layers.append(cls(**dataclasses.asdict(l)))
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(tspecs.ModelConfig)}
+    fields["layers"] = tuple(layers)
+    return tspecs.ModelConfig(**fields)
+
+
 def he_weights(cfg, path, seed=0, box_scale=1.0, objectness_shift=0.0):
     """Seeded He-scaled weights (io.darknet_weights.synthetic_detector_params,
     plain He by default) written as a darknet .weights file."""

@@ -2,21 +2,27 @@
 """Measurements of the PyTorch/CUDA port (yolo_tpu_torch) on one card,
 beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
 
-    python3 tools/port_perf.py weights W.weights
-        write chip_smoke.py's seeded YOLOv2-COCO weights to W.weights
+    python3 tools/port_perf.py weights W.weights [--cfg C.cfg]
+        write chip_smoke.py's seeded YOLOv2-COCO weights (or the seeded
+        weights of the detector darknet .cfg C.cfg describes) to
+        W.weights
     python3 tools/port_perf.py time --weights W.weights [--tree DIR]
-                                    [--route ROUTE]
+                                    [--route ROUTE] [--cfg C.cfg]
+                                    [--names N.names]
         end-to-end detector latency, CUDA-event median of 20 synchronized
         calls after 3 warm-up calls, at batch 1/32/128 (raw 480x640 uint8 on the card, bf16).
         --tree DIR times the yolo_tpu_torch of another checkout (an A/B:
-        run parent, change, change, parent in one machine session)
+        run parent, change, change, parent in one machine session);
+        --cfg loads W.weights through load(cfg=C.cfg) instead of as
+        YOLOv2-COCO
     python3 tools/port_perf.py profile [--route ROUTE] [--variant V]
-                                       [--batches B ...]
+                                       [--cfg C.cfg] [--batches B ...]
         torch.profiler breakdown of the same calls (5 calls after 3
         warm-up calls): device time per call by kernel class, wall time,
         busy share, peak memory; --variant profiles another built-in
         variant (seeded weights, its published size), e.g. yolov3 or
-        yolov4
+        yolov4; --cfg the detector a darknet .cfg describes (seeded
+        weights, its [net] size)
     python3 tools/port_perf.py sweep
         the seeded weights' head shaping (box scale x objectness shift):
         detections per image and the box-level agreement rates that
@@ -31,12 +37,15 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         torch.profiler breakdown of the YOLOv2-VOC 416 train step at
         batch 64, fp32 and bf16, on one seeded batch already on the card
         (no host pipeline), as profile reports it
-    python3 tools/port_perf.py step64 [--variant V]
+    python3 tools/port_perf.py step64 [--variant V] [--heads H]
         chip_smoke.py phase 13 (a)'s fp32 step of a yolo variant
         (yolov4 by default: its 20-class head, fine-tune start and
         batch), on the card (cuDNN, and cuDNN off) and on the CPU (its
         convs in float64), each against a float64 CPU step on the card
-        step's choices: the largest per-tensor update errors
+        step's choices: the largest per-tensor update errors;
+        --heads csp-swish | gaussian takes phase 15 (e)'s nets instead
+        (V's topology with yolov4-csp-swish heads at 640x384, or with
+        Gaussian heads) on its micro-batch
     python3 tools/port_perf.py stepcheck
         chip_smoke.py's card-against-CPU fp32 step (phase 10 (a)), tensor
         by tensor: each update's relative error, card against the CPU on
@@ -86,21 +95,24 @@ def _images(torch, b: int):
         0, 256, (b, *SRC_HW, 3), dtype=np.uint8)).cuda()
 
 
-def _write_weights(path: str, variant: str = "coco", **shaping) -> None:
+def _write_weights(path: str, variant: str = "coco", cfg_path=None,
+                   **shaping) -> None:
     """chip_smoke.py's seeded weights of ``variant`` (YOLOv2-COCO by
-    default); ``shaping`` overrides synthetic_detector_params' head
-    shaping (the sweep)."""
+    default), or of the detector the darknet .cfg ``cfg_path`` describes;
+    ``shaping`` overrides synthetic_detector_params' head shaping (the
+    sweep)."""
     from yolo_tpu_torch.configs import get_variant
+    from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
     from yolo_tpu_torch.io import darknet_weights as dw
 
-    cfg = get_variant(variant)
+    cfg = config_from_cfg(cfg_path) if cfg_path else get_variant(variant)
     dw.save(path, cfg.layers, dw.synthetic_detector_params(cfg, 0,
                                                            **shaping))
 
 
 def cmd_weights(args, card) -> None:
-    _write_weights(args.path)
-    _emit({"weights": args.path, "card": card})
+    _write_weights(args.path, cfg_path=args.cfg)
+    _emit({"weights": args.path, "cfg": args.cfg, "card": card})
 
 
 ROUTES = ("default", "conv_impl=cuda", "entry=fused")
@@ -121,7 +133,11 @@ def cmd_time(args, card) -> None:
     import torch
     import yolo_tpu_torch
 
-    model = yolo_tpu_torch.load(args.weights, "coco", device="cuda")
+    if args.cfg:
+        model = yolo_tpu_torch.load(args.weights, cfg=args.cfg,
+                                    names=args.names, device="cuda")
+    else:
+        model = yolo_tpu_torch.load(args.weights, "coco", device="cuda")
     detector = _detector(model, args.route)
     for b in BATCHES:
         images = _images(torch, b)
@@ -139,7 +155,8 @@ def cmd_time(args, card) -> None:
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
         _emit({"what": "detector_e2e_bf16", "tree": args.tree or ".",
-               "route": args.route,
+               "route": args.route, "model": model.cfg.name,
+               "input_hw": list(model.cfg.input_hw),
                "package": os.path.dirname(yolo_tpu_torch.__file__),
                "batch": b, "ms": ms, "img_per_s": b * 1000 / ms,
                "reps": REPS, "card": card})
@@ -221,8 +238,11 @@ def cmd_profile(args, card) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "w.weights")
-        _write_weights(path, args.variant)
-        model = yolo_tpu_torch.load(path, args.variant, device="cuda")
+        _write_weights(path, args.variant, cfg_path=args.cfg)
+        if args.cfg:
+            model = yolo_tpu_torch.load(path, cfg=args.cfg, device="cuda")
+        else:
+            model = yolo_tpu_torch.load(path, args.variant, device="cuda")
     detector = _detector(model, args.route)
     for b in args.batches:
         images = _images(torch, b)
@@ -405,9 +425,17 @@ def cmd_step64(args, card) -> None:
     import chip_smoke as cs
 
     subdivisions, schedule = cs.YOLO_NETS[args.variant]
-    cfg = cs.voc_variant(args.variant)
+    if args.heads == "csp-swish":
+        cfg = cs.voc_heads(cs.csp_swish_heads(args.variant,
+                                              cs.CFG_SCALED_HW))
+    elif args.heads == "gaussian":
+        cfg = cs.voc_heads(cs.gaussian_heads(args.variant))
+    else:
+        cfg = cs.voc_variant(args.variant)
     tcfg = cs.TrainConfig(**schedule, yolo_loss=cs.yolo_loss_config(cfg))
-    rng = np.random.default_rng(cs.SEED + 13)
+    # the micro-batch of phase 13 (a), or of phase 15 (e) for its heads
+    rng = np.random.default_rng(cs.SEED + (13 if args.heads == "variant"
+                                           else 15))
     palette = rng.integers(0, 256, (20, 3), dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
         pairs = cs.write_voc_scenes(
@@ -558,13 +586,17 @@ def main() -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     w = sub.add_parser("weights")
     w.add_argument("path")
+    w.add_argument("--cfg", default=None)
     t = sub.add_parser("time")
     t.add_argument("--weights", required=True)
     t.add_argument("--tree", default=None)
     t.add_argument("--route", choices=ROUTES, default="default")
+    t.add_argument("--cfg", default=None)
+    t.add_argument("--names", default=None)
     prof = sub.add_parser("profile")
     prof.add_argument("--route", choices=ROUTES, default="default")
     prof.add_argument("--variant", default="coco")
+    prof.add_argument("--cfg", default=None)
     prof.add_argument("--batches", type=int, nargs="+", default=BATCHES)
     sub.add_parser("sweep")
     sub.add_parser("tiles")
@@ -572,6 +604,8 @@ def main() -> int:
     sub.add_parser("stepcheck")
     s64 = sub.add_parser("step64")
     s64.add_argument("--variant", default="yolov4")
+    s64.add_argument("--heads", choices=("variant", "csp-swish",
+                                         "gaussian"), default="variant")
     args = ap.parse_args()
     # the package under test: another checkout's for `time --tree`
     sys.path.insert(0, os.path.abspath(getattr(args, "tree", None) or REPO))

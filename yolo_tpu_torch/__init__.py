@@ -9,6 +9,8 @@ under ``csrc/``, built by ``ops/cuda/build.py`` at first use.
 
     import yolo_tpu_torch
     model = yolo_tpu_torch.load("yolov2.weights", "coco")   # device="cuda"
+    model = yolo_tpu_torch.load("my.weights", cfg="my.cfg",
+                                names="my.names")        # a darknet .cfg
     detections = model(images_u8)            # (B, H, W, 3) raw RGB
 """
 
@@ -16,7 +18,8 @@ __version__ = "0.1.0"
 
 
 def load(*args, **kw):
-    """See yolo_tpu_torch.api.load — weights file -> callable detector."""
+    """See yolo_tpu_torch.api.load — weights file (with an optional
+    darknet .cfg / .names, or a zoo:// entry) -> callable detector."""
     from yolo_tpu_torch.api import load as _load
 
     return _load(*args, **kw)

@@ -3,12 +3,16 @@
     import yolo_tpu_torch
 
     model = yolo_tpu_torch.load("yolov2.weights", "coco")   # device="cuda"
+    model = yolo_tpu_torch.load("my.weights", cfg="my.cfg",
+                                names="my.names")            # custom .cfg
+    model = yolo_tpu_torch.load("zoo://yolov3")   # $YOLO_TPU_WEIGHTS_DIR
     detections = model(images_u8)            # (B, H, W, 3) raw RGB
     # {'boxes' (B,D,4) pixel xyxy, 'scores', 'classes', 'valid'} tensors
 
-Darknet ``.weights`` files of the yolov2 family only; orbax checkpoints,
-``zoo://`` entries and custom darknet ``.cfg`` topologies are ROADMAP
-A12.
+Darknet ``.weights`` files of the built-in variants (matched by size),
+of any detector a darknet ``.cfg`` describes, or of a ``zoo://`` entry
+(a local file only: nothing is fetched). Orbax checkpoint directories
+are ROADMAP A9g; the classifiers ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -35,32 +39,29 @@ _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def _infer_variant(weights_path: str) -> Optional[str]:
-    """The ported variant whose topology gives the file's byte size (16-
-    and 20-byte headers both accepted), else None."""
-    import os
+    """The built-in variant whose topology gives the file's byte size
+    (io/zoo.py::infer_variant), else None."""
+    from yolo_tpu_torch.io import zoo
 
-    from yolo_tpu_torch.configs import VARIANTS
-    from yolo_tpu_torch.io.darknet_weights import expected_bytes
-
-    actual = os.path.getsize(weights_path)
-    for name, cfg in VARIANTS.items():
-        want = expected_bytes(cfg.layers, cfg.in_channels)
-        if actual in (want, want - 4):
-            return name
-    return None
+    return zoo.infer_variant(weights_path)
 
 
 def load(weights_path: str, variant: Optional[str] = None, *,
+         cfg: Optional[str] = None, names: Optional[str] = None,
          device: str = "cuda", precision: str = "bf16",
          input_size: Optional[int] = None,
          conf_threshold: Optional[float] = None,
          nms_threshold: Optional[float] = None) -> Model:
-    """Load a darknet ``.weights`` file into a ready-to-call detector.
+    """Load a darknet ``.weights`` file, or a ``zoo://<name>`` entry,
+    into a ready-to-call detector.
 
-    variant: a yolov2-family name (yolo_tpu_torch.configs.VARIANTS);
-    None matches the file's byte size against them. device: "cuda" (the
-    default, which raises when CUDA is absent) or "cpu", only when asked
-    for. precision: "fp32" | "bf16"."""
+    variant: a built-in variant (yolo_tpu_torch.configs.VARIANTS); None
+    takes a zoo entry's variant, or matches a plain file's byte size
+    against the built-in topologies. cfg / names: a darknet .cfg (and
+    .names) that describes the topology instead
+    (configs/darknet_cfg.py). device: "cuda" (the default, which raises
+    when CUDA is absent) or "cpu", only when asked for. precision:
+    "fp32" | "bf16"."""
     import os
 
     from yolo_tpu_torch.configs import get_variant
@@ -73,17 +74,36 @@ def load(weights_path: str, variant: Optional[str] = None, *,
         raise ValueError(f"precision={precision!r}: the API supports "
                          f"'fp32' | 'bf16'")
     dev = resolve_device(device)
-    if weights_path.startswith("zoo://") or os.path.isdir(weights_path):
-        raise NotImplementedError(
-            f"{weights_path}: zoo entries and checkpoint dirs are not "
-            f"ported yet (ROADMAP A12); pass a darknet .weights file")
-    if variant is None:
-        variant = _infer_variant(weights_path)
-        if variant is None:
+    if weights_path.startswith("zoo://"):
+        from yolo_tpu_torch.io import zoo
+
+        entry = zoo.load_manifest().get(weights_path[len("zoo://"):])
+        if entry and entry.get("cutoff_layers"):
             raise ValueError(
-                f"cannot infer the model variant from {weights_path}'s "
-                f"size; pass variant= explicitly")
-    model_cfg = get_variant(variant, input_size=input_size)
+                f"{weights_path} is a partial backbone file for "
+                f"training init (io.darknet_weights.load_partial); it "
+                f"cannot drive a detector")
+        if variant is None and cfg is None:
+            variant = entry["variant"] if entry else None
+        weights_path = zoo.resolve(weights_path)
+    if os.path.isdir(weights_path):
+        raise NotImplementedError(
+            f"{weights_path}: checkpoint directories are not ported yet "
+            f"(ROADMAP A9g); pass a darknet .weights file")
+    if cfg is not None:
+        from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
+
+        model_cfg = config_from_cfg(cfg, names_path=names)
+        if input_size is not None:
+            model_cfg = model_cfg.with_input_size(input_size)
+    else:
+        if variant is None:
+            variant = _infer_variant(weights_path)
+            if variant is None:
+                raise ValueError(
+                    f"cannot infer the model variant from {weights_path}'s "
+                    f"size; pass variant= or cfg= explicitly")
+        model_cfg = get_variant(variant, input_size=input_size)
     params, _ = dw.load(weights_path, model_cfg.layers,
                         input_channels=model_cfg.in_channels)
     net = Darknet(model_cfg.layers,

@@ -1,13 +1,18 @@
 from yolo_tpu_torch.configs.names import COCO_NAMES, VOC_NAMES
-from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool,
-                                          ModelConfig, Reorg, Route,
-                                          Shortcut, Upsample, YoloHead,
+from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec, MaxPool,
+                                          ModelConfig, Reorg, Route, Sam,
+                                          ScaleChannels, Shortcut, Upsample,
+                                          YoloHead, conv_specs,
                                           layer_strides, resolve_route,
                                           weighted_specs)
-from yolo_tpu_torch.configs.variants import VARIANTS, get_variant
+from yolo_tpu_torch.configs.variants import (TINY_YOLOV2_VOC, VARIANTS,
+                                             YOLOV2_COCO, YOLOV2_VOC,
+                                             get_variant)
 
 __all__ = [
-    "COCO_NAMES", "VOC_NAMES", "Conv", "LayerSpec", "MaxPool", "ModelConfig",
-    "Reorg", "Route", "Shortcut", "Upsample", "YoloHead", "layer_strides",
-    "resolve_route", "weighted_specs", "VARIANTS", "get_variant",
+    "COCO_NAMES", "VOC_NAMES", "AvgPool", "Conv", "LayerSpec", "MaxPool",
+    "ModelConfig", "Reorg", "Route", "Sam", "ScaleChannels", "Shortcut",
+    "Upsample", "YoloHead", "conv_specs", "layer_strides", "resolve_route",
+    "weighted_specs", "TINY_YOLOV2_VOC", "VARIANTS", "YOLOV2_COCO",
+    "YOLOV2_VOC", "get_variant",
 ]

@@ -1,10 +1,13 @@
 """Layer specs and the model config of the yolov2 and yolov3/v4
-families (port of yolo_tpu/configs/specs.py, the layer kinds the port
-executes).
+families and of the detectors a custom darknet ``.cfg`` describes (port
+of yolo_tpu/configs/specs.py, every layer kind but the classifier and
+yolov1 ones, which are ROADMAP A10).
 
 Semantics pinned by the darknet cfg format, as in the JAX package:
-  * ``Conv``: conv2d (darknet pad = size // 2, any stride), optional
-    batch-norm, activation (leaky 0.1, linear, or mish for yolov4).
+  * ``Conv``: conv2d (darknet pad = size // 2, times the dilation), any
+    stride, optional groups (depthwise when groups == in_channels),
+    optional batch-norm, activation (leaky 0.1, linear, mish, logistic,
+    swish, relu or ramp).
   * ``MaxPool``: darknet maxpool; ``size=2, stride=1`` pads one row/col
     at the end with -inf; the stride-1 5/9/13 SPP pools pad both sides.
   * ``Route``: channel concat of earlier layer outputs, in listed order,
@@ -14,19 +17,20 @@ Semantics pinned by the darknet cfg format, as in the JAX package:
     ``[reorg] stride=2``), not space_to_depth.
   * ``Shortcut``: residual add of an earlier layer's output; where the
     channel counts differ the add covers the smaller count and the rest
-    passes through.
+    passes through. A weighted shortcut blends the two inputs with
+    learned weights held in the .weights file.
+  * ``Sam``: elementwise product with an earlier layer's output.
+  * ``ScaleChannels``: an earlier layer's output scaled by this layer's
+    (B, 1, 1, C) or (B, H, W, 1) input (the SE multiply).
   * ``Upsample``: nearest-neighbour x stride, values times ``scale``.
+  * ``AvgPool``: global average pool to (B, 1, 1, C) (the squeeze of an
+    SE block).
   * ``YoloHead``: marks its input as one [yolo] head's logits; its
     routed output is its input.
 
-Options that only a custom darknet ``.cfg`` sets (a weighted shortcut,
-``new_coords``, Gaussian heads, the swish/logistic/relu/ramp
-activations) raise NotImplementedError when a spec is built: they are
-ROADMAP A8b.
-
 Field names and defaults are the JAX package's, so a config here and its
 counterpart there describe the same network (tests/test_torch_graph.py
-holds every variant to that).
+and tests/test_torch_cfg.py hold every variant and parsed cfg to that).
 """
 
 from __future__ import annotations
@@ -34,19 +38,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
-ACTIVATIONS = ("leaky", "linear", "mish")
-# activations of the JAX package that only a custom .cfg reaches
-_A8B_ACTIVATIONS = ("logistic", "swish", "relu", "ramp")
-
-
-def _a8b(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A8b: "
-                               f"options only a custom .cfg sets)")
+ACTIVATIONS = ("leaky", "linear", "mish", "logistic", "swish", "relu",
+               "ramp")
 
 
 def _check_act(act: str) -> None:
-    if act in _A8B_ACTIVATIONS:
-        raise _a8b(f"activation {act!r}")
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}")
 
@@ -57,7 +53,15 @@ class Conv:
     size: int = 3
     stride: int = 1
     bn: bool = True
-    act: str = "leaky"  # "leaky" (slope 0.1) | "linear" | "mish"
+    # "leaky" (slope 0.1) | "linear" | "mish" | "logistic" | "swish" |
+    # "relu" | "ramp" (x * (x > 0) + 0.1 * x)
+    act: str = "leaky"
+    # darknet [convolutional] groups: the kernel is (oc, ic/groups, k, k)
+    # in the .weights file
+    groups: int = 1
+    # darknet [convolutional] dilation: padding (size // 2) * dilation
+    # keeps the undilated conv's output geometry
+    dilation: int = 1
 
     def __post_init__(self):
         _check_act(self.act)
@@ -88,19 +92,45 @@ class Reorg:
 @dataclasses.dataclass(frozen=True)
 class Shortcut:
     """darknet [shortcut] ``from`` index (negative = relative, else
-    absolute), then the activation (linear in every official cfg)."""
+    absolute), then the activation (linear in every official cfg).
+
+    A weighted shortcut (AlexeyAB weights_type=per_feature |
+    per_channel) carries learned blend weights in the .weights file: 2
+    (one a merged input) for per_feature, 2*C for per_channel, group
+    major [w_in..., w_from...]. out = in * W0 + from * W1 over the
+    min-channel overlap, in * W0 alone on the passthrough channels,
+    then the activation. weights_norm rescales the weights along the
+    input axis first: relu -> max(w, 0.001) / (1e-4 + sum), softmax ->
+    exp(w - max) / (1e-4 + sum) (yolo_tpu/configs/specs.py::Shortcut
+    states the sources)."""
     frm: int
     act: str = "linear"
-    # weighted shortcuts (AlexeyAB per_feature / per_channel, with relu
-    # or softmax normalization) are ROADMAP A8b
+    # "none" | "per_feature" | "per_channel"
     weights_type: str = "none"
+    # "none" | "relu" | "softmax"
     weights_norm: str = "none"
 
     def __post_init__(self):
         _check_act(self.act)
-        if self.weights_type != "none" or self.weights_norm != "none":
-            raise _a8b(f"a weighted shortcut ({self.weights_type}, "
-                       f"{self.weights_norm})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sam:
+    # darknet [sam] (spatial attention): this layer's input times an
+    # earlier layer's same-shape output, then the activation
+    frm: int
+    act: str = "linear"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleChannels:
+    # darknet [scale_channels] (the SE multiply): the ``frm`` layer's
+    # output times this layer's input, (B, 1, 1, C) when scale_wh=0 or
+    # (B, H, W, 1) when scale_wh=1, broadcast; the output takes the frm
+    # layer's shape
+    frm: int
+    scale_wh: int = 0
+    act: str = "linear"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +139,12 @@ class Upsample:
     # the values (default 1, which the official cfgs keep)
     stride: int = 2
     scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AvgPool:
+    """darknet [avgpool]: global average pool, kept 4-D (B, 1, 1, C) so
+    that 1x1 convs and [scale_channels] read it unchanged."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,24 +157,33 @@ class YoloHead:
     # explicit 0.0 disables): box-gradient clamp, class label smoothing
     max_delta: Optional[float] = None
     label_smooth_eps: Optional[float] = None
-    # scaled-yolov4 new_coords and [Gaussian_yolo] heads: ROADMAP A8b
+    # scaled-yolov4 [yolo] new_coords=1: the head conv is logistic, so
+    # xy, conf and classes arrive activated; bx = (v*s - (s-1)/2 + cx)/W,
+    # bw = 4*v^2*anchor/net_w
     new_coords: bool = False
+    # [Gaussian_yolo]: 9+C channels an anchor, means and sigmas
+    # interleaved [x, ux, y, uy, w, uw, h, uh, obj, classes...]; score =
+    # sigmoid(obj) * sigmoid(cls) * (1 - mean(sigmoid(u)))
     gaussian: bool = False
 
-    def __post_init__(self):
-        if self.new_coords:
-            raise _a8b("[yolo] new_coords=1")
-        if self.gaussian:
-            raise _a8b("[Gaussian_yolo]")
+
+LayerSpec = Union[Conv, MaxPool, Route, Reorg, Shortcut, Sam,
+                  ScaleChannels, Upsample, AvgPool, YoloHead]
 
 
-LayerSpec = Union[Conv, MaxPool, Route, Reorg, Shortcut, Upsample, YoloHead]
-
-
-def weighted_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
-    """Weight-carrying layers in darknet file order (the .weights walk
-    order and the params-list order): the convs."""
+def conv_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
+    """Conv layers in darknet file order."""
     return tuple(l for l in layers if isinstance(l, Conv))
+
+
+def weighted_specs(layers: Tuple[LayerSpec, ...]
+                   ) -> Tuple[Union[Conv, Shortcut], ...]:
+    """Weight-carrying layers in darknet file order (the .weights walk
+    order and the params-list order): the convs and the weighted
+    shortcuts."""
+    return tuple(l for l in layers
+                 if isinstance(l, Conv)
+                 or (isinstance(l, Shortcut) and l.weights_type != "none"))
 
 
 def resolve_route(idx: int, rel: int) -> int:
@@ -149,8 +194,9 @@ def resolve_route(idx: int, rel: int) -> int:
 def layer_strides(layers: Tuple[LayerSpec, ...]) -> Tuple[int, ...]:
     """Feature stride (net pixels per cell) after each layer
     (darknet_cfg.py::layer_strides): conv, maxpool and reorg strides
-    multiply, upsample divides, a route takes its sources' stride,
-    shortcut and [yolo] pass through."""
+    multiply, upsample divides, a route takes its sources' (agreeing)
+    stride, shortcut, sam and [yolo] pass through, scale_channels takes
+    its ``frm`` layer's."""
     strides = []
     cur = 1
     for idx, l in enumerate(layers):
@@ -158,19 +204,25 @@ def layer_strides(layers: Tuple[LayerSpec, ...]) -> Tuple[int, ...]:
             cur *= l.stride
         elif isinstance(l, Upsample):
             if cur % l.stride:
-                raise ValueError(f"layer {idx}: upsample stride {l.stride} "
-                                 f"does not divide feature stride {cur}")
+                raise ValueError(
+                    f"layer {idx}: upsample stride {l.stride} does not "
+                    f"divide feature stride {cur}")
             cur //= l.stride
         elif isinstance(l, Route):
             srcs = {strides[resolve_route(idx, r)] for r in l.layers}
             if len(srcs) != 1:
-                raise ValueError(f"layer {idx}: route sources have "
-                                 f"feature strides {sorted(srcs)}")
+                raise ValueError(
+                    f"layer {idx}: route sources have mismatched feature "
+                    f"strides {sorted(srcs)} — cannot concatenate")
             cur = srcs.pop()
-        elif isinstance(l, Shortcut):
-            if strides[resolve_route(idx, l.frm)] != cur:
-                raise ValueError(f"layer {idx}: shortcut across feature "
-                                 f"strides")
+        elif isinstance(l, (Shortcut, Sam)):
+            src = strides[resolve_route(idx, l.frm)]
+            if src != cur:
+                raise ValueError(
+                    f"layer {idx}: {type(l).__name__.lower()} across "
+                    f"feature strides {src} vs {cur}")
+        elif isinstance(l, ScaleChannels):
+            cur = strides[resolve_route(idx, l.frm)]
         strides.append(cur)
     return tuple(strides)
 
@@ -186,7 +238,11 @@ class ModelConfig:
     layers: Tuple[LayerSpec, ...]
     anchors: Tuple[Tuple[float, float], ...]
     class_names: Tuple[str, ...]
-    input_size: int = 416   # square [net] height = width
+    # [net] height, and width too when input_width is None (square);
+    # a rectangular net sets input_width, and geometry reads
+    # input_h / input_w / input_hw
+    input_size: int = 416
+    input_width: Optional[int] = None
     in_channels: int = 3
     conf_threshold: float = 0.5
     nms_threshold: float = 0.45
@@ -246,16 +302,44 @@ class ModelConfig:
         return len(self.anchors)
 
     @property
+    def input_h(self) -> int:
+        """Net input height ([net] height)."""
+        return self.input_size
+
+    @property
+    def input_w(self) -> int:
+        """Net input width ([net] width; == height for square nets)."""
+        return self.input_width if self.input_width is not None \
+            else self.input_size
+
+    @property
     def input_hw(self) -> Tuple[int, int]:
         """(net_h, net_w) — the shape-order geometry every op takes."""
-        return (self.input_size, self.input_size)
+        return (self.input_h, self.input_w)
+
+    @property
+    def grid_hw(self) -> Tuple[int, int]:
+        """Region-head grid (gh, gw) = input_hw // 32."""
+        return (self.input_h // 32, self.input_w // 32)
 
     def detection_names(self) -> Tuple[str, ...]:
         """Display names for detection class indices."""
         return self.class_names
 
     def with_input_size(self, size: int) -> "ModelConfig":
-        if size % 32 != 0:
+        """Square resize. A rectangular config raises: squaring it would
+        change its aspect (use with_input_hw)."""
+        if self.input_width is not None and \
+                self.input_width != self.input_size:
             raise ValueError(
-                f"input size must be a multiple of 32, got {size}")
-        return dataclasses.replace(self, input_size=size)
+                f"{self.name} is rectangular ({self.input_w}x"
+                f"{self.input_h}): with_input_size would square it — "
+                f"use with_input_hw(h, w)")
+        return self.with_input_hw(size, size)
+
+    def with_input_hw(self, h: int, w: int) -> "ModelConfig":
+        if h % 32 != 0 or w % 32 != 0:
+            raise ValueError(
+                f"input size must be a multiple of 32, got {w}x{h}")
+        return dataclasses.replace(
+            self, input_size=h, input_width=None if w == h else w)

@@ -322,6 +322,11 @@ VARIANTS = {
         input_size=416, iou_loss="ciou", iou_normalizer=0.07),
 }
 
+# the yolov2 variants under the JAX package's names
+TINY_YOLOV2_VOC = VARIANTS["tiny-voc"]
+YOLOV2_VOC = VARIANTS["voc"]
+YOLOV2_COCO = VARIANTS["coco"]
+
 # the JAX package's darknet classifiers (ROADMAP A10)
 _CLASSIFIERS = ("darknet19", "darknet19-448", "darknet53")
 

@@ -1,6 +1,7 @@
 """Darknet ``.weights`` binary I/O for the port's layer set (port of
-yolo_tpu/io/darknet_weights.py, conv layers only: the port's other
-layers carry no weights).
+yolo_tpu/io/darknet_weights.py: convs and weighted shortcuts; the
+port's other layers carry no weights, and the classifier layers that do
+are ROADMAP A10).
 
 File format (darknet ``parse.c`` save/load order):
   header: int32 major, minor, revision; then ``seen`` — int64 if
@@ -8,11 +9,14 @@ File format (darknet ``parse.c`` save/load order):
   per conv layer, in cfg order:
     biases[oc]                       (BN beta when bn=True)
     if bn: scales[oc] (gamma), rolling_mean[oc], rolling_var[oc]
-    kernel fp32, darknet (oc, ic, kh, kw) order -> HWIO here.
+    kernel fp32, darknet (oc, ic/groups, kh, kw) order -> HWIO here.
+  per weighted shortcut (save_shortcut_weights): its blend weights,
+    2 floats (per_feature) or 2*C (per_channel), group major.
 
 Params list, ordered like ``weighted_specs(layers)``:
   [{"kernel": HWIO f32, "bias": (oc,)}                     bn=False convs,
-   {"kernel": HWIO f32, "gamma","beta","mean","var": (oc,)} bn=True convs]
+   {"kernel": HWIO f32, "gamma","beta","mean","var": (oc,)} bn=True convs,
+   {"weights": (2, 1) or (2, C) f32}                  weighted shortcuts]
 the JAX package's layout, byte for byte the same files.
 """
 
@@ -22,17 +26,21 @@ from typing import BinaryIO, List, Sequence
 
 import numpy as np
 
-from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
-                                          Route, Shortcut, Upsample,
+from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec,
+                                          MaxPool, Reorg, Route, Sam,
+                                          ScaleChannels, Shortcut, Upsample,
                                           YoloHead, resolve_route,
                                           weighted_specs)
 
 
 def _conv_in_channels(layers: Sequence[LayerSpec],
                       input_channels: int = 3) -> List[int]:
-    """Input channel count of each conv, walking the layer graph: a
-    grouped route keeps 1/groups of each source; shortcut, upsample,
-    maxpool and [yolo] keep the count."""
+    """Input channel count of each weighted layer (darknet_weights.py::
+    _infer_in_channels), walking the layer graph: a grouped route keeps
+    1/groups of each source, scale_channels takes its ``frm`` layer's
+    count; shortcut, sam, upsample, maxpool, avgpool and [yolo] keep
+    the count. A weighted shortcut's entry is its own channel count (its
+    per_channel weight count)."""
     out_ch: List[int] = []
     conv_in: List[int] = []
     prev = input_channels
@@ -45,22 +53,44 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
         elif isinstance(layer, Route):
             prev = sum(out_ch[resolve_route(idx, r)] // layer.groups
                        for r in layer.layers)
-        elif not isinstance(layer, (MaxPool, Shortcut, Upsample, YoloHead)):
+        elif isinstance(layer, ScaleChannels):
+            prev = out_ch[resolve_route(idx, layer.frm)]
+        elif isinstance(layer, Shortcut):
+            if layer.weights_type != "none":
+                conv_in.append(prev)
+        elif not isinstance(layer, (MaxPool, Sam, Upsample, AvgPool,
+                                    YoloHead)):
             raise NotImplementedError(
                 f"layer {idx}: {type(layer).__name__} is not a layer of the "
-                f"port (ROADMAP A8b/A10)")
+                f"port (ROADMAP A10)")
         out_ch.append(prev)
     return conv_in
 
 
+def _floats(spec, ic: int) -> int:
+    """Floats a weighted layer holds in the file, its input channels
+    ``ic``."""
+    if isinstance(spec, Shortcut):
+        return 2 * (1 if spec.weights_type == "per_feature" else ic)
+    return (spec.filters * (4 if spec.bn else 1)
+            + spec.filters * (ic // spec.groups) * spec.size * spec.size)
+
+
 def expected_bytes(layers: Sequence[LayerSpec], input_channels: int = 3
                    ) -> int:
-    """Exact .weights file size for a topology, with the 20-byte header."""
-    n = sum(conv.filters * (4 if conv.bn else 1)
-            + conv.filters * ic * conv.size * conv.size
-            for conv, ic in zip(weighted_specs(tuple(layers)),
+    """Exact .weights file size for a topology, with the 20-byte header
+    (zoo.py::expected_weights_bytes)."""
+    n = sum(_floats(spec, ic)
+            for spec, ic in zip(weighted_specs(tuple(layers)),
                                 _conv_in_channels(layers, input_channels)))
     return 20 + 4 * n
+
+
+def _groups_divide(conv: Conv, ic: int, i: int) -> None:
+    if conv.filters % conv.groups or ic % conv.groups:
+        raise ValueError(
+            f"conv {i}: groups={conv.groups} must divide "
+            f"filters={conv.filters} and in_channels={ic}")
 
 
 def load(path_or_file, layers: Sequence[LayerSpec], input_channels: int = 3):
@@ -113,8 +143,26 @@ def load_partial(path_or_file, layers: Sequence[LayerSpec],
 
     pos = 0
     params = []
-    for conv, ic in zip(weighted_specs(tuple(layers)),
+    for spec, ic in zip(weighted_specs(tuple(layers)),
                         _conv_in_channels(layers, input_channels)):
+        if isinstance(spec, Shortcut):
+            # weighted shortcut: its blend weights, group major
+            per = 1 if spec.weights_type == "per_feature" else ic
+            need = 2 * per
+            if pos == floats.size:
+                break  # clean cutoff boundary
+            if pos + need > floats.size:
+                raise ValueError(
+                    f"weights file too short (ends mid-layer): "
+                    f"weighted shortcut {len(params)} needs {need} "
+                    f"floats, {floats.size - pos} remain")
+            params.append({"weights": floats[pos:pos + need]
+                           .reshape(2, per).copy()})
+            pos += need
+            continue
+        conv = spec
+        _groups_divide(conv, ic, len(params))
+        ic = ic // conv.groups  # darknet grouped kernel: (oc, ic/g, k, k)
         oc, k = conv.filters, conv.size
         need = oc * (4 if conv.bn else 1) + oc * ic * k * k
         if pos == floats.size:
@@ -151,7 +199,7 @@ def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
     specs = weighted_specs(tuple(layers))
     if len(params) != len(specs):
         raise ValueError(f"save: {len(params)} param blocks for "
-                         f"{len(specs)} convs")
+                         f"{len(specs)} weighted layers")
     own = not hasattr(path_or_file, "write")
     f: BinaryIO = open(path_or_file, "wb") if own else path_or_file
     try:
@@ -160,6 +208,10 @@ def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
         seen_dtype = np.int64 if major * 10 + minor >= 2 else np.int32
         f.write(np.asarray([seen], seen_dtype).tobytes())
         for conv, p in zip(specs, params):
+            if isinstance(conv, Shortcut):
+                f.write(np.ascontiguousarray(
+                    np.asarray(p["weights"], np.float32)).tobytes())
+                continue
             keys = ("beta", "gamma", "mean", "var") if conv.bn else ("bias",)
             for key in keys:
                 f.write(np.asarray(p[key], np.float32).tobytes())
@@ -174,10 +226,17 @@ def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
 def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
                   input_channels: int = 3, scale: float = 0.1):
     """Random params in load()'s layout, drawn in the JAX package's order
-    (the same generator state gives the same params there)."""
+    (the same generator state gives the same params there). Shortcut
+    blend weights are darknet's initial ones and draw nothing."""
     params = []
     for conv, ic in zip(weighted_specs(tuple(layers)),
                         _conv_in_channels(layers, input_channels)):
+        if isinstance(conv, Shortcut):
+            per = 1 if conv.weights_type == "per_feature" else ic
+            params.append({"weights": np.ones((2, per), np.float32)})
+            continue
+        _groups_divide(conv, ic, len(params))
+        ic = ic // conv.groups
         oc, k = conv.filters, conv.size
         p = {"kernel": rng.normal(0, scale, (k, k, ic, oc)).astype(np.float32)}
         if conv.bn:
@@ -198,58 +257,86 @@ RESIDUAL_SCALE = 0.1
 # times as many 0 (sigmoid 0.5); one class logit in C reaches SURE_LOGIT
 # and three in C reach 0
 PROBE_OBJECTS, SURE_LOGIT = 8, 2.0
+# seeded [Gaussian_yolo] heads: the sigma logits sit near this, so that
+# 1 - mean(sigma) (sigmoid(-4) = 0.018) leaves the scores nearly whole
+SIGMA_LOGIT = -4.0
+
+
+def _param_index(layers) -> dict:
+    """{layer index: params index} of the weighted layers."""
+    out = {}
+    for idx, layer in enumerate(layers):
+        if isinstance(layer, Conv) or (isinstance(layer, Shortcut)
+                                       and layer.weights_type != "none"):
+            out[idx] = len(out)
+    return out
 
 
 def _probe_head_outputs(cfg, params, seed: int):
-    """Each [yolo] head conv's output without its bias, (positions, C)
-    float64, from one fp32 forward of the port's executor on the CPU
-    over a seeded probe at the config's input size: the letterbox of a
-    3:4 uniform-noise frame (gray 0.5 bands above and below, as a
-    480x640 frame gives them)."""
+    """Each [yolo] head conv's output before its bias and activation,
+    (positions, C) float64, from one fp32 forward of the port's executor
+    on the CPU over a seeded probe at the config's (net_h, net_w): the
+    letterbox of a 3:4 uniform-noise frame (gray 0.5 bands, as a 480x640
+    frame gives them). A logistic head conv (new_coords) runs linear
+    here, so the calibration acts before its logistic."""
+    import dataclasses
+
     import torch
 
     from yolo_tpu_torch.models.graph import Darknet, fold_params
+    from yolo_tpu_torch.ops.letterbox import letterbox_geometry
 
-    folded = fold_params(cfg.layers, params, cfg.bn_eps)
-    size = cfg.input_size
-    band = size // 8
-    x = np.full((1, size, size, cfg.in_channels), 0.5, np.float32)
-    x[:, band:size - band] = np.random.default_rng((seed, size)).uniform(
-        0, 1, (1, size - 2 * band, size, cfg.in_channels))
-    heads = Darknet(cfg.layers, folded, device="cpu")(torch.from_numpy(x))
-    convs = [sum(isinstance(l, Conv) for l in cfg.layers[:i]) - 1
-             for i, l in enumerate(cfg.layers) if isinstance(l, YoloHead)]
-    return [h.numpy().reshape(-1, h.shape[-1]).astype(np.float64)
-            - folded[ci]["bias"] for h, ci in zip(heads, convs, strict=True)]
+    heads = [i - 1 for i, l in enumerate(cfg.layers)
+             if isinstance(l, YoloHead)]
+    layers = tuple(dataclasses.replace(l, act="linear") if i in heads
+                   else l for i, l in enumerate(cfg.layers))
+    folded = fold_params(layers, params, cfg.bn_eps)
+    h, w = cfg.input_hw
+    _, rh, rw, px, py = letterbox_geometry(480, 640, (h, w))
+    x = np.full((1, h, w, cfg.in_channels), 0.5, np.float32)
+    x[:, py:py + rh, px:px + rw] = np.random.default_rng(
+        (seed, h) if h == w else (seed, h, w)).uniform(
+            0, 1, (1, rh, rw, cfg.in_channels))
+    out = Darknet(layers, folded, device="cpu")(torch.from_numpy(x))
+    index = _param_index(layers)
+    return [o.numpy().reshape(-1, o.shape[-1]).astype(np.float64)
+            - folded[index[i]]["bias"] for o, i in zip(out, heads,
+                                                       strict=True)]
 
 
 def _calibrate_yolo_heads(cfg, params, heads, seed: int,
                           box_scale: float) -> None:
     """[yolo] head shaping, in place: each head conv's channels are
-    made affine in z, their zero-mean unit-spread value on the probe:
-    box channels box_scale * z; objectness and class logits
-    SURE_LOGIT * (z - t0) / (t1 - t0), t1 and t0 the quantiles of z that
-    PROBE_OBJECTS and 4 * PROBE_OBJECTS probe boxes reach (classes: 1/C
-    and 3/C of the class logits)."""
+    made affine in z, their zero-mean unit-spread value on the probe
+    (before the activation): box channels box_scale * z; objectness and
+    class logits SURE_LOGIT * (z - t0) / (t1 - t0), t1 and t0 the
+    quantiles of z that PROBE_OBJECTS and 4 * PROBE_OBJECTS probe boxes
+    reach (classes: 1/C and 3/C of the class logits); a Gaussian head's
+    sigma logits SIGMA_LOGIT + box_scale * z. heads: (params index,
+    anchors, gaussian) of each head conv."""
     c = cfg.num_classes
     z, norm = [], []
-    for (i, a), v in zip(heads, _probe_head_outputs(cfg, params, seed),
-                         strict=True):
+    for (i, a, ga), v in zip(heads, _probe_head_outputs(cfg, params, seed),
+                             strict=True):
         mean, std = v.mean(axis=0), v.std(axis=0)
-        z.append(((v - mean) / std).reshape(-1, a, 5 + c))
+        zz = ((v - mean) / std).reshape(-1, a, (9 if ga else 5) + c)
+        z.append(zz[..., 4 + 4 * ga:])     # objectness, then classes
         norm.append((mean, std))
-    obj = np.sort(np.concatenate([h[..., 4].ravel() for h in z]))
-    cls = np.concatenate([h[..., 5:].ravel() for h in z])
+    obj = np.sort(np.concatenate([h[..., 0].ravel() for h in z]))
+    cls = np.concatenate([h[..., 1:].ravel() for h in z])
     # (gain, offset) of the objectness and class logits in z
     spans = [(obj[-PROBE_OBJECTS], obj[-4 * PROBE_OBJECTS]),
              tuple(np.quantile(cls, [1.0 - 1.0 / c, 1.0 - 3.0 / c]))]
     (g_obj, t_obj), (g_cls, t_cls) = [
         (SURE_LOGIT / (hi - lo), lo) for hi, lo in spans]
-    for (i, a), (mean, std) in zip(heads, norm):
-        gain = np.ones((a, 5 + c))
-        gain[:, :4], gain[:, 4], gain[:, 5:] = box_scale, g_obj, g_cls
-        shift = np.zeros((a, 5 + c))
-        shift[:, 4], shift[:, 5:] = -g_obj * t_obj, -g_cls * t_cls
+    for (i, a, ga), (mean, std) in zip(heads, norm):
+        o = 4 + 4 * ga                     # objectness channel
+        gain = np.ones((a, o + 1 + c))
+        gain[:, :o], gain[:, o], gain[:, o + 1:] = box_scale, g_obj, g_cls
+        shift = np.zeros((a, o + 1 + c))
+        shift[:, o], shift[:, o + 1:] = -g_obj * t_obj, -g_cls * t_cls
+        if ga:
+            shift[:, 1:8:2] = SIGMA_LOGIT
         gain, shift = gain.reshape(-1), shift.reshape(-1)
         p = params[i]
         p["kernel"] = (p["kernel"] * (gain / std)).astype(np.float32)
@@ -284,23 +371,25 @@ def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
     objectness_shift): on noise frames of the probe's kind a few dozen
     boxes an image clear objectness 0.5, far fewer than the fused head's
     prefilter keeps, and the detectors keep 10-100 detections an image
-    at conf 0.5."""
+    at conf 0.5. A logistic head conv (new_coords) is calibrated before
+    its logistic, and a Gaussian head's sigma logits sit near
+    SIGMA_LOGIT; shortcut blend weights stay darknet's ones."""
     params = random_params(cfg.layers, np.random.default_rng(seed),
                            input_channels=cfg.in_channels)
     for p in params:
+        if "kernel" not in p:
+            continue                       # shortcut blend weights
         k = p["kernel"]
         p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:3])) / 0.1)) \
             .astype(np.float32)
-    conv_of = {}   # layer index -> conv index
+    index = _param_index(cfg.layers)
     for idx, layer in enumerate(cfg.layers):
-        if isinstance(layer, Conv):
-            conv_of[idx] = len(conv_of)
-    for idx, layer in enumerate(cfg.layers):
-        if isinstance(layer, Shortcut) and idx - 1 in conv_of:
-            params[conv_of[idx - 1]]["kernel"] *= np.float32(RESIDUAL_SCALE)
+        if isinstance(layer, Shortcut) and isinstance(
+                cfg.layers[idx - 1] if idx else None, Conv):
+            params[index[idx - 1]]["kernel"] *= np.float32(RESIDUAL_SCALE)
     if cfg.head_kind == "yolo":
         _calibrate_yolo_heads(cfg, params, [
-            (conv_of[idx - 1], len(layer.mask))
+            (index[idx - 1], len(layer.mask), layer.gaussian)
             for idx, layer in enumerate(cfg.layers)
             if isinstance(layer, YoloHead)], seed, box_scale)
         return params

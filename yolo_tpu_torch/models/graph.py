@@ -1,14 +1,18 @@
 """Executor for the port's layer set (port of yolo_tpu/models/graph.py).
 
 ``Darknet`` interprets a ``ModelConfig.layers`` tuple of Conv / MaxPool /
-Route / Reorg / Shortcut / Upsample / YoloHead specs with BN folded into
-each conv, so every conv block is conv + bias + activation (leaky,
-linear or mish). The JAX package's NHWC layout is kept at the boundary:
-input (B, S, S, C); the output is the region head's logits (B, S/32,
-S/32, A*(5+C)) fp32, or, for a net with [yolo] heads, the tuple of the
-heads' inputs (B, S/s, S/s, A*(5+C)) fp32 in layer order (coarsest first
-in the official cfgs). Inside, activations are NCHW tensors in
-``torch.channels_last`` memory and routes concatenate on dim 1.
+Route / Reorg / Shortcut / Sam / ScaleChannels / Upsample / AvgPool /
+YoloHead specs with BN folded into each conv, so every conv block is
+conv (grouped, dilated or plain) + bias + activation (leaky, linear,
+mish, logistic, swish, relu or ramp). The JAX package's NHWC layout is
+kept at the boundary: input (B, H, W, C); the output is the region
+head's logits (B, H/32, W/32, A*(5+C)) fp32, or, for a net with [yolo]
+heads, the tuple of the heads' inputs (B, H/s, W/s, A*(5+C)) fp32 in
+layer order (A*(9+C) for a Gaussian head). Inside, activations are NCHW
+tensors in ``torch.channels_last`` memory and routes concatenate on
+dim 1. A weighted shortcut blends its inputs in fp32 with its blend
+weights (graph.py::apply_layers' Shortcut branch) and casts the result
+to the compute dtype.
 
 Precision, as in the JAX package:
   * float32: full fp32 convs. cuDNN runs fp32 convs in TF32 by default,
@@ -23,14 +27,16 @@ Precision, as in the JAX package:
 
 Conv routes (``conv_impl``, the JAX package's "xla" | "pallas"): "torch"
 runs every conv as above (ops/conv.py); "cuda" sends the convs that the
-fused conv kernel takes (leaky or linear, stride 1, 1x1 or 3x3, CIN and
-CO multiples of 128) through it (ops/cuda/conv_kernel.py), which reads
-bf16 kernels in bf16 mode, and the others (mish convs among them) as
-above.
+fused conv kernel takes (leaky or linear, groups 1, dilation 1, stride
+1, 1x1 or 3x3, CIN and CO multiples of 128: graph.py::conv_block's gate)
+through it (ops/cuda/conv_kernel.py), which reads bf16 kernels in bf16
+mode, and the others (mish, swish, logistic, relu, ramp, grouped and
+dilated convs among them) as above.
 
 ``DarknetTrain`` is the train-mode executor (apply_layers(train=True)):
-unfolded BN with batch statistics, trainable kernels, gamma, beta and
-biases, and the new rolling statistics returned, not written. Its
+unfolded BN with batch statistics, trainable kernels, gamma, beta,
+biases and shortcut blend weights, and the new rolling statistics
+returned, not written. Its
 numerics are the JAX package's training numerics, which differ from
 inference in two places:
   * BN normalizes with the Bessel-corrected batch variance var*n/(n-1)
@@ -52,8 +58,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from yolo_tpu_torch.configs.specs import (Conv, LayerSpec, MaxPool, Reorg,
-                                          Route, Shortcut, Upsample,
+from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec,
+                                          MaxPool, Reorg, Route, Sam,
+                                          ScaleChannels, Shortcut, Upsample,
                                           YoloHead, resolve_route,
                                           weighted_specs)
 from yolo_tpu_torch.device import resolve as resolve_device
@@ -69,45 +76,78 @@ NumpyParams = List[Dict[str, np.ndarray]]
 BN_MOMENTUM = 0.99
 
 
-# layer kinds of the JAX package the port lacks, by ROADMAP item; any
-# other foreign spec (a JAX Conv with groups, a weighted Shortcut, sam,
-# scale_channels, ...) is a custom-.cfg option, A8b
-_UNPORTED = {"AvgPool": "A10", "Connected": "A10", "SoftmaxHead": "A10",
-             "Dropout": "A10", "Crop": "A10", "Local": "A10",
-             "DetectionHead": "A10"}
-_LAYERS = (Conv, MaxPool, Route, Reorg, Shortcut, Upsample, YoloHead)
+# layer kinds of the JAX package the port lacks: the classifier and
+# yolov1 layers, ROADMAP A10
+_UNPORTED = ("Connected", "SoftmaxHead", "Dropout", "Crop", "Local",
+             "DetectionHead")
+_LAYERS = (Conv, MaxPool, Route, Reorg, Shortcut, Sam, ScaleChannels,
+           Upsample, AvgPool, YoloHead)
 
 
 def _check_layer(idx: int, layer: LayerSpec) -> None:
-    """The port's own specs validate their options when built; anything
-    else (the JAX package's specs among them) is not a layer of the
-    port."""
+    """The port's own specs are its layers; the JAX package's classifier
+    and yolov1 layers are ROADMAP A10, and any other object (a JAX spec
+    among them) is not a spec of this package."""
     if not isinstance(layer, _LAYERS):
         name = type(layer).__name__
-        raise NotImplementedError(
-            f"layer {idx}: {name} is not a layer of the port (ROADMAP "
-            f"{_UNPORTED.get(name, 'A8b')})")
+        if name in _UNPORTED:
+            raise NotImplementedError(
+                f"layer {idx}: {name} is not a layer of the port (ROADMAP "
+                f"A10)")
+        raise TypeError(f"layer {idx}: {layer!r} is not a spec of "
+                        f"yolo_tpu_torch.configs.specs")
 
 
 def _routed_layers(layers: Sequence[LayerSpec]) -> set:
-    """Outputs a later Route or Shortcut reads; the rest are dropped as
-    the executors go."""
+    """Outputs a later Route, Shortcut, Sam or ScaleChannels reads; the
+    rest are dropped as the executors go."""
     out = set()
     for idx, l in enumerate(layers):
         if isinstance(l, Route):
             out.update(resolve_route(idx, r) for r in l.layers)
-        elif isinstance(l, Shortcut):
+        elif isinstance(l, (Shortcut, Sam, ScaleChannels)):
             out.add(resolve_route(idx, l.frm))
     return out
+
+
+def _blend_weights(weights: torch.Tensor, norm: str) -> torch.Tensor:
+    """A weighted shortcut's (2, 1) or (2, C) fp32 blend weights after
+    its normalization along the input axis."""
+    if norm == "relu":
+        lw = weights.clamp_min(0.001)
+        return lw / (1e-4 + lw.sum(dim=0, keepdim=True))
+    if norm == "softmax":
+        e = torch.exp(weights - weights.amax(dim=0, keepdim=True))
+        return e / (1e-4 + e.sum(dim=0, keepdim=True))
+    return weights
+
+
+def _weighted_shortcut(layer: Shortcut, x: torch.Tensor, src: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """graph.py::apply_layers' weighted Shortcut: in fp32, out = x * W0 +
+    src * W1 over the min-channel overlap and x * W0 alone on x's other
+    channels, then the activation, cast to x's dtype. x, src (B, C, H,
+    W); weights (2, 1) per_feature or (2, C) per_channel."""
+    wts = _blend_weights(weights.float(), layer.weights_norm)
+    m = min(src.shape[1], x.shape[1])
+    if layer.weights_type == "per_channel":
+        w0 = wts[0][None, :, None, None]
+        w1 = wts[1][:m][None, :, None, None]
+    else:
+        w0, w1 = wts[0, 0], wts[1, 0]
+    y = x.float() * w0
+    mixed = y[:, :m] + src[:, :m].float() * w1
+    y = torch.cat([mixed, y[:, m:]], dim=1) if m < x.shape[1] else mixed
+    return conv_ops.activate(y, layer.act).to(x.dtype)
 
 
 def _weightless_layer(idx: int, layer: LayerSpec, x: torch.Tensor,
                       outputs: Dict[int, torch.Tensor],
                       heads: List[torch.Tensor]) -> torch.Tensor:
-    """Every layer but Conv, alike in both executors and both precisions
-    (apply_layers' branches): x (B, C, H, W) channels_last in the
-    compute dtype. A [yolo] head appends its input to ``heads`` as fp32
-    NHWC and passes it on."""
+    """Every layer but Conv and a weighted Shortcut, alike in both
+    executors and both precisions (apply_layers' branches): x (B, C, H,
+    W) channels_last in the compute dtype. A [yolo] head appends its
+    input to ``heads`` as fp32 NHWC and passes it on."""
     if isinstance(layer, MaxPool):
         return maxpool_nchw(x, layer.size, layer.stride)
     if isinstance(layer, Reorg):
@@ -131,6 +171,20 @@ def _weightless_layer(idx: int, layer: LayerSpec, x: torch.Tensor,
             m = min(src.shape[1], x.shape[1])
             y = torch.cat([x[:, :m] + src[:, :m], x[:, m:]], dim=1)
         return conv_ops.activate(y, layer.act)
+    if isinstance(layer, Sam):
+        # darknet sam_layer: elementwise product (spatial attention)
+        return conv_ops.activate(x * outputs[resolve_route(idx, layer.frm)],
+                                 layer.act)
+    if isinstance(layer, ScaleChannels):
+        # the SE multiply: x is (B, C, 1, 1) or (B, 1, H, W), broadcast
+        # over the frm layer's output, whose shape the result takes
+        return conv_ops.activate(outputs[resolve_route(idx, layer.frm)] * x,
+                                 layer.act).contiguous(
+                                     memory_format=torch.channels_last)
+    if isinstance(layer, AvgPool):
+        # darknet avgpool_layer: the global mean in fp32, kept 4-D
+        return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype) \
+            .contiguous(memory_format=torch.channels_last)
     if isinstance(layer, Upsample):
         y = F.interpolate(x, scale_factor=layer.stride, mode="nearest")
         if layer.scale != 1.0:
@@ -160,6 +214,9 @@ def fold_params(layers: Sequence[LayerSpec], params: NumpyParams,
                          f"{n_weighted} weighted layers")
     folded = []
     for p in params:
+        if "weights" in p:  # weighted shortcut: nothing to fold
+            folded.append({"weights": np.asarray(p["weights"])})
+            continue
         if "gamma" in p:
             scale = np.asarray(p["gamma"]) / np.sqrt(np.asarray(p["var"]) + eps)
             k = np.asarray(p["kernel"])
@@ -173,17 +230,33 @@ def fold_params(layers: Sequence[LayerSpec], params: NumpyParams,
     return folded
 
 
+def _blend_tensor(spec: Shortcut, p, i: int, device) -> torch.Tensor:
+    """A weighted shortcut's blend weights as a (2, n) fp32 tensor."""
+    if set(p) != {"weights"}:
+        raise ValueError(f"weighted layer {i}: expected {{weights}} for "
+                         f"{spec}, got {sorted(p)}")
+    w = np.asarray(p["weights"], np.float32)
+    if w.ndim != 2 or w.shape[0] != 2 or (
+            spec.weights_type == "per_feature" and w.shape[1] != 1):
+        raise ValueError(f"weighted layer {i}: blend weights {w.shape} do "
+                         f"not match {spec}")
+    return torch.from_numpy(w.copy()).to(device)
+
+
 def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                       device, dtype=torch.float32) -> List[Dict[str, Any]]:
     """Folded JAX-package params (HWIO numpy kernels) -> the port's
     tensors: OIHW kernels in ``dtype`` and channels_last memory, fp32
-    biases, all on ``device``."""
+    biases and shortcut blend weights, all on ``device``."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"params_from_numpy: {len(params)} param blocks "
-                         f"for {len(convs)} conv layers")
+                         f"for {len(convs)} weighted layers")
     out = []
     for i, (spec, p) in enumerate(zip(convs, params)):
+        if isinstance(spec, Shortcut):
+            out.append({"weights": _blend_tensor(spec, p, i, device)})
+            continue
         if set(p) != {"kernel", "bias"}:
             raise ValueError(f"conv {i}: expected folded params "
                              f"{{kernel, bias}}, got {sorted(p)} "
@@ -223,15 +296,20 @@ class Darknet(torch.nn.Module):
         self.layers = tuple(layers)
         self.compute_dtype = dtype
         self.device = torch.device(device)
-        convs = weighted_specs(layers)
+        weighted = weighted_specs(layers)
         # the convs the fused kernel takes (graph.py::conv_block's route:
-        # folded bias, leaky or linear, and conv_kernel.eligible)
+        # folded bias, leaky or linear, groups 1, dilation 1, and
+        # conv_kernel.eligible), by weighted-layer index
         self.kernel_eligible = tuple(
-            spec.act in ("leaky", "linear")
+            isinstance(spec, Conv) and spec.act in ("leaky", "linear")
+            and spec.groups == 1 and spec.dilation == 1
             and conv_ops.eligible(np.asarray(p["kernel"]), spec.stride)
-            for spec, p in zip(convs, params))
+            for spec, p in zip(weighted, params))
         for i, p in enumerate(params_from_numpy(layers, params, self.device,
                                                 dtype)):
+            if "weights" in p:
+                self.register_buffer(f"weights{i}", p["weights"])
+                continue
             self.register_buffer(f"kernel{i}", p["kernel"].float())
             self.register_buffer(f"bias{i}", p["bias"])
             if dtype == torch.bfloat16 and self.kernel_eligible[i]:
@@ -267,7 +345,7 @@ class Darknet(torch.nn.Module):
                              f"(torch | cuda)")
         outputs: Dict[int, torch.Tensor] = {}
         heads: List[torch.Tensor] = []
-        conv_i = sum(isinstance(l, Conv) for l in self.layers[:start])
+        conv_i = len(weighted_specs(self.layers[:start]))
         for idx in range(start, len(self.layers)):
             layer = self.layers[idx]
             if isinstance(layer, Conv):
@@ -282,7 +360,14 @@ class Darknet(torch.nn.Module):
                 else:
                     x = conv_ops.fused_conv_bias_act(
                         x, getattr(self, f"kernel{conv_i}"), bias,
-                        act=layer.act, stride=layer.stride)
+                        act=layer.act, stride=layer.stride,
+                        groups=layer.groups, dilation=layer.dilation)
+                conv_i += 1
+            elif isinstance(layer, Shortcut) and \
+                    layer.weights_type != "none":
+                x = _weighted_shortcut(
+                    layer, x, outputs[resolve_route(idx, layer.frm)],
+                    getattr(self, f"weights{conv_i}"))
                 conv_i += 1
             else:
                 x = _weightless_layer(idx, layer, x, outputs, heads)
@@ -300,9 +385,12 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"train_params_from_numpy: {len(params)} param "
-                         f"blocks for {len(convs)} conv layers")
+                         f"blocks for {len(convs)} weighted layers")
     out = []
     for i, (spec, p) in enumerate(zip(convs, params)):
+        if isinstance(spec, Shortcut):
+            out.append({"weights": _blend_tensor(spec, p, i, device)})
+            continue
         want = ({"kernel", "gamma", "beta", "mean", "var"} if spec.bn
                 else {"kernel", "bias"})
         if set(p) != want:
@@ -327,12 +415,12 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
     """graph.py::conv_block(train=True): conv, BN on batch statistics
     (or bias), the activation, cast to the compute dtype. Returns (y,
     new_mean, new_var); the statistics are None without BN."""
-    pad = spec.size // 2
+    conv = dict(stride=spec.stride, padding=(spec.size // 2) * spec.dilation,
+                dilation=spec.dilation, groups=spec.groups)
     if compute_dtype == torch.float32:
-        y = F.conv2d(x, kernel, stride=spec.stride, padding=pad)
+        y = F.conv2d(x, kernel, **conv)
     else:
-        y = F.conv2d(x.to(compute_dtype), kernel.to(compute_dtype),
-                     stride=spec.stride, padding=pad)
+        y = F.conv2d(x.to(compute_dtype), kernel.to(compute_dtype), **conv)
     new_mean = new_var = None
     if gamma is not None:
         n = y.shape[0] * y.shape[2] * y.shape[3]
@@ -367,8 +455,9 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
 
 class DarknetTrain(torch.nn.Module):
     """The port's layer set in train mode on unfolded params: kernels,
-    gamma, beta and biases are ``nn.Parameter``s, rolling mean and var
-    buffers, all fp32 on ``device`` (``blocks[i]`` holds conv i's).
+    gamma, beta, biases and shortcut blend weights are ``nn.Parameter``s,
+    rolling mean and var buffers, all fp32 on ``device`` (``blocks[i]``
+    holds weighted layer i's).
 
     forward returns (logits, bn_updates) and writes nothing (logits: the
     tuple of head logits for a [yolo] net, as Darknet's): bn_updates
@@ -430,6 +519,12 @@ class DarknetTrain(torch.nn.Module):
                     if mean is not None:
                         bn_updates[conv_i] = {"mean": mean, "var": var}
                     conv_i += 1
+                elif isinstance(layer, Shortcut) and \
+                        layer.weights_type != "none":
+                    x = _weighted_shortcut(
+                        layer, x, outputs[resolve_route(idx, layer.frm)],
+                        self.blocks[conv_i].weights)
+                    conv_i += 1
                 else:
                     x = _weightless_layer(idx, layer, x, outputs, heads)
                 if idx in self._routed:
@@ -450,6 +545,9 @@ class DarknetTrain(torch.nn.Module):
                 src.update(overrides[i])
             p = {k: v.detach().float().cpu().numpy().copy()
                  for k, v in src.items() if k != "kernel"}
+            if "kernel" not in src:   # shortcut blend weights
+                out.append(p)
+                continue
             p["kernel"] = np.ascontiguousarray(
                 src["kernel"].detach().float().cpu().permute(2, 3, 1, 0)
                 .numpy())

@@ -19,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from yolo_tpu_torch.configs.specs import ModelConfig, Route, Shortcut
+from yolo_tpu_torch.configs.specs import (ModelConfig, Route, Sam,
+                                          ScaleChannels, Shortcut)
 from yolo_tpu_torch.models.graph import Darknet
 from yolo_tpu_torch.ops import entry as entry_ops
 from yolo_tpu_torch.ops.cuda import entry_kernel
@@ -79,7 +80,9 @@ def _postprocess(cfg: ModelConfig, logits, *,
     pre = top_k if conf_t >= 0.3 else 2 * top_k
     if yolo:
         masks = [h.mask for h in cfg.yolo_heads]
-        scales = [h.scale_xy for h in cfg.yolo_heads]
+        flags = dict(scales=[h.scale_xy for h in cfg.yolo_heads],
+                     new_coords=[h.new_coords for h in cfg.yolo_heads],
+                     gaussian=[h.gaussian for h in cfg.yolo_heads])
         if head == "fused":
             from yolo_tpu_torch.ops.head import detect_head_yolo
 
@@ -87,11 +90,10 @@ def _postprocess(cfg: ModelConfig, logits, *,
                 logits, cfg.anchors, masks, cfg.num_classes, cfg.input_hw,
                 conf_threshold=conf_t, iou_threshold=iou_t,
                 pre_top_k=pre, max_detections=max_detections,
-                use_kernel=on_cuda, scales=scales, nms_kind=cfg.nms_kind,
-                beta_nms=cfg.beta_nms)
+                use_kernel=on_cuda, nms_kind=cfg.nms_kind,
+                beta_nms=cfg.beta_nms, **flags)
         boxes, scores = decode_yolo(logits, cfg.anchors, masks,
-                                    cfg.num_classes, cfg.input_hw,
-                                    scales=scales)
+                                    cfg.num_classes, cfg.input_hw, **flags)
         return nms_batch(
             boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
             top_k=top_k, max_detections=max_detections, impl=nms_impl,
@@ -114,17 +116,18 @@ def _postprocess(cfg: ModelConfig, logits, *,
 
 def _entry_fusable(cfg: ModelConfig) -> bool:
     """The entry fusion applies (predict.py::_entry_fusable): a conv3x3 +
-    pool2x2 entry, 3 input channels, and routes and shortcuts that
-    resolve without layers 0-1 (relative, never reaching back before
-    layer 2). The port's params are always folded and it has no int8
-    kernels."""
+    pool2x2 entry, 3 input channels, and routes, shortcuts, sam and
+    scale_channels layers that resolve without layers 0-1 (relative,
+    never reaching back before layer 2). The port's params are always
+    folded and it has no int8 kernels."""
     def refs(layer):
         return layer.layers if isinstance(layer, Route) else (layer.frm,)
 
     return (entry_ops.eligible(cfg.layers) and cfg.in_channels == 3
             and all(r < 0 and idx + r >= 2
                     for idx, l in enumerate(cfg.layers)
-                    if isinstance(l, (Route, Shortcut)) for r in refs(l)))
+                    if isinstance(l, (Route, Shortcut, Sam, ScaleChannels))
+                    for r in refs(l)))
 
 
 def detect_raw(cfg: ModelConfig, net: Darknet, images_u8: torch.Tensor, *,

@@ -1,6 +1,7 @@
 """Conv + folded-BN bias + activation block, plain PyTorch (port of the
 math of yolo_tpu/ops/pallas/conv_kernel.py::fused_conv_bias_act, and of
-the XLA conv block yolo_tpu/models/graph.py::conv_block runs for mish).
+the XLA conv block yolo_tpu/models/graph.py::conv_block runs for the
+other activations and for grouped and dilated convs).
 
 Layouts are the Darknet executor's: activations (B, C, H, W) in
 ``torch.channels_last`` memory (NHWC bytes), kernels OIHW in
@@ -9,9 +10,9 @@ channels_last memory (bytes ordered O, ky, kx, I), biases (CO,) fp32.
 Numerics, as in the JAX package: the conv sums the operands' values in
 fp32 (a bf16 input is upcast, and products of bf16 values are exact in
 fp32 and in TF32; an fp32 input runs with TF32 off), the fp32 bias and
-the activation (leaky 0.1, linear, or mish x * tanh(softplus(x))) apply
-to the unrounded sum, and only then is the result cast to the input's
-dtype. The CUDA kernel (``ops/cuda/conv_kernel.py``,
+the activation (leaky 0.1, linear, mish, logistic, swish, relu or
+ramp) apply to the unrounded sum, and only then is the result cast to
+the input's dtype. The CUDA kernel (``ops/cuda/conv_kernel.py``,
 ``csrc/conv_bias_act.cu``) is held against this function; it takes
 leaky and linear only, as the JAX package's kernel route does.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from yolo_tpu_torch.configs.specs import ACTIVATIONS
 from yolo_tpu_torch.ops.precision import exact_for
 
 
@@ -40,33 +42,58 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 
 
 def activate(x: torch.Tensor, act: str) -> torch.Tensor:
-    """The port's activations (graph.py::_activate): leaky (0.1),
-    linear, mish."""
+    """The darknet activations of graph.py::_activate: leaky (0.1),
+    linear, mish, logistic, swish (x * sigmoid(x)), relu and ramp
+    (max(x, 0) + 0.1 * x). Below fp32 (a bf16 sam, scale_channels or
+    shortcut output) each operation rounds to x's dtype in the JAX
+    package's order: 0.1 a bf16 constant, sigmoid as 1 / (1 + exp(-x))."""
+    if x.element_size() < 4 and act in ("leaky", "logistic", "swish",
+                                        "ramp"):
+        return _activate_rounded(x, act)
     if act == "leaky":
         return F.leaky_relu(x, 0.1)
-    if act == "mish":
-        return mish(x)
     if act == "linear":
         return x
+    if act == "mish":
+        return mish(x)
+    if act == "logistic":
+        return torch.sigmoid(x)
+    if act == "swish":
+        return x * torch.sigmoid(x)
+    if act == "relu":
+        return torch.clamp_min(x, 0.0)
+    if act == "ramp":
+        return torch.clamp_min(x, 0.0) + 0.1 * x
     raise ValueError(f"unknown activation {act!r}")
+
+
+def _activate_rounded(x: torch.Tensor, act: str) -> torch.Tensor:
+    tenth = torch.tensor(0.1, dtype=x.dtype, device=x.device)
+    if act == "leaky":
+        return torch.where(x > 0, x, x * tenth)
+    if act == "ramp":
+        return torch.clamp_min(x, 0.0) + x * tenth
+    sig = 1 / (1 + torch.exp(-x))
+    return sig if act == "logistic" else x * sig
 
 
 def fused_conv_bias_act(x: torch.Tensor, kernel: torch.Tensor,
                         bias: torch.Tensor, *, act: str = "leaky",
-                        stride: int = 1) -> torch.Tensor:
-    """x (B, CIN, H, W), kernel (CO, CIN, ks, ks), bias (CO,) fp32 ->
-    (B, CO, H', W') in x.dtype. Darknet padding ks // 2 (SAME at
-    stride 1)."""
-    if act not in ("leaky", "linear", "mish"):
-        raise ValueError(f"act must be 'leaky', 'linear' or 'mish', got "
-                         f"{act!r}")
+                        stride: int = 1, groups: int = 1,
+                        dilation: int = 1) -> torch.Tensor:
+    """x (B, CIN, H, W), kernel (CO, CIN / groups, ks, ks), bias (CO,)
+    fp32 -> (B, CO, H', W') in x.dtype. Darknet padding (ks // 2) *
+    dilation (SAME at stride 1, dilated or not)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
     with exact_for(x.dtype):
         y = F.conv2d(x.float(), kernel.float(), stride=stride,
-                     padding=kernel.shape[-1] // 2)
+                     padding=(kernel.shape[-1] // 2) * dilation,
+                     dilation=dilation, groups=groups)
     # fp32 epilogue, in place on the conv's fresh output
     y.add_(bias[None, :, None, None])
     if act == "leaky":
         F.leaky_relu(y, 0.1, inplace=True)
-    elif act == "mish":
-        y = mish(y)
+    else:
+        y = activate(y, act)
     return y.to(x.dtype)

@@ -9,9 +9,15 @@ classes only).
   bx = (sigmoid(tx) * s - (s - 1) / 2 + cx) / W
   bw = pw * exp(tw) / net_w,    bh = ph * exp(th) / net_h
   conf = sigmoid(to), p = sigmoid(tc) per class, score = conf * p
+scaled-yolov4 new_coords heads, values already logistic (v):
+  bx = (v * s - (s - 1) / 2 + cx) / W, bw = 4 v^2 pw / net_w,
+  conf = v_o, p = v_c
+[Gaussian_yolo] heads, 9+C channels an anchor [x, ux, y, uy, w, uw, h,
+uh, obj, cls...]: the box from x/y/w/h as [yolo], score = sigmoid(obj)
+* (1 - mean(sigmoid(u))) * sigmoid(cls).
 
 No tw/th clamp, as in the JAX package. YOLO9000 tree decode is ROADMAP
-A10; new_coords and Gaussian [yolo] heads are A8b.
+A10.
 """
 
 from __future__ import annotations
@@ -54,30 +60,51 @@ def decode_region_boxes(sx, sy, tw, th, anchors, h: int, w: int):
 
 
 def decode_yolo(head_logits, anchors_px, masks, num_classes: int,
-                net_size, scales=None):
+                net_size, scales=None, new_coords=None, gaussian=None):
     """[yolo] decode of every head, merged: head_logits a sequence of
-    (B, Hs, Ws, As*(5+C)); masks per-head indices into anchors_px;
-    net_size int or (net_h, net_w); scales per-head scale_x_y (default
-    1). Returns boxes (B, N, 4) net-normalized xywh and scores (B, N, C),
-    N the heads' Hs*Ws*As in head order, fp32."""
-    scales = scales or [1.0] * len(masks)
+    (B, Hs, Ws, As*(5+C)) (As*(9+C) for a Gaussian head); masks per-head
+    indices into anchors_px; net_size int or (net_h, net_w); scales
+    per-head scale_x_y (default 1); new_coords per-head scaled-yolov4
+    flags (the values arrive logistic-activated: xy and wh from them
+    directly, conf and classes as they are); gaussian per-head
+    [Gaussian_yolo] flags (interleaved [x, ux, y, uy, w, uw, h, uh, obj,
+    cls...]; score scaled by 1 - mean(sigmoid(u))). Returns boxes (B, N,
+    4) net-normalized xywh and scores (B, N, C), N the heads' Hs*Ws*As in
+    head order, fp32 (decode.py::decode_yolo)."""
+    n_heads = len(masks)
+    scales = scales or [1.0] * n_heads
+    new_coords = new_coords or [False] * n_heads
+    gaussian = gaussian or [False] * n_heads
     all_boxes, all_scores = [], []
-    for logits, mask, s_xy in zip(head_logits, masks, scales, strict=True):
+    for logits, mask, s_xy, nc, ga in zip(head_logits, masks, scales,
+                                          new_coords, gaussian, strict=True):
         b, h, w, _ = logits.shape
-        t = logits.to(torch.float32).reshape(b, h, w, len(mask),
-                                             5 + num_classes)
-        boxes = decode_head_boxes(t, anchors_px, mask, s_xy, net_size)
-        scores = torch.sigmoid(t[..., 4])[..., None] \
-            * torch.sigmoid(t[..., 5:])
+        t = logits.to(torch.float32).reshape(
+            b, h, w, len(mask), (9 if ga else 5) + num_classes)
+        if ga:
+            boxes = decode_head_boxes(t[..., [0, 2, 4, 6]], anchors_px,
+                                      mask, s_xy, net_size)
+            uc = torch.sigmoid(t[..., [1, 3, 5, 7]]).mean(dim=-1)
+            conf = torch.sigmoid(t[..., 8]) * (1.0 - uc)
+            probs = torch.sigmoid(t[..., 9:])
+        else:
+            boxes = decode_head_boxes(t, anchors_px, mask, s_xy, net_size,
+                                      new_coords=nc)
+            conf = t[..., 4] if nc else torch.sigmoid(t[..., 4])
+            probs = t[..., 5:] if nc else torch.sigmoid(t[..., 5:])
         all_boxes.append(boxes.reshape(b, -1, 4))
-        all_scores.append(scores.reshape(b, -1, num_classes))
+        all_scores.append((conf[..., None] * probs).reshape(b, -1,
+                                                            num_classes))
     return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
 
-def decode_head_boxes(t, anchors_px, mask, s_xy: float, net_size):
+def decode_head_boxes(t, anchors_px, mask, s_xy: float, net_size,
+                      new_coords: bool = False):
     """(B, H, W, A, 5+C) fp32 head activations -> (B, H, W, A, 4)
     normalized xywh: the [yolo] box math, shared by decode_yolo and the
-    training loss's ignore gate and iou-family box terms."""
+    training loss's ignore gate and iou-family box terms. new_coords:
+    the values are logistic-activated already, xy skips the sigmoid and
+    wh = (2v)^2 * anchor instead of exp."""
     net_h, net_w = as_hw(net_size)
     _, h, w, _, _ = t.shape
     anch = torch.as_tensor(anchors_px, dtype=torch.float32,
@@ -87,8 +114,16 @@ def decode_head_boxes(t, anchors_px, mask, s_xy: float, net_size):
     cy = torch.arange(h, dtype=torch.float32,
                       device=t.device)[None, :, None, None]
     off = (s_xy - 1.0) / 2.0
-    bx = (torch.sigmoid(t[..., 0]) * s_xy - off + cx) / w
-    by = (torch.sigmoid(t[..., 1]) * s_xy - off + cy) / h
-    bw = anch[None, None, None, :, 0] * torch.exp(t[..., 2]) / net_w
-    bh = anch[None, None, None, :, 1] * torch.exp(t[..., 3]) / net_h
+    vx = t[..., 0] if new_coords else torch.sigmoid(t[..., 0])
+    vy = t[..., 1] if new_coords else torch.sigmoid(t[..., 1])
+    bx = (vx * s_xy - off + cx) / w
+    by = (vy * s_xy - off + cy) / h
+    if new_coords:
+        bw = 4.0 * torch.square(t[..., 2]) * anch[None, None, None, :, 0] \
+            / net_w
+        bh = 4.0 * torch.square(t[..., 3]) * anch[None, None, None, :, 1] \
+            / net_h
+    else:
+        bw = anch[None, None, None, :, 0] * torch.exp(t[..., 2]) / net_w
+        bh = anch[None, None, None, :, 1] * torch.exp(t[..., 3]) / net_h
     return torch.stack([bx, by, bw, bh], dim=-1)

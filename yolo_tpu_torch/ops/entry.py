@@ -29,11 +29,12 @@ from yolo_tpu_torch.ops.precision import no_tf32
 
 def eligible(layers) -> bool:
     """The fusion applies when the graph starts conv(3x3, stride 1,
-    leaky) -> maxpool(2, 2) (entry_kernel.py::eligible; the port's Conv
-    has no groups or dilation, which it never takes)."""
+    ungrouped, undilated, leaky) -> maxpool(2, 2)
+    (entry_kernel.py::eligible)."""
     return (len(layers) >= 2 and isinstance(layers[0], Conv)
             and layers[0].size == 3 and layers[0].act == "leaky"
-            and layers[0].stride == 1
+            and layers[0].stride == 1 and layers[0].groups == 1
+            and layers[0].dilation == 1
             and isinstance(layers[1], MaxPool)
             and layers[1].size == 2 and layers[1].stride == 2)
 

@@ -73,24 +73,46 @@ def detect_head_yolo(head_logits, anchors_px, masks, num_classes: int,
                      iou_threshold: float, pre_top_k: int = 256,
                      max_detections: int = 100, use_kernel: bool = True,
                      scales=None, nms_kind: str = "greedy",
-                     beta_nms: float = 0.6):
+                     beta_nms: float = 0.6, new_coords=None,
+                     gaussian=None):
     """Fused [yolo] multi-head: the objectness top-KB over every head's
     boxes (flat index (j*W + i)*A + a within a head, the heads
     concatenated in order), decode and sigmoid classes for those only,
     then steps 4-5 as detect_head. Boxes net-normalized xywh; net_size
-    int or (net_h, net_w); scales per-head scale_x_y."""
+    int or (net_h, net_w); scales per-head scale_x_y.
+
+    new_coords: per-head scaled-yolov4 flags (conf, classes and xy taken
+    as they are, wh = (2v)^2 * anchor). gaussian: per-head
+    [Gaussian_yolo] flags; such a head is remapped into the shared 5+C
+    view, its means in the xywh slots and in slot 4 the activated
+    confidence sigmoid(obj) * (1 - mean(sigmoid(u))). Both keep score <=
+    conf, so the prefilter's envelope holds (head.py::detect_head_yolo).
+    Where heads mix, each value is selected per box with torch.where,
+    so a classic head's exp overflow cannot reach a new_coords box
+    through inf * 0."""
     net_h, net_w = as_hw(net_size)
     c = num_classes
     b = head_logits[0].shape[0]
     dev = head_logits[0].device
     anchors_np = np.asarray(anchors_px, dtype=np.float32)
-    scales = scales or [1.0] * len(masks)
+    n_heads = len(masks)
+    scales = scales or [1.0] * n_heads
+    new_coords = new_coords or [False] * n_heads
+    gaussian = gaussian or [False] * n_heads
     # per-box decode constants, in the flat order
     ts, meta = [], []
-    for logits, mask, s_xy in zip(head_logits, masks, scales, strict=True):
+    for logits, mask, s_xy, nc, ga in zip(head_logits, masks, scales,
+                                          new_coords, gaussian, strict=True):
         _, h, w, _ = logits.shape
         a = len(mask)
-        ts.append(logits.to(torch.float32).reshape(b, h * w * a, 5 + c))
+        if ga:
+            raw = logits.to(torch.float32).reshape(b, h * w * a, 9 + c)
+            uc = torch.sigmoid(raw[..., [1, 3, 5, 7]]).mean(dim=-1)
+            conf = torch.sigmoid(raw[..., 8]) * (1.0 - uc)
+            ts.append(torch.cat([raw[..., [0, 2, 4, 6]], conf[..., None],
+                                 raw[..., 9:]], dim=-1))
+        else:
+            ts.append(logits.to(torch.float32).reshape(b, h * w * a, 5 + c))
         jj, ii, aa = np.meshgrid(np.arange(h), np.arange(w), np.arange(a),
                                  indexing="ij")
         n = h * w * a
@@ -98,24 +120,48 @@ def detect_head_yolo(head_logits, anchors_px, masks, num_classes: int,
             ii.reshape(-1), jj.reshape(-1), np.full(n, w), np.full(n, h),
             anchors_np[np.asarray(mask), 0][aa.reshape(-1)],
             anchors_np[np.asarray(mask), 1][aa.reshape(-1)],
-            np.full(n, s_xy)]).astype(np.float32))
+            np.full(n, s_xy), np.full(n, float(nc)),
+            # conf-direct: slot 4 is already an activated confidence
+            np.full(n, float(nc or ga))]).astype(np.float32))
     t = torch.cat(ts, dim=1)                                  # (B, N, 5+C)
-    cx, cy, gw, gh, pw, ph, sc = torch.from_numpy(
+    cx, cy, gw, gh, pw, ph, sc, ncf, cdf = torch.from_numpy(
         np.concatenate(meta, axis=1)).to(dev)
     n = t.shape[1]
+    all_nc, any_nc = all(new_coords), any(new_coords)
+    cds = [x or g for x, g in zip(new_coords, gaussian)]
 
-    conf_all = torch.sigmoid(t[..., 4])
+    def mix(nc_val, classic_val, nc_mask):
+        """Per-box select; one branch when the heads agree."""
+        if all_nc:
+            return nc_val
+        if not any_nc:
+            return classic_val
+        return torch.where(nc_mask > 0, nc_val, classic_val)
+
+    if all(cds):
+        conf_all = t[..., 4]
+    elif not any(cds):
+        conf_all = torch.sigmoid(t[..., 4])
+    else:
+        conf_all = torch.where(cdf[None, :] > 0, t[..., 4],
+                               torch.sigmoid(t[..., 4]))
     kb = min(pre_top_k, n)
     conf_k, nidx = _top_k(conf_all, kb)                       # (B, KB)
     tk = torch.gather(t, 1, nidx[..., None].expand(-1, -1, 5 + c))
     s_k = sc[nidx]
+    nc_k = ncf[nidx]
     off = (s_k - 1.0) / 2.0
-    bx = (torch.sigmoid(tk[..., 0]) * s_k - off + cx[nidx]) / gw[nidx]
-    by = (torch.sigmoid(tk[..., 1]) * s_k - off + cy[nidx]) / gh[nidx]
-    bw = torch.exp(tk[..., 2]) * pw[nidx] / net_w
-    bh = torch.exp(tk[..., 3]) * ph[nidx] / net_h
+    vx = mix(tk[..., 0], torch.sigmoid(tk[..., 0]), nc_k)
+    vy = mix(tk[..., 1], torch.sigmoid(tk[..., 1]), nc_k)
+    bx = (vx * s_k - off + cx[nidx]) / gw[nidx]
+    by = (vy * s_k - off + cy[nidx]) / gh[nidx]
+    bw = mix(4.0 * torch.square(tk[..., 2]), torch.exp(tk[..., 2]),
+             nc_k) * pw[nidx] / net_w
+    bh = mix(4.0 * torch.square(tk[..., 3]), torch.exp(tk[..., 3]),
+             nc_k) * ph[nidx] / net_h
     boxes_kb = torch.stack([bx, by, bw, bh], dim=-1)          # (B, KB, 4)
-    scores_kb = conf_k[..., None] * torch.sigmoid(tk[..., 5:])
+    probs = mix(tk[..., 5:], torch.sigmoid(tk[..., 5:]), nc_k[..., None])
+    scores_kb = conf_k[..., None] * probs
 
     scores_k, idx = _top_k(scores_kb.reshape(b, kb * c), kb)  # (B, K)
     classes_k = (idx % c).to(torch.int32)

@@ -81,6 +81,83 @@ class TrainConfig:
     grad_accum: int = 1
 
 
+def train_config_from_cfg(cfg_path: str, model_cfg: ModelConfig
+                          ) -> TrainConfig:
+    """The TrainConfig a darknet .cfg's [net] section and head sections
+    give, as the JAX package's train command resolves them with no flag
+    set (cli/train_cmd.py with train_helpers.py::_optimizer_from,
+    _lr_schedule_from and _batch_accum_from): lr 1e-4, momentum 0.9,
+    decay 5e-4, no burn-in, constant lr, SGD and no accumulation where
+    the cfg is silent; policy steps / poly / step / exp / sigmoid / sgdr
+    with their keys, adam=1 with B1/B2/eps, subdivisions as grad_accum,
+    ema_alpha with its start at max_batches // 2; the loss configs from
+    ``model_cfg`` (parsed from the same file). Where the JAX command
+    exits, this raises ValueError; policy=random raises
+    NotImplementedError (lr_random)."""
+    from yolo_tpu_torch.configs.darknet_cfg import net_training_params
+    from yolo_tpu_torch.train.loss import (region_loss_config,
+                                           yolo_loss_config)
+
+    hp = net_training_params(cfg_path)
+    kw = {"optimizer": "adam" if hp.get("adam") else "sgd"}
+    if kw["optimizer"] == "adam":
+        kw.update(adam_b1=hp.get("B1", 0.9), adam_b2=hp.get("B2", 0.999),
+                  adam_eps=hp.get("eps", 1e-7))
+    kw["lr_poly_power"] = float(hp.get("power", 4.0))
+    policy = hp.get("policy", "constant")
+    if policy == "steps":
+        if "steps" not in hp or "scales" not in hp:
+            raise ValueError("[net] policy=steps needs both steps and "
+                             "scales (darknet refuses this cfg too)")
+        if len(hp["steps"]) != len(hp["scales"]):
+            raise ValueError("[net] steps and scales lengths differ")
+        kw.update(lr_decay_steps=hp["steps"], lr_decay_scales=hp["scales"])
+    elif policy == "poly":
+        if not hp.get("max_batches"):
+            raise ValueError("[net] policy=poly needs max_batches "
+                             "(darknet's decay horizon)")
+        kw["lr_poly_max_steps"] = int(hp["max_batches"])
+    elif policy == "step":
+        kw["lr_step_size"] = int(hp.get("step", 1))
+        kw["lr_step_scale"] = float(hp.get("scale", 1.0))
+    elif policy in ("exp", "sigmoid"):
+        gamma = float(hp.get("gamma", 1.0))
+        if gamma <= 0:
+            raise ValueError(f"[net] policy={policy} gamma={gamma:g} must "
+                             f"be > 0")
+        if policy == "exp":
+            kw["lr_exp_gamma"] = gamma
+        else:
+            kw.update(lr_sig_gamma=gamma, lr_sig_step=int(hp.get("step", 1)))
+    elif policy == "sgdr":
+        cycle = int(hp.get("sgdr_cycle", hp.get("max_batches", 0)))
+        if not cycle:
+            raise ValueError("[net] policy=sgdr needs sgdr_cycle or "
+                             "max_batches (the first cycle length)")
+        kw.update(lr_sgdr_cycle=cycle, lr_sgdr_mult=int(hp.get("sgdr_mult",
+                                                               2)),
+                  lr_min=float(hp.get("learning_rate_min", 1e-5)))
+    elif policy == "random":
+        kw["lr_random"] = True
+    batch = int(hp.get("batch", 32))
+    accum = int(hp.get("subdivisions", 1))
+    if accum < 1 or batch % accum:
+        raise ValueError(f"[net] batch={batch} is not divisible by "
+                         f"subdivisions={accum}")
+    tcfg = TrainConfig(
+        learning_rate=hp.get("learning_rate", 1e-4),
+        burn_in_steps=hp.get("burn_in", 0),
+        momentum=hp.get("momentum", 0.9),
+        weight_decay=hp.get("decay", 5e-4), grad_accum=accum,
+        ema_alpha=hp.get("ema_alpha", 0.0),
+        ema_start_step=hp.get("max_batches", 0) // 2,
+        loss=region_loss_config(model_cfg),
+        yolo_loss=yolo_loss_config(model_cfg), **kw)
+    if tcfg.lr_random:
+        lr_schedule(tcfg)   # raises: the draw is jax.random's
+    return tcfg
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and updates: the module (params and rolling
@@ -94,11 +171,12 @@ class TrainState:
 
 
 def _kernel_mask(net: DarknetTrain):
-    """(decayed, not decayed) parameters: darknet decays kernels only."""
+    """(decayed, not decayed) parameters: darknet decays the kernels and
+    the weighted shortcuts' blend weights (loop.py::_kernel_mask)."""
     decay, rest = [], []
     for b in net.blocks:
         for name, p in b.named_parameters(recurse=False):
-            (decay if name == "kernel" else rest).append(p)
+            (decay if name in ("kernel", "weights") else rest).append(p)
     return decay, rest
 
 
@@ -226,7 +304,9 @@ def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int, *,
             mcfg.num_classes, tuple(sub["images"].shape[1:3]),
             tcfg.yolo_loss, scales=[h.scale_xy for h in heads],
             max_deltas=[h.max_delta for h in heads],
-            smooth_eps=[h.label_smooth_eps for h in heads])
+            smooth_eps=[h.label_smooth_eps for h in heads],
+            new_coords=[h.new_coords for h in heads],
+            gaussian=[h.gaussian for h in heads])
     else:
         total, parts = region_loss(logits, sub, mcfg.anchors,
                                    mcfg.num_classes, tcfg.loss, seen)

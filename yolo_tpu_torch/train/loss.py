@@ -15,8 +15,9 @@ scale:
 
 Every term is computed from the raw head logits in fp32 and divided by
 the batch size. The rescore target and the noobj gate carry no gradient,
-as darknet's deltas. yolo_loss is documented at YoloLossConfig. YOLO9000
-tree classes are ROADMAP A10; new_coords and Gaussian heads A8b.
+as darknet's deltas. yolo_loss is documented at YoloLossConfig, with
+the scaled-yolov4 new_coords heads and the Gaussian YOLOv3 heads.
+YOLO9000 tree classes are ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -194,7 +195,16 @@ class YoloLossConfig:
     smooths class targets to y*(1 - eps) + eps/2; focal_loss swaps the
     class BCE for the focal loss (gamma 2, alpha 0.5); truth_thresh < 1
     trains anchors whose best predicted-box IoU beats it as positives
-    toward that truth."""
+    toward that truth.
+
+    Scaled-yolov4 heads (new_coords) arrive logistic-activated (the head
+    conv's activation), and darknet's delta (target - output) on them is
+    the gradient of 0.5*MSE on the activations, so their objectness and
+    class terms are 0.5*MSE and their box term an iou-family loss (mse
+    raises, as in the JAX package). [Gaussian_yolo] heads take the
+    paper's per-coordinate Gaussian NLL (arXiv:1904.04620, gaussian_nll)
+    over the encoded targets with sigma = sigmoid(u), weighted by
+    (2 - w*h), and BCE objectness and classes at their shifted slots."""
     ignore_thresh: float = 0.7
     iou_loss: str = "mse"  # "mse" (yolov3) | "iou"|"giou"|"diou"|"ciou"
     iou_normalizer: float = 1.0
@@ -243,6 +253,19 @@ def _clip_grad(x: torch.Tensor, m: float) -> torch.Tensor:
     return _ClipGrad.apply(x, m)
 
 
+def gaussian_nll(target: torch.Tensor, mu: torch.Tensor,
+                 sigma: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Gaussian YOLOv3 per-coordinate negative log likelihood
+    (loss.py::gaussian_nll, arXiv:1904.04620 eq. 9): -log(N(target | mu,
+    sigma^2) + eps), the variance stabilized by eps, computed in log
+    space (logaddexp) so that no pdf under- or overflows."""
+    var = torch.square(sigma) + eps
+    log_pdf = (-0.5 * torch.log(2.0 * math.pi * var)
+               - torch.square(target - mu) / (2.0 * var))
+    return -torch.logaddexp(log_pdf, torch.log(
+        torch.tensor(eps, dtype=torch.float32, device=log_pdf.device)))
+
+
 def _ignore_gate(best_iou: torch.Tensor, thresh: float) -> torch.Tensor:
     """1.0 where an anchor's best predicted-box IoU with any truth is
     below the ignore threshold (it pays the noobj term), else 0.0."""
@@ -251,17 +274,19 @@ def _ignore_gate(best_iou: torch.Tensor, thresh: float) -> torch.Tensor:
 
 def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
               masks, num_classes: int, net_size, cfg: YoloLossConfig,
-              scales=None, max_deltas=None, smooth_eps=None
+              scales=None, max_deltas=None, smooth_eps=None,
+              new_coords=None, gaussian=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Multi-head [yolo] loss. head_logits: the tuple of (B, S, S,
-    A*(5+C)) raw outputs (DarknetTrain's); targets from
-    data.targets.encode_batch_yolo as tensors on the logits' device;
-    net_size int or (net_h, net_w). scales: per-head scale_x_y (the mse
-    xy term becomes 0.5*MSE on the scaled sigmoid where != 1).
-    max_deltas / smooth_eps: per-head overrides of cfg.max_delta /
-    cfg.label_smooth_eps (None falls back to the cfg; an explicit 0
-    disables). Returns (total loss per image, parts dict with coord /
-    obj / noobj / class)."""
+    A*(5+C)) raw outputs (DarknetTrain's; A*(9+C) for a Gaussian head);
+    targets from data.targets.encode_batch_yolo as tensors on the
+    logits' device; net_size int or (net_h, net_w). scales: per-head
+    scale_x_y (the mse xy term becomes 0.5*MSE on the scaled sigmoid
+    where != 1). max_deltas / smooth_eps: per-head overrides of
+    cfg.max_delta / cfg.label_smooth_eps (None falls back to the cfg; an
+    explicit 0 disables). new_coords / gaussian: per-head flags of the
+    scaled-yolov4 and Gaussian heads (YoloLossConfig). Returns (total
+    loss per image, parts dict with coord / obj / noobj / class)."""
     net_h, net_w = as_hw(net_size)
     c = num_classes
     b = head_logits[0].shape[0]
@@ -272,11 +297,33 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
     scales = scales or [1.0] * n_heads
     max_deltas = max_deltas or [None] * n_heads
     smooth_eps = smooth_eps or [None] * n_heads
+    new_coords = new_coords or [False] * n_heads
+    gaussian = gaussian or [False] * n_heads
+    if any(gaussian) and any(new_coords):
+        raise NotImplementedError(
+            "[Gaussian_yolo] + new_coords heads cannot be combined")
+    if any(new_coords) and cfg.iou_loss == "mse":
+        raise NotImplementedError(
+            "[yolo] new_coords=1 training requires an iou-family "
+            "iou_loss (iou/giou/diou/ciou — every scaled-yolov4 cfg "
+            "uses ciou); the mse combination's sqrt wh targets are "
+            "not encoded")
+    if cfg.focal_loss and any(new_coords):
+        raise NotImplementedError(
+            "[yolo] focal_loss=1 with new_coords=1 heads is not "
+            "supported (the scaled family's class term is "
+            "activation-space MSE, not BCE; no published cfg combines "
+            "them)")
     if cfg.focal_loss and (cfg.label_smooth_eps
                            or any(e for e in smooth_eps if e)):
         raise NotImplementedError(
             "[yolo] focal_loss=1 with label_smooth_eps is not supported "
             "(the focal p_t is undefined for soft targets)")
+    if cfg.truth_thresh < 1.0 and any(gaussian):
+        raise NotImplementedError(
+            "[yolo] truth_thresh < 1 with [Gaussian_yolo] heads is "
+            "not supported (the multi-truth box term would need the "
+            "Gaussian NLL; no published cfg combines them)")
     # classic AlexeyAB: cls_normalizer scales objectness; with
     # obj_normalizer set it scales objectness and cls_normalizer the
     # class term
@@ -284,19 +331,20 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
           else cfg.obj_normalizer)
     cls_n = 1.0 if cfg.obj_normalizer is None else cfg.cls_normalizer
 
-    def cls_elem(t_cls, onehot):
-        if cfg.focal_loss:
-            p = torch.sigmoid(t_cls)
-            pt = onehot * p + (1.0 - onehot) * (1.0 - p)
-            return 0.5 * (1.0 - pt) ** 2 * _bce(t_cls, onehot)
-        return _bce(t_cls, onehot)
-
-    for h, (logits, mask, s_xy) in enumerate(zip(head_logits, masks, scales,
-                                                 strict=True)):
+    for h, (logits, mask, s_xy, nc, ga) in enumerate(zip(
+            head_logits, masks, scales, new_coords, gaussian, strict=True)):
         _, sh, sw, _ = logits.shape
         a = len(mask)
-        t = logits.to(torch.float32).reshape(b, sh, sw, a, 5 + c)
-        md = max_deltas[h] if max_deltas[h] is not None else cfg.max_delta
+        sig = None
+        if ga:
+            # interleaved (9+C): the means and the rest as a 5+C view
+            tg = logits.to(torch.float32).reshape(b, sh, sw, a, 9 + c)
+            sig = torch.sigmoid(tg[..., [1, 3, 5, 7]])
+            t = torch.cat([tg[..., [0, 2, 4, 6]], tg[..., 8:]], dim=-1)
+        else:
+            t = logits.to(torch.float32).reshape(b, sh, sw, a, 5 + c)
+        md = None if ga else (max_deltas[h] if max_deltas[h] is not None
+                              else cfg.max_delta)
         # the clamp reaches the box terms only; obj and class keep t
         t_box = (torch.cat([_clip_grad(t[..., :4], md / b), t[..., 4:]],
                            dim=-1) if md else t)
@@ -305,7 +353,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
         coord_w = targets[f"coord_w_{h}"]
 
         pred_boxes = decode_head_boxes(t_box, anchors_px, mask, s_xy,
-                                       net_size)
+                                       net_size, new_coords=nc)
         off = (s_xy - 1.0) / 2.0
         iou_all = _iou_xywh_pairwise(pred_boxes.reshape(b, -1, 4),
                                      targets["gt_boxes"])
@@ -320,13 +368,28 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
         noobj_mask = (1.0 - obj) * _ignore_gate(best_iou, cfg.ignore_thresh)
         if mt is not None:
             noobj_mask = noobj_mask * (1.0 - mt)
-        obj_bce = _bce(t[..., 4], 1.0)
-        noobj_bce = _bce(t[..., 4], 0.0)
+        if nc:
+            # activated objectness: 0.5*MSE, whose gradient is darknet's
+            # (target - output); the conv's logistic supplies p(1 - p)
+            obj_bce = 0.5 * (1.0 - t[..., 4]) ** 2
+            noobj_bce = 0.5 * torch.square(t[..., 4])
+        else:
+            obj_bce = _bce(t[..., 4], 1.0)
+            noobj_bce = _bce(t[..., 4], 0.0)
         parts["obj"] = parts["obj"] + on * torch.sum(obj * obj_bce) / b
         parts["noobj"] = (parts["noobj"]
                           + on * torch.sum(noobj_mask * noobj_bce) / b)
 
-        if cfg.iou_loss != "mse":
+        if ga:
+            mu_x = torch.sigmoid(t_box[..., 0]) * s_xy - off
+            mu_y = torch.sigmoid(t_box[..., 1]) * s_xy - off
+            nll = (gaussian_nll(tc[..., 0], mu_x, sig[..., 0])
+                   + gaussian_nll(tc[..., 1], mu_y, sig[..., 1])
+                   + gaussian_nll(tc[..., 2], t_box[..., 2], sig[..., 2])
+                   + gaussian_nll(tc[..., 3], t_box[..., 3], sig[..., 3]))
+            parts["coord"] = parts["coord"] + torch.sum(
+                obj * coord_w * nll) / b
+        elif cfg.iou_loss != "mse":
             iou_k = _diag_iou_variant(pred_boxes, targets[f"tbox_{h}"],
                                       cfg.iou_loss)
             parts["coord"] = parts["coord"] + cfg.iou_normalizer * torch.sum(
@@ -344,13 +407,22 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
             parts["coord"] = parts["coord"] + torch.sum(
                 obj * coord_w * (xy + wh)) / b
 
+        def cls_elem(onehot):
+            if nc:
+                return 0.5 * torch.square(t[..., 5:] - onehot)
+            if cfg.focal_loss:
+                p = torch.sigmoid(t[..., 5:])
+                pt = onehot * p + (1.0 - onehot) * (1.0 - p)
+                return 0.5 * (1.0 - pt) ** 2 * _bce(t[..., 5:], onehot)
+            return _bce(t[..., 5:], onehot)
+
         onehot = F.one_hot(targets[f"tcls_{h}"].long(), c).to(torch.float32)
         eps = (smooth_eps[h] if smooth_eps[h] is not None
                else cfg.label_smooth_eps)
         if eps:
             onehot = onehot * (1.0 - eps) + 0.5 * eps
         parts["class"] = parts["class"] + cls_n * torch.sum(
-            obj[..., None] * cls_elem(t[..., 5:], onehot)) / b
+            obj[..., None] * cls_elem(onehot)) / b
 
         if mt is not None:
             # positives toward the best truth, at the anchor's own cell
@@ -364,7 +436,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
             if eps:
                 onehot_mt = onehot_mt * (1.0 - eps) + 0.5 * eps
             parts["class"] = parts["class"] + cls_n * torch.sum(
-                mt[..., None] * cls_elem(t[..., 5:], onehot_mt)) / b
+                mt[..., None] * cls_elem(onehot_mt)) / b
             if cfg.iou_loss != "mse":
                 iou_mt = _diag_iou_variant(pred_boxes, gtb, cfg.iou_loss)
                 parts["coord"] = (parts["coord"] + cfg.iou_normalizer
