@@ -162,6 +162,35 @@ JSON lines; any failed check raises and the script exits non-zero:
               latency at batch 1 and 32, and (b)'s rectangular conv
               shapes held against plain and timed as phase 12 (c)
 
+  16. cli     the command line (yolo_tpu_torch.cli.main in this process,
+              the kernels' counts set to 0 before each command and read
+              after it): (a) predict of YOLOv2-COCO and yolov3 416 on the
+              seeded .weights of phases 4 and 12 and a phase-14 JPEG, bf16
+              and fp32: the printed lines equal a direct load() call's,
+              one NMS launch each, --output writes a PNG and a JPEG the
+              port's decoder reads back at the source's size; the wall
+              time of `python -m yolo_tpu_torch.cli predict` in a new
+              process; (b) detect --images over phase 14's JPEG set at
+              batch COCO_BATCH on the card's letterbox and with
+              --host-preprocess: one NMS launch a batch, the first
+              batch's lines equal direct calls, img/s of the command and
+              without its load of the weights; --output-dir and
+              --save-labels over CLI_OUTPUT_IMAGES of them both ways;
+              (c) eval --coco-json in fp32 prints phase 14's cells and
+              saves its detections; recall runs on the set; (d) train of
+              YOLOv2-VOC 416 from the seeded darknet19 partial file on
+              CLI_TRAIN_SCENES synthetic JPEG scenes (batch 64,
+              subdivisions 8, bf16): CLI_TRAIN_STEPS steps with a
+              checkpoint each, --resume from step CLI_RESUME_STEP to the
+              same count: update, statistics and momentum within phase
+              10's STEP_BOUND / STAT_BOUND of the uninterrupted run's;
+              export to .weights, and load() of it detects as load() of
+              the checkpoint; (e) `python -m yolo_tpu_torch.cli serve` in
+              a subprocess: its answers to JPEG bodies equal direct calls,
+              its GET /stats reports the NMS launches, added to the
+              kernels line's count; no module of jax, yolo_tpu or cv2 is
+              loaded
+
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
 
@@ -183,12 +212,18 @@ once) at 3.35 TB/s and its operations at the card's peak for their type
 (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), computed from this run's
 inputs.
 
+Phase 16's comparisons with direct calls are exact (the same code on
+the same inputs); its resumed training state is held within phase 10's
+bounds, as cuDNN's backward is not promised to be bit-reproducible (it
+read 0.0 on an H100).
+
 Then the kernels line, the nvidia-smi line and, last, the device line
 {"ok": true, "device": {...}}; the line before the kernels line gives the
 script's total seconds. Exits non-zero without printing a result
 when CUDA is not available.
 """
 
+import collections
 import concurrent.futures as cf
 import contextlib
 import dataclasses
@@ -252,6 +287,7 @@ from yolo_tpu_torch.train import loss as loss_mod
 from yolo_tpu_torch.train.loss import region_loss_config, yolo_loss_config
 
 STARTED = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 VARIANT = "coco"          # YOLOv2-COCO, 416x416, 80 classes, 5 anchors
 SRC_HW = (480, 640)
@@ -394,6 +430,17 @@ COCO_REL = 1e-3           # each of the 12 cells, card against CPU
 # are also scored against ground truth made from the CPU's detections
 PSEUDO_GT, PSEUDO_JITTER = 20, 0.15
 HTTP_BODIES = 8
+
+# phase 16: the command line (python -m yolo_tpu_torch.cli) on the card
+CLI_PREDICT = {"coco": "yolov2-coco-seed.weights",
+               "yolov3": "yolov3-seed.weights"}
+CLI_OUTPUT_IMAGES = 64    # detect --output-dir / --save-labels subset
+# train: YOLOv2-VOC 416 from the seeded darknet19 partial file, at
+# yolov2-voc.cfg's batch 64 and subdivisions 8, one step an epoch;
+# --resume from step_2 redoes the third step
+CLI_TRAIN_SCENES, CLI_TRAIN_STEPS, CLI_RESUME_STEP = 64, 3, 2
+CLI_SERVE_BODIES = 4
+SERVE_START_S = 300       # the serve subprocess's time to listen
 
 # phase 15: darknet .cfg files through yolo_tpu_torch.load(cfg=...)
 CFG_ROUND_TRIP = ("coco", "yolov3", "yolov4", "yolov4-tiny")   # (a)
@@ -1087,6 +1134,17 @@ def phase_route_times(model, model32, card) -> None:
                       "ms": ms, "img_per_s": b * 1000 / ms, "card": card})
 
 
+def write_backbone(cfg, root: str, cutoff: int = BACKBONE_LAYERS,
+                   name: str = "darknet19_448.conv.23") -> str:
+    """The seeded backbone partial file (synthetic_detector_params'
+    He-scaled trunk, the first ``cutoff`` layers) -> its path."""
+    n_backbone = len(weighted_specs(cfg.layers[:cutoff]))
+    path = os.path.join(root, name)
+    dw.save(path, cfg.layers[:cutoff],
+            dw.synthetic_detector_params(cfg, SEED)[:n_backbone])
+    return path
+
+
 def fine_tune_init(cfg, root: str, cutoff: int = BACKBONE_LAYERS,
                    name: str = "darknet19_448.conv.23",
                    n_convs: int = 18) -> list:
@@ -1096,9 +1154,7 @@ def fine_tune_init(cfg, root: str, cutoff: int = BACKBONE_LAYERS,
     back with load_partial (``n_convs`` convs), and the tail from
     random_params(scale=0.03)."""
     n_backbone = len(weighted_specs(cfg.layers[:cutoff]))
-    path = os.path.join(root, name)
-    dw.save(path, cfg.layers[:cutoff],
-            dw.synthetic_detector_params(cfg, SEED)[:n_backbone])
+    path = write_backbone(cfg, root, cutoff, name)
     params, header, n = dw.load_partial(path, cfg.layers)
     check(n == n_backbone == n_convs, f"load_partial read {n} convs from "
           f"{name}, want {n_convs}")
@@ -2052,10 +2108,12 @@ def files_to_boxes(cfg, net, paths, route: str, card: str) -> tuple:
     return launches
 
 
-def phase_coco(card: str) -> tuple:
-    """Phase 14 (d)-(e): yolov3 @416 on COCO-format JPEG scenes, scored
-    by evaluate_coco; returns ({kernel: launches}, COCO eval-grid
-    suppress times, the grid's shape)."""
+def phase_coco(card: str, root: str) -> tuple:
+    """Phase 14 (d)-(e): yolov3 @416 on COCO-format JPEG scenes written
+    under root (phase 16 reads them again), scored by evaluate_coco;
+    returns ({kernel: launches}, COCO eval-grid suppress times, the
+    grid's shape, {"json", "paths", "cells", "detections"} of the
+    conv_impl="torch" fp32 eval)."""
     cfg = get_variant(COCO_VARIANT)
     check(cfg.input_hw == (416, 416) and cfg.num_classes == 80,
           f"unexpected config {cfg.name}")
@@ -2063,7 +2121,8 @@ def phase_coco(card: str) -> tuple:
     folded = fold_params(cfg.layers, params, cfg.bn_eps)
     n_batches = -(-COCO_SCENES // COCO_BATCH)
     launches = {"nms": 0, "conv": 0}
-    with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(root)
+    with contextlib.nullcontext(root) as tmp:
         t0 = time.perf_counter()
         sizes = [COCO_SIZES[i % len(COCO_SIZES)] for i in range(COCO_SCENES)]
         json_path = write_coco_scenes(tmp, sizes, SEED + 14)
@@ -2204,7 +2263,8 @@ def phase_coco(card: str) -> tuple:
         emit({"phase": "images", "check": "http_jpeg", "model": cfg.name,
               "requests": stats["requests"], "responses_equal_direct": True,
               "detections_per_image": [len(a) for a in answers]})
-    return launches, timed, grid
+    return launches, timed, grid, {"json": json_path, "paths": paths,
+                                   "cells": cells, "detections": n_dets}
 
 
 def csp_swish_heads(base: str, hw) -> ModelConfig:
@@ -2570,6 +2630,414 @@ def phase_cfg(gen, seeded: dict, card: str) -> dict:
             "rect_bf16": rect}
 
 
+def cli_run(argv) -> tuple:
+    """yolo_tpu_torch.cli.main(argv) in this process, the kernels'
+    counts set to 0 just before -> (stdout, stderr, wall seconds, NMS
+    launches). A command that exits with an error fails the run."""
+    from yolo_tpu_torch import cli
+
+    nms_kernel.launches = conv_kernel.launches = entry_kernel.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main(list(argv))
+    torch.cuda.synchronize()
+    return (out.getvalue(), err.getvalue(), time.perf_counter() - t0,
+            nms_kernel.launches)
+
+
+def cli_lines(text: str) -> list:
+    return [json.loads(l) for l in text.strip().splitlines() if l]
+
+
+def cli_detections(out: dict, names) -> list:
+    """The lines `predict` prints for the first image of a detector
+    output (cli/detect_cmds.py's rounding)."""
+    from yolo_tpu_torch.cli.detect_cmds import _det_json
+
+    o = {k: v[0].cpu().numpy() for k, v in out.items()}
+    keep = np.nonzero(o["valid"])[0]
+    return _det_json(names, o["classes"], o["scores"], o["boxes"][keep],
+                     keep)
+
+
+def cli_subprocess(argv, timeout: float) -> tuple:
+    """python -m yolo_tpu_torch.cli argv in a new process -> (stdout,
+    wall seconds from the start to its exit)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "yolo_tpu_torch.cli",
+                           *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    check(proc.returncode == 0, f"python -m yolo_tpu_torch.cli {argv[0]} "
+          f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def cli_predict(seeded: str, image: str, card: str, launches: dict) -> None:
+    """(a) predict of YOLOv2-COCO and yolov3 416 on a phase-14 JPEG, bf16
+    and fp32: the printed detections equal a direct load() call's, the
+    annotated PNG and JPEG decode at the source's size; the wall time
+    of a new process, bf16."""
+    frame = decode_image(image)
+    for variant, fname in CLI_PREDICT.items():
+        weights = os.path.join(seeded, fname)
+        for precision, ext in (("bf16", "png"), ("fp32", "jpg")):
+            out_img = os.path.join(seeded, f"predict-{variant}.{ext}")
+            argv = ["predict", "--model", variant, "--weights", weights,
+                    "--image", image, "--precision", precision]
+            out, _, wall, n = cli_run(argv + ["--output", out_img])
+            model = yolo_tpu_torch.load(weights, variant, device="cuda",
+                                        precision=precision)
+            direct = cli_detections(model(frame[None]), model.cfg.class_names)
+            got = cli_lines(out)
+            check(got == direct and len(got) > 0, f"predict {variant} "
+                  f"{precision}: {len(got)} printed detections differ from "
+                  f"the direct call's {len(direct)}")
+            check(n == 1, f"predict {variant} {precision}: {n} NMS launches")
+            check(decode_image(out_img).shape == frame.shape,
+                  f"predict --output {out_img} does not decode at "
+                  f"{frame.shape}")
+            launches["nms"] += n
+            row = {"phase": "cli", "command": "predict", "model": variant,
+                   "precision": precision, "detections": len(got),
+                   "nms_launches": n, "seconds_in_process": wall,
+                   "output": ext, "equal_direct": True, "card": card}
+            if precision == "bf16":
+                out, row["seconds_process"] = cli_subprocess(argv, 300)
+                check(cli_lines(out) == direct, f"predict {variant} in a "
+                      f"new process differs from the direct call")
+            emit(row)
+
+
+def detect_batches(n: int, batch: int) -> int:
+    """Batches inference_batches makes of phase 14's n scenes without
+    host preprocessing: each source size (COCO_SIZES, cycled) its own
+    bucket."""
+    sizes = collections.Counter(COCO_SIZES[i % len(COCO_SIZES)]
+                                for i in range(n))
+    return sum(-(-k // batch) for k in sizes.values())
+
+
+def cli_first_batch(model, recs: list, host: bool) -> list:
+    """What the detector gives the first COCO_BATCH images `detect`
+    printed, called directly: on the raw frames (one source size, the
+    card's letterbox) or through the host letterbox
+    (inference_batches -> make_detector_preprocessed, un-letterboxed in
+    float64 as the command does), in the command's rounding."""
+    from yolo_tpu_torch.cli.detect_cmds import _det_json
+    from yolo_tpu_torch.ops.letterbox import unletterbox_boxes_xyxy
+
+    cfg, paths = model.cfg, [r["image"] for r in recs[:COCO_BATCH]]
+    names = cfg.detection_names()
+    if not host:
+        frames_u8 = np.stack([decode_image(p) for p in paths])
+        out = {k: v.cpu().numpy() for k, v in model(frames_u8).items()}
+        shapes = [frames_u8.shape[1:3]] * len(paths)
+    else:
+        batch = next(iter(inference_batches(paths, COCO_BATCH,
+                                            net_size=cfg.input_hw)))
+        out = make_detector_preprocessed(cfg)(
+            model.params, torch.from_numpy(batch["images"]).cuda())
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        shapes = batch["shapes"]
+    got = []
+    for bi, (src_h, src_w) in enumerate(shapes):
+        keep = np.nonzero(out["valid"][bi])[0]
+        boxes = out["boxes"][bi][keep].astype(np.float64)
+        if host:
+            boxes = unletterbox_boxes_xyxy(
+                torch.from_numpy(boxes), src_h=src_h, src_w=src_w,
+                net_size=cfg.input_hw).numpy()
+        got.append(_det_json(names, out["classes"][bi], out["scores"][bi],
+                             boxes, keep))
+    return got
+
+
+def cli_detect(seeded: str, coco: dict, card: str, launches: dict) -> None:
+    """(b) detect --images over phase 14's JPEG set at batch COCO_BATCH,
+    on the card's letterbox and --host-preprocess: the first batch's
+    lines equal direct calls, one NMS launch a batch, img/s of the
+    command (and without its load of the weights); then --output-dir
+    and --save-labels over CLI_OUTPUT_IMAGES of them both ways."""
+    weights = os.path.join(seeded, CLI_PREDICT[COCO_VARIANT])
+    image_dir = os.path.dirname(coco["paths"][0])
+    n = len(coco["paths"])
+    t0 = time.perf_counter()
+    model = yolo_tpu_torch.load(weights, COCO_VARIANT, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for mode, extra, batches in (
+            ("device", [], detect_batches(n, COCO_BATCH)),
+            ("host", ["--host-preprocess"], -(-n // COCO_BATCH))):
+        out, _, wall, nms = cli_run(["detect", "--model", COCO_VARIANT,
+                                     "--weights", weights, "--images",
+                                     image_dir, "--batch", str(COCO_BATCH),
+                                     *extra])
+        recs = cli_lines(out)
+        check(len(recs) == n and nms == batches, f"detect {mode}: {len(recs)}"
+              f" images, {nms} NMS launches, want {n} and {batches}")
+        direct = cli_first_batch(model, recs, mode == "host")
+        check([r["detections"] for r in recs[:COCO_BATCH]] == direct,
+              f"detect {mode}: the first batch's lines differ from the "
+              f"direct calls")
+        launches["nms"] += nms
+        emit({"phase": "cli", "command": "detect", "mode": mode,
+              "model": COCO_VARIANT, "images": n, "batch": COCO_BATCH,
+              "img_per_s": n / wall, "seconds": wall,
+              "load_seconds": load_s,
+              "img_per_s_after_load": n / max(wall - load_s, 1e-9),
+              "nms_launches": nms, "first_batch_equal_direct": True,
+              "detections": sum(len(r["detections"]) for r in recs),
+              "card": card})
+    sub = os.path.join(seeded, "detect_subset")
+    os.makedirs(sub)
+    for p in coco["paths"][:CLI_OUTPUT_IMAGES]:
+        os.symlink(p, os.path.join(sub, os.path.basename(p)))
+    for mode, extra in (("device", []), ("host", ["--host-preprocess"])):
+        ann = os.path.join(seeded, f"annotated-{mode}")
+        out, _, wall, nms = cli_run(["detect", "--model", COCO_VARIANT,
+                                     "--weights", weights, "--images", sub,
+                                     "--batch", str(COCO_BATCH),
+                                     "--output-dir", ann, "--save-labels",
+                                     *extra])
+        launches["nms"] += nms
+        recs = cli_lines(out)
+        written = sorted(os.listdir(ann))
+        check(len(recs) == CLI_OUTPUT_IMAGES and nms > 0
+              and written == sorted(os.path.basename(p) for p in
+                                    coco["paths"][:CLI_OUTPUT_IMAGES]),
+              f"detect --output-dir {mode}: {len(recs)} lines, "
+              f"{len(written)} files, {nms} NMS launches")
+        for r in recs:
+            name = os.path.basename(r["image"])
+            src = decode_image(r["image"])
+            check(decode_image(os.path.join(ann, name)).shape == src.shape,
+                  f"annotated {name} does not decode at {src.shape}")
+            label = os.path.splitext(r["image"])[0] + ".txt"
+            with open(label) as f:
+                rows = [l for l in f.read().splitlines() if l]
+            check(len(rows) == len(r["detections"]), f"--save-labels "
+                  f"{label}: {len(rows)} lines for {len(r['detections'])} "
+                  f"detections")
+            os.remove(label)
+        emit({"phase": "cli", "command": "detect", "mode": mode,
+              "outputs": ["--output-dir", "--save-labels"],
+              "images": CLI_OUTPUT_IMAGES, "seconds": wall,
+              "nms_launches": nms, "annotated_jpegs_decode": True})
+
+
+def cli_eval(seeded: str, coco: dict, card: str, launches: dict) -> None:
+    """(c) eval --coco-json of phase 14's set in fp32 prints phase 14's
+    cells and saves its detections; recall runs on the set."""
+    weights = os.path.join(seeded, CLI_PREDICT[COCO_VARIANT])
+    saved = os.path.join(seeded, "detections.json")
+    out, _, wall, nms = cli_run(["eval", "--model", COCO_VARIANT,
+                                 "--weights", weights, "--coco-json",
+                                 coco["json"], "--metric", "coco",
+                                 "--precision", "fp32", "--batch",
+                                 str(COCO_BATCH), "--save-detections",
+                                 saved])
+    got = cli_lines(out)[-1]
+    want = {k: round(v, 4) for k, v in coco["cells"].items()
+            if k in got}
+    batches = -(-len(coco["paths"]) // COCO_BATCH)
+    with open(saved) as f:
+        n_saved = len(json.load(f))
+    check(all(got[k] == want[k] for k in want) and len(want) >= 12,
+          f"eval --coco-json cells {got} differ from phase 14's {want}")
+    check(n_saved == coco["detections"] and nms == batches,
+          f"eval: {n_saved} saved detections and {nms} NMS launches, want "
+          f"{coco['detections']} and {batches}")
+    launches["nms"] += nms
+    emit({"phase": "cli", "command": "eval", "model": COCO_VARIANT,
+          "metric": "coco", "cells": {k: got[k] for k in want},
+          "equal_phase_14": True, "saved_detections": n_saved,
+          "img_per_s": len(coco["paths"]) / wall, "seconds": wall,
+          "nms_launches": nms, "card": card})
+    out, err, wall, nms = cli_run(["recall", "--model", COCO_VARIANT,
+                                   "--weights", weights, "--coco-json",
+                                   coco["json"], "--batch",
+                                   str(COCO_BATCH)])
+    res = cli_lines(out)[-1]
+    lines = [l for l in err.splitlines() if "RPs/Img" in l]
+    check(res["images"] == len(coco["paths"]) == len(lines)
+          and res["total"] > 0 and 0 <= res["recall"] <= 1,
+          f"recall: {res}, {len(lines)} per-image lines")
+    emit({"phase": "cli", "command": "recall", "model": COCO_VARIANT,
+          "result": res, "seconds": wall, "nms_launches": nms,
+          "card": card})
+
+
+def cli_train(seeded: str, card: str) -> None:
+    """(d) train YOLOv2-VOC 416 from the seeded partial file through the
+    command line: CLI_TRAIN_STEPS bf16 steps with a checkpoint each,
+    then --resume from step CLI_RESUME_STEP to the same step count; the
+    resumed final state matches the uninterrupted one within phase 10's
+    bounds (cuDNN's backward is not bit-reproducible); export to
+    .weights, and load() of that file serves."""
+    cfg = get_variant(TRAIN_VARIANT)
+    root = os.path.join(seeded, "voc")
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        os.makedirs(os.path.join(root, d))
+    t0 = time.perf_counter()
+    pairs = write_voc_scenes(
+        os.path.join(root, "JPEGImages"),
+        [SCENE_HW[i % len(SCENE_HW)] for i in range(CLI_TRAIN_SCENES)],
+        np.random.default_rng(SEED + 16), jpeg_quality=90)
+    for _, xml in pairs:
+        os.rename(xml, os.path.join(root, "Annotations",
+                                    os.path.basename(xml)))
+    with open(os.path.join(root, "ImageSets/Main/train.txt"), "w") as f:
+        f.write("\n".join(os.path.splitext(os.path.basename(p))[0]
+                          for p, _ in pairs) + "\n")
+    backbone = write_backbone(cfg, seeded)
+    data_s = time.perf_counter() - t0
+    argv = ["train", "--model", TRAIN_VARIANT, "--weights", backbone,
+            "--voc-root", root, "--split", "train", "--batch",
+            str(TRAIN_BATCH), "--grad-accum", str(SUBDIVISIONS), "--lr",
+            "0.001", "--burn-in", "1000", "--epochs", str(CLI_TRAIN_STEPS),
+            "--no-augment", "--checkpoint-every", "1"]
+    full, resumed = (os.path.join(seeded, d) for d in ("ck", "ck_resumed"))
+    log = os.path.join(seeded, "train.jsonl")
+    _, err, wall, _ = cli_run(argv + ["--checkpoint-dir", full,
+                                      "--log-file", log])
+    check(sorted(os.listdir(full)) == ["final"] + [
+        f"step_{i}" for i in range(1, CLI_TRAIN_STEPS + 1)],
+        f"train checkpoints {sorted(os.listdir(full))}")
+    with open(log) as f:
+        rates = [r["img_s"] for r in map(json.loads, f)]
+    start = os.path.join(full, f"step_{CLI_RESUME_STEP}")
+    _, err_r, wall_r, _ = cli_run(argv + ["--checkpoint-dir", resumed,
+                                          "--resume", start])
+    check(f"at step {CLI_RESUME_STEP}" in err_r, "train --resume did not "
+          "report its step")
+    from yolo_tpu_torch.io import checkpoint as ckpt
+
+    before, a, b = (ckpt.restore(p) for p in (
+        start, os.path.join(full, "final"), os.path.join(resumed, "final")))
+    check(a["step"] == b["step"] == CLI_TRAIN_STEPS
+          and a["seen"] == b["seen"] == CLI_TRAIN_STEPS * TRAIN_BATCH,
+          f"resumed at step {b['step']} seen {b['seen']}, uninterrupted "
+          f"{a['step']} {a['seen']}")
+
+    def numpy(tree):
+        return [{k: v.numpy() for k, v in p.items()} for p in tree["params"]]
+
+    p0, pa, pb = numpy(before), numpy(a), numpy(b)
+    upd = update_err(p0, pb, pa, {"kernel", "gamma", "beta", "bias"})
+    stat = update_err(p0, pb, pa, {"mean", "var"})
+    mom = max(float(np.linalg.norm(x[k].numpy() - y[k].numpy())
+                    / max(np.linalg.norm(y[k].numpy()), 1e-30))
+              for x, y in zip(b["opt_state"]["momentum_buffer"],
+                              a["opt_state"]["momentum_buffer"]) for k in y)
+    check(upd[0] <= STEP_BOUND and stat[0] <= STAT_BOUND
+          and mom <= STEP_BOUND, f"resumed vs uninterrupted: update "
+          f"{upd}, statistics {stat}, momentum {mom}")
+    exported = os.path.join(seeded, "yolov2-voc-trained.weights")
+    cli_run(["export", "--model", TRAIN_VARIANT, "--checkpoint",
+             os.path.join(full, "final"), "--output", exported])
+    frame = frames(SEED + 16, 1)
+    served = yolo_tpu_torch.load(exported, device="cuda")
+    from_dir = yolo_tpu_torch.load(os.path.join(full, "final"),
+                                   device="cuda")
+    x, y = served(frame), from_dir(frame)
+    check(served.cfg.name == cfg.name and all(torch.equal(x[k], y[k])
+                                              for k in x)
+          and bool(torch.isfinite(x["boxes"]).all()),
+          "load() of the exported .weights differs from load() of the "
+          "checkpoint")
+    emit({"phase": "cli", "command": "train", "model": cfg.name,
+          "batch": TRAIN_BATCH, "grad_accum": SUBDIVISIONS,
+          "precision": "bf16", "steps": CLI_TRAIN_STEPS,
+          "img_per_s_logged": rates, "seconds": wall,
+          "resume_seconds": wall_r, "data_seconds": data_s,
+          "resume_from": CLI_RESUME_STEP, "resumed_vs_uninterrupted": {
+              "update": upd, "statistics": stat, "momentum": mom,
+              "bounds": [STEP_BOUND, STAT_BOUND]},
+          "export_serves": True, "card": card})
+
+
+def cli_serve(seeded: str, coco: dict, card: str, launches: dict) -> None:
+    """(e) `python -m yolo_tpu_torch.cli serve` in a subprocess: its
+    answers to JPEG bodies equal direct calls; its /stats reports the
+    NMS launches of the served requests."""
+    weights = os.path.join(seeded, CLI_PREDICT[COCO_VARIANT])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "yolo_tpu_torch.cli", "serve", "--model",
+         COCO_VARIANT, "--weights", weights, "--port", "0",
+         "--max-batch", "8"], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    lines, listening = [], threading.Event()
+
+    def read_stderr():   # drains the pipe; sets listening at the port
+        for line in proc.stderr:
+            lines.append(line)
+            if re.search(r"serving .* on http://[\d.]+:\d+", line):
+                listening.set()
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        listening.wait(SERVE_START_S)
+        check(listening.is_set(), f"serve did not start within "
+              f"{SERVE_START_S} s: {''.join(lines)[-2000:]}")
+        port = int(re.search(r"serving .* on http://[\d.]+:(\d+)",
+                             "".join(lines)).group(1))
+        start_s = time.perf_counter() - t0
+        bodies = []
+        for p in coco["paths"][:CLI_SERVE_BODIES]:
+            with open(p, "rb") as f:
+                bodies.append(f.read())
+        answers = [post_body(port, b, "image/jpeg") for b in bodies]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=60)
+    model = yolo_tpu_torch.load(weights, COCO_VARIANT, device="cuda")
+    names = model.cfg.detection_names()
+    for i, body in enumerate(bodies):
+        direct = detections_to_json(model(decode_image_bytes(body)[None]),
+                                    names)[0]
+        check(answers[i] == direct, f"serve subprocess: body {i}'s answer "
+              f"differs from the direct call")
+    nms = stats["kernel_launches"]["nms"]
+    check(stats["errors"] == 0 and nms >= 1, f"serve /stats {stats}")
+    launches["nms"] += nms
+    emit({"phase": "cli", "command": "serve", "model": COCO_VARIANT,
+          "requests": stats["requests"], "batches": stats["batches"],
+          "responses_equal_direct": True, "nms_launches": nms,
+          "seconds_to_listen": start_s, "card": card})
+
+
+def phase_cli(seeded: str, coco: dict, card: str) -> dict:
+    """Phase 16: the port's command line on the card -> {kernel:
+    launches} of its commands."""
+    launches = {"nms": 0}
+    t0 = time.perf_counter()
+    cli_predict(seeded, coco["paths"][0], card, launches)
+    cli_detect(seeded, coco, card, launches)
+    cli_eval(seeded, coco, card, launches)
+    cli_train(seeded, card)
+    cli_serve(seeded, coco, card, launches)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
+    check(not foreign, f"the command line loaded {foreign}")
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0,
+          "nms_launches": launches["nms"], "card": card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2653,13 +3121,16 @@ def run(seeded: str) -> int:
     check(get_decoder() == "native", f"decoder {get_decoder()}")
     phase_fixtures()
     phase_decode_rates(card)
-    coco_launches, coco_grid, coco_shape = phase_coco(card)
+    coco_launches, coco_grid, coco_shape, coco = phase_coco(
+        card, os.path.join(seeded, "coco"))
     emit({"phase": "images", "seconds": time.perf_counter() - t0})
 
     cfg_run = phase_cfg(gen, {
         v: os.path.join(seeded, "yolov2-coco-seed.weights" if v == VARIANT
                         else f"{v}-seed.weights") for v in CFG_ROUND_TRIP},
         card)
+
+    cli_launches = phase_cli(seeded, coco, card)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
@@ -2676,7 +3147,7 @@ def run(seeded: str) -> int:
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
          "launches": launches + voc_launches + yolo_launches["nms"]
          + yolo_eval_launches + coco_launches["nms"]
-         + cfg_run["launches"]["nms"],
+         + cfg_run["launches"]["nms"] + cli_launches["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,

@@ -477,8 +477,10 @@ def test_load_rect_cfg_matches_jax_load(tmp_path):
 def test_load_refusals(tmp_path, monkeypatch):
     """load raises as the JAX package's does: a partial-backbone zoo
     entry cannot drive a detector, an absent zoo file raises with its
-    public URL; checkpoint directories are ROADMAP A9g; a rectangular
-    cfg refuses a square input_size."""
+    public URL; a directory that holds no checkpoint of the port raises
+    naming the converter of JAX checkpoints (tests/test_torch_predict.py
+    loads one that does); a rectangular cfg refuses a square
+    input_size."""
     monkeypatch.setenv("YOLO_TPU_WEIGHTS_DIR", str(tmp_path))
     with pytest.raises(ValueError, match="partial backbone"):
         yolo_tpu_torch.load("zoo://darknet19-448-conv23", device="cpu")
@@ -486,7 +488,7 @@ def test_load_refusals(tmp_path, monkeypatch):
         yolo_tpu_torch.load("zoo://yolov3", device="cpu")
     with pytest.raises(KeyError, match="unknown zoo entry"):
         yolo_tpu_torch.load("zoo://nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9g"):
+    with pytest.raises(FileNotFoundError, match="ckpt_to_torch"):
         yolo_tpu_torch.load(str(tmp_path), "coco", device="cpu")
     p = tmp_path / "rect.cfg"
     p.write_text(t_rect.RECT_YOLO_CFG)

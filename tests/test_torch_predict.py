@@ -128,12 +128,30 @@ def test_load_infers_variant_and_rejects_what_is_not_ported(tmp_path,
         yolo_tpu_torch.load(path, device="cpu", precision="int8")
     # zoo entries are local files under YOLO_TPU_WEIGHTS_DIR: an absent
     # one raises with its public URL (tests/test_torch_cfg.py holds the
-    # zoo against the JAX package's); checkpoint directories are A9g
+    # zoo against the JAX package's)
     monkeypatch.setenv("YOLO_TPU_WEIGHTS_DIR", str(tmp_path / "zoo"))
     with pytest.raises(FileNotFoundError, match="pjreddie.com"):
         yolo_tpu_torch.load("zoo://yolov2", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9g"):
-        yolo_tpu_torch.load(str(tmp_path), "tiny-voc", device="cpu")
+    # a checkpoint directory of the port loads (the variant matched by
+    # its params' size) and equals the weights it was saved from; a
+    # directory that holds none raises, naming the converter
+    from yolo_tpu_torch.io import checkpoint
+    from yolo_tpu_torch.io import darknet_weights as dw
+
+    params, _ = dw.load(path, cfg.layers)
+    checkpoint.save(str(tmp_path / "ck"), {
+        "params": [{k: torch.from_numpy(v) for k, v in p.items()}
+                   for p in params], "step": 3, "seen": 12})
+    from_dir = yolo_tpu_torch.load(str(tmp_path / "ck"), device="cpu",
+                                   input_size=64)
+    assert from_dir.cfg == model.cfg
+    for a, b in zip(from_dir.params.state_dict().values(),
+                    model.params.state_dict().values()):
+        assert torch.equal(a, b)
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="ckpt_to_torch"):
+        yolo_tpu_torch.load(str(tmp_path / "empty"), "tiny-voc",
+                            device="cpu")
     # the fused entry route is ported (tests/test_torch_entry.py holds it
     # against the JAX package): same fixed-shape result as the default
     fused = detect_raw(cfg, model.params, torch.from_numpy(_images(0, 1)),
@@ -262,6 +280,8 @@ def test_server_answers_npy_and_png_like_direct_calls(tmp_path):
         status, stats = _request(server.port, "GET", "/stats")
         assert status == 200 and stats["requests"] == 4
         assert stats["errors"] == 0
+        # the CPU path launches no CUDA kernel
+        assert stats["kernel_launches"] == {"nms": 0, "conv": 0, "entry": 0}
     finally:
         server.stop()
     direct = [detections_to_json(model(img[None]), cfg.class_names)[0]

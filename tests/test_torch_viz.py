@@ -1,0 +1,127 @@
+"""The port's image annotation and writers (yolo_tpu_torch/utils/viz.py,
+native/jpeg_enc.c) against cv2, which the JAX package draws and writes
+with (yolo_tpu/utils/viz.py):
+
+  * draw_detections: every pixel outside the label texts' boxes equals
+    the JAX draw_detections' (cv2.rectangle outlines and label
+    backgrounds); the text is the port's own stroke font;
+  * the advance table: text_size equals cv2.getTextSize(FONT_HERSHEY_
+    SIMPLEX, 0.5, 1) for every printable ASCII character, random strings
+    and every built-in class name's label;
+  * PNG: cv2.imread reads the written file back bit for bit;
+  * JPEG (q95, 4:2:0, cv2.imwrite's defaults): the file decodes, by cv2,
+    within 1 grey level of cv2.imwrite's own file of the same array, and
+    the two files are the same bytes."""
+
+import os
+
+import cv2
+import numpy as np
+import pytest
+
+from yolo_tpu.utils import viz as jviz
+from yolo_tpu_torch.configs import VARIANTS
+from yolo_tpu_torch.utils import viz
+
+FONT = cv2.FONT_HERSHEY_SIMPLEX
+
+
+def _glyph_mask(shape, boxes, scores, classes, names, valid=None):
+    """The label texts' boxes: the bounding box of cv2.putText's pixels
+    and the box getTextSize gives (org.x .. org.x + width, org.y -
+    height .. org.y + baseline), the port's strokes lie in the latter."""
+    mask = np.zeros(shape[:2], bool)
+    for i, b in enumerate(boxes):
+        if valid is not None and not valid[i]:
+            continue
+        x1, y1 = (int(round(float(v))) for v in b[:2])
+        label = f"{names[int(classes[i])]} {float(scores[i]):.2f}"
+        t = np.zeros(shape[:2], np.uint8)
+        cv2.putText(t, label, (x1 + 1, y1 - 4), FONT, 0.5, 255, 1,
+                    cv2.LINE_AA)
+        ys, xs = np.nonzero(t)
+        if len(ys):
+            mask[ys.min():ys.max() + 1, xs.min():xs.max() + 1] = True
+        (tw, th), base = cv2.getTextSize(label, FONT, 0.5, 1)
+        mask[max(y1 - 4 - th, 0):max(y1 - 3 + base, 0),
+             max(x1 + 1, 0):max(x1 + 2 + tw, 0)] = True
+    return mask
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("channels", [3, 1])
+def test_draw_detections_matches_cv2_outside_glyphs(seed, channels):
+    rng = np.random.default_rng(seed)
+    h, w = int(rng.integers(60, 200)), int(rng.integers(60, 240))
+    img = rng.integers(0, 256, (h, w, channels), np.uint8)
+    n = 6
+    x1 = rng.uniform(-20, w, n)
+    y1 = rng.uniform(-20, h, n)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(0, w / 2, n),
+                      y1 + rng.uniform(0, h / 2, n)], -1)
+    boxes[0] = [0, 0, w, h]          # clipped to the frame
+    boxes[1, 2:] = boxes[1, :2]      # a zero-size box
+    scores = rng.uniform(0, 1, n)
+    names = VARIANTS["coco"].class_names
+    classes = rng.integers(0, len(names), n)
+    valid = rng.uniform(0, 1, n) < 0.8
+    want = jviz.draw_detections(img, boxes, scores, classes, names, valid)
+    got = viz.draw_detections(img, boxes, scores, classes, names, valid)
+    assert got.shape == want.shape == (h, w, 3) and got.dtype == np.uint8
+    outside = ~_glyph_mask(img.shape, boxes, scores, classes, names, valid)
+    assert outside.mean() > 0.5
+    np.testing.assert_array_equal(got[outside], want[outside])
+    # the port's text is drawn: black strokes inside the glyph boxes
+    assert (got[~outside] == 0).all(-1).any()
+
+
+def test_advance_table_equals_cv2_text_size():
+    rng = np.random.default_rng(0)
+    printable = [chr(c) for c in range(32, 127)]
+    texts = printable + ["".join(rng.choice(printable, int(k)))
+                         for k in rng.integers(1, 30, 300)]
+    names = {n for cfg in VARIANTS.values() for n in cfg.class_names}
+    texts += [f"{n} {s:.2f}" for n in sorted(names)
+              for s in (0.0, 0.05, 0.5, 0.99, 1.0)]
+    for t in texts:
+        (tw, th), _ = cv2.getTextSize(t, FONT, 0.5, 1)
+        assert viz.text_size(t) == (tw, th), t
+
+
+@pytest.mark.parametrize("shape", [(37, 53, 3), (64, 80, 1), (1, 1, 3)])
+def test_png_round_trips_through_cv2(tmp_path, shape):
+    img = np.random.default_rng(1).integers(0, 256, shape, np.uint8)
+    path = str(tmp_path / "a.png")
+    viz.save_image(path, img)
+    back = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    back = back[..., ::-1] if shape[2] == 3 else back[..., None]
+    np.testing.assert_array_equal(back, img)
+
+
+@pytest.mark.parametrize("shape, smooth", [
+    ((120, 160, 3), False), ((37, 53, 3), False), ((1, 1, 3), False),
+    ((17, 9, 3), False), ((16, 16, 3), False), ((33, 47, 1), False),
+    ((480, 640, 3), True), ((96, 128, 1), True)])
+def test_jpeg_matches_cv2_imwrite(tmp_path, shape, smooth):
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, shape, np.uint8)
+    if smooth:   # a natural-image spectrum as well as noise
+        img = cv2.GaussianBlur(img, (9, 9), 3).reshape(shape)
+    want_path, got_path = str(tmp_path / "cv2.jpg"), str(tmp_path / "p.jpg")
+    assert cv2.imwrite(want_path, img[..., ::-1] if shape[2] == 3
+                       else img[..., 0])
+    viz.save_image(got_path, img)
+    want = cv2.imread(want_path, cv2.IMREAD_UNCHANGED).astype(np.int64)
+    got = cv2.imread(got_path, cv2.IMREAD_UNCHANGED).astype(np.int64)
+    assert int(np.abs(got - want).max()) <= 1
+    with open(got_path, "rb") as a, open(want_path, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_save_image_refuses_what_it_cannot_write(tmp_path):
+    img = np.zeros((4, 4, 3), np.uint8)
+    with pytest.raises(OSError, match="bmp"):
+        viz.save_image(str(tmp_path / "a.bmp"), img)
+    with pytest.raises(OSError):
+        viz.save_image(str(tmp_path / "missing" / "a.png"), img)
+    assert not os.path.exists(tmp_path / "a.bmp")

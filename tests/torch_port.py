@@ -128,3 +128,44 @@ def check_fused_entry_route(tmp_path, variant, size, dtype, conf):
         for a, b in ((want, got), (got, want)):
             hit, total = matched(a, b, cfg.conf_threshold)
             assert total >= 5 and hit == total
+
+
+class PortCli:
+    """yolo_tpu_torch.cli in the place of yolo_tpu.cli for the JAX
+    package's CLI tests: the same argv, plus ``--device cpu`` on the
+    commands that compute."""
+    COMPUTING = ("predict", "classify", "detect", "train", "eval", "test",
+                 "recall", "serve")
+
+    @classmethod
+    def main(cls, argv):
+        from yolo_tpu_torch.cli import main
+
+        argv = list(argv)
+        main(argv + (["--device", "cpu"] if argv[0] in cls.COMPUTING
+                     else []))
+
+
+def rerun_jax_test(module, name: str, fixtures: dict):
+    """Call the test ``name`` of a JAX test module (a function, or
+    "Class.method") with the fixtures its signature names."""
+    import inspect
+
+    owner, _, meth = name.partition(".")
+    fn = getattr(module, owner)
+    if meth:
+        fn = getattr(fn(), meth)
+    fn(**{p: fixtures[p] for p in inspect.signature(fn).parameters})
+
+
+def jax_test_names(module) -> list:
+    """The test functions and test-class methods of a test module."""
+    import inspect
+
+    names = []
+    for name, obj in vars(module).items():
+        if name.startswith("test_") and inspect.isfunction(obj):
+            names.append(name)
+        elif name.startswith("Test") and inspect.isclass(obj):
+            names += [f"{name}.{m}" for m in vars(obj) if m.startswith("test_")]
+    return names

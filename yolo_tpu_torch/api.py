@@ -11,8 +11,11 @@
 
 Darknet ``.weights`` files of the built-in variants (matched by size),
 of any detector a darknet ``.cfg`` describes, or of a ``zoo://`` entry
-(a local file only: nothing is fetched). Orbax checkpoint directories
-are ROADMAP A9g; the classifiers ROADMAP A10.
+(a local file only: nothing is fetched); or a training checkpoint
+directory of the port (io/checkpoint.py; its EMA track when it keeps
+one, the built-in variant matched by the params' shapes). JAX orbax
+checkpoints convert with tools/ckpt_to_torch.py; the classifiers are
+ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -46,14 +49,30 @@ def _infer_variant(weights_path: str) -> Optional[str]:
     return zoo.infer_variant(weights_path)
 
 
+def _variant_of_params(params) -> Optional[str]:
+    """The built-in variant a .weights file of ``params`` (unfolded
+    numpy) would be matched to by its size (io/zoo.py::infer_variant),
+    else None."""
+    import numpy as np
+
+    from yolo_tpu_torch.configs.variants import VARIANTS
+    from yolo_tpu_torch.io.darknet_weights import expected_bytes
+
+    size = 20 + 4 * sum(int(np.size(v)) for p in params for v in p.values())
+    for name, cfg in VARIANTS.items():
+        if expected_bytes(cfg.layers, cfg.in_channels) == size:
+            return name
+    return None
+
+
 def load(weights_path: str, variant: Optional[str] = None, *,
          cfg: Optional[str] = None, names: Optional[str] = None,
          device: str = "cuda", precision: str = "bf16",
          input_size: Optional[int] = None,
          conf_threshold: Optional[float] = None,
          nms_threshold: Optional[float] = None) -> Model:
-    """Load a darknet ``.weights`` file, or a ``zoo://<name>`` entry,
-    into a ready-to-call detector.
+    """Load a darknet ``.weights`` file, a ``zoo://<name>`` entry or a
+    checkpoint directory of the port into a ready-to-call detector.
 
     variant: a built-in variant (yolo_tpu_torch.configs.VARIANTS); None
     takes a zoo entry's variant, or matches a plain file's byte size
@@ -86,10 +105,19 @@ def load(weights_path: str, variant: Optional[str] = None, *,
         if variant is None and cfg is None:
             variant = entry["variant"] if entry else None
         weights_path = zoo.resolve(weights_path)
+    params = None
     if os.path.isdir(weights_path):
-        raise NotImplementedError(
-            f"{weights_path}: checkpoint directories are not ported yet "
-            f"(ROADMAP A9g); pass a darknet .weights file")
+        from yolo_tpu_torch.io import checkpoint
+
+        state = checkpoint.restore(weights_path)
+        params = [{k: v.numpy() for k, v in b.items()}
+                  for b in state.get("ema_params", state["params"])]
+        if variant is None and cfg is None:
+            variant = _variant_of_params(params)
+            if variant is None:
+                raise ValueError(
+                    f"no built-in variant has the shapes of "
+                    f"{weights_path}'s params; pass variant= or cfg=")
     if cfg is not None:
         from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
 
@@ -104,8 +132,9 @@ def load(weights_path: str, variant: Optional[str] = None, *,
                     f"cannot infer the model variant from {weights_path}'s "
                     f"size; pass variant= or cfg= explicitly")
         model_cfg = get_variant(variant, input_size=input_size)
-    params, _ = dw.load(weights_path, model_cfg.layers,
-                        input_channels=model_cfg.in_channels)
+    if params is None:
+        params, _ = dw.load(weights_path, model_cfg.layers,
+                            input_channels=model_cfg.in_channels)
     net = Darknet(model_cfg.layers,
                   fold_params(model_cfg.layers, params, model_cfg.bn_eps),
                   device=dev, dtype=_DTYPES[precision])

@@ -1,0 +1,23 @@
+"""Command line of the port (yolo_tpu/cli's commands, flags and output
+lines, on the card by default; ``--device cpu`` only when asked for):
+
+  python -m yolo_tpu_torch.cli predict --model coco --weights y.weights --image dog.jpg
+  python -m yolo_tpu_torch.cli detect  --model coco --weights y.weights --images dir/ --batch 32
+  python -m yolo_tpu_torch.cli train   --model voc --voc-root VOC2007 --weights init.weights
+  python -m yolo_tpu_torch.cli eval    --model voc --voc-root VOC2007 --split test --weights x
+  python -m yolo_tpu_torch.cli export  --model voc --checkpoint ck/final --output out.weights
+
+Commands whose parts are not ported yet raise naming their ROADMAP
+item: classify and the YOLO9000 flags (A10), --precision int8 (A11),
+detect --video and serve --dp (A12), bench (A13), --loader grain (A9g).
+"""
+
+from yolo_tpu_torch.cli._main import main  # noqa: E402  (the public entry)
+from yolo_tpu_torch.cli.detect_cmds import (cmd_classify,  # noqa: F401,E402
+                                            cmd_detect, cmd_predict)
+from yolo_tpu_torch.cli.eval_cmd import cmd_eval, cmd_recall  # noqa: F401,E402
+from yolo_tpu_torch.cli.tools_cmds import (cmd_anchors,  # noqa: F401,E402
+                                           cmd_bench, cmd_doctor,
+                                           cmd_export, cmd_partial,
+                                           cmd_serve, cmd_zoo)
+from yolo_tpu_torch.cli.train_cmd import cmd_train  # noqa: F401,E402

@@ -1,0 +1,249 @@
+"""Shared CLI plumbing (port of yolo_tpu/cli/_common.py): the common
+flags, config and weights resolution, the dataset sources."""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", default="tiny-voc",
+                   choices=["tiny-voc", "voc", "coco", "tiny-coco",
+                            "yolov3", "yolov3-spp", "yolov3-tiny",
+                            "yolov4", "yolov4-tiny", "darknet19",
+                            "darknet19-448", "darknet53"])
+    p.add_argument("--cfg", default=None,
+                   help="darknet .cfg file (overrides --model; any "
+                        "yolov2/v3/v4-family topology)")
+    p.add_argument("--names", default=None,
+                   help="darknet .names file (class names for --cfg)")
+    p.add_argument("--input-size", type=int, default=None,
+                   help="net input size (multiple of 32; default per model)")
+    p.add_argument("--precision", default="bf16",
+                   choices=["fp32", "bf16", "int8"],
+                   help="fp32 = parity mode, bf16 = throughput (fp32 "
+                        "accum), int8 = PTQ serving (not ported yet, "
+                        "ROADMAP A11)")
+    p.add_argument("--conf", type=float, default=None, help="score threshold")
+    p.add_argument("--nms", type=float, default=None, help="NMS IoU threshold")
+    p.add_argument("--resize", default="letterbox",
+                   choices=["letterbox", "stretch"],
+                   help="preprocess geometry: letterbox (pjreddie "
+                        "darknet) or stretch = plain resize (AlexeyAB "
+                        "darknet letter_box=0 default) — applies to "
+                        "predict/detect/eval/serve AND train")
+    p.add_argument("--decoder", default="native",
+                   choices=["cv2", "native"],
+                   help="host image decoder: native = the port's own "
+                        "JPEG/PNG decoder (yolo_tpu_torch/native/, the "
+                        "bytes cv2.imread gives); cv2 where OpenCV is "
+                        "installed")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace here")
+    p.add_argument("--hier-thresh", type=float, default=None,
+                   help="YOLO9000 tree models (not ported yet, ROADMAP "
+                        "A10)")
+    p.add_argument("--use-tree-map", action="store_true",
+                   help="YOLO9000 tree models (not ported yet, ROADMAP "
+                        "A10)")
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the command computes: cuda (the default; "
+                        "raises without a card) or cpu")
+
+
+def _compute_dtype(precision: str):
+    if precision == "int8":
+        raise SystemExit("--precision int8 (post-training quantization) "
+                         "is not ported yet (ROADMAP A11)")
+    return torch.float32 if precision == "fp32" else torch.bfloat16
+
+
+def _device(args) -> torch.device:
+    """--device resolved as every entry point resolves it: cuda raises
+    without a card."""
+    from yolo_tpu_torch.device import resolve
+
+    try:
+        return resolve(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {args.device}: {e}") from None
+
+
+def _load_params(args, cfg, folded: bool = True):
+    """Numpy params from a darknet .weights file or a checkpoint
+    directory of the port (its EMA track when it keeps one), folded for
+    inference unless folded=False."""
+    from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.models.graph import fold_params
+
+    weights = _resolve_weights(args.weights)
+    if os.path.isdir(weights):  # a train checkpoint
+        from yolo_tpu_torch.io import checkpoint as ckpt
+
+        try:
+            state = ckpt.restore(weights)
+        except (FileNotFoundError, ValueError) as e:
+            raise SystemExit(str(e)) from None
+        source = state.get("ema_params", state["params"])
+        if "ema_params" in state:
+            print("using the checkpoint's EMA weight track (darknet "
+                  "ema_apply semantics)", file=sys.stderr)
+        params = [{k: v.numpy() for k, v in p.items()} for p in source]
+    else:
+        params, header = dw.load(weights, cfg.layers,
+                                 input_channels=cfg.in_channels)
+        print(f"loaded darknet weights: version "
+              f"{header['major']}.{header['minor']}.{header['revision']}, "
+              f"seen {header['seen']}", file=sys.stderr)
+    if folded:
+        params = fold_params(cfg.layers, params, cfg.bn_eps)
+    return params
+
+
+def _load_net(args, cfg):
+    """The inference module (models.graph.Darknet) of --weights on
+    --device at --precision."""
+    from yolo_tpu_torch.models.graph import Darknet
+
+    dtype = _compute_dtype(args.precision)
+    device = _device(args)
+    return Darknet(cfg.layers, _load_params(args, cfg), device=device,
+                   dtype=dtype)
+
+
+def _resolve_weights(spec: str) -> str:
+    """zoo://<name> -> verified local path (pass-through otherwise),
+    library errors as CLI errors."""
+    if not spec.startswith("zoo://"):
+        return spec
+    from yolo_tpu_torch.io import zoo
+
+    try:
+        return zoo.resolve(spec)
+    except (KeyError, FileNotFoundError, ValueError) as e:
+        raise SystemExit(str(e).strip("'\""))
+
+
+def _apply_data_file(args) -> None:
+    """A darknet `.data` file as the flags it stands for, before the
+    command runs: the command's list (train= for training/anchors,
+    valid= for eval) becomes --image-list, names= fills --names when
+    absent (relative paths against the CWD first, then the .data file's
+    directory); classes= is checked later against the model."""
+    from yolo_tpu_torch.data.darknet_list import parse_data_file
+
+    if getattr(args, "image_list", None):
+        raise SystemExit("give --data or --image-list, not both (the "
+                         ".data file's train=/valid= entry IS the "
+                         "image list)")
+    try:
+        kv = parse_data_file(args.data)
+    except OSError as e:
+        raise SystemExit(f"--data: {e}")
+    key = getattr(args, "_data_list_key", "train")
+    if key not in kv:
+        raise SystemExit(f"{args.data}: no '{key} = <list file>' entry "
+                         f"(this command reads the {key}= list)")
+    base = os.path.dirname(os.path.abspath(args.data))
+
+    def _resolve(p):
+        if os.path.isabs(p) or os.path.exists(p):
+            return p
+        alt = os.path.join(base, p)
+        return alt if os.path.exists(alt) else p
+
+    args.image_list = _resolve(kv[key])
+    if "names" in kv and not getattr(args, "names", None):
+        args.names = _resolve(kv["names"])
+    args._data_classes = int(kv["classes"]) if "classes" in kv else None
+    if (key == "train" and "valid" in kv
+            and hasattr(args, "eval_image_list")
+            and not args.eval_image_list):
+        # darknet -map scores the .data valid= list during training
+        args.eval_image_list = _resolve(kv["valid"])
+
+
+def _dataset_samples(args, cfg, names=None):
+    """(image_path, annotation) samples from --voc-root, --coco-json or
+    --image-list/--data (darknet list + YOLO .txt labels); the
+    annotation is a VOC XML path or a parsed dict. ``names``: the class
+    vocabulary (default cfg.class_names)."""
+    n_sources = sum(bool(s) for s in (
+        args.voc_root, args.coco_json, getattr(args, "image_list", None)))
+    if n_sources != 1:
+        raise SystemExit("give exactly one of --voc-root / --coco-json "
+                         "/ --image-list (or --data)")
+    if getattr(args, "image_list", None):
+        from yolo_tpu_torch.data.darknet_list import list_images
+
+        want = names or cfg.class_names
+        data_ncls = getattr(args, "_data_classes", None)
+        if data_ncls is not None and data_ncls != len(want):
+            raise SystemExit(
+                f"--data classes={data_ncls} but the model has "
+                f"{len(want)} classes — wrong .data file or wrong "
+                f"cfg/--names")
+        return list_images(args.image_list, want)
+    if args.coco_json:
+        from yolo_tpu_torch.data.coco import load_coco
+
+        root = args.image_root or os.path.dirname(args.coco_json)
+        return load_coco(args.coco_json, names or cfg.class_names,
+                         image_root=root)
+    from yolo_tpu_torch.data.voc import list_split
+
+    return list_split(args.voc_root, args.split)
+
+
+def _get_cfg(args):
+    import dataclasses
+
+    try:
+        if getattr(args, "cfg", None):
+            from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
+
+            cfg = config_from_cfg(args.cfg, names_path=args.names)
+            if args.input_size is not None:
+                cfg = cfg.with_input_size(args.input_size)
+        else:
+            from yolo_tpu_torch.configs import get_variant
+
+            cfg = get_variant(args.model, input_size=args.input_size)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    if args.conf is not None:
+        cfg = dataclasses.replace(cfg, conf_threshold=args.conf)
+    if args.nms is not None:
+        cfg = dataclasses.replace(cfg, nms_threshold=args.nms)
+    return cfg
+
+
+def _require_detection(cfg, cmd: str) -> None:
+    if cfg.head_kind not in ("region", "yolo"):
+        raise SystemExit(f"{cfg.name}: `{cmd}` needs a detection model "
+                         f"({cfg.head_kind} heads are not ported yet, "
+                         f"ROADMAP A10)")
+
+
+def _tree_kw(args, cfg) -> dict:
+    """The YOLO9000 hierarchy flags: trees are not ported (no port
+    config carries one), so either flag raises."""
+    if getattr(args, "use_tree_map", False) or \
+            getattr(args, "hier_thresh", None) is not None:
+        raise SystemExit("--use-tree-map/--hier-thresh apply to YOLO9000 "
+                         "tree models, which are not ported yet (ROADMAP "
+                         "A10)")
+    return {}
+
+
+def _to_numpy(out) -> dict:
+    """Detector output tensors -> numpy, one copy each."""
+    return {k: v.cpu().numpy() for k, v in out.items()}
+

@@ -1,0 +1,173 @@
+"""`predict` / `detect` / `classify` (port of yolo_tpu/cli/detect_cmds.py):
+single-image and batched directory detection. Video input (ROADMAP A12)
+and the classifiers (A10) are not ported yet and raise."""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from yolo_tpu_torch.cli._common import (_get_cfg, _load_net,
+                                        _require_detection, _to_numpy,
+                                        _tree_kw)
+
+
+def cmd_classify(args) -> None:
+    raise SystemExit("`classify` needs the darknet classifiers, which are "
+                     "not ported yet (ROADMAP A10)")
+
+
+def _write_label_file(image_path: str, dets_xyxy, src_w: int,
+                      src_h: int) -> str:
+    """darknet `-save_labels`: the image's detections as a YOLO-format
+    label file at label_path_for(image_path), one '%d %2.4f %2.4f %2.4f
+    %2.4f' line (class, relative cx cy w h) per detection; written even
+    with no detection. dets_xyxy: [(class_id, score, x1, y1, x2, y2)
+    pixel]."""
+    from yolo_tpu_torch.data.darknet_list import label_path_for
+
+    out = label_path_for(image_path)
+    d = os.path.dirname(out)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(out, "w") as f:
+        for (c, _s, x1, y1, x2, y2) in dets_xyxy:
+            cx = (x1 + x2) / 2.0 / src_w
+            cy = (y1 + y2) / 2.0 / src_h
+            bw = (x2 - x1) / src_w
+            bh = (y2 - y1) / src_h
+            f.write(f"{int(c)} {cx:2.4f} {cy:2.4f} "
+                    f"{bw:2.4f} {bh:2.4f}\n")
+    return out
+
+
+def _det_json(names, classes, scores, xyxy, order) -> list:
+    return [{"class": names[int(classes[i])],
+             "score": round(float(scores[i]), 4),
+             "box_xyxy": [round(float(v), 1) for v in xyxy[j]]}
+            for j, i in enumerate(order)]
+
+
+def cmd_predict(args) -> None:
+    """Single-image detection."""
+    from yolo_tpu_torch.data.pipeline import load_image
+    from yolo_tpu_torch.models.predict import make_detector
+    from yolo_tpu_torch.utils.profiling import maybe_trace
+    from yolo_tpu_torch.utils.viz import draw_detections, save_image
+
+    cfg = _get_cfg(args)
+    _require_detection(cfg, "predict")
+    _tree_kw(args, cfg)
+    names = cfg.detection_names()
+    net = _load_net(args, cfg)
+    img = load_image(args.image, cfg.in_channels)
+    det = make_detector(cfg, resize=args.resize)
+    with maybe_trace(args.profile_dir), torch.no_grad():
+        out = _to_numpy(det(net, torch.from_numpy(img[None]).to(net.device)))
+    boxes, scores = out["boxes"][0], out["scores"][0]
+    classes, valid = out["classes"][0], out["valid"][0]
+    keep = np.nonzero(valid)[0]
+    for d in _det_json(names, classes, scores, boxes[keep], keep):
+        print(json.dumps(d))
+    if args.save_labels:
+        src_h, src_w = img.shape[:2]
+        out_txt = _write_label_file(
+            args.image, [(int(classes[i]), float(scores[i]), *boxes[i])
+                         for i in keep], src_w, src_h)
+        print(f"wrote {out_txt}", file=sys.stderr)
+    if args.output:
+        save_image(args.output, draw_detections(img, boxes, scores, classes,
+                                                names, valid))
+        print(f"wrote {args.output}", file=sys.stderr)
+
+
+def _image_paths(args) -> list:
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    if args.recursive:
+        paths = sorted(
+            os.path.join(root, f)
+            for root, _dirs, files in os.walk(args.images)
+            for f in files if f.lower().endswith(exts))
+    else:
+        paths = sorted(
+            os.path.join(args.images, f) for f in os.listdir(args.images)
+            if f.lower().endswith(exts))
+    if not paths:
+        raise SystemExit(f"no images found in {args.images}")
+    return paths
+
+
+def cmd_detect(args) -> None:
+    """Batched detection over a directory: the host decodes (and with
+    --host-preprocess letterboxes) on threads, DevicePrefetcher stages
+    the batches on the device."""
+    from yolo_tpu_torch.data.pipeline import (DevicePrefetcher,
+                                              inference_batches, load_image)
+    from yolo_tpu_torch.models.predict import (make_detector,
+                                               make_detector_preprocessed)
+    from yolo_tpu_torch.ops.letterbox import (unletterbox_boxes_xyxy,
+                                              unstretch_boxes_xyxy)
+    from yolo_tpu_torch.utils.viz import draw_detections, save_image
+
+    if args.video:
+        raise SystemExit("detect --video needs a video decoder, which is "
+                         "not ported yet (ROADMAP A12, data/video.py)")
+    cfg = _get_cfg(args)
+    _require_detection(cfg, "detect")
+    _tree_kw(args, cfg)
+    names = cfg.detection_names()
+    net = _load_net(args, cfg)
+    paths = _image_paths(args)
+    if args.host_preprocess:
+        det = make_detector_preprocessed(cfg)
+        host_iter = inference_batches(paths, args.batch,
+                                      net_size=cfg.input_hw,
+                                      resize=args.resize,
+                                      channels=cfg.in_channels)
+    else:
+        det = make_detector(cfg, resize=args.resize)
+        host_iter = inference_batches(paths, args.batch,
+                                      channels=cfg.in_channels)
+    if args.output_dir:
+        os.makedirs(args.output_dir, exist_ok=True)
+    with DevicePrefetcher(host_iter, depth=2, device=net.device) as staged, \
+            torch.no_grad():
+        for batch in staged:
+            out = _to_numpy(det(net, batch["images"]))
+            boxes_all = out["boxes"].astype(np.float64)
+            for bi, path in enumerate(batch["paths"]):
+                valid = np.nonzero(out["valid"][bi])[0]
+                if args.host_preprocess:
+                    src_h, src_w = batch["shapes"][bi]
+                    b = torch.from_numpy(boxes_all[bi][valid])
+                    xyxy = (unstretch_boxes_xyxy(b, src_h=src_h, src_w=src_w)
+                            if args.resize == "stretch" else
+                            unletterbox_boxes_xyxy(b, src_h=src_h,
+                                                   src_w=src_w,
+                                                   net_size=cfg.input_hw)
+                            ).numpy()
+                else:
+                    src_h, src_w = batch["images"].shape[1:3]
+                    xyxy = boxes_all[bi][valid]
+                scores, classes = out["scores"][bi], out["classes"][bi]
+                print(json.dumps({"image": path, "detections": _det_json(
+                    names, classes, scores, xyxy, valid)}))
+                if args.save_labels:
+                    _write_label_file(
+                        path, [(int(classes[i]), float(scores[i]), *xyxy[j])
+                               for j, i in enumerate(valid)], src_w, src_h)
+                if args.output_dir:
+                    src = (load_image(path, cfg.in_channels)
+                           if args.host_preprocess
+                           else batch["images"][bi].cpu().numpy())
+                    # mirror the source tree: --recursive makes basename
+                    # collisions routine (a/img.jpg vs b/img.jpg)
+                    dst = os.path.join(args.output_dir,
+                                       os.path.relpath(path, args.images))
+                    os.makedirs(os.path.dirname(dst), exist_ok=True)
+                    save_image(dst, draw_detections(
+                        src, xyxy, scores[valid], classes[valid], names))

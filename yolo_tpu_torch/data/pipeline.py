@@ -234,14 +234,21 @@ class DevicePrefetcher:
 
 
 def inference_batches(image_paths: Sequence[str], batch_size: int, *,
-                      net_size, workers: int = 8, skip_errors: bool = True,
-                      resize: str = "letterbox",
+                      net_size=None, workers: int = 8,
+                      skip_errors: bool = True, resize: str = "letterbox",
                       channels: int = 3) -> Iterator[Dict]:
-    """Decode and preprocess images in parallel into uniform (B, net_h,
-    net_w, C) float32 batches (the host-preprocess mode: one shape for
-    every source size). Each batch carries its 'paths' and source
-    'shapes' for the box un-mapping; the last is padded to batch_size by
-    repeating its final image, with 'pad' the count."""
+    """Decode images in parallel into inference batches.
+
+    net_size=(net_h, net_w) or an int (the host-preprocess mode): uniform
+    (B, net_h, net_w, C) float32 batches, one shape for every source
+    size; each batch carries its 'paths' and source 'shapes' for the box
+    un-mapping, and the last is padded to batch_size by repeating its
+    final image, with 'pad' the count.
+
+    net_size=None (the device-preprocess mode): raw uint8 (B, H, W, C)
+    batches bucketed by source shape, each full bucket yielded as it
+    fills and the remainders, padded as above, at the end, in order of
+    first appearance (the JAX package's bucketing)."""
     _check_resize(resize)
 
     def load(path):
@@ -252,6 +259,8 @@ def inference_batches(image_paths: Sequence[str], batch_size: int, *,
                 print(f"skipping {path}: {e}", file=sys.stderr)
                 return None
             raise
+        if net_size is None:
+            return path, img
         return path, img.shape[:2], _host_resize(img, net_size, resize)
 
     with _Pool(workers) as pool:
@@ -266,13 +275,31 @@ def inference_batches(image_paths: Sequence[str], batch_size: int, *,
                     return
                 inflight.append(pool.submit(load, p))
 
-        chunk: List = []
-        refill()
-        while inflight:
-            item = inflight.popleft().result()
+        def decoded():
             refill()
-            if item is None:
-                continue
+            while inflight:
+                item = inflight.popleft().result()
+                refill()
+                if item is not None:
+                    yield item
+
+        if net_size is None:
+            buckets: Dict[Tuple[int, int], List] = {}
+            for path, img in decoded():
+                items = buckets.setdefault(img.shape[:2], [])
+                items.append((path, img))
+                if len(items) == batch_size:
+                    del buckets[img.shape[:2]]
+                    yield {"images": np.stack([im for _, im in items]),
+                           "paths": [p for p, _ in items]}
+            for items in buckets.values():
+                pad = batch_size - len(items)
+                yield {"images": np.stack([im for _, im in items]
+                                          + [items[-1][1]] * pad),
+                       "paths": [p for p, _ in items], "pad": pad}
+            return
+        chunk: List = []
+        for item in decoded():
             chunk.append(item)
             if len(chunk) == batch_size:
                 yield _assemble_preprocessed(chunk, 0)
@@ -298,8 +325,8 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
                   rng: np.random.Generator, workers: int = 8,
                   shuffle: bool = True, size_for_batch=None,
                   augment_cfg=None, model_cfg=None,
-                  resize: str = "letterbox",
-                  channels: int = 3) -> Iterator[Dict]:
+                  resize: str = "letterbox", channels: int = 3,
+                  skip_batches: int = 0) -> Iterator[Dict]:
     """(image, annotation) pairs -> fixed-shape train batches: images in
     [0, 1] and the encoded targets, by model_cfg's head kind
     (data.targets.encode_batch_for; without model_cfg, the region
@@ -312,7 +339,10 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
     turns on jitter/flip/HSV per sample, each sample drawing from its
     own generator; resize="stretch" trains with the aspect-ignoring
     resize (normalized boxes need no transform). Mosaic and mixup are
-    not ported (ROADMAP A9)."""
+    not ported (ROADMAP A9f). skip_batches: the first batches are not
+    loaded or yielded, but draw from ``rng`` as if they were (the
+    shuffle and size_for_batch), so that a resumed run sees the batches
+    an uninterrupted one would."""
     _check_resize(resize)
     if augment_cfg is not None and (augment_cfg.mosaic or augment_cfg.mixup):
         raise NotImplementedError("mosaic and mixup are not ported yet "
@@ -358,6 +388,8 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
         for bi in range(n_batches):
             if size_for_batch is not None:
                 size = size_for_batch(bi) or size
+            if bi < skip_batches:
+                continue
             idxs = order[bi * batch_size:(bi + 1) * batch_size]
             chunk = list(pool.map(lambda i: prepare(i, size), idxs))
             if (not drop_stats["warned"] and drop_stats["kept"] == 0

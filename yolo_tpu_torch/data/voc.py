@@ -3,8 +3,9 @@ VOC XML -> normalized boxes and class ids."""
 
 from __future__ import annotations
 
+import os
 import xml.etree.ElementTree as ET
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -53,3 +54,12 @@ def parse_annotation(xml_path: str, class_names: Sequence[str],
                      if root.find("filename") is not None else ""),
         "n_unknown": n_unknown,
     }
+
+
+def list_split(voc_root: str, split: str = "train") -> List[Tuple[str, str]]:
+    """(image_path, annotation_path) pairs for an ImageSets/Main split."""
+    split_file = os.path.join(voc_root, "ImageSets", "Main", f"{split}.txt")
+    with open(split_file) as f:
+        ids = [line.split()[0] for line in f if line.strip()]
+    return [(os.path.join(voc_root, "JPEGImages", f"{i}.jpg"),
+             os.path.join(voc_root, "Annotations", f"{i}.xml")) for i in ids]

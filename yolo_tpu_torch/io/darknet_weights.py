@@ -22,7 +22,7 @@ the JAX package's layout, byte for byte the same files.
 
 from __future__ import annotations
 
-from typing import BinaryIO, List, Sequence
+from typing import BinaryIO, List, Optional, Sequence
 
 import numpy as np
 
@@ -194,12 +194,17 @@ def load_partial(path_or_file, layers: Sequence[LayerSpec],
 
 
 def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
-         version=(0, 2, 0)) -> None:
-    """Write params out in darknet format (HWIO -> OIHW)."""
+         version=(0, 2, 0), cutoff_convs: Optional[int] = None) -> None:
+    """Write params out in darknet format (HWIO -> OIHW).
+    ``cutoff_convs`` writes only the first N weighted layers (darknet's
+    ``partial``: a backbone file)."""
     specs = weighted_specs(tuple(layers))
-    if len(params) != len(specs):
+    if cutoff_convs is not None:
+        specs, params = specs[:cutoff_convs], params[:cutoff_convs]
+    elif len(params) != len(specs):
         raise ValueError(f"save: {len(params)} param blocks for "
-                         f"{len(specs)} weighted layers")
+                         f"{len(specs)} weighted layers (use cutoff_convs "
+                         f"for partials)")
     own = not hasattr(path_or_file, "write")
     f: BinaryIO = open(path_or_file, "wb") if own else path_or_file
     try:

@@ -1,5 +1,5 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
-JPEG decoder and the PNG unfilter) and load it with ctypes.
+JPEG decoder and encoder and the PNG unfilter) and load it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
 ``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``: no fast-math and
@@ -107,6 +107,11 @@ def library() -> ctypes.CDLL:
     # raw, rawlen, h, w, depth, color, palette, channels, out, err, errlen
     lib.yolo_png_decode_rows.argtypes = [ptr, size, i32, i32, i32, i32, ptr,
                                          i32, ptr, ctypes.c_char_p, size]
+    lib.yolo_jpeg_encode.restype = i32
+    # pixels, h, w, channels, quality, &out, &len, err, errlen
+    lib.yolo_jpeg_encode.argtypes = [
+        ptr, i32, i32, i32, i32, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(size), ctypes.c_char_p, size]
     lib.yolo_native_free.restype = None
     lib.yolo_native_free.argtypes = [ptr]
     return lib

@@ -2,7 +2,8 @@
 yolo_tpu/serve.py, detection models).
 
 POST /detect with an image body -> JSON detections; GET /healthz for
-liveness, GET /stats for counters. Bodies are
+liveness, GET /stats for counters (requests, batches, and the CUDA
+kernels' launches in this process). Bodies are
   * ``Content-Type: application/x-npy``: a uint8 (H, W, C) array in .npy
     format, the form that needs no image decoder on the host;
   * anything else: JPEG/PNG bytes, decoded by the host decoder that
@@ -75,6 +76,15 @@ def _decode_image(data: bytes, gray: bool) -> Optional[np.ndarray]:
     if img is None:
         return None
     return img[..., None] if gray else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The CUDA kernels' launch counts in this process (the wrappers'
+    counters), for /stats."""
+    from yolo_tpu_torch.ops.cuda import conv_kernel, entry_kernel, nms_kernel
+
+    return {"nms": nms_kernel.launches, "conv": conv_kernel.launches,
+            "entry": entry_kernel.launches}
 
 
 def detections_to_json(out: Dict[str, torch.Tensor],
@@ -238,7 +248,8 @@ class DetectionServer:
                     self._send(200, {"status": "ok",
                                      "model": server.cfg.name})
                 elif self.path == "/stats":
-                    self._send(200, dict(server.stats))
+                    self._send(200, {**server.stats,
+                                     "kernel_launches": _kernel_launches()})
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -307,9 +318,13 @@ class DetectionServer:
         if getattr(self, "_worker_thread", None) is not None:
             self._worker_thread.join(timeout=self.request_timeout)
 
+    def wait(self) -> None:
+        """Block until the started server's HTTP loop ends."""
+        self._serve_thread.join()
+
     def serve_forever(self) -> None:
         self.start()
         try:
-            self._serve_thread.join()
+            self.wait()
         except KeyboardInterrupt:
             self.stop()

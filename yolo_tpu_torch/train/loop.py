@@ -44,9 +44,9 @@ MULTISCALE_SIZES = tuple(range(320, 609, 32))
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig, less the multi-scale and
-    lr_random_seed knobs that only its train command reads (ROADMAP A9).
-    loss is the region head's, yolo_loss the [yolo] heads'
+    """The JAX package's TrainConfig, less lr_random_seed (ROADMAP A9e).
+    The multi-scale knobs are read by the train command (cli/train_cmd.py:
+    size_for_batch through pick_scale); loss is the region head's, yolo_loss the [yolo] heads'
     (train.loss.region_loss_config / yolo_loss_config build them from a
     ModelConfig). See yolo_tpu/train/loop.py for each policy's darknet
     source."""
@@ -79,6 +79,9 @@ class TrainConfig:
     ema_alpha: float = 0.0
     ema_start_step: int = 0
     grad_accum: int = 1
+    multi_scale: bool = False       # darknet random=1
+    multi_scale_every: int = 10     # batches between size draws
+    multi_scale_sizes: tuple = MULTISCALE_SIZES
 
 
 def train_config_from_cfg(cfg_path: str, model_cfg: ModelConfig
@@ -277,6 +280,84 @@ def init_state(mcfg: ModelConfig, params, tcfg: TrainConfig, *,
         state.ema = [{k: v.detach().clone()
                       for k, v in b.named_parameters(recurse=False)}
                      for b in net.blocks]
+    return state
+
+
+def _hwio(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A trained tensor in the checkpoint layout (HWIO kernels)."""
+    return t.permute(2, 3, 1, 0) if name == "kernel" else t
+
+
+def _from_hwio(name: str, t: torch.Tensor, device) -> torch.Tensor:
+    t = t.permute(3, 2, 0, 1) if name == "kernel" else t
+    return t.to(device=device, dtype=torch.float32).contiguous()
+
+
+def state_to_tree(state: TrainState) -> Dict[str, Any]:
+    """The train state as an io.checkpoint tree: params (and the EMA
+    track) in the JAX package's numpy layout, the optimizer's per-tensor
+    state, step and seen."""
+    net, opt = state.net, state.optimizer
+    as_tree = lambda blocks: [{k: torch.from_numpy(v) for k, v in b.items()}
+                              for b in blocks]
+    tree: Dict[str, Any] = {"params": as_tree(net.to_numpy()),
+                            "step": int(state.step), "seen": int(state.seen)}
+    if state.ema is not None:
+        tree["ema_params"] = as_tree(net.to_numpy(state.ema))
+    adam = isinstance(opt, torch.optim.Adam)
+    names = ("exp_avg", "exp_avg_sq") if adam else ("momentum_buffer",)
+    opt_tree: Dict[str, Any] = {"optimizer": "adam" if adam else "sgd"}
+    per = {n: [] for n in names}
+    count = 0
+    for b in net.blocks:
+        for n in names:
+            per[n].append({})
+        for name, p in b.named_parameters(recurse=False):
+            st = opt.state.get(p, {})
+            for n in names:
+                if st.get(n) is not None:
+                    per[n][-1][name] = _hwio(name, st[n].detach()).cpu()
+            if "step" in st:
+                count = int(st["step"])
+    if any(per[names[0]]):
+        opt_tree.update(per)
+    if adam:
+        opt_tree["count"] = count
+    tree["opt_state"] = opt_tree
+    return tree
+
+
+def state_from_tree(tree: Dict[str, Any], mcfg: ModelConfig,
+                    tcfg: TrainConfig, *, device="cuda") -> TrainState:
+    """A train state from an io.checkpoint tree (state_to_tree's, or
+    io.checkpoint.from_numpy_state's): the same params, rolling
+    statistics, optimizer state, step and seen. The EMA track is the
+    tree's when both keep one; a run with ema_alpha starts one from the
+    params when the tree has none, and a run without drops the tree's
+    (the JAX train command's _restore_adapt_ema)."""
+    params = [{k: v.numpy() for k, v in b.items()} for b in tree["params"]]
+    state = init_state(mcfg, params, tcfg, seen=int(tree["seen"]),
+                       device=device)
+    state.step = int(tree["step"])
+    dev = state.net.device
+    if state.ema is not None and "ema_params" in tree:
+        state.ema = [{k: _from_hwio(k, src[k], dev) for k in track}
+                     for track, src in zip(state.ema, tree["ema_params"])]
+    opt_tree = tree.get("opt_state") or {}
+    kind = opt_tree.get("optimizer", tcfg.optimizer)
+    if kind != tcfg.optimizer:
+        raise ValueError(f"the checkpoint's optimizer is {kind}, this run's "
+                         f"{tcfg.optimizer}")
+    names = (("exp_avg", "exp_avg_sq") if kind == "adam"
+             else ("momentum_buffer",))
+    if names[0] in opt_tree:
+        for i, b in enumerate(state.net.blocks):
+            for name, p in b.named_parameters(recurse=False):
+                st = {n: _from_hwio(name, opt_tree[n][i][name], dev)
+                      for n in names}
+                if kind == "adam":
+                    st["step"] = torch.tensor(float(opt_tree["count"]))
+                state.optimizer.state[p] = st
     return state
 
 

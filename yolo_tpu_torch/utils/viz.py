@@ -1,0 +1,196 @@
+"""Draw detections on images and save them (port of
+yolo_tpu/utils/viz.py, which draws and writes with cv2; the card machine
+has no OpenCV).
+
+draw_detections gives cv2's pixels for everything but the label text:
+each box is cv2.rectangle's 2-px outline (the 3-px band |d| <= 1 around
+each edge, square corners cut), the label background its filled
+rectangle, sized as cv2.getTextSize sizes the label in
+FONT_HERSHEY_SIMPLEX at scale 0.5 (HERSHEY_ADVANCE: each character's
+advance at that scale; height 14). The text itself is drawn in black by
+the port's own small stroke font (STROKES) inside that background, where
+cv2 anti-aliases its Hershey glyphs.
+
+save_image writes PNG (data/png.py, zlib) or baseline JPEG (the port's
+encoder, native/jpeg_enc.c: q95 4:2:0, cv2.imwrite's defaults) by the
+file's extension.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Sequence
+
+import numpy as np
+
+# advance of each printable ASCII character (32..126) in
+# FONT_HERSHEY_SIMPLEX at scale 0.5: cv2.getTextSize(text, simplex, 0.5,
+# 1) is (sum of the text's advances + 1, 14)
+HERSHEY_ADVANCE = (
+    3, 3, 5, 10, 9, 11, 10, 3, 9, 9, 6, 9, 3, 7, 3, 7, 9, 9, 9, 9, 9, 9, 9,
+    9, 9, 9, 3, 4, 7, 8, 7, 7, 12, 10, 10, 9, 10, 9, 8, 10, 10, 4, 9, 9, 8,
+    11, 10, 10, 9, 10, 9, 9, 8, 10, 9, 11, 9, 9, 8, 4, 7, 4, 6, 11, 5, 8, 8,
+    8, 8, 8, 5, 8, 9, 3, 3, 7, 3, 13, 9, 8, 8, 8, 5, 7, 5, 9, 8, 12, 8, 8, 7,
+    5, 3, 5, 8)
+TEXT_HEIGHT = 14
+# the stroke font: polylines over a 3x3 grid of points, a b c on the cap
+# line, d e f at mid height, g h i on the baseline (left, middle, right)
+_POINTS = {k: (u, v) for k, (u, v) in zip(
+    "abcdefghi", [(u, v) for v in (0.0, 0.5, 1.0) for u in (0.0, 0.5, 1.0)])}
+STROKES = {
+    "0": "aciga gc", "1": "dbh", "2": "acfdgi", "3": "acig ef",
+    "4": "adf ci", "5": "cadfig", "6": "cagifd", "7": "ach",
+    "8": "aciga df", "9": "fdacig",
+    "A": "gbi df", "B": "gacfig de", "C": "cagi", "D": "gabfhg",
+    "E": "cagi de", "F": "cag de", "G": "cagife", "H": "ag ci df",
+    "I": "ac bh gi", "J": "cihgd", "K": "ag cdi", "L": "agi", "M": "gaeci",
+    "N": "gaic", "O": "aciga", "P": "gacfd", "Q": "aciga ei",
+    "R": "gacfd ei", "S": "cadfig", "T": "ac bh", "U": "agic", "V": "ahc",
+    "W": "ageic", "X": "ai cg", "Y": "aec eh", "Z": "acgi",
+    " ": "", ".": "hh", ",": "hg", ":": "ee hh", ";": "ee hg", "-": "df",
+    "_": "gi", "+": "df bh", "=": "df gi", "/": "gc", "\\": "ai",
+    "|": "bh", "(": "bdh", ")": "bfh", "[": "bagh", "]": "bcih",
+    "{": "bedeh", "}": "befeh", "<": "cdi", ">": "afg", "!": "be hh",
+    "?": "acfe hh", '"': "ad cf", "'": "be", "`": "ae", "^": "dbf",
+    "~": "debf", "#": "bh ci df", "$": "cadfig bh", "%": "gc aa ii",
+    "&": "iabegh", "*": "ai cg bh", "@": "feacig",
+}
+
+
+def class_color(cls: int) -> tuple:
+    rng = np.random.default_rng(cls * 7919 + 17)
+    return tuple(int(v) for v in rng.integers(60, 255, 3))
+
+
+def _printable(text: str) -> str:
+    """cv2's Hershey text renders a character outside 32..126 as '?'."""
+    return "".join(c if 32 <= ord(c) <= 126 else "?" for c in text)
+
+
+def text_size(text: str) -> tuple:
+    """(width, height) cv2.getTextSize gives ``text`` in
+    FONT_HERSHEY_SIMPLEX at scale 0.5, thickness 1."""
+    return (sum(HERSHEY_ADVANCE[ord(c) - 32] for c in _printable(text)) + 1,
+            TEXT_HEIGHT)
+
+
+def _fill(out: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+          color) -> None:
+    """Inclusive rectangle, clipped to the image."""
+    h, w = out.shape[:2]
+    xa, xb = max(min(x1, x2), 0), min(max(x1, x2), w - 1)
+    ya, yb = max(min(y1, y2), 0), min(max(y1, y2), h - 1)
+    if xa <= xb and ya <= yb:
+        out[ya:yb + 1, xa:xb + 1] = color
+
+
+def _outline(out: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+             color) -> None:
+    """cv2.rectangle(..., thickness=2): each edge's 3-px band."""
+    xa, xb = min(x1, x2), max(x1, x2)
+    ya, yb = min(y1, y2), max(y1, y2)
+    for y in (ya, yb):
+        _fill(out, xa, y - 1, xb, y + 1, color)
+    for x in (xa, xb):
+        _fill(out, x - 1, ya, x + 1, yb, color)
+
+
+def _line(out: np.ndarray, x0: int, y0: int, x1: int, y1: int,
+          color) -> None:
+    """Bresenham, clipped per pixel."""
+    h, w = out.shape[:2]
+    dx, dy = abs(x1 - x0), -abs(y1 - y0)
+    sx, sy = (1 if x0 < x1 else -1), (1 if y0 < y1 else -1)
+    err = dx + dy
+    while True:
+        if 0 <= x0 < w and 0 <= y0 < h:
+            out[y0, x0] = color
+        if x0 == x1 and y0 == y1:
+            return
+        e2 = 2 * err
+        if e2 >= dy:
+            err += dy
+            x0 += sx
+        if e2 <= dx:
+            err += dx
+            y0 += sy
+
+
+def draw_text(out: np.ndarray, text: str, x: int, baseline: int,
+              color=(0, 0, 0)) -> None:
+    """The stroke font, cap height 8 px above ``baseline``, each
+    character in its Hershey advance (lower case drawn as upper case)."""
+    for ch in _printable(text):
+        adv = HERSHEY_ADVANCE[ord(ch) - 32]
+        gw = max(adv - 3, 1)
+        for stroke in STROKES.get(ch.upper(), STROKES["?"]).split():
+            pts = [(x + 1 + int(round(_POINTS[p][0] * gw)),
+                    baseline - 8 + int(round(_POINTS[p][1] * 8)))
+                   for p in stroke]
+            for (ax, ay), (bx, by) in zip(pts, pts[1:] or pts):
+                _line(out, ax, ay, bx, by, color)
+        x += adv
+
+
+def draw_detections(image_rgb: np.ndarray, boxes_xyxy, scores, classes,
+                    class_names: Sequence[str], valid=None) -> np.ndarray:
+    """A copy of image_rgb (H, W, 3 uint8) with boxes and labels. Gray
+    inputs ((H, W, 1) or (H, W)) are expanded to RGB so the colours
+    render."""
+    if image_rgb.ndim == 2:
+        image_rgb = image_rgb[..., None]
+    if image_rgb.shape[-1] == 1:
+        image_rgb = np.repeat(image_rgb, 3, axis=-1)
+    out = np.ascontiguousarray(image_rgb.copy())
+    for i in range(len(boxes_xyxy)):
+        if valid is not None and not bool(valid[i]):
+            continue
+        x1, y1, x2, y2 = (int(round(float(v))) for v in boxes_xyxy[i])
+        cls = int(classes[i])
+        color = class_color(cls)
+        _outline(out, x1, y1, x2, y2, color)
+        label = f"{class_names[cls]} {float(scores[i]):.2f}"
+        tw, th = text_size(label)
+        _fill(out, x1, max(y1 - th - 6, 0), x1 + tw + 2, y1, color)
+        draw_text(out, label, x1 + 1, y1 - 4)
+    return out
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> baseline JPEG bytes,
+    the file cv2.imwrite writes at this quality (native/jpeg_enc.c)."""
+    from yolo_tpu_torch.native.build import library
+
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    img = np.ascontiguousarray(img)
+    h, w, c = img.shape
+    lib = library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(256)
+    if lib.yolo_jpeg_encode(img.ctypes.data, h, w, c, int(quality),
+                            ctypes.byref(out), ctypes.byref(n), err, 256):
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out.value, n.value)
+    finally:
+        lib.yolo_native_free(out)
+
+
+def save_image(path: str, image_rgb: np.ndarray) -> None:
+    """Write an RGB (or gray) uint8 image as PNG or JPEG by the path's
+    extension; OSError for another extension or a missing directory."""
+    from yolo_tpu_torch.data.png import encode_png
+
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        data = encode_png(image_rgb)
+    elif ext in (".jpg", ".jpeg", ".jpe"):
+        data = encode_jpeg(image_rgb)
+    else:
+        raise OSError(f"cannot write {path}: the port writes .png and "
+                      f".jpg/.jpeg only")
+    with open(path, "wb") as f:
+        f.write(data)
