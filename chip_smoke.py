@@ -191,6 +191,37 @@ JSON lines; any failed check raises and the script exits non-zero:
               kernels line's count; no module of jax, yolo_tpu or cv2 is
               loaded
 
+  17. tree    YOLO9000 and the darknet classifiers: (a) darknet's
+              yolo9000.cfg (darknet-19 at 544, a 1x1 head of 3 * (5 +
+              9418) filters, [region] tree= and map=) written as .cfg
+              text beside a generated 9418-node tree (data/synthetic.py,
+              the 9k tree's shape) and an 80-leaf map, seeded weights
+              (yolo9000_params) loaded by load(cfg=...): batch 1 and 32 in
+              bf16, default route and conv_impl="cuda", traversal and map
+              mode: the kernels' launches a forward, the fused tree head
+              against the fp32 plain path (reference decode + exact
+              per-class NMS) at box level, img/s and peak GiB, and the
+              NMS kernel against plain on the tree head's grid; its 13
+              kernel convs' six shapes at 544, batch 1 and 32, bf16 and
+              fp32, against plain (phase 6's bounds) and timed; (b) the
+              exact per-class eval at 9418 classes, batch TREE_EVAL_BATCH:
+              the (B * 9418, 5, 128) grid in one launch, kernel against
+              the row-chunked plain version, timed; the kernel path in
+              class chunks gives the same detections; collect_detections
+              card against CPU on TREE_EVAL_SCENES of phase 14's JPEGs at
+              box level and in each COCO cell against pseudo ground truth
+              (phase 14's rule); (c) one fp32 step with the tree region
+              loss, card against CPU as phase 10 (a); (d) darknet19-448
+              at 448 and darknet53 at 256 (1000 classes, seeded He
+              weights): fp32 probabilities card against CPU within
+              CLS_PROB_ERR, the same top-5, bf16 img/s at batch 1 and 64;
+              a darknet9000-style tree classifier's hierarchy_path card
+              against CPU and `classify --hierarchy`; CLS_TRAIN_STEPS
+              classifier steps through classifier_train_batches from
+              seeded JPEG class folders, card against CPU (choices held,
+              phase 10's bounds); `classify` and POST /classify equal to
+              direct calls
+
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
 
@@ -248,12 +279,13 @@ import torch.nn.functional as F
 
 import yolo_tpu_torch
 from yolo_tpu_torch.configs import VOC_NAMES, get_variant
-from yolo_tpu_torch.configs.darknet_cfg import cfg_to_string
+from yolo_tpu_torch.configs.darknet_cfg import cfg_to_string, config_from_cfg
 from yolo_tpu_torch.configs.specs import (AvgPool, Conv, MaxPool,
                                           ModelConfig, Route, Sam,
                                           ScaleChannels, Shortcut,
-                                          YoloHead, layer_strides,
-                                          weighted_specs)
+                                          SoftmaxHead, YoloHead,
+                                          layer_strides, weighted_specs)
+from yolo_tpu_torch.configs.tree import parse_tree
 from yolo_tpu_torch.configs.variants import LAYER_BUILDERS
 from yolo_tpu_torch.data.augment import AugmentConfig
 from yolo_tpu_torch.data.coco import load_coco
@@ -262,15 +294,20 @@ from yolo_tpu_torch.data.pipeline import (DevicePrefetcher, _host_resize,
                                           inference_batches, train_batches)
 from yolo_tpu_torch.data.png import (SIGNATURE, encode_png, unfilter,
                                      unfilter_plain)
-from yolo_tpu_torch.data.synthetic import (coco_scene, encode_jpeg,
-                                           write_coco_scenes,
-                                           write_voc_scenes)
+from yolo_tpu_torch.data.imagefolder import (classifier_train_batches,
+                                             list_imagefolder)
+from yolo_tpu_torch.data.synthetic import (coco_scene, encode_jpeg, scene,
+                                           write_coco_scenes, write_map,
+                                           write_tree, write_voc_scenes)
+from yolo_tpu_torch.data.targets import encode_batch_for
 from yolo_tpu_torch.eval.coco_map import evaluate_coco
 from yolo_tpu_torch.eval.runner import (build_ground_truth,
                                         collect_detections, quick_map)
 from yolo_tpu_torch.eval.voc_map import _iou_xyxy_voc, evaluate
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.models import graph
+from yolo_tpu_torch.models.classify import (classifier_preprocess,
+                                            hierarchy_path, make_classifier)
 from yolo_tpu_torch.models.graph import Darknet, fold_params
 from yolo_tpu_torch.models.predict import (detect_raw, make_detector,
                                            make_detector_preprocessed)
@@ -278,7 +315,9 @@ from yolo_tpu_torch.native import build as native_build
 from yolo_tpu_torch.native.preproc import decode_image, decode_image_bytes
 from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
-from yolo_tpu_torch.ops.nms import _geom, _suppress_torch
+from yolo_tpu_torch.ops import nms as nms_mod
+from yolo_tpu_torch.ops.letterbox import letterbox
+from yolo_tpu_torch.ops.nms import _geom, _suppress_torch, _suppress_torch_rows
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        train_config_from_cfg,
@@ -465,6 +504,37 @@ CFG_NET_KEYS = {
     "yolov3": "batch=64\nsubdivisions=16\nmomentum=0.9\ndecay=0.0005\n"
               "learning_rate=0.001\nburn_in=1000\nmax_batches=500200\n"
               "policy=steps\nsteps=400000,450000\nscales=.1,.1\n"}
+
+# phase 17: YOLO9000 (darknet's cfg/yolo9000.cfg at 544) on a generated
+# 9418-node tree (data/synthetic.py, the 9k tree's shape) with an 80-leaf
+# map, and the darknet classifiers
+TREE_NODES, TREE_MAP_LEAVES = 9418, 80
+YOLO9000_SIZE = 544
+YOLO9000_ANCHORS = "0.77871, 1.14074, 3.00525, 4.31277, 9.22725, 9.61974"
+# seeded weights (yolo9000_params): the head's objectness and class
+# logits standardized on a probe frame, objectness gain and shift, class
+# gain, and anchor a's class logits on the root path of the map's leaf a
+# raised by TREE_PATH_BOOST
+TREE_OBJ_GAIN, TREE_OBJ_SHIFT = 2.0, -4.0
+TREE_CLASS_GAIN, TREE_PATH_BOOST = 2.0, 5.0
+TREE_BATCHES = (1, 32)
+TREE_CONF = 0.3           # traversal mode: a box scores its objectness
+TREE_MAP_CONF = 0.05      # map mode: conf * a mapped leaf's path product
+TREE_TIMED_REPS = 5
+TREE_EVAL_BATCH = 8       # (b): the (8 * 9418, 5, 128) eval grid
+TREE_PLAIN_CALLS = 2      # its plain version's calls a timed run
+TREE_CHUNK_CLASSES = 2048   # (b): classes a chunk of the kernel path
+TREE_EVAL_SCENES = 4      # (b): card against CPU, phase 14's JPEGs
+TREE_CHECK_BATCH = 2      # (c): the card's step against the CPU's
+CLASSIFIERS = {"darknet19-448": 448, "darknet53": 256}   # (d)
+CLS_BATCHES = (1, 64)
+CLS_IMAGES = 4            # card against CPU
+# fp32 probabilities card against CPU, of the largest probability
+CLS_PROB_ERR = 1e-5
+# (d) training: darknet-19 with a CLS_TRAIN_CLASSES-way head on JPEG
+# class folders of CLS_TRAIN_PER scenes each
+CLS_TRAIN_CLASSES, CLS_TRAIN_PER = 6, 4
+CLS_TRAIN_SIZE, CLS_TRAIN_BATCH, CLS_TRAIN_STEPS = 128, 8, 3
 
 
 def emit(obj) -> None:
@@ -812,20 +882,21 @@ def captured_suppress_inputs(model, images) -> tuple:
     return got[0]
 
 
-def time_suppress(what, geom, scores, classes, conf, iou, card, **extra):
+def time_suppress(what, geom, scores, classes, conf, iou, card,
+                  plain=_suppress_torch, plain_calls: int = 5, **extra):
     """Kernel and plain time of one suppress call, beside its bound;
-    the keep masks must be identical."""
+    the keep masks must be identical. plain: the plain version
+    (_suppress_torch_rows for a grid whose pairwise tensor is chunked)."""
     g, _, k = geom.shape
     got = nms_kernel.suppress(geom, scores, classes, conf_threshold=conf,
                               iou_threshold=iou)
-    check(torch.equal(got, _suppress_torch(geom, scores, classes, conf,
-                                           iou)),
+    check(torch.equal(got, plain(geom, scores, classes, conf, iou)),
           f"suppress keep mask differs from the plain version on {what}")
     ms = cuda_ms_per_call(lambda: nms_kernel.suppress(
         geom, scores, classes, conf_threshold=conf, iou_threshold=iou),
         calls=200)
-    plain_ms = cuda_ms_per_call(lambda: _suppress_torch(
-        geom, scores, classes, conf, iou), calls=5)
+    plain_ms = cuda_ms_per_call(lambda: plain(
+        geom, scores, classes, conf, iou), calls=plain_calls)
     # the IoUs the function needs: pairs of candidates above conf
     above = (scores >= conf).sum(dim=1).double()
     flop = NMS_PAIR_FLOP * float((above * (above - 1) / 2).sum())
@@ -3038,6 +3109,573 @@ def phase_cli(seeded: str, coco: dict, card: str) -> dict:
     return launches
 
 
+def yolo9000_text(tree_file: str, map_file: str) -> str:
+    """Darknet's cfg/yolo9000.cfg: darknet-19's 18 convs at [net] 544,
+    one 1x1 conv of 3 * (5 + 9418) filters, a [region] of 3 anchors with
+    tree= and map=."""
+    conv = ("[convolutional]\nbatch_normalize=1\nfilters={}\nsize={}\n"
+            "stride=1\npad=1\nactivation=leaky\n")
+    pool = "[maxpool]\nsize=2\nstride=2\n"
+    trunk = "".join(pool if s == "p" else conv.format(*s) for s in (
+        (32, 3), "p", (64, 3), "p", (128, 3), (64, 1), (128, 3), "p",
+        (256, 3), (128, 1), (256, 3), "p", (512, 3), (256, 1), (512, 3),
+        (256, 1), (512, 3), "p", (1024, 3), (512, 1), (1024, 3), (512, 1),
+        (1024, 3)))
+    return (f"[net]\nbatch=1\nsubdivisions=1\nwidth={YOLO9000_SIZE}\n"
+            f"height={YOLO9000_SIZE}\nchannels=3\nmomentum=0.9\n"
+            "decay=0.0005\nlearning_rate=0.001\nmax_batches=500200\n"
+            "policy=steps\nsteps=400000,450000\nscales=.1,.1\nhue=.1\n"
+            "saturation=.75\nexposure=.75\n" + trunk
+            + f"[convolutional]\nfilters={3 * (5 + TREE_NODES)}\nsize=1\n"
+            "stride=1\npad=1\nactivation=linear\n"
+            f"[region]\nanchors = {YOLO9000_ANCHORS}\nbias_match=1\n"
+            f"classes={TREE_NODES}\nnum=3\nsoftmax=1\njitter=.2\n"
+            "rescore=1\nobject_scale=5\nnoobject_scale=1\nclass_scale=1\n"
+            f"coord_scale=1\nthresh=.6\nabsolute=1\nrandom=1\n"
+            f"tree={tree_file}\nmap={map_file}\n")
+
+
+def yolo9000_params(cfg, device="cuda") -> list:
+    """Seeded YOLO9000 weights: synthetic_detector_params (He, box
+    channels x0.1), then the head conv's objectness and class channels
+    made affine in z, their zero-mean unit-spread value on a seeded
+    letterboxed noise probe: objectness TREE_OBJ_GAIN * z + TREE_OBJ_SHIFT
+    (a few percent of the boxes above 0.5), class logits
+    TREE_CLASS_GAIN * z, and for anchor a TREE_PATH_BOOST more on the
+    root path of the map's leaf a, so that traversals descend from box
+    to box different paths and three mapped leaves reach high path
+    products (with the He logits alone one channel's mean sets every
+    box's class, and every deep node's path product is near 0)."""
+    params = dw.synthetic_detector_params(cfg, SEED)
+    a, c = cfg.num_anchors, cfg.num_classes
+    net = Darknet(cfg.layers, fold_params(cfg.layers, params, cfg.bn_eps),
+                  device=device)
+    probe = torch.from_numpy(np.random.default_rng(SEED + 177).integers(
+        0, 256, (1, *SRC_HW, 3), dtype=np.uint8)).to(device)
+    v = (net(letterbox(probe, cfg.input_hw, dtype=torch.float32))
+         .reshape(-1, a, 5 + c).double().cpu().numpy()
+         - params[-1]["bias"].reshape(a, 5 + c))
+    del net
+    mean, std = v.mean(axis=0)[:, 4:], v.std(axis=0)[:, 4:]
+    gain = np.full((a, 1 + c), TREE_CLASS_GAIN)
+    gain[:, 0] = TREE_OBJ_GAIN
+    shift = np.zeros((a, 1 + c))
+    shift[:, 0] = TREE_OBJ_SHIFT
+    for i, leaf in enumerate(cfg.tree_map[:a]):
+        shift[i, [1 + n for n in cfg.tree.path(leaf)]] += TREE_PATH_BOOST
+    k = params[-1]["kernel"].reshape(-1, a, 5 + c)
+    k[..., 4:] = (k[..., 4:] * (gain / std)).astype(np.float32)
+    b = params[-1]["bias"].reshape(a, 5 + c)
+    b[:, 4:] = (-mean / std * gain + shift).astype(np.float32)
+    return params
+
+
+def tree_agree(ref: list, got: list, conf: float, what: str) -> dict:
+    """Phase 12's box-level rule both ways, where a side with no
+    detection above conf + MARGIN needs the other to have none."""
+    out = {}
+    for name, (x, y) in (("a_in_b", (ref, got)), ("b_in_a", (got, ref))):
+        hit = tot = 0
+        for xi, yi in zip(x, y):
+            h, t = match_rate(xi, yi, conf, _iou_voc)
+            hit, tot = hit + h, tot + t
+        out[name] = [hit, tot]
+        check(tot == 0 or hit / tot >= MIN_MATCH, f"{what}: {name} match "
+              f"rate {hit}/{tot} < {MIN_MATCH}")
+    check((out["a_in_b"][1] == 0) == (out["b_in_a"][1] == 0),
+          f"{what}: detections above conf + margin on one side only {out}")
+    return out
+
+
+def phase_tree_serve(root: str, card: str) -> tuple:
+    """Phase 17 (a): YOLO9000 at 544, written as .cfg text with the
+    generated 9418-node tree and an 80-leaf map beside it, seeded weights
+    loaded by load(cfg=...): batch 1 and 32, bf16, on the default route
+    and conv_impl="cuda", in traversal and map mode, against the fp32
+    plain path (reference decode + exact per-class NMS in plain PyTorch)
+    at box level; img/s and peak GiB; the NMS kernel's keep mask against
+    plain on the fused tree head's grid. Returns (launches, the models,
+    the cfg's path)."""
+    tree = parse_tree(write_tree(os.path.join(root, "9k.tree"), TREE_NODES,
+                                 seed=SEED))
+    write_map(os.path.join(root, "coco9k.map"), tree, TREE_MAP_LEAVES,
+              seed=SEED)
+    cfg_path = os.path.join(root, "yolo9000.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(yolo9000_text("9k.tree", "coco9k.map"))
+    weights = os.path.join(root, "yolo9000-seed.weights")
+    t0 = time.perf_counter()
+    cfg = config_from_cfg(cfg_path)
+    dw.save(weights, cfg.layers, yolo9000_params(cfg))
+    seed_s = time.perf_counter() - t0
+    model = yolo_tpu_torch.load(weights, cfg=cfg_path, device="cuda")
+    model32 = yolo_tpu_torch.load(weights, cfg=cfg_path, device="cuda",
+                                  precision="fp32")
+    check(model.cfg == cfg and cfg.tree.n_nodes == TREE_NODES
+          and len(cfg.tree_map) == TREE_MAP_LEAVES
+          and cfg.grid_hw == (17, 17) and cfg.num_anchors == 3,
+          f"YOLO9000 cfg: {cfg.name} {cfg.grid_hw}")
+    shapes = eligible_conv_shapes(cfg)
+    n_kernel = sum(shapes.values())
+    emit({"phase": "tree", "part": "a_model", "tree_nodes": tree.n_nodes,
+          "tree_groups": tree.n_groups, "tree_depth": tree.max_depth,
+          "map_leaves": len(cfg.tree_map), "layers": len(cfg.layers),
+          "head_filters": cfg.layers[-1].filters,
+          "weights_bytes": os.path.getsize(weights), "seed_s": seed_s,
+          "kernel_convs": n_kernel,
+          "kernel_conv_shapes": [list(s) for s in shapes]})
+    launches = {"conv": 0, "nms": 0}
+    grids = {}
+    for b in TREE_BATCHES:
+        images = frames(SEED + 17 + b, b)
+        for mode, conf in (("traversal", TREE_CONF), ("map", TREE_MAP_CONF)):
+            kw = dict(conf_threshold=conf, use_tree_map=mode == "map")
+            ref = detections_to_json(detect_raw(
+                cfg, model32.params, images, head="reference",
+                nms_impl="torch", **kw), cfg.detection_names(mode == "map"))
+            for route, rkw, n_conv in (("default", {}, 0),
+                                       ("conv_impl=cuda",
+                                        {"conv_impl": "cuda"}, n_kernel)):
+                conv_kernel.launches = nms_kernel.launches = 0
+                out = detect_raw(cfg, model.params, images, **kw, **rkw)
+                torch.cuda.synchronize()
+                got = (conv_kernel.launches, nms_kernel.launches)
+                what = f"YOLO9000 {mode} {route} batch {b}"
+                check(got == (n_conv, 1), f"{what}: (conv, NMS) launches "
+                      f"{got}, want {(n_conv, 1)}")
+                launches["conv"] += got[0]
+                launches["nms"] += got[1]
+                check(bool(torch.isfinite(out["boxes"]).all()),
+                      f"{what}: non-finite boxes")
+                dets = detections_to_json(out, cfg.detection_names(
+                    mode == "map"))
+                agree = tree_agree(ref, dets, conf, what)
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_median_ms(lambda: detect_raw(
+                    cfg, model.params, images, **kw, **rkw),
+                    reps=TREE_TIMED_REPS)
+                emit({"phase": "tree", "part": "a_serve", "batch": b,
+                      "mode": mode, "route": route, "conf": conf,
+                      "conv_launches": got[0], "nms_launches": got[1],
+                      "detections_per_image_mean": float(np.mean(
+                          [len(d) for d in dets])),
+                      "classes_seen": len({d["class"] for i in dets
+                                           for d in i}),
+                      "vs_fp32_plain": agree, "ms": ms,
+                      "img_per_s": b * 1000 / ms,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "card": card})
+            if b == max(TREE_BATCHES):
+                grids[mode] = time_suppress(
+                    f"suppress_tree_head_{mode}", *captured_suppress_inputs(
+                        lambda x: detect_raw(cfg, model.params, x, **kw),
+                        images), card, batch=b)
+    return launches, model, model32, cfg_path, grids
+
+
+def tree_conv_shapes(gen, shapes: dict, card) -> tuple:
+    """Phase 17 (a): YOLO9000's eligible conv shapes at 544 (17/34/68-px
+    grids, new to the kernel) at batch 1 and TIMED_BATCH in bf16 and
+    fp32: the kernel against its plain version with phase 6's bounds,
+    timed as phase 12 (c) times a shape. Returns (worst |kernel -
+    plain|, [kernel, plain, library, bound] ms of the 13 convs at
+    TIMED_BATCH in bf16)."""
+    worst, sums = 0.0, np.zeros(4)
+    for b in TIMED_BATCHES:
+        for (hw, cin, co, ks), n in sorted(shapes.items()):
+            for dtype, _ in DTYPES:
+                err, row = conv_shape_row(gen, b, (hw, hw), cin, co, ks,
+                                          dtype, card)
+                worst = max(worst, err)
+                emit({"phase": "tree", "part": "a_conv", "convs": n,
+                      **row})
+                if b == TIMED_BATCH and dtype == torch.bfloat16:
+                    sums += n * np.array([row["kernel_ms"],
+                                          row["plain_ms"],
+                                          row["library_ms"],
+                                          row["bound_ms"]])
+    return worst, [float(v) for v in sums]
+
+
+def phase_tree_eval(model32, card) -> tuple:
+    """Phase 17 (b): the exact per-class eval at 9418 classes, batch
+    TREE_EVAL_BATCH (the reference head of collect_detections at
+    EVAL_CONF, fp32, on letterboxed noise frames): the suppress grid it
+    hands the NMS kernel, (B * 9418, 5, 128) in one launch, kernel
+    against the row-chunked plain version (identical keep masks) and
+    timed; under a budget that splits the classes into chunks of
+    TREE_CHUNK_CLASSES the kernel path gives the same detections.
+    Returns (the grid's times, its shape, NMS launches)."""
+    cfg = model32.cfg
+    det = make_detector_preprocessed(cfg, conf_threshold=EVAL_CONF,
+                                     head="reference", nms_impl="cuda")
+    x = letterbox(frames(SEED + 170, TREE_EVAL_BATCH), cfg.input_hw,
+                  dtype=torch.float32)
+    nms_kernel.launches = 0
+    geom, scores, classes, conf, iou = captured_suppress_inputs(
+        lambda v: det(model32.params, v), x)
+    whole = det(model32.params, x)
+    torch.cuda.synchronize()
+    launches = nms_kernel.launches
+    check(launches == 2, f"two 9k eval forwards: {launches} NMS launches")
+    shape = list(geom.shape)
+    check(shape == [TREE_EVAL_BATCH * TREE_NODES, 5, 128],
+          f"9k eval grid {shape}")
+    grid = time_suppress("eval_grid_9k", geom, scores, classes, conf, iou,
+                         card, plain=_suppress_torch_rows,
+                         plain_calls=TREE_PLAIN_CALLS)
+    # the kernel path in class chunks: the same detections
+    saved = nms_mod._CHUNK_ELEMS
+    nms_mod._CHUNK_ELEMS = 5 * 128 * TREE_EVAL_BATCH * TREE_CHUNK_CLASSES
+    try:
+        nms_kernel.launches = 0
+        chunked = det(model32.params, x)
+        torch.cuda.synchronize()
+        n_chunks = nms_kernel.launches
+    finally:
+        nms_mod._CHUNK_ELEMS = saved
+    check(n_chunks == -(-TREE_NODES // TREE_CHUNK_CLASSES)
+          and all(torch.equal(whole[k], chunked[k]) for k in whole),
+          f"class-chunked kernel path ({n_chunks} launches) differs")
+    emit({"phase": "tree", "part": "b_chunks", "grid": shape,
+          "class_chunks": n_chunks, "equal_whole_grid": True})
+    return grid, shape, launches + n_chunks
+
+
+def tree_eval_card_vs_cpu(cfg, weights, coco_paths, card) -> int:
+    """Phase 17 (b), card against CPU: collect_detections of YOLO9000
+    (traversal mode, fp32, EVAL_CONF) over TREE_EVAL_SCENES JPEG scenes;
+    box level both ways (phase 11's rule) and the 12 COCO cells within
+    COCO_REL against pseudo ground truth made from the CPU's detections.
+    Returns the NMS launches."""
+    params, _ = dw.load(weights, cfg.layers)
+    folded = fold_params(cfg.layers, params, cfg.bn_eps)
+    samples = [(p, None) for p in coco_paths[:TREE_EVAL_SCENES]]
+    nms_kernel.launches = 0
+    t0 = time.perf_counter()
+    card_dets = collect_detections(cfg, folded, samples,
+                                   batch=TREE_EVAL_SCENES,
+                                   eval_conf=EVAL_CONF, device="cuda")
+    torch.cuda.synchronize()
+    card_s, n = time.perf_counter() - t0, nms_kernel.launches
+    t0 = time.perf_counter()
+    cpu_dets = collect_detections(cfg, folded, samples,
+                                  batch=TREE_EVAL_SCENES,
+                                  eval_conf=EVAL_CONF, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(n == 1, f"9k eval: {n} NMS launches for one batch")
+    ways = check_both_ways(card_dets, cpu_dets, "YOLO9000 9k eval")
+    gt = pseudo_ground_truth(cpu_dets, SEED + 17)
+    cells_card = coco_cells(card_dets, gt, cfg)
+    cells_cpu = coco_cells(cpu_dets, gt, cfg)
+    check(0 < cells_cpu["map"] < 1, f"pseudo-GT mAP {cells_cpu['map']}")
+    check_cells(cells_card, cells_cpu, "YOLO9000 9k eval")
+    emit({"phase": "tree", "part": "b_eval", "scenes": len(samples),
+          "detections": sum(len(d) for d in card_dets.values()),
+          "both_ways": ways, "cells_card": cells_card,
+          "cells_cpu": cells_cpu, "card_s": card_s, "cpu_s": cpu_s,
+          "nms_launches": n, "card": card})
+    return n
+
+
+def tree_train_step(cfg, cfg_path: str, weights: str) -> dict:
+    """Phase 17 (c): one fp32 step of YOLO9000 with the tree region loss
+    on TREE_CHECK_BATCH noise frames with GT boxes labelled with random
+    tree nodes, card against CPU as phase 10 (a) (choices held, the
+    CPU's convs in float64, STEP_BOUND / STAT_BOUND, TF32 on must
+    fail)."""
+    params, _ = dw.load(weights, cfg.layers)
+    rng = np.random.default_rng(SEED + 171)
+    boxes, classes = [], []
+    for _ in range(TREE_CHECK_BATCH):
+        n = 4
+        boxes.append(np.concatenate([rng.uniform(0.2, 0.8, (n, 2)),
+                                     rng.uniform(0.05, 0.4, (n, 2))],
+                                    -1).astype(np.float32))
+        classes.append(rng.integers(0, TREE_NODES, n).astype(np.int32))
+    host = encode_batch_for(cfg, boxes, classes)
+    host["images"] = rng.uniform(0, 1, (TREE_CHECK_BATCH, *cfg.input_hw,
+                                        3)).astype(np.float32)
+    tcfg = train_config_from_cfg(cfg_path, cfg)
+    return card_vs_cpu_step(cfg, tcfg, params, host, "tree",
+                            own_choices=False)
+
+
+def top5_agree(p_card: np.ndarray, p_cpu: np.ndarray, tol: float) -> bool:
+    """Each image's top-5 classes equal card against CPU, where the
+    CPU's 5th and 6th probabilities are apart by more than tol (a
+    closer pair may swap)."""
+    for a, b in zip(p_card, p_cpu):
+        order = np.argsort(-b)
+        if set(np.argsort(-a)[:5]) != set(order[:5]) and \
+                b[order[4]] - b[order[5]] > tol:
+            return False
+    return True
+
+
+def classifier_frames(seed: int, n: int) -> np.ndarray:
+    """Seeded 480x640 frames with smooth structure (phase 10's scenes'
+    ramps and rectangles), as uint8 on the host."""
+    rng = np.random.default_rng(seed)
+    return np.stack([scene(rng, *SRC_HW)[0] for _ in range(n)])
+
+
+def phase_classifiers(root: str, card: str) -> dict:
+    """Phase 17 (d): darknet19-448 at 448 and darknet53 at 256 (1000
+    classes, seeded He weights written as .weights files, loaded by
+    size): fp32 probabilities card against CPU within CLS_PROB_ERR and
+    their top-5 alike; img/s at batch 1 and 64 in bf16. Returns the
+    rows of the kernels-free classifier path for PERF.md."""
+    out = {}
+    for name, size in CLASSIFIERS.items():
+        cfg = get_variant(name)
+        check(cfg.input_size == size and cfg.num_classes == 1000,
+              f"{name}: {cfg.input_size}, {cfg.num_classes}")
+        path = os.path.join(root, f"{name}-seed.weights")
+        dw.save(path, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+        clf = yolo_tpu_torch.load(path, device="cuda", precision="fp32")
+        check(clf.cfg.layers == cfg.layers, f"load took {clf.cfg.name} for "
+              f"{name}'s file")
+        cpu = yolo_tpu_torch.load(path, name, device="cpu",
+                                  precision="fp32")
+        xs = np.stack([classifier_preprocess(f, size)
+                       for f in classifier_frames(SEED + 172, CLS_IMAGES)])
+        run = make_classifier(cfg)
+        p_card = run(clf.params, xs).cpu().numpy()
+        p_cpu = run(cpu.params, xs).numpy()
+        err = float(np.abs(p_card - p_cpu).max())
+        scale = float(p_cpu.max())
+        check(err <= CLS_PROB_ERR * scale, f"{name}: card vs CPU "
+              f"probabilities {err} > {CLS_PROB_ERR} of {scale}")
+        check(top5_agree(p_card, p_cpu, 2 * err), f"{name}: top-5 differ")
+        bf16 = yolo_tpu_torch.load(path, name, device="cuda")
+        times = {}
+        for b in CLS_BATCHES:
+            x = torch.from_numpy(np.resize(xs, (b, size, size, 3))).cuda()
+            ms = cuda_median_ms(lambda: bf16.params(x), reps=10)
+            times[b] = b * 1000 / ms
+        top1_bf16 = bf16.params(torch.from_numpy(xs).cuda()).argmax(-1)
+        emit({"phase": "classifiers", "model": name, "input": size,
+              "weights_bytes": os.path.getsize(path),
+              "fp32_card_vs_cpu_max_abs_err": err, "prob_scale": scale,
+              "top5_equal": True, "bf16_top1_equal_fp32": int(
+                  (top1_bf16.cpu().numpy() == p_cpu.argmax(-1)).sum()),
+              "images": CLS_IMAGES,
+              "img_per_s_bf16": {str(b): v for b, v in times.items()},
+              "card": card})
+        out[name] = (times, err)
+        del clf, cpu, bf16
+    return out
+
+
+def tree_classifier_path(root: str) -> None:
+    """Phase 17 (d): a darknet9000-style classifier (darknet-19 with a
+    9418-way 1x1 head and [softmax] tree= on the generated tree, at
+    256), written as .cfg text and loaded by load(cfg=...):
+    hierarchy_path of each image the same nodes card and CPU, the
+    conditionals within CLS_PROB_ERR; `classify --hierarchy` prints the
+    card's path."""
+    tree = parse_tree(os.path.join(root, "9k.tree"))
+    base = get_variant("darknet19")
+    cfg = dataclasses.replace(
+        base, name="darknet9000", class_names=tree.names, tree=tree,
+        tree_file="9k.tree", layers=base.layers[:-3] + (
+            Conv(TREE_NODES, size=1, bn=False, act="linear"), AvgPool(),
+            SoftmaxHead(tree=tree)))
+    cfg_path = os.path.join(root, "darknet9000.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(cfg_to_string(cfg))
+    weights = os.path.join(root, "darknet9000-seed.weights")
+    dw.save(weights, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+    card_clf = yolo_tpu_torch.load(weights, cfg=cfg_path, device="cuda",
+                                   precision="fp32")
+    cpu_clf = yolo_tpu_torch.load(weights, cfg=cfg_path, device="cpu",
+                                  precision="fp32")
+    check(card_clf.cfg.softmax_tree == tree, "darknet9000's tree")
+    xs = np.stack([classifier_preprocess(f, 256) for f in
+                   classifier_frames(SEED + 173, CLS_IMAGES)])
+    run = make_classifier(cfg)
+    c_card = run(card_clf.params, xs).cpu().numpy()
+    c_cpu = run(cpu_clf.params, xs).numpy()
+    err = float(np.abs(c_card - c_cpu).max())
+    check(err <= CLS_PROB_ERR, f"darknet9000 conditionals differ by {err}")
+    paths = []
+    for a, b in zip(c_card, c_cpu):
+        pa, pb = hierarchy_path(a, tree), hierarchy_path(b, tree)
+        check([n for n, _, _ in pa] == [n for n, _, _ in pb],
+              "darknet9000: hierarchy paths differ card against CPU")
+        paths.append(len(pa))
+    image = os.path.join(root, "classify.jpg")
+    with open(image, "wb") as f:
+        f.write(encode_jpeg(classifier_frames(SEED + 174, 1)[0], 90))
+    out, _, _, _ = cli_run(["classify", "--cfg", cfg_path, "--weights",
+                            weights, "--image", image, "--hierarchy",
+                            "--precision", "fp32"])
+    x = classifier_preprocess(decode_image(image), 256)
+    want = [{"node": n, "conditional": round(c, 6), "prob": round(p, 6)}
+            for n, c, p in hierarchy_path(
+                run(card_clf.params, x[None]).cpu().numpy()[0], tree)]
+    check(cli_lines(out) == want, "classify --hierarchy differs from the "
+          "direct hierarchy_path")
+    emit({"phase": "classifiers", "model": "darknet9000",
+          "tree_nodes": tree.n_nodes, "card_vs_cpu_max_abs_err": err,
+          "path_lengths": paths, "classify_hierarchy_equal_direct": True})
+
+
+def jpeg_class_folder(root: str) -> list:
+    """CLS_TRAIN_CLASSES class folders of CLS_TRAIN_PER seeded JPEG
+    scenes each, tinted by class -> list_imagefolder's samples."""
+    rng = np.random.default_rng(SEED + 175)
+    names = tuple(f"class{i}" for i in range(CLS_TRAIN_CLASSES))
+    for ci, name in enumerate(names):
+        os.makedirs(os.path.join(root, name))
+        for j in range(CLS_TRAIN_PER):
+            img = scene(rng, 96, 128)[0].astype(np.int32)
+            img[..., ci % 3] += 40 * (1 + ci // 3)
+            with open(os.path.join(root, name, f"{j}.jpg"), "wb") as f:
+                f.write(encode_jpeg(np.clip(img, 0, 255).astype(np.uint8),
+                                    90))
+    return list_imagefolder(root, names), names
+
+
+def classifier_train(root: str, card: str) -> dict:
+    """Phase 17 (d): CLS_TRAIN_STEPS fp32 steps of darknet-19 with a
+    CLS_TRAIN_CLASSES-way head at CLS_TRAIN_SIZE through
+    classifier_train_batches (flip, HSV) from seeded JPEG class folders,
+    card against CPU: the card's leaky sides and max-pool choices
+    replayed on the CPU (HeldChoices), the CPU's convs in float64; each
+    step's CE within 1e-4 (relative), the updates after the steps within
+    STEP_BOUND and the rolling statistics within STAT_BOUND (phase 10's
+    bounds)."""
+    samples, names = jpeg_class_folder(os.path.join(root, "imagefolder"))
+    base = get_variant("darknet19", input_size=CLS_TRAIN_SIZE)
+    cfg = dataclasses.replace(base, name="darknet19-folder",
+                              class_names=names, layers=base.layers[:-3] + (
+                                  Conv(CLS_TRAIN_CLASSES, size=1, bn=False,
+                                       act="linear"), AvgPool(),
+                                  SoftmaxHead()))
+    params = dw.synthetic_detector_params(cfg, SEED)
+    tcfg = TrainConfig(learning_rate=0.01, momentum=0.9,
+                       weight_decay=0.0005)
+    batches = list(itertools.islice(classifier_train_batches(
+        samples, CLS_TRAIN_BATCH, CLS_TRAIN_SIZE, epochs=2, seed=SEED,
+        augment_cfg=AugmentConfig(hue=0.1, saturation=1.5, exposure=1.5)),
+        CLS_TRAIN_STEPS))
+    held = HeldChoices()
+
+    def steps_on(dev):
+        state = init_state(cfg, params, tcfg, device=dev)
+        step = make_train_step(cfg, tcfg)
+        ces = [finite_metrics(step(state, {k: torch.from_numpy(v).to(dev)
+                                           for k, v in b.items()}),
+                              f"classifier step on {dev}")["ce"]
+               for b in batches]
+        return state.net.to_numpy(), ces
+
+    with held.record():
+        gpu, ce_gpu = steps_on("cuda")
+    with float64_convs(), held.replay():
+        cpu, ce_cpu = steps_on("cpu")
+    ce_rel = max(abs(a - b) / abs(b) for a, b in zip(ce_gpu, ce_cpu))
+    err = update_err(params, gpu, cpu, {"kernel", "gamma", "beta", "bias"})
+    stat_err = update_err(params, gpu, cpu, {"mean", "var"})
+    emit({"phase": "classifiers", "check": "train_steps_card_vs_cpu",
+          "model": cfg.name, "input": CLS_TRAIN_SIZE,
+          "batch": CLS_TRAIN_BATCH, "steps": CLS_TRAIN_STEPS,
+          "images": len(samples), "ce_cuda": ce_gpu, "ce_cpu": ce_cpu,
+          "ce_max_rel_err": ce_rel, "update_rel_err": err,
+          "bn_stat_update_rel_err": stat_err, "card_flips": held.flips,
+          "bounds": {"ce": 1e-4, "update": STEP_BOUND,
+                     "bn_stat_update": STAT_BOUND}, "card": card})
+    check(ce_rel <= 1e-4, f"classifier CE card vs CPU {ce_rel}")
+    check(err[0] <= STEP_BOUND, f"classifier updates differ by {err}")
+    check(stat_err[0] <= STAT_BOUND, f"classifier statistics differ by "
+          f"{stat_err}")
+    return {"update": err[0], "stat": stat_err[0]}
+
+
+def post_classify(port: int, body: bytes, ctype: str) -> list:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/classify", body=body,
+                     headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        answer = json.loads(resp.read())
+    finally:
+        conn.close()
+    check(resp.status == 200, f"/classify returned {resp.status}: {answer}")
+    return answer["classes"]
+
+
+def classify_commands(root: str, card: str) -> None:
+    """Phase 17 (d): `classify --image` and POST /classify (JPEG bodies,
+    one at a time) of darknet53 in bf16 answer as direct Classifier
+    calls on the same frames."""
+    path = os.path.join(root, "darknet53-seed.weights")
+    clf = yolo_tpu_torch.load(path, "darknet53", device="cuda")
+    bodies = [encode_jpeg(f, 90) for f in classifier_frames(SEED + 176, 3)]
+    images = []
+    for i, body in enumerate(bodies):
+        images.append(os.path.join(root, f"cls{i}.jpg"))
+        with open(images[-1], "wb") as f:
+            f.write(body)
+    direct = [[{"class": n, "prob": round(p, 6)} for n, p in clf([
+        decode_image(p)])[0]] for p in images]
+    out, _, wall, _ = cli_run(["classify", "--model", "darknet53",
+                               "--weights", path, "--image", images[0]])
+    check(cli_lines(out) == direct[0], "classify lines differ from the "
+          "direct call")
+    server = DetectionServer(clf.cfg, clf.params, port=0, max_batch=4)
+    server.start()
+    try:
+        answers = [post_classify(server.port, b, "image/jpeg")
+                   for b in bodies]
+        stats = dict(server.stats)
+    finally:
+        server.stop()
+    check(stats["errors"] == 0 and answers == direct,
+          f"/classify answers differ from direct calls ({stats})")
+    emit({"phase": "classifiers", "check": "classify_and_http",
+          "model": "darknet53", "classify_equal_direct": True,
+          "classify_seconds": wall, "http_requests": stats["requests"],
+          "http_equal_direct": True, "card": card})
+
+
+def phase_tree(root: str, coco_paths: list, gen, card: str) -> dict:
+    """Phase 17: YOLO9000 and the darknet classifiers -> the kernels
+    line's parts."""
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    launches, model, model32, cfg_path, grids = phase_tree_serve(root, card)
+    conv_shapes = eligible_conv_shapes(model.cfg)
+    conv_worst, conv_sums = tree_conv_shapes(gen, conv_shapes, card)
+    grid, shape, n = phase_tree_eval(model32, card)
+    launches["nms"] += n
+    weights = os.path.join(root, "yolo9000-seed.weights")
+    cfg = model.cfg
+    del model, model32
+    launches["nms"] += tree_eval_card_vs_cpu(cfg, weights, coco_paths, card)
+    t1 = time.perf_counter()
+    step = tree_train_step(cfg, cfg_path, weights)
+    t2 = time.perf_counter()
+    cls = phase_classifiers(root, card)
+    tree_classifier_path(root)
+    cls_train = classifier_train(root, card)
+    classify_commands(root, card)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
+    check(not foreign, f"phase 17 loaded {foreign}")
+    emit({"phase": "tree", "seconds": time.perf_counter() - t0,
+          "serve_eval_seconds": t1 - t0, "train_step_seconds": t2 - t1,
+          "classifier_seconds": time.perf_counter() - t2,
+          "nms_launches": launches["nms"],
+          "conv_launches": launches["conv"], "card": card})
+    return {"launches": launches, "grid": grid, "shape": shape,
+            "head_grids": grids, "step": step, "classifiers": cls,
+            "classifier_train": cls_train, "conv_worst": conv_worst,
+            "conv_ms": conv_sums, "convs": sum(conv_shapes.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3132,6 +3770,9 @@ def run(seeded: str) -> int:
 
     cli_launches = phase_cli(seeded, coco, card)
 
+    tree = phase_tree(os.path.join(seeded, "tree"), coco["paths"], gen,
+                      card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
     check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
@@ -3147,7 +3788,8 @@ def run(seeded: str) -> int:
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
          "launches": launches + voc_launches + yolo_launches["nms"]
          + yolo_eval_launches + coco_launches["nms"]
-         + cfg_run["launches"]["nms"] + cli_launches["nms"],
+         + cfg_run["launches"]["nms"] + cli_launches["nms"]
+         + tree["launches"]["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -3158,13 +3800,22 @@ def run(seeded: str) -> int:
          "coco_eval_grid": coco_shape, "coco_eval_grid_ms": coco_grid[0],
          "coco_eval_grid_plain_ms": coco_grid[1],
          "coco_eval_grid_bound_ms": coco_grid[2],
-         "coco_eval_grid_bound_by": coco_grid[3]},
+         "coco_eval_grid_bound_by": coco_grid[3],
+         "eval_grid_9k": tree["shape"], "eval_grid_9k_ms": tree["grid"][0],
+         "eval_grid_9k_plain_ms": tree["grid"][1],
+         "eval_grid_9k_bound_ms": tree["grid"][2],
+         "eval_grid_9k_bound_by": tree["grid"][3],
+         "tree_head_grid_ms": tree["head_grids"]["traversal"][0],
+         "tree_head_grid_plain_ms": tree["head_grids"]["traversal"][1],
+         "tree_head_grid_bound_ms": tree["head_grids"]["traversal"][2]},
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"] + yolo_launches["conv"]
-         + coco_launches["conv"] + cfg_run["launches"]["conv"],
-         "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"]),
+         + coco_launches["conv"] + cfg_run["launches"]["conv"]
+         + tree["launches"]["conv"],
+         "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"],
+                            tree["conv_worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
          "bound_by": conv_t[4], "library_ms": conv_t[2],
          "fp32_ms": conv32[0], "fp32_plain_ms": conv32[1],
@@ -3174,7 +3825,11 @@ def run(seeded: str) -> int:
          "rect_ms": cfg_run["rect_bf16"][0],
          "rect_plain_ms": cfg_run["rect_bf16"][1],
          "rect_library_ms": cfg_run["rect_bf16"][2],
-         "rect_bound_ms": cfg_run["rect_bf16"][3]},
+         "rect_bound_ms": cfg_run["rect_bf16"][3],
+         "yolo9000_convs": tree["convs"], "yolo9000_ms": tree["conv_ms"][0],
+         "yolo9000_plain_ms": tree["conv_ms"][1],
+         "yolo9000_library_ms": tree["conv_ms"][2],
+         "yolo9000_bound_ms": tree["conv_ms"][3]},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",

@@ -5,10 +5,10 @@ yolo_tpu_torch/io/zoo.py, yolo_tpu_torch/api.py).
 Parser parity is exact: on the same file both packages give configs
 equal field for field (through tests/torch_port.py::to_jax_config), the
 same cfg_to_string bytes, the same net_training_params, the same stderr
-warnings, or the same exception type and message. The classifier and
-yolov1 sections (and [region] tree=/map=) raise NotImplementedError
-naming ROADMAP A10 in the port. The cfg texts are every text the JAX
-package's parser tests write (their tests are run here with the parser
+warnings, or the same exception type and message. The yolov1 sections
+raise NotImplementedError naming ROADMAP A10 in the port; the classifier
+sections and the YOLO9000 [region] tree=/map= keys are compared as the
+rest. The cfg texts are every text the JAX package's parser tests write (their tests are run here with the parser
 swapped for one that runs both packages and compares them), the cfg
 texts of the scaled-yolov4, rectangular, weighted-shortcut, dilation
 and Gaussian tests, the cfg_to_string of every built-in variant and a
@@ -394,9 +394,13 @@ A10_SECTIONS = {
 
 @pytest.mark.parametrize("section", sorted(A10_SECTIONS) + ["region_tree"])
 def test_a10_sections_raise_not_implemented(section, tmp_path):
-    """The classifier and yolov1 sections, and the YOLO9000 [region]
-    tree= key, raise NotImplementedError at the section, naming the
-    file, the section's index and ROADMAP A10."""
+    """The yolov1 sections ([crop], [local], [detection]) raise
+    NotImplementedError at the section, naming the file, the section's
+    index and yolov1 (ROADMAP A10). The classifier sections and the
+    YOLO9000 [region] tree= key are ported (A10's first half): the port
+    parses these texts as the JAX package does, to the same config or
+    the same exception and message (here: no head section after a bare
+    [connected]/[dropout]; an absent tree file)."""
     conv = "[convolutional]\nfilters=8\nsize=3\npad=1\nactivation=leaky\n"
     if section == "region_tree":
         text = (f"[net]\nwidth=64\nheight=64\n{conv}"
@@ -407,10 +411,19 @@ def test_a10_sections_raise_not_implemented(section, tmp_path):
         index, kind = 2, f"[{section}]"
     p = tmp_path / f"{section}.cfg"
     p.write_text(text)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{re.escape(str(p))}: section {index} "
-                             rf"{re.escape(kind)}.*ROADMAP A10"):
-        tdc.config_from_cfg(str(p))
+    if section in ("crop", "local", "detection"):
+        with pytest.raises(NotImplementedError,
+                           match=rf"{re.escape(str(p))}: section {index} "
+                                 rf"{re.escape(kind)}.*yolov1, ROADMAP "
+                                 rf"A10"):
+            tdc.config_from_cfg(str(p))
+        return
+    want, jerr, _ = _run(J_CONFIG, str(p))
+    got, perr, _ = _run(tdc.config_from_cfg, str(p))
+    if jerr is not None:
+        _same_error(perr, jerr, str(p))
+    else:
+        assert perr is None and to_jax_config(got) == want
 
 
 # --- load(cfg=...) --------------------------------------------------------------
@@ -542,9 +555,11 @@ def test_jax_zoo_tests_hold_for_the_port(name, tmp_path, monkeypatch):
 
 def test_zoo_sizes_and_infer_variant_match_jax(tmp_path):
     """expected_weights_bytes equals the JAX package's for every entry
-    the port can build (the classifier entries are ROADMAP A10), the
-    manifest's sizes included, and infer_variant names the same variant
-    on a file of each size."""
+    the port can build (every entry since the classifiers are ported),
+    the manifest's sizes included, and infer_variant names the same
+    variant on a file of each size: the entry's, or the first variant of
+    its topology (darknet19-448's file is darknet19's size, and both
+    packages name darknet19)."""
     for name, e in zoo.load_manifest().items():
         if e["variant"] not in VARIANTS:
             continue
@@ -558,8 +573,9 @@ def test_zoo_sizes_and_infer_variant_match_jax(tmp_path):
         p = tmp_path / f"{name}.weights"
         with open(p, "wb") as f:
             f.truncate(e["size_bytes"])
-        assert zoo.infer_variant(str(p)) == jzoo.infer_variant(str(p)) \
-            == e["variant"], name
+        inferred = zoo.infer_variant(str(p))
+        assert inferred == jzoo.infer_variant(str(p)), name
+        assert get_variant(inferred).layers == cfg.layers, name
     assert zoo.weights_dir() == jzoo.weights_dir()
 
 

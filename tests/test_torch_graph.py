@@ -66,8 +66,13 @@ def test_variant_matches_jax_config(variant):
 
 
 def test_unported_variant_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_variant("darknet53")
+    """An unknown variant raises KeyError naming the ported ones; the
+    darknet classifiers (ROADMAP A10, once unported) are built-in
+    variants now, equal to the JAX package's."""
+    with pytest.raises(KeyError, match="darknet53"):
+        get_variant("darknet54")
+    assert to_jax_config(get_variant("darknet53")) == \
+        jax_get_variant("darknet53")
 
 
 @pytest.mark.parametrize("variant", ["tiny-voc", "coco"])
@@ -265,17 +270,21 @@ def test_darknet_matches_golden_full_yolov2_checksum():
 @pytest.mark.parametrize("layer,item", [
     (jspecs.Shortcut(-2, weights_type="per_feature"), "A8b"),
     (jspecs.Sam(-2), "A8b"), (jspecs.Conv(8, groups=2), "A8b"),
-    (jspecs.Connected(4), "A10"),
-    (jspecs.YoloHead((0,), new_coords=True), "A8b")])
+    (jspecs.Connected(4, in_features=12 * 12 * 8), "A10"),
+    (jspecs.YoloHead((0,), new_coords=True), "A8b"),
+    (jspecs.DetectionHead(side=2, num=1, classes=2), "A10"),
+    (jspecs.Local(4, out_h=12, out_w=12, in_c=8), "A10")])
 def test_layers_outside_the_slice_raise(layer, item):
-    """The JAX package's specs are not layers of the port: its classifier
+    """The JAX package's specs are not layers of the port: its yolov1
     layers are ROADMAP A10 and raise so, any other JAX spec is refused
     as a foreign object. The options only a custom .cfg sets (ROADMAP
-    A8b: weighted shortcut, sam, conv groups, new_coords) are ported:
-    the port's own spec of the same name and fields builds, and the
-    net matches the JAX package's in fp32 (rtol 1e-5 of its scale)."""
+    A8b: weighted shortcut, sam, conv groups, new_coords) and the
+    classifier layers (A10's first half: a spatial [connected]) are
+    ported: the port's own spec of the same name and fields builds, and
+    the net matches the JAX package's in fp32 (rtol 1e-5 of its
+    scale)."""
     layers = (Conv(8), Conv(8), layer)
-    if item == "A10":
+    if item == "A10" and type(layer).__name__ in tgraph._UNPORTED:
         with pytest.raises(NotImplementedError, match="A10"):
             tgraph._check_layer(2, layer)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

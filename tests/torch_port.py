@@ -16,34 +16,43 @@ from yolo_tpu_torch.models import graph as tgraph
 from yolo_tpu_torch.models import predict as tpredict
 
 
+def _fields(obj, tree_cls) -> dict:
+    """A dataclass's fields by name, a YOLO9000 tree among them
+    rebuilt as ``tree_cls`` (the other package's SoftmaxTree)."""
+    out = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    if out.get("tree") is not None:
+        out["tree"] = tree_cls(**_fields(out["tree"], None))
+    return out
+
+
 def to_jax_config(cfg):
-    """The JAX package's ModelConfig for a port ModelConfig: every spec
-    and field carried over by name; fields the port lacks keep the JAX
-    defaults, which are the yolov2 family's."""
-    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    """The JAX package's ModelConfig for a port ModelConfig: every spec,
+    field and YOLO9000 tree carried over by name; fields the port lacks
+    keep the JAX defaults, which are the yolov2 family's."""
+    from yolo_tpu.configs.tree import SoftmaxTree
+
+    fields = _fields(cfg, SoftmaxTree)
     fields["layers"] = tuple(
-        getattr(jspecs, type(l).__name__)(**dataclasses.asdict(l))
+        getattr(jspecs, type(l).__name__)(**_fields(l, SoftmaxTree))
         for l in cfg.layers)
     return jspecs.ModelConfig(**fields)
 
 
 def to_port_config(jcfg):
-    """The port's ModelConfig for a JAX package ModelConfig, every spec
-    and port field carried over by name; None when it holds a layer the
-    port lacks (the classifier and yolov1 layers, ROADMAP A10) or a
-    YOLO9000 tree."""
+    """The port's ModelConfig for a JAX package ModelConfig, every spec,
+    port field and YOLO9000 tree carried over by name; None when it
+    holds a layer the port lacks (the yolov1 layers, ROADMAP A10)."""
     from yolo_tpu_torch.configs import specs as tspecs
+    from yolo_tpu_torch.configs.tree import SoftmaxTree
 
-    if jcfg.tree is not None:
-        return None
     layers = []
     for l in jcfg.layers:
         cls = getattr(tspecs, type(l).__name__, None)
         if cls is None or not dataclasses.is_dataclass(cls):
             return None
-        layers.append(cls(**dataclasses.asdict(l)))
-    fields = {f.name: getattr(jcfg, f.name)
-              for f in dataclasses.fields(tspecs.ModelConfig)}
+        layers.append(cls(**_fields(l, SoftmaxTree)))
+    fields = {k: v for k, v in _fields(jcfg, SoftmaxTree).items()
+              if k in {f.name for f in dataclasses.fields(tspecs.ModelConfig)}}
     fields["layers"] = tuple(layers)
     return tspecs.ModelConfig(**fields)
 

@@ -12,6 +12,8 @@ under ``csrc/``, built by ``ops/cuda/build.py`` at first use.
     model = yolo_tpu_torch.load("my.weights", cfg="my.cfg",
                                 names="my.names")        # a darknet .cfg
     detections = model(images_u8)            # (B, H, W, 3) raw RGB
+    clf = yolo_tpu_torch.load("darknet53.weights", "darknet53")
+    labels = clf(images_u8)                  # top-5 (name, prob) an image
 """
 
 __version__ = "0.1.0"
@@ -19,7 +21,8 @@ __version__ = "0.1.0"
 
 def load(*args, **kw):
     """See yolo_tpu_torch.api.load — weights file (with an optional
-    darknet .cfg / .names, or a zoo:// entry) -> callable detector."""
+    darknet .cfg / .names, or a zoo:// entry) -> callable detector or
+    classifier."""
     from yolo_tpu_torch.api import load as _load
 
     return _load(*args, **kw)

@@ -8,14 +8,18 @@
     model = yolo_tpu_torch.load("zoo://yolov3")   # $YOLO_TPU_WEIGHTS_DIR
     detections = model(images_u8)            # (B, H, W, 3) raw RGB
     # {'boxes' (B,D,4) pixel xyxy, 'scores', 'classes', 'valid'} tensors
+    clf = yolo_tpu_torch.load("darknet53.weights", "darknet53")
+    labels = clf(images_u8)          # per image [(name, prob)] top-5
 
 Darknet ``.weights`` files of the built-in variants (matched by size),
 of any detector a darknet ``.cfg`` describes, or of a ``zoo://`` entry
 (a local file only: nothing is fetched); or a training checkpoint
 directory of the port (io/checkpoint.py; its EMA track when it keeps
 one, the built-in variant matched by the params' shapes). JAX orbax
-checkpoints convert with tools/ckpt_to_torch.py; the classifiers are
-ROADMAP A10.
+checkpoints convert with tools/ckpt_to_torch.py. A classifier (a
+darknet19/darknet53 variant or a [softmax] .cfg, YOLO9000 tree
+classifiers too) loads as a ``Classifier``; a YOLO9000 tree detector's
+``.cfg`` names its tree= and map= files beside it.
 """
 
 from __future__ import annotations
@@ -36,6 +40,35 @@ class Model:
     def __call__(self, images_u8):
         images = torch.as_tensor(images_u8, device=self.params.device)
         return self._detector(self.params, images)
+
+
+class Classifier:
+    """A loaded classifier: callable on raw uint8 RGB images (a batch or
+    a list of different sizes), returns per image the top-k [(name,
+    prob), ...] after darknet's preprocess (resize_min + centre crop);
+    a tree classifier ranks leaf-masked absolute probabilities."""
+
+    def __init__(self, cfg, params, k: int = 5):
+        self.cfg = cfg
+        self.params = params  # the Darknet module
+        self.k = k
+
+    def __call__(self, images_u8):
+        import numpy as np
+
+        from yolo_tpu_torch.models.classify import (classifier_preprocess,
+                                                    hierarchy_leaf_probs,
+                                                    make_classifier, top_k)
+
+        xs = np.stack([classifier_preprocess(np.asarray(im),
+                                             self.cfg.input_hw)
+                       for im in images_u8])
+        with torch.no_grad():
+            probs = make_classifier(self.cfg)(self.params, xs).cpu().numpy()
+        tree = self.cfg.softmax_tree
+        if tree is not None:
+            probs = hierarchy_leaf_probs(probs, tree)
+        return [top_k(p, self.cfg.class_names, k=self.k) for p in probs]
 
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -70,7 +103,7 @@ def load(weights_path: str, variant: Optional[str] = None, *,
          device: str = "cuda", precision: str = "bf16",
          input_size: Optional[int] = None,
          conf_threshold: Optional[float] = None,
-         nms_threshold: Optional[float] = None) -> Model:
+         nms_threshold: Optional[float] = None, k: int = 5):
     """Load a darknet ``.weights`` file, a ``zoo://<name>`` entry or a
     checkpoint directory of the port into a ready-to-call detector.
 
@@ -80,7 +113,8 @@ def load(weights_path: str, variant: Optional[str] = None, *,
     .names) that describes the topology instead
     (configs/darknet_cfg.py). device: "cuda" (the default, which raises
     when CUDA is absent) or "cpu", only when asked for. precision:
-    "fp32" | "bf16"."""
+    "fp32" | "bf16". A detector comes back as a Model; a classifier as a
+    Classifier, whose top-``k`` labels it returns."""
     import os
 
     from yolo_tpu_torch.configs import get_variant
@@ -138,6 +172,26 @@ def load(weights_path: str, variant: Optional[str] = None, *,
     net = Darknet(model_cfg.layers,
                   fold_params(model_cfg.layers, params, model_cfg.bn_eps),
                   device=dev, dtype=_DTYPES[precision])
+    if model_cfg.head_kind == "softmax":
+        return Classifier(model_cfg, net, k=k)
     detector = make_detector(model_cfg, conf_threshold=conf_threshold,
                              nms_threshold=nms_threshold)
     return Model(model_cfg, net, detector)
+
+
+def load_classifier(weights_path: str, variant: Optional[str] = None, *,
+                    cfg: Optional[str] = None, names: Optional[str] = None,
+                    device: str = "cuda", precision: str = "bf16",
+                    k: int = 5) -> Classifier:
+    """A darknet classifier (.weights file, checkpoint directory or
+    zoo:// entry) as a callable top-k model (api.py::load_classifier):
+    load() restricted to classifiers."""
+    if cfg is None and variant is None:
+        raise ValueError("load_classifier needs a variant name "
+                         "(e.g. 'darknet19') or cfg=")
+    out = load(weights_path, variant, cfg=cfg, names=names, device=device,
+               precision=precision, k=k)
+    if not isinstance(out, Classifier):
+        raise ValueError(f"{out.cfg.name} is a detector — use "
+                         f"yolo_tpu_torch.load")
+    return out

@@ -6,10 +6,11 @@ lines, on the card by default; ``--device cpu`` only when asked for):
   python -m yolo_tpu_torch.cli train   --model voc --voc-root VOC2007 --weights init.weights
   python -m yolo_tpu_torch.cli eval    --model voc --voc-root VOC2007 --split test --weights x
   python -m yolo_tpu_torch.cli export  --model voc --checkpoint ck/final --output out.weights
+  python -m yolo_tpu_torch.cli classify --model darknet53 --weights d.weights --image cat.jpg
 
 Commands whose parts are not ported yet raise naming their ROADMAP
-item: classify and the YOLO9000 flags (A10), --precision int8 (A11),
-detect --video and serve --dp (A12), bench (A13), --loader grain (A9g).
+item: yolov1 cfgs (A10), --precision int8 (A11), detect --video and
+serve --dp (A12), bench (A13), --loader grain (A9g).
 """
 
 from yolo_tpu_torch.cli._main import main  # noqa: E402  (the public entry)

@@ -18,7 +18,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                             "darknet19-448", "darknet53"])
     p.add_argument("--cfg", default=None,
                    help="darknet .cfg file (overrides --model; any "
-                        "yolov2/v3/v4-family topology)")
+                        "yolov2/v3/v4-family or classifier topology)")
     p.add_argument("--names", default=None,
                    help="darknet .names file (class names for --cfg)")
     p.add_argument("--input-size", type=int, default=None,
@@ -45,11 +45,16 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--hier-thresh", type=float, default=None,
-                   help="YOLO9000 tree models (not ported yet, ROADMAP "
-                        "A10)")
+                   help="YOLO9000 tree models: hierarchy traversal "
+                        "threshold (descend while the path probability "
+                        "product exceeds this; darknet -hier, default "
+                        "0.5)")
     p.add_argument("--use-tree-map", action="store_true",
-                   help="YOLO9000 tree models (not ported yet, ROADMAP "
-                        "A10)")
+                   help="YOLO9000 tree models: decode through the "
+                        "[region] map= projection (score = conf * "
+                        "absolute tree prob of each mapped node — the "
+                        "darknet COCO-eval path) instead of the "
+                        "hierarchy traversal")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -226,21 +231,27 @@ def _get_cfg(args):
 
 
 def _require_detection(cfg, cmd: str) -> None:
-    if cfg.head_kind not in ("region", "yolo"):
-        raise SystemExit(f"{cfg.name}: `{cmd}` needs a detection model "
-                         f"({cfg.head_kind} heads are not ported yet, "
-                         f"ROADMAP A10)")
+    if cfg.head_kind == "softmax":
+        raise SystemExit(
+            f"{cfg.name} is a classifier (softmax head) — `{cmd}` needs "
+            f"a detection model; use `classify` for top-k labels or "
+            f"`partial` to extract its backbone for detector training")
 
 
 def _tree_kw(args, cfg) -> dict:
-    """The YOLO9000 hierarchy flags: trees are not ported (no port
-    config carries one), so either flag raises."""
-    if getattr(args, "use_tree_map", False) or \
-            getattr(args, "hier_thresh", None) is not None:
-        raise SystemExit("--use-tree-map/--hier-thresh apply to YOLO9000 "
-                         "tree models, which are not ported yet (ROADMAP "
-                         "A10)")
-    return {}
+    """The YOLO9000 hierarchy flags of predict/detect/eval/recall/serve,
+    checked (they mean nothing without a [region] tree=) and returned as
+    the make_detector* / collect_detections keywords."""
+    use_map = getattr(args, "use_tree_map", False)
+    hier = getattr(args, "hier_thresh", None)
+    if (use_map or hier is not None) and cfg.tree is None:
+        raise SystemExit("--use-tree-map/--hier-thresh apply only to "
+                         "YOLO9000 tree models ([region] tree=<file>); "
+                         f"{cfg.name} has no tree")
+    if use_map and cfg.tree_map is None:
+        raise SystemExit("--use-tree-map needs a [region] map=<file> "
+                         f"projection in the cfg; {cfg.name} has none")
+    return {"use_tree_map": use_map, "hier_thresh": hier}
 
 
 def _to_numpy(out) -> dict:

@@ -1,6 +1,7 @@
 """`predict` / `detect` / `classify` (port of yolo_tpu/cli/detect_cmds.py):
-single-image and batched directory detection. Video input (ROADMAP A12)
-and the classifiers (A10) are not ported yet and raise."""
+single-image and batched directory detection, classifier top-k and
+imagefolder accuracy. Video input (ROADMAP A12) and int8 (A11) are not
+ported yet and raise."""
 
 from __future__ import annotations
 
@@ -17,8 +18,65 @@ from yolo_tpu_torch.cli._common import (_get_cfg, _load_net,
 
 
 def cmd_classify(args) -> None:
-    raise SystemExit("`classify` needs the darknet classifiers, which are "
-                     "not ported yet (ROADMAP A10)")
+    """darknet classifier predict (classifier.c predict_classifier):
+    min-side resize + centre crop, forward, top-k labels as JSON lines;
+    ``--images DIR`` scores an imagefolder tree (darknet `classifier
+    valid`) and prints top-1/top-k accuracy."""
+    from yolo_tpu_torch.data.pipeline import load_image
+    from yolo_tpu_torch.models.classify import (classifier_preprocess,
+                                                hierarchy_leaf_probs,
+                                                hierarchy_path,
+                                                make_classifier, top_k)
+
+    cfg = _get_cfg(args)
+    if cfg.head_kind != "softmax":
+        raise SystemExit(f"{cfg.name} is not a classifier "
+                         f"(head_kind={cfg.head_kind}) — use `predict`")
+    if bool(args.image) == bool(args.images):
+        raise SystemExit("give exactly one of --image / --images")
+    if args.use_tree_map or args.hier_thresh is not None:
+        raise SystemExit("--use-tree-map/--hier-thresh shape the "
+                         "DETECTION decode — classify uses leaf-masked "
+                         "absolute probs (--hierarchy prints the path)")
+    if args.hierarchy and cfg.softmax_tree is None:
+        raise SystemExit("--hierarchy applies only to tree classifiers "
+                         f"([softmax] tree=<file>); {cfg.name} has none")
+    if args.hierarchy and args.images:
+        raise SystemExit("--hierarchy prints one image's tree path — "
+                         "use it with --image")
+    net = _load_net(args, cfg)          # int8 raises (ROADMAP A11)
+    if args.image:
+        x = classifier_preprocess(load_image(args.image, cfg.in_channels),
+                                  cfg.input_hw)
+        with torch.no_grad():
+            probs = make_classifier(cfg)(net, x[None]).cpu().numpy()[0]
+        if cfg.softmax_tree is not None:
+            # per-group conditionals -> leaf-masked absolute probs
+            if args.hierarchy:
+                for name, c, p in hierarchy_path(probs, cfg.softmax_tree):
+                    print(json.dumps({"node": name,
+                                      "conditional": round(c, 6),
+                                      "prob": round(p, 6)}))
+                return
+            probs = hierarchy_leaf_probs(probs[None], cfg.softmax_tree)[0]
+        for name, p in top_k(probs, cfg.class_names, k=args.top):
+            print(json.dumps({"class": name, "prob": round(p, 6)}))
+        return
+
+    from yolo_tpu_torch.data.imagefolder import list_imagefolder
+    from yolo_tpu_torch.models.classify import imagefolder_accuracy
+
+    try:
+        samples = list_imagefolder(args.images, cfg.class_names)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    try:
+        with torch.no_grad():
+            out = imagefolder_accuracy(cfg, net, samples, batch=args.batch,
+                                       k=args.top)
+    except ValueError as e:
+        raise SystemExit(f"--batch: {e}" if "batch" in str(e) else str(e))
+    print(json.dumps(out))
 
 
 def _write_label_file(image_path: str, dets_xyxy, src_w: int,
@@ -61,11 +119,11 @@ def cmd_predict(args) -> None:
 
     cfg = _get_cfg(args)
     _require_detection(cfg, "predict")
-    _tree_kw(args, cfg)
-    names = cfg.detection_names()
+    tree_kw = _tree_kw(args, cfg)
+    names = cfg.detection_names(tree_kw["use_tree_map"])
     net = _load_net(args, cfg)
     img = load_image(args.image, cfg.in_channels)
-    det = make_detector(cfg, resize=args.resize)
+    det = make_detector(cfg, resize=args.resize, **tree_kw)
     with maybe_trace(args.profile_dir), torch.no_grad():
         out = _to_numpy(det(net, torch.from_numpy(img[None]).to(net.device)))
     boxes, scores = out["boxes"][0], out["scores"][0]
@@ -118,18 +176,18 @@ def cmd_detect(args) -> None:
                          "not ported yet (ROADMAP A12, data/video.py)")
     cfg = _get_cfg(args)
     _require_detection(cfg, "detect")
-    _tree_kw(args, cfg)
-    names = cfg.detection_names()
+    tree_kw = _tree_kw(args, cfg)
+    names = cfg.detection_names(tree_kw["use_tree_map"])
     net = _load_net(args, cfg)
     paths = _image_paths(args)
     if args.host_preprocess:
-        det = make_detector_preprocessed(cfg)
+        det = make_detector_preprocessed(cfg, **tree_kw)
         host_iter = inference_batches(paths, args.batch,
                                       net_size=cfg.input_hw,
                                       resize=args.resize,
                                       channels=cfg.in_channels)
     else:
-        det = make_detector(cfg, resize=args.resize)
+        det = make_detector(cfg, resize=args.resize, **tree_kw)
         host_iter = inference_batches(paths, args.batch,
                                       channels=cfg.in_channels)
     if args.output_dir:

@@ -51,8 +51,9 @@ def cmd_recall(args) -> None:
 
     cfg = _get_cfg(args)
     _require_detection(cfg, "recall")
-    _tree_kw(args, cfg)
-    names = cfg.detection_names()
+    # recall is class-agnostic, but name-mapped annotations drop boxes
+    # whose names do not resolve: the same names as `eval`
+    names = cfg.detection_names(_tree_kw(args, cfg)["use_tree_map"])
     dtype = _compute_dtype(args.precision)
     device = _device(args)
     pairs = _dataset_samples(args, cfg, names=names)
@@ -73,8 +74,9 @@ def cmd_eval(args) -> None:
 
     cfg = _get_cfg(args)
     _require_detection(cfg, "eval")
-    _tree_kw(args, cfg)
-    names = cfg.detection_names()
+    tree_kw = _tree_kw(args, cfg)
+    # tree-map eval scores the projected class list
+    names = cfg.detection_names(tree_kw["use_tree_map"])
     ncls = len(names)
     if not args.from_detections and not args.weights:
         raise SystemExit("--weights is required (or score a saved "
@@ -114,7 +116,7 @@ def cmd_eval(args) -> None:
         detections = collect_detections(
             cfg, _load_params(args, cfg), pairs, batch=args.batch,
             eval_conf=args.eval_conf, compute_dtype=dtype,
-            resize=args.resize, device=device)
+            resize=args.resize, device=device, **tree_kw)
 
     if args.save_detections:
         # pycocotools loadRes format: original image/category ids,

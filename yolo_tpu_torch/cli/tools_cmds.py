@@ -11,9 +11,8 @@ import subprocess
 import sys
 
 from yolo_tpu_torch.cli._common import (_dataset_samples, _get_cfg,
-                                        _load_net,
-                                        _require_detection,
-                                        _resolve_weights, _tree_kw)
+                                        _load_net, _resolve_weights,
+                                        _tree_kw)
 
 
 def cmd_zoo(args) -> None:
@@ -125,8 +124,8 @@ def cmd_export(args) -> None:
 
 
 def cmd_serve(args) -> None:
-    """HTTP detection endpoint with micro-batching (serve.py) on
-    --device."""
+    """HTTP detection (or, for a classifier, classification) endpoint
+    with micro-batching (serve.py) on --device."""
     import numpy as np
     import torch
 
@@ -137,29 +136,34 @@ def cmd_serve(args) -> None:
         raise SystemExit("serve --dp (data-parallel serving over several "
                          "devices) is not ported yet (ROADMAP A12)")
     cfg = _get_cfg(args)
-    _require_detection(cfg, "serve")
-    _tree_kw(args, cfg)
+    classifier = cfg.head_kind == "softmax"
+    if classifier and (args.use_tree_map or args.hier_thresh is not None):
+        raise SystemExit("--use-tree-map/--hier-thresh shape the "
+                         "DETECTION decode; /classify scores leaf-"
+                         "masked absolute probs with no threshold")
+    tree_kw = {} if classifier else _tree_kw(args, cfg)
     net = _load_net(args, cfg)
     server = DetectionServer(
         cfg, net, host=args.host, port=args.port, max_batch=args.max_batch,
         batch_window_ms=args.batch_window_ms,
         adaptive_window=not args.no_adaptive_window,
-        conf_threshold=args.conf, resize=args.resize)
-    if args.prewarm_shape:
+        conf_threshold=args.conf, resize=args.resize, **tree_kw)
+    if args.prewarm_shape and not classifier:
         # eager PyTorch compiles nothing; one call at batch 1 and at
         # --max-batch settles cuDNN's algorithm choice for the shape
         h, w = (int(v) for v in args.prewarm_shape.split("x"))
         print(f"prewarming batch sizes 1 and {args.max_batch} for "
               f"{h}x{w}...", file=sys.stderr)
         det = make_detector(cfg, conf_threshold=args.conf,
-                            resize=args.resize)
+                            resize=args.resize, **tree_kw)
         with torch.no_grad():
             for b in sorted({1, args.max_batch}):
                 det(net, torch.from_numpy(np.zeros(
                     (b, h, w, cfg.in_channels), np.uint8)).to(net.device))
     server.start()
+    endpoint = "/classify" if classifier else "/detect"
     print(f"serving {cfg.name} on http://{args.host}:{server.port} "
-          f"(POST /detect, GET /healthz)", file=sys.stderr, flush=True)
+          f"(POST {endpoint}, GET /healthz)", file=sys.stderr, flush=True)
     try:
         server.wait()
     finally:

@@ -1,5 +1,7 @@
-"""`train`: detector fine-tuning with the region or [yolo] loss (port of
-yolo_tpu/cli/train_cmd.py), on one device.
+"""`train`: detector fine-tuning with the region (YOLO9000 trees too) or
+[yolo] loss, and classifier training on an imagefolder
+(train_helpers._train_classifier) (port of yolo_tpu/cli/train_cmd.py),
+on one device.
 
 Checkpoints (--checkpoint-dir: step_N every --checkpoint-every steps,
 best on a better --eval-every mAP, final at the end) are written by
@@ -189,16 +191,18 @@ def cmd_train(args) -> None:
     cfg = _get_cfg(args)
     if args.use_tree_map or args.hier_thresh is not None:
         raise SystemExit("--use-tree-map/--hier-thresh shape the "
-                         "detection DECODE of YOLO9000 trees, which are "
-                         "not ported yet (ROADMAP A10)")
+                         "detection DECODE — training ignores them "
+                         "(the hierarchical loss follows the cfg tree "
+                         "automatically)")
     if getattr(cfg, "objectness_smooth", False) and args.allow_deviations:
         print("--allow-deviations: [yolo] objectness_smooth=1 has no "
               "pinnable reference semantics — training with SHARP "
               "objectness targets (objectness_smooth=0) instead",
               file=sys.stderr)
         cfg = dataclasses.replace(cfg, objectness_smooth=False)
-    if args.imagefolder or args.eval_imagefolder:
+    if cfg.head_kind == "softmax":
         _train_classifier(args, cfg)
+        return
     if args.loader == "grain":
         raise SystemExit("--loader grain (a resumable multiprocess loader) "
                          "is not ported yet (ROADMAP A9g); the threads "
@@ -208,6 +212,10 @@ def cmd_train(args) -> None:
                          "(a full .weights file or a darknet `partial` "
                          "backbone, e.g. zoo://darknet19-448-conv23) — "
                          "or --resume a checkpoint")
+    if args.imagefolder or args.eval_imagefolder:
+        raise SystemExit("--imagefolder/--eval-imagefolder are "
+                         f"classifier training data — {cfg.name} is a "
+                         "detector; use --voc-root or --coco-json")
     if args.resize == "stretch":
         print("training with stretch (letter_box=0) geometry",
               file=sys.stderr)

@@ -1,7 +1,7 @@
-"""Trainer plumbing (port of yolo_tpu/cli/train_helpers.py): checkpoint
-restore with the EMA adaptation, and the darknet [net]-driven batch,
-optimizer and LR-schedule resolution. The classifier trainer
-(_train_classifier) is ROADMAP A10."""
+"""Trainer plumbing (port of yolo_tpu/cli/train_helpers.py): the
+classifier trainer (_train_classifier), checkpoint restore with the EMA
+adaptation, and the darknet [net]-driven batch, optimizer and
+LR-schedule resolution."""
 
 from __future__ import annotations
 
@@ -9,8 +9,229 @@ import sys
 
 
 def _train_classifier(args, cfg) -> None:
-    raise SystemExit("classifier training (--imagefolder, softmax heads) "
-                     "is not ported yet (ROADMAP A10)")
+    """Classifier (softmax-head) training on an imagefolder: softmax
+    cross-entropy (train/loss.py::classifier_loss), with the detector
+    trainer's optimizer, LR schedules, EMA and checkpoints; completes
+    darknet's pretrain workflow: train a classifier -> `partial` ->
+    fine-tune a detector. --eval-every scores --eval-imagefolder's top-1
+    with the EMA (or live) weights and keeps the best checkpoint."""
+    import os
+    import time
+
+    import numpy as np
+
+    from yolo_tpu_torch.cli._common import (_compute_dtype, _device,
+                                            _resolve_weights)
+    from yolo_tpu_torch.data.imagefolder import (classifier_train_batches,
+                                                 list_imagefolder,
+                                                 steps_per_epoch)
+    from yolo_tpu_torch.data.pipeline import DevicePrefetcher
+    from yolo_tpu_torch.io import checkpoint as ckpt
+    from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.train.loop import (TrainConfig, init_state,
+                                           make_train_step, state_to_tree)
+    from yolo_tpu_torch.utils.metrics import MetricsLogger
+    from yolo_tpu_torch.utils.profiling import maybe_trace
+
+    if not args.imagefolder:
+        raise SystemExit(f"{cfg.name} is a classifier — training data "
+                         "is an imagefolder (--imagefolder DIR with "
+                         "<dir>/<class>/<image> layout), not "
+                         "--voc-root/--coco-json")
+    if args.voc_root or args.coco_json:
+        raise SystemExit("classifier training takes --imagefolder, not "
+                         "--voc-root/--coco-json")
+    for flag, name in ((args.multi_scale, "--multi-scale"),
+                       (args.mosaic, "--mosaic"),
+                       (args.mixup, "--mixup"),
+                       (args.loader == "grain", "--loader grain")):
+        if flag:
+            raise SystemExit(f"{name} applies to detector training "
+                             "only (classifier training augments with "
+                             "a seeded flip; --no-augment disables)")
+    dtype = _compute_dtype(args.precision)
+    device = _device(args)
+    eval_arrays = eval_samples = None
+    if args.eval_every:
+        from yolo_tpu_torch.models.classify import preprocess_samples
+
+        eval_dir = args.eval_imagefolder or args.imagefolder
+        if not args.eval_imagefolder:
+            print("--eval-every without --eval-imagefolder scores the "
+                  "TRAINING images", file=sys.stderr)
+        eval_samples = list_imagefolder(eval_dir, cfg.class_names)
+        if args.eval_max_images:
+            eval_samples = eval_samples[:args.eval_max_images]
+        # decoded once while the cache stays small; past the cap each
+        # eval streams from disk
+        if len(eval_samples) <= 2048:
+            eval_arrays = preprocess_samples(eval_samples, cfg.input_hw,
+                                             cfg.in_channels)
+            print(f"cached {len(eval_samples)} preprocessed eval "
+                  f"images", file=sys.stderr)
+        else:
+            print(f"{len(eval_samples)} eval images exceed the 2048 "
+                  f"preprocess cache cap — each eval streams from "
+                  f"disk (--eval-max-images to cache a subset)",
+                  file=sys.stderr)
+
+    net_hp = {}
+    if args.cfg:
+        from yolo_tpu_torch.configs.darknet_cfg import net_training_params
+
+        net_hp = net_training_params(args.cfg)
+    lr = args.lr if args.lr is not None else net_hp.get(
+        "learning_rate", 1e-3)
+    burn_in = args.burn_in if args.burn_in is not None else net_hp.get(
+        "burn_in", 0)
+    ema_alpha = (args.ema_alpha if args.ema_alpha is not None
+                 else net_hp.get("ema_alpha", 0.0))
+    ema_start = (args.ema_start_step if args.ema_start_step is not None
+                 else net_hp.get("max_batches", 0) // 2)
+    tcfg = TrainConfig(learning_rate=lr, **_optimizer_from(args, net_hp),
+                       **_lr_schedule_from(args, net_hp),
+                       remat=args.remat, burn_in_steps=burn_in,
+                       momentum=net_hp.get("momentum", 0.9),
+                       weight_decay=net_hp.get("decay", 5e-4),
+                       grad_accum=_batch_accum_from(args, net_hp),
+                       ema_alpha=ema_alpha, ema_start_step=ema_start)
+
+    if args.resume:
+        state = _restore_adapt_ema(args.resume, cfg, tcfg, device)
+    elif args.weights:
+        # a full .weights file or a darknet partial; the rest random
+        from yolo_tpu_torch.configs.specs import weighted_specs
+
+        params, header, n_loaded = dw.load_partial(
+            _resolve_weights(args.weights), cfg.layers,
+            input_channels=cfg.in_channels)
+        n_total = len(weighted_specs(cfg.layers))
+        if n_loaded < n_total:
+            fresh = dw.random_params(cfg.layers,
+                                     np.random.default_rng(args.seed),
+                                     scale=0.03,
+                                     input_channels=cfg.in_channels)
+            params = params + fresh[n_loaded:]
+            print(f"partial init: {n_loaded}/{n_total} weighted layers "
+                  f"from {args.weights}, rest randomly initialized",
+                  file=sys.stderr)
+        state = init_state(cfg, params, tcfg,
+                           seen=header["seen"] if args.keep_seen else 0,
+                           device=device)
+    else:
+        # darknet classifiers train from scratch by default
+        params = dw.random_params(cfg.layers,
+                                  np.random.default_rng(args.seed),
+                                  scale=0.03,
+                                  input_channels=cfg.in_channels)
+        state = init_state(cfg, params, tcfg, device=device)
+        print("no --weights: training from random initialization "
+              f"(seed {args.seed})", file=sys.stderr)
+    step_fn = make_train_step(cfg, tcfg, compute_dtype=dtype)
+
+    samples = list_imagefolder(args.imagefolder, cfg.class_names)
+    print(f"{len(samples)} images, {cfg.num_classes} classes",
+          file=sys.stderr)
+    aug_cfg = None
+    cls_aug_keys = ("saturation", "exposure", "hue", "flip",
+                    "angle", "aspect", "min_crop", "max_crop")
+    if (args.augment or any(k in net_hp for k in cls_aug_keys)) \
+            and not args.no_augment:
+        # darknet classifier training distorts HSV (the cfg's keys, or
+        # --augment for the classic HSV + flip)
+        from yolo_tpu_torch.data.augment import config_from_net_params
+
+        aug_cfg = config_from_net_params(
+            net_hp,
+            force_defaults=not any(k in net_hp for k in cls_aug_keys))
+        if aug_cfg.mosaic or aug_cfg.mixup:
+            raise SystemExit("mosaic/mixup are detection augmentations "
+                             "— classifier training supports HSV+flip "
+                             "and [net] angle/aspect/min_crop/max_crop")
+        if aug_cfg.classifier_geometry:
+            raise SystemExit("the classifier scale/rotation crop ([net] "
+                             "angle/aspect/min_crop/max_crop) is not "
+                             "ported yet (ROADMAP A9f); drop the keys or "
+                             "pass --no-augment")
+        print("classifier HSV+flip augmentation enabled", file=sys.stderr)
+    if state.step:
+        print(f"data position: resuming the stream at step "
+              f"{state.step} (position-independent shuffle/flip keys)",
+              file=sys.stderr)
+    host_iter = classifier_train_batches(
+        samples, args.batch, cfg.input_hw, epochs=args.epochs,
+        seed=args.seed, flip=not args.no_augment, start_step=state.step,
+        augment_cfg=aug_cfg, channels=cfg.in_channels)
+    logger = MetricsLogger(path=args.log_file, every=args.log_every)
+    spe = steps_per_epoch(len(samples), args.batch)
+    best_top1 = -1.0
+
+    with ckpt.AsyncSaver() as saver:
+        def save_ckpt(name: str) -> None:
+            saver.save(os.path.join(args.checkpoint_dir, name),
+                       state_to_tree(state), model=cfg.name)
+
+        t_last = time.perf_counter()
+        with maybe_trace(args.profile_dir), \
+                DevicePrefetcher(host_iter, depth=2,
+                                 device=state.net.device) as staged:
+            for batch in staged:
+                metrics = step_fn(state, batch)
+                step = state.step
+                now = time.perf_counter()
+                img_s = args.batch / max(now - t_last, 1e-9)
+                t_last = now
+                logger.log(step, metrics, epoch=(step - 1) // spe,
+                           size=batch["images"].shape[1],
+                           img_s=round(img_s, 1))
+                if args.eval_every and step % args.eval_every == 0:
+                    top1 = _validate_classifier(args, cfg, state, dtype,
+                                                eval_arrays, eval_samples)
+                    logger.log(step, {"val_top1": top1}, force=True)
+                    print(f"step {step}: validation top-1 {top1:.4f}",
+                          file=sys.stderr)
+                    if args.checkpoint_dir and top1 > best_top1:
+                        best_top1 = top1
+                        save_ckpt("best")
+                        print(f"new best top-1 {top1:.4f} -> "
+                              f"{args.checkpoint_dir}/best",
+                              file=sys.stderr)
+                    t_last = time.perf_counter()
+                if args.checkpoint_dir and step % args.checkpoint_every == 0:
+                    save_ckpt(f"step_{step}")
+                    t_last = time.perf_counter()
+                if args.fail_after_step and step >= args.fail_after_step:
+                    raise SystemExit(
+                        f"--fail-after-step {args.fail_after_step} "
+                        f"reached (fault-injection debug flag)")
+        if args.checkpoint_dir:
+            save_ckpt("final")
+    if args.checkpoint_dir:
+        print(f"saved final checkpoint to {args.checkpoint_dir}/final",
+              file=sys.stderr)
+    logger.close()
+
+
+def _validate_classifier(args, cfg, state, dtype, eval_arrays,
+                         eval_samples) -> float:
+    """The validation top-1 of the EMA (or live) weights, folded into an
+    inference net on the state's device."""
+    import torch
+
+    from yolo_tpu_torch.models.classify import (accuracy_from_arrays,
+                                                imagefolder_accuracy)
+    from yolo_tpu_torch.models.graph import Darknet, fold_params
+    from yolo_tpu_torch.train.loop import ema_params_of
+
+    net = Darknet(cfg.layers, fold_params(cfg.layers, ema_params_of(state),
+                                          cfg.bn_eps),
+                  device=state.net.device, dtype=dtype)
+    batch = min(args.batch, 32)
+    with torch.no_grad():
+        acc = (accuracy_from_arrays(cfg, net, *eval_arrays, batch=batch)
+               if eval_arrays is not None else
+               imagefolder_accuracy(cfg, net, eval_samples, batch=batch))
+    return acc["top1"]
 
 
 def _restore_adapt_ema(resume_path: str, mcfg, tcfg, device):

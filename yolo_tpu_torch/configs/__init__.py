@@ -1,7 +1,8 @@
 from yolo_tpu_torch.configs.names import COCO_NAMES, VOC_NAMES
-from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec, MaxPool,
-                                          ModelConfig, Reorg, Route, Sam,
-                                          ScaleChannels, Shortcut, Upsample,
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv, Dropout,
+                                          LayerSpec, MaxPool, ModelConfig,
+                                          Reorg, Route, Sam, ScaleChannels,
+                                          Shortcut, SoftmaxHead, Upsample,
                                           YoloHead, conv_specs,
                                           layer_strides, resolve_route,
                                           weighted_specs)
@@ -10,9 +11,10 @@ from yolo_tpu_torch.configs.variants import (TINY_YOLOV2_VOC, VARIANTS,
                                              get_variant)
 
 __all__ = [
-    "COCO_NAMES", "VOC_NAMES", "AvgPool", "Conv", "LayerSpec", "MaxPool",
-    "ModelConfig", "Reorg", "Route", "Sam", "ScaleChannels", "Shortcut",
-    "Upsample", "YoloHead", "conv_specs", "layer_strides", "resolve_route",
-    "weighted_specs", "TINY_YOLOV2_VOC", "VARIANTS", "YOLOV2_COCO",
-    "YOLOV2_VOC", "get_variant",
+    "COCO_NAMES", "VOC_NAMES", "AvgPool", "Connected", "Conv", "Dropout",
+    "LayerSpec", "MaxPool", "ModelConfig", "Reorg", "Route", "Sam",
+    "ScaleChannels", "Shortcut", "SoftmaxHead", "Upsample", "YoloHead",
+    "conv_specs", "layer_strides", "resolve_route", "weighted_specs",
+    "TINY_YOLOV2_VOC", "VARIANTS", "YOLOV2_COCO", "YOLOV2_VOC",
+    "get_variant",
 ]

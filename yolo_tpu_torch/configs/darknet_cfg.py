@@ -11,17 +11,18 @@ dilation, activation leaky|linear|mish|logistic|swish|relu|ramp),
 [maxpool], [route] (layers, groups/group_id), [reorg], [shortcut] (from,
 activation, weights_type, weights_normalization), [sam],
 [scale_channels] (from, scale_wh), [upsample] (stride, scale),
-[avgpool] (the global squeeze of an SE block), [cost] (ignored),
-[region] (the yolov2 head and its training keys), [yolo] (mask, anchors,
-the training keys, scale_x_y, the scaled-yolov4 new_coords=1 head,
-nms_kind/beta_nms) and [Gaussian_yolo] (9+C channels an anchor).
+[avgpool] (global), [cost] (ignored), [region] (the yolov2 head and its
+training keys; tree=/map= for YOLO9000), [yolo] (mask, anchors, the
+training keys, scale_x_y, the scaled-yolov4 new_coords=1 head,
+nms_kind/beta_nms), [Gaussian_yolo] (9+C channels an anchor), and the
+classifier sections [connected] (output, activation; no BN), [dropout]
+(probability) and [softmax] (groups=1, tree=, temperature), the last
+layer of a darknet19/darknet53-style classifier.
 
 Each section raises where the JAX package's parser raises, with the same
 exception type and message, and the same stderr warnings for keys
-nothing reads. The classifier and yolov1 sections ([connected],
-[dropout], [softmax], [crop], [local], [detection]) and the YOLO9000
-[region] tree=/map= keys raise NotImplementedError at the section:
-they are ROADMAP A10.
+nothing reads. The yolov1 sections ([crop], [local], [detection]) raise
+NotImplementedError at the section: they are ROADMAP A10's second half.
 """
 
 from __future__ import annotations
@@ -29,19 +30,19 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Conv, MaxPool,
-                                          ModelConfig, Reorg, Route, Sam,
-                                          ScaleChannels, Shortcut,
-                                          Upsample, YoloHead, layer_strides,
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
+                                          Dropout, MaxPool, ModelConfig,
+                                          Reorg, Route, Sam, ScaleChannels,
+                                          Shortcut, SoftmaxHead, Upsample,
+                                          YoloHead, layer_strides,
                                           resolve_route)
 
 _SUPPORTED = {"net", "convolutional", "maxpool", "route", "reorg",
               "region", "shortcut", "sam", "scale_channels", "upsample",
               "yolo", "gaussian_yolo", "avgpool", "connected", "dropout",
               "softmax", "cost", "crop", "local", "detection"}
-# sections of the classifier and yolov1 families (ROADMAP A10)
-_A10_SECTIONS = ("connected", "dropout", "softmax", "crop", "local",
-                 "detection")
+# sections of the yolov1 family (ROADMAP A10's second half)
+_YOLOV1_SECTIONS = ("crop", "local", "detection")
 
 # Per-section key audit (darknet's cfg is the FULL training config, so
 # a silently-dropped key can mean silently-different training): keys in
@@ -205,11 +206,15 @@ def _resolve_spatial(layers: List, input_hw: Tuple[int, int],
                      in_channels: int = 3) -> List:
     """Shape-resolution pass (darknet_cfg.py::_resolve_spatial): walk
     (h, w, c) through the layer list, raising where a route
-    concatenates sources of different spatial extents. The port's
-    layers pin no geometry in their specs (that is [local] and spatial
-    [connected], ROADMAP A10), so the list comes back unchanged.
+    concatenates sources of different spatial extents, and pin the
+    flattened feature count of a spatial dense input in
+    Connected.in_features (darknet flattens h*w*c; a 1x1 input keeps
+    None, the classifier case). Returns the rewritten layer list.
     input_hw: (net_h, net_w)."""
+    import dataclasses as _dc
+
     shapes: List[Tuple[int, int, int]] = []   # (h, w, c) per layer
+    out = []
     h, w = input_hw
     c = in_channels
     for idx, l in enumerate(layers):
@@ -246,9 +251,16 @@ def _resolve_spatial(layers: List, input_hw: Tuple[int, int],
             c = sum(s[2] // l.groups for s in srcs)
         elif isinstance(l, ScaleChannels):
             h, w, c = shapes[resolve_route(idx, l.frm)]
-        # Shortcut/Sam/YoloHead keep the running shape
+        elif isinstance(l, Connected):
+            if h * w > 1:
+                l = _dc.replace(l, in_features=h * w * c)
+            h = w = 1
+            c = l.out
+        # Shortcut/Sam/Dropout/SoftmaxHead/YoloHead keep the running
+        # shape
         shapes.append((h, w, c))
-    return list(layers)
+        out.append(l)
+    return out
 
 
 def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
@@ -266,17 +278,18 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
     region_thresh: Optional[float] = None
     region_spec: Optional[Tuple] = None  # [region] loss scales+rescore
     saw_region = False
+    tree_file: Optional[str] = None   # [region]/[softmax] tree= (YOLO9000)
+    map_file: Optional[str] = None    # [region] map=
 
     for index, (kind, kv) in enumerate(sections):
         if kind not in _SUPPORTED:
             raise ValueError(
                 f"[{kind}] is not a supported darknet section "
                 f"(supported: {sorted(_SUPPORTED)})")
-        if kind in _A10_SECTIONS:
+        if kind in _YOLOV1_SECTIONS:
             raise NotImplementedError(
                 f"{cfg_path}: section {index} [{kind}] belongs to the "
-                f"classifier / yolov1 families, not ported yet (ROADMAP "
-                f"A10)")
+                f"yolov1 family, not ported yet (yolov1, ROADMAP A10)")
         if kind == "net":
             # darknet [net] width/height are independent keys —
             # rectangular nets (a normal AlexeyAB video workflow) are
@@ -447,6 +460,43 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                                    scale=float(kv.get("scale", 1.0))))
         elif kind == "avgpool":
             layers.append(AvgPool())
+        elif kind == "connected":
+            if int(kv.get("batch_normalize", 0)):
+                raise ValueError(
+                    "[connected] batch_normalize=1 is not supported (no "
+                    "official classifier cfg uses it; its weights-file "
+                    "order also differs from conv)")
+            act = kv.get("activation", "logistic")
+            if act not in ("leaky", "linear", "logistic", "relu",
+                           "ramp"):
+                raise ValueError(
+                    f"unsupported connected activation '{act}'")
+            if not layers:
+                raise ValueError("[connected] cannot be the first layer")
+            # spatial inputs (the yolov1 head) get their flattened
+            # feature count pinned by _resolve_spatial below
+            layers.append(Connected(int(kv["output"]), act=act))
+        elif kind == "dropout":
+            prob = float(kv.get("probability", 0.5))
+            if not 0.0 <= prob < 1.0:
+                # p=1 would zero everything and the inverted-dropout
+                # 1/(1-p) rescale divides by zero
+                raise ValueError(f"[dropout] probability={prob:g} must "
+                                 f"be in [0, 1)")
+            layers.append(Dropout(prob))
+        elif kind == "softmax":
+            if int(kv.get("groups", 1)) != 1:
+                raise ValueError("[softmax] groups != 1 (grouped "
+                                 "softmax) is not supported")
+            # darknet9000 classifier hierarchy: [softmax] tree=<file>
+            # (the tree is parsed below, once num_classes is known)
+            if "tree" in kv:
+                tree_file = kv["tree"]
+            temp = float(kv.get("temperature", 1.0))
+            if temp <= 0:
+                raise ValueError(f"[softmax] temperature={temp:g} must "
+                                 f"be > 0")
+            layers.append(SoftmaxHead(temperature=temp))
         elif kind == "cost":
             # training-loss marker (classifier cfgs end with it);
             # no forward effect — parsed and dropped
@@ -581,16 +631,42 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                       "still uses anchor-shape wh-IoU (bias_match=1 "
                       "semantics) — prediction-dependent assignment "
                       "is not supported", file=sys.stderr)
-            # the YOLO9000 hierarchy (tree=<.tree file>, map=<.map
-            # file>) is the JAX package's configs/tree.py: ROADMAP A10
-            if "tree" in kv or "map" in kv:
-                raise NotImplementedError(
-                    f"{cfg_path}: section {index} [region] tree=/map= "
-                    f"(the YOLO9000 hierarchy) is not ported yet "
-                    f"(ROADMAP A10)")
+            # YOLO9000: tree=<.tree file> switches the class softmax to
+            # one per sibling group; map=<.map file> records the
+            # COCO-eval projection (opted into at the predict layer).
+            # Paths resolve against the cfg's directory first, then as
+            # given (darknet's cwd-relative habit).
+            tree_file = kv.get("tree")
+            map_file = kv.get("map")
 
     if not layers:
         raise ValueError(f"{cfg_path}: no layers found")
+    softmax_heads = [i for i, l in enumerate(layers)
+                     if isinstance(l, SoftmaxHead)]
+    if softmax_heads and (saw_region or num_classes is not None):
+        raise ValueError(f"{cfg_path}: [softmax] (classifier) cannot be "
+                         f"mixed with [region]/[yolo] detection heads")
+    if softmax_heads:
+        if len(softmax_heads) > 1 or softmax_heads[0] != len(layers) - 1:
+            raise ValueError(f"{cfg_path}: exactly one [softmax] as the "
+                             f"final layer is supported")
+        # classifier num_classes = features into the softmax: walk back
+        # over the channel-preserving tail to the last weighted layer
+        for l in reversed(layers[:-1]):
+            if isinstance(l, Conv):
+                num_classes = l.filters
+                break
+            if isinstance(l, Connected):
+                num_classes = l.out
+                break
+            if not isinstance(l, (AvgPool, Dropout)):
+                raise ValueError(
+                    f"{cfg_path}: [softmax] must follow a conv/connected "
+                    f"output (optionally through avgpool/dropout), "
+                    f"found {type(l).__name__}")
+        else:
+            raise ValueError(f"{cfg_path}: no weighted layer before "
+                             f"[softmax]")
     if num_classes is None:
         raise ValueError(f"{cfg_path}: no [region], [yolo], or "
                          f"[softmax] section")
@@ -599,11 +675,43 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
     layers = _resolve_spatial(layers, (net_h, net_w), in_channels=net_c)
     yolo_heads = [(i, l) for i, l in enumerate(layers)
                   if isinstance(l, YoloHead)]
-    if saw_region and yolo_heads:
-        raise ValueError(f"{cfg_path}: [region] and [yolo] sections "
-                         f"cannot be mixed")
+    heads_present = [n for n, flag in (
+        ("[region]", saw_region), ("[yolo]", bool(yolo_heads)),
+        ("[softmax]", bool(softmax_heads))) if flag]
+    if len(heads_present) > 1:
+        raise ValueError(f"{cfg_path}: {' and '.join(heads_present)} "
+                         f"sections cannot be mixed")
+
+    tree = tree_map = None
+    if map_file and not tree_file:
+        raise ValueError(f"{cfg_path}: [region] map= requires tree= "
+                         f"(the map projects onto tree nodes)")
+    if tree_file:
+        import os as _os
+
+        from yolo_tpu_torch.configs.tree import parse_map, parse_tree
+
+        def _resolve(p: str) -> str:
+            local = _os.path.join(_os.path.dirname(cfg_path), p)
+            return local if _os.path.exists(local) else p
+
+        tree = parse_tree(_resolve(tree_file))
+        if tree.n_nodes != num_classes:
+            section = "[softmax]" if softmax_heads else "[region]"
+            raise ValueError(
+                f"{cfg_path}: {section} head has {num_classes} classes "
+                f"but the tree has {tree.n_nodes} nodes — they must "
+                f"match (every tree node is a class)")
+        if map_file:
+            tree_map = parse_map(_resolve(map_file), tree)
+        if softmax_heads:
+            # the executor applies the per-group softmax, so the head
+            # layer itself carries the tree
+            layers[-1] = SoftmaxHead(
+                tree=tree, temperature=layers[-1].temperature)
 
     class_names = (load_names(names_path) if names_path
+                   else tree.names if tree is not None
                    else tuple(f"class{i}" for i in range(num_classes)))
     if len(class_names) != num_classes:
         raise ValueError(
@@ -640,6 +748,8 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                     f"[yolo] new_coords=1 would double-sigmoid the "
                     f"decode — set new_coords=1 or activation=linear")
         _validate_strides(layers, (net_h, net_w))
+    elif softmax_heads:
+        pass  # classifier: validated above, no region contract
     else:
         expected_out = len(anchors) * (5 + num_classes)
         last = layers[-1]
@@ -694,6 +804,10 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
     if nms_spec is not None:
         cfg = dataclasses.replace(cfg, nms_kind=nms_spec[0],
                                   beta_nms=nms_spec[1])
+    if tree is not None:
+        cfg = dataclasses.replace(cfg, tree=tree, tree_map=tree_map,
+                                  tree_file=tree_file,
+                                  map_file=map_file)
     _audit_cfg_keys(cfg_path, sections)
     return cfg
 
@@ -841,6 +955,17 @@ def cfg_to_string(cfg: ModelConfig) -> str:
                           if l.scale != 1.0 else ""))
         elif isinstance(l, AvgPool):
             out.append("[avgpool]\n")
+        elif isinstance(l, Connected):
+            out.append(f"[connected]\noutput={l.out}\n"
+                       f"activation={l.act}\n")
+        elif isinstance(l, Dropout):
+            out.append(f"[dropout]\nprobability={l.prob:g}\n")
+        elif isinstance(l, SoftmaxHead):
+            out.append("[softmax]\ngroups=1\n"
+                       + (f"temperature={l.temperature:g}\n"
+                          if l.temperature != 1.0 else "")
+                       + (f"tree={cfg.tree_file}\n"
+                          if cfg.tree_file else ""))
         elif isinstance(l, YoloHead):
             out.append(("[Gaussian_yolo]" if l.gaussian else "[yolo]")
                        + "\nmask = "
@@ -888,5 +1013,9 @@ def cfg_to_string(cfg: ModelConfig) -> str:
                    f"class_scale={cfg.region_class_scale:g}\n"
                    f"coord_scale={cfg.region_coord_scale:g}\n"
                    f"rescore={int(cfg.region_rescore)}\n"
-                   f"bias_match=1\nsoftmax=1\n")
+                   f"bias_match=1\nsoftmax=1\n"
+                   + (f"tree={cfg.tree_file}\n"
+                      if cfg.tree_file else "")
+                   + (f"map={cfg.map_file}\n"
+                      if cfg.map_file else ""))
     return "\n".join(out)

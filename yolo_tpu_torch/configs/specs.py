@@ -1,7 +1,8 @@
 """Layer specs and the model config of the yolov2 and yolov3/v4
-families and of the detectors a custom darknet ``.cfg`` describes (port
-of yolo_tpu/configs/specs.py, every layer kind but the classifier and
-yolov1 ones, which are ROADMAP A10).
+families, YOLO9000, the darknet classifiers and the detectors a custom
+darknet ``.cfg`` describes (port of yolo_tpu/configs/specs.py, every
+layer kind but the yolov1 ones, [crop], [local] and [detection], which
+are ROADMAP A10's second half).
 
 Semantics pinned by the darknet cfg format, as in the JAX package:
   * ``Conv``: conv2d (darknet pad = size // 2, times the dilation), any
@@ -27,6 +28,13 @@ Semantics pinned by the darknet cfg format, as in the JAX package:
     SE block).
   * ``YoloHead``: marks its input as one [yolo] head's logits; its
     routed output is its input.
+  * ``Connected``: darknet [connected], a dense layer over the input
+    flattened in CHW order (darknet53's 1000-way output).
+  * ``Dropout``: identity at inference; darknet's inverted dropout in
+    training.
+  * ``SoftmaxHead``: darknet [softmax], the classifier output: softmax
+    over the flattened input, or with a YOLO9000 tree one softmax per
+    sibling group.
 
 Field names and defaults are the JAX package's, so a config here and its
 counterpart there describe the same network (tests/test_torch_graph.py
@@ -167,8 +175,46 @@ class YoloHead:
     gaussian: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class Connected:
+    """darknet [connected]: a dense layer over the input flattened in
+    CHW order. Weights-file block (parser.c save_connected_weights):
+    biases[out], then weights[out * in] row-major (out, in); the params
+    hold the kernel as (in, out). in_features pins the flattened feature
+    count of a spatial input (the parser sets it; such a model cannot
+    be resized); None means a 1x1 input whose features are its channels
+    (the classifiers)."""
+    out: int
+    act: str = "linear"
+    in_features: Optional[int] = None
+
+    def __post_init__(self):
+        _check_act(self.act)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dropout:
+    """darknet [dropout]: identity at inference; in training darknet's
+    inverted dropout (zero with probability ``prob``, survivors scaled
+    by 1 / (1 - prob))."""
+    prob: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftmaxHead:
+    """darknet [softmax] (groups=1): marks the model as a classifier;
+    the output is (B, C) probabilities over the flattened input. With a
+    tree ([softmax] tree=, the darknet9000 classifier) the output is the
+    YOLO9000 conditional probabilities, one softmax per sibling group
+    (ops/decode.tree_conditional_probs). temperature T divides the
+    logits before the (tree-)softmax."""
+    tree: Optional[object] = None   # configs.tree.SoftmaxTree
+    temperature: float = 1.0
+
+
 LayerSpec = Union[Conv, MaxPool, Route, Reorg, Shortcut, Sam,
-                  ScaleChannels, Upsample, AvgPool, YoloHead]
+                  ScaleChannels, Upsample, AvgPool, YoloHead, Connected,
+                  Dropout, SoftmaxHead]
 
 
 def conv_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
@@ -177,12 +223,12 @@ def conv_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
 
 
 def weighted_specs(layers: Tuple[LayerSpec, ...]
-                   ) -> Tuple[Union[Conv, Shortcut], ...]:
+                   ) -> Tuple[Union[Conv, Connected, Shortcut], ...]:
     """Weight-carrying layers in darknet file order (the .weights walk
-    order and the params-list order): the convs and the weighted
-    shortcuts."""
+    order and the params-list order): the convs, the connected layers
+    and the weighted shortcuts."""
     return tuple(l for l in layers
-                 if isinstance(l, Conv)
+                 if isinstance(l, (Conv, Connected))
                  or (isinstance(l, Shortcut) and l.weights_type != "none"))
 
 
@@ -279,14 +325,39 @@ class ModelConfig:
     # anchors whose predicted box beats this IoU with a truth train as
     # positives too; 1.0 disables
     truth_thresh: float = 1.0
+    # YOLO9000 ([region] tree=<file>): class logits are soft-maxed per
+    # sibling group; decode projects through tree_map ([region]
+    # map=<file>, opt-in with use_tree_map at the predict layer) or
+    # descends the tree while the path product stays above hier_thresh
+    # (darknet's -hier, default 0.5). tree_file / map_file keep the
+    # cfg's path strings, so that cfg_to_string round-trips.
+    tree: Optional[object] = None          # configs.tree.SoftmaxTree
+    tree_map: Optional[Tuple[int, ...]] = None
+    tree_file: Optional[str] = None
+    map_file: Optional[str] = None
+    hier_thresh: float = 0.5
 
     @property
     def head_kind(self) -> str:
-        """"yolo" ([yolo] heads: sigmoid classes, pixel anchors) or
-        "region" (the yolov2 [region] head), from the layer list."""
+        """"yolo" ([yolo] heads: sigmoid classes, pixel anchors),
+        "softmax" (a darknet classifier: [softmax] over a pooled trunk,
+        no anchors) or "region" (the yolov2 [region] head), from the
+        layer list."""
         if any(isinstance(l, YoloHead) for l in self.layers):
             return "yolo"
+        if any(isinstance(l, SoftmaxHead) for l in self.layers):
+            return "softmax"
         return "region"
+
+    @property
+    def softmax_tree(self):
+        """The classifier's hierarchy: its SoftmaxHead layer's tree,
+        which training reads too (None for detectors and flat
+        classifiers)."""
+        for l in self.layers:
+            if isinstance(l, SoftmaxHead):
+                return l.tree
+        return None
 
     @property
     def yolo_heads(self) -> Tuple[YoloHead, ...]:
@@ -322,8 +393,16 @@ class ModelConfig:
         """Region-head grid (gh, gw) = input_hw // 32."""
         return (self.input_h // 32, self.input_w // 32)
 
-    def detection_names(self) -> Tuple[str, ...]:
-        """Display names for detection class indices."""
+    def num_detection_classes(self, use_tree_map: bool = False) -> int:
+        """len(detection_names(use_tree_map))."""
+        return len(self.detection_names(use_tree_map))
+
+    def detection_names(self, use_tree_map: bool = False
+                        ) -> Tuple[str, ...]:
+        """Display names for detection class indices: under the tree
+        map projection, the mapped tree nodes' names."""
+        if use_tree_map and self.tree_map is not None:
+            return tuple(self.class_names[m] for m in self.tree_map)
         return self.class_names
 
     def with_input_size(self, size: int) -> "ModelConfig":
@@ -341,5 +420,12 @@ class ModelConfig:
         if h % 32 != 0 or w % 32 != 0:
             raise ValueError(
                 f"input size must be a multiple of 32, got {w}x{h}")
+        if any(isinstance(l, Connected) and l.in_features is not None
+               for l in self.layers):
+            # a spatial dense layer's weights are sized by the cfg input
+            raise ValueError(
+                f"{self.name} has a fixed input size "
+                f"({self.input_size}): [local]/[crop]/spatial "
+                f"[connected] weights are sized by it")
         return dataclasses.replace(
             self, input_size=h, input_width=None if w == h else w)

@@ -4,16 +4,18 @@ come from: yolov2-tiny-voc.cfg, yolov2-voc.cfg, yolov2.cfg (COCO) and
 yolov2-tiny.cfg (COCO) for the [region] head; yolov3.cfg,
 yolov3-spp.cfg, yolov3-tiny.cfg, yolov4.cfg and yolov4-tiny.cfg for the
 [yolo] heads, whose layer lists give the official .weights byte counts
-exactly. The darknet classifiers are ROADMAP A10."""
+exactly; darknet19.cfg, darknet19_448.cfg and darknet53.cfg for the
+darknet classifiers."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 from yolo_tpu_torch.configs.names import COCO_NAMES, VOC_NAMES
-from yolo_tpu_torch.configs.specs import (Conv, MaxPool, ModelConfig, Reorg,
-                                          Route, Shortcut, Upsample,
-                                          YoloHead)
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
+                                          MaxPool, ModelConfig, Reorg,
+                                          Route, Shortcut, SoftmaxHead,
+                                          Upsample, YoloHead)
 
 # anchors in 13x13-cell units
 TINY_VOC_ANCHORS = (
@@ -327,8 +329,52 @@ TINY_YOLOV2_VOC = VARIANTS["tiny-voc"]
 YOLOV2_VOC = VARIANTS["voc"]
 YOLOV2_COCO = VARIANTS["coco"]
 
-# the JAX package's darknet classifiers (ROADMAP A10)
-_CLASSIFIERS = ("darknet19", "darknet19-448", "darknet53")
+# darknet classifiers, the pretrained-backbone sources (darknet19 is
+# yolov2's trunk, darknet53 yolov3's; `partial` cuts the .conv.NN
+# initialization files from them). ImageNet-1k placeholder labels:
+# --names gives the real list (darknet's imagenet.shortnames.list).
+IMAGENET_PLACEHOLDER_NAMES = tuple(f"imagenet_{i:04d}" for i in range(1000))
+
+
+def _darknet19_layers():
+    """darknet19.cfg: yolov2's trunk (its first 18 convs, which is what
+    lets darknet19_448.conv.23 start a yolov2 fine-tune) + a 1x1
+    conv-1000 head, global avgpool, softmax."""
+    return (
+        Conv(32), MaxPool(),
+        Conv(64), MaxPool(),
+        Conv(128), Conv(64, 1), Conv(128), MaxPool(),
+        Conv(256), Conv(128, 1), Conv(256), MaxPool(),
+        Conv(512), Conv(256, 1), Conv(512), Conv(256, 1), Conv(512),
+        MaxPool(),
+        Conv(1024), Conv(512, 1), Conv(1024), Conv(512, 1), Conv(1024),
+        Conv(1000, size=1, bn=False, act="linear"),
+        AvgPool(),
+        SoftmaxHead(),
+    )
+
+
+def _darknet53_layers():
+    """darknet53.cfg: yolov3's backbone (52 convs, residual stages of
+    1/2/8/8/4, the layers darknet53.conv.74 holds) + global avgpool, a
+    1000-way [connected], softmax."""
+    return tuple(_yolov3_layers(255)[:75]) + (
+        AvgPool(), Connected(1000, act="linear"), SoftmaxHead())
+
+
+VARIANTS.update({
+    # the net sizes of darknet19.cfg, darknet19_448.cfg (the
+    # 448-finetuned classifier) and darknet53.cfg
+    "darknet19": ModelConfig(
+        name="darknet19", layers=_darknet19_layers(), anchors=(),
+        class_names=IMAGENET_PLACEHOLDER_NAMES, input_size=256),
+    "darknet19-448": ModelConfig(
+        name="darknet19-448", layers=_darknet19_layers(), anchors=(),
+        class_names=IMAGENET_PLACEHOLDER_NAMES, input_size=448),
+    "darknet53": ModelConfig(
+        name="darknet53", layers=_darknet53_layers(), anchors=(),
+        class_names=IMAGENET_PLACEHOLDER_NAMES, input_size=256),
+})
 
 # the layer builders by family, for configs that keep a variant's
 # topology with another class count (a VOC fine-tune of a COCO model)
@@ -340,10 +386,6 @@ LAYER_BUILDERS = {
 
 
 def get_variant(name: str, input_size: Optional[int] = None) -> ModelConfig:
-    if name in _CLASSIFIERS:
-        raise NotImplementedError(
-            f"variant {name!r} is a darknet classifier, not ported yet "
-            f"(ROADMAP A10)")
     if name not in VARIANTS:
         raise KeyError(f"unknown variant {name!r} (ported: "
                        f"{', '.join(VARIANTS)})")

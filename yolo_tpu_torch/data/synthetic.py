@@ -434,3 +434,48 @@ def write_coco_scenes(root: str, sizes: Sequence[Tuple[int, int]],
     with open(path, "w") as f:
         json.dump(doc, f)
     return path
+
+
+# --- YOLO9000 trees -----------------------------------------------------------
+
+def synth_tree_parents(n_nodes: int, seed: int = 0) -> List[int]:
+    """Parent indices of a generated hierarchy with the shape of
+    darknet's 9k.tree: one root, breadth-first levels, each node given
+    2-6 children (seeded), parents before children, each node's children
+    one contiguous run (benchmarks/tree_bench.py::synth_tree's
+    generator, draw for draw)."""
+    rng = np.random.default_rng(seed)
+    parents = [-1]
+    frontier = [0]
+    while frontier and len(parents) < n_nodes:
+        nxt = []
+        for node in frontier:
+            for _ in range(int(rng.integers(2, 7))):
+                if len(parents) >= n_nodes:
+                    break
+                parents.append(node)
+                nxt.append(len(parents) - 1)
+        frontier = nxt
+    return parents
+
+
+def write_tree(path: str, n_nodes: int, seed: int = 0) -> str:
+    """A generated ``.tree`` file (synth_tree_parents, node i named
+    ``n{i}``); returns the path."""
+    with open(path, "w") as f:
+        f.write("".join(f"n{i} {p}\n" for i, p in
+                        enumerate(synth_tree_parents(n_nodes, seed))))
+    return path
+
+
+def write_map(path: str, tree, n: int = 80, seed: int = 0) -> Tuple[int, ...]:
+    """A ``.map`` file of ``n`` distinct leaves of ``tree``
+    (configs.tree.SoftmaxTree), drawn with the seed in a seeded order,
+    as darknet's coco9k.map projects COCO's 80 classes onto 9k.tree
+    nodes; returns the node indices."""
+    leaves = [i for i in range(tree.n_nodes) if tree.leaf(i)]
+    nodes = tuple(int(v) for v in np.random.default_rng(seed).choice(
+        leaves, n, replace=False))
+    with open(path, "w") as f:
+        f.write("".join(f"{v}\n" for v in nodes))
+    return nodes

@@ -8,8 +8,9 @@ objectness NMS and the IoU accounting run on the host in float64, as in
 the JAX package. This path does not reach the CUDA NMS kernel: darknet's
 recall suppresses by objectness across classes (box.c do_nms_obj, one
 greedy pass over every proposal), where the kernel suppresses within a
-class over a top-K grid. yolov1 [detection] heads are not ported
-(ROADMAP A10).
+class over a top-K grid. A YOLO9000 tree [region] head decodes its
+objectness as any [region] head; yolov1 [detection] heads are not
+ported (yolov1, ROADMAP A10).
 
 Semantics are recall-pinned (the reference tree is empty — SURVEY.md
 §0); the pinned behavior, per image:
@@ -104,9 +105,10 @@ def decode_boxes_objectness(cfg, logits):
             obj_parts.append(conf.reshape(b, -1))
         return torch.cat(boxes_parts, 1), torch.cat(obj_parts, 1)
     if cfg.head_kind != "region":
-        raise NotImplementedError(
-            f"recall of a {cfg.head_kind} head is not ported yet "
-            f"(ROADMAP A10)")
+        raise ValueError(f"recall needs a detection model; {cfg.name} "
+                         f"is a {cfg.head_kind} model")
+    # [region], plain or YOLO9000 tree: the tree changes the class math
+    # only, the objectness is the same sigmoid
     b, h, w, _ = logits.shape
     a = len(cfg.anchors)
     t = logits.float().reshape(b, h, w, a, 5 + cfg.num_classes)

@@ -63,7 +63,9 @@ def collect_detections(cfg, folded_params,
                        compute_dtype=torch.float32,
                        resize: str = "letterbox",
                        device="cuda",
-                       conv_impl: str = "torch") -> Dict[int, List]:
+                       conv_impl: str = "torch",
+                       use_tree_map: bool = False,
+                       hier_thresh=None) -> Dict[int, List]:
     """Run the reference decode + exact per-class NMS over the samples
     -> {img_id: [(cls, score, x1, y1, x2, y2) pixel], ...}.
 
@@ -72,13 +74,15 @@ def collect_detections(cfg, folded_params,
     NMS kernel; "cpu" only when asked for, with the plain suppression.
     conv_impl="cuda" sends the eligible convs through the conv kernel
     (models/predict.py forward). Images are preprocessed on the host to
-    one (net_h, net_w) shape."""
+    one (net_h, net_w) shape. use_tree_map / hier_thresh: a YOLO9000
+    tree model's decode (models/predict.py detect)."""
     net = Darknet(cfg.layers, folded_params, device=resolve_device(device),
                   dtype=compute_dtype)
     det = make_detector_preprocessed(
         cfg, conf_threshold=eval_conf, head="reference",
         nms_impl="cuda" if net.device.type == "cuda" else "torch",
-        conv_impl=conv_impl)
+        conv_impl=conv_impl, use_tree_map=use_tree_map,
+        hier_thresh=hier_thresh)
     # duplicate paths must all receive the detections of their image
     path_to_ids: Dict[str, List[int]] = {}
     for i, (p, _) in enumerate(samples):

@@ -1,7 +1,6 @@
 """Darknet ``.weights`` binary I/O for the port's layer set (port of
-yolo_tpu/io/darknet_weights.py: convs and weighted shortcuts; the
-port's other layers carry no weights, and the classifier layers that do
-are ROADMAP A10).
+yolo_tpu/io/darknet_weights.py: convs, connected layers and weighted
+shortcuts; the port's other layers carry no weights).
 
 File format (darknet ``parse.c`` save/load order):
   header: int32 major, minor, revision; then ``seen`` — int64 if
@@ -10,12 +9,15 @@ File format (darknet ``parse.c`` save/load order):
     biases[oc]                       (BN beta when bn=True)
     if bn: scales[oc] (gamma), rolling_mean[oc], rolling_var[oc]
     kernel fp32, darknet (oc, ic/groups, kh, kw) order -> HWIO here.
+  per connected layer (save_connected_weights):
+    biases[out], weights[out*in] row-major (out, in) -> (in, out) here.
   per weighted shortcut (save_shortcut_weights): its blend weights,
     2 floats (per_feature) or 2*C (per_channel), group major.
 
 Params list, ordered like ``weighted_specs(layers)``:
   [{"kernel": HWIO f32, "bias": (oc,)}                     bn=False convs,
    {"kernel": HWIO f32, "gamma","beta","mean","var": (oc,)} bn=True convs,
+   {"kernel": (in, out) f32, "bias": (out,)}           connected layers,
    {"weights": (2, 1) or (2, C) f32}                  weighted shortcuts]
 the JAX package's layout, byte for byte the same files.
 """
@@ -26,9 +28,10 @@ from typing import BinaryIO, List, Optional, Sequence
 
 import numpy as np
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec,
-                                          MaxPool, Reorg, Route, Sam,
-                                          ScaleChannels, Shortcut, Upsample,
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
+                                          Dropout, LayerSpec, MaxPool,
+                                          Reorg, Route, Sam, ScaleChannels,
+                                          Shortcut, SoftmaxHead, Upsample,
                                           YoloHead, resolve_route,
                                           weighted_specs)
 
@@ -38,9 +41,11 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
     """Input channel count of each weighted layer (darknet_weights.py::
     _infer_in_channels), walking the layer graph: a grouped route keeps
     1/groups of each source, scale_channels takes its ``frm`` layer's
-    count; shortcut, sam, upsample, maxpool, avgpool and [yolo] keep
-    the count. A weighted shortcut's entry is its own channel count (its
-    per_channel weight count)."""
+    count; shortcut, sam, upsample, maxpool, avgpool, dropout, softmax
+    and [yolo] keep the count. A weighted shortcut's entry is its own
+    channel count (its per_channel weight count); a connected layer's its
+    input features (in_features for a spatial input, else the
+    channels)."""
     out_ch: List[int] = []
     conv_in: List[int] = []
     prev = input_channels
@@ -55,14 +60,18 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
                        for r in layer.layers)
         elif isinstance(layer, ScaleChannels):
             prev = out_ch[resolve_route(idx, layer.frm)]
+        elif isinstance(layer, Connected):
+            conv_in.append(layer.in_features
+                           if layer.in_features is not None else prev)
+            prev = layer.out
         elif isinstance(layer, Shortcut):
             if layer.weights_type != "none":
                 conv_in.append(prev)
         elif not isinstance(layer, (MaxPool, Sam, Upsample, AvgPool,
-                                    YoloHead)):
+                                    Dropout, SoftmaxHead, YoloHead)):
             raise NotImplementedError(
                 f"layer {idx}: {type(layer).__name__} is not a layer of the "
-                f"port (ROADMAP A10)")
+                f"port (yolov1, ROADMAP A10)")
         out_ch.append(prev)
     return conv_in
 
@@ -72,6 +81,8 @@ def _floats(spec, ic: int) -> int:
     ``ic``."""
     if isinstance(spec, Shortcut):
         return 2 * (1 if spec.weights_type == "per_feature" else ic)
+    if isinstance(spec, Connected):
+        return spec.out + spec.out * ic
     return (spec.filters * (4 if spec.bn else 1)
             + spec.filters * (ic // spec.groups) * spec.size * spec.size)
 
@@ -160,6 +171,21 @@ def load_partial(path_or_file, layers: Sequence[LayerSpec],
                            .reshape(2, per).copy()})
             pos += need
             continue
+        if isinstance(spec, Connected):
+            oc = spec.out
+            need = oc + oc * ic
+            if pos == floats.size:
+                break  # clean cutoff boundary
+            if pos + need > floats.size:
+                raise ValueError(
+                    f"weights file too short (ends mid-layer): "
+                    f"connected {len(params)} needs {need} floats, "
+                    f"{floats.size - pos} remain")
+            bias = floats[pos:pos + oc].copy()
+            w = floats[pos + oc:pos + need].reshape(oc, ic)
+            params.append({"bias": bias, "kernel": np.ascontiguousarray(w.T)})
+            pos += need
+            continue
         conv = spec
         _groups_divide(conv, ic, len(params))
         ic = ic // conv.groups  # darknet grouped kernel: (oc, ic/g, k, k)
@@ -217,6 +243,11 @@ def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
                 f.write(np.ascontiguousarray(
                     np.asarray(p["weights"], np.float32)).tobytes())
                 continue
+            if isinstance(conv, Connected):
+                f.write(np.asarray(p["bias"], np.float32).tobytes())
+                f.write(np.ascontiguousarray(
+                    np.asarray(p["kernel"], np.float32).T).tobytes())
+                continue
             keys = ("beta", "gamma", "mean", "var") if conv.bn else ("bias",)
             for key in keys:
                 f.write(np.asarray(p[key], np.float32).tobytes())
@@ -239,6 +270,12 @@ def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
         if isinstance(conv, Shortcut):
             per = 1 if conv.weights_type == "per_feature" else ic
             params.append({"weights": np.ones((2, per), np.float32)})
+            continue
+        if isinstance(conv, Connected):
+            params.append({
+                "kernel": rng.normal(0, scale,
+                                     (ic, conv.out)).astype(np.float32),
+                "bias": rng.normal(0, 0.1, conv.out).astype(np.float32)})
             continue
         _groups_divide(conv, ic, len(params))
         ic = ic // conv.groups
@@ -271,8 +308,9 @@ def _param_index(layers) -> dict:
     """{layer index: params index} of the weighted layers."""
     out = {}
     for idx, layer in enumerate(layers):
-        if isinstance(layer, Conv) or (isinstance(layer, Shortcut)
-                                       and layer.weights_type != "none"):
+        if isinstance(layer, (Conv, Connected)) or (
+                isinstance(layer, Shortcut)
+                and layer.weights_type != "none"):
             out[idx] = len(out)
     return out
 
@@ -378,20 +416,24 @@ def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
     prefilter keeps, and the detectors keep 10-100 detections an image
     at conf 0.5. A logistic head conv (new_coords) is calibrated before
     its logistic, and a Gaussian head's sigma logits sit near
-    SIGMA_LOGIT; shortcut blend weights stay darknet's ones."""
+    SIGMA_LOGIT; shortcut blend weights stay darknet's ones. A
+    classifier (a connected kernel's fan-in is its input features) keeps
+    the He weights as they are."""
     params = random_params(cfg.layers, np.random.default_rng(seed),
                            input_channels=cfg.in_channels)
     for p in params:
         if "kernel" not in p:
             continue                       # shortcut blend weights
         k = p["kernel"]
-        p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:3])) / 0.1)) \
+        p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:-1])) / 0.1)) \
             .astype(np.float32)
     index = _param_index(cfg.layers)
     for idx, layer in enumerate(cfg.layers):
         if isinstance(layer, Shortcut) and isinstance(
                 cfg.layers[idx - 1] if idx else None, Conv):
             params[index[idx - 1]]["kernel"] *= np.float32(RESIDUAL_SCALE)
+    if cfg.head_kind == "softmax":
+        return params                      # a classifier: He weights
     if cfg.head_kind == "yolo":
         _calibrate_yolo_heads(cfg, params, [
             (index[idx - 1], len(layer.mask), layer.gaussian)

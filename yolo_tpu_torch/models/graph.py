@@ -2,14 +2,21 @@
 
 ``Darknet`` interprets a ``ModelConfig.layers`` tuple of Conv / MaxPool /
 Route / Reorg / Shortcut / Sam / ScaleChannels / Upsample / AvgPool /
-YoloHead specs with BN folded into each conv, so every conv block is
-conv (grouped, dilated or plain) + bias + activation (leaky, linear,
-mish, logistic, swish, relu or ramp). The JAX package's NHWC layout is
-kept at the boundary: input (B, H, W, C); the output is the region
-head's logits (B, H/32, W/32, A*(5+C)) fp32, or, for a net with [yolo]
-heads, the tuple of the heads' inputs (B, H/s, W/s, A*(5+C)) fp32 in
-layer order (A*(9+C) for a Gaussian head). Inside, activations are NCHW
-tensors in ``torch.channels_last`` memory and routes concatenate on
+YoloHead / Connected / Dropout / SoftmaxHead specs with BN folded into
+each conv, so every conv block is conv (grouped, dilated or plain) +
+bias + activation (leaky, linear, mish, logistic, swish, relu or ramp).
+The JAX package's NHWC layout is kept at the boundary: input (B, H, W,
+C); the output is the region head's logits (B, H/32, W/32, A*(5+C))
+fp32, or, for a net with [yolo] heads, the tuple of the heads' inputs
+(B, H/s, W/s, A*(5+C)) fp32 in layer order (A*(9+C) for a Gaussian
+head), or, for a classifier, its [softmax] output (B, C) fp32: the
+probabilities, with a YOLO9000 tree the per-group conditionals, or with
+``softmax_logits`` the logits before the softmax (what training's
+classifier_loss takes). A [connected] layer is a dense layer over the
+input flattened in CHW order with an fp32 sum (on bf16-rounded values in
+bf16 mode); [dropout] is the identity except in training. Inside,
+activations are NCHW tensors in ``torch.channels_last`` memory and
+routes concatenate on
 dim 1. A weighted shortcut blends its inputs in fp32 with its blend
 weights (graph.py::apply_layers' Shortcut branch) and casts the result
 to the compute dtype.
@@ -58,9 +65,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Conv, LayerSpec,
-                                          MaxPool, Reorg, Route, Sam,
-                                          ScaleChannels, Shortcut, Upsample,
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
+                                          Dropout, LayerSpec, MaxPool, Reorg,
+                                          Route, Sam, ScaleChannels,
+                                          Shortcut, SoftmaxHead, Upsample,
                                           YoloHead, resolve_route,
                                           weighted_specs)
 from yolo_tpu_torch.device import resolve as resolve_device
@@ -76,24 +84,23 @@ NumpyParams = List[Dict[str, np.ndarray]]
 BN_MOMENTUM = 0.99
 
 
-# layer kinds of the JAX package the port lacks: the classifier and
-# yolov1 layers, ROADMAP A10
-_UNPORTED = ("Connected", "SoftmaxHead", "Dropout", "Crop", "Local",
-             "DetectionHead")
+# layer kinds of the JAX package the port lacks: the yolov1 layers,
+# ROADMAP A10's second half
+_UNPORTED = ("Crop", "Local", "DetectionHead")
 _LAYERS = (Conv, MaxPool, Route, Reorg, Shortcut, Sam, ScaleChannels,
-           Upsample, AvgPool, YoloHead)
+           Upsample, AvgPool, YoloHead, Connected, Dropout, SoftmaxHead)
 
 
 def _check_layer(idx: int, layer: LayerSpec) -> None:
-    """The port's own specs are its layers; the JAX package's classifier
-    and yolov1 layers are ROADMAP A10, and any other object (a JAX spec
-    among them) is not a spec of this package."""
+    """The port's own specs are its layers; the JAX package's yolov1
+    layers are ROADMAP A10, and any other object (a JAX spec among them)
+    is not a spec of this package."""
     if not isinstance(layer, _LAYERS):
         name = type(layer).__name__
         if name in _UNPORTED:
             raise NotImplementedError(
-                f"layer {idx}: {name} is not a layer of the port (ROADMAP "
-                f"A10)")
+                f"layer {idx}: {name} is not a layer of the port (yolov1, "
+                f"ROADMAP A10)")
         raise TypeError(f"layer {idx}: {layer!r} is not a spec of "
                         f"yolo_tpu_torch.configs.specs")
 
@@ -194,13 +201,67 @@ def _weightless_layer(idx: int, layer: LayerSpec, x: torch.Tensor,
     if isinstance(layer, YoloHead):
         heads.append(x.permute(0, 2, 3, 1).to(torch.float32))
         return x
+    if isinstance(layer, Dropout):
+        return x    # darknet's test-mode forward; training: _dropout
     raise TypeError(f"layer {idx}: unknown layer spec {layer!r}")
 
 
+def _connected(layer: Connected, x: torch.Tensor, kernel: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """graph.py::apply_layers' Connected: x (B, C, H, W) flattened in
+    CHW order, times the (in, out) kernel with an fp32 sum (on the
+    bf16-rounded values below fp32, which multiply exactly in fp32),
+    bias and activation in fp32, cast to x's dtype; (B, out, 1, 1)."""
+    xf = x.reshape(x.shape[0], -1)
+    if x.dtype != torch.float32:
+        xf, kernel = xf.float(), kernel.to(x.dtype).float()
+    y = conv_ops.activate(torch.matmul(xf, kernel) + bias, layer.act)
+    return y.to(x.dtype)[:, :, None, None].contiguous(
+        memory_format=torch.channels_last)
+
+
+def _softmax_head(layer: SoftmaxHead, x: torch.Tensor,
+                  softmax_logits: bool) -> torch.Tensor:
+    """graph.py::apply_layers' SoftmaxHead: the input flattened in NHWC
+    order in fp32 -> (B, C) probabilities (one softmax per sibling group
+    with a tree), the logits divided by the temperature first;
+    softmax_logits returns the flat logits undivided (classifier_loss
+    applies the temperature)."""
+    flat = x.float().permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    if softmax_logits:
+        return flat
+    if layer.temperature != 1.0:
+        flat = flat / layer.temperature
+    if layer.tree is not None:
+        from yolo_tpu_torch.ops.decode import tree_conditional_probs
+
+        return tree_conditional_probs(flat, layer.tree)
+    return torch.softmax(flat, dim=-1)
+
+
+def _dropout(idx: int, layer: Dropout, x: torch.Tensor,
+             key: Optional[tuple]) -> torch.Tensor:
+    """darknet's inverted dropout in training: zero with probability p,
+    survivors scaled by 1 / (1 - p). The mask is drawn on the host from
+    a generator seeded with (key, layer index), so a step's masks are
+    the same on every device and a resumed run draws them again; no key
+    (or p = 0) is the identity."""
+    if key is None or layer.prob <= 0:
+        return x
+    gen = torch.Generator().manual_seed(int(np.random.SeedSequence(
+        tuple(key) + (idx,)).generate_state(1, np.uint64)[0] >> 1))
+    keep = (torch.rand(x.shape, generator=gen) >= layer.prob).to(x.device)
+    return torch.where(keep, x / (1.0 - layer.prob), torch.zeros_like(x))
+
+
 def _result(x: torch.Tensor, heads: List[torch.Tensor]):
-    """The [yolo] heads' logits as a tuple, else the last layer's output
-    as fp32 NHWC (apply_layers' return)."""
-    return tuple(heads) if heads else x.permute(0, 2, 3, 1).to(torch.float32)
+    """The [yolo] heads' logits as a tuple, a classifier's (B, C) output,
+    else the last layer's output as fp32 NHWC (apply_layers' return)."""
+    if heads:
+        return tuple(heads)
+    if x.dim() == 2:
+        return x
+    return x.permute(0, 2, 3, 1).to(torch.float32)
 
 
 def fold_params(layers: Sequence[LayerSpec], params: NumpyParams,
@@ -243,11 +304,26 @@ def _blend_tensor(spec: Shortcut, p, i: int, device) -> torch.Tensor:
     return torch.from_numpy(w.copy()).to(device)
 
 
+def _connected_tensors(spec: Connected, p, i: int, device):
+    """A connected layer's (in, out) kernel and bias as fp32 tensors."""
+    if set(p) != {"kernel", "bias"}:
+        raise ValueError(f"connected {i}: expected {{kernel, bias}}, got "
+                         f"{sorted(p)}")
+    k = np.asarray(p["kernel"], np.float32)
+    if k.ndim != 2 or k.shape[1] != spec.out:
+        raise ValueError(f"connected {i}: kernel {k.shape} does not match "
+                         f"{spec}")
+    return (torch.from_numpy(k.copy()).to(device),
+            torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+            .to(device))
+
+
 def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                       device, dtype=torch.float32) -> List[Dict[str, Any]]:
     """Folded JAX-package params (HWIO numpy kernels) -> the port's
-    tensors: OIHW kernels in ``dtype`` and channels_last memory, fp32
-    biases and shortcut blend weights, all on ``device``."""
+    tensors: OIHW kernels in ``dtype`` and channels_last memory, (in,
+    out) connected kernels in ``dtype``, fp32 biases and shortcut blend
+    weights, all on ``device``."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"params_from_numpy: {len(params)} param blocks "
@@ -256,6 +332,10 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
     for i, (spec, p) in enumerate(zip(convs, params)):
         if isinstance(spec, Shortcut):
             out.append({"weights": _blend_tensor(spec, p, i, device)})
+            continue
+        if isinstance(spec, Connected):
+            kernel, bias = _connected_tensors(spec, p, i, device)
+            out.append({"kernel": kernel.to(dtype), "bias": bias})
             continue
         if set(p) != {"kernel", "bias"}:
             raise ValueError(f"conv {i}: expected folded params "
@@ -321,25 +401,28 @@ class Darknet(torch.nn.Module):
                 .to(self.device))
         self._routed = _routed_layers(self.layers)
 
-    def forward(self, x: torch.Tensor, *, conv_impl: str = "torch"):
+    def forward(self, x: torch.Tensor, *, conv_impl: str = "torch",
+                softmax_logits: bool = False):
         """x (B, H, W, C) in [0, 1] -> logits (B, H/32, W/32, A*(5+C))
-        fp32, or the tuple of [yolo] head logits. conv_impl="cuda" runs
+        fp32, the tuple of [yolo] head logits, or a classifier's (B, C)
+        output (softmax_logits: its logits). conv_impl="cuda" runs
         the convs that the fused conv kernel
         takes through it (on a CPU tensor: through its plain version),
         the rest through F.conv2d, as the JAX package's
         conv_impl="pallas"; "torch" runs every conv through F.conv2d."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        return self.run(x, conv_impl=conv_impl)
+        return self.run(x, conv_impl=conv_impl,
+                        softmax_logits=softmax_logits)
 
     @torch.no_grad()
     def run(self, x: torch.Tensor, *, start: int = 0,
-            conv_impl: str = "torch"):
+            conv_impl: str = "torch", softmax_logits: bool = False):
         """Layers ``start``.. on x, the (B, C, H, W) channels_last output
         of layer ``start - 1`` in the compute dtype (the input image for
-        start=0) -> logits (B, H', W', A*(5+C)) fp32, or the tuple of
-        [yolo] head logits. Routes must not reach back before
-        ``start``."""
+        start=0) -> logits (B, H', W', A*(5+C)) fp32, the tuple of
+        [yolo] head logits, or a classifier's (B, C) output. Routes must
+        not reach back before ``start``."""
         if conv_impl not in ("torch", "cuda"):
             raise ValueError(f"unknown conv_impl {conv_impl!r} "
                              f"(torch | cuda)")
@@ -369,6 +452,12 @@ class Darknet(torch.nn.Module):
                     layer, x, outputs[resolve_route(idx, layer.frm)],
                     getattr(self, f"weights{conv_i}"))
                 conv_i += 1
+            elif isinstance(layer, Connected):
+                x = _connected(layer, x, getattr(self, f"kernel{conv_i}"),
+                               getattr(self, f"bias{conv_i}"))
+                conv_i += 1
+            elif isinstance(layer, SoftmaxHead):
+                x = _softmax_head(layer, x, softmax_logits)
             else:
                 x = _weightless_layer(idx, layer, x, outputs, heads)
             if idx in self._routed:
@@ -380,7 +469,8 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                             device) -> List[Dict[str, torch.Tensor]]:
     """Unfolded JAX-package params (HWIO numpy kernels; gamma, beta,
     mean, var or bias) -> fp32 tensors on ``device``: OIHW kernels in
-    channels_last memory, the rest as they are. DarknetTrain.to_numpy is
+    channels_last memory, connected kernels (in, out), the rest as they
+    are. DarknetTrain.to_numpy is
     the inverse, exactly."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
@@ -390,6 +480,10 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
     for i, (spec, p) in enumerate(zip(convs, params)):
         if isinstance(spec, Shortcut):
             out.append({"weights": _blend_tensor(spec, p, i, device)})
+            continue
+        if isinstance(spec, Connected):
+            kernel, bias = _connected_tensors(spec, p, i, device)
+            out.append({"kernel": kernel, "bias": bias})
             continue
         want = ({"kernel", "gamma", "beta", "mean", "var"} if spec.bn
                 else {"kernel", "bias"})
@@ -487,10 +581,15 @@ class DarknetTrain(torch.nn.Module):
         self._routed = _routed_layers(self.layers)
 
     def forward(self, x: torch.Tensor, *, compute_dtype=torch.float32,
-                bn_stats_fp32: bool = True, remat: bool = False):
+                bn_stats_fp32: bool = True, remat: bool = False,
+                softmax_logits: bool = False,
+                dropout_key: Optional[tuple] = None):
         """x (B, H, W, C) in [0, 1] -> (logits (B, H/32, W/32,
         A*(5+C)) fp32, bn_updates). remat re-runs each conv block in the
-        backward instead of keeping its intermediates."""
+        backward instead of keeping its intermediates. A classifier
+        returns its (B, C) output, its logits with softmax_logits (the
+        training forward). dropout_key (the step and sub-batch) draws
+        the [dropout] masks; None keeps dropout the identity."""
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
@@ -525,6 +624,14 @@ class DarknetTrain(torch.nn.Module):
                         layer, x, outputs[resolve_route(idx, layer.frm)],
                         self.blocks[conv_i].weights)
                     conv_i += 1
+                elif isinstance(layer, Connected):
+                    b = self.blocks[conv_i]
+                    x = _connected(layer, x, b.kernel, b.bias)
+                    conv_i += 1
+                elif isinstance(layer, Dropout):
+                    x = _dropout(idx, layer, x, dropout_key)
+                elif isinstance(layer, SoftmaxHead):
+                    x = _softmax_head(layer, x, softmax_logits)
                 else:
                     x = _weightless_layer(idx, layer, x, outputs, heads)
                 if idx in self._routed:
@@ -548,9 +655,9 @@ class DarknetTrain(torch.nn.Module):
             if "kernel" not in src:   # shortcut blend weights
                 out.append(p)
                 continue
+            k = src["kernel"].detach().float().cpu()
             p["kernel"] = np.ascontiguousarray(
-                src["kernel"].detach().float().cpu().permute(2, 3, 1, 0)
-                .numpy())
+                (k.permute(2, 3, 1, 0) if k.dim() == 4 else k).numpy())
             out.append(p)
         return out
 

@@ -7,6 +7,10 @@ PyTorch runs eagerly, so there is no jit cache: make_detector returns a
 plain function. The compute dtype is the Darknet module's (``net``), and
 the letterbox runs in it too.
 
+YOLO9000 tree models ([region] tree=) decode through the hierarchy:
+the greedy traversal (hier_thresh) or, with use_tree_map, the [region]
+map= projection; the fused route runs ops/head.py::detect_head_tree.
+
 Two routes reach the fused kernels, as in the JAX package:
 ``detect_raw(..., conv_impl="cuda")`` sends the eligible convs through
 the fused conv kernel, and ``entry="fused"`` replaces letterbox + conv1
@@ -45,27 +49,38 @@ def detect(cfg: ModelConfig, net: Darknet, images_01: torch.Tensor, *,
            nms_threshold: Optional[float] = None,
            top_k: int = 128, max_detections: int = 100,
            nms_impl: str = "auto", head: str = "auto",
-           conv_impl: str = "torch"):
+           conv_impl: str = "torch", use_tree_map: bool = False,
+           hier_thresh: Optional[float] = None):
     """Preprocessed images -> fixed-shape detections (net-space xywh).
 
     head="fused" runs the objectness-prefiltered decode + NMS
     (ops/head.py, exact at production thresholds, the CUDA default);
     head="reference" runs full decode + per-class NMS. conv_impl: see
-    forward."""
+    forward. use_tree_map / hier_thresh: YOLO9000 tree models only (the
+    map projection, or the traversal's threshold; None is the
+    config's)."""
     logits = forward(cfg, net, images_01, conv_impl=conv_impl)
     return _postprocess(cfg, logits, conf_threshold=conf_threshold,
                         nms_threshold=nms_threshold, top_k=top_k,
                         max_detections=max_detections, nms_impl=nms_impl,
-                        head=head)
+                        head=head, use_tree_map=use_tree_map,
+                        hier_thresh=hier_thresh)
 
 
 def _postprocess(cfg: ModelConfig, logits, *,
                  conf_threshold: Optional[float] = None,
                  nms_threshold: Optional[float] = None,
                  top_k: int = 128, max_detections: int = 100,
-                 nms_impl: str = "auto", head: str = "auto"):
+                 nms_impl: str = "auto", head: str = "auto",
+                 use_tree_map: bool = False,
+                 hier_thresh: Optional[float] = None):
     conf_t = cfg.conf_threshold if conf_threshold is None else conf_threshold
     iou_t = cfg.nms_threshold if nms_threshold is None else nms_threshold
+    if use_tree_map and cfg.tree_map is None:
+        raise ValueError("use_tree_map=True but the model has no "
+                         "[region] map= projection")
+    hier = cfg.hier_thresh if hier_thresh is None else hier_thresh
+    tree_map = cfg.tree_map if use_tree_map else None
     yolo = cfg.head_kind == "yolo"
     on_cuda = (logits[0] if yolo else logits).device.type == "cuda"
     if head == "auto":
@@ -98,6 +113,15 @@ def _postprocess(cfg: ModelConfig, logits, *,
             boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
             top_k=top_k, max_detections=max_detections, impl=nms_impl,
             kind=cfg.nms_kind, beta=cfg.beta_nms)
+    if head == "fused" and cfg.tree is not None:
+        from yolo_tpu_torch.ops.head import detect_head_tree
+
+        return detect_head_tree(
+            logits, cfg.anchors, cfg.tree, conf_threshold=conf_t,
+            iou_threshold=iou_t, hier_thresh=hier, tree_map=tree_map,
+            pre_top_k=pre, max_detections=max_detections,
+            use_kernel=on_cuda, nms_kind=cfg.nms_kind,
+            beta_nms=cfg.beta_nms)
     if head == "fused":
         from yolo_tpu_torch.ops.head import detect_head
 
@@ -107,7 +131,9 @@ def _postprocess(cfg: ModelConfig, logits, *,
             pre_top_k=pre, max_detections=max_detections,
             use_kernel=on_cuda, nms_kind=cfg.nms_kind,
             beta_nms=cfg.beta_nms)
-    boxes, scores = decode(logits, cfg.anchors, cfg.num_classes)
+    boxes, scores = decode(logits, cfg.anchors, cfg.num_classes,
+                           tree=cfg.tree, tree_map=tree_map,
+                           hier_thresh=hier)
     return nms_batch(
         boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
         top_k=top_k, max_detections=max_detections, impl=nms_impl,
@@ -197,14 +223,18 @@ def make_detector(cfg: ModelConfig, *,
                   nms_threshold: Optional[float] = None,
                   top_k: int = 128, max_detections: int = 100,
                   nms_impl: str = "auto", head: str = "auto",
-                  entry: str = "auto", resize: str = "letterbox"):
+                  entry: str = "auto", resize: str = "letterbox",
+                  use_tree_map: bool = False,
+                  hier_thresh: Optional[float] = None):
     """Raw-RGB detector: ``fn(net, images_u8) -> detections``."""
     def fn(net: Darknet, images_u8: torch.Tensor):
         return detect_raw(cfg, net, images_u8,
                           conf_threshold=conf_threshold,
                           nms_threshold=nms_threshold, top_k=top_k,
                           max_detections=max_detections, nms_impl=nms_impl,
-                          head=head, entry=entry, resize=resize)
+                          head=head, entry=entry, resize=resize,
+                          use_tree_map=use_tree_map,
+                          hier_thresh=hier_thresh)
     return fn
 
 
@@ -213,16 +243,19 @@ def make_detector_preprocessed(cfg: ModelConfig, *,
                                nms_threshold: Optional[float] = None,
                                top_k: int = 128, max_detections: int = 100,
                                nms_impl: str = "auto", head: str = "auto",
-                               conv_impl: str = "torch"):
+                               conv_impl: str = "torch",
+                               use_tree_map: bool = False,
+                               hier_thresh: Optional[float] = None):
     """Detector for host-preprocessed (B, net_h, net_w, 3) [0, 1] input,
     one shape whatever the source sizes (data/pipeline.py
     inference_batches): ``fn(net, images_01) -> detections`` with
     net-space xywh boxes, un-letterboxed per image by the caller.
-    conv_impl: see forward."""
+    conv_impl: see forward; use_tree_map / hier_thresh: see detect."""
     def fn(net: Darknet, images_01: torch.Tensor):
         return detect(cfg, net, images_01.to(net.compute_dtype),
                       conf_threshold=conf_threshold,
                       nms_threshold=nms_threshold, top_k=top_k,
                       max_detections=max_detections, nms_impl=nms_impl,
-                      head=head, conv_impl=conv_impl)
+                      head=head, conv_impl=conv_impl,
+                      use_tree_map=use_tree_map, hier_thresh=hier_thresh)
     return fn

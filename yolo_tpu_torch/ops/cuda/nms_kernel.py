@@ -3,7 +3,8 @@
 The CUDA kernel replaces the Pallas TPU kernel
 ``yolo_tpu/ops/pallas/nms_kernel.py::suppress`` and keeps its signature
 and semantics. Its plain PyTorch version is
-``yolo_tpu_torch.ops.nms._suppress_torch`` (the port of ``_suppress_xla``).
+``yolo_tpu_torch.ops.nms._suppress_torch`` (the port of ``_suppress_xla``),
+run in row chunks (``_suppress_torch_rows``) to bound its memory.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, which is what the CPU tests run.
@@ -30,10 +31,10 @@ def suppress(geom: torch.Tensor, scores: torch.Tensor,
     {0, 1}."""
     global launches
     if geom.device.type == "cpu":
-        from yolo_tpu_torch.ops.nms import _suppress_torch
+        from yolo_tpu_torch.ops.nms import _suppress_torch_rows
 
-        return _suppress_torch(geom, scores, classes, conf_threshold,
-                               iou_threshold)
+        return _suppress_torch_rows(geom, scores, classes, conf_threshold,
+                                    iou_threshold)
     if geom.dim() != 3 or geom.shape[1] != 5:
         raise ValueError(f"geom must be (G, 5, K), got {tuple(geom.shape)}")
     g, _, k = geom.shape

@@ -16,20 +16,36 @@ scaled-yolov4 new_coords heads, values already logistic (v):
 uh, obj, cls...]: the box from x/y/w/h as [yolo], score = sigmoid(obj)
 * (1 - mean(sigmoid(u))) * sigmoid(cls).
 
-No tw/th clamp, as in the JAX package. YOLO9000 tree decode is ROADMAP
-A10.
+YOLO9000 trees (configs/tree.py): the class logits are soft-maxed per
+sibling group (tree_conditional_probs); a node's absolute probability is
+the product of the conditionals on its root path (tree_absolute_probs);
+prediction descends from the roots taking the most confident child while
+that product stays above hier_thresh (tree_top_prediction).
+
+No tw/th clamp, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
 from yolo_tpu_torch.ops.letterbox import as_hw
 
 
-def decode(logits: torch.Tensor, anchors, num_classes: int):
+def decode(logits: torch.Tensor, anchors, num_classes: int, tree=None,
+           tree_map: Optional[Tuple[int, ...]] = None,
+           hier_thresh: float = 0.5):
     """logits (B, H, W, A*(5+C)) -> boxes (B, H*W*A, 4) net-normalized
-    (cx, cy, w, h) and scores (B, H*W*A, C) = conf * class prob, fp32."""
+    (cx, cy, w, h) and scores (B, H*W*A, C) = conf * class prob, fp32.
+
+    With a tree (configs.tree.SoftmaxTree) the class math is YOLO9000's:
+    with tree_map (a darknet .map) score_j = conf * absolute[map[j]],
+    scores (B, N, len(map)); without, the greedy traversal's node scores
+    conf, one-hot over the tree's nodes (decode.py::decode)."""
     b, h, w, _ = logits.shape
     a = len(anchors)
     t = logits.to(torch.float32).reshape(b, h, w, a, 5 + num_classes)
@@ -37,8 +53,136 @@ def decode(logits: torch.Tensor, anchors, num_classes: int):
         torch.sigmoid(t[..., 0]), torch.sigmoid(t[..., 1]),
         t[..., 2], t[..., 3], anchors, h, w)
     conf = torch.sigmoid(t[..., 4])
-    scores = conf[..., None] * torch.softmax(t[..., 5:], dim=-1)
-    return pred_boxes.reshape(b, -1, 4), scores.reshape(b, -1, num_classes)
+    if tree is None:
+        scores = conf[..., None] * torch.softmax(t[..., 5:], dim=-1)
+        out_c = num_classes
+    else:
+        cond = tree_conditional_probs(t[..., 5:], tree)
+        if tree_map is not None:
+            absolute = tree_absolute_probs(cond, tree)
+            scores = conf[..., None] * absolute[..., list(tree_map)]
+            out_c = len(tree_map)
+        else:
+            node = tree_top_prediction(cond, tree, hier_thresh)
+            scores = (torch.nn.functional.one_hot(
+                node.long(), num_classes).to(torch.float32)
+                * conf[..., None])
+            out_c = num_classes
+    return pred_boxes.reshape(b, -1, 4), scores.reshape(b, -1, out_c)
+
+
+@functools.lru_cache(maxsize=8)
+def _tree_np_consts(tree):
+    """Constant tables of one SoftmaxTree, as numpy arrays
+    (decode.py::_tree_np_consts): node_group, parents, levels (root 0),
+    child_group, members (G, max group size, padded with -1), leaf."""
+    from yolo_tpu_torch.configs.tree import group_members_padded
+
+    levels = np.zeros(tree.n_nodes, dtype=np.int64)
+    for i, p in enumerate(tree.parents):
+        levels[i] = 0 if p < 0 else levels[p] + 1
+    return {
+        "node_group": np.asarray(tree.node_group, np.int64),
+        "parents": np.asarray(tree.parents, np.int64),
+        "levels": levels,
+        "child_group": np.asarray(tree.child_group, np.int64),
+        "members": group_members_padded(tree).astype(np.int64),
+        "leaf": np.asarray([tree.leaf(i) for i in range(tree.n_nodes)],
+                           bool),
+    }
+
+
+@functools.lru_cache(maxsize=16)
+def _tree_consts(tree, device: torch.device):
+    """_tree_np_consts as tensors on ``device``, cached per device."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in _tree_np_consts(tree).items()}
+
+
+def tree_conditional_probs(logits_c: torch.Tensor, tree) -> torch.Tensor:
+    """(..., C) class logits -> the per-sibling-group softmax (YOLO9000's
+    conditional probabilities Pr(node | parent)), fp32: each group's max
+    subtracted, exp, divided by the group's sum."""
+    g = _tree_consts(tree, logits_c.device)["node_group"]
+    t = logits_c.to(torch.float32)
+    lead = t.shape[:-1]
+    t = t.reshape(-1, t.shape[-1])
+    gi = g[None, :].expand(t.shape[0], -1)
+    gmax = torch.full((t.shape[0], tree.n_groups), -torch.inf,
+                      device=t.device).scatter_reduce(
+                          1, gi, t, "amax", include_self=True)
+    # the shift cancels in the quotient: no gradient through it
+    e = torch.exp(t - gmax[:, g].detach())
+    gsum = torch.zeros((t.shape[0], tree.n_groups),
+                       device=t.device).scatter_add(1, gi, e)
+    return (e / gsum[:, g]).reshape(*lead, t.shape[-1])
+
+
+def tree_log_conditional(logits_c: torch.Tensor, tree) -> torch.Tensor:
+    """(..., C) class logits -> log of the per-sibling-group softmax, as
+    the shifted logit minus the group's log-sum-exp (never the log of a
+    formed probability: the classifier CE's stable form)."""
+    g = _tree_consts(tree, logits_c.device)["node_group"]
+    t = logits_c.to(torch.float32)
+    lead = t.shape[:-1]
+    t = t.reshape(-1, t.shape[-1])
+    gi = g[None, :].expand(t.shape[0], -1)
+    gmax = torch.full((t.shape[0], tree.n_groups), -torch.inf,
+                      device=t.device).scatter_reduce(
+                          1, gi, t, "amax", include_self=True)
+    z = t - gmax[:, g].detach()
+    gsum = torch.zeros((t.shape[0], tree.n_groups),
+                       device=t.device).scatter_add(1, gi, torch.exp(z))
+    return (z - torch.log(gsum)[:, g]).reshape(*lead, t.shape[-1])
+
+
+def tree_absolute_probs(cond: torch.Tensor, tree) -> torch.Tensor:
+    """Conditional -> absolute probabilities: the product of the
+    conditionals on each node's root path, one tree level at a time."""
+    k = _tree_consts(tree, cond.device)
+    parents = k["parents"].clamp_min(0)
+    lead = cond.shape[:-1]
+    cond = cond.reshape(-1, cond.shape[-1])
+    absolute = cond
+    for d in range(1, tree.max_depth):
+        absolute = torch.where(k["levels"] == d, cond * absolute[:, parents],
+                               absolute)
+    return absolute.reshape(*lead, cond.shape[-1])
+
+
+def tree_top_prediction(cond: torch.Tensor, tree,
+                        thresh: float) -> torch.Tensor:
+    """The greedy hierarchy prediction on conditionals
+    (decode.py::tree_top_prediction): from the root group, take the most
+    confident node of the group; descend while the running product of
+    conditionals times it exceeds ``thresh``; predict the last accepted
+    node (the root group's argmax even below the threshold). Unrolled
+    over the tree's depth. Returns int32 node indices of
+    cond.shape[:-1]."""
+    k = _tree_consts(tree, cond.device)
+    members, child_group = k["members"], k["child_group"]
+    lead = cond.shape[:-1]
+    cond = cond.reshape(-1, cond.shape[-1])
+    n = cond.shape[0]
+    group = torch.zeros(n, dtype=torch.int64, device=cond.device)
+    p = torch.ones(n, dtype=torch.float32, device=cond.device)
+    result = torch.full((n,), -1, dtype=torch.int64, device=cond.device)
+    done = torch.zeros(n, dtype=torch.bool, device=cond.device)
+    for step in range(tree.max_depth):
+        cand = members[group]                                  # (n, K)
+        val = torch.where(cand >= 0,
+                          torch.gather(cond, 1, cand.clamp_min(0)),
+                          torch.full_like(cond[:, :1], -1.0))
+        mx, arg = val.max(dim=-1)
+        node = torch.gather(cand, 1, arg[:, None])[:, 0]
+        active = ~done
+        accept = active & (p * mx > thresh)
+        result = torch.where(active if step == 0 else accept, node, result)
+        p = torch.where(accept, p * mx, p)
+        is_leaf = child_group[node] < 0
+        group = torch.where(accept & ~is_leaf, child_group[node], group)
+        done = done | ~accept | (accept & is_leaf)
+    return result.to(torch.int32).reshape(lead)
 
 
 def decode_region_boxes(sx, sy, tw, th, anchors, h: int, w: int):

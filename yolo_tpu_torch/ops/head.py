@@ -1,5 +1,6 @@
 """Fused detection heads (port of yolo_tpu/ops/head.py: detect_head for
-the [region] head, detect_head_yolo for [yolo] heads).
+the [region] head, detect_head_yolo for [yolo] heads, detect_head_tree
+for YOLO9000's tree [region] head).
 
 score = sigmoid(obj) * softmax(cls) <= sigmoid(obj), so:
   1. objectness sigmoid over all H*W*A boxes
@@ -167,6 +168,66 @@ def detect_head_yolo(head_logits, anchors_px, masks, num_classes: int,
     classes_k = (idx % c).to(torch.int32)
     boxes_k = torch.gather(boxes_kb, 1,
                            (idx // c)[..., None].expand(-1, -1, 4))
+    keep = _suppress(_geom(boxes_k), scores_k, classes_k, conf_threshold,
+                     iou_threshold, use_kernel=use_kernel, kind=nms_kind,
+                     beta=beta_nms)
+    return _package(boxes_k, scores_k, classes_k, keep, max_detections)
+
+
+def detect_head_tree(logits: torch.Tensor, anchors, tree, *,
+                     conf_threshold: float, iou_threshold: float,
+                     hier_thresh: float = 0.5, tree_map=None,
+                     pre_top_k: int = 256, max_detections: int = 100,
+                     use_kernel: bool = True, nms_kind: str = "greedy",
+                     beta_nms: float = 0.6):
+    """Fused YOLO9000 head (head.py::detect_head_tree): the objectness
+    top-KB, then the hierarchy math on those boxes only, not on the
+    reference path's dense (B, N, n_nodes) scores.
+
+    Traversal mode (tree_map None): a box's score is its objectness and
+    its class the traversal's node, so the objectness cut is exact
+    whenever fewer than KB boxes clear conf_threshold. Map mode: score_j
+    = conf * absolute[map[j]] <= conf, then the global (box, class)
+    top-K as detect_head. Suppression: the NMS kernel on the card at K =
+    KB."""
+    from yolo_tpu_torch.ops.decode import (tree_absolute_probs,
+                                           tree_conditional_probs,
+                                           tree_top_prediction)
+
+    b, h, w, _ = logits.shape
+    a = len(anchors)
+    c = tree.n_nodes
+    n = h * w * a
+    t = logits.to(torch.float32).reshape(b, n, 5 + c)
+    anchors_t = torch.as_tensor(anchors, dtype=torch.float32,
+                                device=logits.device)
+
+    conf_all = torch.sigmoid(t[..., 4])
+    kb = min(pre_top_k, n)
+    conf_k, nidx = _top_k(conf_all, kb)
+    tk = torch.gather(t, 1, nidx[..., None].expand(-1, -1, 5 + c))
+
+    ai = nidx % a
+    ci = (nidx // a) % w
+    cj = nidx // (a * w)
+    bx = (torch.sigmoid(tk[..., 0]) + ci.to(torch.float32)) / w
+    by = (torch.sigmoid(tk[..., 1]) + cj.to(torch.float32)) / h
+    bw = anchors_t[ai, 0] * torch.exp(tk[..., 2]) / w
+    bh = anchors_t[ai, 1] * torch.exp(tk[..., 3]) / h
+    boxes_k = torch.stack([bx, by, bw, bh], dim=-1)           # (B, KB, 4)
+
+    cond = tree_conditional_probs(tk[..., 5:], tree)          # (B, KB, C)
+    if tree_map is None:
+        classes_k = tree_top_prediction(cond, tree, hier_thresh)
+        scores_k = conf_k
+    else:
+        proj = tree_absolute_probs(cond, tree)[..., list(tree_map)]
+        m = len(tree_map)
+        scores_k, idx = _top_k((conf_k[..., None] * proj).reshape(
+            b, kb * m), kb)
+        classes_k = (idx % m).to(torch.int32)
+        boxes_k = torch.gather(boxes_k, 1,
+                               (idx // m)[..., None].expand(-1, -1, 4))
     keep = _suppress(_geom(boxes_k), scores_k, classes_k, conf_threshold,
                      iou_threshold, use_kernel=use_kernel, kind=nms_kind,
                      beta=beta_nms)

@@ -13,7 +13,16 @@ Two suppression backends:
     reference the kernel is held against.
 
 impl "auto" takes "fused" on CUDA tensors and the exact per-class "torch"
-path elsewhere. In every mode a box suppresses lower-ranked same-class
+path elsewhere.
+
+Memory is bounded by _CHUNK_ELEMS (nms.py's budget): the plain
+suppression runs in row chunks whose (rows, K, K) pairwise tensors hold
+at most that many fp32 elements, and the per-class path gathers the
+candidates' geometry one class chunk at a time when the whole grid's
+would exceed it (the exact eval of a 9418-node YOLO9000 tree is B*9418
+rows). The kernel holds no pairwise tensor, so it takes the whole grid
+in one launch while its (B*C, 5, K) geometry fits the budget. Rows are
+independent: the keep masks are the same whatever the chunks. In every mode a box suppresses lower-ranked same-class
 overlaps only if it is itself kept and above the confidence threshold;
 ties order by (score desc, candidate index asc), as lax.top_k does.
 """
@@ -86,6 +95,58 @@ def _suppress_torch(geom: torch.Tensor, scores_k: torch.Tensor,
     return keep * (scores_k >= conf_threshold).to(torch.float32)
 
 
+# fp32 elements of one live chunk: a (rows, K, K) pairwise tensor of the
+# plain suppression, or a (rows, 5, K) geometry gather for the kernel
+# (64 Mi elements = 256 MB)
+_CHUNK_ELEMS = 64 * 1024 * 1024
+
+
+def _suppress_torch_rows(geom, scores_k, classes_k, conf_threshold,
+                         iou_threshold, kind: str = "greedy",
+                         beta: float = 0.6) -> torch.Tensor:
+    """_suppress_torch in row chunks whose pairwise tensors hold at most
+    _CHUNK_ELEMS elements (nms.py::_suppress_xla_rows)."""
+    g, _, k = geom.shape
+    rows = max(1, _CHUNK_ELEMS // (k * k))
+    if g <= rows:
+        return _suppress_torch(geom, scores_k, classes_k, conf_threshold,
+                               iou_threshold, kind=kind, beta=beta)
+    return torch.cat([_suppress_torch(
+        geom[i:i + rows], scores_k[i:i + rows], classes_k[i:i + rows],
+        conf_threshold, iou_threshold, kind=kind, beta=beta)
+        for i in range(0, g, rows)])
+
+
+def _per_class_suppress(geom_n, idx, scores_k, classes_k, conf_threshold,
+                        iou_threshold, use_kernel: bool,
+                        kind: str = "greedy", beta: float = 0.6):
+    """Exact per-class suppression from a shared geometry table
+    (nms.py::_per_class_suppress): geom_n (B, 5, N), idx / scores_k /
+    classes_k (B, C, K) per-class top-K -> keep (B, C, K). The geometry
+    is gathered for as many classes at a time as _CHUNK_ELEMS allows:
+    the kernel's (rows, 5, K) gather, or the plain path's (rows, K, K)
+    pairwise tensor; one chunk (one kernel launch) when the whole grid
+    fits."""
+    b, c, k = idx.shape
+    n = geom_n.shape[-1]
+    on_kernel = use_kernel and kind == "greedy" and k <= nms_kernel.MAX_K
+    per_row = 5 * k if on_kernel else k * k
+    cc = max(1, _CHUNK_ELEMS // per_row // b)
+    keeps = []
+    for c0 in range(0, c, cc):
+        ic = idx[:, c0:c0 + cc]
+        m = ic.shape[1]
+        geom = torch.gather(geom_n[:, None, :, :].expand(b, m, 5, n), 3,
+                            ic[:, :, None, :].expand(b, m, 5, k))
+        keeps.append(_suppress(
+            geom.reshape(b * m, 5, k),
+            scores_k[:, c0:c0 + cc].reshape(b * m, k),
+            classes_k[:, c0:c0 + cc].reshape(b * m, k),
+            conf_threshold, iou_threshold, use_kernel=use_kernel,
+            kind=kind, beta=beta).reshape(b, m, k))
+    return keeps[0] if len(keeps) == 1 else torch.cat(keeps, dim=1)
+
+
 def _suppress(geom, scores_k, classes_k, conf_threshold, iou_threshold,
               use_kernel: bool, kind: str = "greedy", beta: float = 0.6):
     if use_kernel and geom.shape[-1] > nms_kernel.MAX_K:
@@ -98,8 +159,8 @@ def _suppress(geom, scores_k, classes_k, conf_threshold, iou_threshold,
             classes_k.to(torch.float32).contiguous(),
             conf_threshold=float(conf_threshold),
             iou_threshold=float(iou_threshold))
-    return _suppress_torch(geom, scores_k, classes_k, conf_threshold,
-                           iou_threshold, kind=kind, beta=beta)
+    return _suppress_torch_rows(geom, scores_k, classes_k, conf_threshold,
+                                iou_threshold, kind=kind, beta=beta)
 
 
 def _package(flat_boxes, flat_scores, flat_classes, keep, max_detections,
@@ -160,14 +221,10 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor, *,
         classes_k = torch.arange(c, dtype=torch.int32,
                                  device=scores.device)[None, :, None] \
             .expand(b, c, k)
-        geom_n = _geom(bf)                                  # (B, 5, N)
-        geom = torch.gather(geom_n[:, None, :, :].expand(b, c, 5, n), 3,
-                            idx[:, :, None, :].expand(b, c, 5, k))
-        keep = _suppress(geom.reshape(b * c, 5, k),
-                         scores_k.reshape(b * c, k),
-                         classes_k.reshape(b * c, k),
-                         conf_threshold, iou_threshold,
-                         use_kernel=(impl == "cuda"), kind=kind, beta=beta)
+        keep = _per_class_suppress(_geom(bf), idx, scores_k, classes_k,
+                                   conf_threshold, iou_threshold,
+                                   use_kernel=(impl == "cuda"), kind=kind,
+                                   beta=beta)
         return _package(bf, scores_k.reshape(b, c * k),
                         classes_k.reshape(b, c * k),
                         keep.reshape(b, c * k), max_detections,

@@ -1,7 +1,9 @@
-"""Serving endpoint for one device: HTTP in, boxes out (port of
-yolo_tpu/serve.py, detection models).
+"""Serving endpoint for one device: HTTP in, boxes or labels out (port
+of yolo_tpu/serve.py).
 
-POST /detect with an image body -> JSON detections; GET /healthz for
+POST /detect with an image body -> JSON detections (a detector); POST
+/classify -> the top-5 classes (a classifier: resize_min + centre crop,
+a tree classifier's leaf-masked absolute probabilities); GET /healthz for
 liveness, GET /stats for counters (requests, batches, and the CUDA
 kernels' launches in this process). Bodies are
   * ``Content-Type: application/x-npy``: a uint8 (H, W, C) array in .npy
@@ -108,9 +110,12 @@ class DetectionServer:
                  max_batch: int = 32, adaptive_window: bool = True,
                  conf_threshold: Optional[float] = None,
                  request_timeout: float = 120.0, mesh=None,
-                 resize: str = "letterbox"):
+                 resize: str = "letterbox", use_tree_map: bool = False,
+                 hier_thresh: Optional[float] = None):
         """``params``: the Darknet module (yolo_tpu_torch.load(...).params);
-        the compute dtype is its own."""
+        the compute dtype is its own. use_tree_map / hier_thresh: a
+        YOLO9000 tree detector's decode."""
+        from yolo_tpu_torch.models.classify import make_classifier
         from yolo_tpu_torch.models.predict import make_detector
 
         if mesh is not None:
@@ -124,12 +129,17 @@ class DetectionServer:
         self.adaptive_window = adaptive_window
         self._ewma_batch = 1.0  # recent average batch size
         self.request_timeout = request_timeout
-        self._detector = make_detector(cfg, conf_threshold=conf_threshold,
-                                       resize=resize)
+        self.is_classifier = cfg.head_kind == "softmax"
+        if self.is_classifier:
+            self._classifier = make_classifier(cfg)
+        else:
+            self._detector = make_detector(
+                cfg, conf_threshold=conf_threshold, resize=resize,
+                use_tree_map=use_tree_map, hier_thresh=hier_thresh)
         self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._stop = threading.Event()
-        self._det_names = cfg.detection_names()
+        self._det_names = cfg.detection_names(use_tree_map)
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
                       "max_batch_seen": 0, "window_skips": 0,
                       "ewma_batch": 1.0}
@@ -198,6 +208,18 @@ class DetectionServer:
     def _run_batch(self, items: List[_Pending]) -> None:
         images = torch.from_numpy(np.stack([i.image for i in items])) \
             .to(self.params.device)
+        if self.is_classifier:
+            from yolo_tpu_torch.models.classify import (hierarchy_leaf_probs,
+                                                        top_k)
+
+            with torch.no_grad():
+                probs = self._classifier(self.params, images).cpu().numpy()
+            if self.cfg.softmax_tree is not None:
+                probs = hierarchy_leaf_probs(probs, self.cfg.softmax_tree)
+            for item, p in zip(items, probs):
+                item.result = [{"class": name, "prob": round(pr, 6)}
+                               for name, pr in top_k(p, self.cfg.class_names)]
+            return
         out = self._detector(self.params, images)
         for item, result in zip(items, detections_to_json(out,
                                                           self._det_names)):
@@ -254,10 +276,11 @@ class DetectionServer:
                     self._send(404, {"error": "not found"})
 
             def do_POST(self):
-                if self.path != "/detect":
-                    if self.path == "/classify":
+                want = "/classify" if server.is_classifier else "/detect"
+                if self.path != want:
+                    if self.path in ("/detect", "/classify"):
                         self._send(400, {"error": f"{server.cfg.name} "
-                                         f"serves /detect"})
+                                         f"serves {want}"})
                     else:
                         self._send(404, {"error": "not found"})
                     return
@@ -285,6 +308,11 @@ class DetectionServer:
                     if rgb is None:
                         self._send(400, {"error": "cannot decode image"})
                         return
+                if server.is_classifier:
+                    from yolo_tpu_torch.models.classify import (
+                        classifier_preprocess)
+
+                    rgb = classifier_preprocess(rgb, server.cfg.input_hw)
                 pending = _Pending(rgb)
                 server._q.put(pending)
                 # bounded wait: a dead/stopped worker must yield 503,
@@ -293,6 +321,8 @@ class DetectionServer:
                     self._send(503, {"error": "detection timed out"})
                 elif pending.error is not None:
                     self._send(500, {"error": pending.error})
+                elif server.is_classifier:
+                    self._send(200, {"classes": pending.result})
                 else:
                     self._send(200, {"detections": pending.result})
 

@@ -1,5 +1,5 @@
-"""Training step for the region and [yolo] heads (port of
-yolo_tpu/train/loop.py).
+"""Training step for the region heads (YOLO9000 trees too), the [yolo]
+heads and the darknet classifiers (port of yolo_tpu/train/loop.py).
 
   state = init_state(mcfg, params, tcfg)          # device="cuda"
   step = make_train_step(mcfg, tcfg, compute_dtype=torch.bfloat16)
@@ -19,7 +19,9 @@ and the step and seen counters. As the JAX package's optax chain:
 Gradient accumulation splits the batch with a stride (sub-batch i is
 batch[i::accum]), chains the rolling BN statistics through the
 sub-passes and averages loss, parts and gradients. The EMA track
-(ema_alpha) follows kernels, gamma, beta and biases.
+(ema_alpha) follows kernels, gamma, beta and biases. A classifier's
+batch holds "images" and "labels"; its step trains classifier_loss on
+the softmax head's logits, with fresh [dropout] masks each step.
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from yolo_tpu_torch.configs.specs import ModelConfig
+from yolo_tpu_torch.configs.specs import ModelConfig, SoftmaxHead
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.models.graph import DarknetTrain, apply_bn_updates
 from yolo_tpu_torch.ops.precision import exact_for
 from yolo_tpu_torch.train.loss import (LossConfig, YoloLossConfig,
-                                       region_loss, yolo_loss)
+                                       classifier_loss, region_loss,
+                                       yolo_loss)
 
 # Darknet multi-scale training sizes (yolov2.cfg random=1: {320..608}/32).
 MULTISCALE_SIZES = tuple(range(320, 609, 32))
@@ -285,11 +288,11 @@ def init_state(mcfg: ModelConfig, params, tcfg: TrainConfig, *,
 
 def _hwio(name: str, t: torch.Tensor) -> torch.Tensor:
     """A trained tensor in the checkpoint layout (HWIO kernels)."""
-    return t.permute(2, 3, 1, 0) if name == "kernel" else t
+    return t.permute(2, 3, 1, 0) if name == "kernel" and t.dim() == 4 else t
 
 
 def _from_hwio(name: str, t: torch.Tensor, device) -> torch.Tensor:
-    t = t.permute(3, 2, 0, 1) if name == "kernel" else t
+    t = t.permute(3, 2, 0, 1) if name == "kernel" and t.dim() == 4 else t
     return t.to(device=device, dtype=torch.float32).contiguous()
 
 
@@ -368,12 +371,21 @@ def ema_params_of(state: TrainState):
     return state.net.to_numpy(state.ema)
 
 
-def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int, *,
-             mcfg: ModelConfig, tcfg: TrainConfig, compute_dtype):
+def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int,
+             dropout_key: tuple, *, mcfg: ModelConfig, tcfg: TrainConfig,
+             compute_dtype):
+    classifier = mcfg.head_kind == "softmax"
     logits, bn_updates = state.net(
         sub["images"], compute_dtype=compute_dtype,
-        bn_stats_fp32=tcfg.bn_stats_fp32, remat=tcfg.remat)
-    if mcfg.head_kind == "yolo":
+        bn_stats_fp32=tcfg.bn_stats_fp32, remat=tcfg.remat,
+        softmax_logits=classifier, dropout_key=dropout_key)
+    if classifier:
+        # the SoftmaxHead layer holds the tree and temperature that
+        # inference applies, so training reads them there too
+        head = next(l for l in mcfg.layers if isinstance(l, SoftmaxHead))
+        total, parts = classifier_loss(logits, sub["labels"], tree=head.tree,
+                                       temperature=head.temperature)
+    elif mcfg.head_kind == "yolo":
         if mcfg.objectness_smooth:
             # as the JAX package's train_step: no reference source pins
             # the IoU-derived objectness targets
@@ -390,7 +402,8 @@ def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int, *,
             gaussian=[h.gaussian for h in heads])
     else:
         total, parts = region_loss(logits, sub, mcfg.anchors,
-                                   mcfg.num_classes, tcfg.loss, seen)
+                                   mcfg.num_classes, tcfg.loss, seen,
+                                   tree=mcfg.tree)
     return total, parts, bn_updates
 
 
@@ -422,8 +435,11 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
         for i in range(accum):
             sub = ({k: v[i::accum] for k, v in batch.items()}
                    if accum > 1 else batch)
+            # dropout masks keyed on (step, sub-batch): fresh each step,
+            # drawn again by a resumed run
             loss, parts, bn_updates = loss_fn(state, sub,
-                                              state.seen + i * sub_bs)
+                                              state.seen + i * sub_bs,
+                                              (state.step, i))
             loss.backward()
             # rolling statistics chain through the sub-passes; mean/var
             # take no gradient, so the weight gradients are unchanged

@@ -1,5 +1,7 @@
-"""YOLOv2 region loss and the yolov3/v4 [yolo] loss (port of
-yolo_tpu/train/loss.py, flat classes).
+"""YOLOv2 region loss (YOLO9000 trees too), the yolov3/v4 [yolo] loss
+and the darknet classifiers' cross-entropy (port of
+yolo_tpu/train/loss.py; the yolov1 detection loss is ROADMAP A10's
+second half).
 
 Darknet region-layer semantics, each squared error weighted once by its
 scale:
@@ -9,15 +11,18 @@ scale:
       or (1 - conf)^2 when rescore=0
     + noobject_scale * (0 - conf)^2          (unassigned anchors whose best
                                               IoU vs any GT < thresh)
-    + class_scale    * ||softmax - onehot||^2 (assigned)
+    + class_scale    * ||softmax - onehot||^2 (assigned; with a YOLO9000
+                                              tree, summed over the sibling
+                                              groups on the target's root
+                                              path)
     + 0.01 * prior matching on unassigned anchors while seen < 12800
       images, targets (0.5, 0.5, prior).
 
 Every term is computed from the raw head logits in fp32 and divided by
 the batch size. The rescore target and the noobj gate carry no gradient,
 as darknet's deltas. yolo_loss is documented at YoloLossConfig, with
-the scaled-yolov4 new_coords heads and the Gaussian YOLOv3 heads.
-YOLO9000 tree classes are ROADMAP A10.
+the scaled-yolov4 new_coords heads and the Gaussian YOLOv3 heads;
+classifier_loss at its definition.
 """
 
 from __future__ import annotations
@@ -26,10 +31,15 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from yolo_tpu_torch.ops.decode import decode_head_boxes, decode_region_boxes
+from yolo_tpu_torch.ops.decode import (decode_head_boxes,
+                                       decode_region_boxes,
+                                       tree_absolute_probs,
+                                       tree_conditional_probs,
+                                       tree_log_conditional)
 from yolo_tpu_torch.ops.letterbox import as_hw
 
 
@@ -113,13 +123,96 @@ def _diag_iou(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _diag_iou_variant(p, g, "iou")
 
 
+def _tree_paths(tree, device) -> torch.Tensor:
+    """configs.tree.tree_paths_padded as an int64 tensor on ``device``."""
+    from yolo_tpu_torch.configs.tree import tree_paths_padded
+
+    return torch.from_numpy(tree_paths_padded(tree).astype(np.int64)).to(
+        device)
+
+
+def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
+                    temperature: float = 1.0
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Softmax cross-entropy of classifier training (loss.py::
+    classifier_loss; darknet softmax_x_ent: error -log p(truth), delta
+    truth - p on the logits).
+
+    With a YOLO9000 tree the label's root path adds one CE term per
+    sibling group (every ancestor is a truth, paper section 4); groups
+    off the path carry no gradient; labels may be internal nodes. The
+    temperature divides the logits in the forward only: darknet's
+    backward applies no 1/T, so the scaling is straight-through.
+
+    logits (B, C) before the softmax (Darknet*(softmax_logits=True));
+    labels (B,) int. Returns (mean CE, {"ce", "top1"}); top1 is the
+    batch's accuracy (with a tree: the leaf-masked absolute argmax, an
+    internal-node label counted when it lies on that leaf's path)."""
+    logits = logits.to(torch.float32)
+    labels = labels.long()
+    if temperature != 1.0:
+        scaled = logits / temperature
+        logits = logits + (scaled - logits).detach()
+    if tree is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -torch.gather(logp, 1, labels[:, None])[:, 0]
+        pred = torch.argmax(logits, dim=-1)
+        mean_ce = ce.mean()
+        top1 = (pred == labels).to(torch.float32).mean()
+        return mean_ce, {"ce": mean_ce, "top1": top1}
+    from yolo_tpu_torch.ops.decode import _tree_consts
+
+    logc = tree_log_conditional(logits, tree)
+    paths = _tree_paths(tree, logits.device)
+    pnodes = paths[labels]                           # (B, max_depth)
+    mask = (pnodes >= 0).to(torch.float32)
+    ce = -torch.sum(mask * torch.gather(logc, 1, pnodes.clamp_min(0)),
+                    dim=-1)
+    with torch.no_grad():
+        absolute = tree_absolute_probs(tree_conditional_probs(logits, tree),
+                                       tree)
+        leaf = _tree_consts(tree, logits.device)["leaf"]
+        pred = torch.argmax(torch.where(leaf, absolute,
+                                        torch.zeros_like(absolute)), dim=-1)
+        hit = torch.any(paths[pred] == labels[:, None], dim=-1)
+    mean_ce = ce.mean()
+    return mean_ce, {"ce": mean_ce, "top1": hit.to(torch.float32).mean()}
+
+
+def _tree_class_sq(logits_c: torch.Tensor, tcls: torch.Tensor,
+                   tree) -> torch.Tensor:
+    """The hierarchical class squared error per anchor (loss.py::
+    _tree_class_sq): for target node t, over the sibling groups g on
+    path(t), ||cond_g - onehot_g||^2 = sumsq(g) - 2 cond[node_g] + 1.
+    (..., C) logits and (...,) int targets -> (...,)."""
+    from yolo_tpu_torch.ops.decode import _tree_consts
+
+    cond = tree_conditional_probs(logits_c, tree)
+    lead = cond.shape[:-1]
+    cond = cond.reshape(-1, cond.shape[-1])
+    g = _tree_consts(tree, cond.device)["node_group"]
+    sumsq = torch.zeros((cond.shape[0], tree.n_groups),
+                        device=cond.device).scatter_add(
+                            1, g[None, :].expand(cond.shape[0], -1),
+                            cond ** 2)
+    pnodes = _tree_paths(tree, cond.device)[tcls.reshape(-1).long()]
+    mask = (pnodes >= 0).to(torch.float32)
+    safe = pnodes.clamp_min(0)
+    cond_at = torch.gather(cond, 1, safe)
+    sumsq_at = torch.gather(sumsq, 1, g[safe])
+    return torch.sum(mask * (sumsq_at - 2.0 * cond_at + 1.0),
+                     dim=-1).reshape(lead)
+
+
 def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
-                anchors, num_classes: int, cfg: LossConfig, seen
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                anchors, num_classes: int, cfg: LossConfig, seen,
+                tree=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """logits (B, S, S, A*(5+C)); targets from data.targets.encode_batch
     as tensors on the logits' device; seen: images trained on before
     this batch (int). Returns (total loss per image, parts dict with
-    coord / obj / noobj / class / warmup)."""
+    coord / obj / noobj / class / warmup). A YOLO9000 tree swaps the
+    class term for _tree_class_sq's: the squared error within each
+    sibling group on the target's root path only."""
     b, sh, sw, _ = logits.shape
     a = len(anchors)
     c = num_classes
@@ -130,7 +223,6 @@ def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
     tw = t[..., 2]
     th = t[..., 3]
     conf = torch.sigmoid(t[..., 4])
-    probs = torch.softmax(t[..., 5:], dim=-1)
 
     obj = targets["obj_mask"]                    # (B,S,S,A)
     tc = targets["tcoord"]                       # (B,S,S,A,4)
@@ -155,10 +247,15 @@ def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
           (tw - tc[..., 2]) ** 2 + (th - tc[..., 3]) ** 2)
     loss_coord = cfg.coord_scale * torch.sum(obj * coord_w * sq)
 
-    onehot = torch.nn.functional.one_hot(
-        targets["tcls"].long(), c).to(torch.float32)
-    loss_cls = cfg.class_scale * torch.sum(
-        obj[..., None] * (probs - onehot) ** 2)
+    if tree is not None:
+        loss_cls = cfg.class_scale * torch.sum(
+            obj * _tree_class_sq(t[..., 5:], targets["tcls"], tree))
+    else:
+        onehot = torch.nn.functional.one_hot(
+            targets["tcls"].long(), c).to(torch.float32)
+        loss_cls = cfg.class_scale * torch.sum(
+            obj[..., None] * (torch.softmax(t[..., 5:], dim=-1)
+                              - onehot) ** 2)
 
     # warm-up prior matching (darknet seen < 12800)
     warm = float(int(seen) < cfg.warmup_seen)
