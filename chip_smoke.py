@@ -897,11 +897,14 @@ def time_suppress(what, geom, scores, classes, conf, iou, card,
         calls=200)
     plain_ms = cuda_ms_per_call(lambda: plain(
         geom, scores, classes, conf, iou), calls=plain_calls)
-    # the IoUs the function needs: pairs of candidates above conf
+    # what this run's data needs: every score read and every keep
+    # written, the geometry and class of the candidates above conf
+    # only, and the IoUs of their pairs
     above = (scores >= conf).sum(dim=1).double()
     flop = NMS_PAIR_FLOP * float((above * (above - 1) / 2).sum())
-    bound, bound_by = bound_ms(flop, nbytes(geom, scores, classes)
-                               + 4 * g * k, torch.float32)
+    moved = (nbytes(scores) + 4 * g * k
+             + float(above.sum()) * (geom.shape[1] + 1) * 4)
+    bound, bound_by = bound_ms(flop, moved, torch.float32)
     emit({"phase": "times", "what": what, "shape": [g, 5, k], **extra,
           "above_conf": int((scores >= conf).sum()),
           "kept": int(got.sum()), "kernel_ms": ms, "plain_ms": plain_ms,
@@ -3170,9 +3173,11 @@ def yolo9000_params(cfg, device="cuda") -> list:
     return params
 
 
-def tree_agree(ref: list, got: list, conf: float, what: str) -> dict:
+def tree_agree(ref: list, got: list, conf: float, what: str,
+               need: bool) -> dict:
     """Phase 12's box-level rule both ways, where a side with no
-    detection above conf + MARGIN needs the other to have none."""
+    detection above conf + MARGIN needs the other to have none; need:
+    the reference must have one (else the rule would test nothing)."""
     out = {}
     for name, (x, y) in (("a_in_b", (ref, got)), ("b_in_a", (got, ref))):
         hit = tot = 0
@@ -3184,6 +3189,8 @@ def tree_agree(ref: list, got: list, conf: float, what: str) -> dict:
               f"rate {hit}/{tot} < {MIN_MATCH}")
     check((out["a_in_b"][1] == 0) == (out["b_in_a"][1] == 0),
           f"{what}: detections above conf + margin on one side only {out}")
+    check(not need or out["a_in_b"][1] > 0,
+          f"{what}: the reference has no detection above conf + margin")
     return out
 
 
@@ -3249,7 +3256,8 @@ def phase_tree_serve(root: str, card: str) -> tuple:
                       f"{what}: non-finite boxes")
                 dets = detections_to_json(out, cfg.detection_names(
                     mode == "map"))
-                agree = tree_agree(ref, dets, conf, what)
+                agree = tree_agree(ref, dets, conf, what,
+                                   need=b == max(TREE_BATCHES))
                 torch.cuda.reset_peak_memory_stats()
                 ms = cuda_median_ms(lambda: detect_raw(
                     cfg, model.params, images, **kw, **rkw),

@@ -338,9 +338,9 @@ def test_chunked_suppression_is_bit_identical(impl, budget_rows,
     """nms_batch's per-class path under _CHUNK_ELEMS budgets of 1-1000
     rows (class chunks floored to one, ragged tails, the whole grid):
     keep masks and detections bit-identical to the unchunked run, and
-    equal to the JAX package's XLA path. impl "cuda" takes the kernel's
-    chunking (its (rows, 5, K) budget) and, on the CPU, its plain
-    version."""
+    equal to the JAX package's XLA path. Both impls chunk the classes by
+    the (rows, 5, K) geometry gather; impl "cuda" takes, on the CPU, the
+    kernel's plain version."""
     boxes, scores = _scene(budget_rows)
     k = scores.shape[1]
     kw = dict(conf_threshold=0.2, iou_threshold=0.45, top_k=k,
@@ -348,8 +348,7 @@ def test_chunked_suppression_is_bit_identical(impl, budget_rows,
     tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
     monkeypatch.setattr(tnms, "_CHUNK_ELEMS", 10 ** 9)
     want = tnms.nms_batch(tb, ts, **kw)
-    per_row = 5 * k if impl == "cuda" else k * k
-    monkeypatch.setattr(tnms, "_CHUNK_ELEMS", budget_rows * per_row)
+    monkeypatch.setattr(tnms, "_CHUNK_ELEMS", budget_rows * 5 * k)
     calls = []
     real = tnms._suppress
 

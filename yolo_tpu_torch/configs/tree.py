@@ -23,6 +23,7 @@ The tree math on tensors is ops/decode.py's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 
@@ -58,10 +59,21 @@ class SoftmaxTree:
     def max_group_size(self) -> int:
         return max(self.group_size)
 
-    @property
+    @functools.cached_property
     def max_depth(self) -> int:
         """Longest root->node path length (nodes on path, >= 1)."""
         return max(len(self.path(i)) for i in range(self.n_nodes))
+
+    def __hash__(self) -> int:
+        # computed once: the tree's constant tables are cached by it
+        # (ops/decode.py::_tree_np_consts) and looked up on every forward
+        return self._hash
+
+    @functools.cached_property
+    def _hash(self) -> int:
+        # ints only, so a pickled tree keeps a valid hash in another
+        # process; equal trees have equal parents and child groups
+        return hash((self.parents, self.child_group))
 
     def path(self, node: int) -> Tuple[int, ...]:
         """Ancestor chain root-first, ending at ``node`` (inclusive)."""

@@ -75,8 +75,12 @@ def decode(logits: torch.Tensor, anchors, num_classes: int, tree=None,
 def _tree_np_consts(tree):
     """Constant tables of one SoftmaxTree, as numpy arrays
     (decode.py::_tree_np_consts): node_group, parents, levels (root 0),
-    child_group, members (G, max group size, padded with -1), leaf."""
-    from yolo_tpu_torch.configs.tree import group_members_padded
+    child_group, members (G, max group size, padded with -1), leaf, and
+    paths (n_nodes, max_depth) root-first, padded with -1 (the loss's
+    gather table). Built once per tree, so no forward walks the tree in
+    Python; the depth is paths.shape[1]."""
+    from yolo_tpu_torch.configs.tree import (group_members_padded,
+                                             tree_paths_padded)
 
     levels = np.zeros(tree.n_nodes, dtype=np.int64)
     for i, p in enumerate(tree.parents):
@@ -89,6 +93,7 @@ def _tree_np_consts(tree):
         "members": group_members_padded(tree).astype(np.int64),
         "leaf": np.asarray([tree.leaf(i) for i in range(tree.n_nodes)],
                            bool),
+        "paths": tree_paths_padded(tree).astype(np.int64),
     }
 
 
@@ -99,33 +104,12 @@ def _tree_consts(tree, device: torch.device):
             for k, v in _tree_np_consts(tree).items()}
 
 
-def tree_conditional_probs(logits_c: torch.Tensor, tree) -> torch.Tensor:
-    """(..., C) class logits -> the per-sibling-group softmax (YOLO9000's
-    conditional probabilities Pr(node | parent)), fp32: each group's max
-    subtracted, exp, divided by the group's sum."""
+def _tree_group_shift(logits_c: torch.Tensor, tree):
+    """(..., C) class logits -> (z, group sum of exp(z) at each node),
+    both (rows, C) fp32: z the logits less their sibling group's max
+    (the shift cancels in the softmax: no gradient through it)."""
     g = _tree_consts(tree, logits_c.device)["node_group"]
-    t = logits_c.to(torch.float32)
-    lead = t.shape[:-1]
-    t = t.reshape(-1, t.shape[-1])
-    gi = g[None, :].expand(t.shape[0], -1)
-    gmax = torch.full((t.shape[0], tree.n_groups), -torch.inf,
-                      device=t.device).scatter_reduce(
-                          1, gi, t, "amax", include_self=True)
-    # the shift cancels in the quotient: no gradient through it
-    e = torch.exp(t - gmax[:, g].detach())
-    gsum = torch.zeros((t.shape[0], tree.n_groups),
-                       device=t.device).scatter_add(1, gi, e)
-    return (e / gsum[:, g]).reshape(*lead, t.shape[-1])
-
-
-def tree_log_conditional(logits_c: torch.Tensor, tree) -> torch.Tensor:
-    """(..., C) class logits -> log of the per-sibling-group softmax, as
-    the shifted logit minus the group's log-sum-exp (never the log of a
-    formed probability: the classifier CE's stable form)."""
-    g = _tree_consts(tree, logits_c.device)["node_group"]
-    t = logits_c.to(torch.float32)
-    lead = t.shape[:-1]
-    t = t.reshape(-1, t.shape[-1])
+    t = logits_c.to(torch.float32).reshape(-1, logits_c.shape[-1])
     gi = g[None, :].expand(t.shape[0], -1)
     gmax = torch.full((t.shape[0], tree.n_groups), -torch.inf,
                       device=t.device).scatter_reduce(
@@ -133,7 +117,23 @@ def tree_log_conditional(logits_c: torch.Tensor, tree) -> torch.Tensor:
     z = t - gmax[:, g].detach()
     gsum = torch.zeros((t.shape[0], tree.n_groups),
                        device=t.device).scatter_add(1, gi, torch.exp(z))
-    return (z - torch.log(gsum)[:, g]).reshape(*lead, t.shape[-1])
+    return z, gsum[:, g]
+
+
+def tree_conditional_probs(logits_c: torch.Tensor, tree) -> torch.Tensor:
+    """(..., C) class logits -> the per-sibling-group softmax (YOLO9000's
+    conditional probabilities Pr(node | parent)), fp32: each group's max
+    subtracted, exp, divided by the group's sum."""
+    z, gsum = _tree_group_shift(logits_c, tree)
+    return (torch.exp(z) / gsum).reshape(logits_c.shape)
+
+
+def tree_log_conditional(logits_c: torch.Tensor, tree) -> torch.Tensor:
+    """(..., C) class logits -> log of the per-sibling-group softmax, as
+    the shifted logit minus the group's log-sum-exp (never the log of a
+    formed probability: the classifier CE's stable form)."""
+    z, gsum = _tree_group_shift(logits_c, tree)
+    return (z - torch.log(gsum)).reshape(logits_c.shape)
 
 
 def tree_absolute_probs(cond: torch.Tensor, tree) -> torch.Tensor:
@@ -144,7 +144,7 @@ def tree_absolute_probs(cond: torch.Tensor, tree) -> torch.Tensor:
     lead = cond.shape[:-1]
     cond = cond.reshape(-1, cond.shape[-1])
     absolute = cond
-    for d in range(1, tree.max_depth):
+    for d in range(1, k["paths"].shape[1]):
         absolute = torch.where(k["levels"] == d, cond * absolute[:, parents],
                                absolute)
     return absolute.reshape(*lead, cond.shape[-1])
@@ -168,7 +168,7 @@ def tree_top_prediction(cond: torch.Tensor, tree,
     p = torch.ones(n, dtype=torch.float32, device=cond.device)
     result = torch.full((n,), -1, dtype=torch.int64, device=cond.device)
     done = torch.zeros(n, dtype=torch.bool, device=cond.device)
-    for step in range(tree.max_depth):
+    for step in range(k["paths"].shape[1]):
         cand = members[group]                                  # (n, K)
         val = torch.where(cand >= 0,
                           torch.gather(cond, 1, cand.clamp_min(0)),

@@ -122,16 +122,14 @@ def _per_class_suppress(geom_n, idx, scores_k, classes_k, conf_threshold,
                         kind: str = "greedy", beta: float = 0.6):
     """Exact per-class suppression from a shared geometry table
     (nms.py::_per_class_suppress): geom_n (B, 5, N), idx / scores_k /
-    classes_k (B, C, K) per-class top-K -> keep (B, C, K). The geometry
-    is gathered for as many classes at a time as _CHUNK_ELEMS allows:
-    the kernel's (rows, 5, K) gather, or the plain path's (rows, K, K)
-    pairwise tensor; one chunk (one kernel launch) when the whole grid
-    fits."""
+    classes_k (B, C, K) per-class top-K -> keep (B, C, K). The (rows, 5,
+    K) geometry is gathered for as many classes at a time as
+    _CHUNK_ELEMS allows: one chunk (one kernel launch) when the whole
+    grid fits; the plain path chunks its (rows, K, K) pairwise tensor
+    again by rows (_suppress_torch_rows)."""
     b, c, k = idx.shape
     n = geom_n.shape[-1]
-    on_kernel = use_kernel and kind == "greedy" and k <= nms_kernel.MAX_K
-    per_row = 5 * k if on_kernel else k * k
-    cc = max(1, _CHUNK_ELEMS // per_row // b)
+    cc = max(1, _CHUNK_ELEMS // (5 * k) // b)
     keeps = []
     for c0 in range(0, c, cc):
         ic = idx[:, c0:c0 + cc]

@@ -31,11 +31,10 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from yolo_tpu_torch.ops.decode import (decode_head_boxes,
+from yolo_tpu_torch.ops.decode import (_tree_consts, decode_head_boxes,
                                        decode_region_boxes,
                                        tree_absolute_probs,
                                        tree_conditional_probs,
@@ -123,14 +122,6 @@ def _diag_iou(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _diag_iou_variant(p, g, "iou")
 
 
-def _tree_paths(tree, device) -> torch.Tensor:
-    """configs.tree.tree_paths_padded as an int64 tensor on ``device``."""
-    from yolo_tpu_torch.configs.tree import tree_paths_padded
-
-    return torch.from_numpy(tree_paths_padded(tree).astype(np.int64)).to(
-        device)
-
-
 def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
                     temperature: float = 1.0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -160,10 +151,9 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
         mean_ce = ce.mean()
         top1 = (pred == labels).to(torch.float32).mean()
         return mean_ce, {"ce": mean_ce, "top1": top1}
-    from yolo_tpu_torch.ops.decode import _tree_consts
-
+    consts = _tree_consts(tree, logits.device)
     logc = tree_log_conditional(logits, tree)
-    paths = _tree_paths(tree, logits.device)
+    paths = consts["paths"]
     pnodes = paths[labels]                           # (B, max_depth)
     mask = (pnodes >= 0).to(torch.float32)
     ce = -torch.sum(mask * torch.gather(logc, 1, pnodes.clamp_min(0)),
@@ -171,8 +161,7 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
     with torch.no_grad():
         absolute = tree_absolute_probs(tree_conditional_probs(logits, tree),
                                        tree)
-        leaf = _tree_consts(tree, logits.device)["leaf"]
-        pred = torch.argmax(torch.where(leaf, absolute,
+        pred = torch.argmax(torch.where(consts["leaf"], absolute,
                                         torch.zeros_like(absolute)), dim=-1)
         hit = torch.any(paths[pred] == labels[:, None], dim=-1)
     mean_ce = ce.mean()
@@ -185,17 +174,16 @@ def _tree_class_sq(logits_c: torch.Tensor, tcls: torch.Tensor,
     _tree_class_sq): for target node t, over the sibling groups g on
     path(t), ||cond_g - onehot_g||^2 = sumsq(g) - 2 cond[node_g] + 1.
     (..., C) logits and (...,) int targets -> (...,)."""
-    from yolo_tpu_torch.ops.decode import _tree_consts
-
     cond = tree_conditional_probs(logits_c, tree)
     lead = cond.shape[:-1]
     cond = cond.reshape(-1, cond.shape[-1])
-    g = _tree_consts(tree, cond.device)["node_group"]
+    consts = _tree_consts(tree, cond.device)
+    g = consts["node_group"]
     sumsq = torch.zeros((cond.shape[0], tree.n_groups),
                         device=cond.device).scatter_add(
                             1, g[None, :].expand(cond.shape[0], -1),
                             cond ** 2)
-    pnodes = _tree_paths(tree, cond.device)[tcls.reshape(-1).long()]
+    pnodes = consts["paths"][tcls.reshape(-1).long()]
     mask = (pnodes >= 0).to(torch.float32)
     safe = pnodes.clamp_min(0)
     cond_at = torch.gather(cond, 1, safe)
