@@ -53,7 +53,7 @@ JSON lines; any failed check raises and the script exits non-zero:
               [net] schedule and augmentation: (a) one fp32 step on the
               card equals the same step on the CPU made to take the
               card's discrete choices (HeldChoices), its convs in
-              float64 (float64_convs): loss parts to a relative 1e-4,
+              float64 (float64_products): loss parts to a relative 1e-4,
               every trained tensor's update within STEP_BOUND and every
               rolling BN statistic's within STAT_BOUND, relative L2; the
               same step with TF32 on exceeds both bounds; (b) 20
@@ -181,9 +181,10 @@ JSON lines; any failed check raises and the script exits non-zero:
               YOLOv2-VOC 416 from the seeded darknet19 partial file on
               CLI_TRAIN_SCENES synthetic JPEG scenes (batch 64,
               subdivisions 8, bf16): CLI_TRAIN_STEPS steps with a
-              checkpoint each, --resume from step CLI_RESUME_STEP to the
-              same count: update, statistics and momentum within phase
-              10's STEP_BOUND / STAT_BOUND of the uninterrupted run's;
+              checkpoint each, --resume from step CLI_RESUME_STEP for one
+              epoch, from the first as the JAX command's loader: update,
+              statistics and momentum within phase 10's STEP_BOUND /
+              STAT_BOUND of one library step from the checkpoint;
               export to .weights, and load() of it detects as load() of
               the checkpoint; (e) `python -m yolo_tpu_torch.cli serve` in
               a subprocess: its answers to JPEG bodies equal direct calls,
@@ -221,6 +222,21 @@ JSON lines; any failed check raises and the script exits non-zero:
               seeded JPEG class folders, card against CPU (choices held,
               phase 10's bounds); `classify` and POST /classify equal to
               direct calls
+ 18. yolov1   darknet's cfg/yolov1.cfg at 448, full width (YOLOV1_CFG:
+              24 convs, [local], [dropout], a spatial [connected],
+              [detection]), seeded weights written as .weights and read
+              by load(cfg=...): (a) bf16 and fp32 on the default route
+              and conv_impl="cuda" (20 kernel convs, one NMS launch a
+              forward) against the fp32 plain path at box level, HTTP
+              answers equal direct calls, head="fused" and entry="fused"
+              raise, img/s and peak GiB at batch 1 and 32; (b) its 11
+              kernel conv shapes (56/28/14/7 px) at batch 1 and 32, bf16
+              and fp32, against plain (phase 6's bounds) and timed; (c)
+              the NMS kernel against plain on the (32, 5, 256) grid a
+              forward hands it, timed; (d) one fp32 detection-loss step
+              card against CPU (choices held, V1_STEP_BOUND), the
+              [dropout] masks equal on both sides; (e) `predict --cfg`
+              prints load()'s detections
 
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
@@ -280,8 +296,8 @@ import torch.nn.functional as F
 import yolo_tpu_torch
 from yolo_tpu_torch.configs import VOC_NAMES, get_variant
 from yolo_tpu_torch.configs.darknet_cfg import cfg_to_string, config_from_cfg
-from yolo_tpu_torch.configs.specs import (AvgPool, Conv, MaxPool,
-                                          ModelConfig, Route, Sam,
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv, Local,
+                                          MaxPool, ModelConfig, Route, Sam,
                                           ScaleChannels, Shortcut,
                                           SoftmaxHead, YoloHead,
                                           layer_strides, weighted_specs)
@@ -321,7 +337,8 @@ from yolo_tpu_torch.ops.nms import _geom, _suppress_torch, _suppress_torch_rows
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        train_config_from_cfg,
-                                       init_state, make_train_step)
+                                       init_state, make_train_step,
+                                       state_to_tree)
 from yolo_tpu_torch.train import loss as loss_mod
 from yolo_tpu_torch.train.loss import region_loss_config, yolo_loss_config
 
@@ -535,6 +552,47 @@ CLS_PROB_ERR = 1e-5
 # class folders of CLS_TRAIN_PER scenes each
 CLS_TRAIN_CLASSES, CLS_TRAIN_PER = 6, 4
 CLS_TRAIN_SIZE, CLS_TRAIN_BATCH, CLS_TRAIN_STEPS = 128, 8, 3
+
+# phase 18: yolov1, darknet's cfg/yolov1.cfg at 448 (full width: 24
+# convs, [local] 3x3 256, [dropout] .5, [connected] 1715, [detection]
+# 7x7x3, 20 classes), its [net] as the cfg's test section sets it, with
+# seeded weights (io/darknet_weights.py::synthetic_detector_params)
+YOLOV1_CFG = "\n".join(
+    ["[net]", "batch=1", "subdivisions=1", "width=448", "height=448",
+     "channels=3", "momentum=0.9", "decay=0.0005", "saturation=1.5",
+     "exposure=1.5", "hue=.1", "learning_rate=0.0005", "policy=steps",
+     "steps=200,400,600,20000,30000", "scales=2.5,2,2,.1,.1",
+     "max_batches=40000", ""]
+    + [f"[convolutional]\nbatch_normalize=1\nfilters={f}\nsize={k}\n"
+       f"stride={s}\npad=1\nactivation=leaky\n" if f else
+       "[maxpool]\nsize=2\nstride=2\n"
+       for f, k, s in [(64, 7, 2), (0, 0, 0), (192, 3, 1), (0, 0, 0),
+                       (128, 1, 1), (256, 3, 1), (256, 1, 1), (512, 3, 1),
+                       (0, 0, 0)] + [(256, 1, 1), (512, 3, 1)] * 4
+       + [(512, 1, 1), (1024, 3, 1), (0, 0, 0)]
+       + [(512, 1, 1), (1024, 3, 1)] * 2
+       + [(1024, 3, 1), (1024, 3, 2), (1024, 3, 1), (1024, 3, 1)]]
+    + ["[local]\nsize=3\nstride=1\npad=1\nfilters=256\n"
+       "activation=leaky\n",
+       "[dropout]\nprobability=.5\n",
+       "[connected]\noutput=1715\nactivation=linear\n",
+       "[detection]\nclasses=20\ncoords=4\nrescore=1\nside=7\nnum=3\n"
+       "softmax=0\nsqrt=1\njitter=.2\nobject_scale=1\n"
+       "noobject_scale=.5\nclass_scale=1\ncoord_scale=5\n"])
+V1_PARAMS = 197_000_000   # about: [local] alone holds 115.6 M
+V1_CONF = 0.2             # darknet's detection threshold for yolov1
+V1_BATCHES = (1, 32)
+V1_TIMED_REPS = 5
+# the convs the conv kernel takes: 20, in 11 shapes at 56/28/14/7 px
+V1_KERNEL_CONVS, V1_KERNEL_SHAPES = 20, 11
+V1_STEP_BATCH = 2         # (d): the card's step against the CPU's
+# (d)'s update bound, as phase 15's yolov4 bound: fp32 arithmetic alone
+# puts each side's step ~1e-3 from a float64 step, in the deep convs'
+# gammas (the card's 1.10e-3 with cuDNN or without, the CPU's, convs and
+# dense products in float64, 7.9e-4: tools/port_perf.py step64 --variant
+# yolov1 on an H100), so the two differ by up to ~2e-3; TF32 on reads
+# ~4e-2
+V1_STEP_BOUND = 2e-3
 
 
 def emit(obj) -> None:
@@ -945,7 +1003,8 @@ def kernel_conv_shapes(cfg) -> dict:
     cins = iter(dw._conv_in_channels(cfg.layers, cfg.in_channels))
     shapes = {}
     for idx, layer in enumerate(cfg.layers):
-        if isinstance(layer, Shortcut) and layer.weights_type != "none":
+        if isinstance(layer, (Connected, Local)) or (
+                isinstance(layer, Shortcut) and layer.weights_type != "none"):
             next(cins)
         if not isinstance(layer, Conv):
             continue
@@ -1350,19 +1409,23 @@ class HeldChoices:
 
 
 @contextlib.contextmanager
-def float64_convs():
-    """Every F.conv2d in float64, its output (and through autograd its
-    gradients) rounded to the caller's dtype once: a reference whose
-    convs are exact to that rounding."""
-    conv2d = F.conv2d
+def float64_products():
+    """Every F.conv2d, and the [local] and [connected] products
+    (torch.bmm, torch.matmul), in float64, each output (and through
+    autograd its gradients) rounded to the caller's dtype once: a
+    reference whose convs and dense products are exact to that
+    rounding."""
+    saved = F.conv2d, torch.bmm, torch.matmul
 
-    def conv(x, w, *args, **kw):
-        return conv2d(x.double(), w.double(), *args, **kw).to(x.dtype)
-    F.conv2d = conv
+    def in_float64(fn):
+        def call(x, w, *args, **kw):
+            return fn(x.double(), w.double(), *args, **kw).to(x.dtype)
+        return call
+    F.conv2d, torch.bmm, torch.matmul = map(in_float64, saved)
     try:
         yield
     finally:
-        F.conv2d = conv2d
+        F.conv2d, torch.bmm, torch.matmul = saved
 
 
 @contextlib.contextmanager
@@ -1401,7 +1464,7 @@ def card_vs_cpu_step(cfg, tcfg, params, host, phase: str,
     with tf32_on(), loose.record():
         gpu_tf32, _ = step_on("cuda", "cuda, TF32 on")
     cpu_own = None
-    with float64_convs():
+    with float64_products():
         with exact.replay():
             cpu, m_cpu = step_on("cpu", "cpu")
         with loose.replay():
@@ -2945,11 +3008,15 @@ def cli_eval(seeded: str, coco: dict, card: str, launches: dict) -> None:
 
 def cli_train(seeded: str, card: str) -> None:
     """(d) train YOLOv2-VOC 416 from the seeded partial file through the
-    command line: CLI_TRAIN_STEPS bf16 steps with a checkpoint each,
-    then --resume from step CLI_RESUME_STEP to the same step count; the
-    resumed final state matches the uninterrupted one within phase 10's
-    bounds (cuDNN's backward is not bit-reproducible); export to
-    .weights, and load() of that file serves."""
+    command line: CLI_TRAIN_STEPS bf16 steps (one a 64-scene epoch) with
+    a checkpoint each, then --resume from step CLI_RESUME_STEP with
+    --epochs 1: as the JAX command's threads loader, the resumed run
+    trains the data again from the first epoch, so it ends at step
+    CLI_RESUME_STEP + 1 in the state of one library step (state_from_tree
+    of the checkpoint, make_train_step on the first batch of a fresh
+    generator of the run's seed) within phase 10's bounds (cuDNN's
+    backward is not bit-reproducible); export to .weights, and load() of
+    that file serves."""
     cfg = get_variant(TRAIN_VARIANT)
     root = os.path.join(seeded, "voc")
     for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
@@ -2967,33 +3034,47 @@ def cli_train(seeded: str, card: str) -> None:
                           for p, _ in pairs) + "\n")
     backbone = write_backbone(cfg, seeded)
     data_s = time.perf_counter() - t0
-    argv = ["train", "--model", TRAIN_VARIANT, "--weights", backbone,
-            "--voc-root", root, "--split", "train", "--batch",
-            str(TRAIN_BATCH), "--grad-accum", str(SUBDIVISIONS), "--lr",
-            "0.001", "--burn-in", "1000", "--epochs", str(CLI_TRAIN_STEPS),
-            "--no-augment", "--checkpoint-every", "1"]
+
+    def argv(epochs: int) -> list:
+        return ["train", "--model", TRAIN_VARIANT, "--weights", backbone,
+                "--voc-root", root, "--split", "train", "--batch",
+                str(TRAIN_BATCH), "--grad-accum", str(SUBDIVISIONS), "--lr",
+                "0.001", "--burn-in", "1000", "--epochs", str(epochs),
+                "--no-augment", "--checkpoint-every", "1"]
     full, resumed = (os.path.join(seeded, d) for d in ("ck", "ck_resumed"))
     log = os.path.join(seeded, "train.jsonl")
-    _, err, wall, _ = cli_run(argv + ["--checkpoint-dir", full,
-                                      "--log-file", log])
+    _, err, wall, _ = cli_run(argv(CLI_TRAIN_STEPS) + [
+        "--checkpoint-dir", full, "--log-file", log])
     check(sorted(os.listdir(full)) == ["final"] + [
         f"step_{i}" for i in range(1, CLI_TRAIN_STEPS + 1)],
         f"train checkpoints {sorted(os.listdir(full))}")
     with open(log) as f:
         rates = [r["img_s"] for r in map(json.loads, f)]
     start = os.path.join(full, f"step_{CLI_RESUME_STEP}")
-    _, err_r, wall_r, _ = cli_run(argv + ["--checkpoint-dir", resumed,
-                                          "--resume", start])
+    _, err_r, wall_r, _ = cli_run(argv(1) + ["--checkpoint-dir", resumed,
+                                             "--resume", start])
     check(f"at step {CLI_RESUME_STEP}" in err_r, "train --resume did not "
           "report its step")
     from yolo_tpu_torch.io import checkpoint as ckpt
+    from yolo_tpu_torch.data.voc import list_split
+    from yolo_tpu_torch.train.loop import state_from_tree
 
-    before, a, b = (ckpt.restore(p) for p in (
-        start, os.path.join(full, "final"), os.path.join(resumed, "final")))
-    check(a["step"] == b["step"] == CLI_TRAIN_STEPS
-          and a["seen"] == b["seen"] == CLI_TRAIN_STEPS * TRAIN_BATCH,
-          f"resumed at step {b['step']} seen {b['seen']}, uninterrupted "
-          f"{a['step']} {a['seen']}")
+    before, b = (ckpt.restore(p) for p in (
+        start, os.path.join(resumed, "final")))
+    check(b["step"] == CLI_RESUME_STEP + 1
+          and b["seen"] == (CLI_RESUME_STEP + 1) * TRAIN_BATCH,
+          f"resumed at step {b['step']} seen {b['seen']}, want "
+          f"{CLI_RESUME_STEP + 1} {(CLI_RESUME_STEP + 1) * TRAIN_BATCH}")
+    # the library's step: the command's TrainConfig (--lr, --burn-in,
+    # --grad-accum, no [net] keys) on the first batch of --seed 0
+    tcfg = TrainConfig(learning_rate=0.001, burn_in_steps=1000,
+                       grad_accum=SUBDIVISIONS, loss=region_loss_config(cfg),
+                       yolo_loss=yolo_loss_config(cfg))
+    state = state_from_tree(before, cfg, tcfg, device="cuda")
+    host = next(host_batches(cfg, list_split(root, "train"), TRAIN_BATCH, 0))
+    make_train_step(cfg, tcfg, compute_dtype=torch.bfloat16)(
+        state, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+    a = state_to_tree(state)
 
     def numpy(tree):
         return [{k: v.numpy() for k, v in p.items()} for p in tree["params"]]
@@ -3006,7 +3087,7 @@ def cli_train(seeded: str, card: str) -> None:
               for x, y in zip(b["opt_state"]["momentum_buffer"],
                               a["opt_state"]["momentum_buffer"]) for k in y)
     check(upd[0] <= STEP_BOUND and stat[0] <= STAT_BOUND
-          and mom <= STEP_BOUND, f"resumed vs uninterrupted: update "
+          and mom <= STEP_BOUND, f"resumed vs the library's step: update "
           f"{upd}, statistics {stat}, momentum {mom}")
     exported = os.path.join(seeded, "yolov2-voc-trained.weights")
     cli_run(["export", "--model", TRAIN_VARIANT, "--checkpoint",
@@ -3026,7 +3107,7 @@ def cli_train(seeded: str, card: str) -> None:
           "precision": "bf16", "steps": CLI_TRAIN_STEPS,
           "img_per_s_logged": rates, "seconds": wall,
           "resume_seconds": wall_r, "data_seconds": data_s,
-          "resume_from": CLI_RESUME_STEP, "resumed_vs_uninterrupted": {
+          "resume_from": CLI_RESUME_STEP, "resumed_vs_library_step": {
               "update": upd, "statistics": stat, "momentum": mom,
               "bounds": [STEP_BOUND, STAT_BOUND]},
           "export_serves": True, "card": card})
@@ -3281,13 +3362,14 @@ def phase_tree_serve(root: str, card: str) -> tuple:
     return launches, model, model32, cfg_path, grids
 
 
-def tree_conv_shapes(gen, shapes: dict, card) -> tuple:
-    """Phase 17 (a): YOLO9000's eligible conv shapes at 544 (17/34/68-px
-    grids, new to the kernel) at batch 1 and TIMED_BATCH in bf16 and
+def conv_shape_rows(gen, shapes: dict, card, phase: str) -> tuple:
+    """A model's eligible conv shapes ({(hw, cin, co, ks): count}; phase
+    17 (a): YOLO9000's at 544, 17/34/68-px grids; phase 18 (b): yolov1's
+    at 448, 56/28/14/7-px grids) at batch 1 and TIMED_BATCH in bf16 and
     fp32: the kernel against its plain version with phase 6's bounds,
     timed as phase 12 (c) times a shape. Returns (worst |kernel -
-    plain|, [kernel, plain, library, bound] ms of the 13 convs at
-    TIMED_BATCH in bf16)."""
+    plain|, [kernel, plain, library, bound] ms of all the model's
+    kernel convs at TIMED_BATCH in bf16)."""
     worst, sums = 0.0, np.zeros(4)
     for b in TIMED_BATCHES:
         for (hw, cin, co, ks), n in sorted(shapes.items()):
@@ -3295,8 +3377,7 @@ def tree_conv_shapes(gen, shapes: dict, card) -> tuple:
                 err, row = conv_shape_row(gen, b, (hw, hw), cin, co, ks,
                                           dtype, card)
                 worst = max(worst, err)
-                emit({"phase": "tree", "part": "a_conv", "convs": n,
-                      **row})
+                emit({"phase": phase, "part": "conv", "convs": n, **row})
                 if b == TIMED_BATCH and dtype == torch.bfloat16:
                     sums += n * np.array([row["kernel_ms"],
                                           row["plain_ms"],
@@ -3582,7 +3663,7 @@ def classifier_train(root: str, card: str) -> dict:
 
     with held.record():
         gpu, ce_gpu = steps_on("cuda")
-    with float64_convs(), held.replay():
+    with float64_products(), held.replay():
         cpu, ce_cpu = steps_on("cpu")
     ce_rel = max(abs(a - b) / abs(b) for a, b in zip(ce_gpu, ce_cpu))
     err = update_err(params, gpu, cpu, {"kernel", "gamma", "beta", "bias"})
@@ -3656,7 +3737,7 @@ def phase_tree(root: str, coco_paths: list, gen, card: str) -> dict:
     t0 = time.perf_counter()
     launches, model, model32, cfg_path, grids = phase_tree_serve(root, card)
     conv_shapes = eligible_conv_shapes(model.cfg)
-    conv_worst, conv_sums = tree_conv_shapes(gen, conv_shapes, card)
+    conv_worst, conv_sums = conv_shape_rows(gen, conv_shapes, card, "tree")
     grid, shape, n = phase_tree_eval(model32, card)
     launches["nms"] += n
     weights = os.path.join(root, "yolo9000-seed.weights")
@@ -3682,6 +3763,179 @@ def phase_tree(root: str, coco_paths: list, gen, card: str) -> dict:
             "head_grids": grids, "step": step, "classifiers": cls,
             "classifier_train": cls_train, "conv_worst": conv_worst,
             "conv_ms": conv_sums, "convs": sum(conv_shapes.values())}
+
+
+def yolov1_serve(root: str, card: str) -> tuple:
+    """Phase 18 (a): yolov1 at 448, its .cfg text and seeded .weights on
+    disk, through load(cfg=...) in bf16 and fp32: detect_raw on the
+    default route and on conv_impl="cuda" (V1_KERNEL_CONVS conv and one
+    NMS launch a forward) against the fp32 plain path at box level
+    (phase 12's rule); a DetectionServer answers as direct calls do;
+    head="fused" and entry="fused" raise as the JAX package's do; img/s
+    at V1_BATCHES and peak GiB. Returns (cfg path, weights path,
+    the bf16 model, launches, its eligible conv shapes, the frames)."""
+    cfg_path = os.path.join(root, "yolov1.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(YOLOV1_CFG)
+    weights = os.path.join(root, "yolov1-seed.weights")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(config_from_cfg(cfg_path),
+                              conf_threshold=V1_CONF)
+    params = dw.synthetic_detector_params(cfg, SEED)
+    dw.save(weights, cfg.layers, params)
+    seed_s = time.perf_counter() - t0
+    n_params = sum(int(v.size) for p in params for k, v in p.items()
+                   if k not in ("mean", "var"))
+    del params
+    model, model32 = [yolo_tpu_torch.load(weights, cfg=cfg_path,
+                                          device="cuda", precision=prec,
+                                          conf_threshold=V1_CONF)
+                      for prec in ("bf16", "fp32")]
+    model.cfg = model32.cfg = cfg
+    head = cfg.detection_head
+    shapes = eligible_conv_shapes(cfg)
+    n_kernel = sum(shapes.values())
+    check(cfg.head_kind == "detection" and cfg.input_hw == (448, 448)
+          and (head.side, head.num, head.classes) == (7, 3, 20)
+          and abs(n_params - V1_PARAMS) < 0.01 * V1_PARAMS
+          and (n_kernel, len(shapes)) == (V1_KERNEL_CONVS,
+                                          V1_KERNEL_SHAPES),
+          f"yolov1: {n_params} params, kernel convs {shapes}")
+    emit({"phase": "yolov1", "part": "a_model", "layers": len(cfg.layers),
+          "params": n_params, "weights_bytes": os.path.getsize(weights),
+          "seed_s": seed_s, "kernel_convs": n_kernel,
+          "kernel_conv_shapes": [list(s) for s in shapes]})
+    launches = {"conv": 0, "nms": 0}
+    images = frames(SEED + 18, max(V1_BATCHES))
+    for row in check_routes(cfg, model, model32, images, n_kernel,
+                            launches):
+        emit({"phase": "yolov1", "part": "a_routes", **row})
+    check_http(model, images[:4], launches, "yolov1")
+    try:
+        detect_raw(cfg, model.params, images[:1], head="fused")
+        fused_head_raises = False
+    except ValueError:
+        fused_head_raises = True
+    check(fused_head_raises and entry_fused_raises(cfg, model, images[:1]),
+          "yolov1: head='fused' and entry='fused' must raise ValueError, "
+          "as the JAX package's do")
+    for b in V1_BATCHES:
+        for route, kw in (("default", {}), ("conv_impl=cuda",
+                                            {"conv_impl": "cuda"})):
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_median_ms(lambda: detect_raw(
+                cfg, model.params, images[:b], **kw), reps=V1_TIMED_REPS)
+            emit({"phase": "yolov1", "part": "a_times", "batch": b,
+                  "route": route, "precision": "bf16", "ms": ms,
+                  "img_per_s": b * 1000 / ms,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "card": card})
+    return cfg_path, weights, model, launches, shapes, images
+
+
+def yolov1_step_inputs(cfg, cfg_path: str) -> tuple:
+    """Phase 18 (d)'s micro-batch: V1_STEP_BATCH noise frames with 5 GT
+    boxes each, encoded for the [detection] loss, and the TrainConfig of
+    the cfg's [net] (train_config_from_cfg). -> (host batch, tcfg)."""
+    rng = np.random.default_rng(SEED + 181)
+    boxes, classes = [], []
+    for _ in range(V1_STEP_BATCH):
+        n = 5
+        boxes.append(np.concatenate([rng.uniform(0.1, 0.9, (n, 2)),
+                                     rng.uniform(0.05, 0.5, (n, 2))],
+                                    -1).astype(np.float32))
+        classes.append(rng.integers(0, cfg.num_classes, n).astype(np.int32))
+    host = encode_batch_for(cfg, boxes, classes)
+    host["images"] = rng.uniform(0, 1, (V1_STEP_BATCH, *cfg.input_hw,
+                                        3)).astype(np.float32)
+    return host, train_config_from_cfg(cfg_path, cfg)
+
+
+def yolov1_train_step(cfg, cfg_path: str, weights: str) -> dict:
+    """Phase 18 (d): one fp32 step of yolov1 with detection_loss on
+    yolov1_step_inputs, card against CPU as phase 10 (a) (choices held,
+    the CPU's convs and dense products in float64, V1_STEP_BOUND /
+    STAT_BOUND, TF32 on must fail). The [dropout] masks (utils/prng.py,
+    drawn on the host from the step's key) are captured: equal in all
+    four steps, card and CPU."""
+    from yolo_tpu_torch.utils import prng
+
+    params, _ = dw.load(weights, cfg.layers)
+    host, tcfg = yolov1_step_inputs(cfg, cfg_path)
+    masks, bernoulli = [], prng.bernoulli
+
+    def capture(*args, **kw):
+        masks.append(bernoulli(*args, **kw))
+        return masks[-1]
+
+    prng.bernoulli = capture
+    try:
+        out = card_vs_cpu_step(cfg, tcfg, params, host, "yolov1",
+                               own_choices=False, step_bound=V1_STEP_BOUND)
+    finally:
+        prng.bernoulli = bernoulli
+    check(len(masks) == 4 and all(np.array_equal(m, masks[0])
+                                  for m in masks)
+          and 0.45 < float(masks[0].mean()) < 0.55,
+          f"yolov1 dropout masks: {len(masks)} drawn, not all equal")
+    emit({"phase": "yolov1", "part": "d_dropout_masks", "steps": len(masks),
+          "equal": True, "shape": list(masks[0].shape),
+          "kept_share": float(masks[0].mean())})
+    return out
+
+
+def yolov1_predict(root: str, cfg_path: str, weights: str, model,
+                   card: str) -> int:
+    """Phase 18 (e): `predict --cfg` of one PNG frame through the
+    command line prints the lines of load()'s detector on the frame.
+    Returns the NMS launches."""
+    img = os.path.join(root, "frame.png")
+    frame = np.random.default_rng(SEED + 182).integers(
+        0, 256, (*SRC_HW, 3), dtype=np.uint8)
+    with open(img, "wb") as f:
+        f.write(encode_png(frame))
+    out, _, wall, n = cli_run(["predict", "--cfg", cfg_path, "--weights",
+                               weights, "--image", img, "--conf",
+                               str(V1_CONF)])
+    direct = cli_detections(model(frame[None]), model.cfg.class_names)
+    got = cli_lines(out)
+    check(got == direct and len(got) > 0 and n == 1,
+          f"yolov1 predict: {len(got)} printed detections, {n} NMS "
+          f"launches; the direct call's {len(direct)}")
+    emit({"phase": "yolov1", "part": "e_predict", "detections": len(got),
+          "equal_direct": True, "nms_launches": n, "seconds": wall,
+          "card": card})
+    return n
+
+
+def phase_yolov1(root: str, gen, card: str) -> dict:
+    """Phase 18: yolov1 -> the kernels line's parts. (a) serving; (b)
+    its conv shapes, kernel against plain and timed; (c) the NMS kernel
+    against plain on the (32, 5, 256) grid a forward hands it, timed;
+    (d) the card-vs-CPU train step; (e) predict through the CLI."""
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    cfg_path, weights, model, launches, shapes, images = yolov1_serve(
+        root, card)
+    cfg = model.cfg
+    conv_worst, conv_sums = conv_shape_rows(gen, shapes, card, "yolov1")
+    geom, scores, classes, conf, iou = captured_suppress_inputs(
+        lambda x: detect_raw(cfg, model.params, x), images)
+    check(list(geom.shape) == [max(V1_BATCHES), 5, 256],
+          f"yolov1 suppress grid {list(geom.shape)}")
+    grid = time_suppress("suppress_yolov1", geom, scores, classes, conf,
+                         iou, card, batch=max(V1_BATCHES))
+    t1 = time.perf_counter()
+    step = yolov1_train_step(cfg, cfg_path, weights)
+    t2 = time.perf_counter()
+    launches["nms"] += yolov1_predict(root, cfg_path, weights, model, card)
+    emit({"phase": "yolov1", "seconds": time.perf_counter() - t0,
+          "serve_conv_nms_seconds": t1 - t0, "train_step_seconds": t2 - t1,
+          "nms_launches": launches["nms"],
+          "conv_launches": launches["conv"], "card": card})
+    return {"launches": launches, "grid": grid, "shape": list(geom.shape),
+            "step": step, "conv_worst": conv_worst, "conv_ms": conv_sums,
+            "convs": sum(shapes.values())}
 
 
 def main() -> int:
@@ -3781,6 +4035,8 @@ def run(seeded: str) -> int:
     tree = phase_tree(os.path.join(seeded, "tree"), coco["paths"], gen,
                       card)
 
+    v1 = phase_yolov1(os.path.join(seeded, "yolov1"), gen, card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
     check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
@@ -3797,7 +4053,7 @@ def run(seeded: str) -> int:
          "launches": launches + voc_launches + yolo_launches["nms"]
          + yolo_eval_launches + coco_launches["nms"]
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
-         + tree["launches"]["nms"],
+         + tree["launches"]["nms"] + v1["launches"]["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -3815,15 +4071,19 @@ def run(seeded: str) -> int:
          "eval_grid_9k_bound_by": tree["grid"][3],
          "tree_head_grid_ms": tree["head_grids"]["traversal"][0],
          "tree_head_grid_plain_ms": tree["head_grids"]["traversal"][1],
-         "tree_head_grid_bound_ms": tree["head_grids"]["traversal"][2]},
+         "tree_head_grid_bound_ms": tree["head_grids"]["traversal"][2],
+         "yolov1_grid": v1["shape"], "yolov1_grid_ms": v1["grid"][0],
+         "yolov1_grid_plain_ms": v1["grid"][1],
+         "yolov1_grid_bound_ms": v1["grid"][2],
+         "yolov1_grid_bound_by": v1["grid"][3]},
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"] + yolo_launches["conv"]
          + coco_launches["conv"] + cfg_run["launches"]["conv"]
-         + tree["launches"]["conv"],
+         + tree["launches"]["conv"] + v1["launches"]["conv"],
          "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"],
-                            tree["conv_worst"]),
+                            tree["conv_worst"], v1["conv_worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
          "bound_by": conv_t[4], "library_ms": conv_t[2],
          "fp32_ms": conv32[0], "fp32_plain_ms": conv32[1],
@@ -3837,7 +4097,11 @@ def run(seeded: str) -> int:
          "yolo9000_convs": tree["convs"], "yolo9000_ms": tree["conv_ms"][0],
          "yolo9000_plain_ms": tree["conv_ms"][1],
          "yolo9000_library_ms": tree["conv_ms"][2],
-         "yolo9000_bound_ms": tree["conv_ms"][3]},
+         "yolo9000_bound_ms": tree["conv_ms"][3],
+         "yolov1_convs": v1["convs"], "yolov1_ms": v1["conv_ms"][0],
+         "yolov1_plain_ms": v1["conv_ms"][1],
+         "yolov1_library_ms": v1["conv_ms"][2],
+         "yolov1_bound_ms": v1["conv_ms"][3]},
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",

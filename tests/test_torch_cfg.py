@@ -5,10 +5,9 @@ yolo_tpu_torch/io/zoo.py, yolo_tpu_torch/api.py).
 Parser parity is exact: on the same file both packages give configs
 equal field for field (through tests/torch_port.py::to_jax_config), the
 same cfg_to_string bytes, the same net_training_params, the same stderr
-warnings, or the same exception type and message. The yolov1 sections
-raise NotImplementedError naming ROADMAP A10 in the port; the classifier
-sections and the YOLO9000 [region] tree=/map= keys are compared as the
-rest. The cfg texts are every text the JAX package's parser tests write (their tests are run here with the parser
+warnings, or the same exception type and message; the yolov1, classifier
+and YOLO9000 [region] tree=/map= sections are compared as the rest. The
+cfg texts are every text the JAX package's parser tests write (their tests are run here with the parser
 swapped for one that runs both packages and compares them), the cfg
 texts of the scaled-yolov4, rectangular, weighted-shortcut, dilation
 and Gaussian tests, the cfg_to_string of every built-in variant and a
@@ -20,7 +19,6 @@ import dataclasses
 import inspect
 import io
 import json
-import re
 import sys
 from types import SimpleNamespace
 
@@ -56,17 +54,6 @@ J_CONFIG, J_C2S = jdc.config_from_cfg, jdc.cfg_to_string
 J_TRAIN, J_PARSE, J_NAMES = (jdc.net_training_params, jdc.parse_cfg,
                              jdc.load_names)
 
-_A10 = re.compile(r"^\s*\[(connected|dropout|softmax|crop|local|detection)\]"
-                  r"|^\s*(tree|map)\s*=", re.M | re.I)
-
-
-def _is_a10(path) -> bool:
-    with open(path) as f:
-        text = "".join(line.split("#")[0].split(";")[0] + "\n"
-                       for line in f)
-    return bool(_A10.search(text))
-
-
 def _run(fn, *args, **kw):
     """(result, exception, stderr) of one call."""
     buf = io.StringIO()
@@ -95,9 +82,7 @@ class Dual:
         got, perr, plog = _run(tdc.config_from_cfg, cfg_path,
                                names_path=names_path, name=name)
         sys.stderr.write(jlog)
-        if _is_a10(cfg_path) and isinstance(perr, NotImplementedError):
-            assert "ROADMAP A10" in str(perr) and cfg_path in str(perr)
-        elif jerr is not None:
+        if jerr is not None:
             _same_error(perr, jerr, cfg_path)
         else:
             assert perr is None, f"{cfg_path}: port raised {perr!r}"
@@ -394,30 +379,21 @@ A10_SECTIONS = {
 
 @pytest.mark.parametrize("section", sorted(A10_SECTIONS) + ["region_tree"])
 def test_a10_sections_raise_not_implemented(section, tmp_path):
-    """The yolov1 sections ([crop], [local], [detection]) raise
-    NotImplementedError at the section, naming the file, the section's
-    index and yolov1 (ROADMAP A10). The classifier sections and the
-    YOLO9000 [region] tree= key are ported (A10's first half): the port
-    parses these texts as the JAX package does, to the same config or
-    the same exception and message (here: no head section after a bare
-    [connected]/[dropout]; an absent tree file)."""
+    """The sections of ROADMAP A10 are ported: the yolov1 sections
+    ([crop], [local], [detection]), the classifier sections and the
+    YOLO9000 [region] tree= key. The port parses each text as the JAX
+    package does, to the same config or the same exception and message
+    (here: no head section after a bare [connected]/[dropout], a [crop]
+    after a conv, a [detection] after a [local]; an absent tree
+    file)."""
     conv = "[convolutional]\nfilters=8\nsize=3\npad=1\nactivation=leaky\n"
     if section == "region_tree":
         text = (f"[net]\nwidth=64\nheight=64\n{conv}"
                 "[region]\nanchors=1,1\nclasses=2\nnum=1\ntree=x.tree\n")
-        index, kind = 2, "[region]"
     else:
         text = f"[net]\nwidth=64\nheight=64\n{conv}{A10_SECTIONS[section]}"
-        index, kind = 2, f"[{section}]"
     p = tmp_path / f"{section}.cfg"
     p.write_text(text)
-    if section in ("crop", "local", "detection"):
-        with pytest.raises(NotImplementedError,
-                           match=rf"{re.escape(str(p))}: section {index} "
-                                 rf"{re.escape(kind)}.*yolov1, ROADMAP "
-                                 rf"A10"):
-            tdc.config_from_cfg(str(p))
-        return
     want, jerr, _ = _run(J_CONFIG, str(p))
     got, perr, _ = _run(tdc.config_from_cfg, str(p))
     if jerr is not None:

@@ -239,10 +239,13 @@ def test_classifier_train_step_matches_jax(kind, tmp_path):
 
 
 def test_dropout_in_training(tmp_path):
-    """darknet's inverted dropout in DarknetTrain: about p of the
-    activations zeroed, survivors scaled by 1/(1-p), the same mask for
-    the same (step, sub-batch) key on any device, a new one each step,
-    and the identity without a key (inference)."""
+    """darknet's inverted dropout in DarknetTrain: the JAX package's
+    masks (apply_layers(train=True) on the same key, element for
+    element), about p of the activations zeroed, survivors scaled by
+    1/(1-p), a new mask each key, and the identity without a key
+    (inference)."""
+    from yolo_tpu.models import graph as jgraph
+
     cfg = ModelConfig(name="d", layers=(Conv(16, size=1, bn=False,
                                              act="linear"), Dropout(0.3)),
                       anchors=(), class_names=("a",), input_size=32)
@@ -251,10 +254,18 @@ def test_dropout_in_training(tmp_path):
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         0.5, 1, (2, 32, 32, 3)).astype(np.float32))
     base, _ = net(x)
-    a, _ = net(x, dropout_key=(3, 0))
-    b, _ = net(x, dropout_key=(3, 0))
-    c, _ = net(x, dropout_key=(4, 0))
+    keys = [jax.random.fold_in(jax.random.PRNGKey(0), s) for s in (3, 4)]
+    a, _ = net(x, dropout_key=np.asarray(keys[0]))
+    b, _ = net(x, dropout_key=np.asarray(keys[0]))
+    c, _ = net(x, dropout_key=np.asarray(keys[1]))
     assert torch.equal(a, b) and not torch.equal(a, c)
+    jlayers = to_jax_config(cfg).layers
+    for got, key in ((a, keys[0]), (c, keys[1])):
+        want, _ = jgraph.apply_layers(jlayers, jgraph.params_to_jax(params),
+                                      jnp.asarray(x.numpy()), train=True,
+                                      dropout_rng=key)
+        np.testing.assert_array_equal(got.detach().numpy() == 0,
+                                      np.asarray(want) == 0)
     zero = (a == 0) & (base != 0)
     assert abs(zero.float().mean().item() - 0.3) < 0.02
     kept = ~zero

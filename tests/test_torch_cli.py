@@ -13,8 +13,10 @@ Tolerances:
   * anchors, zoo list: identical output; partial: identical bytes.
   * train, 2 SGD steps: the exported .weights within 2e-5 of each
     tensor's largest magnitude (tests/test_torch_train.py's bound for
-    fp32 SGD steps); a run stopped after step 1 and resumed ends in the
-    uninterrupted run's state, torch.equal.
+    fp32 SGD steps); a run stopped after step 1 and resumed ends at the
+    JAX command's step (the threads loader restarts at the first epoch)
+    with its params and EMA track within that bound, the momentum
+    within 1e-3 of each tensor's scale.
 """
 
 import glob
@@ -364,48 +366,67 @@ def test_train_two_steps_matches_jax(files, capsys, tmp_path):
     assert model.cfg.layers == cfg.layers
 
 
-def _tree_equal(a, b) -> None:
+def _tree_close(a, b, tol, where="") -> None:
+    """Tensors within tol of each one's largest magnitude, the rest
+    equal."""
     if isinstance(a, dict):
-        assert set(a) == set(b)
+        assert set(a) == set(b), where
         for k in a:
-            _tree_equal(a[k], b[k])
+            _tree_close(a[k], b[k], tol, f"{where}/{k}")
     elif isinstance(a, list):
-        assert len(a) == len(b)
-        for x, y in zip(a, b):
-            _tree_equal(x, y)
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _tree_close(x, y, tol, f"{where}/{i}")
     elif isinstance(a, torch.Tensor):
-        assert torch.equal(a, b)
+        scale = float(a.abs().max()) or 1.0
+        torch.testing.assert_close(b, a, rtol=0, atol=tol * scale,
+                                   msg=lambda m: f"{where}: {m}")
     else:
-        assert a == b
+        assert a == b, where
 
 
 @pytest.mark.parametrize("ema", [False, True])
 def test_train_resume_equals_uninterrupted(files, capsys, tmp_path, ema):
-    """Stopped after step 1 (--fail-after-step) and --resume'd, the run
-    ends in the uninterrupted run's state: params, EMA track, momentum,
-    step and seen, torch.equal."""
+    """Stopped after step 1 (--fail-after-step) and --resume'd with the
+    same argv, the port's run ends where the JAX command's does: its
+    threads loader trains the epochs again from the first, so both end
+    at step 3 (1 + an epoch of 2), with the same seen count; the params
+    and the EMA track agree within STEP_TOL, the momentum within 1e-3
+    of each tensor's scale."""
+    import jax
+
+    from yolo_tpu.io import checkpoint as jckpt
+
     extra = ["--ema-alpha", "0.5"] if ema else []
-    full = str(tmp_path / "full")
-    _run(tcli.main, _train_argv(files, full, *extra) + CPU, capsys)
-    part = str(tmp_path / "part")
-    with pytest.raises(SystemExit, match="fail-after-step"):
-        _run(tcli.main, _train_argv(files, part, *extra) + CPU
-             + ["--fail-after-step", "1"], capsys)
-    assert sorted(os.listdir(part)) == ["step_1"]
-    _, err = _run(tcli.main, _train_argv(files, part, *extra) + CPU
-                  + ["--resume", os.path.join(part, "step_1")], capsys)
-    assert "resumed from" in err and "at step 1" in err
-    a = ckpt.restore(os.path.join(full, "final"))
-    b = ckpt.restore(os.path.join(part, "final"))
-    assert a["step"] == 2 and ("ema_params" in a) == ema
-    assert a["opt_state"]["momentum_buffer"]
-    _tree_equal(a, b)
+    finals = []
+    for main, dev in ((jcli.main, []), (tcli.main, CPU)):
+        ck = str(tmp_path / ("t" if dev else "j"))
+        with pytest.raises(SystemExit, match="fail-after-step"):
+            _run(main, _train_argv(files, ck, *extra) + dev
+                 + ["--fail-after-step", "1"], capsys)
+        assert "step_1" in os.listdir(ck)
+        _run(main, _train_argv(files, ck, *extra) + dev
+             + ["--resume", os.path.join(ck, "step_1")], capsys)
+        finals.append(os.path.join(ck, "final"))
+    want = ckpt.from_numpy_state(jax.device_get(jckpt.restore(finals[0])))
+    got = ckpt.restore(finals[1])
+    assert got["step"] == want["step"] == 3
+    assert got["seen"] == want["seen"]
+    assert ("ema_params" in got) == ("ema_params" in want) == ema
+    assert got["opt_state"]["momentum_buffer"]
+    for key in ("params", "ema_params"):
+        if key in want:
+            _tree_close(want[key], got[key], STEP_TOL, key)
+    # the momentum is a sum of raw gradients: conv 0's fp32 weight
+    # gradient differs between the packages by up to ~1e-4 of its scale
+    _tree_close(want["opt_state"], got["opt_state"], 1e-3, "opt_state")
 
 
 def test_jax_checkpoint_carries_across(files, capsys, tmp_path):
     """A JAX orbax checkpoint, converted by from_numpy_state, exports the
     same .weights bytes through both CLIs' export; the port resumes from
-    it (params and momentum carried across)."""
+    it (params and momentum carried across), to the JAX command's step
+    on the same --epochs."""
     import jax
 
     from yolo_tpu.io import checkpoint as jckpt
@@ -430,9 +451,11 @@ def test_jax_checkpoint_carries_across(files, capsys, tmp_path):
                                 "--epochs", "1"), capsys)
     out = str(tmp_path / "out")
     args = _train_argv(files, out, "--ema-alpha", "0.5", "--resume",
-                       str(tmp_path / "tck"), "--epochs", "2") + CPU
+                       str(tmp_path / "tck"), "--epochs", "1") + CPU
     _run(tcli.main, args, capsys)
-    assert ckpt.restore(os.path.join(out, "final"))["step"] == 4
+    want = jax.device_get(jckpt.restore(os.path.join(jck, "final")))
+    assert ckpt.restore(os.path.join(out, "final"))["step"] == \
+        int(want["step"]) == 4
 
 
 def _sizes(log_path):

@@ -14,6 +14,8 @@ Tolerances:
     bound (the two fp32 sums may round to neighbouring bf16 values).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -636,3 +638,194 @@ def test_load_cfg_on_the_card_equals_the_builtin_variant(cuda, tmp_path,
             a = detect_raw(cfg, built.params, imgs, conv_impl=route)
             b = detect_raw(parsed.cfg, parsed.params, imgs, conv_impl=route)
             assert all(torch.equal(a[k], b[k]) for k in a), (precision, route)
+
+
+# --- the tree head, the 9k eval grid, YOLO9000 and yolov1 shapes -------------
+
+def _tree(tmp_path, n):
+    from yolo_tpu_torch.configs.tree import parse_tree
+    from yolo_tpu_torch.data.synthetic import write_tree
+
+    return parse_tree(write_tree(str(tmp_path / f"{n}.tree"), n, seed=0))
+
+
+@pytest.mark.parametrize("mode", ["traversal", "map"])
+def test_tree_head_grid_launches_the_kernel_once(cuda, tmp_path, mode,
+                                                 monkeypatch):
+    """The fused YOLO9000 head (ops/head.py::detect_head_tree) on the
+    card: one NMS launch on its (B, 5, K) grid, whose keep mask equals
+    the plain suppression's on the same grid. (Two whole head calls are
+    not compared: the tree math's CUDA reductions need not repeat to
+    the bit.)"""
+    from yolo_tpu_torch.data.synthetic import write_map
+    from yolo_tpu_torch.ops.head import detect_head_tree
+
+    tree = _tree(tmp_path, 300)
+    tree_map = (tuple(write_map(str(tmp_path / "m.map"), tree, 20, seed=0))
+                if mode == "map" else None)
+    anchors = ((1.0, 1.5), (3.0, 4.0), (9.0, 9.5))
+    logits = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 2, (4, 17, 17, 3 * (5 + tree.n_nodes))).astype(np.float32)
+                              ).to(cuda)
+    kw = dict(conf_threshold=0.3 if mode == "traversal" else 0.05,
+              iou_threshold=0.45, tree_map=tree_map, pre_top_k=256)
+    grids, suppress = [], nms_kernel.suppress
+
+    def capture(geom, scores, classes, **skw):
+        grids.append((geom.clone(), scores.clone(), classes.clone(), skw))
+        return suppress(geom, scores, classes, **skw)
+
+    monkeypatch.setattr(nms_kernel, "suppress", capture)
+    before = nms_kernel.launches
+    out = detect_head_tree(logits, anchors, tree, use_kernel=True, **kw)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1 and len(grids) == 1
+    geom, scores, classes, skw = grids[0]
+    assert tuple(geom.shape) == (4, 5, 256)
+    got = suppress(geom, scores, classes, **skw)
+    assert torch.equal(got, _suppress_torch(
+        geom, scores, classes, skw["conf_threshold"],
+        skw["iou_threshold"]))
+    assert int(out["valid"].sum()) > 0
+
+
+def test_9k_eval_grid_in_one_launch_and_in_class_chunks(cuda, tmp_path,
+                                                        monkeypatch):
+    """The exact eval's per-class grid at 9418 classes, (B * 9418, 5,
+    128): one kernel launch while its geometry fits ops/nms.py's
+    _CHUNK_ELEMS, one a class chunk under a smaller budget; the keep
+    masks, hence the detections, equal the plain path's either way."""
+    from yolo_tpu_torch.ops import nms as nms_mod
+
+    b, n, c = 2, 845, 9418
+    rng = np.random.default_rng(9)
+    boxes = torch.from_numpy(np.stack([
+        rng.uniform(0.1, 0.9, (b, n)), rng.uniform(0.1, 0.9, (b, n)),
+        rng.uniform(0.05, 0.3, (b, n)), rng.uniform(0.05, 0.3, (b, n))],
+        -1).astype(np.float32)).to(cuda)
+    # one-hot traversal-like scores: each box scores at one node only
+    scores = torch.zeros(b, n, c, device=cuda)
+    node = torch.from_numpy(rng.integers(0, c, (b, n))).to(cuda)
+    scores.scatter_(2, node[..., None], torch.from_numpy(rng.uniform(
+        0, 1, (b, n, 1)).astype(np.float32)).to(cuda))
+    kw = dict(conf_threshold=0.005, iou_threshold=0.45, top_k=128)
+    want = nms_mod.nms_batch(boxes, scores, impl="torch", **kw)
+    before = nms_kernel.launches
+    whole = nms_mod.nms_batch(boxes, scores, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    chunk = 2048
+    monkeypatch.setattr(nms_mod, "_CHUNK_ELEMS", 5 * 128 * b * chunk)
+    before = nms_kernel.launches
+    chunked = nms_mod.nms_batch(boxes, scores, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + -(-c // chunk)
+    for k in want:
+        assert torch.equal(whole[k], want[k]) and \
+            torch.equal(chunked[k], want[k]), k
+    assert int(want["valid"].sum()) > 0
+
+
+# YOLO9000's six kernel conv shapes at 544 (17/34/68-px grids, 13 convs)
+# and yolov1's eleven at 448 (56/28/14/7-px grids, 20 convs)
+YOLO9000_SHAPES = [(68, 128, 256, 3), (68, 256, 128, 1), (34, 256, 512, 3),
+                   (34, 512, 256, 1), (17, 512, 1024, 3),
+                   (17, 1024, 512, 1)]
+YOLOV1_SHAPES = [(56, 128, 256, 3), (56, 256, 256, 1), (56, 256, 512, 3),
+                 (28, 512, 256, 1), (28, 256, 512, 3), (28, 512, 512, 1),
+                 (28, 512, 1024, 3), (14, 1024, 512, 1),
+                 (14, 512, 1024, 3), (14, 1024, 1024, 3),
+                 (7, 1024, 1024, 3)]
+
+
+@pytest.mark.parametrize("hw,cin,co,ks", YOLO9000_SHAPES + YOLOV1_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b", [1, 32])
+def test_conv_kernel_matches_plain_at_yolo9000_and_yolov1_shapes(
+        cuda, b, hw, cin, co, ks, dtype):
+    """Grids the tiles cover in part (7x7 and 14x14 among them), at the
+    split-K batch 1 and at batch 32."""
+    gen = torch.Generator(device=cuda).manual_seed(hw * 7 + cin + co)
+    x = torch.randn(b, cin, hw, hw, generator=gen, device=cuda).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    k = (torch.randn(co, cin, ks, ks, generator=gen, device=cuda)
+         * (2.0 / (ks * ks * cin)) ** 0.5).to(dtype).contiguous(
+             memory_format=torch.channels_last)
+    bias = torch.randn(co, generator=gen, device=cuda) * 0.5
+    before = conv_kernel.launches
+    got = conv_kernel.fused_conv_bias_act(x, k, bias, act="leaky")
+    torch.cuda.synchronize()
+    assert conv_kernel.launches == before + 1
+    _assert_within(got, conv.fused_conv_bias_act(x, k, bias, act="leaky"))
+
+
+def test_yolov1_grid_suppress_matches_plain(cuda):
+    """The fused NMS route on yolov1's decode: 7x7x3 boxes by 20 classes
+    give a (B, 5, 256) grid, K = min(2 * 128, 2940); the kernel's
+    detections equal the plain suppression's, one launch."""
+    from yolo_tpu_torch.configs.specs import DetectionHead
+    from yolo_tpu_torch.ops.decode import decode_detection
+    from yolo_tpu_torch.ops.nms import nms_batch
+
+    head = DetectionHead(side=7, num=3, classes=20, sqrt=True)
+    rng = np.random.default_rng(11)
+    flat = np.concatenate([
+        rng.normal(0.3, 0.15, (32, 49 * 20)), rng.normal(0.4, 0.2,
+                                                         (32, 49 * 3)),
+        rng.normal(0.5, 0.2, (32, 49 * 3 * 4))], 1).astype(np.float32)
+    boxes, scores = decode_detection(torch.from_numpy(flat).to(cuda), head)
+    kw = dict(conf_threshold=0.2, iou_threshold=0.45)
+    before = nms_kernel.launches
+    got = nms_batch(boxes, scores, impl="fused", **kw)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    want = nms_batch(boxes, scores, impl="fused_torch", **kw)
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    assert int(want["valid"].sum()) > 32
+
+
+def test_yolov1_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A narrow yolov1 (tests/test_yolov1.py's cfg: [crop], [local],
+    [dropout], a spatial [connected], [detection]) on the card in fp32:
+    the flat head within 1e-4 of the CPU's scale ([local] and
+    [connected] without TF32), one NMS launch a forward and the same
+    detections: every one at conf + 0.05 has a same-class partner whose
+    corners lie within 1 px (boxes clipped to a line have no IoU)."""
+    from tests.test_yolov1 import V1_CFG
+    from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
+    from yolo_tpu_torch.models.predict import detect_raw
+
+    path = tmp_path / "v1.cfg"
+    path.write_text(V1_CFG)
+    cfg = dataclasses.replace(config_from_cfg(str(path)), conf_threshold=0.2)
+    params = tgraph.fold_params(cfg.layers,
+                                dw.synthetic_detector_params(cfg, 0))
+    imgs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4, 120, 160, 3), dtype=np.uint8))
+    gpu = tgraph.Darknet(cfg.layers, params, device=cuda)
+    cpu = tgraph.Darknet(cfg.layers, params, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (4, 64, 64, 3)).astype(np.float32))
+    a, b = gpu(x.to(cuda)).cpu(), cpu(x)
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))
+    before = nms_kernel.launches
+    got = detect_raw(cfg, gpu, imgs.to(cuda))
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    want = detect_raw(cfg, cpu, imgs)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.numpy() for k, v in want.items()}
+    for p, q in ((want, got), (got, want)):
+        total = 0
+        for i in range(len(imgs)):
+            for box, c, sc, v in zip(p["boxes"][i], p["classes"][i],
+                                     p["scores"][i], p["valid"][i]):
+                if v and sc >= cfg.conf_threshold + 0.05:
+                    total += 1
+                    assert any(v2 and c2 == c and np.abs(b2 - box).max() <= 1
+                               for b2, c2, v2 in zip(
+                                   q["boxes"][i], q["classes"][i],
+                                   q["valid"][i]))
+        assert total >= 1

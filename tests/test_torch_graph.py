@@ -275,21 +275,13 @@ def test_darknet_matches_golden_full_yolov2_checksum():
     (jspecs.DetectionHead(side=2, num=1, classes=2), "A10"),
     (jspecs.Local(4, out_h=12, out_w=12, in_c=8), "A10")])
 def test_layers_outside_the_slice_raise(layer, item):
-    """The JAX package's specs are not layers of the port: its yolov1
-    layers are ROADMAP A10 and raise so, any other JAX spec is refused
-    as a foreign object. The options only a custom .cfg sets (ROADMAP
-    A8b: weighted shortcut, sam, conv groups, new_coords) and the
-    classifier layers (A10's first half: a spatial [connected]) are
-    ported: the port's own spec of the same name and fields builds, and
-    the net matches the JAX package's in fp32 (rtol 1e-5 of its
-    scale)."""
-    layers = (Conv(8), Conv(8), layer)
-    if item == "A10" and type(layer).__name__ in tgraph._UNPORTED:
-        with pytest.raises(NotImplementedError, match="A10"):
-            tgraph._check_layer(2, layer)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgraph.Darknet(layers, [], device="cpu")
-        return
+    """The JAX package's specs are not layers of the port: each is
+    refused as a foreign object. The options only a custom .cfg sets
+    (ROADMAP A8b: weighted shortcut, sam, conv groups, new_coords) and
+    the layers of A10 (a spatial [connected]; yolov1's [detection] and
+    [local]) are ported: the port's own spec of the same name and fields
+    builds, and the net matches the JAX package's in fp32 (rtol 1e-5 of
+    its scale)."""
     with pytest.raises(TypeError, match="not a spec"):
         tgraph._check_layer(2, layer)
     port = getattr(specs, type(layer).__name__)(**dataclasses.asdict(layer))

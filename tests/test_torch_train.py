@@ -406,10 +406,17 @@ def test_lr_schedule_matches_jax(name):
 
 
 def test_lr_random_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tloop.lr_schedule(tloop.TrainConfig(lr_random=True))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tloop.make_train_step(NARROW_V2, tloop.TrainConfig(lr_random=True))
+    """policy=random was the one schedule left unported (ROADMAP A9e,
+    now closed): lr_schedule and make_train_step take lr_random, and
+    its rates equal the JAX schedule's bit for bit
+    (tests/test_torch_prng.py holds more steps and seeds)."""
+    kw = dict(learning_rate=1e-3, lr_random=True, lr_random_seed=5)
+    jfn = jloop.lr_schedule(jloop.TrainConfig(**kw))
+    fn = tloop.lr_schedule(tloop.TrainConfig(**kw))
+    for step in SCHEDULE_STEPS:
+        want = np.float32(jfn(jnp.asarray(step, jnp.int32)))
+        assert fn(step).view(np.int32) == want.view(np.int32), step
+    tloop.make_train_step(NARROW_V2, tloop.TrainConfig(**kw))
 
 
 def test_entry_points_default_to_cuda():

@@ -41,7 +41,7 @@ def to_jax_config(cfg):
 def to_port_config(jcfg):
     """The port's ModelConfig for a JAX package ModelConfig, every spec,
     port field and YOLO9000 tree carried over by name; None when it
-    holds a layer the port lacks (the yolov1 layers, ROADMAP A10)."""
+    holds a layer the port lacks."""
     from yolo_tpu_torch.configs import specs as tspecs
     from yolo_tpu_torch.configs.tree import SoftmaxTree
 

@@ -40,7 +40,8 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
     python3 tools/port_perf.py step64 [--variant V] [--heads H]
         chip_smoke.py phase 13 (a)'s fp32 step of a yolo variant
         (yolov4 by default: its 20-class head, fine-tune start and
-        batch), on the card (cuDNN, and cuDNN off) and on the CPU (its
+        batch), or phase 18 (d)'s of yolov1 (--variant yolov1), on the
+        card (cuDNN, and cuDNN off) and on the CPU (its
         convs in float64), each against a float64 CPU step on the card
         step's choices: the largest per-tensor update errors;
         --heads csp-swish | gaussian takes phase 15 (e)'s nets instead
@@ -424,26 +425,39 @@ def cmd_step64(args, card) -> None:
 
     import chip_smoke as cs
 
-    subdivisions, schedule = cs.YOLO_NETS[args.variant]
-    if args.heads == "csp-swish":
-        cfg = cs.voc_heads(cs.csp_swish_heads(args.variant,
-                                              cs.CFG_SCALED_HW))
-    elif args.heads == "gaussian":
-        cfg = cs.voc_heads(cs.gaussian_heads(args.variant))
+    if args.variant == "yolov1":
+        # phase 18 (d)'s step: yolov1.cfg at 448, its seeded weights
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg_path = os.path.join(tmp, "yolov1.cfg")
+            with open(cfg_path, "w") as f:
+                f.write(cs.YOLOV1_CFG)
+            cfg = cs.config_from_cfg(cfg_path)
+            params = cs.dw.synthetic_detector_params(cfg, cs.SEED)
+            host, tcfg = cs.yolov1_step_inputs(cfg, cfg_path)
     else:
-        cfg = cs.voc_variant(args.variant)
-    tcfg = cs.TrainConfig(**schedule, yolo_loss=cs.yolo_loss_config(cfg))
-    # the micro-batch of phase 13 (a), or of phase 15 (e) for its heads
-    rng = np.random.default_rng(cs.SEED + (13 if args.heads == "variant"
-                                           else 15))
-    palette = rng.integers(0, 256, (20, 3), dtype=np.uint8)
-    with tempfile.TemporaryDirectory() as tmp:
-        pairs = cs.write_voc_scenes(
-            tmp, cs.SCENE_HW[:cs.CHECK_BATCH], rng, palette=palette)
-        params = cs.fine_tune_init(cfg, tmp, *cs.YOLO_PARTIALS[args.variant])
-        host = next(cs.host_batches(cfg, pairs, cs.CHECK_BATCH, cs.SEED,
-                                    shuffle=False,
-                                    augment_cfg=cs.YOLO_AUGMENT))
+        subdivisions, schedule = cs.YOLO_NETS[args.variant]
+        if args.heads == "csp-swish":
+            cfg = cs.voc_heads(cs.csp_swish_heads(args.variant,
+                                                  cs.CFG_SCALED_HW))
+        elif args.heads == "gaussian":
+            cfg = cs.voc_heads(cs.gaussian_heads(args.variant))
+        else:
+            cfg = cs.voc_variant(args.variant)
+        tcfg = cs.TrainConfig(**schedule,
+                              yolo_loss=cs.yolo_loss_config(cfg))
+        # the micro-batch of phase 13 (a), or of phase 15 (e) for its
+        # heads
+        rng = np.random.default_rng(cs.SEED + (13 if args.heads == "variant"
+                                               else 15))
+        palette = rng.integers(0, 256, (20, 3), dtype=np.uint8)
+        with tempfile.TemporaryDirectory() as tmp:
+            pairs = cs.write_voc_scenes(
+                tmp, cs.SCENE_HW[:cs.CHECK_BATCH], rng, palette=palette)
+            params = cs.fine_tune_init(cfg, tmp,
+                                       *cs.YOLO_PARTIALS[args.variant])
+            host = next(cs.host_batches(cfg, pairs, cs.CHECK_BATCH, cs.SEED,
+                                        shuffle=False,
+                                        augment_cfg=cs.YOLO_AUGMENT))
 
     def step_on(dev, f64=False):
         state = cs.init_state(cfg, params, tcfg, device=dev)
@@ -465,7 +479,7 @@ def cmd_step64(args, card) -> None:
 
     with replay(), _cpu_float64():
         ref = step_on("cpu", f64=True)
-    with replay(), cs.float64_convs():
+    with replay(), cs.float64_products():
         cpu = step_on("cpu")
     with replay(), torch.backends.cudnn.flags(enabled=False,
                                               allow_tf32=False):

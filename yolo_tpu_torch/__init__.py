@@ -26,3 +26,11 @@ def load(*args, **kw):
     from yolo_tpu_torch.api import load as _load
 
     return _load(*args, **kw)
+
+
+def load_classifier(*args, **kw):
+    """See yolo_tpu_torch.api.load_classifier — classifier weights ->
+    callable top-k model."""
+    from yolo_tpu_torch.api import load_classifier as _load
+
+    return _load(*args, **kw)

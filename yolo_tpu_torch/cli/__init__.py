@@ -9,8 +9,8 @@ lines, on the card by default; ``--device cpu`` only when asked for):
   python -m yolo_tpu_torch.cli classify --model darknet53 --weights d.weights --image cat.jpg
 
 Commands whose parts are not ported yet raise naming their ROADMAP
-item: yolov1 cfgs (A10), --precision int8 (A11), detect --video and
-serve --dp (A12), bench (A13), --loader grain (A9g).
+item: --precision int8 (A11), detect --video and serve --dp (A12),
+bench (A13), --loader grain (A9g).
 """
 
 from yolo_tpu_torch.cli._main import main  # noqa: E402  (the public entry)

@@ -18,7 +18,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                             "darknet19-448", "darknet53"])
     p.add_argument("--cfg", default=None,
                    help="darknet .cfg file (overrides --model; any "
-                        "yolov2/v3/v4-family or classifier topology)")
+                        "yolov1/v2/v3/v4-family or classifier topology)")
     p.add_argument("--names", default=None,
                    help="darknet .names file (class names for --cfg)")
     p.add_argument("--input-size", type=int, default=None,
@@ -61,6 +61,20 @@ def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the command computes: cuda (the default; "
                         "raises without a card) or cpu")
+
+
+def _refuse_int8(cfg) -> None:
+    """--precision int8 (post-training quantization) is not ported
+    (ROADMAP A11). The JAX package's int8 path refuses the yolov1 family
+    first, with NotImplementedError (quantize.py::prepare_int8); so does
+    this, with its message."""
+    from yolo_tpu_torch.configs.specs import Crop, DetectionHead, Local
+
+    if any(isinstance(l, (Crop, Local, DetectionHead)) for l in cfg.layers):
+        raise NotImplementedError(
+            "int8 PTQ does not support the yolov1 family "
+            "([crop]/[local]/[detection] layers) — use fp32/bf16")
+    _compute_dtype("int8")
 
 
 def _compute_dtype(precision: str):
@@ -117,6 +131,11 @@ def _load_net(args, cfg):
     --device at --precision."""
     from yolo_tpu_torch.models.graph import Darknet
 
+    if args.precision == "int8":
+        try:
+            _refuse_int8(cfg)
+        except NotImplementedError as e:
+            raise SystemExit(str(e))  # the yolov1 topologies
     dtype = _compute_dtype(args.precision)
     device = _device(args)
     return Darknet(cfg.layers, _load_params(args, cfg), device=device,
@@ -210,19 +229,16 @@ def _dataset_samples(args, cfg, names=None):
 def _get_cfg(args):
     import dataclasses
 
-    try:
-        if getattr(args, "cfg", None):
-            from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
+    if getattr(args, "cfg", None):
+        from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
 
-            cfg = config_from_cfg(args.cfg, names_path=args.names)
-            if args.input_size is not None:
-                cfg = cfg.with_input_size(args.input_size)
-        else:
-            from yolo_tpu_torch.configs import get_variant
+        cfg = config_from_cfg(args.cfg, names_path=args.names)
+        if args.input_size is not None:
+            cfg = cfg.with_input_size(args.input_size)
+    else:
+        from yolo_tpu_torch.configs import get_variant
 
-            cfg = get_variant(args.model, input_size=args.input_size)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+        cfg = get_variant(args.model, input_size=args.input_size)
     if args.conf is not None:
         cfg = dataclasses.replace(cfg, conf_threshold=args.conf)
     if args.nms is not None:

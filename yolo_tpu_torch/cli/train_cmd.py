@@ -6,13 +6,9 @@ on one device.
 Checkpoints (--checkpoint-dir: step_N every --checkpoint-every steps,
 best on a better --eval-every mAP, final at the end) are written by
 io.checkpoint.AsyncSaver. --resume restores the model, optimizer, step
-and seen counters and continues the data stream where the checkpoint's
-step left it: the batches already trained are skipped, drawing from the
-seeded generator as they would have (the shuffle and the multi-scale
-sizes), so a resumed run ends in the state of an uninterrupted one. (The
-JAX package's thread loader restarts the data at the first epoch on
-resume; its grain loader, which keeps the position, is ROADMAP A9g
-here.)
+and seen counters and then runs --epochs epochs of the data from the
+first, as the JAX package's threads loader does (its grain loader,
+which keeps the data position, is ROADMAP A9g here).
 """
 
 from __future__ import annotations
@@ -206,7 +202,8 @@ def cmd_train(args) -> None:
     if args.loader == "grain":
         raise SystemExit("--loader grain (a resumable multiprocess loader) "
                          "is not ported yet (ROADMAP A9g); the threads "
-                         "loader resumes its position too")
+                         "loader restarts the data at the first epoch on "
+                         "--resume")
     if not args.weights and not args.resume:
         raise SystemExit("--weights is required for detector training "
                          "(a full .weights file or a darknet `partial` "
@@ -216,6 +213,11 @@ def cmd_train(args) -> None:
         raise SystemExit("--imagefolder/--eval-imagefolder are "
                          f"classifier training data — {cfg.name} is a "
                          "detector; use --voc-root or --coco-json")
+    if cfg.head_kind == "detection" and (args.multi_scale
+                                         or args.multi_scale_sizes):
+        raise SystemExit("yolov1 models have a FIXED input size (the "
+                         "[local]/[connected] weights are sized by it) "
+                         "— drop --multi-scale")
     if args.resize == "stretch":
         print("training with stretch (letter_box=0) geometry",
               file=sys.stderr)
@@ -297,23 +299,18 @@ def cmd_train(args) -> None:
         print("--prewarm: eager PyTorch compiles nothing ahead; each size "
               "bucket runs as it comes", file=sys.stderr)
 
-    start_step = state.step
-    steps_per_epoch = max(len(pairs) // args.batch, 1)
     best_map = -1.0
     size_fn = ((lambda bi: pick_scale(bi, rng, tcfg.multi_scale_every,
                                       tcfg.multi_scale_sizes))
                if tcfg.multi_scale else None)
 
-    def epoch_batches(epoch):
-        # batches an earlier run trained are skipped, not loaded
-        skip = min(max(start_step - epoch * steps_per_epoch, 0),
-                   steps_per_epoch)
+    def epoch_batches():
         return train_batches(
             pairs, class_names=cfg.class_names, anchors=cfg.anchors,
             num_classes=cfg.num_classes, net_size=cfg.input_hw,
             batch_size=args.batch, rng=rng, size_for_batch=size_fn,
             augment_cfg=aug_cfg, model_cfg=cfg, resize=args.resize,
-            channels=cfg.in_channels, skip_batches=skip)
+            channels=cfg.in_channels)
 
     with ckpt.AsyncSaver() as saver:
         def save_ckpt(name: str) -> None:
@@ -323,7 +320,7 @@ def cmd_train(args) -> None:
         t_last = time.perf_counter()
         with maybe_trace(args.profile_dir):
             for epoch in range(args.epochs):
-                staged = DevicePrefetcher(epoch_batches(epoch), depth=2,
+                staged = DevicePrefetcher(epoch_batches(), depth=2,
                                           device=state.net.device)
                 with staged:
                     for batch in staged:

@@ -312,8 +312,8 @@ def _lr_schedule_from(args, net_hp):
     training: explicit --lr-steps/--lr-scales win, then the cfg's [net]
     policy (the full network.c get_current_rate set: steps | poly |
     step | exp | sigmoid | sgdr | constant; the stochastic 'random'
-    policy rejects — its per-step rand_uniform draw has no
-    deterministic equivalent). Returns TrainConfig schedule kwargs."""
+    policy only with --allow-deviations, as a seeded draw keyed on
+    (--seed, step)). Returns TrainConfig schedule kwargs."""
     kw = {"lr_decay_steps": (), "lr_decay_scales": ()}
     policy = net_hp.get("policy", "constant")
     # [net] power feeds both the burn-in ramp and the poly decay
@@ -402,9 +402,23 @@ def _lr_schedule_from(args, net_hp):
               f"{cycle}, mult {kw['lr_sgdr_mult']}, "
               f"lr_min {kw['lr_min']:g}", file=sys.stderr)
     elif policy == "random":
-        # its draw is jax.random's: the port does not reproduce it yet
-        raise SystemExit("[net] policy=random (a random LR draw each "
-                         "batch) is not ported yet (ROADMAP A9e)")
+        if not getattr(args, "allow_deviations", False):
+            raise SystemExit(
+                "[net] policy=random draws a fresh rand_uniform^power "
+                "LR every batch from the C library's global PRNG — "
+                "irreproducible by design. Pass --allow-deviations to "
+                "train it with darknet's formula (lr * u^power, "
+                "u ~ U[0,1)) under a SEEDED draw keyed on "
+                "(--seed, step): deterministic and "
+                "resume-reproducible — the deviation is determinism, "
+                "not the formula.")
+        kw["lr_random"] = True
+        kw["lr_random_seed"] = int(getattr(args, "seed", 0) or 0)
+        print("--allow-deviations: [net] policy=random trains with a "
+              "SEEDED rand_uniform^power LR draw keyed on "
+              f"(--seed={kw['lr_random_seed']}, step) — darknet's "
+              "formula, deterministic instead of the C rand()",
+              file=sys.stderr)
     elif policy not in ("constant", "steps"):
         # darknet get_policy: unknown strings warn and fall back
         print(f"note: unknown [net] policy '{policy}', going with "

@@ -17,12 +17,14 @@ training keys, scale_x_y, the scaled-yolov4 new_coords=1 head,
 nms_kind/beta_nms), [Gaussian_yolo] (9+C channels an anchor), and the
 classifier sections [connected] (output, activation; no BN), [dropout]
 (probability) and [softmax] (groups=1, tree=, temperature), the last
-layer of a darknet19/darknet53-style classifier.
+layer of a darknet19/darknet53-style classifier, and the yolov1
+sections [crop] (first layer), [local] (its geometry pinned at parse,
+as the weights' size depends on it), a spatial [connected] and
+[detection] (last layer, the connected output's width checked).
 
 Each section raises where the JAX package's parser raises, with the same
 exception type and message, and the same stderr warnings for keys
-nothing reads. The yolov1 sections ([crop], [local], [detection]) raise
-NotImplementedError at the section: they are ROADMAP A10's second half.
+nothing reads.
 """
 
 from __future__ import annotations
@@ -30,19 +32,17 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
-                                          Dropout, MaxPool, ModelConfig,
-                                          Reorg, Route, Sam, ScaleChannels,
-                                          Shortcut, SoftmaxHead, Upsample,
-                                          YoloHead, layer_strides,
-                                          resolve_route)
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv, Crop,
+                                          DetectionHead, Dropout, Local,
+                                          MaxPool, ModelConfig, Reorg, Route,
+                                          Sam, ScaleChannels, Shortcut,
+                                          SoftmaxHead, Upsample, YoloHead,
+                                          layer_strides, resolve_route)
 
 _SUPPORTED = {"net", "convolutional", "maxpool", "route", "reorg",
               "region", "shortcut", "sam", "scale_channels", "upsample",
               "yolo", "gaussian_yolo", "avgpool", "connected", "dropout",
               "softmax", "cost", "crop", "local", "detection"}
-# sections of the yolov1 family (ROADMAP A10's second half)
-_YOLOV1_SECTIONS = ("crop", "local", "detection")
 
 # Per-section key audit (darknet's cfg is the FULL training config, so
 # a silently-dropped key can mean silently-different training): keys in
@@ -209,7 +209,8 @@ def _resolve_spatial(layers: List, input_hw: Tuple[int, int],
     concatenates sources of different spatial extents, and pin the
     flattened feature count of a spatial dense input in
     Connected.in_features (darknet flattens h*w*c; a 1x1 input keeps
-    None, the classifier case). Returns the rewritten layer list.
+    None, the classifier case) and Local.out_h/out_w/in_c, which size
+    its weights. Returns the rewritten layer list.
     input_hw: (net_h, net_w)."""
     import dataclasses as _dc
 
@@ -251,13 +252,25 @@ def _resolve_spatial(layers: List, input_hw: Tuple[int, int],
             c = sum(s[2] // l.groups for s in srcs)
         elif isinstance(l, ScaleChannels):
             h, w, c = shapes[resolve_route(idx, l.frm)]
+        elif isinstance(l, Local):
+            pad = l.size // 2 if l.pad else 0
+            oh = (h + 2 * pad - l.size) // l.stride + 1
+            ow = (w + 2 * pad - l.size) // l.stride + 1
+            l = _dc.replace(l, out_h=oh, out_w=ow, in_c=c)
+            h, w, c = oh, ow, l.filters
+        elif isinstance(l, Crop):
+            if l.crop_h > h or l.crop_w > w:
+                raise ValueError(
+                    f"[crop] {l.crop_h}x{l.crop_w} exceeds the "
+                    f"{h}x{w} input")
+            h, w = l.crop_h, l.crop_w
         elif isinstance(l, Connected):
             if h * w > 1:
                 l = _dc.replace(l, in_features=h * w * c)
             h = w = 1
             c = l.out
-        # Shortcut/Sam/Dropout/SoftmaxHead/YoloHead keep the running
-        # shape
+        # Shortcut/Sam/Dropout/SoftmaxHead/YoloHead/DetectionHead keep
+        # the running shape
         shapes.append((h, w, c))
         out.append(l)
     return out
@@ -278,18 +291,16 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
     region_thresh: Optional[float] = None
     region_spec: Optional[Tuple] = None  # [region] loss scales+rescore
     saw_region = False
+    saw_detection = False
+    detection_spec: Optional[DetectionHead] = None
     tree_file: Optional[str] = None   # [region]/[softmax] tree= (YOLO9000)
     map_file: Optional[str] = None    # [region] map=
 
-    for index, (kind, kv) in enumerate(sections):
+    for kind, kv in sections:
         if kind not in _SUPPORTED:
             raise ValueError(
                 f"[{kind}] is not a supported darknet section "
                 f"(supported: {sorted(_SUPPORTED)})")
-        if kind in _YOLOV1_SECTIONS:
-            raise NotImplementedError(
-                f"{cfg_path}: section {index} [{kind}] belongs to the "
-                f"yolov1 family, not ported yet (yolov1, ROADMAP A10)")
         if kind == "net":
             # darknet [net] width/height are independent keys —
             # rectangular nets (a normal AlexeyAB video workflow) are
@@ -497,6 +508,67 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                 raise ValueError(f"[softmax] temperature={temp:g} must "
                                  f"be > 0")
             layers.append(SoftmaxHead(temperature=temp))
+        elif kind == "crop":
+            ch = int(kv.get("crop_height", 0))
+            cw = int(kv.get("crop_width", 0))
+            if ch <= 0 or cw <= 0:
+                raise ValueError("[crop] needs crop_height and "
+                                 "crop_width")
+            if layers:
+                raise ValueError("[crop] must be the first layer "
+                                 "(the yolov1 input layer)")
+            # angle/saturation/exposure are GPU-kernel jitter keys
+            # darknet's CPU forward ignores — matched by ignoring them;
+            # flip and noadjust ARE crop_layer.c CPU semantics
+            layers.append(Crop(ch, cw,
+                               flip=bool(int(kv.get("flip", 0))),
+                               noadjust=bool(int(kv.get("noadjust",
+                                                        0)))))
+        elif kind == "local":
+            act = kv.get("activation", "logistic")
+            if act not in ("leaky", "linear", "relu", "ramp",
+                           "logistic"):
+                raise ValueError(f"unsupported local activation '{act}'")
+            if (int(kv.get("filters", 1)) < 1
+                    or int(kv.get("size", 1)) < 1
+                    or int(kv.get("stride", 1)) < 1):
+                raise ValueError("[local] filters/size/stride must all "
+                                 "be >= 1")
+            layers.append(Local(
+                filters=int(kv.get("filters", 1)),
+                size=int(kv.get("size", 1)),
+                stride=int(kv.get("stride", 1)),
+                pad=bool(int(kv.get("pad", 0))),
+                act=act))
+        elif kind == "detection":
+            if saw_detection:
+                raise ValueError("multiple [detection] sections")
+            saw_detection = True
+            num_classes = int(kv.get("classes", 1))
+            if int(kv.get("softmax", 0)):
+                # darknet's forward would softmax each cell's class
+                # block — unimplemented here, so reject rather than
+                # silently predict differently (the original
+                # yolov1.cfg uses softmax=0; code-review finding)
+                raise ValueError("[detection] softmax=1 is not "
+                                 "supported (the v1 family is pinned "
+                                 "to the softmax=0 forward)")
+            # absent keys get darknet's PARSE defaults (parse_detection:
+            # every scale 1, coords 1) — the paper lambdas (5/0.5) are
+            # what the official cfgs SET, not the parser's fallback
+            # (code-review finding; same rule as the [region] block)
+            detection_spec = DetectionHead(
+                side=int(kv.get("side", 7)),
+                num=int(kv.get("num", 1)),
+                classes=num_classes,
+                sqrt=bool(int(kv.get("sqrt", 0))),
+                coords=int(kv.get("coords", 1)),
+                rescore=bool(int(kv.get("rescore", 0))),
+                object_scale=float(kv.get("object_scale", 1.0)),
+                noobject_scale=float(kv.get("noobject_scale", 1.0)),
+                class_scale=float(kv.get("class_scale", 1.0)),
+                coord_scale=float(kv.get("coord_scale", 1.0)))
+            layers.append(detection_spec)
         elif kind == "cost":
             # training-loss marker (classifier cfgs end with it);
             # no forward effect — parsed and dropped
@@ -677,10 +749,23 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                   if isinstance(l, YoloHead)]
     heads_present = [n for n, flag in (
         ("[region]", saw_region), ("[yolo]", bool(yolo_heads)),
-        ("[softmax]", bool(softmax_heads))) if flag]
+        ("[softmax]", bool(softmax_heads)),
+        ("[detection]", saw_detection)) if flag]
     if len(heads_present) > 1:
         raise ValueError(f"{cfg_path}: {' and '.join(heads_present)} "
                          f"sections cannot be mixed")
+    if saw_detection:
+        if not isinstance(layers[-1], DetectionHead):
+            raise ValueError(f"{cfg_path}: [detection] must be the "
+                             f"final layer (yolov1 cfgs)")
+        d = detection_spec
+        need = d.side * d.side * (d.classes + d.num * (1 + d.coords))
+        prev = layers[-2] if len(layers) > 1 else None
+        if isinstance(prev, Connected) and prev.out != need:
+            raise ValueError(
+                f"{cfg_path}: the layer before [detection] outputs "
+                f"{prev.out} features but side²*(classes+num*(1+coords)) "
+                f"= {need}")
 
     tree = tree_map = None
     if map_file and not tree_file:
@@ -748,8 +833,8 @@ def config_from_cfg(cfg_path: str, names_path: Optional[str] = None,
                     f"[yolo] new_coords=1 would double-sigmoid the "
                     f"decode — set new_coords=1 or activation=linear")
         _validate_strides(layers, (net_h, net_w))
-    elif softmax_heads:
-        pass  # classifier: validated above, no region contract
+    elif softmax_heads or saw_detection:
+        pass  # classifier / yolov1: validated above, no region contract
     else:
         expected_out = len(anchors) * (5 + num_classes)
         last = layers[-1]
@@ -960,6 +1045,24 @@ def cfg_to_string(cfg: ModelConfig) -> str:
                        f"activation={l.act}\n")
         elif isinstance(l, Dropout):
             out.append(f"[dropout]\nprobability={l.prob:g}\n")
+        elif isinstance(l, Crop):
+            out.append(f"[crop]\ncrop_height={l.crop_h}\n"
+                       f"crop_width={l.crop_w}\n"
+                       + (f"flip={int(l.flip)}\n" if l.flip else "")
+                       + ("noadjust=1\n" if l.noadjust else ""))
+        elif isinstance(l, Local):
+            out.append(f"[local]\nfilters={l.filters}\nsize={l.size}\n"
+                       f"stride={l.stride}\npad={1 if l.pad else 0}\n"
+                       f"activation={l.act}\n")
+        elif isinstance(l, DetectionHead):
+            out.append(f"[detection]\nclasses={l.classes}\n"
+                       f"coords={l.coords}\nside={l.side}\nnum={l.num}\n"
+                       f"sqrt={1 if l.sqrt else 0}\n"
+                       f"rescore={1 if l.rescore else 0}\n"
+                       f"object_scale={l.object_scale:g}\n"
+                       f"noobject_scale={l.noobject_scale:g}\n"
+                       f"class_scale={l.class_scale:g}\n"
+                       f"coord_scale={l.coord_scale:g}\n")
         elif isinstance(l, SoftmaxHead):
             out.append("[softmax]\ngroups=1\n"
                        + (f"temperature={l.temperature:g}\n"

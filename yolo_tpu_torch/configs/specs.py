@@ -1,8 +1,6 @@
-"""Layer specs and the model config of the yolov2 and yolov3/v4
+"""Layer specs and the model config of the yolov1, yolov2 and yolov3/v4
 families, YOLO9000, the darknet classifiers and the detectors a custom
-darknet ``.cfg`` describes (port of yolo_tpu/configs/specs.py, every
-layer kind but the yolov1 ones, [crop], [local] and [detection], which
-are ROADMAP A10's second half).
+darknet ``.cfg`` describes (port of yolo_tpu/configs/specs.py).
 
 Semantics pinned by the darknet cfg format, as in the JAX package:
   * ``Conv``: conv2d (darknet pad = size // 2, times the dilation), any
@@ -35,6 +33,8 @@ Semantics pinned by the darknet cfg format, as in the JAX package:
   * ``SoftmaxHead``: darknet [softmax], the classifier output: softmax
     over the flattened input, or with a YOLO9000 tree one softmax per
     sibling group.
+  * ``Crop``, ``Local``, ``DetectionHead``: the yolov1 input layer, its
+    locally-connected conv and its [detection] head.
 
 Field names and defaults are the JAX package's, so a config here and its
 counterpart there describe the same network (tests/test_torch_graph.py
@@ -201,6 +201,64 @@ class Dropout:
 
 
 @dataclasses.dataclass(frozen=True)
+class Crop:
+    """darknet [crop] (the yolov1 input layer, crop_layer.c): the output
+    is ``input*2 - 1`` unless noadjust, in both modes. Test mode
+    center-crops to (crop_h, crop_w); train mode draws one (dy, dx) and
+    one flip a batch (darknet's rand() once a forward). darknet's CPU
+    forward ignores the angle/saturation/exposure keys, and so does
+    this."""
+    crop_h: int
+    crop_w: int
+    flip: bool = False
+    noadjust: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Local:
+    """darknet [local] (the yolov1 locally-connected conv): a filter bank
+    of its own at every output position, out (out_h, out_w, filters),
+    pad=1 meaning size // 2, always biased, no BN. Weights-file block:
+    biases[out_h*out_w*filters] in CHW order, then one (filters, in_c,
+    k, k) block a position, positions row-major. The parser pins
+    out_h/out_w/in_c, which size the weights, so such a model cannot be
+    resized."""
+    filters: int
+    size: int = 3
+    stride: int = 1
+    pad: bool = True
+    act: str = "leaky"
+    out_h: int = 0
+    out_w: int = 0
+    in_c: int = 0
+
+    def __post_init__(self):
+        _check_act(self.act)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionHead:
+    """darknet [detection] (the yolov1 head): marks its input, the last
+    [connected] layer's side*side*(classes + num*(1+coords)) values, as
+    the detection tensor. Flat layout: side²·classes class
+    probabilities, side²·num confidences, side²·num·coords boxes; a box
+    is x=(tx+col)/side, y=(ty+row)/side, w=tw², h=th² (sqrt=1; tw, th
+    as they are with sqrt=0), its score confidence · class probability.
+    Training is detection_loss (arXiv:1506.02640 eq. 3) with the
+    [detection] scale keys."""
+    side: int
+    num: int
+    classes: int
+    sqrt: bool = True
+    coords: int = 4
+    rescore: bool = False
+    object_scale: float = 1.0
+    noobject_scale: float = 0.5
+    class_scale: float = 1.0
+    coord_scale: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
 class SoftmaxHead:
     """darknet [softmax] (groups=1): marks the model as a classifier;
     the output is (B, C) probabilities over the flattened input. With a
@@ -214,7 +272,7 @@ class SoftmaxHead:
 
 LayerSpec = Union[Conv, MaxPool, Route, Reorg, Shortcut, Sam,
                   ScaleChannels, Upsample, AvgPool, YoloHead, Connected,
-                  Dropout, SoftmaxHead]
+                  Dropout, Crop, Local, DetectionHead, SoftmaxHead]
 
 
 def conv_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
@@ -223,12 +281,12 @@ def conv_specs(layers: Tuple[LayerSpec, ...]) -> Tuple[Conv, ...]:
 
 
 def weighted_specs(layers: Tuple[LayerSpec, ...]
-                   ) -> Tuple[Union[Conv, Connected, Shortcut], ...]:
+                   ) -> Tuple[Union[Conv, Connected, Local, Shortcut], ...]:
     """Weight-carrying layers in darknet file order (the .weights walk
-    order and the params-list order): the convs, the connected layers
-    and the weighted shortcuts."""
+    order and the params-list order): the convs, the connected and
+    local layers and the weighted shortcuts."""
     return tuple(l for l in layers
-                 if isinstance(l, (Conv, Connected))
+                 if isinstance(l, (Conv, Connected, Local))
                  or (isinstance(l, Shortcut) and l.weights_type != "none"))
 
 
@@ -341,13 +399,24 @@ class ModelConfig:
     def head_kind(self) -> str:
         """"yolo" ([yolo] heads: sigmoid classes, pixel anchors),
         "softmax" (a darknet classifier: [softmax] over a pooled trunk,
-        no anchors) or "region" (the yolov2 [region] head), from the
-        layer list."""
+        no anchors), "detection" (the yolov1 [detection] head over a
+        connected layer, no anchors) or "region" (the yolov2 [region]
+        head), from the layer list."""
         if any(isinstance(l, YoloHead) for l in self.layers):
             return "yolo"
         if any(isinstance(l, SoftmaxHead) for l in self.layers):
             return "softmax"
+        if any(isinstance(l, DetectionHead) for l in self.layers):
+            return "detection"
         return "region"
+
+    @property
+    def detection_head(self) -> Optional[DetectionHead]:
+        """The yolov1 [detection] spec (None for other families)."""
+        for l in self.layers:
+            if isinstance(l, DetectionHead):
+                return l
+        return None
 
     @property
     def softmax_tree(self):
@@ -420,9 +489,11 @@ class ModelConfig:
         if h % 32 != 0 or w % 32 != 0:
             raise ValueError(
                 f"input size must be a multiple of 32, got {w}x{h}")
-        if any(isinstance(l, Connected) and l.in_features is not None
-               for l in self.layers):
-            # a spatial dense layer's weights are sized by the cfg input
+        if any(isinstance(l, (Local, Crop)) for l in self.layers) or \
+                any(isinstance(l, Connected) and l.in_features is not None
+                    for l in self.layers):
+            # [local], [crop] and spatial dense weights are sized by the
+            # cfg input
             raise ValueError(
                 f"{self.name} has a fixed input size "
                 f"({self.input_size}): [local]/[crop]/spatial "

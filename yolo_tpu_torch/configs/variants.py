@@ -324,10 +324,6 @@ VARIANTS = {
         input_size=416, iou_loss="ciou", iou_normalizer=0.07),
 }
 
-# the yolov2 variants under the JAX package's names
-TINY_YOLOV2_VOC = VARIANTS["tiny-voc"]
-YOLOV2_VOC = VARIANTS["voc"]
-YOLOV2_COCO = VARIANTS["coco"]
 
 # darknet classifiers, the pretrained-backbone sources (darknet19 is
 # yolov2's trunk, darknet53 yolov3's; `partial` cuts the .conv.NN
@@ -375,6 +371,20 @@ VARIANTS.update({
         name="darknet53", layers=_darknet53_layers(), anchors=(),
         class_names=IMAGENET_PLACEHOLDER_NAMES, input_size=256),
 })
+
+# the variants under the JAX package's names
+TINY_YOLOV2_VOC = VARIANTS["tiny-voc"]
+YOLOV2_VOC = VARIANTS["voc"]
+YOLOV2_COCO = VARIANTS["coco"]
+TINY_YOLOV2_COCO = VARIANTS["tiny-coco"]
+YOLOV3_COCO = VARIANTS["yolov3"]
+YOLOV3_SPP_COCO = VARIANTS["yolov3-spp"]
+YOLOV3_TINY_COCO = VARIANTS["yolov3-tiny"]
+YOLOV4_COCO = VARIANTS["yolov4"]
+YOLOV4_TINY_COCO = VARIANTS["yolov4-tiny"]
+DARKNET19 = VARIANTS["darknet19"]
+DARKNET19_448 = VARIANTS["darknet19-448"]
+DARKNET53 = VARIANTS["darknet53"]
 
 # the layer builders by family, for configs that keep a variant's
 # topology with another class count (a VOC fine-tune of a COCO model)

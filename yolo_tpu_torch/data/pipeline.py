@@ -63,6 +63,11 @@ def get_decoder() -> str:
     return _DECODER
 
 
+def load_image_rgb(path: str) -> np.ndarray:
+    """Host decode -> (H, W, 3) uint8 RGB (load_image at 3 channels)."""
+    return load_image(path, 3)
+
+
 def load_image(path: str, channels: int = 3) -> np.ndarray:
     """Host decode at the model's channel count -> (H, W, C) uint8 RGB
     (C=3) or gray (C=1), as cv2.imread(IMREAD_COLOR / IMREAD_GRAYSCALE)
@@ -325,8 +330,8 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
                   rng: np.random.Generator, workers: int = 8,
                   shuffle: bool = True, size_for_batch=None,
                   augment_cfg=None, model_cfg=None,
-                  resize: str = "letterbox", channels: int = 3,
-                  skip_batches: int = 0) -> Iterator[Dict]:
+                  resize: str = "letterbox", channels: int = 3
+                  ) -> Iterator[Dict]:
     """(image, annotation) pairs -> fixed-shape train batches: images in
     [0, 1] and the encoded targets, by model_cfg's head kind
     (data.targets.encode_batch_for; without model_cfg, the region
@@ -339,10 +344,7 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
     turns on jitter/flip/HSV per sample, each sample drawing from its
     own generator; resize="stretch" trains with the aspect-ignoring
     resize (normalized boxes need no transform). Mosaic and mixup are
-    not ported (ROADMAP A9f). skip_batches: the first batches are not
-    loaded or yielded, but draw from ``rng`` as if they were (the
-    shuffle and size_for_batch), so that a resumed run sees the batches
-    an uninterrupted one would."""
+    not ported (ROADMAP A9f)."""
     _check_resize(resize)
     if augment_cfg is not None and (augment_cfg.mosaic or augment_cfg.mixup):
         raise NotImplementedError("mosaic and mixup are not ported yet "
@@ -388,8 +390,6 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
         for bi in range(n_batches):
             if size_for_batch is not None:
                 size = size_for_batch(bi) or size
-            if bi < skip_batches:
-                continue
             idxs = order[bi * batch_size:(bi + 1) * batch_size]
             chunk = list(pool.map(lambda i: prepare(i, size), idxs))
             if (not drop_stats["warned"] and drop_stats["kept"] == 0

@@ -1,5 +1,5 @@
-"""Ground-truth encoders for the region head and the [yolo] heads (port
-of yolo_tpu/data/targets.py; the yolov1 encoder is ROADMAP A10).
+"""Ground-truth encoders for the region head, the [yolo] heads and the
+yolov1 [detection] head (port of yolo_tpu/data/targets.py).
 
 Darknet region-layer assignment: each GT box goes to the cell holding
 its center and to the anchor whose (w, h) has the best IoU with the
@@ -7,6 +7,8 @@ box's, both placed at the origin. Targets are on the activation scale:
 (sigma(tx), sigma(ty)) in-cell offsets and (tw, th) = log(wh / prior).
 The [yolo] assignment (encode_yolo) picks the best anchor over all
 heads' anchors in pixels and trains every head whose mask holds it.
+The yolov1 encoder (encode_v1) gives each object to the cell holding its
+center, the first object of a cell winning.
 Host-side numpy; the loss reads the fixed-shape result on the device.
 """
 
@@ -196,6 +198,8 @@ def encode_for(model_cfg, boxes, classes,
                            masks=[h.mask for h in model_cfg.yolo_heads],
                            strides=_head_strides(model_cfg.layers),
                            assign_iou_thresh=model_cfg.assign_iou_thresh)
+    if model_cfg.head_kind == "detection":
+        return encode_v1(boxes, classes, side=model_cfg.detection_head.side)
     return encode(boxes, classes, grid=(net_h // 32, net_w // 32),
                   anchors=model_cfg.anchors,
                   num_classes=model_cfg.num_classes)
@@ -203,7 +207,35 @@ def encode_for(model_cfg, boxes, classes,
 
 def encode_batch_for(model_cfg, batch_boxes, batch_classes,
                      input_size=None) -> Dict[str, np.ndarray]:
-    """A batch encoded for ``model_cfg``'s loss (region or [yolo])."""
+    """A batch encoded for ``model_cfg``'s loss (region, [yolo] or
+    [detection])."""
     encoded = [encode_for(model_cfg, b, c, input_size=input_size)
                for b, c in zip(batch_boxes, batch_classes)]
     return {k: np.stack([e[k] for e in encoded]) for k in encoded[0]}
+
+
+def encode_v1(boxes: np.ndarray, classes: np.ndarray, side: int
+              ) -> Dict[str, np.ndarray]:
+    """YOLOv1 targets (arXiv:1506.02640 §2): the cell holding an
+    object's center is responsible for it, one object a cell, the first
+    box of a cell winning (darknet's fill_truth skips an occupied cell).
+    boxes (G, 4) normalized xywh, classes (G,) -> v1_obj (S*S,) the cell
+    holds an object, v1_box (S*S, 4) its xywh, v1_cls (S*S,) its class
+    (0 where empty)."""
+    s2 = side * side
+    obj = np.zeros(s2, np.float32)
+    tbox = np.zeros((s2, 4), np.float32)
+    tcls = np.zeros(s2, np.int32)
+    for g in range(len(boxes)):
+        x, y, w, h = boxes[g]
+        if w <= 0 or h <= 0:
+            continue
+        col = min(max(int(x * side), 0), side - 1)
+        row = min(max(int(y * side), 0), side - 1)
+        i = row * side + col
+        if obj[i]:
+            continue
+        obj[i] = 1.0
+        tbox[i] = (x, y, w, h)
+        tcls[i] = classes[g]
+    return {"v1_obj": obj, "v1_box": tbox, "v1_cls": tcls}

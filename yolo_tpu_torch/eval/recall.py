@@ -9,8 +9,7 @@ the JAX package. This path does not reach the CUDA NMS kernel: darknet's
 recall suppresses by objectness across classes (box.c do_nms_obj, one
 greedy pass over every proposal), where the kernel suppresses within a
 class over a top-K grid. A YOLO9000 tree [region] head decodes its
-objectness as any [region] head; yolov1 [detection] heads are not
-ported (yolov1, ROADMAP A10).
+objectness as any [region] head.
 
 Semantics are recall-pinned (the reference tree is empty — SURVEY.md
 §0); the pinned behavior, per image:
@@ -78,7 +77,8 @@ def decode_boxes_objectness(cfg, logits):
     """Raw head logits -> (boxes (B, N, 4) net-normalized xywh,
     objectness (B, N)) over every candidate box, fp32 on the logits'
     device: the class-free decode validate_detector_recall runs on."""
-    from yolo_tpu_torch.ops.decode import (decode_head_boxes,
+    from yolo_tpu_torch.ops.decode import (decode_detection,
+                                           decode_head_boxes,
                                            decode_region_boxes)
 
     if cfg.head_kind == "yolo":
@@ -104,6 +104,15 @@ def decode_boxes_objectness(cfg, logits):
             boxes_parts.append(boxes.reshape(b, -1, 4))
             obj_parts.append(conf.reshape(b, -1))
         return torch.cat(boxes_parts, 1), torch.cat(obj_parts, 1)
+    if cfg.head_kind == "detection":
+        # yolov1: the box confidence is the objectness (detection_layer.c
+        # get_detection_detections: dets[index].objectness = scale)
+        hd = cfg.detection_head
+        s, n, c = hd.side, hd.num, hd.classes
+        b = logits.shape[0]
+        boxes, _ = decode_detection(logits, hd)
+        t = logits.float().reshape(b, -1)
+        return boxes, t[:, s * s * c:s * s * (c + n)].reshape(b, s * s * n)
     if cfg.head_kind != "region":
         raise ValueError(f"recall needs a detection model; {cfg.name} "
                          f"is a {cfg.head_kind} model")

@@ -1,6 +1,6 @@
 """Darknet ``.weights`` binary I/O for the port's layer set (port of
-yolo_tpu/io/darknet_weights.py: convs, connected layers and weighted
-shortcuts; the port's other layers carry no weights).
+yolo_tpu/io/darknet_weights.py: convs, connected and local layers and
+weighted shortcuts; the port's other layers carry no weights).
 
 File format (darknet ``parse.c`` save/load order):
   header: int32 major, minor, revision; then ``seen`` — int64 if
@@ -13,26 +13,29 @@ File format (darknet ``parse.c`` save/load order):
     biases[out], weights[out*in] row-major (out, in) -> (in, out) here.
   per weighted shortcut (save_shortcut_weights): its blend weights,
     2 floats (per_feature) or 2*C (per_channel), group major.
+  per local layer (the yolov1 head, specs.Local): biases[out_h*out_w*
+    filters] in CHW order, then one (filters, in_c, k, k) block a
+    position, positions row-major.
 
 Params list, ordered like ``weighted_specs(layers)``:
   [{"kernel": HWIO f32, "bias": (oc,)}                     bn=False convs,
    {"kernel": HWIO f32, "gamma","beta","mean","var": (oc,)} bn=True convs,
    {"kernel": (in, out) f32, "bias": (out,)}           connected layers,
+   {"kernel": (H', W', F, C, k, k) f32, "bias": (H', W', F)}  local layers,
    {"weights": (2, 1) or (2, C) f32}                  weighted shortcuts]
 the JAX package's layout, byte for byte the same files.
 """
 
 from __future__ import annotations
 
+import io as _io
 from typing import BinaryIO, List, Optional, Sequence
 
 import numpy as np
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
-                                          Dropout, LayerSpec, MaxPool,
-                                          Reorg, Route, Sam, ScaleChannels,
-                                          Shortcut, SoftmaxHead, Upsample,
-                                          YoloHead, resolve_route,
+from yolo_tpu_torch.configs.specs import (Connected, Conv, LayerSpec, Local,
+                                          Reorg, Route, ScaleChannels,
+                                          Shortcut, YoloHead, resolve_route,
                                           weighted_specs)
 
 
@@ -41,11 +44,10 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
     """Input channel count of each weighted layer (darknet_weights.py::
     _infer_in_channels), walking the layer graph: a grouped route keeps
     1/groups of each source, scale_channels takes its ``frm`` layer's
-    count; shortcut, sam, upsample, maxpool, avgpool, dropout, softmax
-    and [yolo] keep the count. A weighted shortcut's entry is its own
-    channel count (its per_channel weight count); a connected layer's its
-    input features (in_features for a spatial input, else the
-    channels)."""
+    count; a local layer's output has its filters; the weightless rest
+    keep the count. A weighted shortcut's entry is its own channel count
+    (its per_channel weight count); a connected layer's its input
+    features (in_features for a spatial input, else the channels)."""
     out_ch: List[int] = []
     conv_in: List[int] = []
     prev = input_channels
@@ -64,14 +66,11 @@ def _conv_in_channels(layers: Sequence[LayerSpec],
             conv_in.append(layer.in_features
                            if layer.in_features is not None else prev)
             prev = layer.out
-        elif isinstance(layer, Shortcut):
-            if layer.weights_type != "none":
-                conv_in.append(prev)
-        elif not isinstance(layer, (MaxPool, Sam, Upsample, AvgPool,
-                                    Dropout, SoftmaxHead, YoloHead)):
-            raise NotImplementedError(
-                f"layer {idx}: {type(layer).__name__} is not a layer of the "
-                f"port (yolov1, ROADMAP A10)")
+        elif isinstance(layer, Local):
+            conv_in.append(prev)
+            prev = layer.filters
+        elif isinstance(layer, Shortcut) and layer.weights_type != "none":
+            conv_in.append(prev)
         out_ch.append(prev)
     return conv_in
 
@@ -83,6 +82,9 @@ def _floats(spec, ic: int) -> int:
         return 2 * (1 if spec.weights_type == "per_feature" else ic)
     if isinstance(spec, Connected):
         return spec.out + spec.out * ic
+    if isinstance(spec, Local):
+        loc = spec.out_h * spec.out_w
+        return spec.filters * loc * (1 + spec.in_c * spec.size * spec.size)
     return (spec.filters * (4 if spec.bn else 1)
             + spec.filters * (ic // spec.groups) * spec.size * spec.size)
 
@@ -186,6 +188,30 @@ def load_partial(path_or_file, layers: Sequence[LayerSpec],
             params.append({"bias": bias, "kernel": np.ascontiguousarray(w.T)})
             pos += need
             continue
+        if isinstance(spec, Local):
+            hh, ww, oc, k = spec.out_h, spec.out_w, spec.filters, spec.size
+            if not (hh and ww and spec.in_c):
+                raise ValueError(
+                    f"local layer {len(params)} has unpinned geometry "
+                    f"(out_h/out_w/in_c) — build configs through the "
+                    f"cfg parser, which sizes [local] from the input")
+            need = _floats(spec, ic)
+            if pos == floats.size:
+                break  # clean cutoff boundary
+            if pos + need > floats.size:
+                raise ValueError(
+                    f"weights file too short (ends mid-layer): local "
+                    f"{len(params)} needs {need} floats, "
+                    f"{floats.size - pos} remain")
+            nb = oc * hh * ww
+            bias = floats[pos:pos + nb].reshape(oc, hh, ww)
+            w = floats[pos + nb:pos + need].reshape(hh, ww, oc, spec.in_c,
+                                                    k, k)
+            params.append({"bias": np.ascontiguousarray(
+                               bias.transpose(1, 2, 0)),
+                           "kernel": w.copy()})
+            pos += need
+            continue
         conv = spec
         _groups_divide(conv, ic, len(params))
         ic = ic // conv.groups  # darknet grouped kernel: (oc, ic/g, k, k)
@@ -248,6 +274,14 @@ def save(path_or_file, layers: Sequence[LayerSpec], params, seen: int = 0,
                 f.write(np.ascontiguousarray(
                     np.asarray(p["kernel"], np.float32).T).tobytes())
                 continue
+            if isinstance(conv, Local):
+                # (H', W', F) biases in CHW order, then the
+                # location-major kernel as it is held
+                f.write(np.ascontiguousarray(np.asarray(
+                    p["bias"], np.float32).transpose(2, 0, 1)).tobytes())
+                f.write(np.ascontiguousarray(
+                    np.asarray(p["kernel"], np.float32)).tobytes())
+                continue
             keys = ("beta", "gamma", "mean", "var") if conv.bn else ("bias",)
             for key in keys:
                 f.write(np.asarray(p[key], np.float32).tobytes())
@@ -277,6 +311,13 @@ def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
                                      (ic, conv.out)).astype(np.float32),
                 "bias": rng.normal(0, 0.1, conv.out).astype(np.float32)})
             continue
+        if isinstance(conv, Local):
+            hwf = (conv.out_h, conv.out_w, conv.filters)
+            params.append({
+                "kernel": rng.normal(0, scale, hwf + (
+                    conv.in_c, conv.size, conv.size)).astype(np.float32),
+                "bias": rng.normal(0, 0.1, hwf).astype(np.float32)})
+            continue
         _groups_divide(conv, ic, len(params))
         ic = ic // conv.groups
         oc, k = conv.filters, conv.size
@@ -292,6 +333,14 @@ def random_params(layers: Sequence[LayerSpec], rng: np.random.Generator,
     return params
 
 
+def to_bytes(layers: Sequence[LayerSpec], params, seen: int = 0,
+             version=(0, 2, 0)) -> bytes:
+    """save's bytes, in memory."""
+    bio = _io.BytesIO()
+    save(bio, layers, params, seen=seen, version=version)
+    return bio.getvalue()
+
+
 # seeded weights: the residual branches' last convs are scaled by this
 RESIDUAL_SCALE = 0.1
 # seeded [yolo] heads, calibrated on the probe: this many boxes of the
@@ -302,13 +351,20 @@ PROBE_OBJECTS, SURE_LOGIT = 8, 2.0
 # seeded [Gaussian_yolo] heads: the sigma logits sit near this, so that
 # 1 - mean(sigma) (sigmoid(-4) = 0.018) leaves the scores nearly whole
 SIGMA_LOGIT = -4.0
+# seeded yolov1 [detection] heads: on the probe, each block of the flat
+# head (class probabilities, confidences, box x, y, sqrt w, sqrt h) gets
+# this (mean, spread) across its values; confidence x probability then
+# clears 0.2 for a few percent of the (box, class) pairs, and boxes are
+# about a tenth of the image wide
+DETECTION_BLOCKS = {"probs": (0.2, 0.15), "conf": (0.3, 0.2),
+                    "xy": (0.5, 0.2), "wh": (0.3, 0.05)}
 
 
 def _param_index(layers) -> dict:
     """{layer index: params index} of the weighted layers."""
     out = {}
     for idx, layer in enumerate(layers):
-        if isinstance(layer, (Conv, Connected)) or (
+        if isinstance(layer, (Conv, Connected, Local)) or (
                 isinstance(layer, Shortcut)
                 and layer.weights_type != "none"):
             out[idx] = len(out)
@@ -345,6 +401,45 @@ def _probe_head_outputs(cfg, params, seed: int):
     return [o.numpy().reshape(-1, o.shape[-1]).astype(np.float64)
             - folded[index[i]]["bias"] for o, i in zip(out, heads,
                                                        strict=True)]
+
+
+def _calibrate_detection_head(cfg, params, seed: int) -> None:
+    """yolov1 head shaping, in place: the last [connected] layer's
+    outputs are made affine in z, their zero-mean unit-spread value
+    across each block of the flat [detection] layout on a seeded probe,
+    with the block's DETECTION_BLOCKS (mean, spread). The probe is one
+    fp32 forward of the port's executor on the CPU up to the connected
+    layer, on the letterbox of a seeded 480x640 uint8 noise frame (what
+    a served frame of that kind gives the net)."""
+    import torch
+
+    from yolo_tpu_torch.models.graph import Darknet, fold_params
+    from yolo_tpu_torch.ops.letterbox import letterbox
+
+    head = cfg.detection_head
+    trunk = cfg.layers[:-2]            # up to the [connected] head
+    folded = fold_params(trunk, params[:-1], cfg.bn_eps)
+    frame = np.random.default_rng((seed, cfg.input_h)).integers(
+        0, 256, (1, 480, 640, cfg.in_channels), dtype=np.uint8)
+    x = letterbox(torch.from_numpy(frame), cfg.input_hw)
+    feats = Darknet(trunk, folded, device="cpu")(x)
+    feats = feats.numpy().transpose(0, 3, 1, 2).reshape(-1)  # CHW order
+    p = params[-1]
+    v = feats.astype(np.float64) @ p["kernel"].astype(np.float64)
+    s2, n, c = head.side ** 2, head.num, head.classes
+    blocks = np.empty(v.size, object)
+    blocks[:s2 * c] = "probs"
+    blocks[s2 * c:s2 * (c + n)] = "conf"
+    coords = np.arange(v.size - s2 * (c + n)) % head.coords
+    blocks[s2 * (c + n):] = np.where(coords < 2, "xy", "wh")
+    gain, shift = np.empty(v.size), np.empty(v.size)
+    for name, (mean, spread) in DETECTION_BLOCKS.items():
+        sel = blocks == name
+        m, sd = v[sel].mean(), v[sel].std()
+        gain[sel] = spread / sd
+        shift[sel] = mean - m * spread / sd
+    p["kernel"] = (p["kernel"] * gain).astype(np.float32)
+    p["bias"] = shift.astype(np.float32)
 
 
 def _calibrate_yolo_heads(cfg, params, heads, seed: int,
@@ -418,15 +513,19 @@ def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
     its logistic, and a Gaussian head's sigma logits sit near
     SIGMA_LOGIT; shortcut blend weights stay darknet's ones. A
     classifier (a connected kernel's fan-in is its input features) keeps
-    the He weights as they are."""
+    the He weights as they are. A yolov1 [detection] head, whose flat
+    values are used without an activation, is shaped on the probe block
+    by block (_calibrate_detection_head)."""
     params = random_params(cfg.layers, np.random.default_rng(seed),
                            input_channels=cfg.in_channels)
     for p in params:
         if "kernel" not in p:
             continue                       # shortcut blend weights
         k = p["kernel"]
-        p["kernel"] = (k * (np.sqrt(2.0 / np.prod(k.shape[:-1])) / 0.1)) \
-            .astype(np.float32)
+        # fan-in: HWI of a conv, in of a connected layer, (C, k, k) of
+        # a local layer's (H', W', F, C, k, k)
+        fan_in = np.prod(k.shape[3:] if k.ndim == 6 else k.shape[:-1])
+        p["kernel"] = (k * (np.sqrt(2.0 / fan_in) / 0.1)).astype(np.float32)
     index = _param_index(cfg.layers)
     for idx, layer in enumerate(cfg.layers):
         if isinstance(layer, Shortcut) and isinstance(
@@ -434,6 +533,9 @@ def synthetic_detector_params(cfg, seed: int, *, box_scale: float = 0.1,
             params[index[idx - 1]]["kernel"] *= np.float32(RESIDUAL_SCALE)
     if cfg.head_kind == "softmax":
         return params                      # a classifier: He weights
+    if cfg.head_kind == "detection":
+        _calibrate_detection_head(cfg, params, seed)
+        return params
     if cfg.head_kind == "yolo":
         _calibrate_yolo_heads(cfg, params, [
             (index[idx - 1], len(layer.mask), layer.gaussian)

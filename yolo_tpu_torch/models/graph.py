@@ -2,7 +2,8 @@
 
 ``Darknet`` interprets a ``ModelConfig.layers`` tuple of Conv / MaxPool /
 Route / Reorg / Shortcut / Sam / ScaleChannels / Upsample / AvgPool /
-YoloHead / Connected / Dropout / SoftmaxHead specs with BN folded into
+YoloHead / Connected / Dropout / SoftmaxHead / Crop / Local /
+DetectionHead specs with BN folded into
 each conv, so every conv block is conv (grouped, dilated or plain) +
 bias + activation (leaky, linear, mish, logistic, swish, relu or ramp).
 The JAX package's NHWC layout is kept at the boundary: input (B, H, W,
@@ -12,9 +13,13 @@ fp32, or, for a net with [yolo] heads, the tuple of the heads' inputs
 head), or, for a classifier, its [softmax] output (B, C) fp32: the
 probabilities, with a YOLO9000 tree the per-group conditionals, or with
 ``softmax_logits`` the logits before the softmax (what training's
-classifier_loss takes). A [connected] layer is a dense layer over the
-input flattened in CHW order with an fp32 sum (on bf16-rounded values in
-bf16 mode); [dropout] is the identity except in training. Inside,
+classifier_loss takes), or, for yolov1, the [detection] head's input
+(B, 1, 1, side²·(classes + num·(1+coords))) fp32. A [connected] layer is
+a dense layer over the input flattened in CHW order with an fp32 sum (on
+bf16-rounded values in bf16 mode); a [local] layer (_local) is fp32
+with true fp32 products in both modes, then cast; [crop] center-crops
+outside training and maps x to x*2-1; [dropout] is the identity except
+in training. Inside,
 activations are NCHW tensors in ``torch.channels_last`` memory and
 routes concatenate on
 dim 1. A weighted shortcut blends its inputs in fp32 with its blend
@@ -53,7 +58,9 @@ inference in two places:
   * in bf16 the conv emits bf16 (the JAX train conv's
     preferred_element_type is the compute dtype), so the training conv
     is a bf16 F.conv2d: fp32 accumulation, one rounding before BN.
-Training convs run no kernel of csrc/: in JAX they are XLA convs.
+Training convs run no kernel of csrc/: in JAX they are XLA convs. The
+[dropout] masks and the [crop] jitter are jax.random's draws from the
+step's key (utils/prng.py), on the host.
 """
 
 from __future__ import annotations
@@ -65,42 +72,35 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv,
-                                          Dropout, LayerSpec, MaxPool, Reorg,
-                                          Route, Sam, ScaleChannels,
-                                          Shortcut, SoftmaxHead, Upsample,
-                                          YoloHead, resolve_route,
-                                          weighted_specs)
+from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv, Crop,
+                                          DetectionHead, Dropout, LayerSpec,
+                                          Local, MaxPool, Reorg, Route, Sam,
+                                          ScaleChannels, Shortcut,
+                                          SoftmaxHead, Upsample, YoloHead,
+                                          resolve_route, weighted_specs)
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.ops import conv as conv_ops
 from yolo_tpu_torch.ops import entry as entry_ops
 from yolo_tpu_torch.ops.cuda import conv_kernel
 from yolo_tpu_torch.ops.pool import maxpool_nchw
-from yolo_tpu_torch.ops.precision import exact_for
+from yolo_tpu_torch.ops.precision import exact_for, no_tf32
 from yolo_tpu_torch.ops.reorg import reorg_nchw
+from yolo_tpu_torch.utils import prng
 
 NumpyParams = List[Dict[str, np.ndarray]]
 
 BN_MOMENTUM = 0.99
 
 
-# layer kinds of the JAX package the port lacks: the yolov1 layers,
-# ROADMAP A10's second half
-_UNPORTED = ("Crop", "Local", "DetectionHead")
 _LAYERS = (Conv, MaxPool, Route, Reorg, Shortcut, Sam, ScaleChannels,
-           Upsample, AvgPool, YoloHead, Connected, Dropout, SoftmaxHead)
+           Upsample, AvgPool, YoloHead, Connected, Dropout, SoftmaxHead,
+           Crop, Local, DetectionHead)
 
 
 def _check_layer(idx: int, layer: LayerSpec) -> None:
-    """The port's own specs are its layers; the JAX package's yolov1
-    layers are ROADMAP A10, and any other object (a JAX spec among them)
-    is not a spec of this package."""
+    """The port's own specs are its layers; any other object (a JAX spec
+    among them) is not a spec of this package."""
     if not isinstance(layer, _LAYERS):
-        name = type(layer).__name__
-        if name in _UNPORTED:
-            raise NotImplementedError(
-                f"layer {idx}: {name} is not a layer of the port (yolov1, "
-                f"ROADMAP A10)")
         raise TypeError(f"layer {idx}: {layer!r} is not a spec of "
                         f"yolo_tpu_torch.configs.specs")
 
@@ -203,6 +203,10 @@ def _weightless_layer(idx: int, layer: LayerSpec, x: torch.Tensor,
         return x
     if isinstance(layer, Dropout):
         return x    # darknet's test-mode forward; training: _dropout
+    if isinstance(layer, Crop):
+        return _crop(idx, layer, x, None)
+    if isinstance(layer, DetectionHead):
+        return x    # its input is the detection tensor (decode_detection)
     raise TypeError(f"layer {idx}: unknown layer spec {layer!r}")
 
 
@@ -218,6 +222,51 @@ def _connected(layer: Connected, x: torch.Tensor, kernel: torch.Tensor,
     y = conv_ops.activate(torch.matmul(xf, kernel) + bias, layer.act)
     return y.to(x.dtype)[:, :, None, None].contiguous(
         memory_format=torch.channels_last)
+
+
+def _local(layer: Local, x: torch.Tensor, kernel: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """graph.py::_local_layer, darknet's local_layer: a conv whose
+    filters differ at every output position. x (B, C, H, W); kernel
+    (H', W', F, C, k, k) fp32, bias (H', W', F) fp32. The patches are
+    unfolded in darknet's (c, ky, kx) order, which the weights file's
+    per-position (F, C, k, k) blocks follow; one fp32 product a position
+    with true fp32 products (no TF32) in both modes, bias and activation
+    in fp32, cast to x's dtype. Returns (B, F, H', W')."""
+    hh, ww, f = layer.out_h, layer.out_w, layer.filters
+    pad = layer.size // 2 if layer.pad else 0
+    cols = F.unfold(x.float(), layer.size, padding=pad,
+                    stride=layer.stride)                   # (B, P, H'W')
+    with no_tf32():
+        y = torch.bmm(cols.permute(2, 0, 1),
+                      kernel.reshape(hh * ww, f, -1).transpose(1, 2))
+    y = conv_ops.activate(y + bias.reshape(hh * ww, 1, f), layer.act)
+    return y.permute(1, 2, 0).reshape(x.shape[0], f, hh, ww).to(
+        x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _crop(idx: int, layer: Crop, x: torch.Tensor,
+          key: Optional[np.ndarray]) -> torch.Tensor:
+    """graph.py::apply_layers' Crop (darknet crop_layer): with a train
+    key, one (dy, dx, flip) for the batch from jax.random's draws of
+    fold_in(key, idx) split three ways, where the input exceeds the crop
+    or flip is on; else the center crop. Then x*2-1 unless noadjust.
+    x (B, C, H, W)."""
+    _, _, ih, iw = x.shape
+    ch, cw = layer.crop_h, layer.crop_w
+    if key is not None and (ih > ch or iw > cw or layer.flip):
+        kdy, kdx, kf = prng.split(prng.fold_in(key, idx), 3)
+        dy = int(prng.randint(kdy, (), 0, ih - ch + 1))
+        dx = int(prng.randint(kdx, (), 0, iw - cw + 1))
+        x = x[:, :, dy:dy + ch, dx:dx + cw]
+        if layer.flip and bool(prng.bernoulli(kf)):
+            x = x.flip(3)
+    else:
+        dy, dx = (ih - ch) // 2, (iw - cw) // 2
+        x = x[:, :, dy:dy + ch, dx:dx + cw]
+    if not layer.noadjust:
+        x = x * 2.0 - 1.0
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 def _softmax_head(layer: SoftmaxHead, x: torch.Tensor,
@@ -240,17 +289,18 @@ def _softmax_head(layer: SoftmaxHead, x: torch.Tensor,
 
 
 def _dropout(idx: int, layer: Dropout, x: torch.Tensor,
-             key: Optional[tuple]) -> torch.Tensor:
+             key: Optional[np.ndarray]) -> torch.Tensor:
     """darknet's inverted dropout in training: zero with probability p,
-    survivors scaled by 1 / (1 - p). The mask is drawn on the host from
-    a generator seeded with (key, layer index), so a step's masks are
-    the same on every device and a resumed run draws them again; no key
-    (or p = 0) is the identity."""
+    survivors scaled by 1 / (1 - p). The mask is the JAX package's,
+    bernoulli(fold_in(key, idx), 1 - p) over the NHWC shape, drawn on
+    the host (utils/prng.py) and permuted to x's (B, C, H, W); no key (or
+    p = 0) is the identity."""
     if key is None or layer.prob <= 0:
         return x
-    gen = torch.Generator().manual_seed(int(np.random.SeedSequence(
-        tuple(key) + (idx,)).generate_state(1, np.uint64)[0] >> 1))
-    keep = (torch.rand(x.shape, generator=gen) >= layer.prob).to(x.device)
+    b, c, h, w = x.shape
+    keep = torch.from_numpy(prng.bernoulli(
+        prng.fold_in(key, idx), 1.0 - layer.prob, (b, h, w, c))).permute(
+            0, 3, 1, 2).to(x.device)
     return torch.where(keep, x / (1.0 - layer.prob), torch.zeros_like(x))
 
 
@@ -304,6 +354,23 @@ def _blend_tensor(spec: Shortcut, p, i: int, device) -> torch.Tensor:
     return torch.from_numpy(w.copy()).to(device)
 
 
+def _local_tensors(spec: Local, p, i: int, device):
+    """A local layer's (H', W', F, C, k, k) kernel and (H', W', F) bias
+    as fp32 tensors."""
+    if set(p) != {"kernel", "bias"}:
+        raise ValueError(f"local {i}: expected {{kernel, bias}}, got "
+                         f"{sorted(p)}")
+    k = np.asarray(p["kernel"], np.float32)
+    want = (spec.out_h, spec.out_w, spec.filters, spec.in_c, spec.size,
+            spec.size)
+    if k.shape != want:
+        raise ValueError(f"local {i}: kernel {k.shape} does not match "
+                         f"{spec}")
+    return (torch.from_numpy(k.copy()).to(device),
+            torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+            .to(device))
+
+
 def _connected_tensors(spec: Connected, p, i: int, device):
     """A connected layer's (in, out) kernel and bias as fp32 tensors."""
     if set(p) != {"kernel", "bias"}:
@@ -322,8 +389,9 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                       device, dtype=torch.float32) -> List[Dict[str, Any]]:
     """Folded JAX-package params (HWIO numpy kernels) -> the port's
     tensors: OIHW kernels in ``dtype`` and channels_last memory, (in,
-    out) connected kernels in ``dtype``, fp32 biases and shortcut blend
-    weights, all on ``device``."""
+    out) connected kernels in ``dtype``, fp32 local kernels (JAX's
+    layout), fp32 biases and shortcut blend weights, all on
+    ``device``."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"params_from_numpy: {len(params)} param blocks "
@@ -336,6 +404,10 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
         if isinstance(spec, Connected):
             kernel, bias = _connected_tensors(spec, p, i, device)
             out.append({"kernel": kernel.to(dtype), "bias": bias})
+            continue
+        if isinstance(spec, Local):
+            kernel, bias = _local_tensors(spec, p, i, device)
+            out.append({"kernel": kernel, "bias": bias})
             continue
         if set(p) != {"kernel", "bias"}:
             raise ValueError(f"conv {i}: expected folded params "
@@ -452,9 +524,10 @@ class Darknet(torch.nn.Module):
                     layer, x, outputs[resolve_route(idx, layer.frm)],
                     getattr(self, f"weights{conv_i}"))
                 conv_i += 1
-            elif isinstance(layer, Connected):
-                x = _connected(layer, x, getattr(self, f"kernel{conv_i}"),
-                               getattr(self, f"bias{conv_i}"))
+            elif isinstance(layer, (Connected, Local)):
+                fn = _connected if isinstance(layer, Connected) else _local
+                x = fn(layer, x, getattr(self, f"kernel{conv_i}"),
+                       getattr(self, f"bias{conv_i}"))
                 conv_i += 1
             elif isinstance(layer, SoftmaxHead):
                 x = _softmax_head(layer, x, softmax_logits)
@@ -469,9 +542,9 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                             device) -> List[Dict[str, torch.Tensor]]:
     """Unfolded JAX-package params (HWIO numpy kernels; gamma, beta,
     mean, var or bias) -> fp32 tensors on ``device``: OIHW kernels in
-    channels_last memory, connected kernels (in, out), the rest as they
-    are. DarknetTrain.to_numpy is
-    the inverse, exactly."""
+    channels_last memory, connected kernels (in, out), local kernels in
+    JAX's (H', W', F, C, k, k), the rest as they are.
+    DarknetTrain.to_numpy is the inverse, exactly."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"train_params_from_numpy: {len(params)} param "
@@ -481,8 +554,10 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
         if isinstance(spec, Shortcut):
             out.append({"weights": _blend_tensor(spec, p, i, device)})
             continue
-        if isinstance(spec, Connected):
-            kernel, bias = _connected_tensors(spec, p, i, device)
+        if isinstance(spec, (Connected, Local)):
+            fn = (_connected_tensors if isinstance(spec, Connected)
+                  else _local_tensors)
+            kernel, bias = fn(spec, p, i, device)
             out.append({"kernel": kernel, "bias": bias})
             continue
         want = ({"kernel", "gamma", "beta", "mean", "var"} if spec.bn
@@ -583,18 +658,23 @@ class DarknetTrain(torch.nn.Module):
     def forward(self, x: torch.Tensor, *, compute_dtype=torch.float32,
                 bn_stats_fp32: bool = True, remat: bool = False,
                 softmax_logits: bool = False,
-                dropout_key: Optional[tuple] = None):
+                dropout_key: Optional[np.ndarray] = None):
         """x (B, H, W, C) in [0, 1] -> (logits (B, H/32, W/32,
         A*(5+C)) fp32, bn_updates). remat re-runs each conv block in the
         backward instead of keeping its intermediates. A classifier
         returns its (B, C) output, its logits with softmax_logits (the
-        training forward). dropout_key (the step and sub-batch) draws
-        the [dropout] masks; None keeps dropout the identity."""
+        training forward). dropout_key, the step's (and sub-batch's)
+        jax.random key (utils/prng.py), draws the [dropout] masks and the
+        [crop] jitter as the JAX package does; None keeps dropout the
+        identity and crops the center."""
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
-        x = x.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        if not isinstance(self.layers[0], Crop):
+            # a [crop] input layer maps the images in their own dtype
+            # first, as the JAX train step's does
+            x = x.to(compute_dtype)
         outputs: Dict[int, torch.Tensor] = {}
         heads: List[torch.Tensor] = []
         bn_updates: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -624,12 +704,16 @@ class DarknetTrain(torch.nn.Module):
                         layer, x, outputs[resolve_route(idx, layer.frm)],
                         self.blocks[conv_i].weights)
                     conv_i += 1
-                elif isinstance(layer, Connected):
+                elif isinstance(layer, (Connected, Local)):
+                    fn = (_connected if isinstance(layer, Connected)
+                          else _local)
                     b = self.blocks[conv_i]
-                    x = _connected(layer, x, b.kernel, b.bias)
+                    x = fn(layer, x, b.kernel, b.bias)
                     conv_i += 1
                 elif isinstance(layer, Dropout):
                     x = _dropout(idx, layer, x, dropout_key)
+                elif isinstance(layer, Crop):
+                    x = _crop(idx, layer, x, dropout_key).to(compute_dtype)
                 elif isinstance(layer, SoftmaxHead):
                     x = _softmax_head(layer, x, softmax_logits)
                 else:

@@ -7,6 +7,9 @@ PyTorch runs eagerly, so there is no jit cache: make_detector returns a
 plain function. The compute dtype is the Darknet module's (``net``), and
 the letterbox runs in it too.
 
+yolov1 models ([detection]) decode their flat head (decode_detection)
+on the reference route only: head="fused" raises, as in the JAX package.
+
 YOLO9000 tree models ([region] tree=) decode through the hierarchy:
 the greedy traversal (hier_thresh) or, with use_tree_map, the [region]
 map= projection; the fused route runs ops/head.py::detect_head_tree.
@@ -28,7 +31,7 @@ from yolo_tpu_torch.configs.specs import (ModelConfig, Route, Sam,
 from yolo_tpu_torch.models.graph import Darknet
 from yolo_tpu_torch.ops import entry as entry_ops
 from yolo_tpu_torch.ops.cuda import entry_kernel
-from yolo_tpu_torch.ops.decode import decode, decode_yolo
+from yolo_tpu_torch.ops.decode import decode, decode_detection, decode_yolo
 from yolo_tpu_torch.ops.letterbox import (letterbox, stretch_resize,
                                           unletterbox_boxes_xyxy,
                                           unstretch_boxes_xyxy)
@@ -86,9 +89,20 @@ def _postprocess(cfg: ModelConfig, logits, *,
     if head == "auto":
         # fused heads are exact only while few boxes clear the
         # threshold; at PR-curve thresholds take the reference path
-        head = "fused" if on_cuda and conf_t >= 0.1 else "reference"
+        head = ("fused" if on_cuda and conf_t >= 0.1
+                and cfg.head_kind != "detection" else "reference")
     if head not in ("fused", "reference"):
         raise ValueError(f"unknown head {head!r} (auto | fused | reference)")
+    if cfg.head_kind == "detection":
+        # a 7x7*num candidate set: a fused prefilter has nothing to save
+        if head == "fused":
+            raise ValueError("head='fused' does not support yolov1 "
+                             "[detection] models")
+        boxes, scores = decode_detection(logits, cfg.detection_head)
+        return nms_batch(
+            boxes, scores, conf_threshold=conf_t, iou_threshold=iou_t,
+            top_k=top_k, max_detections=max_detections, impl=nms_impl,
+            kind=cfg.nms_kind, beta=cfg.beta_nms)
     # prefilter budget of the fused heads: top_k suffices at high
     # thresholds; near the exactness boundary spend 2x so the objectness
     # cut can't drop passing boxes

@@ -1,5 +1,4 @@
-"""Region and [yolo] decode (port of yolo_tpu/ops/decode.py, flat
-classes only).
+"""Region, [yolo] and [detection] decode (port of yolo_tpu/ops/decode.py).
 
 [region] (yolov2), anchors in cell units:
   bx = (sigmoid(tx) + cx) / W,  by = (sigmoid(ty) + cy) / H
@@ -15,6 +14,11 @@ scaled-yolov4 new_coords heads, values already logistic (v):
 [Gaussian_yolo] heads, 9+C channels an anchor [x, ux, y, uy, w, uw, h,
 uh, obj, cls...]: the box from x/y/w/h as [yolo], score = sigmoid(obj)
 * (1 - mean(sigmoid(u))) * sigmoid(cls).
+
+[detection] (yolov1), the flat layout of specs.DetectionHead:
+  bx = (tx + col) / side,  by = (ty + row) / side
+  bw = tw^2, bh = th^2 (sqrt=1; tw, th as they are with sqrt=0)
+  score = confidence * class probability, no activation
 
 YOLO9000 trees (configs/tree.py): the class logits are soft-maxed per
 sibling group (tree_conditional_probs); a node's absolute probability is
@@ -271,3 +275,27 @@ def decode_head_boxes(t, anchors_px, mask, s_xy: float, net_size,
         bw = anch[None, None, None, :, 0] * torch.exp(t[..., 2]) / net_w
         bh = anch[None, None, None, :, 1] * torch.exp(t[..., 3]) / net_h
     return torch.stack([bx, by, bw, bh], dim=-1)
+
+
+def decode_detection(flat: torch.Tensor, head) -> tuple:
+    """yolov1 [detection] decode (decode.py::decode_detection): flat (B,
+    side²·(classes + num·(1+coords))) values (any trailing shape) ->
+    boxes (B, side²·num, 4) normalized xywh and scores (B, side²·num,
+    classes) = confidence · class probability, fp32."""
+    s, n, c = head.side, head.num, head.classes
+    b = flat.shape[0]
+    t = flat.to(torch.float32).reshape(b, -1)
+    probs = t[:, :s * s * c].reshape(b, s * s, 1, c)
+    conf = t[:, s * s * c:s * s * (c + n)].reshape(b, s * s, n)
+    boxes = t[:, s * s * (c + n):].reshape(b, s * s, n, head.coords)
+    cell = torch.arange(s * s, dtype=torch.float32, device=t.device)
+    col, row = (cell % s)[None, :, None], (cell // s)[None, :, None]
+    bx = (boxes[..., 0] + col) / s
+    by = (boxes[..., 1] + row) / s
+    if head.sqrt:
+        bw, bh = boxes[..., 2].square(), boxes[..., 3].square()
+    else:
+        bw, bh = boxes[..., 2], boxes[..., 3]
+    scores = conf[..., None] * probs
+    out_boxes = torch.stack([bx, by, bw, bh], dim=-1)
+    return out_boxes.reshape(b, -1, 4), scores.reshape(b, -1, c)

@@ -41,6 +41,19 @@ def _top_k(x: torch.Tensor, k: int):
     return values[..., :k], idx[..., :k]
 
 
+def pairwise_iou_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    """boxes (K, 4) xywh -> IoU matrix (K, K) in fp32."""
+    g = _geom(boxes.to(torch.float32))
+    x1, y1, x2, y2, area = g.unbind(-2)
+    iw = (torch.minimum(x2[:, None], x2[None, :])
+          - torch.maximum(x1[:, None], x1[None, :])).clamp_min(0.0)
+    ih = (torch.minimum(y2[:, None], y2[None, :])
+          - torch.maximum(y1[:, None], y1[None, :])).clamp_min(0.0)
+    inter = iw * ih
+    union = area[:, None] + area[None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(union))
+
+
 def _geom(boxes_k: torch.Tensor) -> torch.Tensor:
     """(..., K, 4) xywh -> (..., 5, K) rows [x1, y1, x2, y2, area]."""
     x1 = boxes_k[..., 0] - boxes_k[..., 2] / 2
@@ -230,3 +243,9 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor, *,
 
     raise ValueError(f"unknown NMS impl {impl!r}")
 
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, **kw):
+    """nms_batch on one image: boxes (N, 4), scores (N, C)."""
+    out = nms_batch(boxes[None], scores[None], **kw)
+    return {key: v[0] for key, v in out.items()}

@@ -1,6 +1,6 @@
-"""fp32 convolutions without TF32, as the JAX package's fp32 path
-(Precision.HIGHEST). cuDNN runs fp32 convs in TF32 by default and the
-flag is process-wide."""
+"""fp32 convolutions and products without TF32, as the JAX package's
+fp32 path (Precision.HIGHEST). cuDNN runs fp32 convs in TF32 by default
+and the flags are process-wide."""
 
 from __future__ import annotations
 
@@ -11,21 +11,24 @@ import torch
 
 
 class _NoTF32:
-    """Keeps cuDNN's TF32 off while any fp32 forward runs. The flag is
-    process-wide, so overlapping forwards (the server's worker thread and
-    a caller's) share one save/restore, counted under a lock."""
+    """Keeps TF32 off in cuDNN and cuBLAS while any fp32 forward runs.
+    The flags are process-wide, so overlapping forwards (the server's
+    worker thread and a caller's) share one save/restore, counted under
+    a lock."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._depth = 0
-        self._saved = True
+        self._saved = (True, False)
 
     @contextlib.contextmanager
     def __call__(self):
         with self._lock:
             if self._depth == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
+                self._saved = (torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32)
                 torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
             self._depth += 1
         try:
             yield
@@ -33,7 +36,8 @@ class _NoTF32:
             with self._lock:
                 self._depth -= 1
                 if self._depth == 0:
-                    torch.backends.cudnn.allow_tf32 = self._saved
+                    (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32) = self._saved
 
 
 no_tf32 = _NoTF32()

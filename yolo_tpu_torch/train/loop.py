@@ -1,5 +1,6 @@
 """Training step for the region heads (YOLO9000 trees too), the [yolo]
-heads and the darknet classifiers (port of yolo_tpu/train/loop.py).
+heads, the yolov1 [detection] head and the darknet classifiers (port of
+yolo_tpu/train/loop.py).
 
   state = init_state(mcfg, params, tcfg)          # device="cuda"
   step = make_train_step(mcfg, tcfg, compute_dtype=torch.bfloat16)
@@ -14,14 +15,18 @@ and the step and seen counters. As the JAX package's optax chain:
   * Adam: the decay enters the gradient before the moments
     (torch.optim.Adam's weight_decay, not AdamW's decoupled form).
   * LR: each group's lr is set from lr_schedule(step) before every
-    optimizer.step(); darknet's batch_num is step + 1.
+    optimizer.step(); darknet's batch_num is step + 1. policy=random
+    draws its factor from jax.random's generator (utils/prng.py), keyed
+    on (lr_random_seed, batch_num) as the JAX schedule is.
 
 Gradient accumulation splits the batch with a stride (sub-batch i is
 batch[i::accum]), chains the rolling BN statistics through the
 sub-passes and averages loss, parts and gradients. The EMA track
 (ema_alpha) follows kernels, gamma, beta and biases. A classifier's
 batch holds "images" and "labels"; its step trains classifier_loss on
-the softmax head's logits, with fresh [dropout] masks each step.
+the softmax head's logits. The [dropout] masks and the [crop] jitter
+are the JAX package's: drawn from fold_in(PRNGKey(0), step), and under
+accumulation from fold_in of that with the sub-batch index.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.models.graph import DarknetTrain, apply_bn_updates
 from yolo_tpu_torch.ops.precision import exact_for
 from yolo_tpu_torch.train.loss import (LossConfig, YoloLossConfig,
-                                       classifier_loss, region_loss,
-                                       yolo_loss)
+                                       classifier_loss, detection_loss,
+                                       region_loss, yolo_loss)
+from yolo_tpu_torch.utils import prng
 
 # Darknet multi-scale training sizes (yolov2.cfg random=1: {320..608}/32).
 MULTISCALE_SIZES = tuple(range(320, 609, 32))
@@ -47,8 +53,7 @@ MULTISCALE_SIZES = tuple(range(320, 609, 32))
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig, less lr_random_seed (ROADMAP A9e).
-    The multi-scale knobs are read by the train command (cli/train_cmd.py:
+    """The JAX package's TrainConfig. The multi-scale knobs are read by the train command (cli/train_cmd.py:
     size_for_batch through pick_scale); loss is the region head's, yolo_loss the [yolo] heads'
     (train.loss.region_loss_config / yolo_loss_config build them from a
     ModelConfig). See yolo_tpu/train/loop.py for each policy's darknet
@@ -75,7 +80,8 @@ class TrainConfig:
     lr_sgdr_cycle: int = 0          # policy=sgdr
     lr_sgdr_mult: int = 2
     lr_min: float = 1e-5
-    lr_random: bool = False         # policy=random: not ported (ROADMAP A9)
+    lr_random: bool = False         # policy=random: lr * u^power
+    lr_random_seed: int = 0         # u keyed on (seed, batch_num)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     yolo_loss: YoloLossConfig = dataclasses.field(
         default_factory=YoloLossConfig)
@@ -97,9 +103,9 @@ def train_config_from_cfg(cfg_path: str, model_cfg: ModelConfig
     the cfg is silent; policy steps / poly / step / exp / sigmoid / sgdr
     with their keys, adam=1 with B1/B2/eps, subdivisions as grad_accum,
     ema_alpha with its start at max_batches // 2; the loss configs from
-    ``model_cfg`` (parsed from the same file). Where the JAX command
-    exits, this raises ValueError; policy=random raises
-    NotImplementedError (lr_random)."""
+    ``model_cfg`` (parsed from the same file); policy=random as the JAX
+    command's --allow-deviations at --seed 0 gives it (lr_random, seed
+    0). Where the JAX command exits, this raises ValueError."""
     from yolo_tpu_torch.configs.darknet_cfg import net_training_params
     from yolo_tpu_torch.train.loss import (region_loss_config,
                                            yolo_loss_config)
@@ -159,8 +165,6 @@ def train_config_from_cfg(cfg_path: str, model_cfg: ModelConfig
         ema_start_step=hp.get("max_batches", 0) // 2,
         loss=region_loss_config(model_cfg),
         yolo_loss=yolo_loss_config(model_cfg), **kw)
-    if tcfg.lr_random:
-        lr_schedule(tcfg)   # raises: the draw is jax.random's
     return tcfg
 
 
@@ -192,11 +196,9 @@ def lr_schedule(cfg: TrainConfig):
     subnormal results flushed to zero as XLA does. While
     batch_num < burn_in it returns the ramp lr * (batch_num /
     burn_in)^power alone; after it, the policy term. batch_num = step + 1
-    (darknet counts the batch before update_network)."""
-    if cfg.lr_random:
-        raise NotImplementedError(
-            "policy=random draws from jax.random, which the port cannot "
-            "reproduce without JAX: not ported yet (ROADMAP A9)")
+    (darknet counts the batch before update_network). policy=random
+    multiplies by u^power, u = jax.random.uniform(fold_in(PRNGKey(
+    lr_random_seed), batch_num)) as utils/prng.py draws it."""
     tiny = np.finfo(np.float32).tiny
 
     def f32(v) -> np.float32:
@@ -227,6 +229,10 @@ def lr_schedule(cfg: TrainConfig):
             with np.errstate(over="ignore"):   # exp -> inf gives lr 0
                 policy_lr = f32(policy_lr / f32(f32(1.0) + np.exp(f32(
                     f32(cfg.lr_sig_gamma) * f32(fb - f32(cfg.lr_sig_step))))))
+        if cfg.lr_random:
+            u = prng.uniform(prng.fold_in(prng.PRNGKey(cfg.lr_random_seed),
+                                          bnum))
+            policy_lr = f32(policy_lr * f32(u ** power))
         if cfg.lr_sgdr_cycle:
             # the boundary batch stays in the old cycle (strict <)
             lo = f32(cfg.lr_min)
@@ -372,7 +378,7 @@ def ema_params_of(state: TrainState):
 
 
 def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int,
-             dropout_key: tuple, *, mcfg: ModelConfig, tcfg: TrainConfig,
+             dropout_key: np.ndarray, *, mcfg: ModelConfig, tcfg: TrainConfig,
              compute_dtype):
     classifier = mcfg.head_kind == "softmax"
     logits, bn_updates = state.net(
@@ -385,6 +391,8 @@ def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int,
         head = next(l for l in mcfg.layers if isinstance(l, SoftmaxHead))
         total, parts = classifier_loss(logits, sub["labels"], tree=head.tree,
                                        temperature=head.temperature)
+    elif mcfg.head_kind == "detection":
+        total, parts = detection_loss(logits, sub, mcfg.detection_head)
     elif mcfg.head_kind == "yolo":
         if mcfg.objectness_smooth:
             # as the JAX package's train_step: no reference source pins
@@ -427,6 +435,9 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
             raise ValueError(f"batch[{key!r}] is on {t.device}, the state "
                              f"on {net.device}")
     state.optimizer.zero_grad(set_to_none=True)
+    # the JAX step's key: fold_in(PRNGKey(0), step), folded again with
+    # the sub-batch index under accumulation
+    step_key = prng.fold_in(prng.PRNGKey(0), state.step)
     loss_fn = partial(_loss_fn, mcfg=mcfg, tcfg=tcfg,
                       compute_dtype=compute_dtype)
     sub_bs = batch_size // accum
@@ -435,11 +446,9 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
         for i in range(accum):
             sub = ({k: v[i::accum] for k, v in batch.items()}
                    if accum > 1 else batch)
-            # dropout masks keyed on (step, sub-batch): fresh each step,
-            # drawn again by a resumed run
-            loss, parts, bn_updates = loss_fn(state, sub,
-                                              state.seen + i * sub_bs,
-                                              (state.step, i))
+            loss, parts, bn_updates = loss_fn(
+                state, sub, state.seen + i * sub_bs,
+                prng.fold_in(step_key, i) if accum > 1 else step_key)
             loss.backward()
             # rolling statistics chain through the sub-passes; mean/var
             # take no gradient, so the weight gradients are unchanged
@@ -476,9 +485,6 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig,
                     compute_dtype=torch.float32):
     """``fn(state, batch) -> metrics``, train_step bound to its configs."""
-    if tcfg.lr_random:
-        lr_schedule(tcfg)   # raises: not ported
-
     return partial(train_step, mcfg=mcfg, tcfg=tcfg,
                    compute_dtype=compute_dtype)
 

@@ -1,7 +1,6 @@
-"""YOLOv2 region loss (YOLO9000 trees too), the yolov3/v4 [yolo] loss
-and the darknet classifiers' cross-entropy (port of
-yolo_tpu/train/loss.py; the yolov1 detection loss is ROADMAP A10's
-second half).
+"""YOLOv2 region loss (YOLO9000 trees too), the yolov3/v4 [yolo] loss,
+the yolov1 [detection] loss and the darknet classifiers' cross-entropy
+(port of yolo_tpu/train/loss.py).
 
 Darknet region-layer semantics, each squared error weighted once by its
 scale:
@@ -22,7 +21,7 @@ Every term is computed from the raw head logits in fp32 and divided by
 the batch size. The rescore target and the noobj gate carry no gradient,
 as darknet's deltas. yolo_loss is documented at YoloLossConfig, with
 the scaled-yolov4 new_coords heads and the Gaussian YOLOv3 heads;
-classifier_loss at its definition.
+classifier_loss and detection_loss at their definitions.
 """
 
 from __future__ import annotations
@@ -120,6 +119,68 @@ def _diag_iou_variant(p: torch.Tensor, g: torch.Tensor, kind: str,
 def _diag_iou(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Elementwise IoU of matching (..., 4) xywh boxes."""
     return _diag_iou_variant(p, g, "iou")
+
+
+def detection_loss(flat: torch.Tensor, targets: Dict[str, torch.Tensor],
+                   head) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """YOLOv1's loss, eq. 3 of arXiv:1506.02640 with the [detection]
+    scale keys (loss.py::detection_loss):
+
+      coord_scale    sum 1obj_ij [(tx-x_rel)^2 + (ty-y_rel)^2
+                                  + (tw-sqrt w)^2 + (th-sqrt h)^2]  (sqrt=1)
+      object_scale   sum 1obj_ij (C - conf)^2, C the live IoU (rescore=1)
+                                               or 1
+      noobject_scale sum (1 - 1obj_ij) conf^2
+      class_scale    sum 1obj_i ||probs - onehot||^2, per cell
+
+    The responsible predictor of an object cell is its max-IoU box
+    against the truth, or, where every IoU is 0, the box nearest the
+    truth (darknet's min-RMSE fallback). flat (B, side²(classes +
+    num(1+coords))) raw activations (any trailing shape); targets of
+    data.targets.encode_v1. Parts and total are divided by the batch
+    size; the rescore target carries no gradient."""
+    s, n, c = head.side, head.num, head.classes
+    b = flat.shape[0]
+    t = flat.to(torch.float32).reshape(b, -1)
+    probs = t[:, :s * s * c].reshape(b, s * s, c)
+    conf = t[:, s * s * c:s * s * (c + n)].reshape(b, s * s, n)
+    boxt = t[:, s * s * (c + n):].reshape(b, s * s, n, head.coords)
+    obj = targets["v1_obj"].float()                # (B, S²)
+    tbox = targets["v1_box"].float()               # (B, S², 4)
+    tcls = targets["v1_cls"].long()                # (B, S²)
+
+    cell = torch.arange(s * s, dtype=torch.float32, device=t.device)
+    col, row = (cell % s)[None, :, None], (cell // s)[None, :, None]
+    pw = boxt[..., 2].square() if head.sqrt else boxt[..., 2]
+    ph = boxt[..., 3].square() if head.sqrt else boxt[..., 3]
+    pred = torch.stack([(boxt[..., 0] + col) / s, (boxt[..., 1] + row) / s,
+                        pw, ph], dim=-1)                    # (B, S², N, 4)
+    iou = _iou_xywh_pairwise(pred, tbox[:, :, None, :])[..., 0]
+    dist2 = (pred - tbox[:, :, None, :]).square().sum(dim=-1)
+    best = torch.where(iou.amax(dim=-1) > 0, iou.argmax(dim=-1),
+                       dist2.argmin(dim=-1))
+    resp = F.one_hot(best, n).float() * obj[..., None]       # (B, S², N)
+
+    xr = tbox[..., 0] * s - col[..., 0]
+    yr = tbox[..., 1] * s - row[..., 0]
+    tw = tbox[..., 2].sqrt() if head.sqrt else tbox[..., 2]
+    th = tbox[..., 3].sqrt() if head.sqrt else tbox[..., 3]
+    sq = ((boxt[..., 0] - xr[..., None]).square()
+          + (boxt[..., 1] - yr[..., None]).square()
+          + (boxt[..., 2] - tw[..., None]).square()
+          + (boxt[..., 3] - th[..., None]).square())
+    ctarget = iou.detach() if head.rescore else torch.ones_like(iou)
+    onehot = F.one_hot(tcls, c).float()
+    parts = {
+        "coord": head.coord_scale * (resp * sq).sum() / b,
+        "obj": head.object_scale * (resp * (ctarget - conf).square()).sum()
+        / b,
+        "noobj": head.noobject_scale * ((1.0 - resp) * conf.square()).sum()
+        / b,
+        "class": head.class_scale * (obj[..., None]
+                                     * (probs - onehot).square()).sum() / b,
+    }
+    return sum(parts.values()), parts
 
 
 def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
