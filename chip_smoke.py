@@ -9,11 +9,13 @@ JSON lines; any failed check raises and the script exits non-zero:
 
   1. device   nvidia-smi name and power limit, torch and CUDA versions
   2. build    compile the CUDA kernels from the checkout; count the
-              HGMMA (wgmma) instructions of each kernel in the library
-              (cuobjdump --dump-sass): every bf16 conv kernel must have some;
-              the registers, stack and local memory that ptxas gave the
-              fp32 conv and NMS kernels (cuobjdump --dump-resource-usage):
-              none may spill (stack and local memory 0)
+              wgmma instructions (HGMMA, IGMMA for int8) of each kernel
+              in the library (cuobjdump --dump-sass): every bf16 conv
+              kernel and every s8 wgmma conv kernel must have some; the
+              registers, stack and local memory that ptxas gave the fp32
+              conv, s8 conv and NMS kernels (cuobjdump
+              --dump-resource-usage): none may spill (stack and local
+              memory 0)
   3. kernel   CUDA greedy-NMS suppress vs its plain PyTorch version on
               crowded scenes at the served shapes: identical keep masks
   4. serve    YOLOv2-COCO 416 (full width, seeded random weights written
@@ -237,6 +239,38 @@ JSON lines; any failed check raises and the script exits non-zero:
               card against CPU (choices held, V1_STEP_BOUND), the
               [dropout] masks equal on both sides; (e) `predict --cfg`
               prints load()'s detections
+ 19. int8     int8 post-training quantization (models/quantize.py) of
+              YOLOv2-COCO 416 on phase 4's seeded weights, calibrated by
+              prepare_int8 on INT8_CALIB seeded frames (host letterbox),
+              chained, served in bf16 (the CLI's --precision int8): (a)
+              the s8 kernel (csrc/conv_s8_bias_act.cu) against its plain
+              block on the same card tensors at every conv shape of the
+              net (conv 0 on the dp4a body) and INT8_EXTRA_SHAPES
+              (grouped, dilated), batch 1 and 32, int8 codes and bf16
+              in, int8, bf16 and fp32 out: the same bytes; (b) a served
+              forward makes INT8_CONVS s8 launches and one NMS launch,
+              no bf16 conv or entry kernel launch, no plain block on the
+              card; (c) tests/test_quantize.py's gates against the fp32
+              plain path (score deviation < INT8_GATE_DEV, top-50
+              overlap > INT8_GATE_OVERLAP) on the batch calibrated on,
+              as the JAX tests take them, and the box-level match share
+              both ways, printed; (d) card against CPU on the same int8
+              params at batch 2: every layer's output equal, int8 codes
+              at each chained boundary; (e) `predict --precision int8`
+              prints a direct call's detections, and an int8 server
+              (serve's _serve_net + DetectionServer) answers a JPEG and
+              an .npy body as direct calls; (f) int8 img/s at batch
+              1/32/128 beside the bf16 default route and
+              conv_impl="cuda"; per s8 call of a forward at batch 1 and
+              32, kernel, plain, bound and library ms (torch._int_mm on
+              the im2col'd GEMM operands, the GEMM alone), summed over
+              the 23 convs for the kernels line; (g) yolov4 @608 int8 at
+              batch 32 (phase 12's weights): 110 s8 launches (72 mish
+              epilogues), every s8 call of a forward against the plain
+              block on its own inputs (leaky and linear the same bytes,
+              mish within 1 code and 1 bf16 ulp), the top-50 overlap
+              gate; its score deviation is printed beside the JAX
+              package's own on the same inputs (V4_JAX_SCORE_DEV)
 
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
@@ -270,6 +304,7 @@ script's total seconds. Exits non-zero without printing a result
 when CUDA is not available.
 """
 
+import argparse
 import collections
 import concurrent.futures as cf
 import contextlib
@@ -372,7 +407,8 @@ TIME_REPEATS = 3
 ROUTE_CONVS = 16         # YOLOv2-COCO convs with CIN, CO % 128 == 0
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+               torch.int8: 1979e12}
 NMS_PAIR_FLOP = 13        # one IoU and its test (nms_suppress.cu)
 
 # phases 10-11: fine-tuning YOLOv2-VOC 416 and its VOC mAP
@@ -631,15 +667,15 @@ def cuobjdump(lib: str, what: str) -> str:
 
 
 def hgmma_counts(lib: str) -> dict:
-    """{kernel: HGMMA instructions} of every kernel in the built library,
-    from cuobjdump --dump-sass (template arguments kept, e.g.
-    conv_bf16_kernel<128,256,4>)."""
+    """{kernel: wgmma instructions (SASS HGMMA, or IGMMA for int8)} of
+    every kernel in the built library, from cuobjdump --dump-sass
+    (template arguments kept, e.g. conv_bf16_kernel<128,256,4>)."""
     counts, name = {}, None
     for line in cuobjdump(lib, "--dump-sass").splitlines():
         if "Function :" in line:
             name = _kernel_name(line.split("Function :")[1].strip())
             counts.setdefault(name, 0)
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and ("HGMMA" in line or "IGMMA" in line):
             counts[name] += 1
     return counts
 
@@ -677,11 +713,13 @@ def _kernel_name(mangled: str) -> str:
             break
     else:
         return mangled
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
+    args = re.match(r"I((?:Li\d+E)+)(a|f|13__nv_bfloat16)?E", mangled[end:])
     if not args:
         return mangled[start:end]
-    nums = ",".join(re.findall(r"[0-9]+", args.group(1)))
-    return f"{mangled[start:end]}<{nums}>"
+    nums = re.findall(r"[0-9]+", args.group(1))
+    if args.group(2):   # a type argument: the s8 kernel's output type
+        nums.append({"a": "int8", "f": "float"}.get(args.group(2), "bf16"))
+    return f"{mangled[start:end]}<{','.join(nums)}>"
 
 
 def crowded_rows(rng, g, k, per_class):
@@ -3938,6 +3976,496 @@ def phase_yolov1(root: str, gen, card: str) -> dict:
             "convs": sum(shapes.values())}
 
 
+# phase 19: int8 post-training quantization (models/quantize.py) of
+# YOLOv2-COCO 416 on phase 4's seeded weights, chained, served in bf16 as
+# the CLI's --precision int8
+INT8_CALIB = 8            # seeded frames prepare_int8 calibrates on
+INT8_CONVS = 23           # s8 launches a forward: every conv
+# tests/test_quantize.py's gates against the fp32 plain path: the largest
+# |score_fp32 - score_int8| and the top-50 overlap of the two
+INT8_GATE_DEV = 0.3
+INT8_GATE_OVERLAP = 0.6
+INT8_GATE_BATCH = 2       # the JAX tests' batch for the two gates
+INT8_CHECK_BATCHES = (1, 32)
+INT8_E2E_BATCHES = (1, 32, 128)
+INT8_CPU_BATCH = 2        # (d), card against CPU
+# shapes no YOLOv2-COCO conv has: grouped (mma body), grouped narrow
+# (dp4a), dilated; (h, w, cin, co, ks, stride, groups, dilation, act)
+INT8_EXTRA_SHAPES = ((26, 26, 512, 512, 3, 1, 4, 1, "leaky"),
+                     (26, 26, 96, 96, 3, 1, 6, 1, "leaky"),
+                     (52, 52, 128, 128, 3, 1, 1, 2, "leaky"))
+V4_INT8_BATCH = 32        # (g): yolov4 @608, mish in the epilogue
+V4_INT8_CONVS = 110
+# (g)'s score deviation is printed, not gated at INT8_GATE_DEV: on these
+# seeded weights the JAX package's own int8 (yolo_tpu.models.quantize on
+# the CPU, the same frames and calibration: tools/int8_gates.py yolov4)
+# deviates by 0.4850 on the gate batch; the top-50 overlap gate holds
+# (JAX: 0.80)
+V4_JAX_SCORE_DEV = 0.4850
+
+
+def int8_calibrated(cfg, weights: str, device="cuda") -> tuple:
+    """prepare_int8 of a seeded .weights file on INT8_CALIB seeded raw
+    frames letterboxed on the host (the CLI's calibration input) ->
+    (int8 numpy params, folded numpy params, seconds, the calibration
+    batch on the card)."""
+    from yolo_tpu_torch.models import quantize
+
+    params, _ = dw.load(weights, cfg.layers)
+    raw = np.random.default_rng(SEED + 19).integers(
+        0, 256, (INT8_CALIB, *SRC_HW, 3), dtype=np.uint8)
+    calib = np.stack([_host_resize(f, cfg.input_hw, "letterbox")
+                      for f in raw])
+    t0 = time.perf_counter()
+    q = quantize.prepare_int8(cfg, params, calib, device=device)
+    torch.cuda.synchronize()
+    return (q, fold_params(cfg.layers, params, cfg.bn_eps),
+            time.perf_counter() - t0, torch.from_numpy(calib).cuda())
+
+
+def s8_inputs(gen, b, shape) -> tuple:
+    """Seeded int8 codes, bf16 activations, an int8 kernel, fp32 scale
+    and bias for one conv shape, on the card."""
+    h, w, cin, co, ks, _, groups, _, _ = shape
+    xq = torch.randint(-127, 128, (b, cin, h, w), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    xf = (torch.randn(b, cin, h, w, generator=gen, device="cuda") * 2
+          ).to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (co, cin // groups, ks, ks), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    scale = torch.rand(co, generator=gen, device="cuda") * 1e-4 + 1e-6
+    bias = torch.randn(co, generator=gen, device="cuda")
+    cl = torch.channels_last
+    return (xq.contiguous(memory_format=cl), xf.contiguous(memory_format=cl),
+            kq.contiguous(memory_format=cl), scale, bias)
+
+
+def phase_int8_kernel(gen, shapes) -> float:
+    """(a) the s8 kernel against its plain version on the same card
+    tensors at every conv shape of YOLOv2-COCO (conv 0 on the dp4a body)
+    and INT8_EXTRA_SHAPES, batch 1 and 32: int8 codes and bf16 inputs;
+    int8, bf16 and fp32 outputs (at batch 32 one of each). Leaky and
+    linear: the same bytes. Returns the largest |kernel - plain|."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    worst = 0.0
+    for b in INT8_CHECK_BATCHES:
+        for shape in sorted(shapes) + list(INT8_EXTRA_SHAPES):
+            h, w, cin, co, ks, stride, groups, dil, act = shape
+            xq, xf, kq, scale, bias = s8_inputs(gen, b, shape)
+            combos = [(x, o, d) for x in (xq, xf)
+                      for o, d in ((0.05, None), (None, torch.bfloat16),
+                                   (None, torch.float32))]
+            if b > 1:
+                combos = [combos[3], combos[1], combos[2]]
+            for x, out_scale, dt in combos:
+                kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
+                          stride=stride, groups=groups, dilation=dil,
+                          out_dtype=dt or torch.float32)
+                got = conv_s8_kernel.conv_s8_bias_act(x, kq, scale, bias,
+                                                      **kw)
+                torch.cuda.synchronize()
+                want = conv_s8.conv_s8_bias_act(x, kq, scale, bias, **kw)
+                what = (f"s8 conv {b}x{h}x{w} {cin}->{co} {ks}x{ks}/"
+                        f"{stride} g{groups} d{dil} {x.dtype}->"
+                        f"{got.dtype}")
+                check(got.dtype == want.dtype and got.shape == want.shape
+                      and got.is_contiguous(memory_format=torch.channels_last),
+                      f"{what}: {got.dtype} {tuple(got.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                check(torch.equal(got, want), f"{what}: max |kernel - "
+                      f"plain| {err}, not the same bytes")
+                worst = max(worst, err)
+                emit({"phase": "int8_kernel", "batch": b, "shape": list(
+                    shape), "in": str(x.dtype), "out": str(got.dtype),
+                    "plan": list(conv_s8_kernel.plan(
+                        got.shape[0] * got.shape[2] * got.shape[3],
+                        cin // groups, co // groups, groups, stride=stride,
+                        dilation=dil, ks=ks)),
+                    "identical": True})
+    return worst
+
+
+def captured_s8_calls(net, x) -> list:
+    """The s8 wrapper's calls in one forward of net on x: (args, kwargs),
+    tensors cloned as the wrapper got them."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    got = []
+    kernel = conv_s8_kernel.conv_s8_bias_act
+
+    def capture(x, kq, scale, bias, **kw):
+        got.append(((x.clone(), kq, scale, bias), dict(kw)))
+        return kernel(x, kq, scale, bias, **kw)
+
+    conv_s8_kernel.conv_s8_bias_act = capture
+    try:
+        net(x)
+    finally:
+        conv_s8_kernel.conv_s8_bias_act = kernel
+    return got
+
+
+def int8_gemm_operands(x, kq, stride, dilation) -> tuple:
+    """The conv's GEMM operands for torch._int_mm: the im2col'd int8
+    activations (M, K) and the kernel as (K, N), K-major, K and N padded
+    with zeros to multiples of 8 (_int_mm's rule). Groups 1 only."""
+    ks = kq.shape[-1]
+    cols = F.unfold(x.float(), ks, dilation=dilation,
+                    padding=(ks // 2) * dilation, stride=stride)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    k, n = a.shape[1], kq.shape[0]
+    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+    a = F.pad(a, (0, k8 - k)).to(torch.int8).contiguous()
+    w = F.pad(kq.float().reshape(n, k), (0, k8 - k, 0, n8 - n)).to(
+        torch.int8).contiguous()
+    return a, w.t()
+
+
+def phase_int8_times(cfg, net, card: str) -> dict:
+    """(f) per s8 call of a forward at batch 1 and 32 (the inputs the
+    forward gave it, distinct shapes timed once): kernel, plain and
+    library ms beside the bound, and the sums over the 23 convs.
+    library_ms: torch._int_mm on the conv's GEMM operands (im2col'd for
+    3x3), the GEMM alone; the port never calls it."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    sums = {}
+    for b in TIMED_BATCHES:
+        x = letterbox(frames(SEED + 190 + b, b), cfg.input_hw,
+                      dtype=torch.bfloat16)
+        calls = captured_s8_calls(net, x)
+        check(len(calls) == INT8_CONVS, f"{len(calls)} s8 calls a forward")
+        seen = {}
+        for args, kw in calls:
+            key = (tuple(args[0].shape), args[0].dtype, tuple(args[1].shape),
+                   kw["stride"], kw["groups"], kw["dilation"], kw["act"],
+                   kw["out_scale"] is None)
+            seen.setdefault(key, [args, kw, 0])[2] += 1
+        total = [0.0] * 4
+        kinds = {}
+        for key, (args, kw, n) in seen.items():
+            xin, kq, scale, bias = args
+            out = conv_s8_kernel.conv_s8_bias_act(*args, **kw)
+            ms = cuda_ms_per_call(
+                lambda: conv_s8_kernel.conv_s8_bias_act(*args, **kw),
+                calls=20)
+            plain_ms = cuda_ms_per_call(
+                lambda: conv_s8.conv_s8_bias_act(*args, **kw), calls=3)
+            library_ms = None
+            if kw["groups"] == 1:
+                a, w = int8_gemm_operands(
+                    xin if xin.dtype == torch.int8 else
+                    conv_s8.quantize_input(xin, kw["x_inv"]), kq,
+                    kw["stride"], kw["dilation"])
+                library_ms = cuda_ms_per_call(lambda: torch._int_mm(a, w),
+                                              calls=20)
+            m = out.shape[0] * out.shape[2] * out.shape[3]
+            flop = 2 * m * out.shape[1] * kq[0].numel()
+            bound, bound_by = bound_ms(flop, nbytes(xin, kq, scale, bias,
+                                                    out), torch.int8)
+            emit({"phase": "times", "what": "conv_s8", "batch": b,
+                  "in_shape": list(xin.shape), "in": str(xin.dtype),
+                  "kernel_shape": list(kq.shape), "stride": kw["stride"],
+                  "act": kw["act"], "out": str(out.dtype), "layers": n,
+                  "plan": list(conv_s8_kernel.plan(
+                      m, kq.shape[1], kq.shape[0] // kw["groups"],
+                      kw["groups"], stride=kw["stride"],
+                      dilation=kw["dilation"], ks=kq.shape[-1])),
+                  "kernel_ms": ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "library": "torch._int_mm on "
+                  "the im2col'd GEMM operands, GEMM only",
+                  "bound_ms": bound, "bound_by": bound_by,
+                  "kernel_tops": flop / ms / 1e9,
+                  "share_of_bound": bound / ms, "card": card})
+            for i, t in enumerate((ms, plain_ms, library_ms or 0.0, bound)):
+                total[i] += n * t
+            kinds[bound_by] = kinds.get(bound_by, 0.0) + n * bound
+        by = max(kinds.items(), key=lambda kv: kv[1])[0]
+        sums[b] = (*total, by)
+        emit({"phase": "times", "what": "conv_s8_23_layers", "batch": b,
+              "kernel_ms": total[0], "plain_ms": total[1],
+              "library_ms": total[2], "bound_ms": total[3], "bound_by": by,
+              "share_of_bound": total[3] / total[0], "card": card})
+    return sums
+
+
+def int8_gates(s32, s8) -> tuple:
+    """tests/test_quantize.py's two numbers: the largest score deviation
+    and the top-50 overlap, over the whole batch."""
+    s32, s8 = s32.float().cpu().numpy(), s8.float().cpu().numpy()
+    dev = float(np.abs(s32 - s8).max())
+    top32 = np.argsort(-s32.ravel())[:50]
+    top8 = np.argsort(-s8.ravel())[:50]
+    return dev, len(set(top32) & set(top8)) / 50
+
+
+def int8_launch_counts(fn) -> dict:
+    """fn() with every kernel's count (and the plain s8 block's count on
+    the card) set to 0 just before -> the counts just after."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    nms_kernel.launches = conv_kernel.launches = entry_kernel.launches = 0
+    conv_s8_kernel.launches = conv_s8.cuda_calls = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"conv_s8": conv_s8_kernel.launches,
+                 "nms": nms_kernel.launches, "conv": conv_kernel.launches,
+                 "entry": entry_kernel.launches,
+                 "plain_s8_on_card": conv_s8.cuda_calls}
+
+
+def int8_cli(seeded: str, cfg, weights: str, card: str) -> dict:
+    """(e) `predict --precision int8` through the CLI in this process,
+    calibrated on its image as the command is: its lines equal a direct
+    call of a net calibrated the same way; and the net `serve --precision
+    int8 --calibration-image` builds, behind DetectionServer: the HTTP
+    answers to a JPEG body and an .npy body equal direct calls. Returns
+    the launches of both."""
+    from yolo_tpu_torch.cli.tools_cmds import _serve_net
+    from yolo_tpu_torch.models import quantize
+
+    raw = np.random.default_rng(SEED + 191).integers(
+        0, 256, (*SRC_HW, 3), dtype=np.uint8)
+    image = os.path.join(seeded, "int8.jpg")
+    with open(image, "wb") as f:
+        f.write(encode_jpeg(raw, 90))
+    frame = decode_image(image)
+    argv = ["predict", "--model", VARIANT, "--weights", weights, "--image",
+            image, "--precision", "int8"]
+    (out, _, wall, _), counts = int8_launch_counts(lambda: cli_run(argv))
+    params, _ = dw.load(weights, cfg.layers)
+    q = quantize.prepare_int8(cfg, params, _host_resize(
+        frame, cfg.input_hw, "letterbox")[None])
+    net = Darknet(cfg.layers, q, device="cuda", dtype=torch.bfloat16)
+    names = cfg.detection_names()
+    direct = cli_detections(make_detector(cfg)(net, torch.from_numpy(
+        frame[None]).cuda()), names)
+    got = cli_lines(out)
+    check(got == direct, f"predict --precision int8: {len(got)} printed "
+          f"detections differ from the direct call's {len(direct)}")
+    check(counts["conv_s8"] == INT8_CONVS and counts["nms"] == 1
+          and counts["plain_s8_on_card"] == 0,
+          f"predict --precision int8 launches {counts}")
+    args = argparse.Namespace(precision="int8", calibration_image=image,
+                              device="cuda", weights=weights,
+                              resize="letterbox")
+    served = _serve_net(args, cfg, classifier=False)
+    server = DetectionServer(cfg, served, port=0, max_batch=8)
+    server.start()
+    try:
+        with open(image, "rb") as f:
+            body = f.read()
+
+        def ask():
+            return (post_body(server.port, body, "image/jpeg"),
+                    post_npy(server.port, frame))
+
+        (jpeg_answer, npy_answer), served_counts = int8_launch_counts(ask)
+    finally:
+        server.stop()
+    direct = detections_to_json(make_detector(cfg)(served, torch.from_numpy(
+        frame[None]).cuda()), names)[0]
+    check(jpeg_answer == direct and npy_answer == direct,
+          "serve --precision int8: an HTTP answer differs from the direct "
+          "call")
+    check(served_counts["conv_s8"] == 2 * INT8_CONVS
+          and served_counts["plain_s8_on_card"] == 0,
+          f"served int8 launches {served_counts}")
+    emit({"phase": "int8_cli", "command": "predict", "detections": len(got),
+          "equal_direct": True, "seconds_in_process": wall,
+          "launches": counts, "card": card})
+    emit({"phase": "int8_cli", "command": "serve", "bodies": ["jpeg", "npy"],
+          "responses_equal_direct": True, "launches": served_counts,
+          "card": card})
+    return {"conv_s8": counts["conv_s8"] + served_counts["conv_s8"],
+            "nms": counts["nms"] + served_counts["nms"]}
+
+
+def int8_yolov4(seeded: str, card: str) -> dict:
+    """(g) yolov4 @608 (phase 12's seeded weights), int8 chained, bf16,
+    batch V4_INT8_BATCH: V4_INT8_CONVS s8 launches and one NMS launch a
+    forward; every s8 call of the forward (72 with mish in the epilogue)
+    against the plain block on its own inputs; against the fp32 plain
+    path, the top-50 overlap gate, and the score deviation beside the
+    JAX package's own on the same inputs (V4_JAX_SCORE_DEV)."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+    from yolo_tpu_torch.ops.decode import decode_yolo
+
+    cfg = get_variant("yolov4")
+    weights = os.path.join(seeded, "yolov4-seed.weights")
+    q, folded, calib_s, calib = int8_calibrated(cfg, weights)
+    net = Darknet(cfg.layers, q, device="cuda", dtype=torch.bfloat16)
+    images = frames(SEED + 194, V4_INT8_BATCH)
+    _, counts = int8_launch_counts(lambda: make_detector(cfg)(net, images))
+    check(counts["conv_s8"] == V4_INT8_CONVS and counts["nms"] == 1
+          and counts["conv"] == 0 and counts["plain_s8_on_card"] == 0,
+          f"yolov4 int8 forward launches {counts}")
+    x = letterbox(images, cfg.input_hw, dtype=torch.bfloat16)
+    blocks = {}
+    for args, kw in captured_s8_calls(net, x[:INT8_GATE_BATCH]):
+        got = conv_s8_kernel.conv_s8_bias_act(*args, **kw)
+        want = conv_s8.conv_s8_bias_act(*args, **kw)
+        gap = float((got.float() - want.float()).abs().max())
+        if got.dtype == torch.int8:
+            ok = gap <= 1
+        elif kw["act"] in ("leaky", "linear"):
+            ok = torch.equal(got, want)
+        else:
+            ok = bool(((got.float() - want.float()).abs() <= bf16_ulp(
+                torch.maximum(got.float().abs(), want.float().abs()))).all())
+        check(ok, f"yolov4 s8 call {kw['act']} {tuple(args[1].shape)}: "
+              f"kernel and plain {gap} apart")
+        key = (kw["act"], str(got.dtype))
+        row = blocks.setdefault(key, {"calls": 0, "identical": 0,
+                                      "max_gap": 0.0})
+        row["calls"] += 1
+        row["identical"] += int(torch.equal(got, want))
+        row["max_gap"] = max(row["max_gap"], gap)
+    net32 = Darknet(cfg.layers, folded, device="cuda", dtype=torch.float32)
+    heads = cfg.yolo_heads
+    kw = dict(scales=[h.scale_xy for h in heads],
+              new_coords=[h.new_coords for h in heads],
+              gaussian=[h.gaussian for h in heads])
+    masks = [h.mask for h in heads]
+
+    def gates(x01):
+        _, s32 = decode_yolo(net32(x01.float()), cfg.anchors, masks,
+                             cfg.num_classes, cfg.input_hw, **kw)
+        _, s8 = decode_yolo(net(x01.to(torch.bfloat16)), cfg.anchors, masks,
+                            cfg.num_classes, cfg.input_hw, **kw)
+        return int8_gates(s32, s8)
+
+    # the JAX tests' protocol: the gates on the batch calibrated on
+    dev, overlap = gates(calib[:INT8_GATE_BATCH])
+    dev_all, overlap_all = gates(x)
+    emit({"phase": "int8_yolov4", "batch": V4_INT8_BATCH,
+          "calibrate_seconds": calib_s, "launches": counts,
+          "kernel_vs_plain_by_act": {f"{a} -> {d}": r for (a, d), r
+                                     in sorted(blocks.items())},
+          "gate_batch": INT8_GATE_BATCH, "score_dev": dev,
+          "jax_score_dev_same_inputs": V4_JAX_SCORE_DEV,
+          "top50_overlap": overlap, "score_dev_unseen_batch": dev_all,
+          "top50_overlap_unseen_batch": overlap_all,
+          "gates": {"top50_overlap": INT8_GATE_OVERLAP}, "card": card})
+    check(overlap > INT8_GATE_OVERLAP, f"yolov4 int8 against fp32: "
+          f"top-50 overlap {overlap}")
+    return {"launches": counts, "dev": dev, "overlap": overlap}
+
+
+def phase_int8(seeded: str, model, model32, images, ref, gen,
+               card: str) -> dict:
+    """Phase 19: int8 PTQ of YOLOv2-COCO 416 on phase 4's seeded weights
+    -> the kernels line's parts."""
+    from yolo_tpu_torch.models import quantize
+    from yolo_tpu_torch.ops.decode import decode
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    weights = os.path.join(seeded, "yolov2-coco-seed.weights")
+    q, _, calib_s, calib = int8_calibrated(cfg, weights)
+    chained = sum("out_scale" in p for p in q)
+    net = Darknet(cfg.layers, q, device="cuda", dtype=torch.bfloat16)
+    shapes = quantize.conv_shapes(cfg)
+    check(sum(shapes.values()) == INT8_CONVS, f"int8 conv shapes {shapes}")
+    worst = phase_int8_kernel(gen, shapes)
+    t1 = time.perf_counter()
+
+    # (b) the served forward: one s8 launch a conv, one NMS launch
+    det = make_detector(cfg)
+    cuda_images = torch.from_numpy(images).cuda()
+    out, counts = int8_launch_counts(lambda: det(net, cuda_images[:1]))
+    check(counts == {"conv_s8": INT8_CONVS, "nms": 1, "conv": 0,
+                     "entry": 0, "plain_s8_on_card": 0},
+          f"int8 forward launches {counts}")
+    launches = dict(counts)
+
+    # (c) against the fp32 plain path; the gates as the JAX tests take
+    # them, on the batch calibrated on, and on phase 4's frames
+    def gates(x01):
+        _, s32 = decode(model32.params(x01.float()), cfg.anchors,
+                        cfg.num_classes)
+        _, s8 = decode(net(x01.to(torch.bfloat16)), cfg.anchors,
+                       cfg.num_classes)
+        return int8_gates(s32, s8)
+
+    dev, overlap = gates(calib[:INT8_GATE_BATCH])
+    x = letterbox(cuda_images, cfg.input_hw, dtype=torch.float32)
+    dev_all, overlap_all = gates(x)
+    names = cfg.detection_names()
+    got = detections_to_json(det(net, cuda_images), names)
+    share = {}
+    for name, (a, b) in (("fp32_in_int8", (ref, got)),
+                         ("int8_in_fp32", (got, ref))):
+        hit = tot = 0
+        for ai, bi in zip(a, b):
+            h, t = match_rate(ai, bi, cfg.conf_threshold)
+            hit, tot = hit + h, tot + t
+        share[name] = hit / max(tot, 1)
+    emit({"phase": "int8", "model": cfg.name, "calibration_frames":
+          INT8_CALIB, "calibrate_seconds": calib_s, "chained_convs": chained,
+          "launches": counts, "gate_batch": INT8_GATE_BATCH,
+          "score_dev": dev, "top50_overlap": overlap,
+          "score_dev_6_frames": dev_all, "top50_overlap_6_frames":
+          overlap_all, "box_match_share": share,
+          "gates": {"score_dev": INT8_GATE_DEV,
+                    "top50_overlap": INT8_GATE_OVERLAP}, "card": card})
+    check(dev < INT8_GATE_DEV and overlap > INT8_GATE_OVERLAP,
+          f"int8 against fp32: score deviation {dev}, top-50 overlap "
+          f"{overlap}")
+
+    # (d) card against CPU on the same int8 params, every layer
+    xb = x[:INT8_CPU_BATCH].to(torch.bfloat16).permute(0, 3, 1, 2) \
+        .contiguous(memory_format=torch.channels_last)
+    on_card = net.run(xb, return_all=True)
+    cpu = Darknet(cfg.layers, q, device="cpu", dtype=torch.bfloat16)
+    on_cpu = cpu.run(xb.cpu(), return_all=True)
+    boundaries = sum(t.dtype == torch.int8 for t in on_cpu)
+    check(boundaries >= chained and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        for a, b in zip(on_card, on_cpu)),
+        "int8 forward: card and CPU differ at some layer")
+    emit({"phase": "int8", "what": "card_vs_cpu", "batch": INT8_CPU_BATCH,
+          "layers_equal": len(on_cpu), "int8_boundaries": boundaries,
+          "card": card})
+    t2 = time.perf_counter()
+
+    # (e) the command line and the server
+    cli = int8_cli(seeded, cfg, weights, card)
+    for k in ("conv_s8", "nms"):
+        launches[k] += cli[k]
+    t3 = time.perf_counter()
+
+    # (f) img/s and the kernel's times per shape
+    for b in INT8_E2E_BATCHES:
+        imgs = frames(SEED + 192 + b, b)
+        row = {"phase": "times", "what": "int8_e2e", "batch": b,
+               "src_hw": list(SRC_HW), "card": card}
+        for route, fn in (
+                ("int8", lambda: det(net, imgs)),
+                ("bf16", lambda: model(imgs)),
+                ("bf16_conv_impl_cuda", lambda: detect_raw(
+                    cfg, model.params, imgs, conv_impl="cuda"))):
+            ms = cuda_median_ms(fn, reps=5)
+            row[f"{route}_ms"], row[f"{route}_img_per_s"] = ms, b * 1000 / ms
+        emit(row)
+    sums = phase_int8_times(cfg, net, card)
+    t4 = time.perf_counter()
+
+    v4 = int8_yolov4(seeded, card)
+    for k in ("conv_s8", "nms"):
+        launches[k] += v4["launches"][k]
+    emit({"phase": "int8", "seconds": time.perf_counter() - t0,
+          "kernel_check_seconds": t1 - t0, "forward_seconds": t2 - t1,
+          "cli_seconds": t3 - t2, "times_seconds": t4 - t3,
+          "yolov4_seconds": time.perf_counter() - t4, "card": card})
+    return {"launches": launches, "worst": worst, "ms": sums}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3966,20 +4494,24 @@ def run(seeded: str) -> int:
     build.library()
     hgmma = hgmma_counts(lib)
     usage = {n: u for n, u in resource_usage(lib).items()
-             if n.startswith(("conv_f32_kernel", "nms_suppress_kernel"))}
+             if n.startswith(("conv_f32_kernel", "nms_suppress_kernel",
+                              "conv_s8_"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": compile_s,
           "library": os.path.relpath(lib, os.path.dirname(
               os.path.abspath(__file__))), "hgmma": hgmma,
           "resources": usage})
-    bf16_convs = [n for n in hgmma if n.startswith("conv_bf16_kernel")]
-    check(bf16_convs and all(hgmma[n] > 0 for n in bf16_convs),
-          f"the bf16 conv kernels must run on wgmma (HGMMA): {hgmma}")
+    wgmma_convs = [n for n in hgmma
+                   if n.startswith(("conv_bf16_kernel", "conv_s8_wgmma"))]
+    check(len(wgmma_convs) == 16 and all(hgmma[n] > 0 for n in wgmma_convs),
+          f"the bf16 and s8 wgmma conv kernels must run on wgmma "
+          f"(HGMMA / IGMMA): {hgmma}")
     check(any(n.startswith("conv_f32_kernel") for n in usage)
-          and "nms_suppress_kernel" in usage and all(
-              u["registers"] > 0 and u["stack"] == 0 and u["local"] == 0
-              for u in usage.values()),
-          f"the fp32 conv and NMS kernels must not spill: {usage}")
+          and "nms_suppress_kernel" in usage
+          and any(n.startswith("conv_s8_mma_kernel") for n in usage)
+          and all(u["registers"] > 0 and u["stack"] == 0 and u["local"] == 0
+                  for u in usage.values()),
+          f"the fp32 conv, NMS and s8 conv kernels must not spill: {usage}")
 
     rng = np.random.default_rng(SEED)
     worst = phase_kernel(rng)
@@ -4037,6 +4569,8 @@ def run(seeded: str) -> int:
 
     v1 = phase_yolov1(os.path.join(seeded, "yolov1"), gen, card)
 
+    int8 = phase_int8(seeded, model, model32, images, ref, gen, card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
     check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
@@ -4053,7 +4587,8 @@ def run(seeded: str) -> int:
          "launches": launches + voc_launches + yolo_launches["nms"]
          + yolo_eval_launches + coco_launches["nms"]
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
-         + tree["launches"]["nms"] + v1["launches"]["nms"],
+         + tree["launches"]["nms"] + v1["launches"]["nms"]
+         + int8["launches"]["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -4107,7 +4642,22 @@ def run(seeded: str) -> int:
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",
          "launches": route_launches["entry"], "max_abs_err": entry_worst,
          "ms": entry_t[0], "plain_ms": entry_t[1], "bound_ms": entry_t[2],
-         "bound_by": entry_t[3], "library_ms": None}]})
+         "bound_by": entry_t[3], "library_ms": None},
+        {"name": "conv_s8_bias_act", "route": "cuda",
+         "source": "yolo_tpu_torch/csrc/conv_s8_bias_act.cu",
+         "replaces": "yolo_tpu/models/quantize.py:234",
+         "launches": int8["launches"]["conv_s8"],
+         "max_abs_err": int8["worst"],
+         "ms": int8["ms"][TIMED_BATCH][0],
+         "plain_ms": int8["ms"][TIMED_BATCH][1],
+         "bound_ms": int8["ms"][TIMED_BATCH][3],
+         "bound_by": int8["ms"][TIMED_BATCH][4],
+         "library_ms": int8["ms"][TIMED_BATCH][2],
+         "library": "torch._int_mm on each conv's GEMM operands (im2col'd)",
+         "convs": INT8_CONVS, "batch": TIMED_BATCH,
+         "batch1_ms": int8["ms"][1][0], "batch1_plain_ms": int8["ms"][1][1],
+         "batch1_bound_ms": int8["ms"][1][3],
+         "batch1_library_ms": int8["ms"][1][2]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,10 @@ Tolerances:
     fp32 products on both sides, summed in other orders.
   * conv and entry, bf16 output: 1 bf16 ulp of the output plus that fp32
     bound (the two fp32 sums may round to neighbouring bf16 values).
+  * the s8 conv kernel: the same bytes as its plain block for leaky,
+    linear, relu and ramp (exact int32 sums, the same fp32 epilogue);
+    mish, logistic and swish within 1 int8 code, 1e-6 relative in fp32
+    and 1 bf16 ulp (expf / log1pf / tanhf against PyTorch's).
 """
 
 import dataclasses
@@ -829,3 +833,170 @@ def test_yolov1_on_the_card_matches_the_cpu(cuda, tmp_path):
                                    q["boxes"][i], q["classes"][i],
                                    q["valid"][i]))
         assert total >= 1
+
+
+# --- the s8 conv kernel (csrc/conv_s8_bias_act.cu) ---------------------------
+
+def _s8_shapes():
+    """Every distinct conv of YOLOv2-COCO @416, yolov3 @416 and yolov4
+    @608 at batch 1 (h, w, cin, co, ks, stride, groups, dilation, act),
+    and the shapes no built-in variant has: grouped on both bodies,
+    depthwise, dilated, every activation, ragged M (odd sizes)."""
+    from yolo_tpu_torch.models.quantize import conv_shapes
+
+    shapes = set()
+    for name, size in (("coco", 416), ("yolov3", 416), ("yolov4", 608)):
+        shapes.update(conv_shapes(get_variant(name, input_size=size)))
+    extra = [(13, 17, 64, 96, 3, 1, 2, 1, "leaky"),
+             (11, 9, 48, 24, 3, 1, 3, 1, "leaky"),
+             (10, 10, 32, 32, 3, 1, 32, 1, "relu"),
+             (20, 20, 64, 64, 3, 1, 1, 2, "leaky"),
+             (21, 19, 3, 16, 3, 2, 1, 1, "linear"),
+             (7, 9, 96, 40, 5, 1, 1, 1, "logistic"),
+             (15, 15, 64, 72, 3, 2, 1, 1, "swish"),
+             (9, 11, 128, 200, 1, 1, 1, 1, "ramp"),
+             (6, 6, 40, 24, 3, 1, 1, 3, "mish")]
+    return sorted(shapes) + extra
+
+
+@pytest.mark.parametrize("shape", _s8_shapes(),
+                         ids=lambda s: "x".join(map(str, s[:8])) + s[8])
+def test_conv_s8_kernel_matches_plain(cuda, shape):
+    """The s8 kernel against its plain version on the same card tensors,
+    float input (fp32, quantized by the wrapper) and chained int8 input,
+    int8, bf16 and fp32 outputs. Leaky, linear, relu and ramp: equal
+    bytes. Mish, logistic and swish (expf / log1pf / tanhf against
+    PyTorch's): within 1 code, 1e-6 relative in fp32 and 1 bf16 ulp."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    h, w, cin, co, ks, stride, groups, dil, act = shape
+    rng = np.random.default_rng(h * w + cin * co + ks)
+    b = 3 if h * w < 400 else 1
+    xq = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(
+        np.int8)).to(cuda).contiguous(memory_format=torch.channels_last)
+    xf = torch.from_numpy(rng.uniform(-3, 3, (b, cin, h, w)).astype(
+        np.float32)).to(cuda).contiguous(memory_format=torch.channels_last)
+    kq = torch.from_numpy(rng.integers(-127, 128, (co, cin // groups, ks,
+                                                   ks)).astype(np.int8)
+                          ).to(cuda).contiguous(
+                              memory_format=torch.channels_last)
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-4, co).astype(
+        np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.uniform(-1, 1, co).astype(np.float32)).to(
+        cuda)
+    exact = act in ("leaky", "linear", "relu", "ramp")
+    for x in (xq, xf):
+        for out_scale, dt in ((0.05, torch.float32), (None, torch.bfloat16),
+                              (None, torch.float32)):
+            kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
+                      stride=stride, groups=groups, dilation=dil,
+                      out_dtype=dt)
+            before = conv_s8_kernel.launches
+            got = conv_s8_kernel.conv_s8_bias_act(x, kq, scale, bias, **kw)
+            torch.cuda.synchronize()
+            assert conv_s8_kernel.launches == before + 1
+            want = conv_s8.conv_s8_bias_act(x, kq, scale, bias, **kw)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            if exact:
+                assert torch.equal(got, want), (out_scale, dt)
+            elif out_scale is not None:
+                assert (got.int() - want.int()).abs().max() <= 1
+            else:
+                torch.testing.assert_close(
+                    got.float(), want.float(), atol=1e-6,
+                    rtol=1e-6 if dt == torch.float32 else 2 ** -7)
+
+
+def test_conv_s8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    x = torch.zeros((1, 32, 8, 8), dtype=torch.int8, device=cuda
+                    ).contiguous(memory_format=torch.channels_last)
+    k = torch.zeros((16, 32, 3, 3), dtype=torch.int8, device=cuda
+                    ).contiguous(memory_format=torch.channels_last)
+    s = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="do not match"):
+        conv_s8_kernel.conv_s8_bias_act(x, k, s, s, x_inv=1.0, groups=3)
+    with pytest.raises(ValueError, match="int8"):
+        conv_s8_kernel.conv_s8_bias_act(x, k.float(), s, s, x_inv=1.0)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_s8_kernel.conv_s8_bias_act(x.contiguous(), k, s, s, x_inv=1.0)
+    with pytest.raises(ValueError, match="activation"):
+        conv_s8_kernel.conv_s8_bias_act(x, k, s, s, x_inv=1.0, act="gelu")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_int8_forward_on_the_card_equals_the_cpu(cuda, dtype):
+    """YOLOv2-COCO @128, chained int8 params: one s8 launch a conv and no
+    plain block on the card, and the logits (and every layer's output,
+    int8 codes at the chained boundaries) equal the CPU's bit for bit:
+    the sums are exact and the epilogue repeats the plain arithmetic."""
+    from yolo_tpu_torch.models import quantize
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    cfg = get_variant("coco", input_size=128)
+    rng = np.random.default_rng(19)
+    raw = dw.random_params(cfg.layers, rng, scale=0.03)
+    x = rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    q = quantize.prepare_int8(cfg, raw, x, device="cpu")
+    gpu = tgraph.Darknet(cfg.layers, q, device=cuda, dtype=dtype)
+    cpu = tgraph.Darknet(cfg.layers, q, device="cpu", dtype=dtype)
+    xt = torch.from_numpy(x).to(dtype)
+    before, plain = conv_s8_kernel.launches, conv_s8.cuda_calls
+    outs = gpu.run(xt.to(cuda).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last), return_all=True)
+    torch.cuda.synchronize()
+    assert conv_s8_kernel.launches - before == 23
+    assert conv_s8.cuda_calls == plain
+    want = cpu.run(xt.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last), return_all=True)
+    assert sum(o.dtype == torch.int8 for o in want) >= 15
+    for i, (a, b) in enumerate(zip(outs, want)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), i
+
+
+_S8_WIDE = [(1, 13, 1024, 3), (3, 7, 256, 1), (2, 26, 512, 3)]
+_S8_TILE_CASES = (
+    [(("wgmma", 128, bn, 0, 128), s) for bn in (128, 64) for s in _S8_WIDE]
+    + [(("wgmma", 128, 64, 0, chunk), s) for chunk, s in (
+        (64, (2, 23, 64, 3)), (64, (1, 13, 1024, 3)), (32, (1, 31, 32, 3)),
+        (32, (3, 7, 256, 1)))]
+    + [(("mma", bm, 64), s) for bm in (128, 64)
+       for s in _S8_WIDE + [(2, 23, 64, 3), (1, 31, 32, 3)]])
+
+
+@pytest.mark.parametrize("plan,shape", _S8_TILE_CASES, ids=lambda v: (
+    "x".join(map(str, v)) if isinstance(v[0], int) else
+    f"{v[0]}{v[1]}x{v[2]}" + (f"k{v[4]}" if len(v) > 4 else "")))
+def test_conv_s8_kernel_takes_every_tile(cuda, monkeypatch, plan, shape):
+    """Each tile and K chunk of the wgmma and mma bodies, forced through
+    the plan, on ragged M (the last tile past the batch's pixels), int8,
+    bf16 and fp32 outputs: the plain version's bytes."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    b, hw, cin, ks = shape
+    monkeypatch.setattr(conv_s8_kernel, "plan",
+                        lambda *a, **k: conv_s8_kernel.Plan(*plan))
+    rng = np.random.default_rng(b * hw + cin)
+    co = 512
+    cl = torch.channels_last
+    x = torch.from_numpy(rng.integers(-127, 128, (b, cin, hw, hw)).astype(
+        np.int8)).to(cuda).contiguous(memory_format=cl)
+    k = torch.from_numpy(rng.integers(-127, 128, (co, cin, ks, ks)).astype(
+        np.int8)).to(cuda).contiguous(memory_format=cl)
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-5, co).astype(
+        np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.uniform(-1, 1, co).astype(np.float32)).to(
+        cuda)
+    for out_scale, dt in ((0.05, torch.float32), (None, torch.bfloat16),
+                          (None, torch.float32)):
+        kw = dict(x_inv=1.0, out_scale=out_scale, act="leaky", out_dtype=dt)
+        got = conv_s8_kernel.conv_s8_bias_act(x, k, scale, bias, **kw)
+        torch.cuda.synchronize()
+        want = conv_s8.conv_s8_bias_act(x, k, scale, bias, **kw)
+        assert torch.equal(got, want), (out_scale, dt)

@@ -19,7 +19,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # not ported yet, by ROADMAP item
 NOT_PORTED = {
-    "models/quantize.py": "*",                           # A11, int8 PTQ
     "data/video.py": "*",                                # A12a
     "parallel/__init__.py": "*",                         # A9g/A12b
     "parallel/sharding.py": "*",                         # A9g/A12b

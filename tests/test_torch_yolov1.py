@@ -51,13 +51,13 @@ from yolo_tpu.ops import decode as jdecode
 from yolo_tpu.train import loop as jloop
 from yolo_tpu.train import loss as jloss
 import yolo_tpu_torch.configs.darknet_cfg as tdc
-from yolo_tpu_torch.cli._common import _refuse_int8
 from yolo_tpu_torch.configs import specs as tspecs
 from yolo_tpu_torch.data import targets as ttargets
 from yolo_tpu_torch.io import darknet_weights as dw
 from yolo_tpu_torch.io import zoo as tzoo
 from yolo_tpu_torch.models import graph as tgraph
 from yolo_tpu_torch.models import predict as tpredict
+from yolo_tpu_torch.models import quantize as tquantize
 from yolo_tpu_torch.ops import decode as tdecode
 from yolo_tpu_torch.train import loop as tloop
 from yolo_tpu_torch.train import loss as tloss
@@ -128,8 +128,10 @@ def _port_detection_loss(flat, targets, head):
     return total.item(), {k: v.item() for k, v in parts.items()}
 
 
-def _port_prepare_int8(cfg, params, calibration_images, **_):
-    _refuse_int8(cfg)
+def _port_prepare_int8(cfg, params, calibration_images, **kw):
+    return tquantize.prepare_int8(cfg, params,
+                                  np.asarray(calibration_images), **kw,
+                                  device="cpu")
 
 
 class _PortTrain:

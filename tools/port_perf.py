@@ -33,6 +33,13 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         (unsplit at batch 32, split to fill the card at batch 1): device
         ms per call, TFLOP/s, and the tile conv_kernel.plan picks (its
         cost model's data)
+    python3 tools/port_perf.py tiles_s8
+        the s8 conv kernel (csrc/conv_s8_bias_act.cu) at each
+        YOLOv2-COCO conv shape, batch 1, 32 and 128, int8 in and out,
+        under every body and tile it is built for that takes the shape
+        (mma 64x64, 128x64; wgmma 128x64 and, on 128-byte K chunks,
+        128x128; dp4a): device ms per call, TOP/s (and the wgmma K
+        chunk), and the plan conv_s8_kernel.plan picks
     python3 tools/port_perf.py train
         torch.profiler breakdown of the YOLOv2-VOC 416 train step at
         batch 64, fp32 and bf16, on one seeded batch already on the card
@@ -55,8 +62,9 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         output, card and CPU in fp32 against float64 on the same inputs
 
 ROUTE is the detector route: "default" (letterbox + F.conv2d),
-"conv_impl=cuda" (the fused conv kernel on the eligible convs) or
-"entry=fused" (the fused entry kernel).
+"conv_impl=cuda" (the fused conv kernel on the eligible convs),
+"entry=fused" (the fused entry kernel) or "precision=int8" (the weights
+quantized as chip_smoke.py phase 19 does, every conv on the s8 kernel).
 
 Every command prints one JSON object per line, each with the card's
 nvidia-smi name and power limit.
@@ -116,13 +124,27 @@ def cmd_weights(args, card) -> None:
     _emit({"weights": args.path, "cfg": args.cfg, "card": card})
 
 
-ROUTES = ("default", "conv_impl=cuda", "entry=fused")
+ROUTES = ("default", "conv_impl=cuda", "entry=fused", "precision=int8")
 
 
-def _detector(model, route: str):
-    """The loaded model's detector on ``route`` (ROUTES)."""
+def _detector(model, route: str, weights: str):
+    """The loaded model's detector on ``route`` (ROUTES); precision=int8
+    quantizes ``weights`` as chip_smoke.py phase 19 does (8 seeded
+    frames, chained) and serves it in bf16."""
     if route == "default":
         return model
+    if route == "precision=int8":
+        import torch
+
+        import chip_smoke
+        from yolo_tpu_torch.models.graph import Darknet
+        from yolo_tpu_torch.models.predict import make_detector
+
+        q = chip_smoke.int8_calibrated(model.cfg, weights)[0]
+        net = Darknet(model.cfg.layers, q, device="cuda",
+                      dtype=torch.bfloat16)
+        det = make_detector(model.cfg)
+        return lambda images: det(net, images)
     from yolo_tpu_torch.models.predict import detect_raw
 
     kw = {"conv_impl": "cuda"} if route == "conv_impl=cuda" \
@@ -139,7 +161,7 @@ def cmd_time(args, card) -> None:
                                     names=args.names, device="cuda")
     else:
         model = yolo_tpu_torch.load(args.weights, "coco", device="cuda")
-    detector = _detector(model, args.route)
+    detector = _detector(model, args.route, args.weights)
     for b in BATCHES:
         images = _images(torch, b)
         for _ in range(WARMUP):
@@ -174,6 +196,8 @@ def _kernel_class(name: str) -> str:
         return "conv_kernel"
     if "entry_conv_pool" in n:
         return "entry_kernel"
+    if "conv_s8_" in n:
+        return "conv_s8_kernel"
     if "memcpy" in n or "memset" in n:
         return "copy"
     if ("fprop" in n or "conv" in n or "winograd" in n or "dgrad" in n
@@ -244,7 +268,7 @@ def cmd_profile(args, card) -> None:
             model = yolo_tpu_torch.load(path, cfg=args.cfg, device="cuda")
         else:
             model = yolo_tpu_torch.load(path, args.variant, device="cuda")
-    detector = _detector(model, args.route)
+        detector = _detector(model, args.route, path)
     for b in args.batches:
         images = _images(torch, b)
         _emit({"what": "profile_bf16", "model": model.cfg.name,
@@ -595,6 +619,51 @@ def cmd_tiles(args, card) -> None:
                        "ms_tflops_by_tile": times, "card": card})
 
 
+def cmd_tiles_s8(args, card) -> None:
+    import torch
+
+    import chip_smoke
+    from yolo_tpu_torch.configs import get_variant
+    from yolo_tpu_torch.models.quantize import conv_shapes
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    chosen = sk.plan
+    for b in BATCHES:
+        for shape in sorted(conv_shapes(get_variant("coco"))):
+            h, w, cin, co, ks, stride, groups, dil, act = shape
+            xq, _, kq, scale, bias = chip_smoke.s8_inputs(gen, b, shape)
+            m = b * (h // stride) * (w // stride)
+            flop = 2 * m * co * ks * ks * cin // groups
+            plans = [sk.Plan("dp4a", npt=32)] if cin % sk.CHUNK else [
+                sk.Plan("mma", 64, 64), sk.Plan("mma", 128, 64)]
+            if cin % sk.CHUNK == 0 and stride == 1 and groups == 1:
+                chunk = next(c for c in (128, 64, 32) if cin % c == 0)
+                plans += [sk.Plan("wgmma", 128, bn, chunk=chunk)
+                          for bn in (64, 128)
+                          if co % bn == 0 and (bn == 64 or chunk == 128)]
+            times = {}
+            for p in plans:
+                sk.plan = lambda *a, _p=p, **kw: _p  # this plan only
+                try:
+                    ms = chip_smoke.cuda_ms_per_call(
+                        lambda: sk.conv_s8_bias_act(
+                            xq, kq, scale, bias, x_inv=1.0, out_scale=0.05,
+                            act=act, stride=stride, groups=groups,
+                            dilation=dil), calls=20)
+                finally:
+                    sk.plan = chosen
+                times[f"{p.body}{p.bm}x{p.bn}" if p.bm else p.body] = [
+                    ms, flop / ms / 1e9]
+                if p.chunk:
+                    times[f"{p.body}{p.bm}x{p.bn}"].append(p.chunk)
+            _emit({"what": "conv_s8_tiles", "batch": b, "shape": list(shape),
+                   "plan": list(chosen(m, cin // groups, co // groups,
+                                       groups, stride=stride, dilation=dil,
+                                       ks=ks)),
+                   "ms_tops_by_plan": times, "card": card})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -614,6 +683,7 @@ def main() -> int:
     prof.add_argument("--batches", type=int, nargs="+", default=BATCHES)
     sub.add_parser("sweep")
     sub.add_parser("tiles")
+    sub.add_parser("tiles_s8")
     sub.add_parser("train")
     sub.add_parser("stepcheck")
     s64 = sub.add_parser("step64")
@@ -632,7 +702,7 @@ def main() -> int:
         return 2
     card = _card()
     {"weights": cmd_weights, "time": cmd_time, "profile": cmd_profile,
-     "sweep": cmd_sweep, "tiles": cmd_tiles,
+     "sweep": cmd_sweep, "tiles": cmd_tiles, "tiles_s8": cmd_tiles_s8,
      "train": cmd_train, "stepcheck": cmd_stepcheck,
      "step64": cmd_step64}[args.cmd](args, card)
     return 0

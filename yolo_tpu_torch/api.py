@@ -124,8 +124,10 @@ def load(weights_path: str, variant: Optional[str] = None, *,
     from yolo_tpu_torch.models.predict import make_detector
 
     if precision not in _DTYPES:
+        # 'int8' (a CLI-only serving mode) or a typo must not run bf16
         raise ValueError(f"precision={precision!r}: the API supports "
-                         f"'fp32' | 'bf16'")
+                         f"'fp32' | 'bf16' (int8 PTQ is the CLI/"
+                         f"models.quantize surface)")
     dev = resolve_device(device)
     if weights_path.startswith("zoo://"):
         from yolo_tpu_torch.io import zoo

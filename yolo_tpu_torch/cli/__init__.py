@@ -7,10 +7,11 @@ lines, on the card by default; ``--device cpu`` only when asked for):
   python -m yolo_tpu_torch.cli eval    --model voc --voc-root VOC2007 --split test --weights x
   python -m yolo_tpu_torch.cli export  --model voc --checkpoint ck/final --output out.weights
   python -m yolo_tpu_torch.cli classify --model darknet53 --weights d.weights --image cat.jpg
+  python -m yolo_tpu_torch.cli predict --model coco --weights y.weights --image dog.jpg --precision int8
 
 Commands whose parts are not ported yet raise naming their ROADMAP
-item: --precision int8 (A11), detect --video and serve --dp (A12),
-bench (A13), --loader grain (A9g).
+item: detect --video (int8 or not) and serve --dp (A12), bench (A13),
+--loader grain (A9g).
 """
 
 from yolo_tpu_torch.cli._main import main  # noqa: E402  (the public entry)

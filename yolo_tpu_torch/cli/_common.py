@@ -7,6 +7,7 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 
 
@@ -26,8 +27,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--precision", default="bf16",
                    choices=["fp32", "bf16", "int8"],
                    help="fp32 = parity mode, bf16 = throughput (fp32 "
-                        "accum), int8 = PTQ serving (not ported yet, "
-                        "ROADMAP A11)")
+                        "accum), int8 = PTQ serving mode (calibrated on "
+                        "the first inputs; not parity-exact)")
     p.add_argument("--conf", type=float, default=None, help="score threshold")
     p.add_argument("--nms", type=float, default=None, help="NMS IoU threshold")
     p.add_argument("--resize", default="letterbox",
@@ -63,25 +64,52 @@ def _add_device(p: argparse.ArgumentParser) -> None:
                         "raises without a card) or cpu")
 
 
-def _refuse_int8(cfg) -> None:
-    """--precision int8 (post-training quantization) is not ported
-    (ROADMAP A11). The JAX package's int8 path refuses the yolov1 family
-    first, with NotImplementedError (quantize.py::prepare_int8); so does
-    this, with its message."""
+def _compute_dtype(precision: str):
+    # int8 quantizes the convs only; the surrounding math runs in bf16
+    return torch.float32 if precision == "fp32" else torch.bfloat16
+
+
+def _refuse_yolov1(cfg) -> None:
+    """--precision int8 on a yolov1-family net raises before anything is
+    read, with the JAX package's message (quantize.py::prepare_int8);
+    every int8 command calls it before it quantizes."""
     from yolo_tpu_torch.configs.specs import Crop, DetectionHead, Local
 
     if any(isinstance(l, (Crop, Local, DetectionHead)) for l in cfg.layers):
-        raise NotImplementedError(
-            "int8 PTQ does not support the yolov1 family "
-            "([crop]/[local]/[detection] layers) — use fp32/bf16")
-    _compute_dtype("int8")
+        raise SystemExit("int8 PTQ does not support the yolov1 family "
+                         "([crop]/[local]/[detection] layers) — use "
+                         "fp32/bf16")
 
 
-def _compute_dtype(precision: str):
-    if precision == "int8":
-        raise SystemExit("--precision int8 (post-training quantization) "
-                         "is not ported yet (ROADMAP A11)")
-    return torch.float32 if precision == "fp32" else torch.bfloat16
+def _quantize_classifier(args, cfg, params, calib_01):
+    """int8 PTQ of a classifier calibrated on classifier-preprocessed [0,
+    1] images (resize_min + centre crop: the `classify` and /classify
+    input path) -> the int8 net on --device. One implementation for
+    `classify` and `serve`; _maybe_quantize is the detector-geometry
+    sibling."""
+    from yolo_tpu_torch.models import quantize
+
+    q = quantize.prepare_int8(cfg, params, np.asarray(calib_01),
+                              device=_device(args))
+    print(f"int8 PTQ: calibrated on {len(calib_01)} images",
+          file=sys.stderr)
+    return _net(args, cfg, q)
+
+
+def _maybe_quantize(args, cfg, params, sample_images_u8):
+    """--precision int8's params: calibrated on the given raw images,
+    preprocessed with the geometry inference uses (--resize letterbox or
+    stretch, the host resize of data/pipeline.py), quantized by
+    models/quantize.py."""
+    from yolo_tpu_torch.data.pipeline import _host_resize
+    from yolo_tpu_torch.models import quantize
+
+    calib = np.stack([_host_resize(im, cfg.input_hw, args.resize)
+                      for im in sample_images_u8])
+    qparams = quantize.prepare_int8(cfg, params, calib, device=_device(args))
+    print(f"int8 PTQ: calibrated on {len(sample_images_u8)} images",
+          file=sys.stderr)
+    return qparams
 
 
 def _device(args) -> torch.device:
@@ -126,20 +154,28 @@ def _load_params(args, cfg, folded: bool = True):
     return params
 
 
-def _load_net(args, cfg):
-    """The inference module (models.graph.Darknet) of --weights on
-    --device at --precision."""
+def _net(args, cfg, params):
+    """The inference module (models.graph.Darknet) of folded or int8
+    params on --device, computing at --precision (int8: bf16 around the
+    int8 convs)."""
     from yolo_tpu_torch.models.graph import Darknet
 
+    return Darknet(cfg.layers, params, device=_device(args),
+                   dtype=_compute_dtype(args.precision))
+
+
+def _load_net(args, cfg, calibration=None):
+    """The inference module of --weights on --device at --precision.
+    int8 calibrates on ``calibration()``, the raw images the command
+    names (called after the weights are read, as the JAX commands read
+    them)."""
     if args.precision == "int8":
-        try:
-            _refuse_int8(cfg)
-        except NotImplementedError as e:
-            raise SystemExit(str(e))  # the yolov1 topologies
-    dtype = _compute_dtype(args.precision)
-    device = _device(args)
-    return Darknet(cfg.layers, _load_params(args, cfg), device=device,
-                   dtype=dtype)
+        _refuse_yolov1(cfg)
+    _device(args)
+    params = _load_params(args, cfg)
+    if args.precision == "int8":
+        params = _maybe_quantize(args, cfg, params, calibration())
+    return _net(args, cfg, params)
 
 
 def _resolve_weights(spec: str) -> str:

@@ -1,7 +1,8 @@
 """`predict` / `detect` / `classify` (port of yolo_tpu/cli/detect_cmds.py):
 single-image and batched directory detection, classifier top-k and
-imagefolder accuracy. Video input (ROADMAP A12) and int8 (A11) are not
-ported yet and raise."""
+imagefolder accuracy, each at --precision fp32, bf16 or int8 (calibrated
+on the command's first inputs, as the JAX commands calibrate). Video
+input (ROADMAP A12a) is not ported yet and raises, int8 with it."""
 
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ import sys
 import numpy as np
 import torch
 
-from yolo_tpu_torch.cli._common import (_get_cfg, _load_net,
-                                        _require_detection, _to_numpy,
-                                        _tree_kw)
+from yolo_tpu_torch.cli._common import (_device, _get_cfg, _load_net,
+                                        _load_params, _quantize_classifier,
+                                        _refuse_yolov1, _require_detection,
+                                        _to_numpy, _tree_kw)
 
 
 def cmd_classify(args) -> None:
@@ -44,10 +46,22 @@ def cmd_classify(args) -> None:
     if args.hierarchy and args.images:
         raise SystemExit("--hierarchy prints one image's tree path — "
                          "use it with --image")
-    net = _load_net(args, cfg)          # int8 raises (ROADMAP A11)
+    quantize_on = net = None
+    if args.precision == "int8":
+        # calibrated on the image, or on the imagefolder's first chunk
+        _refuse_yolov1(cfg)
+        _device(args)
+        params = _load_params(args, cfg)
+
+        def quantize_on(calib_01):
+            return _quantize_classifier(args, cfg, params, calib_01)
+    else:
+        net = _load_net(args, cfg)
     if args.image:
         x = classifier_preprocess(load_image(args.image, cfg.in_channels),
                                   cfg.input_hw)
+        if quantize_on is not None:
+            net = quantize_on(x[None])
         with torch.no_grad():
             probs = make_classifier(cfg)(net, x[None]).cpu().numpy()[0]
         if cfg.softmax_tree is not None:
@@ -73,7 +87,8 @@ def cmd_classify(args) -> None:
     try:
         with torch.no_grad():
             out = imagefolder_accuracy(cfg, net, samples, batch=args.batch,
-                                       k=args.top)
+                                       k=args.top,
+                                       quantize_first_batch=quantize_on)
     except ValueError as e:
         raise SystemExit(f"--batch: {e}" if "batch" in str(e) else str(e))
     print(json.dumps(out))
@@ -121,8 +136,8 @@ def cmd_predict(args) -> None:
     _require_detection(cfg, "predict")
     tree_kw = _tree_kw(args, cfg)
     names = cfg.detection_names(tree_kw["use_tree_map"])
-    net = _load_net(args, cfg)
     img = load_image(args.image, cfg.in_channels)
+    net = _load_net(args, cfg, lambda: [img])   # int8: calibrated on it
     det = make_detector(cfg, resize=args.resize, **tree_kw)
     with maybe_trace(args.profile_dir), torch.no_grad():
         out = _to_numpy(det(net, torch.from_numpy(img[None]).to(net.device)))
@@ -172,14 +187,17 @@ def cmd_detect(args) -> None:
     from yolo_tpu_torch.utils.viz import draw_detections, save_image
 
     if args.video:
+        # int8 video calibrates on the stream's first frames: A12a too
         raise SystemExit("detect --video needs a video decoder, which is "
                          "not ported yet (ROADMAP A12, data/video.py)")
     cfg = _get_cfg(args)
     _require_detection(cfg, "detect")
     tree_kw = _tree_kw(args, cfg)
     names = cfg.detection_names(tree_kw["use_tree_map"])
-    net = _load_net(args, cfg)
     paths = _image_paths(args)
+    # int8: calibrated on the first 8 images
+    net = _load_net(args, cfg, lambda: [load_image(p, cfg.in_channels)
+                                        for p in paths[:8]])
     if args.host_preprocess:
         det = make_detector_preprocessed(cfg, **tree_kw)
         host_iter = inference_batches(paths, args.batch,

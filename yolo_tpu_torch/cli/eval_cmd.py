@@ -11,7 +11,21 @@ import numpy as np
 
 from yolo_tpu_torch.cli._common import (_compute_dtype, _dataset_samples,
                                         _device, _get_cfg, _load_params,
+                                        _maybe_quantize, _refuse_yolov1,
                                         _require_detection, _tree_kw)
+
+
+def _served_params(args, cfg, pairs):
+    """--weights folded, or at --precision int8 calibrated on the first
+    8 samples' images (the JAX commands' calibration set)."""
+    from yolo_tpu_torch.data.pipeline import load_image
+
+    if args.precision != "int8":
+        return _load_params(args, cfg)
+    _refuse_yolov1(cfg)
+    params = _load_params(args, cfg)
+    return _maybe_quantize(args, cfg, params, [
+        load_image(p, cfg.in_channels) for p, _ in pairs[:8]])
 
 
 def _write_voc_detections(out_dir: str, detections, samples, names,
@@ -58,7 +72,7 @@ def cmd_recall(args) -> None:
     device = _device(args)
     pairs = _dataset_samples(args, cfg, names=names)
     stats = recall_detector(
-        cfg, _load_params(args, cfg), pairs, batch=args.batch,
+        cfg, _served_params(args, cfg, pairs), pairs, batch=args.batch,
         thresh=args.thresh, nms=args.nms_thresh, iou_thresh=args.iou_thresh,
         compute_dtype=dtype, resize=args.resize, names=names, device=device)
     print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
@@ -114,7 +128,7 @@ def cmd_eval(args) -> None:
                                       x, y, x + bw, y + bh))
     else:
         detections = collect_detections(
-            cfg, _load_params(args, cfg), pairs, batch=args.batch,
+            cfg, _served_params(args, cfg, pairs), pairs, batch=args.batch,
             eval_conf=args.eval_conf, compute_dtype=dtype,
             resize=args.resize, device=device, **tree_kw)
 

@@ -10,8 +10,10 @@ import shutil
 import subprocess
 import sys
 
-from yolo_tpu_torch.cli._common import (_dataset_samples, _get_cfg,
-                                        _load_net, _resolve_weights,
+from yolo_tpu_torch.cli._common import (_dataset_samples, _device,
+                                        _get_cfg, _load_net, _load_params,
+                                        _quantize_classifier,
+                                        _refuse_yolov1, _resolve_weights,
                                         _tree_kw)
 
 
@@ -123,6 +125,29 @@ def cmd_export(args) -> None:
         print(f"wrote {args.save_cfg} + {names_path}", file=sys.stderr)
 
 
+def _serve_net(args, cfg, classifier: bool):
+    """serve's net; at --precision int8 calibrated on
+    --calibration-image with the geometry of the endpoint (a classifier's
+    resize_min + centre crop, a detector's --resize)."""
+    from yolo_tpu_torch.data.pipeline import load_image
+
+    if args.precision != "int8":
+        return _load_net(args, cfg)
+    _refuse_yolov1(cfg)
+    if not args.calibration_image:
+        raise SystemExit("--precision int8 needs --calibration-image")
+    if not classifier:
+        return _load_net(args, cfg, lambda: [
+            load_image(args.calibration_image, cfg.in_channels)])
+    from yolo_tpu_torch.models.classify import classifier_preprocess
+
+    _device(args)
+    params = _load_params(args, cfg)
+    calib = classifier_preprocess(
+        load_image(args.calibration_image, cfg.in_channels), cfg.input_hw)
+    return _quantize_classifier(args, cfg, params, calib[None])
+
+
 def cmd_serve(args) -> None:
     """HTTP detection (or, for a classifier, classification) endpoint
     with micro-batching (serve.py) on --device."""
@@ -142,7 +167,7 @@ def cmd_serve(args) -> None:
                          "DETECTION decode; /classify scores leaf-"
                          "masked absolute probs with no threshold")
     tree_kw = {} if classifier else _tree_kw(args, cfg)
-    net = _load_net(args, cfg)
+    net = _serve_net(args, cfg, classifier)
     server = DetectionServer(
         cfg, net, host=args.host, port=args.port, max_batch=args.max_batch,
         batch_window_ms=args.batch_window_ms,

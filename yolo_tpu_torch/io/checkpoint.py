@@ -74,8 +74,9 @@ def _write(path: str, tree: Dict[str, Any], model: str) -> None:
     os.makedirs(tmp)
     try:
         torch.save(tree, os.path.join(tmp, STATE_FILE))
-        meta = {"format": FORMAT_VERSION, "keys": sorted(tree),
-                "step": int(tree.get("step", 0)), "model": model}
+        top = tree if isinstance(tree, dict) else {}
+        meta = {"format": FORMAT_VERSION, "keys": sorted(top),
+                "step": int(top.get("step", 0)), "model": model}
         with open(os.path.join(tmp, META_FILE), "w") as f:
             json.dump(meta, f)
     except BaseException:
@@ -91,9 +92,13 @@ def _write(path: str, tree: Dict[str, Any], model: str) -> None:
         shutil.rmtree(old)
 
 
-def save(path: str, tree: Dict[str, Any], model: str = "") -> None:
+def save(path: str, tree, model: str = "") -> None:
     """Write a checkpoint directory (blocking); an existing one at
-    ``path`` is replaced."""
+    ``path`` is replaced. ``tree`` is a train state's dict, or any tree
+    of the same leaves, such as a list of int8 param blocks
+    (models/quantize.py), whose leaves keep their dtype: int8 kernels
+    come back int8. (from_numpy_state casts a train state's leaves to
+    fp32 and is not for such trees.)"""
     _write(path, _to_cpu(tree), model)
 
 

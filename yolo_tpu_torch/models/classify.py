@@ -122,12 +122,15 @@ def _probs(cfg: ModelConfig, net: Darknet, xs) -> np.ndarray:
 
 
 def accuracy_counts(cfg: ModelConfig, net: Darknet, xs, labels, *,
-                    batch: int = 32, k: int = 5):
+                    batch: int = 32, k: int = 5,
+                    quantize_first_batch=None):
     """(n, top1_hits, topk_hits) over preprocessed arrays, darknet's
     `classifier valid` protocol in batches of ``batch`` (the last one
     padded with zeros): a tree classifier scores leaf-masked absolute
     probabilities, and an internal-node label is a hit when it lies on
-    the predicted leaf's root path."""
+    the predicted leaf's root path. quantize_first_batch(xs) -> net
+    hooks int8 calibration on the first (padded) batch, whose net then
+    scores every batch."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     tree = cfg.softmax_tree
@@ -140,6 +143,8 @@ def accuracy_counts(cfg: ModelConfig, net: Darknet, xs, labels, *,
             chunk = np.concatenate(
                 [chunk, np.zeros((batch - real,) + chunk.shape[1:],
                                  chunk.dtype)])
+        if i == 0 and quantize_first_batch is not None:
+            net = quantize_first_batch(chunk)
         order = np.argsort(-_probs(cfg, net, chunk)[:real], axis=-1)
         for true_idx, o in zip(labels[i:i + batch], order):
             if tree is not None:
@@ -153,9 +158,12 @@ def accuracy_counts(cfg: ModelConfig, net: Darknet, xs, labels, *,
 
 
 def accuracy_from_arrays(cfg: ModelConfig, net: Darknet, xs, labels, *,
-                         batch: int = 32, k: int = 5) -> dict:
+                         batch: int = 32, k: int = 5,
+                         quantize_first_batch=None) -> dict:
     """accuracy_counts as the `classify --images` JSON dict."""
-    n, top1, topk = accuracy_counts(cfg, net, xs, labels, batch=batch, k=k)
+    n, top1, topk = accuracy_counts(
+        cfg, net, xs, labels, batch=batch, k=k,
+        quantize_first_batch=quantize_first_batch)
     if n == 0:
         raise ValueError("no images to score (empty input — check the "
                          "folder layout and --names class list)")
@@ -164,9 +172,12 @@ def accuracy_from_arrays(cfg: ModelConfig, net: Darknet, xs, labels, *,
 
 
 def imagefolder_accuracy(cfg: ModelConfig, net: Darknet, samples, *,
-                         batch: int = 32, k: int = 5) -> dict:
+                         batch: int = 32, k: int = 5,
+                         quantize_first_batch=None) -> dict:
     """Accuracy over (path, label) samples, decoding one batch at a time
-    (the one-shot `classify --images`)."""
+    (the one-shot `classify --images`). quantize_first_batch(xs) -> net
+    calibrates int8 once on the first chunk (zero-padded to ``batch``);
+    every chunk then runs the quantized net."""
     from yolo_tpu_torch.data.pipeline import load_image
 
     if batch < 1:
@@ -182,6 +193,13 @@ def imagefolder_accuracy(cfg: ModelConfig, net: Darknet, samples, *,
             load_image(p, cfg.in_channels), cfg.input_hw)
             for p, _ in chunk]).astype(np.float32)
         labels = np.asarray([lab for _, lab in chunk], np.int64)
+        if i == 0 and quantize_first_batch is not None:
+            calib = xs
+            if len(chunk) < batch:
+                calib = np.concatenate(
+                    [xs, np.zeros((batch - len(chunk),) + xs.shape[1:],
+                                  xs.dtype)])
+            net = quantize_first_batch(calib)
         n, h1, hk = accuracy_counts(cfg, net, xs, labels, batch=batch, k=k)
         n_done += n
         hits1 += h1

@@ -45,6 +45,14 @@ through it (ops/cuda/conv_kernel.py), which reads bf16 kernels in bf16
 mode, and the others (mish, swish, logistic, relu, ramp, grouped and
 dilated convs among them) as above.
 
+int8 params (models/quantize.py: a conv block holding ``kernel_q``)
+dispatch before conv_impl, as graph.py::conv_block does: on a CUDA
+tensor such a block always runs the s8 kernel
+(ops/cuda/conv_s8_kernel.py), on a CPU tensor its plain version
+(ops/conv_s8.py); it emits int8 codes where it is chained to its
+consumer, else the compute dtype, and int8 codes pass through the
+maxpools between chained convs.
+
 ``DarknetTrain`` is the train-mode executor (apply_layers(train=True)):
 unfolded BN with batch statistics, trainable kernels, gamma, beta,
 biases and shortcut blend weights, and the new rolling statistics
@@ -81,7 +89,7 @@ from yolo_tpu_torch.configs.specs import (AvgPool, Connected, Conv, Crop,
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.ops import conv as conv_ops
 from yolo_tpu_torch.ops import entry as entry_ops
-from yolo_tpu_torch.ops.cuda import conv_kernel
+from yolo_tpu_torch.ops.cuda import conv_kernel, conv_s8_kernel
 from yolo_tpu_torch.ops.pool import maxpool_nchw
 from yolo_tpu_torch.ops.precision import exact_for, no_tf32
 from yolo_tpu_torch.ops.reorg import reorg_nchw
@@ -385,13 +393,42 @@ def _connected_tensors(spec: Connected, p, i: int, device):
             .to(device))
 
 
+_QUANT_KEYS = {"kernel_q", "w_scale", "x_scale", "bias"}
+
+
+def _quant_tensors(spec: Conv, p, i: int, device) -> Dict[str, Any]:
+    """An int8 block of models/quantize.py::quantize (the JAX package's
+    layout: HWIO int8 kernel_q, (CO,) w_scale, scalar x_scale, (CO,)
+    bias, optional scalar out_scale) -> kernel_q OIHW int8 in
+    channels_last memory, (O, ky, kx, I) bytes (K-major rows), w_scale
+    and bias (CO,) fp32, x_scale and out_scale 0-dim fp32 tensors."""
+    if not _QUANT_KEYS <= set(p) <= _QUANT_KEYS | {"out_scale"}:
+        raise ValueError(f"conv {i}: expected int8 params "
+                         f"{sorted(_QUANT_KEYS)} (+ out_scale), got "
+                         f"{sorted(p)}")
+    k = np.asarray(p["kernel_q"])
+    if k.dtype != np.int8 or k.ndim != 4 or k.shape[0] != spec.size \
+            or k.shape[3] != spec.filters:
+        raise ValueError(f"conv {i}: int8 kernel {k.dtype} {k.shape} does "
+                         f"not match {spec}")
+    out = {"kernel_q": torch.from_numpy(np.ascontiguousarray(
+        k.transpose(3, 2, 0, 1))).to(device).contiguous(
+            memory_format=torch.channels_last)}
+    for key in ("w_scale", "x_scale", "bias", "out_scale"):
+        if key in p:
+            out[key] = torch.from_numpy(np.array(p[key], np.float32)).to(
+                device)
+    return out
+
+
 def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
                       device, dtype=torch.float32) -> List[Dict[str, Any]]:
     """Folded JAX-package params (HWIO numpy kernels) -> the port's
     tensors: OIHW kernels in ``dtype`` and channels_last memory, (in,
     out) connected kernels in ``dtype``, fp32 local kernels (JAX's
     layout), fp32 biases and shortcut blend weights, all on
-    ``device``."""
+    ``device``. An int8 block (``kernel_q``: models/quantize.py) comes
+    across as _quant_tensors gives it."""
     convs = weighted_specs(layers)
     if len(params) != len(convs):
         raise ValueError(f"params_from_numpy: {len(params)} param blocks "
@@ -408,6 +445,9 @@ def params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
         if isinstance(spec, Local):
             kernel, bias = _local_tensors(spec, p, i, device)
             out.append({"kernel": kernel, "bias": bias})
+            continue
+        if "kernel_q" in p:
+            out.append(_quant_tensors(spec, p, i, device))
             continue
         if set(p) != {"kernel", "bias"}:
             raise ValueError(f"conv {i}: expected folded params "
@@ -449,29 +489,56 @@ class Darknet(torch.nn.Module):
         self.compute_dtype = dtype
         self.device = torch.device(device)
         weighted = weighted_specs(layers)
+        # int8 blocks (models/quantize.py), by weighted-layer index: on a
+        # CUDA tensor they always run the s8 kernel (graph.py::conv_block
+        # dispatches on kernel_q before conv_impl)
+        self.quantized = tuple(isinstance(spec, Conv) and "kernel_q" in p
+                               for spec, p in zip(weighted, params))
         # the convs the fused kernel takes (graph.py::conv_block's route:
         # folded bias, leaky or linear, groups 1, dilation 1, and
         # conv_kernel.eligible), by weighted-layer index
         self.kernel_eligible = tuple(
-            isinstance(spec, Conv) and spec.act in ("leaky", "linear")
+            isinstance(spec, Conv) and not q
+            and spec.act in ("leaky", "linear")
             and spec.groups == 1 and spec.dilation == 1
             and conv_ops.eligible(np.asarray(p["kernel"]), spec.stride)
-            for spec, p in zip(weighted, params))
+            for spec, p, q in zip(weighted, params, self.quantized))
+        # per int8 block: (1 / x_scale, out_scale or None), fp32 values
+        # held as Python floats (the kernel takes them by value)
+        self.int8_scales: Dict[int, tuple] = {}
         for i, p in enumerate(params_from_numpy(layers, params, self.device,
                                                 dtype)):
             if "weights" in p:
                 self.register_buffer(f"weights{i}", p["weights"])
                 continue
+            if "kernel_q" in p:
+                self._register_int8(i, params[i], p)
+                continue
             self.register_buffer(f"kernel{i}", p["kernel"].float())
             self.register_buffer(f"bias{i}", p["bias"])
             if dtype == torch.bfloat16 and self.kernel_eligible[i]:
                 self.register_buffer(f"kernel{i}_bf16", p["kernel"])
-        if entry_ops.eligible(self.layers):
+        if entry_ops.eligible(self.layers) and not self.quantized[0]:
             self.register_buffer("entry_kernel", torch.from_numpy(
                 np.ascontiguousarray(np.asarray(
                     params[0]["kernel"], np.float32).transpose(3, 2, 0, 1)))
                 .to(self.device))
         self._routed = _routed_layers(self.layers)
+
+    def _register_int8(self, i: int, p_np, p) -> None:
+        """Buffers of int8 block i: kernel{i}_q, scale{i} = x_scale *
+        w_scale and bias{i}; the scale product and 1 / x_scale are taken
+        once in fp32, as conv_block_int8 takes them."""
+        x_scale = np.float32(np.asarray(p_np["x_scale"]))
+        self.register_buffer(f"kernel{i}_q", p["kernel_q"])
+        self.register_buffer(f"scale{i}", torch.from_numpy(
+            x_scale * np.asarray(p_np["w_scale"], np.float32)).to(
+                self.device))
+        self.register_buffer(f"bias{i}", p["bias"])
+        out_scale = p_np.get("out_scale")
+        self.int8_scales[i] = (
+            float(np.float32(1.0) / x_scale),
+            None if out_scale is None else float(np.float32(out_scale)))
 
     def forward(self, x: torch.Tensor, *, conv_impl: str = "torch",
                 softmax_logits: bool = False):
@@ -489,23 +556,37 @@ class Darknet(torch.nn.Module):
 
     @torch.no_grad()
     def run(self, x: torch.Tensor, *, start: int = 0,
-            conv_impl: str = "torch", softmax_logits: bool = False):
+            conv_impl: str = "torch", softmax_logits: bool = False,
+            return_all: bool = False):
         """Layers ``start``.. on x, the (B, C, H, W) channels_last output
         of layer ``start - 1`` in the compute dtype (the input image for
         start=0) -> logits (B, H', W', A*(5+C)) fp32, the tuple of
         [yolo] head logits, or a classifier's (B, C) output. Routes must
-        not reach back before ``start``."""
+        not reach back before ``start``. return_all returns every
+        layer's output instead, as the executor holds it ((B, C, H, W),
+        a classifier's (B, C); apply_layers(return_all=True))."""
         if conv_impl not in ("torch", "cuda"):
             raise ValueError(f"unknown conv_impl {conv_impl!r} "
                              f"(torch | cuda)")
         outputs: Dict[int, torch.Tensor] = {}
         heads: List[torch.Tensor] = []
+        every: List[torch.Tensor] = []
         conv_i = len(weighted_specs(self.layers[:start]))
         for idx in range(start, len(self.layers)):
             layer = self.layers[idx]
             if isinstance(layer, Conv):
                 bias = getattr(self, f"bias{conv_i}")
-                if conv_impl == "cuda" and self.kernel_eligible[conv_i]:
+                if self.quantized[conv_i]:
+                    x_inv, out_scale = self.int8_scales[conv_i]
+                    x = conv_s8_kernel.conv_s8_bias_act(
+                        x.contiguous(memory_format=torch.channels_last),
+                        getattr(self, f"kernel{conv_i}_q"),
+                        getattr(self, f"scale{conv_i}"), bias, x_inv=x_inv,
+                        out_scale=out_scale, act=layer.act,
+                        stride=layer.stride, groups=layer.groups,
+                        dilation=layer.dilation,
+                        out_dtype=self.compute_dtype)
+                elif conv_impl == "cuda" and self.kernel_eligible[conv_i]:
                     kernel = getattr(self, f"kernel{conv_i}_bf16"
                                      if x.dtype == torch.bfloat16
                                      else f"kernel{conv_i}")
@@ -535,7 +616,9 @@ class Darknet(torch.nn.Module):
                 x = _weightless_layer(idx, layer, x, outputs, heads)
             if idx in self._routed:
                 outputs[idx] = x
-        return _result(x, heads)
+            if return_all:
+                every.append(x)
+        return every if return_all else _result(x, heads)
 
 
 def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,

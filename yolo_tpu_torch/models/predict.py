@@ -158,8 +158,8 @@ def _entry_fusable(cfg: ModelConfig) -> bool:
     """The entry fusion applies (predict.py::_entry_fusable): a conv3x3 +
     pool2x2 entry, 3 input channels, and routes, shortcuts, sam and
     scale_channels layers that resolve without layers 0-1 (relative,
-    never reaching back before layer 2). The port's params are always
-    folded and it has no int8 kernels."""
+    never reaching back before layer 2). The params' side of the JAX
+    gate (folded, not int8) is detect_raw's check of the net."""
     def refs(layer):
         return layer.layers if isinstance(layer, Route) else (layer.frm,)
 
@@ -203,7 +203,9 @@ def detect_raw(cfg: ModelConfig, net: Darknet, images_u8: torch.Tensor, *,
                 f"entry='fused' runs layers 2.. with conv_impl='torch', "
                 f"got conv_impl={conv_impl!r}: the reference's fused "
                 f"entry route has no conv kernel route")
-        if not _entry_fusable(cfg):
+        if not _entry_fusable(cfg) or net.quantized[0]:
+            # an int8 conv 0 (models/quantize.py) has no entry kernel,
+            # as the JAX package's gate refuses kernel_q params
             raise ValueError("entry='fused' needs a conv3x3+pool2x2 "
                              "entry and folded-BN params")
         net_h, net_w = cfg.input_hw

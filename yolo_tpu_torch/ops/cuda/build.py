@@ -152,4 +152,10 @@ def library() -> ctypes.CDLL:
     lib.yolo_entry_conv_pool.restype = i32
     lib.yolo_entry_conv_pool.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.yolo_conv_s8_bias_act.restype = i32
+    # x, w, scale, bias, out, out_scale; batch, h, w, cin, co, ks, stride,
+    # dilation, groups, pad, ho, wo, act, out kind; body, bm, bn, npt;
+    # stream
+    lib.yolo_conv_s8_bias_act.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_float, *([i32] * 18), ptr]
     return lib

@@ -1,0 +1,154 @@
+"""int8 conv + dequantize + bias + activation, then requantize or cast:
+wrapper of ``csrc/conv_s8_bias_act.cu``, and the plan of its three
+bodies.
+
+The CUDA kernel replaces the int8 conv of the JAX package's int8
+post-training quantization (yolo_tpu/models/quantize.py:234, an XLA conv
+with int32 accumulation; it has no Pallas kernel). Its plain PyTorch
+version is ``yolo_tpu_torch.ops.conv_s8.conv_s8_bias_act``.
+
+A float input is quantized first, round(x.f32 * x_inv) in an elementwise
+pass (ops/conv_s8.py::quantize_input); an int8 input is read as it is.
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+version, which is what the CPU tests run.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from yolo_tpu_torch.configs.specs import ACTIVATIONS
+from yolo_tpu_torch.ops import conv_s8
+from yolo_tpu_torch.ops.cuda import build
+
+# kernel launches since the last reset (chip_smoke.py reads it to show
+# that the int8 path ran the kernel); one per call
+launches = 0
+
+SMS = 132          # streaming multiprocessors of an H100 SXM
+CHUNK = 32         # the mma body's K chunk: one tap's 32 input channels
+ACT_CODES = {"linear": 0, "leaky": 1, "mish": 2, "logistic": 3, "swish": 4,
+             "relu": 5, "ramp": 6}
+OUT_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+# K from which the wgmma body's 128-wide tiles lead the 64-wide ones (a
+# short K loop leaves the block's fill and epilogue exposed)
+WGMMA_WIDE_K = 2048
+BODIES = {"mma": 0, "dp4a": 1, "wgmma": 2}
+
+
+class Plan(NamedTuple):
+    """Which body covers a conv: "wgmma" on 128 x BN tiles and K chunks
+    of ``chunk`` bytes (the TMA ring and wgmma tensor cores), "mma" on BM
+    x BN tiles (mma.sync tensor cores, per-group CIN a multiple of CHUNK)
+    or "dp4a" with ``npt`` output channels a thread (any shape)."""
+    body: str
+    bm: int = 0
+    bn: int = 0
+    npt: int = 0
+    chunk: int = 0
+
+
+def plan(m: int, cin_g: int, co_g: int, groups: int, *, stride: int = 1,
+         dilation: int = 1, ks: int = 3) -> Plan:
+    """The body and tile of one conv: M output pixels, CIN and CO per
+    group. The wgmma body takes stride-1, undilated, ungrouped convs of
+    odd size with CIN a multiple of 32 and CO of 64, in K chunks of 128,
+    64 or 32 bytes (the widest that divides CIN): 128 x 128 tiles (two
+    blocks an SM) where the chunk is 128, K spans WGMMA_WIDE_K or more
+    and they fill the card, else 128 x 64, as tools/port_perf.py
+    tiles_s8 ranks them at YOLOv2-COCO's shapes. The mma body takes
+    every other per-group CIN that is a multiple of 32, with 128 x 64
+    tiles, or 64 x 64 where those would not give each SM two blocks; the
+    rest (conv 0's 3 channels, narrow groups) run on dp4a."""
+    if (groups == 1 and stride == 1 and dilation == 1 and ks % 2 == 1
+            and cin_g % CHUNK == 0 and co_g % 64 == 0):
+        chunk = next(c for c in (128, 64, 32) if cin_g % c == 0)
+        wide = (chunk == 128 and co_g % 128 == 0
+                and ks * ks * cin_g >= WGMMA_WIDE_K
+                and -(-m // 128) * (co_g // 128) >= SMS)
+        return Plan("wgmma", 128, 128 if wide else 64, chunk=chunk)
+    if cin_g % CHUNK == 0:
+        blocks = -(-m // 128) * -(-co_g // 64) * groups
+        return Plan("mma", 128 if blocks >= 2 * SMS else 64, 64)
+    npt = 32 if co_g >= 32 else 8 if co_g >= 8 else 1
+    return Plan("dp4a", npt=npt)
+
+
+_ERRORS = {-1: "the kernel was not built for this plan",
+           -2: "the driver has no tensor-map encoder",
+           -3: "the driver refused a tensor map"}
+
+
+def conv_s8_bias_act(x: torch.Tensor, kernel_q: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor, *,
+                     x_inv: float, out_scale: Optional[float] = None,
+                     act: str = "leaky", stride: int = 1, groups: int = 1,
+                     dilation: int = 1,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """x (B, CIN, H, W) int8 codes or float, channels_last; kernel_q (CO,
+    CIN / groups, ks, ks) int8 channels_last; scale = x_scale * w_scale
+    and bias (CO,) fp32 -> (B, CO, H', W') channels_last: int8 codes at
+    out_scale when it is given, else out_dtype (bf16 or fp32). Darknet
+    padding (ks // 2) * dilation; any stride, dilation and groups."""
+    global launches
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return conv_s8.conv_s8_bias_act(
+            x, kernel_q, scale, bias, x_inv=x_inv, out_scale=out_scale,
+            act=act, stride=stride, groups=groups, dilation=dilation,
+            out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA or CPU tensor, got {x.device}")
+    if x.dim() != 4 or kernel_q.dim() != 4:
+        raise ValueError(f"x and kernel_q must be 4-D, got "
+                         f"{tuple(x.shape)} and {tuple(kernel_q.shape)}")
+    b, cin, h, w = x.shape
+    co, cin_g, ks, ks2 = kernel_q.shape
+    if (groups < 1 or cin % groups or co % groups or cin_g * groups != cin
+            or ks != ks2 or stride < 1 or dilation < 1
+            or tuple(scale.shape) != (co,) or tuple(bias.shape) != (co,)):
+        raise ValueError(f"kernel {tuple(kernel_q.shape)}, scale "
+                         f"{tuple(scale.shape)} and bias "
+                         f"{tuple(bias.shape)} do not match x "
+                         f"{tuple(x.shape)} at groups={groups}, "
+                         f"stride={stride}, dilation={dilation}")
+    if out_scale is None and out_dtype not in (torch.bfloat16,
+                                               torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
+    if x.dtype != torch.int8:
+        if not x.is_floating_point():
+            raise ValueError(f"x must be int8 or float, got {x.dtype}")
+        x = conv_s8.quantize_input(x, x_inv)
+    build.check_tensor("x", x, x.device, torch.int8, True)
+    build.check_tensor("kernel_q", kernel_q, x.device, torch.int8, True)
+    build.check_tensor("scale", scale, x.device, torch.float32, False)
+    build.check_tensor("bias", bias, x.device, torch.float32, False)
+    ho, wo = conv_s8.out_hw(h, w, ks, stride, dilation)
+    kind = torch.int8 if out_scale is not None else out_dtype
+    out = torch.empty((b, co, ho, wo), dtype=kind, device=x.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    p = plan(b * ho * wo, cin_g, co // groups, groups, stride=stride,
+             dilation=dilation, ks=ks)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.yolo_conv_s8_bias_act(
+            x.data_ptr(), kernel_q.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(),
+            1.0 if out_scale is None else float(out_scale), b, h, w, cin, co,
+            ks, stride, dilation, groups, (ks // 2) * dilation, ho, wo,
+            ACT_CODES[act], OUT_KINDS[kind], BODIES[p.body], p.bm, p.bn,
+            p.npt or p.chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"conv_s8_bias_act launch failed ({p}): "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
+    launches += 1
+    return out
