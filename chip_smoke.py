@@ -11,11 +11,12 @@ JSON lines; any failed check raises and the script exits non-zero:
   2. build    compile the CUDA kernels from the checkout; count the
               wgmma instructions (HGMMA, IGMMA for int8) of each kernel
               in the library (cuobjdump --dump-sass): every bf16 conv
-              kernel and every s8 wgmma conv kernel must have some; the
-              registers, stack and local memory that ptxas gave the fp32
-              conv, s8 conv and NMS kernels (cuobjdump
-              --dump-resource-usage): none may spill (stack and local
-              memory 0)
+              kernel (BF16_WGMMA_KERNELS) and every s8 wgmma conv kernel
+              (S8_WGMMA_KERNELS) must have some; the registers, stack and
+              local memory that ptxas gave the fp32 conv, s8 conv (stem,
+              wgmma, mma, dp4a, split-K reduction), int8 maxpool and NMS
+              kernels (cuobjdump --dump-resource-usage): none may spill
+              (stack and local memory 0)
   3. kernel   CUDA greedy-NMS suppress vs its plain PyTorch version on
               crowded scenes at the served shapes: identical keep masks
   4. serve    YOLOv2-COCO 416 (full width, seeded random weights written
@@ -245,32 +246,41 @@ JSON lines; any failed check raises and the script exits non-zero:
               chained, served in bf16 (the CLI's --precision int8): (a)
               the s8 kernel (csrc/conv_s8_bias_act.cu) against its plain
               block on the same card tensors at every conv shape of the
-              net (conv 0 on the dp4a body) and INT8_EXTRA_SHAPES
-              (grouped, dilated), batch 1 and 32, int8 codes and bf16
-              in, int8, bf16 and fp32 out: the same bytes; (b) a served
-              forward makes INT8_CONVS s8 launches and one NMS launch,
-              no bf16 conv or entry kernel launch, no plain block on the
-              card; (c) tests/test_quantize.py's gates against the fp32
+              net (conv 0 on the stem body, also with STEM_POOLS fused,
+              against the plain block then the plain pool) and
+              INT8_EXTRA_SHAPES (grouped, dilated), batch 1 and 32, int8
+              codes and bf16 in, int8, bf16 and fp32 out; the int8
+              maxpool kernel (csrc/maxpool_s8.cu) against the running
+              maximum at the net's pool inputs, 2x2/2, 2x2/1 and 3x3/1:
+              the same bytes; (b) a served forward makes INT8_CONVS s8
+              launches (conv 0 with pool 1 fused), INT8_POOLS int8-pool
+              launches and one NMS launch, no bf16 conv or entry kernel
+              launch, no plain block or plain int8 pool on the card; (c)
+              tests/test_quantize.py's gates against the fp32
               plain path (score deviation < INT8_GATE_DEV, top-50
               overlap > INT8_GATE_OVERLAP) on the batch calibrated on,
               as the JAX tests take them, and the box-level match share
               both ways, printed; (d) card against CPU on the same int8
-              params at batch 2: every layer's output equal, int8 codes
-              at each chained boundary; (e) `predict --precision int8`
-              prints a direct call's detections, and an int8 server
-              (serve's _serve_net + DetectionServer) answers a JPEG and
-              an .npy body as direct calls; (f) int8 img/s at batch
-              1/32/128 beside the bf16 default route and
+              params at batch 2: every layer's output equal (return_all,
+              nothing fused), int8 codes at each chained boundary, and
+              the logits on the fused route equal; (e) `predict
+              --precision int8` prints a direct call's detections, and
+              an int8 server (serve's _serve_net + DetectionServer)
+              answers a JPEG and an .npy body as direct calls; (f) int8
+              img/s at batch 1/32/128 beside the bf16 default route and
               conv_impl="cuda"; per s8 call of a forward at batch 1 and
               32, kernel, plain, bound and library ms (torch._int_mm on
-              the im2col'd GEMM operands, the GEMM alone), summed over
-              the 23 convs for the kernels line; (g) yolov4 @608 int8 at
+              the im2col'd GEMM operands, the GEMM alone; conv 0's bound
+              counts its pooled output), summed over the 23 convs for
+              the kernels line; per int8 pool of the forward, kernel,
+              plain and byte-bound ms, summed; (g) yolov4 @608 int8 at
               batch 32 (phase 12's weights): 110 s8 launches (72 mish
-              epilogues), every s8 call of a forward against the plain
-              block on its own inputs (leaky and linear the same bytes,
-              mish within 1 code and 1 bf16 ulp), the top-50 overlap
-              gate; its score deviation is printed beside the JAX
-              package's own on the same inputs (V4_JAX_SCORE_DEV)
+              epilogues; conv 0 on the stem body, unpooled), every s8
+              call of a forward against the plain block on its own
+              inputs (leaky and linear the same bytes, mish within 1
+              code and 1 bf16 ulp), the top-50 overlap gate; its score
+              deviation is printed beside the JAX package's own on the
+              same inputs (V4_JAX_SCORE_DEV)
 
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
@@ -713,13 +723,20 @@ def _kernel_name(mangled: str) -> str:
             break
     else:
         return mangled
-    args = re.match(r"I((?:Li\d+E)+)(a|f|13__nv_bfloat16)?E", mangled[end:])
-    if not args:
+    # the template arguments in order: integers (Li<n>E) and the types
+    # int8 (a), float (f) and bf16 (13__nv_bfloat16)
+    rest = mangled[end:]
+    if not rest.startswith("I"):
         return mangled[start:end]
-    nums = re.findall(r"[0-9]+", args.group(1))
-    if args.group(2):   # a type argument: the s8 kernel's output type
-        nums.append({"a": "int8", "f": "float"}.get(args.group(2), "bf16"))
-    return f"{mangled[start:end]}<{','.join(nums)}>"
+    args, i = [], 1
+    for tok in re.finditer(r"Li(\d+)E|a|f|13__nv_bfloat16|E", rest[1:]):
+        if tok.start() != i - 1 or tok.group(0) == "E":
+            break
+        args.append(tok.group(1) or {"a": "int8", "f": "float"}.get(
+            tok.group(0), "bf16"))
+        i = tok.end() + 1
+    return (f"{mangled[start:end]}<{','.join(args)}>" if args
+            else mangled[start:end])
 
 
 def crowded_rows(rng, g, k, per_class):
@@ -3981,6 +3998,15 @@ def phase_yolov1(root: str, gen, card: str) -> dict:
 # the CLI's --precision int8
 INT8_CALIB = 8            # seeded frames prepare_int8 calibrates on
 INT8_CONVS = 23           # s8 launches a forward: every conv
+# phase 2: wgmma instantiations of the bf16 conv kernel and of the s8
+# kernel (BN 64 and 128 on 128-, 64- and 32-byte activation boxes)
+BF16_WGMMA_KERNELS = 4
+S8_WGMMA_KERNELS = 6
+# int8-pool launches a forward: pools 3, 7 and 11 (pool 1 runs in conv
+# 0's stem launch; pool 17 pools bf16, since conv 16 feeds route 25)
+INT8_POOLS = 3
+# (a)'s pools fused into the stem body at conv 0's shape
+STEM_POOLS = ((2, 2), (2, 1), (3, 1))
 # tests/test_quantize.py's gates against the fp32 plain path: the largest
 # |score_fp32 - score_int8| and the top-50 overlap of the two
 INT8_GATE_DEV = 0.3
@@ -4042,14 +4068,30 @@ def s8_inputs(gen, b, shape) -> tuple:
 
 def phase_int8_kernel(gen, shapes) -> float:
     """(a) the s8 kernel against its plain version on the same card
-    tensors at every conv shape of YOLOv2-COCO (conv 0 on the dp4a body)
+    tensors at every conv shape of YOLOv2-COCO (conv 0 on the stem body)
     and INT8_EXTRA_SHAPES, batch 1 and 32: int8 codes and bf16 inputs;
-    int8, bf16 and fp32 outputs (at batch 32 one of each). Leaky and
-    linear: the same bytes. Returns the largest |kernel - plain|."""
+    int8, bf16 and fp32 outputs (at batch 32 one of each); conv 0 also
+    with STEM_POOLS fused against the plain block and the plain pool;
+    and the int8 maxpool kernel against the running maximum at the
+    net's 2x2/2 pool shapes. Leaky and linear: the same bytes. Returns
+    the largest |kernel - plain|."""
     from yolo_tpu_torch.ops import conv_s8
-    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+    from yolo_tpu_torch.ops import pool as pool_ops
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel, pool_kernel
 
     worst = 0.0
+
+    def same(got, want, what, **row):
+        nonlocal worst
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and got.is_contiguous(memory_format=torch.channels_last),
+              f"{what}: {got.dtype} {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"{what}: max |kernel - plain| "
+              f"{err}, not the same bytes")
+        worst = max(worst, err)
+        emit({"phase": "int8_kernel", **row, "identical": True})
+
     for b in INT8_CHECK_BATCHES:
         for shape in sorted(shapes) + list(INT8_EXTRA_SHAPES):
             h, w, cin, co, ks, stride, groups, dil, act = shape
@@ -4059,52 +4101,91 @@ def phase_int8_kernel(gen, shapes) -> float:
                                    (None, torch.float32))]
             if b > 1:
                 combos = [combos[3], combos[1], combos[2]]
+            stem = conv_s8_kernel.stem_takes(cin // groups, co // groups,
+                                             groups, stride=stride,
+                                             dilation=dil, ks=ks)
+            pools = (None, *STEM_POOLS) if stem else (None,)
             for x, out_scale, dt in combos:
-                kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
-                          stride=stride, groups=groups, dilation=dil,
-                          out_dtype=dt or torch.float32)
-                got = conv_s8_kernel.conv_s8_bias_act(x, kq, scale, bias,
-                                                      **kw)
+                for pool in pools:
+                    kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
+                              stride=stride, groups=groups, dilation=dil,
+                              out_dtype=dt or torch.float32)
+                    got = conv_s8_kernel.conv_s8_bias_act(
+                        x, kq, scale, bias, pool=pool, **kw)
+                    torch.cuda.synchronize()
+                    want = conv_s8.conv_s8_bias_act(x, kq, scale, bias,
+                                                    **kw)
+                    if pool is not None:
+                        want = (pool_ops.maxpool_s8_plain(want, *pool)
+                                if want.dtype == torch.int8 else
+                                pool_ops.maxpool_nchw(want, *pool))
+                    ho, wo = conv_s8.out_hw(h, w, ks, stride, dil)
+                    same(got, want,
+                         f"s8 conv {b}x{h}x{w} {cin}->{co} {ks}x{ks}/"
+                         f"{stride} g{groups} d{dil} pool {pool} "
+                         f"{x.dtype}->{got.dtype}",
+                         batch=b, shape=list(shape), pool=pool,
+                         **{"in": str(x.dtype), "out": str(got.dtype)},
+                         plan=list(conv_s8_kernel.plan(
+                             b * ho * wo, cin // groups, co // groups,
+                             groups, stride=stride, dilation=dil, ks=ks)))
+        for c, hw in ((64, 208), (128, 104), (256, 52), (512, 26), (20, 13)):
+            x = torch.randint(-128, 128, (b, c, hw, hw), generator=gen,
+                              device="cuda", dtype=torch.int8).contiguous(
+                                  memory_format=torch.channels_last)
+            for size, stride in ((2, 2), (2, 1), (3, 1)):
+                before = pool_kernel.launches
+                got = pool_ops.maxpool_nchw(x, size, stride)
                 torch.cuda.synchronize()
-                want = conv_s8.conv_s8_bias_act(x, kq, scale, bias, **kw)
-                what = (f"s8 conv {b}x{h}x{w} {cin}->{co} {ks}x{ks}/"
-                        f"{stride} g{groups} d{dil} {x.dtype}->"
-                        f"{got.dtype}")
-                check(got.dtype == want.dtype and got.shape == want.shape
-                      and got.is_contiguous(memory_format=torch.channels_last),
-                      f"{what}: {got.dtype} {tuple(got.shape)}")
-                err = float((got.float() - want.float()).abs().max())
-                check(torch.equal(got, want), f"{what}: max |kernel - "
-                      f"plain| {err}, not the same bytes")
-                worst = max(worst, err)
-                emit({"phase": "int8_kernel", "batch": b, "shape": list(
-                    shape), "in": str(x.dtype), "out": str(got.dtype),
-                    "plan": list(conv_s8_kernel.plan(
-                        got.shape[0] * got.shape[2] * got.shape[3],
-                        cin // groups, co // groups, groups, stride=stride,
-                        dilation=dil, ks=ks)),
-                    "identical": True})
+                check(pool_kernel.launches == before + 1,
+                      "an int8 pool on the card did not launch the kernel")
+                same(got, pool_ops.maxpool_s8_plain(x, size, stride),
+                     f"int8 maxpool {b}x{c}x{hw}x{hw} {size}/{stride}",
+                     batch=b, pool_in=[c, hw, hw], pool=[size, stride])
     return worst
 
 
-def captured_s8_calls(net, x) -> list:
+def captured_s8_calls(net, x, pools=None) -> list:
     """The s8 wrapper's calls in one forward of net on x: (args, kwargs),
-    tensors cloned as the wrapper got them."""
-    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+    tensors cloned as the wrapper got them; the int8 pool wrapper's
+    calls go to `pools` ((x, size, stride)) when it is given."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel, pool_kernel
 
     got = []
-    kernel = conv_s8_kernel.conv_s8_bias_act
+    kernel, pool = conv_s8_kernel.conv_s8_bias_act, pool_kernel.maxpool_s8
 
     def capture(x, kq, scale, bias, **kw):
         got.append(((x.clone(), kq, scale, bias), dict(kw)))
         return kernel(x, kq, scale, bias, **kw)
 
+    def capture_pool(x, size, stride):
+        if pools is not None:
+            pools.append((x.clone(), size, stride))
+        return pool(x, size, stride)
+
     conv_s8_kernel.conv_s8_bias_act = capture
+    pool_kernel.maxpool_s8 = capture_pool
     try:
         net(x)
     finally:
         conv_s8_kernel.conv_s8_bias_act = kernel
+        pool_kernel.maxpool_s8 = pool
     return got
+
+
+def plain_s8(args, kw):
+    """The plain block on an s8 wrapper call's arguments, then the plain
+    pool of a fused one (the running maximum for int8 codes)."""
+    from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops import pool as pool_ops
+
+    pool = kw.get("pool")
+    y = conv_s8.conv_s8_bias_act(*args, **{k: v for k, v in kw.items()
+                                          if k != "pool"})
+    if pool is None:
+        return y
+    return (pool_ops.maxpool_s8_plain(y, *pool) if y.dtype == torch.int8
+            else pool_ops.maxpool_nchw(y, *pool))
 
 
 def int8_gemm_operands(x, kq, stride, dilation) -> tuple:
@@ -4125,24 +4206,31 @@ def int8_gemm_operands(x, kq, stride, dilation) -> tuple:
 
 def phase_int8_times(cfg, net, card: str) -> dict:
     """(f) per s8 call of a forward at batch 1 and 32 (the inputs the
-    forward gave it, distinct shapes timed once): kernel, plain and
-    library ms beside the bound, and the sums over the 23 convs.
+    forward gave it, distinct shapes timed once; conv 0's call with pool
+    1 fused): kernel, plain and library ms beside the bound, and the
+    sums over the 23 convs; per int8 pool of the forward the pool
+    kernel beside its plain version and its byte bound, and the sums.
     library_ms: torch._int_mm on the conv's GEMM operands (im2col'd for
-    3x3), the GEMM alone; the port never calls it."""
+    3x3), the GEMM alone; the port never calls it. The int8 pool has no
+    library call (no int8 max_pool2d on the card)."""
     from yolo_tpu_torch.ops import conv_s8
+    from yolo_tpu_torch.ops import pool as pool_ops
     from yolo_tpu_torch.ops.cuda import conv_s8_kernel
 
-    sums = {}
+    sums, pool_sums = {}, {}
     for b in TIMED_BATCHES:
         x = letterbox(frames(SEED + 190 + b, b), cfg.input_hw,
                       dtype=torch.bfloat16)
-        calls = captured_s8_calls(net, x)
-        check(len(calls) == INT8_CONVS, f"{len(calls)} s8 calls a forward")
+        pools = []
+        calls = captured_s8_calls(net, x, pools)
+        check(len(calls) == INT8_CONVS and len(pools) == INT8_POOLS,
+              f"{len(calls)} s8 calls and {len(pools)} int8 pools a "
+              f"forward")
         seen = {}
         for args, kw in calls:
             key = (tuple(args[0].shape), args[0].dtype, tuple(args[1].shape),
                    kw["stride"], kw["groups"], kw["dilation"], kw["act"],
-                   kw["out_scale"] is None)
+                   kw["out_scale"] is None, kw.get("pool"))
             seen.setdefault(key, [args, kw, 0])[2] += 1
         total = [0.0] * 4
         kinds = {}
@@ -4152,8 +4240,7 @@ def phase_int8_times(cfg, net, card: str) -> dict:
             ms = cuda_ms_per_call(
                 lambda: conv_s8_kernel.conv_s8_bias_act(*args, **kw),
                 calls=20)
-            plain_ms = cuda_ms_per_call(
-                lambda: conv_s8.conv_s8_bias_act(*args, **kw), calls=3)
+            plain_ms = cuda_ms_per_call(lambda: plain_s8(args, kw), calls=3)
             library_ms = None
             if kw["groups"] == 1:
                 a, w = int8_gemm_operands(
@@ -4162,14 +4249,19 @@ def phase_int8_times(cfg, net, card: str) -> dict:
                     kw["stride"], kw["dilation"])
                 library_ms = cuda_ms_per_call(lambda: torch._int_mm(a, w),
                                               calls=20)
-            m = out.shape[0] * out.shape[2] * out.shape[3]
+            # the conv's output pixels (before a fused pool)
+            ho, wo = conv_s8.out_hw(xin.shape[2], xin.shape[3],
+                                    kq.shape[-1], kw["stride"],
+                                    kw["dilation"])
+            m = xin.shape[0] * ho * wo
             flop = 2 * m * out.shape[1] * kq[0].numel()
             bound, bound_by = bound_ms(flop, nbytes(xin, kq, scale, bias,
                                                     out), torch.int8)
             emit({"phase": "times", "what": "conv_s8", "batch": b,
                   "in_shape": list(xin.shape), "in": str(xin.dtype),
                   "kernel_shape": list(kq.shape), "stride": kw["stride"],
-                  "act": kw["act"], "out": str(out.dtype), "layers": n,
+                  "act": kw["act"], "out": str(out.dtype),
+                  "pool": kw.get("pool"), "layers": n,
                   "plan": list(conv_s8_kernel.plan(
                       m, kq.shape[1], kq.shape[0] // kw["groups"],
                       kw["groups"], stride=kw["stride"],
@@ -4189,7 +4281,28 @@ def phase_int8_times(cfg, net, card: str) -> dict:
               "kernel_ms": total[0], "plain_ms": total[1],
               "library_ms": total[2], "bound_ms": total[3], "bound_by": by,
               "share_of_bound": total[3] / total[0], "card": card})
-    return sums
+        ptot = [0.0] * 3
+        for xin, size, stride in pools:
+            out = pool_ops.maxpool_nchw(xin, size, stride)
+            ms = cuda_ms_per_call(
+                lambda: pool_ops.maxpool_nchw(xin, size, stride), calls=20)
+            plain_ms = cuda_ms_per_call(
+                lambda: pool_ops.maxpool_s8_plain(xin, size, stride),
+                calls=20)
+            bound = bound_ms(0, nbytes(xin, out), torch.int8)[0]
+            emit({"phase": "times", "what": "maxpool_s8", "batch": b,
+                  "in_shape": list(xin.shape), "size": size,
+                  "stride": stride, "kernel_ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": "bytes",
+                  "share_of_bound": bound / ms, "card": card})
+            for i, t in enumerate((ms, plain_ms, bound)):
+                ptot[i] += t
+        pool_sums[b] = tuple(ptot)
+        emit({"phase": "times", "what": "maxpool_s8_pools", "batch": b,
+              "pools": len(pools), "kernel_ms": ptot[0],
+              "plain_ms": ptot[1], "bound_ms": ptot[2], "bound_by": "bytes",
+              "share_of_bound": ptot[2] / ptot[0], "card": card})
+    return sums, pool_sums
 
 
 def int8_gates(s32, s8) -> tuple:
@@ -4206,16 +4319,20 @@ def int8_launch_counts(fn) -> dict:
     """fn() with every kernel's count (and the plain s8 block's count on
     the card) set to 0 just before -> the counts just after."""
     from yolo_tpu_torch.ops import conv_s8
-    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+    from yolo_tpu_torch.ops import pool as pool_ops
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel, pool_kernel
 
     nms_kernel.launches = conv_kernel.launches = entry_kernel.launches = 0
     conv_s8_kernel.launches = conv_s8.cuda_calls = 0
+    pool_kernel.launches = pool_ops.cuda_calls = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"conv_s8": conv_s8_kernel.launches,
+                 "maxpool_s8": pool_kernel.launches,
                  "nms": nms_kernel.launches, "conv": conv_kernel.launches,
                  "entry": entry_kernel.launches,
-                 "plain_s8_on_card": conv_s8.cuda_calls}
+                 "plain_s8_on_card": conv_s8.cuda_calls,
+                 "plain_pool_on_card": pool_ops.cuda_calls}
 
 
 def int8_cli(seeded: str, cfg, weights: str, card: str) -> dict:
@@ -4248,7 +4365,9 @@ def int8_cli(seeded: str, cfg, weights: str, card: str) -> dict:
     check(got == direct, f"predict --precision int8: {len(got)} printed "
           f"detections differ from the direct call's {len(direct)}")
     check(counts["conv_s8"] == INT8_CONVS and counts["nms"] == 1
-          and counts["plain_s8_on_card"] == 0,
+          and counts["maxpool_s8"] == INT8_POOLS
+          and counts["plain_s8_on_card"] == 0
+          and counts["plain_pool_on_card"] == 0,
           f"predict --precision int8 launches {counts}")
     args = argparse.Namespace(precision="int8", calibration_image=image,
                               device="cuda", weights=weights,
@@ -4273,7 +4392,9 @@ def int8_cli(seeded: str, cfg, weights: str, card: str) -> dict:
           "serve --precision int8: an HTTP answer differs from the direct "
           "call")
     check(served_counts["conv_s8"] == 2 * INT8_CONVS
-          and served_counts["plain_s8_on_card"] == 0,
+          and served_counts["maxpool_s8"] == 2 * INT8_POOLS
+          and served_counts["plain_s8_on_card"] == 0
+          and served_counts["plain_pool_on_card"] == 0,
           f"served int8 launches {served_counts}")
     emit({"phase": "int8_cli", "command": "predict", "detections": len(got),
           "equal_direct": True, "seconds_in_process": wall,
@@ -4281,8 +4402,8 @@ def int8_cli(seeded: str, cfg, weights: str, card: str) -> dict:
     emit({"phase": "int8_cli", "command": "serve", "bodies": ["jpeg", "npy"],
           "responses_equal_direct": True, "launches": served_counts,
           "card": card})
-    return {"conv_s8": counts["conv_s8"] + served_counts["conv_s8"],
-            "nms": counts["nms"] + served_counts["nms"]}
+    return {k: counts[k] + served_counts[k]
+            for k in ("conv_s8", "maxpool_s8", "nms")}
 
 
 def int8_yolov4(seeded: str, card: str) -> dict:
@@ -4292,7 +4413,6 @@ def int8_yolov4(seeded: str, card: str) -> dict:
     against the plain block on its own inputs; against the fp32 plain
     path, the top-50 overlap gate, and the score deviation beside the
     JAX package's own on the same inputs (V4_JAX_SCORE_DEV)."""
-    from yolo_tpu_torch.ops import conv_s8
     from yolo_tpu_torch.ops.cuda import conv_s8_kernel
     from yolo_tpu_torch.ops.decode import decode_yolo
 
@@ -4303,13 +4423,15 @@ def int8_yolov4(seeded: str, card: str) -> dict:
     images = frames(SEED + 194, V4_INT8_BATCH)
     _, counts = int8_launch_counts(lambda: make_detector(cfg)(net, images))
     check(counts["conv_s8"] == V4_INT8_CONVS and counts["nms"] == 1
-          and counts["conv"] == 0 and counts["plain_s8_on_card"] == 0,
+          and counts["conv"] == 0 and counts["plain_s8_on_card"] == 0
+          and counts["plain_pool_on_card"] == 0,
           f"yolov4 int8 forward launches {counts}")
     x = letterbox(images, cfg.input_hw, dtype=torch.bfloat16)
     blocks = {}
     for args, kw in captured_s8_calls(net, x[:INT8_GATE_BATCH]):
+        check(kw.get("pool") is None, "yolov4 fused a pool")
         got = conv_s8_kernel.conv_s8_bias_act(*args, **kw)
-        want = conv_s8.conv_s8_bias_act(*args, **kw)
+        want = plain_s8(args, kw)
         gap = float((got.float() - want.float()).abs().max())
         if got.dtype == torch.int8:
             ok = gap <= 1
@@ -4379,8 +4501,9 @@ def phase_int8(seeded: str, model, model32, images, ref, gen,
     det = make_detector(cfg)
     cuda_images = torch.from_numpy(images).cuda()
     out, counts = int8_launch_counts(lambda: det(net, cuda_images[:1]))
-    check(counts == {"conv_s8": INT8_CONVS, "nms": 1, "conv": 0,
-                     "entry": 0, "plain_s8_on_card": 0},
+    check(counts == {"conv_s8": INT8_CONVS, "maxpool_s8": INT8_POOLS,
+                     "nms": 1, "conv": 0, "entry": 0, "plain_s8_on_card": 0,
+                     "plain_pool_on_card": 0},
           f"int8 forward launches {counts}")
     launches = dict(counts)
 
@@ -4429,14 +4552,22 @@ def phase_int8(seeded: str, model, model32, images, ref, gen,
         a.dtype == b.dtype and torch.equal(a.cpu(), b)
         for a, b in zip(on_card, on_cpu)),
         "int8 forward: card and CPU differ at some layer")
+    # the fused route (conv 0 and pool 1 in one stem launch): the logits
+    check(net.fused_pools == cpu.fused_pools == {0: (2, 2)},
+          f"fused pools {net.fused_pools}")
+    fused_card, fused_cpu = net.run(xb), cpu.run(xb.cpu())
+    check(torch.equal(fused_card.cpu(), fused_cpu)
+          and torch.equal(fused_cpu, on_cpu[-1].permute(0, 2, 3, 1).float()),
+          "int8 forward on the fused route: card and CPU logits differ")
     emit({"phase": "int8", "what": "card_vs_cpu", "batch": INT8_CPU_BATCH,
           "layers_equal": len(on_cpu), "int8_boundaries": boundaries,
-          "card": card})
+          "fused_pools": {str(k): v for k, v in net.fused_pools.items()},
+          "fused_logits_equal": True, "card": card})
     t2 = time.perf_counter()
 
     # (e) the command line and the server
     cli = int8_cli(seeded, cfg, weights, card)
-    for k in ("conv_s8", "nms"):
+    for k in ("conv_s8", "maxpool_s8", "nms"):
         launches[k] += cli[k]
     t3 = time.perf_counter()
 
@@ -4453,17 +4584,18 @@ def phase_int8(seeded: str, model, model32, images, ref, gen,
             ms = cuda_median_ms(fn, reps=5)
             row[f"{route}_ms"], row[f"{route}_img_per_s"] = ms, b * 1000 / ms
         emit(row)
-    sums = phase_int8_times(cfg, net, card)
+    sums, pool_sums = phase_int8_times(cfg, net, card)
     t4 = time.perf_counter()
 
     v4 = int8_yolov4(seeded, card)
-    for k in ("conv_s8", "nms"):
+    for k in ("conv_s8", "maxpool_s8", "nms"):
         launches[k] += v4["launches"][k]
     emit({"phase": "int8", "seconds": time.perf_counter() - t0,
           "kernel_check_seconds": t1 - t0, "forward_seconds": t2 - t1,
           "cli_seconds": t3 - t2, "times_seconds": t4 - t3,
           "yolov4_seconds": time.perf_counter() - t4, "card": card})
-    return {"launches": launches, "worst": worst, "ms": sums}
+    return {"launches": launches, "worst": worst, "ms": sums,
+            "pool_ms": pool_sums}
 
 
 def main() -> int:
@@ -4495,23 +4627,28 @@ def run(seeded: str) -> int:
     hgmma = hgmma_counts(lib)
     usage = {n: u for n, u in resource_usage(lib).items()
              if n.startswith(("conv_f32_kernel", "nms_suppress_kernel",
-                              "conv_s8_"))}
+                              "conv_s8_", "maxpool_s8_kernel"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": compile_s,
           "library": os.path.relpath(lib, os.path.dirname(
               os.path.abspath(__file__))), "hgmma": hgmma,
           "resources": usage})
-    wgmma_convs = [n for n in hgmma
-                   if n.startswith(("conv_bf16_kernel", "conv_s8_wgmma"))]
-    check(len(wgmma_convs) == 16 and all(hgmma[n] > 0 for n in wgmma_convs),
+    bf16_wgmma = [n for n in hgmma if n.startswith("conv_bf16_kernel")]
+    s8_wgmma = [n for n in hgmma if n.startswith("conv_s8_wgmma_kernel")]
+    check(len(bf16_wgmma) == BF16_WGMMA_KERNELS
+          and len(s8_wgmma) == S8_WGMMA_KERNELS
+          and all(hgmma[n] > 0 for n in bf16_wgmma + s8_wgmma),
           f"the bf16 and s8 wgmma conv kernels must run on wgmma "
           f"(HGMMA / IGMMA): {hgmma}")
     check(any(n.startswith("conv_f32_kernel") for n in usage)
           and "nms_suppress_kernel" in usage
-          and any(n.startswith("conv_s8_mma_kernel") for n in usage)
+          and all(any(n.startswith(k) for n in usage)
+                  for k in ("conv_s8_mma_kernel", "conv_s8_stem_kernel",
+                            "conv_s8_wgmma_kernel", "maxpool_s8_kernel"))
           and all(u["registers"] > 0 and u["stack"] == 0 and u["local"] == 0
                   for u in usage.values()),
-          f"the fp32 conv, NMS and s8 conv kernels must not spill: {usage}")
+          f"the fp32 conv, NMS, s8 conv and int8 pool kernels must not "
+          f"spill: {usage}")
 
     rng = np.random.default_rng(SEED)
     worst = phase_kernel(rng)
@@ -4657,7 +4794,21 @@ def run(seeded: str) -> int:
          "convs": INT8_CONVS, "batch": TIMED_BATCH,
          "batch1_ms": int8["ms"][1][0], "batch1_plain_ms": int8["ms"][1][1],
          "batch1_bound_ms": int8["ms"][1][3],
-         "batch1_library_ms": int8["ms"][1][2]}]})
+         "batch1_library_ms": int8["ms"][1][2]},
+        {"name": "maxpool_s8", "route": "cuda",
+         "source": "yolo_tpu_torch/csrc/maxpool_s8.cu",
+         "replaces": "yolo_tpu/ops/pool.py:17",
+         "launches": int8["launches"]["maxpool_s8"],
+         "max_abs_err": int8["worst"],
+         "ms": int8["pool_ms"][TIMED_BATCH][0],
+         "plain_ms": int8["pool_ms"][TIMED_BATCH][1],
+         "bound_ms": int8["pool_ms"][TIMED_BATCH][2],
+         "bound_by": "bytes", "library_ms": None,
+         "library": "none: no int8 max_pool2d on the card",
+         "pools": INT8_POOLS, "batch": TIMED_BATCH,
+         "batch1_ms": int8["pool_ms"][1][0],
+         "batch1_plain_ms": int8["pool_ms"][1][1],
+         "batch1_bound_ms": int8["pool_ms"][1][2]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

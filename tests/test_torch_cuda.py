@@ -1000,3 +1000,250 @@ def test_conv_s8_kernel_takes_every_tile(cuda, monkeypatch, plan, shape):
         torch.cuda.synchronize()
         want = conv_s8.conv_s8_bias_act(x, k, scale, bias, **kw)
         assert torch.equal(got, want), (out_scale, dt)
+
+
+# --- the s8 kernel's stem body (conv 0 + its pool) and the wgmma body's
+# tiles and K splits, forced through the plan; the int8 maxpool kernel ------
+
+def _s8_case(rng, b, h, w, cin, co, ks, groups, device):
+    cl = torch.channels_last
+    xq = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(
+        np.int8)).to(device).contiguous(memory_format=cl)
+    xf = torch.from_numpy(rng.uniform(-3, 3, (b, cin, h, w)).astype(
+        np.float32)).to(device).contiguous(memory_format=cl)
+    kq = torch.from_numpy(rng.integers(-127, 128, (co, cin // groups, ks,
+                                                   ks)).astype(np.int8)
+                          ).to(device).contiguous(memory_format=cl)
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-4, co).astype(
+        np.float32)).to(device)
+    bias = torch.from_numpy(rng.uniform(-1, 1, co).astype(np.float32)).to(
+        device)
+    return xq, xf, kq, scale, bias
+
+
+def _plain_s8(x, kq, scale, bias, pool=None, **kw):
+    """The plain block, then the plain maxpool (int8 codes: the running
+    maximum; floats: F.max_pool2d), on the card."""
+    from yolo_tpu_torch.ops import conv_s8, pool as pool_ops
+
+    y = conv_s8.conv_s8_bias_act(x, kq, scale, bias, **kw)
+    if pool is None:
+        return y
+    if y.dtype == torch.int8:
+        return pool_ops.maxpool_s8_plain(y, *pool)
+    return pool_ops.maxpool_nchw(y, *pool)
+
+
+def _assert_s8_equal(got, want, act, out_scale, dt):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    if act in ("leaky", "linear", "relu", "ramp"):
+        assert torch.equal(got, want), (act, out_scale, dt)
+    elif out_scale is not None:
+        assert (got.int() - want.int()).abs().max() <= 1
+    else:
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=1e-6,
+            rtol=1e-6 if dt == torch.float32 else 2 ** -7)
+
+
+def _stem_shapes():
+    """(b, h, w, cin, co, ks, stride, act): conv 0 of YOLOv2-COCO, yolov3
+    @416, yolov4 @608 (3->32 3x3), of the tiny variants (3->16, yolov4-
+    tiny's stride 2), and ragged or odd ones: odd sizes, a 1x1 over 32
+    channels, a 5x5 over one, CO 24 and 40 (a partial 32-channel chunk),
+    the non-monotone epilogues."""
+    return [(2, 416, 416, 3, 32, 3, 1, "leaky"),
+            (1, 608, 608, 3, 32, 3, 1, "mish"),
+            (2, 416, 416, 3, 16, 3, 1, "leaky"),
+            (2, 416, 416, 3, 32, 3, 2, "leaky"),
+            (3, 21, 19, 3, 16, 3, 2, "linear"),
+            (2, 37, 45, 32, 24, 1, 1, "relu"),
+            (2, 30, 26, 1, 40, 5, 2, "logistic"),
+            (1, 13, 70, 3, 8, 3, 1, "ramp")]
+
+
+@pytest.mark.parametrize("pool", [None, (2, 2), (2, 1), (3, 1), (8, 3)],
+                         ids=lambda p: "nopool" if p is None else
+                         f"pool{p[0]}s{p[1]}")
+@pytest.mark.parametrize("shape", _stem_shapes(),
+                         ids=lambda s: "x".join(map(str, s[:7])) + s[7])
+def test_conv_s8_stem_matches_plain(cuda, shape, pool):
+    """The stem body on every conv-0 shape, with and without its fused
+    pool: int8, bf16 and fp32 in (a float input quantized in the kernel)
+    and int8, bf16 and fp32 out, against the plain block and the plain
+    pool. Leaky, linear, relu, ramp: the same bytes; mish and logistic
+    within the s8 kernel's bounds (1 code, 1 bf16 ulp, 1e-6 in fp32)."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    b, h, w, cin, co, ks, stride, act = shape
+    assert conv_s8_kernel.plan(b * h * w, cin, co, 1, stride=stride,
+                               ks=ks).body == "stem"
+    rng = np.random.default_rng(h * w + cin * co + ks + stride)
+    xq, xf, kq, scale, bias = _s8_case(rng, b, h, w, cin, co, ks, 1, cuda)
+    for x in (xq, xf, xf.to(torch.bfloat16)):
+        for out_scale, dt in ((0.05, torch.float32), (None, torch.bfloat16),
+                              (None, torch.float32)):
+            kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
+                      stride=stride, out_dtype=dt)
+            before = conv_s8_kernel.launches
+            got = conv_s8_kernel.conv_s8_bias_act(x, kq, scale, bias,
+                                                  pool=pool, **kw)
+            torch.cuda.synchronize()
+            assert conv_s8_kernel.launches == before + 1
+            want = _plain_s8(x, kq, scale, bias, pool=pool, **kw)
+            _assert_s8_equal(got, want, act, out_scale, dt)
+
+
+def _wgmma_shapes():
+    """The wgmma body's shapes among _s8_shapes (YOLOv2-COCO @416,
+    yolov3 @416, yolov4 @608 at batch 1), leaky."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    return [s for s in _s8_shapes()[:-9]
+            if conv_s8_kernel.plan(s[0] * s[1], s[2], s[3], s[6],
+                                   stride=s[5], dilation=s[7],
+                                   ks=s[4]).body == "wgmma"]
+
+
+def _wgmma_plans(cin, co, ks):
+    """Every tile and split the wgmma body is built for that takes the
+    shape: BN 64 and 128, unsplit
+    and split in 3 (where K spans three stages)."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel as sk
+
+    chunk = next(c for c in (128, 64, 32) if cin % c == 0)
+    steps = -(-ks * ks * cin // sk.STAGE_K)
+    return [sk.Plan("wgmma", 128, bn, chunk=chunk, splits=s)
+            for bn in (64, 128)
+            if co % bn == 0
+            for s in (1, 3) if s <= steps]
+
+
+@pytest.mark.parametrize("shape", _wgmma_shapes(),
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_conv_s8_wgmma_takes_every_tile_and_split(cuda, monkeypatch,
+                                                  shape):
+    """Each tile width and K split of the wgmma body, forced through the
+    plan, at every wgmma shape of the three nets (batch 2 at 13-26 px,
+    else 1; the last tile ragged where M is): int8 and bf16 in, int8,
+    bf16 and fp32 out, the plain block's bytes."""
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    h, w, cin, co, ks, stride, groups, dil, act = shape
+    b = 2 if h * w < 1000 else 1
+    rng = np.random.default_rng(h * w + cin * co + ks)
+    xq, xf, kq, scale, bias = _s8_case(rng, b, h, w, cin, co, ks, 1, cuda)
+    for p in _wgmma_plans(cin, co, ks):
+        monkeypatch.setattr(conv_s8_kernel, "plan", lambda *a, _p=p, **k: _p)
+        for x in (xq, xf.to(torch.bfloat16)):
+            for out_scale, dt in ((0.05, torch.float32),
+                                  (None, torch.bfloat16),
+                                  (None, torch.float32)):
+                kw = dict(x_inv=40.0, out_scale=out_scale, act=act,
+                          out_dtype=dt)
+                got = conv_s8_kernel.conv_s8_bias_act(x, kq, scale, bias,
+                                                      **kw)
+                torch.cuda.synchronize()
+                want = _plain_s8(x, kq, scale, bias, **kw)
+                assert torch.equal(got, want), (p, x.dtype, out_scale, dt)
+
+
+def test_conv_s8_wrapper_refuses_a_pool_off_the_stem(cuda):
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel
+
+    cl = torch.channels_last
+    x = torch.zeros((1, 32, 8, 8), dtype=torch.int8, device=cuda
+                    ).contiguous(memory_format=cl)
+    k = torch.zeros((64, 32, 3, 3), dtype=torch.int8, device=cuda
+                    ).contiguous(memory_format=cl)
+    s = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="stem"):
+        conv_s8_kernel.conv_s8_bias_act(x, k, s, s, x_inv=1.0, pool=(2, 2))
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_s8_kernel.conv_s8_bias_act(x.half(), k, s, s, x_inv=1.0)
+
+
+def _pool_shapes():
+    """(b, c, h, w, size, stride): every darknet pool the built-in nets
+    have (2x2/2, tiny's 2x2/1, yolov3-spp's and yolov4's 5/9/13 stride
+    1) at their widths, a 3x3/2, and channel counts off the 16-byte
+    vectors (20, 3) and odd sizes."""
+    return [(2, 32, 416, 416, 2, 2), (2, 64, 208, 208, 2, 2),
+            (4, 128, 104, 104, 2, 2), (4, 256, 52, 52, 2, 2),
+            (8, 512, 26, 26, 2, 2), (8, 512, 13, 13, 2, 1),
+            (2, 512, 19, 19, 5, 1), (2, 512, 19, 19, 9, 1),
+            (2, 512, 19, 19, 13, 1), (3, 48, 15, 17, 3, 2),
+            (3, 20, 9, 11, 2, 2), (3, 3, 13, 7, 3, 1), (1, 16, 1, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("shape", _pool_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_maxpool_s8_kernel_matches_plain(cuda, shape):
+    """The int8 maxpool kernel against the running maximum on the same
+    card tensor: the same bytes, one launch."""
+    from yolo_tpu_torch.ops import pool as pool_ops
+    from yolo_tpu_torch.ops.cuda import pool_kernel
+
+    b, c, h, w, size, stride = shape
+    rng = np.random.default_rng(b * c + h * w + size)
+    x = torch.from_numpy(rng.integers(-128, 128, (b, c, h, w)).astype(
+        np.int8)).to(cuda).contiguous(memory_format=torch.channels_last)
+    before = pool_kernel.launches
+    got = pool_ops.maxpool_nchw(x, size, stride)
+    torch.cuda.synchronize()
+    assert pool_kernel.launches == before + 1
+    want = pool_ops.maxpool_s8_plain(x, size, stride)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_maxpool_s8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from yolo_tpu_torch.ops.cuda import pool_kernel
+
+    x = torch.zeros((1, 16, 8, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        pool_kernel.maxpool_s8(x, 2, 2)
+    with pytest.raises(ValueError, match="int8"):
+        pool_kernel.maxpool_s8(x.float(), 2, 2)
+
+
+@pytest.mark.parametrize("name", ["coco", "tiny-voc", "yolov3-tiny"])
+def test_int8_fused_route_on_the_card_equals_the_cpu(cuda, name):
+    """The int8 forward on the fused route (conv 0 + pool 1 in one stem
+    launch; the other pools of int8 codes on the pool kernel): the
+    card's logits equal the CPU's, one s8 launch a conv, one pool launch
+    an unfused pool of int8 codes, no plain block or pool on the
+    card."""
+    from yolo_tpu_torch.configs import MaxPool as MP
+    from yolo_tpu_torch.models import quantize
+    from yolo_tpu_torch.ops import conv_s8, pool as pool_ops
+    from yolo_tpu_torch.ops.cuda import conv_s8_kernel, pool_kernel
+
+    cfg = get_variant(name, input_size=128)
+    rng = np.random.default_rng(23)
+    raw = dw.random_params(cfg.layers, rng, scale=0.03)
+    x = rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    q = quantize.prepare_int8(cfg, raw, x, device="cpu")
+    gpu = tgraph.Darknet(cfg.layers, q, device=cuda, dtype=torch.bfloat16)
+    cpu = tgraph.Darknet(cfg.layers, q, device="cpu", dtype=torch.bfloat16)
+    assert gpu.fused_pools == cpu.fused_pools and 0 in gpu.fused_pools
+    xt = torch.from_numpy(x)
+    counts = (conv_s8_kernel.launches, pool_kernel.launches,
+              conv_s8.cuda_calls, pool_ops.cuda_calls)
+    got = gpu(xt.to(cuda))
+    torch.cuda.synchronize()
+    convs = sum(isinstance(l, Conv) for l in cfg.layers)
+    every = cpu.run(xt.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last), return_all=True)
+    int8_pools = sum(isinstance(l, MP) and every[i - 1].dtype == torch.int8
+                     for i, l in enumerate(cfg.layers))
+    assert (conv_s8_kernel.launches - counts[0],
+            pool_kernel.launches - counts[1], conv_s8.cuda_calls,
+            pool_ops.cuda_calls) == (convs,
+                                     int8_pools - len(gpu.fused_pools),
+                                     counts[2], counts[3])
+    want = cpu(xt)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a.cpu(), b)

@@ -22,6 +22,7 @@ import os
 import struct
 import subprocess
 import sys
+import time
 import zlib
 
 import cv2
@@ -405,10 +406,29 @@ def test_eight_threads_decode_the_same_bytes():
                 np.testing.assert_array_equal(g, w)
 
 
+def _jax_native_library(seconds: float = 300.0) -> None:
+    """Loads the JAX package's native library, waiting out a concurrent
+    build. yolo_tpu/native/preproc.py runs `make` on first use when
+    native/libyolopreproc.so is missing (a fresh checkout), and the
+    Makefile links the library in place: a pytest worker that loads it
+    while another worker's link is still writing it fails, and the
+    module keeps that failure for the life of the process
+    (decode_letterbox_batch then returns None; ROADMAP C12). So clear the
+    kept failure and load again until the file is whole."""
+    deadline = time.monotonic() + seconds
+    while jpreproc._load() is None:
+        assert time.monotonic() < deadline, (
+            "the JAX package's native library did not load")
+        time.sleep(0.5)
+        with jpreproc._lock:
+            jpreproc._tried = False
+
+
 def test_decode_letterbox_batch_semantics(tmp_path):
     """(batch, dims, ok) as the JAX package's native batch loader gives
     them; a file that does not decode leaves its slot zero with ok
     False; each image is the pipeline's own letterbox of the decode."""
+    _jax_native_library()
     rng = np.random.default_rng(6)
     paths = []
     for i, (h, w) in enumerate([(48, 80), (97, 61), (30, 30)]):

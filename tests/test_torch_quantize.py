@@ -610,9 +610,11 @@ def test_int8_net_refuses_the_fused_entry():
 
 def test_wrapper_takes_the_plain_block_on_cpu():
     """The s8 kernel's wrapper on CPU tensors is the plain block, and
-    counts no launch; its plan picks the body by shape: wgmma for the
-    stride-1 ungrouped convs with CIN % 32 and CO % 64, mma for the
-    other CIN % 32, dp4a for the rest."""
+    counts no launch; its plan picks the body by shape: the stem for
+    windows of at most 32 bytes (conv 0), wgmma for the stride-1
+    ungrouped convs with CIN % 32 and CO % 64 (K split where its tiles
+    do not fill the card), mma for the other CIN % 32, dp4a for the
+    rest."""
     rng = np.random.default_rng(18)
     spec = Conv(64, size=3)
     p = params_from_numpy((spec,), [_block_params(rng, 32, 64, 3, 1, True)],
@@ -626,12 +628,12 @@ def test_wrapper_takes_the_plain_block_on_cpu():
     assert conv_s8_kernel.launches == before
     assert torch.equal(got, quantize.conv_block_int8(x, p, spec))
     assert conv_s8_kernel.plan(169, 1024, 1024, 1) == \
-        conv_s8_kernel.Plan("wgmma", 128, 64, chunk=128)
+        conv_s8_kernel.Plan("wgmma", 128, 128, chunk=128, splits=8)
     assert conv_s8_kernel.plan(346112, 64, 128, 1) == \
         conv_s8_kernel.Plan("wgmma", 128, 64, chunk=64)
     assert conv_s8_kernel.plan(43264, 32, 64, 1).chunk == 32
     assert conv_s8_kernel.plan(169 * 32, 3, 32, 1) == \
-        conv_s8_kernel.Plan("dp4a", npt=32)
+        conv_s8_kernel.Plan("stem")
     assert conv_s8_kernel.plan(100, 1, 1, 64).npt == 1
     assert conv_s8_kernel.plan(10 ** 6, 512, 1024, 1) == \
         conv_s8_kernel.Plan("wgmma", 128, 128, chunk=128)

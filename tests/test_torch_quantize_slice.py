@@ -1,8 +1,11 @@
 """The whole int8 forward of the port against the JAX package's, on the
 CPU: the JAX package's int8 params (yolo_tpu.models.quantize.prepare_int8,
 chained and not) carried across by Darknet / params_from_numpy, on
-tiny-voc, yolov3-tiny and YOLOv2-COCO at 128, in fp32 and in bf16 (the
-input rounded to bf16, as the CLI's letterbox hands it over).
+tiny-voc, yolov3-tiny, YOLOv2-COCO, tiny-coco and yolov4-tiny at 128, in
+fp32 and in bf16 (the input rounded to bf16, as the CLI's letterbox
+hands it over). The port's forward takes the fused route (conv 0 and the
+maxpool after it in one s8 call, Darknet.fused_pools) wherever the net
+has one; yolov4-tiny's conv 0 (3x3/2) has no pool to fuse.
 
 Tolerances: the logits equal (the int8 sums are exact, and the port's
 plain block repeats the JAX block's fp32 arithmetic operation by
@@ -33,7 +36,8 @@ def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-@pytest.mark.parametrize("name", ["tiny-voc", "yolov3-tiny", "coco"])
+@pytest.mark.parametrize("name", ["tiny-voc", "yolov3-tiny", "coco",
+                                  "tiny-coco", "yolov4-tiny"])
 def test_int8_forward_matches_jax(name):
     """The JAX package's int8 params (prepare_int8, chained and not) run
     through both packages' whole int8 forward, in fp32 and in bf16 (input
@@ -53,6 +57,8 @@ def test_int8_forward_matches_jax(name):
             xin = jnp.asarray(x, jdt)
             want = _tuple(jpredict.forward(jcfg, q, xin, compute_dtype=jdt))
             net = Darknet(cfg.layers, q_np, device="cpu", dtype=tdt)
+            assert net.fused_pools == ({} if name == "yolov4-tiny"
+                                       else {0: (2, 2)})
             got = _tuple(forward(cfg, net, torch.from_numpy(
                 np.asarray(xin.astype(jnp.float32)))))
             for a, b in zip(want, got):

@@ -35,11 +35,15 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         cost model's data)
     python3 tools/port_perf.py tiles_s8
         the s8 conv kernel (csrc/conv_s8_bias_act.cu) at each
-        YOLOv2-COCO conv shape, batch 1, 32 and 128, int8 in and out,
-        under every body and tile it is built for that takes the shape
-        (mma 64x64, 128x64; wgmma 128x64 and, on 128-byte K chunks,
-        128x128; dp4a): device ms per call, TOP/s (and the wgmma K
-        chunk), and the plan conv_s8_kernel.plan picks
+        YOLOv2-COCO conv shape, batch 1, 32 and 128, int8 out (conv 0
+        from the bf16 image, the rest from int8 codes), under every body
+        and tile it is built for that takes the shape (stem and dp4a for
+        conv 0, with pool 1 fused beside the plain pool; mma 64x64,
+        128x64; wgmma 128x64, 128x128, each unsplit and K-split where
+        the tiles do not fill the card): device ms per call, TOP/s, and the plan
+        conv_s8_kernel.plan picks; and the int8 maxpool kernel (csrc/
+        maxpool_s8.cu) on YOLOv2-COCO's 2x2/2 pool shapes beside its
+        plain version and its byte bound
     python3 tools/port_perf.py train
         torch.profiler breakdown of the YOLOv2-VOC 416 train step at
         batch 64, fp32 and bf16, on one seeded batch already on the card
@@ -198,6 +202,8 @@ def _kernel_class(name: str) -> str:
         return "entry_kernel"
     if "conv_s8_" in n:
         return "conv_s8_kernel"
+    if "maxpool_s8" in n:
+        return "maxpool_s8_kernel"
     if "memcpy" in n or "memset" in n:
         return "copy"
     if ("fprop" in n or "conv" in n or "winograd" in n or "dgrad" in n
@@ -619,12 +625,35 @@ def cmd_tiles(args, card) -> None:
                        "ms_tflops_by_tile": times, "card": card})
 
 
+def _s8_plans(sk, m, cin, co, ks, stride, groups):
+    """Every body and tile of the s8 kernel that takes a conv shape: the
+    stem and dp4a (for comparison) where the stem takes it; mma 64x64
+    and 128x64 where CIN % 32; wgmma 128x64 and 128x128, each unsplit
+    and at wgmma_splits' split where that differs."""
+    if sk.stem_takes(cin // groups, co // groups, groups, stride=stride,
+                     ks=ks):
+        return [sk.Plan("stem"), sk.Plan("dp4a", npt=32)]
+    plans = [sk.Plan("dp4a", npt=32)] if cin % sk.CHUNK else [
+        sk.Plan("mma", 64, 64), sk.Plan("mma", 128, 64)]
+    if cin % sk.CHUNK == 0 and stride == 1 and groups == 1 and ks % 2:
+        chunk = next(c for c in (128, 64, 32) if cin % c == 0)
+        k = ks * ks * cin
+        for bn in (64, 128):
+            if co % bn:
+                continue
+            split = sk.wgmma_splits(m, k, -(-m // 128) * (co // bn))
+            plans += [sk.Plan("wgmma", 128, bn, chunk=chunk, splits=s)
+                      for s in sorted({1, split})]
+    return plans
+
+
 def cmd_tiles_s8(args, card) -> None:
     import torch
 
     import chip_smoke
     from yolo_tpu_torch.configs import get_variant
     from yolo_tpu_torch.models.quantize import conv_shapes
+    from yolo_tpu_torch.ops import pool as pool_ops
     from yolo_tpu_torch.ops.cuda import conv_s8_kernel as sk
 
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
@@ -632,36 +661,68 @@ def cmd_tiles_s8(args, card) -> None:
     for b in BATCHES:
         for shape in sorted(conv_shapes(get_variant("coco"))):
             h, w, cin, co, ks, stride, groups, dil, act = shape
-            xq, _, kq, scale, bias = chip_smoke.s8_inputs(gen, b, shape)
-            m = b * (h // stride) * (w // stride)
+            xq, xf, kq, scale, bias = chip_smoke.s8_inputs(gen, b, shape)
+            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+            m = b * ho * wo
             flop = 2 * m * co * ks * ks * cin // groups
-            plans = [sk.Plan("dp4a", npt=32)] if cin % sk.CHUNK else [
-                sk.Plan("mma", 64, 64), sk.Plan("mma", 128, 64)]
-            if cin % sk.CHUNK == 0 and stride == 1 and groups == 1:
-                chunk = next(c for c in (128, 64, 32) if cin % c == 0)
-                plans += [sk.Plan("wgmma", 128, bn, chunk=chunk)
-                          for bn in (64, 128)
-                          if co % bn == 0 and (bn == 64 or chunk == 128)]
+            stem = sk.stem_takes(cin // groups, co // groups, groups,
+                                 stride=stride, ks=ks)
+            # conv 0 takes the bf16 image (the stem quantizes it; dp4a
+            # after the wrapper's quantization pass), the rest int8 codes
+            x = xf if stem else xq
             times = {}
-            for p in plans:
+            for p in _s8_plans(sk, m, cin, co, ks, stride, groups):
                 sk.plan = lambda *a, _p=p, **kw: _p  # this plan only
                 try:
                     ms = chip_smoke.cuda_ms_per_call(
                         lambda: sk.conv_s8_bias_act(
-                            xq, kq, scale, bias, x_inv=1.0, out_scale=0.05,
+                            x, kq, scale, bias, x_inv=1.0, out_scale=0.05,
                             act=act, stride=stride, groups=groups,
                             dilation=dil), calls=20)
                 finally:
                     sk.plan = chosen
-                times[f"{p.body}{p.bm}x{p.bn}" if p.bm else p.body] = [
-                    ms, flop / ms / 1e9]
-                if p.chunk:
-                    times[f"{p.body}{p.bm}x{p.bn}"].append(p.chunk)
-            _emit({"what": "conv_s8_tiles", "batch": b, "shape": list(shape),
+                name = (f"{p.body}{p.bm}x{p.bn}" if p.bm else p.body) + (
+                    f"k{p.chunk}" if p.chunk else "") + (
+                    f"s{p.splits}" if p.splits > 1 else "")
+                times[name] = [ms, flop / ms / 1e9]
+            row = {"what": "conv_s8_tiles", "batch": b, "shape": list(shape),
+                   "in": str(x.dtype),
                    "plan": list(chosen(m, cin // groups, co // groups,
                                        groups, stride=stride, dilation=dil,
                                        ks=ks)),
-                   "ms_tops_by_plan": times, "card": card})
+                   "ms_tops_by_plan": times, "card": card}
+            if stem:
+                # with pool 1 fused (2x2/2), beside dp4a and the plain
+                # int8 pool after it (the conv and pool apart)
+                def fused():
+                    return sk.conv_s8_bias_act(
+                        x, kq, scale, bias, x_inv=1.0, out_scale=0.05,
+                        act=act, stride=stride, pool=(2, 2))
+                out = sk.conv_s8_bias_act(x, kq, scale, bias, x_inv=1.0,
+                                          out_scale=0.05, act=act,
+                                          stride=stride)
+                row["stem_pool2s2_ms"] = chip_smoke.cuda_ms_per_call(
+                    fused, calls=20)
+                row["pool2s2_plain_ms"] = chip_smoke.cuda_ms_per_call(
+                    lambda: pool_ops.maxpool_s8_plain(out, 2, 2), calls=20)
+                row["stem_pool2s2_bound_ms"] = chip_smoke.bound_ms(
+                    flop, chip_smoke.nbytes(x, kq, scale, bias, fused()),
+                    torch.int8)[0]
+            _emit(row)
+        for c, hw in ((64, 208), (128, 104), (256, 52), (512, 26)):
+            x = torch.randint(-128, 128, (b, c, hw, hw), generator=gen,
+                              device="cuda", dtype=torch.int8).contiguous(
+                                  memory_format=torch.channels_last)
+            out = pool_ops.maxpool_nchw(x, 2, 2)
+            _emit({"what": "maxpool_s8", "batch": b, "in": [c, hw, hw],
+                   "kernel_ms": chip_smoke.cuda_ms_per_call(
+                       lambda: pool_ops.maxpool_nchw(x, 2, 2), calls=20),
+                   "plain_ms": chip_smoke.cuda_ms_per_call(
+                       lambda: pool_ops.maxpool_s8_plain(x, 2, 2),
+                       calls=20),
+                   "bound_ms": chip_smoke.bound_ms(
+                       0, chip_smoke.nbytes(x, out), torch.int8)[0],
+                   "card": card})
 
 
 def main() -> int:

@@ -524,6 +524,25 @@ class Darknet(torch.nn.Module):
                     params[0]["kernel"], np.float32).transpose(3, 2, 0, 1)))
                 .to(self.device))
         self._routed = _routed_layers(self.layers)
+        # int8 convs whose maxpool runs in their own launch (the s8
+        # kernel's stem body): conv layer index -> (size, stride), where
+        # the next layer is a maxpool and nothing else reads the conv's
+        # output; run() fuses them unless it returns every layer
+        self.fused_pools: Dict[int, tuple] = {}
+        conv_i = 0
+        for idx, layer in enumerate(self.layers[:-1]):
+            nxt = self.layers[idx + 1]
+            if (isinstance(layer, Conv) and self.quantized[conv_i]
+                    and isinstance(nxt, MaxPool) and idx not in self._routed
+                    and conv_s8_kernel.fuses_pool(
+                        tuple(getattr(self, f"kernel{conv_i}_q").shape),
+                        layer.groups, layer.stride, layer.dilation,
+                        (nxt.size, nxt.stride))):
+                self.fused_pools[idx] = (nxt.size, nxt.stride)
+            if isinstance(layer, (Conv, Connected, Local)) or (
+                    isinstance(layer, Shortcut)
+                    and layer.weights_type != "none"):
+                conv_i += 1
 
     def _register_int8(self, i: int, p_np, p) -> None:
         """Buffers of int8 block i: kernel{i}_q, scale{i} = x_scale *
@@ -572,12 +591,20 @@ class Darknet(torch.nn.Module):
         heads: List[torch.Tensor] = []
         every: List[torch.Tensor] = []
         conv_i = len(weighted_specs(self.layers[:start]))
+        pooled = False  # the last conv's launch ran this maxpool
         for idx in range(start, len(self.layers)):
             layer = self.layers[idx]
+            if pooled:
+                pooled = False
+                if idx in self._routed:
+                    outputs[idx] = x
+                continue
             if isinstance(layer, Conv):
                 bias = getattr(self, f"bias{conv_i}")
                 if self.quantized[conv_i]:
                     x_inv, out_scale = self.int8_scales[conv_i]
+                    pool = (None if return_all
+                            else self.fused_pools.get(idx))
                     x = conv_s8_kernel.conv_s8_bias_act(
                         x.contiguous(memory_format=torch.channels_last),
                         getattr(self, f"kernel{conv_i}_q"),
@@ -585,7 +612,8 @@ class Darknet(torch.nn.Module):
                         out_scale=out_scale, act=layer.act,
                         stride=layer.stride, groups=layer.groups,
                         dilation=layer.dilation,
-                        out_dtype=self.compute_dtype)
+                        out_dtype=self.compute_dtype, pool=pool)
+                    pooled = pool is not None
                 elif conv_impl == "cuda" and self.kernel_eligible[conv_i]:
                     kernel = getattr(self, f"kernel{conv_i}_bf16"
                                      if x.dtype == torch.bfloat16

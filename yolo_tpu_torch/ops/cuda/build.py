@@ -153,9 +153,18 @@ def library() -> ctypes.CDLL:
     lib.yolo_entry_conv_pool.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.yolo_conv_s8_bias_act.restype = i32
-    # x, w, scale, bias, out, out_scale; batch, h, w, cin, co, ks, stride,
-    # dilation, groups, pad, ho, wo, act, out kind; body, bm, bn, npt;
-    # stream
+    f32 = ctypes.c_float
+    # x, x kind, x_inv, w, scale, bias, out, out_scale; batch, h, w, cin,
+    # co, ks, stride, dilation, groups, pad, ho, wo, act, out kind; body,
+    # bm, bn, aux, splits; workspace; pool size, stride, ph, pw; stream
     lib.yolo_conv_s8_bias_act.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ctypes.c_float, *([i32] * 18), ptr]
+        ptr, i32, f32, ptr, ptr, ptr, ptr, f32, *([i32] * 19), ptr,
+        i32, i32, i32, i32, ptr]
+    lib.yolo_quantize_s8.restype = i32
+    # x, x kind, x_inv, q, n; stream
+    lib.yolo_quantize_s8.argtypes = [ptr, i32, f32, ptr, ctypes.c_longlong,
+                                     ptr]
+    lib.yolo_maxpool_s8.restype = i32
+    # x, out; b, h, w, c, size, stride, ho, wo, vec; stream
+    lib.yolo_maxpool_s8.argtypes = [ptr, ptr, *([i32] * 9), ptr]
     return lib
