@@ -281,6 +281,29 @@ JSON lines; any failed check raises and the script exits non-zero:
               code and 1 bf16 ulp), the top-50 overlap gate; its score
               deviation is printed beside the JAX package's own on the
               same inputs (V4_JAX_SCORE_DEV)
+ 20. video    video input and the cv2-free resamplers (data/video.py,
+              native/resample.c): (a) a seeded VIDEO_FRAMES-frame 640x480
+              MJPG AVI of moving rectangles written by the port's writer
+              (data/synthetic.py write_video; the card has no OpenCV),
+              its video_info, and the native reader's decode frames/s;
+              (b) `detect --video --stride VIDEO_STRIDE --batch
+              VIDEO_BATCH --save-video` on phase 4's seeded YOLOv2-COCO
+              weights in bf16 and int8 (calibrated on the stream's first
+              8 sampled frames): one line a sampled frame, each equal to
+              detect_raw on the frames the reader decodes with a net
+              loaded (and calibrated) as the command does; one NMS
+              launch a batch, and for int8 INT8_CONVS s8 and INT8_POOLS
+              int8-pool launches a batch, no plain block on the card;
+              the annotated copy read back by the port's reader (frames,
+              size, fps / stride); frames/s of the command and of its
+              stream loop alone; (c) `train` of yolov4-tiny 416 with VOC
+              heads from a seeded partial file, its cfg carrying
+              yolov4-tiny.cfg's HSV keys, plain and with mosaic=1,
+              --mixup and blur=1: every loss finite, and train_batches'
+              host batches/s of each mode beside the plain one; (d)
+              `train --imagefolder` of darknet19 at 224 with angle=7
+              aspect=.75 min_crop=224 max_crop=448: the command reports
+              the geometry crop, every loss finite
 
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
@@ -3061,6 +3084,26 @@ def cli_eval(seeded: str, coco: dict, card: str, launches: dict) -> None:
           "card": card})
 
 
+def write_voc_root(root: str, n: int, seed: int) -> list:
+    """n seeded synthetic JPEG scenes in a VOC tree (JPEGImages,
+    Annotations, ImageSets/Main/train.txt) under root -> the pairs."""
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        os.makedirs(os.path.join(root, d))
+    pairs = write_voc_scenes(
+        os.path.join(root, "JPEGImages"),
+        [SCENE_HW[i % len(SCENE_HW)] for i in range(n)],
+        np.random.default_rng(seed), jpeg_quality=90)
+    out = []
+    for image, xml in pairs:
+        moved = os.path.join(root, "Annotations", os.path.basename(xml))
+        os.rename(xml, moved)
+        out.append((image, moved))
+    with open(os.path.join(root, "ImageSets/Main/train.txt"), "w") as f:
+        f.write("\n".join(os.path.splitext(os.path.basename(p))[0]
+                          for p, _ in pairs) + "\n")
+    return out
+
+
 def cli_train(seeded: str, card: str) -> None:
     """(d) train YOLOv2-VOC 416 from the seeded partial file through the
     command line: CLI_TRAIN_STEPS bf16 steps (one a 64-scene epoch) with
@@ -3074,19 +3117,8 @@ def cli_train(seeded: str, card: str) -> None:
     that file serves."""
     cfg = get_variant(TRAIN_VARIANT)
     root = os.path.join(seeded, "voc")
-    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
-        os.makedirs(os.path.join(root, d))
     t0 = time.perf_counter()
-    pairs = write_voc_scenes(
-        os.path.join(root, "JPEGImages"),
-        [SCENE_HW[i % len(SCENE_HW)] for i in range(CLI_TRAIN_SCENES)],
-        np.random.default_rng(SEED + 16), jpeg_quality=90)
-    for _, xml in pairs:
-        os.rename(xml, os.path.join(root, "Annotations",
-                                    os.path.basename(xml)))
-    with open(os.path.join(root, "ImageSets/Main/train.txt"), "w") as f:
-        f.write("\n".join(os.path.splitext(os.path.basename(p))[0]
-                          for p, _ in pairs) + "\n")
+    write_voc_root(root, CLI_TRAIN_SCENES, SEED + 16)
     backbone = write_backbone(cfg, seeded)
     data_s = time.perf_counter() - t0
 
@@ -4598,6 +4630,266 @@ def phase_int8(seeded: str, model, model32, images, ref, gen,
             "pool_ms": pool_sums}
 
 
+# phase 20: video input and the cv2-free resamplers
+VIDEO_FRAMES, VIDEO_FPS = 48, 30.0   # a seeded 640x480 MJPG AVI (SRC_HW)
+VIDEO_STRIDE, VIDEO_BATCH = 2, 8     # detect --video --stride --batch
+AUG_VARIANT = "yolov4-tiny"          # 416, its VOC-head trainer
+AUG_SCENES, AUG_BATCH = 48, 16       # 3 steps an epoch
+# yolov4-tiny.cfg's [net] HSV keys; each mode adds its own
+AUG_NET_KEYS = "saturation=1.5\nexposure=1.5\nhue=.1\n"
+AUG_MODES = {"plain": ("", []), "mosaic": ("mosaic=1\n", []),
+             "mixup": ("", ["--mixup"]), "blur": ("blur=1\n", [])}
+AUG_HOST_EPOCHS = 2                  # host batches/s over 2 epochs
+# darknet19 at 224 with the classifier geometry keys of darknet's
+# imagenet cfgs (train --imagefolder)
+GEOM_SIZE = 224
+GEOM_NET_KEYS = "angle=7\naspect=.75\nmin_crop=224\nmax_crop=448\n"
+
+
+def video_direct(cfg, net, path: str) -> list:
+    """What the raw-frame detector gives the frames `detect --video
+    --stride VIDEO_STRIDE` samples, read by the native reader and called
+    through detect_raw on the same net and route, in the command's
+    rounding."""
+    from yolo_tpu_torch.cli.detect_cmds import _det_json
+    from yolo_tpu_torch.data.video import video_batches
+
+    names = cfg.detection_names()
+    lines = []
+    for batch in video_batches(path, VIDEO_BATCH, stride=VIDEO_STRIDE):
+        with torch.no_grad():
+            out = detect_raw(cfg, net, torch.from_numpy(
+                batch["images"]).cuda())
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for bi, idx in enumerate(batch["frames"]):
+            keep = np.nonzero(out["valid"][bi])[0]
+            lines.append({"frame": idx, "detections": _det_json(
+                names, out["classes"][bi], out["scores"][bi],
+                out["boxes"][bi][keep].astype(np.float64), keep)})
+    return lines
+
+
+def video_detect(seeded: str, path: str, card: str) -> dict:
+    """(b) detect --video through the CLI in this process, bf16 and
+    int8: one line a sampled frame, each equal to video_direct on a net
+    loaded (and for int8 calibrated on the stream's first 8 sampled
+    frames) as the command does; --save-video read back by the port's
+    reader; the kernels' launches; detect frames/s of the command and of
+    its stream loop alone (reader -> DevicePrefetcher -> detector)."""
+    from yolo_tpu_torch.cli._common import _maybe_quantize
+    from yolo_tpu_torch.data.video import AviFile, video_batches
+
+    cfg = get_variant(VARIANT)
+    weights = os.path.join(seeded, "yolov2-coco-seed.weights")
+    sampled = list(range(0, VIDEO_FRAMES, VIDEO_STRIDE))
+    n_batches = -(-len(sampled) // VIDEO_BATCH)
+    launches = collections.Counter()
+    for precision in ("bf16", "int8"):
+        out_path = os.path.join(seeded, f"annotated-{precision}.avi")
+        argv = ["detect", "--model", VARIANT, "--weights", weights,
+                "--video", path, "--stride", str(VIDEO_STRIDE), "--batch",
+                str(VIDEO_BATCH), "--precision", precision, "--save-video",
+                out_path]
+        (out, err, wall, _), counts = int8_launch_counts(
+            lambda: cli_run(argv))
+        lines = cli_lines(out)
+        check([l["frame"] for l in lines] == sampled,
+              f"detect --video {precision}: frames "
+              f"{[l['frame'] for l in lines]}")
+        params = fold_params(cfg.layers, dw.load(weights, cfg.layers)[0],
+                             cfg.bn_eps)
+        if precision == "int8":
+            first = next(video_batches(path, 8, stride=VIDEO_STRIDE,
+                                       max_frames=8))
+            args = argparse.Namespace(precision="int8", resize="letterbox",
+                                      device="cuda")
+            params = _maybe_quantize(args, cfg, params,
+                                     list(first["images"]))
+        net = Darknet(cfg.layers, params, device="cuda",
+                      dtype=torch.bfloat16)
+        direct = video_direct(cfg, net, path)
+        check(lines == direct, f"detect --video {precision}: the printed "
+              f"lines differ from detect_raw on the decoded frames")
+        want = {"nms": n_batches}
+        if precision == "int8":
+            want.update(conv_s8=n_batches * INT8_CONVS,
+                        maxpool_s8=n_batches * INT8_POOLS,
+                        plain_s8_on_card=0, plain_pool_on_card=0)
+        check(all(counts[k] == v for k, v in want.items()),
+              f"detect --video {precision}: launches {counts}, want {want}")
+        for k in ("nms", "conv_s8", "maxpool_s8"):
+            launches[k] += counts[k]
+        saved = AviFile(out_path)
+        check(len(saved.frames) == len(sampled)
+              and (saved.height, saved.width) == SRC_HW
+              and saved.fps == VIDEO_FPS / VIDEO_STRIDE,
+              f"--save-video {precision}: {len(saved.frames)} frames of "
+              f"{saved.width}x{saved.height} at {saved.fps} fps")
+        check(f"wrote {out_path}" in err, "--save-video did not report")
+
+        def stream():
+            n = 0
+            with DevicePrefetcher(video_batches(
+                    path, VIDEO_BATCH, stride=VIDEO_STRIDE), depth=2) as st, \
+                    torch.no_grad():
+                for batch in st:
+                    detect_raw(cfg, net, batch["images"])["valid"].cpu()
+                    n += len(batch["frames"])
+            return n
+
+        stream()
+        t0 = time.perf_counter()
+        n = stream()
+        loop_s = time.perf_counter() - t0
+        emit({"phase": "video", "command": "detect --video",
+              "precision": precision, "frames": VIDEO_FRAMES,
+              "sampled": len(lines), "stride": VIDEO_STRIDE,
+              "batch": VIDEO_BATCH, "src_hw": list(SRC_HW),
+              "lines_equal_direct": True, "launches": counts,
+              "detections": sum(len(l["detections"]) for l in lines),
+              "command_seconds": wall,
+              "command_frames_per_s": len(lines) / wall,
+              "loop_frames_per_s": n / loop_s,
+              "save_video": {"frames": len(saved.frames),
+                             "fps": saved.fps}, "card": card})
+    return launches
+
+
+def aug_host_rate(cfg, pairs, aug_cfg) -> float:
+    """Host batches/s of train_batches (decode, augment, letterbox or
+    mosaic, encode) over AUG_HOST_EPOCHS epochs, after one to warm."""
+    def epochs(k):
+        return sum(1 for _ in host_batches(cfg, pairs, AUG_BATCH, SEED,
+                                           epochs=k, augment_cfg=aug_cfg))
+
+    epochs(1)
+    t0 = time.perf_counter()
+    n = epochs(AUG_HOST_EPOCHS)
+    return n / (time.perf_counter() - t0)
+
+
+def video_train(seeded: str, card: str) -> dict:
+    """(c) `train` of yolov4-tiny 416 (VOC heads) from a seeded partial
+    file on AUG_SCENES scenes, its cfg's [net] carrying AUG_NET_KEYS and
+    each mode's key (mosaic=1, --mixup, blur=1) or none: every step's
+    loss finite, and the host pipeline's batches/s of each mode beside
+    the plain one (train_batches with the command's AugmentConfig)."""
+    from yolo_tpu_torch.configs.darknet_cfg import net_training_params
+    from yolo_tpu_torch.data.augment import config_from_net_params
+
+    root = os.path.join(seeded, "aug")
+    pairs = write_voc_root(os.path.join(root, "voc"), AUG_SCENES, SEED + 20)
+    cfg = voc_heads(get_variant(AUG_VARIANT))
+    cutoff, name, _ = YOLO_PARTIALS[AUG_VARIANT]
+    partial = write_backbone(cfg, root, cutoff, name)
+    rates = {}
+    for mode, (keys, flags) in AUG_MODES.items():
+        d = os.path.join(root, mode)
+        os.makedirs(d)
+        cfg_path, names = write_cfg(d, cfg, AUG_NET_KEYS + keys)
+        log = os.path.join(d, "train.jsonl")
+        _, err, wall, _ = cli_run([
+            "train", "--cfg", cfg_path, "--names", names, "--weights",
+            partial, "--voc-root", os.path.join(root, "voc"), "--split",
+            "train", "--batch", str(AUG_BATCH), "--epochs", "1",
+            "--precision", "bf16", "--log-every", "1", "--log-file", log,
+            *flags])
+        with open(log) as f:
+            recs = [r for r in map(json.loads, f) if "loss" in r]
+        check(len(recs) == AUG_SCENES // AUG_BATCH
+              and all(np.isfinite(r["loss"]) for r in recs),
+              f"train {mode}: {len(recs)} steps, losses "
+              f"{[r.get('loss') for r in recs]}")
+        aug_cfg = config_from_net_params(net_training_params(cfg_path),
+                                         mixup="--mixup" in flags)
+        check(aug_cfg.mosaic == (mode == "mosaic")
+              and aug_cfg.mixup == (mode == "mixup")
+              and bool(aug_cfg.blur) == (mode == "blur"),
+              f"train {mode}: augmentation {aug_cfg}")
+        rates[mode] = aug_host_rate(cfg, pairs, aug_cfg)
+        emit({"phase": "video", "command": "train", "mode": mode,
+              "model": cfg.name, "input": cfg.input_size,
+              "batch": AUG_BATCH, "steps": len(recs),
+              "losses": [r["loss"] for r in recs], "seconds": wall,
+              "host_batches_per_s": rates[mode],
+              "host_vs_plain": rates[mode] / rates["plain"],
+              "card": card})
+    return rates
+
+
+def video_classifier(seeded: str, card: str) -> None:
+    """(d) `train --imagefolder` of darknet19 at GEOM_SIZE (a
+    CLS_TRAIN_CLASSES-way head, seeded weights) with GEOM_NET_KEYS: the
+    geometry crop runs (the command says so) and every loss is finite."""
+    root = os.path.join(seeded, "geometry")
+    samples, names = jpeg_class_folder(os.path.join(root, "images"))
+    base = get_variant("darknet19", input_size=GEOM_SIZE)
+    cfg = dataclasses.replace(base, name="darknet19-geometry",
+                              class_names=names, layers=base.layers[:-3] + (
+                                  Conv(CLS_TRAIN_CLASSES, size=1, bn=False,
+                                       act="linear"), AvgPool(),
+                                  SoftmaxHead()))
+    cfg_path, names_path = write_cfg(root, cfg, GEOM_NET_KEYS)
+    weights = os.path.join(root, "darknet19-geometry.weights")
+    dw.save(weights, cfg.layers, dw.synthetic_detector_params(cfg, SEED))
+    log = os.path.join(root, "train.jsonl")
+    batch = 8
+    _, err, wall, _ = cli_run([
+        "train", "--cfg", cfg_path, "--names", names_path, "--weights",
+        weights, "--imagefolder", os.path.join(root, "images"), "--batch",
+        str(batch), "--epochs", "1", "--log-every", "1", "--log-file", log])
+    with open(log) as f:
+        recs = [r for r in map(json.loads, f) if "loss" in r]
+    steps = -(-len(samples) // batch)
+    check("scale/rotation crops" in err, "train --imagefolder: the "
+          "classifier geometry crop is not on")
+    check(len(recs) == steps and all(np.isfinite(r["loss"]) for r in recs),
+          f"train --imagefolder: {len(recs)} of {steps} steps, losses "
+          f"{[r.get('loss') for r in recs]}")
+    emit({"phase": "video", "command": "train --imagefolder",
+          "model": cfg.name, "input": GEOM_SIZE, "net_keys":
+          GEOM_NET_KEYS.split(), "batch": batch, "steps": len(recs),
+          "losses": [r["loss"] for r in recs], "seconds": wall,
+          "card": card})
+
+
+def phase_video(seeded: str, card: str) -> dict:
+    """Phase 20: (a) a seeded VIDEO_FRAMES-frame 640x480 MJPG AVI
+    written by the port's writer (data/synthetic.py write_video); the
+    native reader's decode frames/s; (b) video_detect; (c) video_train;
+    (d) video_classifier. Returns the launches of (b)."""
+    from yolo_tpu_torch.data.synthetic import write_video
+    from yolo_tpu_torch.data.video import video_batches, video_info
+
+    t0 = time.perf_counter()
+    path = os.path.join(seeded, "scenes.avi")
+    write_video(path, VIDEO_FRAMES, *SRC_HW, fps=VIDEO_FPS, seed=SEED + 20)
+    info = video_info(path)
+    check(info == {"fps": VIDEO_FPS, "width": SRC_HW[1],
+                   "height": SRC_HW[0], "frames": VIDEO_FRAMES},
+          f"video_info {info}")
+    rates = []
+    for _ in range(3):
+        t = time.perf_counter()
+        n = sum(len(b["frames"]) for b in video_batches(path, VIDEO_BATCH))
+        rates.append(n / (time.perf_counter() - t))
+    emit({"phase": "video", "what": "decode", "frames": VIDEO_FRAMES,
+          "src_hw": list(SRC_HW), "batch": VIDEO_BATCH,
+          "frames_per_s": statistics.median(rates),
+          "host_cores": os.cpu_count(), "card": card})
+    t1 = time.perf_counter()
+    launches = video_detect(seeded, path, card)
+    t2 = time.perf_counter()
+    rates = video_train(seeded, card)
+    t3 = time.perf_counter()
+    video_classifier(seeded, card)
+    emit({"phase": "video", "seconds": time.perf_counter() - t0,
+          "detect_seconds": t2 - t1, "train_seconds": t3 - t2,
+          "classifier_seconds": time.perf_counter() - t3,
+          "host_batches_per_s": rates, "card": card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4708,6 +5000,8 @@ def run(seeded: str) -> int:
 
     int8 = phase_int8(seeded, model, model32, images, ref, gen, card)
 
+    video = phase_video(seeded, card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
     check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
@@ -4725,7 +5019,7 @@ def run(seeded: str) -> int:
          + yolo_eval_launches + coco_launches["nms"]
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
          + tree["launches"]["nms"] + v1["launches"]["nms"]
-         + int8["launches"]["nms"],
+         + int8["launches"]["nms"] + video["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -4783,7 +5077,7 @@ def run(seeded: str) -> int:
         {"name": "conv_s8_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_s8_bias_act.cu",
          "replaces": "yolo_tpu/models/quantize.py:234",
-         "launches": int8["launches"]["conv_s8"],
+         "launches": int8["launches"]["conv_s8"] + video["conv_s8"],
          "max_abs_err": int8["worst"],
          "ms": int8["ms"][TIMED_BATCH][0],
          "plain_ms": int8["ms"][TIMED_BATCH][1],
@@ -4798,7 +5092,8 @@ def run(seeded: str) -> int:
         {"name": "maxpool_s8", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/maxpool_s8.cu",
          "replaces": "yolo_tpu/ops/pool.py:17",
-         "launches": int8["launches"]["maxpool_s8"],
+         "launches": int8["launches"]["maxpool_s8"]
+         + video["maxpool_s8"],
          "max_abs_err": int8["worst"],
          "ms": int8["pool_ms"][TIMED_BATCH][0],
          "plain_ms": int8["pool_ms"][TIMED_BATCH][1],

@@ -342,11 +342,35 @@ def test_classifier_train_batches_match_jax(augment, tmp_path):
 
 
 def test_classifier_geometry_augment_raises(tmp_path):
+    """The classifier geometry crop, once refused here, now runs: on a
+    square net the batches equal JAX's (the crop byte for byte, then HSV
+    within one level on at most 0.5% of the values, as above); on a
+    rectangular net both packages raise the same ValueError."""
     samples = timagefolder.list_imagefolder(_folder(tmp_path), ("red",
                                                                 "green"))
-    with pytest.raises(NotImplementedError, match="A9f"):
-        next(timagefolder.classifier_train_batches(
-            samples, 4, 32, augment_cfg=taugment.AugmentConfig(angle=10)))
+    kw = dict(angle=7.0, aspect=0.75, min_crop=28, max_crop=48)
+    for hsv in (dict(hue=0.0, saturation=1.0, exposure=1.0),
+                dict(hue=0.1, saturation=1.5, exposure=1.5)):
+        got = list(timagefolder.classifier_train_batches(
+            samples, 4, 32, epochs=2, seed=5,
+            augment_cfg=taugment.AugmentConfig(**kw, **hsv)))
+        want = list(jimagefolder.classifier_train_batches(
+            samples, 4, 32, epochs=2, seed=5,
+            augment_cfg=jaugment.AugmentConfig(**kw, **hsv)))
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["labels"], w["labels"])
+            d = np.abs(g["images"] - w["images"])
+            if hsv["hue"] == 0.0:
+                assert d.max() == 0.0
+            else:
+                assert d.max() <= 1 / 255 + 1e-6
+                assert (d > 1e-6).mean() <= 5e-3
+    for mod, aug in ((timagefolder, taugment), (jimagefolder, jaugment)):
+        with pytest.raises(ValueError, match="rectangular"):
+            next(mod.classifier_train_batches(
+                samples, 4, (32, 48),
+                augment_cfg=aug.AugmentConfig(angle=10)))
 
 
 @pytest.mark.parametrize("name", [
@@ -372,7 +396,8 @@ def test_jax_imagefolder_tests_hold_for_the_port(name, tmp_path,
     "TestEvalDuringTrain.test_detector_rejects_eval_imagefolder",
     "TestResumeDataPosition.test_cli_fail_then_resume",
     "TestResumeDataPosition.test_cli_resume_adapts_ema_track",
-    "TestAugment.test_cli_cfg_keys_enable_augment"])
+    "TestAugment.test_cli_cfg_keys_enable_augment",
+    "test_cli_classifier_geometry_augment"])
 def test_jax_classifier_train_cli_tests_hold_for_the_port(
         name, tmp_path, capsys, monkeypatch):
     """tests/test_classifier_train.py's command-line tests on the port's

@@ -19,11 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # not ported yet, by ROADMAP item
 NOT_PORTED = {
-    "data/video.py": "*",                                # A12a
     "parallel/__init__.py": "*",                         # A9g/A12b
     "parallel/sharding.py": "*",                         # A9g/A12b
     "data/grain_pipeline.py": "*",                       # A9g/A12b
-    "data/augment.py": {"random_augment_classifier"},    # A9f
     "native/preproc.py": {"letterbox_batch", "available"},   # A9h
 }
 # nothing to port: JAX-only machinery, TPU workarounds and test oracles

@@ -189,8 +189,9 @@ def test_classify_int8_matches_jax(tmp_path, capsys):
 
 def test_int8_refusals_match_jax(files, capsys, tmp_path):
     """serve --precision int8 without --calibration-image, and int8 on a
-    yolov1 topology: the JAX commands' messages; detect --video stays
-    refused (ROADMAP A12a)."""
+    yolov1 topology: the JAX commands' messages; detect --video on a
+    webcam index stays refused under the native decoder (ROADMAP
+    A12a: it reads AVI files; int8 video: tests/test_torch_video.py)."""
     from tests.test_yolov1 import _write_v1
     from yolo_tpu_torch.configs.darknet_cfg import config_from_cfg
     from yolo_tpu_torch.io import darknet_weights as dw

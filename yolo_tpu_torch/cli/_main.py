@@ -66,8 +66,9 @@ def main(argv: Optional[list] = None) -> None:
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", default=None, help="image directory")
     src.add_argument("--video", default=None,
-                     help="video file or webcam index (not ported yet, "
-                        "ROADMAP A12)")
+                     help="video file (Motion JPEG AVI under the native "
+                          "decoder; any format and webcam indices under "
+                          "--decoder cv2)")
     p.add_argument("--stride", type=int, default=1,
                    help="video: sample every Nth frame")
     p.add_argument("--max-frames", type=int, default=0,

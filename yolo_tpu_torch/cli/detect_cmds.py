@@ -1,8 +1,8 @@
 """`predict` / `detect` / `classify` (port of yolo_tpu/cli/detect_cmds.py):
 single-image and batched directory detection, classifier top-k and
 imagefolder accuracy, each at --precision fp32, bf16 or int8 (calibrated
-on the command's first inputs, as the JAX commands calibrate). Video
-input (ROADMAP A12a) is not ported yet and raises, int8 with it."""
+on the command's first inputs, as the JAX commands calibrate), and
+`detect --video` over a video's frames (data/video.py)."""
 
 from __future__ import annotations
 
@@ -186,14 +186,13 @@ def cmd_detect(args) -> None:
                                               unstretch_boxes_xyxy)
     from yolo_tpu_torch.utils.viz import draw_detections, save_image
 
-    if args.video:
-        # int8 video calibrates on the stream's first frames: A12a too
-        raise SystemExit("detect --video needs a video decoder, which is "
-                         "not ported yet (ROADMAP A12, data/video.py)")
     cfg = _get_cfg(args)
     _require_detection(cfg, "detect")
     tree_kw = _tree_kw(args, cfg)
     names = cfg.detection_names(tree_kw["use_tree_map"])
+    if args.video:
+        _detect_video(args, cfg, names, tree_kw)
+        return
     paths = _image_paths(args)
     # int8: calibrated on the first 8 images
     net = _load_net(args, cfg, lambda: [load_image(p, cfg.in_channels)
@@ -247,3 +246,71 @@ def cmd_detect(args) -> None:
                     os.makedirs(os.path.dirname(dst), exist_ok=True)
                     save_image(dst, draw_detections(
                         src, xyxy, scores[valid], classes[valid], names))
+
+
+def _first_video_frames(args, cfg) -> list:
+    """int8 calibration frames: the stream's first batch of 8 sampled
+    frames (padded as video_batches pads), the generator closed before
+    the stream is opened again (a webcam refuses a second open)."""
+    from yolo_tpu_torch.data.video import video_batches
+
+    gen = video_batches(args.video, 8, stride=args.stride, max_frames=8,
+                        channels=cfg.in_channels)
+    try:
+        first = next(gen)
+    finally:
+        gen.close()
+    return list(first["images"])
+
+
+def _detect_video(args, cfg, names, tree_kw) -> None:
+    """Video detection: every frame has one shape, so the whole stream
+    runs the raw-frame detector (device letterbox) at one shape. One JSON
+    line a sampled frame; --save-video writes an annotated MJPG copy at
+    fps / stride."""
+    from yolo_tpu_torch.data.pipeline import DevicePrefetcher
+    from yolo_tpu_torch.data.video import (VideoAnnotator, check_source,
+                                           video_batches, video_info)
+    from yolo_tpu_torch.models.predict import make_detector
+
+    if args.save_labels:
+        raise SystemExit("--save-labels derives per-IMAGE label "
+                         "paths — it applies to --images mode only")
+    try:
+        check_source(args.video)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    net = _load_net(args, cfg, lambda: _first_video_frames(args, cfg))
+    det = make_detector(cfg, resize=args.resize, **tree_kw)
+    writer = None
+    if args.save_video:
+        info = video_info(args.video)
+        writer = VideoAnnotator(args.save_video,
+                                fps=info["fps"] / max(args.stride, 1),
+                                width=info["width"], height=info["height"])
+    host_iter = video_batches(args.video, args.batch, stride=args.stride,
+                              max_frames=args.max_frames or None,
+                              channels=cfg.in_channels)
+    try:
+        with DevicePrefetcher(host_iter, depth=2, device=net.device) \
+                as staged, torch.no_grad():
+            for batch in staged:
+                out = _to_numpy(det(net, batch["images"]))
+                boxes = out["boxes"].astype(np.float64)
+                frames = (batch["images"].cpu().numpy()
+                          if writer is not None else None)
+                for bi, frame_idx in enumerate(batch["frames"]):
+                    valid = np.nonzero(out["valid"][bi])[0]
+                    print(json.dumps({"frame": int(frame_idx),
+                                      "detections": _det_json(
+                                          names, out["classes"][bi],
+                                          out["scores"][bi],
+                                          boxes[bi][valid], valid)}))
+                    if writer is not None:
+                        writer.write(frames[bi], boxes[bi],
+                                     out["scores"][bi], out["classes"][bi],
+                                     names, out["valid"][bi])
+    finally:
+        if writer is not None:
+            writer.close()
+            print(f"wrote {args.save_video}", file=sys.stderr)

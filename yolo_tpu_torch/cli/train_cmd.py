@@ -127,7 +127,8 @@ _AUG_KEYS = ("jitter", "saturation", "exposure", "hue", "flip",
 def _augment_config(args, net_hp):
     """Darknet augments whenever the cfg writes an augmentation key;
     --augment turns the classic defaults on, --no-augment turns all
-    off. Mosaic, mixup and blur are ROADMAP A9f."""
+    off, --mosaic / --mixup force those modes on. Mosaic and mixup
+    together are refused."""
     from yolo_tpu_torch.data.augment import config_from_net_params
 
     cfg_wants_aug = any(k in net_hp for k in _AUG_KEYS)
@@ -137,13 +138,19 @@ def _augment_config(args, net_hp):
     aug_cfg = config_from_net_params(net_hp, mosaic=args.mosaic,
                                      mixup=args.mixup,
                                      force_defaults=not cfg_wants_aug)
-    if aug_cfg.mosaic or aug_cfg.mixup or aug_cfg.blur:
-        raise SystemExit("mosaic, mixup and blur augmentation need "
-                         "resamplers that are not ported yet (ROADMAP "
-                         "A9f); pass --no-augment or drop the keys")
+    if aug_cfg.mosaic and aug_cfg.mixup:
+        raise SystemExit(
+            "mosaic and mixup together (darknet's combined "
+            "mosaic+mixup modes) are not supported — pick one")
     if cfg_wants_aug and not (args.augment or args.mosaic or args.mixup):
         print("cfg augmentation keys present: darknet-style "
               "augmentation enabled (disable with --no-augment)",
+              file=sys.stderr)
+    if aug_cfg.mosaic and not args.mosaic:
+        print("cfg [net] mosaic=1: mosaic augmentation enabled",
+              file=sys.stderr)
+    if aug_cfg.mixup and not args.mixup:
+        print("cfg [net] mixup=1: mixup augmentation enabled",
               file=sys.stderr)
     return aug_cfg
 

@@ -137,8 +137,9 @@ def _train_classifier(args, cfg) -> None:
                     "angle", "aspect", "min_crop", "max_crop")
     if (args.augment or any(k in net_hp for k in cls_aug_keys)) \
             and not args.no_augment:
-        # darknet classifier training distorts HSV (the cfg's keys, or
-        # --augment for the classic HSV + flip)
+        # darknet classifier training distorts HSV and, where the cfg
+        # asks, takes random_augment_image's scale/rotation crop (the
+        # cfg's keys, or --augment for the classic HSV + flip)
         from yolo_tpu_torch.data.augment import config_from_net_params
 
         aug_cfg = config_from_net_params(
@@ -148,12 +149,10 @@ def _train_classifier(args, cfg) -> None:
             raise SystemExit("mosaic/mixup are detection augmentations "
                              "— classifier training supports HSV+flip "
                              "and [net] angle/aspect/min_crop/max_crop")
-        if aug_cfg.classifier_geometry:
-            raise SystemExit("the classifier scale/rotation crop ([net] "
-                             "angle/aspect/min_crop/max_crop) is not "
-                             "ported yet (ROADMAP A9f); drop the keys or "
-                             "pass --no-augment")
-        print("classifier HSV+flip augmentation enabled", file=sys.stderr)
+        geom = (" + scale/rotation crops"
+                if aug_cfg.classifier_geometry else "")
+        print(f"classifier HSV+flip augmentation enabled{geom}",
+              file=sys.stderr)
     if state.step:
         print(f"data position: resuming the stream at step "
               f"{state.step} (position-independent shuffle/flip keys)",

@@ -1,9 +1,9 @@
-"""Darknet-style training augmentation (port of yolo_tpu/data/augment.py,
-the yolov2 subset: random crop with jitter, horizontal flip, HSV
-distortion, gaussian noise; yolov2-voc.cfg: jitter=0.3, hue=0.1,
-saturation=1.5, exposure=1.5).
+"""Darknet-style training augmentation (port of yolo_tpu/data/augment.py:
+random crop with jitter, horizontal flip, HSV distortion, blur, gaussian
+noise, the yolov4 mosaic and the classifier rotate/scale crop;
+yolov2-voc.cfg: jitter=0.3, hue=0.1, saturation=1.5, exposure=1.5).
 
-Host-side numpy, without OpenCV: the JAX package's cv2 calls are
+Host-side numpy and C, without OpenCV: the JAX package's cv2 calls are
 replaced by
   * cv2.copyMakeBorder(BORDER_REPLICATE) -> np.pad(mode="edge"), exact;
   * cv2's 8-bit RGB -> HSV -> rgb2hsv_u8, cv2's fixed-point division
@@ -12,10 +12,12 @@ replaced by
     truncated in the vectorized blocks of a row and rounded in the
     row's tail as cv2 does; cv2 orders a few float operations otherwise,
     so a few pixels differ by one level (tests/test_torch_data.py
-    states how many).
-Boxes are normalized (cx, cy, w, h). Blur, mosaic, mixup and the
-classifier rotate/scale crop need cv2 resamplers and are not ported
-(ROADMAP A9).
+    states how many);
+  * cv2.GaussianBlur(ksize, 0) -> native.preproc.gaussian_blur_u8 and
+    cv2.warpAffine(INTER_LINEAR | WARP_INVERSE_MAP, BORDER_REPLICATE) ->
+    native.preproc.warp_affine_u8 (native/resample.c), byte for byte.
+As there, a 1-channel image keeps its channel axis where cv2 would drop
+it. Boxes are normalized (cx, cy, w, h).
 """
 
 from __future__ import annotations
@@ -25,15 +27,16 @@ from typing import Tuple
 
 import numpy as np
 
-_NOT_PORTED = ("is not ported yet (ROADMAP A9: blur, mosaic, mixup and "
-               "the classifier rotate/scale crop)")
+from yolo_tpu_torch.data.targets import _as_hw
+from yolo_tpu_torch.native.preproc import gaussian_blur_u8, warp_affine_u8
 
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
-    """The JAX package's AugmentConfig, field for field; blur, mosaic,
-    mixup and the classifier rotate/scale crop raise where they would
-    act (apply_blur, train_batches, mosaic4, rotate_scale_crop)."""
+    """The JAX package's AugmentConfig, field for field. mosaic and
+    mixup act in data.pipeline.train_batches, the classifier geometry
+    keys (angle, aspect, min_crop, max_crop) in
+    data.imagefolder.classifier_train_batches."""
     flip: bool = True
     jitter: float = 0.3
     hue: float = 0.1
@@ -207,10 +210,31 @@ def flip_horizontal(img_u8: np.ndarray, boxes: np.ndarray):
 
 def apply_blur(img_u8: np.ndarray, boxes: np.ndarray,
                rng: np.random.Generator, cfg: AugmentConfig) -> np.ndarray:
-    """[net] blur needs cv2.GaussianBlur: raises when set."""
+    """[net] blur: a draw of none / background / full. The background
+    mode blurs with ksize 17 and copies each truth box back sharp (the
+    only mode of blur=1); the full mode blurs with ksize
+    (blur // 2) * 2 + 1. boxes are normalized xywh."""
     if not cfg.blur:
         return img_u8
-    raise NotImplementedError(f"[net] blur {_NOT_PORTED}")
+    mode = int(rng.integers(0, 3))   # none / background / full
+    if mode == 0:
+        return img_u8
+    background = mode == 1 or int(cfg.blur) == 1
+    ksize = 17 if background else (int(cfg.blur) // 2) * 2 + 1
+    dst = gaussian_blur_u8(img_u8, ksize)
+    if dst.ndim == 2:                # as cv2's 2-D result in the JAX package
+        dst = dst[..., None]
+    if background:
+        h, w = img_u8.shape[:2]
+        for cx, cy, bw, bh in np.asarray(boxes,
+                                         np.float64).reshape(-1, 4):
+            x1 = max(int((cx - bw / 2) * w), 0)
+            y1 = max(int((cy - bh / 2) * h), 0)
+            x2 = min(int((cx + bw / 2) * w) + 1, w)
+            y2 = min(int((cy + bh / 2) * h) + 1, h)
+            if x2 > x1 and y2 > y1:
+                dst[y1:y2, x1:x2] = img_u8[y1:y2, x1:x2]
+    return dst
 
 
 def apply_gaussian_noise(img_u8: np.ndarray, rng: np.random.Generator,
@@ -227,14 +251,51 @@ def apply_gaussian_noise(img_u8: np.ndarray, rng: np.random.Generator,
                    255.0).astype(np.uint8)
 
 
-def rotate_scale_crop(*args, **kw):
-    """The classifier rotate/scale crop needs cv2.warpAffine."""
-    raise NotImplementedError(f"rotate_scale_crop {_NOT_PORTED}")
+def rotate_scale_crop(img_u8: np.ndarray, size: int, *, rad: float,
+                      scale: float, aspect: float, dx: float,
+                      dy: float) -> np.ndarray:
+    """darknet image.c rotate_crop_image as one warp: output pixel
+    (x, y) samples the input at
+      R(rad) @ diag(aspect/scale, 1/scale) @ (x - size/2 + dx,
+                                              y - size/2 + dy) + center
+    (bilinear, coordinates clamped to the image), the matrix in float32
+    as the JAX package builds it."""
+    h, w = img_u8.shape[:2]
+    cosr, sinr = float(np.cos(rad)), float(np.sin(rad))
+    ax, ay = aspect / scale, 1.0 / scale
+    ox, oy = dx - size / 2.0, dy - size / 2.0
+    m = np.array(
+        [[cosr * ax, -sinr * ay, w / 2.0 + cosr * ax * ox - sinr * ay * oy],
+         [sinr * ax, cosr * ay, h / 2.0 + sinr * ax * ox + cosr * ay * oy]],
+        np.float32)
+    return warp_affine_u8(img_u8, m, (size, size))
 
 
-def mosaic4(*args, **kw):
-    """The yolov4 mosaic needs cv2.warpAffine."""
-    raise NotImplementedError(f"mosaic {_NOT_PORTED}")
+def random_augment_classifier(img_u8: np.ndarray,
+                              rng: np.random.Generator,
+                              cfg: AugmentConfig,
+                              size: int) -> np.ndarray:
+    """darknet data.c random_augment_image: aspect = rand_scale(aspect);
+    r = rand_int(min_crop, max_crop) becomes the scaled short side
+    (scale = r / min(h, w*aspect)); rotation U(-angle, angle) degrees;
+    center offset U(+-|scaled_extent - size|/2) per axis; one size x size
+    resample. Absent min_crop/max_crop take darknet's parse defaults
+    (net size, twice the net size)."""
+    h, w = img_u8.shape[:2]
+    aspect = _rand_scale(rng, cfg.aspect) if cfg.aspect != 1.0 else 1.0
+    lo = cfg.min_crop or size
+    hi = cfg.max_crop or 2 * size
+    if lo > hi:
+        raise ValueError(f"min_crop={lo} > max_crop={hi}")
+    r = int(rng.integers(lo, hi + 1))
+    scale = r / min(h, w * aspect)
+    rad = (np.deg2rad(rng.uniform(-cfg.angle, cfg.angle))
+           if cfg.angle else 0.0)
+    dxm = abs(w * scale / aspect - size) / 2.0
+    dym = abs(h * scale - size) / 2.0
+    return rotate_scale_crop(
+        img_u8, size, rad=rad, scale=scale, aspect=aspect,
+        dx=float(rng.uniform(-dxm, dxm)), dy=float(rng.uniform(-dym, dym)))
 
 
 def augment(img_u8: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
@@ -252,6 +313,57 @@ def augment(img_u8: np.ndarray, boxes: np.ndarray, classes: np.ndarray,
     img_u8 = apply_blur(img_u8, boxes, rng, cfg)
     img_u8 = apply_gaussian_noise(img_u8, rng, cfg)
     return img_u8, boxes, classes
+
+
+def mosaic4(samples, net_size, rng: np.random.Generator,
+            cfg: AugmentConfig = AugmentConfig()
+            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """yolov4 mosaic: a random cut point splits the net-size canvas into
+    4 quadrants; each of the 4 (already augmented) samples is stretched
+    to net size and gives its aligned quadrant. Boxes map through the
+    stretch, are clipped to their quadrant and dropped below
+    min_box_visibility of their area before the clip.
+
+    samples: 4 tuples (img_u8 HxWxC, boxes (G, 4) normalized xywh,
+    classes (G,)). net_size: int or (net_h, net_w). Returns (canvas
+    uint8 (net_h, net_w, C), boxes (float64) normalized to the canvas,
+    classes (int64))."""
+    assert len(samples) == 4
+    nh, nw = _as_hw(net_size)
+    cx = int(nw * rng.uniform(0.25, 0.75))
+    cy = int(nh * rng.uniform(0.25, 0.75))
+    c = samples[0][0].shape[2] if samples[0][0].ndim == 3 else 1
+    canvas = np.zeros((nh, nw, c), np.uint8)
+    regions = ((0, 0, cx, cy), (cx, 0, nw, cy),
+               (0, cy, cx, nh), (cx, cy, nw, nh))
+    out_boxes, out_classes = [], []
+    for (img, boxes, classes), (x1, y1, x2, y2) in zip(samples, regions):
+        # only the kept quadrant, sampled with the whole-image stretch's
+        # half-pixel map: src_x = (dst_x + x1 + 0.5) * w/nw - 0.5
+        h, w = img.shape[:2]
+        m = np.array([[w / nw, 0.0, (x1 + 0.5) * w / nw - 0.5],
+                      [0.0, h / nh, (y1 + 0.5) * h / nh - 0.5]],
+                     np.float64)
+        quad = warp_affine_u8(img, m, (x2 - x1, y2 - y1))
+        canvas[y1:y2, x1:x2] = (quad[..., None] if quad.ndim == 2
+                                else quad)
+        for box, cls in zip(np.asarray(boxes, np.float64), classes):
+            bx1 = (box[0] - box[2] / 2) * nw
+            by1 = (box[1] - box[3] / 2) * nh
+            bx2 = (box[0] + box[2] / 2) * nw
+            by2 = (box[1] + box[3] / 2) * nh
+            area = max(bx2 - bx1, 0) * max(by2 - by1, 0)
+            nx1, ny1 = max(bx1, x1), max(by1, y1)
+            nx2, ny2 = min(bx2, x2), min(by2, y2)
+            vis = max(nx2 - nx1, 0) * max(ny2 - ny1, 0)
+            if area <= 0 or vis <= 0 or vis / area < cfg.min_box_visibility:
+                continue
+            out_boxes.append([(nx1 + nx2) / 2 / nw, (ny1 + ny2) / 2 / nh,
+                              (nx2 - nx1) / nw, (ny2 - ny1) / nh])
+            out_classes.append(int(cls))
+    return (canvas,
+            np.asarray(out_boxes, np.float64).reshape(-1, 4),
+            np.asarray(out_classes, np.int64))
 
 
 # darknet's parse defaults for absent keys (no HSV distortion unless the

@@ -6,9 +6,10 @@ Training batches take darknet's inference geometry (resize_min + centre
 crop, models/classify.classifier_preprocess), a seeded horizontal flip
 and, with an AugmentConfig, the HSV distortion the detector pipeline
 uses (data/augment.py::distort_hsv) on the source image before the
-preprocess. The classifier scale/rotation crop ([net] angle, aspect,
-min_crop, max_crop) needs cv2.warpAffine's resampler and raises (ROADMAP
-A9f).
+preprocess. With the classifier scale/rotation keys ([net] angle,
+aspect, min_crop, max_crop) the geometry crop
+(data/augment.py::random_augment_classifier) replaces the preprocess and
+the HSV distortion acts on the net-size crop, darknet's order.
 """
 
 from __future__ import annotations
@@ -50,6 +51,19 @@ def steps_per_epoch(n_samples: int, batch: int) -> int:
     return -(-n_samples // batch)
 
 
+def _square_size(net_size) -> int:
+    """The side of the geometry crop, which is square: a rectangular net
+    raises."""
+    if isinstance(net_size, (tuple, list)):
+        if net_size[0] != net_size[1]:
+            raise ValueError(
+                "classifier geometry augmentation (angle/aspect/min_crop/"
+                "max_crop) produces square crops — rectangular "
+                "classifier nets must train without it")
+        return int(net_size[0])
+    return int(net_size)
+
+
 def classifier_train_batches(samples: Sequence[Tuple[str, int]],
                              batch: int, net_size, *,
                              epochs: int = 1, seed: int = 0,
@@ -64,7 +78,9 @@ def classifier_train_batches(samples: Sequence[Tuple[str, int]],
     the HSV draws from (seed, epoch, sample), never from how many
     batches were taken, so ``start_step`` resumes the stream where a run
     stopped. augment_cfg (data.augment.AugmentConfig) distorts HSV
-    before the preprocess, and its flip field replaces ``flip``."""
+    before the preprocess, or, with its classifier geometry keys, after
+    the geometry crop that replaces the preprocess (square nets only);
+    its flip field replaces ``flip``."""
     from yolo_tpu_torch.data.pipeline import load_image
     from yolo_tpu_torch.models.classify import classifier_preprocess
 
@@ -73,11 +89,6 @@ def classifier_train_batches(samples: Sequence[Tuple[str, int]],
     if len(samples) < batch:
         raise ValueError(f"dataset has {len(samples)} images but "
                          f"batch={batch} — need at least one full batch")
-    if augment_cfg is not None and augment_cfg.classifier_geometry:
-        raise NotImplementedError(
-            "the classifier scale/rotation crop ([net] angle/aspect/"
-            "min_crop/max_crop) needs cv2.warpAffine's resampler, not "
-            "ported yet (ROADMAP A9f)")
     spe = steps_per_epoch(len(samples), batch)
     first_epoch, skip_batches = divmod(start_step, spe)
     if augment_cfg is not None:
@@ -97,11 +108,22 @@ def classifier_train_batches(samples: Sequence[Tuple[str, int]],
                 path, cls = samples[j]
                 img = load_image(path, channels)
                 if augment_cfg is not None:
-                    from yolo_tpu_torch.data.augment import distort_hsv
+                    from yolo_tpu_torch.data.augment import (
+                        distort_hsv, random_augment_classifier)
 
-                    img = distort_hsv(img, np.random.default_rng(
-                        (seed, 3, epoch, int(j))), augment_cfg)
-                x = classifier_preprocess(img, net_size)
+                    aug_rng = np.random.default_rng(
+                        (seed, 3, epoch, int(j)))
+                    if augment_cfg.classifier_geometry:
+                        img = random_augment_classifier(
+                            img, aug_rng, augment_cfg,
+                            _square_size(net_size))
+                        img = distort_hsv(img, aug_rng, augment_cfg)
+                        x = img.astype(np.float32) / 255.0
+                    else:
+                        img = distort_hsv(img, aug_rng, augment_cfg)
+                        x = classifier_preprocess(img, net_size)
+                else:
+                    x = classifier_preprocess(img, net_size)
                 if flip and flips[j]:
                     x = x[:, ::-1]
                 imgs.append(x)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from yolo_tpu_torch.data import targets as tgt
-from yolo_tpu_torch.data.augment import augment
+from yolo_tpu_torch.data.augment import augment, mosaic4
 from yolo_tpu_torch.data.voc import parse_annotation
 from yolo_tpu_torch.device import resolve as resolve_device
 from yolo_tpu_torch.native.preproc import decode_image
@@ -343,12 +343,16 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
     (darknet multi-scale); augment_cfg (data.augment.AugmentConfig)
     turns on jitter/flip/HSV per sample, each sample drawing from its
     own generator; resize="stretch" trains with the aspect-ignoring
-    resize (normalized boxes need no transform). Mosaic and mixup are
-    not ported (ROADMAP A9f)."""
+    resize (normalized boxes need no transform). augment_cfg.mosaic
+    makes each sample a 4-image mosaic at the net size (data.augment.
+    mosaic4; resize does not act); augment_cfg.mixup blends each sample
+    0.5/0.5 in float32 with a second random one after the resize and
+    concatenates their truths. The generators are the JAX package's:
+    (aug_base, idx) per sample, (aug_base, idx, 4) for the mosaic's
+    picks and cut with (aug_base, idx, k) for its k-th image, and
+    (aug_base, idx, 2) for mixup's pick with (aug_base, idx, 3) for its
+    second image."""
     _check_resize(resize)
-    if augment_cfg is not None and (augment_cfg.mosaic or augment_cfg.mixup):
-        raise NotImplementedError("mosaic and mixup are not ported yet "
-                                  "(ROADMAP A9)")
     order = np.arange(len(pairs))
     if shuffle:
         rng.shuffle(order)
@@ -363,7 +367,8 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
     drop_stats = {"kept": 0, "unknown": 0, "warned": False}
     lock = threading.Lock()
 
-    def prepare(idx: int, size):
+    def load_sample(idx: int, rng_key):
+        """The augmented (img, boxes, classes) of one dataset index."""
         img_path, ann = pairs[int(idx)]
         img = load_image(img_path, channels)
         if isinstance(ann, dict):
@@ -377,13 +382,43 @@ def train_batches(pairs: Sequence[Tuple[str, object]], *, class_names,
                 drop_stats["unknown"] += ann.get("n_unknown", 0)
         if augment_cfg is not None:
             img, boxes, classes = augment(
-                img, boxes, classes,
-                np.random.default_rng((aug_base, int(idx))), augment_cfg)
+                img, boxes, classes, np.random.default_rng(rng_key),
+                augment_cfg)
+        return img, boxes, classes
+
+    def geom(idx: int, rng_key, size):
+        """One sample through the resize -> (image, boxes, classes) in
+        net space."""
+        img, boxes, classes = load_sample(idx, rng_key)
         h, w = img.shape[:2]
         image = _host_resize(img, size, resize)
         if resize == "letterbox":
             boxes = letterbox_boxes(boxes, w, h, size)
         return image, boxes, classes
+
+    def prepare(idx: int, size):
+        idx = int(idx)
+        if augment_cfg is not None and augment_cfg.mosaic:
+            rng_m = np.random.default_rng((aug_base, idx, 4))
+            picks = [idx] + [int(order[rng_m.integers(0, len(order))])
+                             for _ in range(3)]
+            samples = [load_sample(i, (aug_base, idx, k))
+                       for k, i in enumerate(picks)]
+            canvas, boxes, classes = mosaic4(samples, size, rng_m,
+                                             augment_cfg)
+            return canvas.astype(np.float32) / 255.0, boxes, classes
+        if augment_cfg is not None and augment_cfg.mixup:
+            rng_x = np.random.default_rng((aug_base, idx, 2))
+            other = int(order[rng_x.integers(0, len(order))])
+            img_a, box_a, cls_a = geom(idx, (aug_base, idx), size)
+            img_b, box_b, cls_b = geom(other, (aug_base, idx, 3), size)
+            image = 0.5 * img_a + 0.5 * img_b
+            boxes = (np.concatenate([box_a, box_b])
+                     if len(box_a) or len(box_b) else box_a)
+            classes = (np.concatenate([cls_a, cls_b])
+                       if len(cls_a) or len(cls_b) else cls_a)
+            return image, boxes, classes
+        return geom(idx, (aug_base, idx), size)
 
     size = net_size
     with _Pool(workers) as pool:

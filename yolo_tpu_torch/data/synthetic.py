@@ -4,7 +4,9 @@ training and evaluation paths, written without OpenCV:
   * VOC-style: PNG images (data/png.py's encoder) with VOC XML
     annotations (write_voc_scenes), or JPEG images (encode_jpeg);
   * COCO-style: JPEG images with an instances JSON in the COCO schema
-    (write_coco_scenes).
+    (write_coco_scenes);
+  * video: an MJPG AVI of moving rectangles (write_video), its frames
+    written by the port's JPEG writer (native.preproc.encode_jpeg).
 
 A VOC scene is a smooth background (a horizontal and a vertical ramp and
 one flat channel) with 1-4 filled rectangles, each labelled with a VOC
@@ -28,6 +30,7 @@ import numpy as np
 
 from yolo_tpu_torch.configs import COCO_NAMES, VOC_NAMES
 from yolo_tpu_torch.data.png import encode_png
+from yolo_tpu_torch.native.preproc import encode_jpeg as encode_jpeg_native
 
 
 def voc_xml(filename: str, w: int, h: int, objects) -> str:
@@ -479,3 +482,48 @@ def write_map(path: str, tree, n: int = 80, seed: int = 0) -> Tuple[int, ...]:
     with open(path, "w") as f:
         f.write("".join(f"{v}\n" for v in nodes))
     return nodes
+
+
+def video_frames(n: int, height: int, width: int,
+                 seed: int = 0) -> np.ndarray:
+    """(n, height, width, 3) uint8 RGB frames of a seeded scene: a smooth
+    background and 3-5 filled rectangles of VOC palette colors, each
+    moving on a straight line."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    base = np.stack([xx * 200 // max(width - 1, 1),
+                     yy * 200 // max(height - 1, 1),
+                     np.full_like(xx, int(rng.integers(40, 200)))], -1)
+    objs = []
+    for _ in range(int(rng.integers(3, 6))):
+        bw = int(rng.integers(width // 8, width // 3))
+        bh = int(rng.integers(height // 8, height // 3))
+        objs.append((rng.uniform(0, width - bw), rng.uniform(0, height - bh),
+                     rng.uniform(-4, 4), rng.uniform(-4, 4), bw, bh,
+                     rng.integers(0, 256, 3)))
+    out = np.empty((n, height, width, 3), np.uint8)
+    for t in range(n):
+        img = base.copy()
+        for x0, y0, vx, vy, bw, bh, color in objs:
+            x = int(np.clip(x0 + vx * t, 0, width - bw))
+            y = int(np.clip(y0 + vy * t, 0, height - bh))
+            img[y:y + bh, x:x + bw] = color
+        out[t] = img
+    return out
+
+
+def write_video(path: str, n_frames: int = 48, height: int = 480,
+                width: int = 640, fps: float = 30.0, seed: int = 0,
+                quality: int = 90) -> np.ndarray:
+    """Write video_frames(n_frames, height, width, seed) as an MJPG AVI
+    (data.video.AviWriter) and return the frames."""
+    from yolo_tpu_torch.data.video import AviWriter
+
+    frames = video_frames(n_frames, height, width, seed)
+    writer = AviWriter(path, fps, width, height)
+    try:
+        for frame in frames:
+            writer.write_jpeg(encode_jpeg_native(frame, quality))
+    finally:
+        writer.close()
+    return frames

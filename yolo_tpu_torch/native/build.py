@@ -1,10 +1,11 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
-JPEG decoder and encoder and the PNG unfilter) and load it with ctypes.
+JPEG decoder and encoder, the PNG unfilter and the blur and warp
+resamplers) and load it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
-``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``: no fast-math and
-no ``-march=native``, since the code is integer arithmetic and must give
-the same bytes on every machine. The library is named by a hash of the
+``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared`` and ``-lm``: no fast-math, no
+``-march=native`` and (in ISO C mode) no contraction of multiply-adds,
+since the code must give the same bytes on every machine. The library is named by a hash of the
 sources, the flags and the compiler, and written to
 ``build/yolo_tpu_torch/native/`` beside the package (git-ignored) at
 first use. Processes that build at once (pytest workers) take an
@@ -34,6 +35,7 @@ NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(NATIVE_DIR)),
                          "build", "yolo_tpu_torch", "native")
 CC_FLAGS = ("-O2", "-std=c11", "-fPIC", "-shared")
+LIBS = ("-lm",)
 
 
 def compiler() -> str:
@@ -56,7 +58,7 @@ def library_path() -> str:
     """Where the library for the current sources, flags and compiler
     lives."""
     srcs, headers = _sources()
-    h = hashlib.sha256(" ".join((compiler(),) + CC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((compiler(),) + CC_FLAGS + LIBS).encode())
     for path in srcs + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -77,7 +79,7 @@ def build() -> tuple:
             return out, 0.0
         srcs, _ = _sources()
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [compiler(), *CC_FLAGS, "-o", tmp, *srcs]
+        cmd = [compiler(), *CC_FLAGS, "-o", tmp, *srcs, *LIBS]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -112,6 +114,14 @@ def library() -> ctypes.CDLL:
     lib.yolo_jpeg_encode.argtypes = [
         ptr, i32, i32, i32, i32, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(size), ctypes.c_char_p, size]
+    lib.yolo_gaussian_blur_u8.restype = i32
+    # src, h, w, channels, ksize, dst, err, errlen
+    lib.yolo_gaussian_blur_u8.argtypes = [ptr, i32, i32, i32, i32, ptr,
+                                          ctypes.c_char_p, size]
+    lib.yolo_warp_affine_u8.restype = i32
+    # src, sh, sw, channels, m (6 doubles), dh, dw, dst, err, errlen
+    lib.yolo_warp_affine_u8.argtypes = [ptr, i32, i32, i32, ptr, i32, i32,
+                                        ptr, ctypes.c_char_p, size]
     lib.yolo_native_free.restype = None
     lib.yolo_native_free.argtypes = [ptr]
     return lib

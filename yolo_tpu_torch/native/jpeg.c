@@ -221,6 +221,25 @@ static void read_dht(decoder *d, size_t end) {
     }
 }
 
+/* jstdhuff.c: Motion JPEG frames often leave out DHT; libjpeg-turbo then
+ * loads the Annex K tables into the slots 0 and 1 still undefined when
+ * decompression starts (the first SOS). */
+static void std_huff_tables(decoder *d) {
+    const uint8_t *bits[4] = {kDcLumaBits, kDcChromaBits, kAcLumaBits,
+                              kAcChromaBits};
+    const uint8_t *vals[4] = {kDcVals, kDcVals, kAcLumaVals, kAcChromaVals};
+    for (int k = 0; k < 4; k++) {
+        huff_table *t = k < 2 ? &d->dc[k] : &d->ac[k - 2];
+        if (t->defined) continue;
+        uint8_t counts[17] = {0};
+        int total = 0;
+        for (int l = 1; l <= 16; l++) total += counts[l] = bits[k][l - 1];
+        memset(t->huffval, 0, sizeof t->huffval);
+        memcpy(t->huffval, vals[k], (size_t)total);
+        build_huff(d, t, counts, k < 2);
+    }
+}
+
 static void read_sof(decoder *d, int marker) {
     if (d->frame_seen) fail(d, "unsupported: more than one frame header");
     d->frame_seen = 1;
@@ -745,6 +764,7 @@ static uint8_t *decode(decoder *d, int channels, int *out_h, int *out_w) {
             read_app(d, m, end);
         } else if (m == 0xDA) {
             if (!d->frame_seen) fail(d, "corrupt: SOS before the frame");
+            std_huff_tables(d);
             ns = u8(d);
             if (ns != d->ncomp)
                 fail(d, "unsupported: multi-scan sequential JPEG (a scan of "

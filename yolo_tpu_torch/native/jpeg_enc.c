@@ -32,6 +32,8 @@
 #include <stdlib.h>
 #include <string.h>
 
+#include "native.h"
+
 static const uint8_t kZigzag[64] = {  /* zigzag index -> row-major index */
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
@@ -50,15 +52,16 @@ static const uint16_t kQChroma[64] = {
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
 
-/* Annex K.3: code counts of lengths 1..16, then the symbols */
-static const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1,
+/* Annex K.3: code counts of lengths 1..16, then the symbols (native.h:
+ * the decoder loads them for a frame without DHT) */
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1,
                                         1, 0, 0, 0, 0, 0, 0, 0};
-static const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1,
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1,
                                           1, 1, 1, 0, 0, 0, 0, 0};
-static const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-static const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
                                         5, 5, 4, 4, 0, 0, 1, 0x7d};
-static const uint8_t kAcLumaVals[162] = {
+const uint8_t kAcLumaVals[162] = {
     0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
     0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
     0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
@@ -73,9 +76,9 @@ static const uint8_t kAcLumaVals[162] = {
     0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
     0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-static const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
                                           7, 5, 4, 4, 0, 1, 2, 0x77};
-static const uint8_t kAcChromaVals[162] = {
+const uint8_t kAcChromaVals[162] = {
     0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
     0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
     0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,

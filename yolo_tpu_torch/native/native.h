@@ -1,4 +1,4 @@
-/* The host image decoders' C interface (ctypes: native/preproc.py).
+/* The host image decoders' and resamplers' C interface (ctypes: native/preproc.py).
  * Each function returns 0, or -1 with a message in err; no function
  * keeps state between calls. */
 #ifndef YOLO_TPU_TORCH_NATIVE_H
@@ -25,6 +25,25 @@ int yolo_png_decode_rows(const uint8_t *raw, size_t rawlen, int h, int w,
                          int depth, int color, const uint8_t *palette,
                          int channels, uint8_t *out, char *err,
                          size_t errlen);
+
+/* cv2.GaussianBlur(src, (ksize, ksize), 0) of an (h, w, c) uint8 image,
+ * c = 1 or 3, ksize odd, BORDER_REFLECT_101 -> dst (h, w, c). */
+int yolo_gaussian_blur_u8(const uint8_t *src, int h, int w, int c,
+                          int ksize, uint8_t *dst, char *err,
+                          size_t errlen);
+
+/* cv2.warpAffine(src, m, (dw, dh), INTER_LINEAR | WARP_INVERSE_MAP,
+ * BORDER_REPLICATE) of an (sh, sw, c) uint8 image, m 6 doubles (row
+ * major 2x3) -> dst (dh, dw, c). */
+int yolo_warp_affine_u8(const uint8_t *src, int sh, int sw, int c,
+                        const double *m, int dh, int dw, uint8_t *dst,
+                        char *err, size_t errlen);
+
+/* The standard Huffman tables of Annex K.3 (jpeg_enc.c): code counts of
+ * lengths 1..16, then the symbols. */
+extern const uint8_t kDcLumaBits[16], kDcChromaBits[16], kDcVals[12];
+extern const uint8_t kAcLumaBits[16], kAcLumaVals[162];
+extern const uint8_t kAcChromaBits[16], kAcChromaVals[162];
 
 void yolo_native_free(void *p);
 

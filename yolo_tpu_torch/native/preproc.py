@@ -11,6 +11,11 @@ interlaced PNGs, and other formats.
 decode_letterbox_batch decodes a list of files on a thread pool (each C
 call releases the interpreter lock) and letterboxes them with the
 pipeline's host letterbox (data/pipeline.py::_host_resize).
+
+encode_jpeg writes the JPEG cv2.imwrite writes (native/jpeg_enc.c);
+gaussian_blur_u8 and warp_affine_u8 are cv2.GaussianBlur and
+cv2.warpAffine as the training augmentation calls them
+(native/resample.c).
 """
 
 from __future__ import annotations
@@ -108,3 +113,69 @@ def decode_letterbox_batch(paths, net, n_threads: int = 8,
     with _Pool(max(1, min(n_threads, n))) as pool:
         list(pool.map(one, range(n)))
     return batch, dims, ok
+
+
+def _image_u8(img: np.ndarray) -> np.ndarray:
+    """(H, W) or (H, W, 1 | 3) uint8 -> a C-contiguous (H, W, C) array."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected a uint8 image, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3):
+        raise ValueError(f"expected an (H, W[, 1 | 3]) image, got shape "
+                         f"{img.shape}")
+    return np.ascontiguousarray(img)
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> baseline JPEG bytes,
+    the file cv2.imwrite writes at this quality (native/jpeg_enc.c)."""
+    img = _image_u8(image)
+    h, w, c = img.shape
+    lib = library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.yolo_jpeg_encode(img.ctypes.data, h, w, c, int(quality),
+                            ctypes.byref(out), ctypes.byref(n), err,
+                            _ERR_LEN):
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out.value, n.value)
+    finally:
+        lib.yolo_native_free(out)
+
+
+def gaussian_blur_u8(img: np.ndarray, ksize: int) -> np.ndarray:
+    """cv2.GaussianBlur(img, (ksize, ksize), 0) for uint8 with 1 or 3
+    channels, byte for byte (BORDER_REFLECT_101). Keeps img's shape: an
+    (H, W, 1) image stays 3-D, where cv2 drops the channel axis."""
+    src = _image_u8(img)
+    h, w, c = src.shape
+    dst = np.empty_like(src)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_gaussian_blur_u8(src.ctypes.data, h, w, c,
+                                       int(ksize), dst.ctypes.data, err,
+                                       _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return dst.reshape(np.shape(img))
+
+
+def warp_affine_u8(img: np.ndarray, m: np.ndarray, size) -> np.ndarray:
+    """cv2.warpAffine(img, m, size, flags=INTER_LINEAR |
+    WARP_INVERSE_MAP, borderMode=BORDER_REPLICATE) for uint8 with 1 or 3
+    channels, byte for byte: output pixel (x, y) samples img at
+    m @ (x, y, 1). m is 2x3 (float32 or float64; the warp rounds it to
+    float32), size is (width, height). Returns (height, width, C), or
+    (height, width) for a 2-D img."""
+    src = _image_u8(img)
+    sh, sw, c = src.shape
+    dw, dh = (int(v) for v in size)
+    mat = np.ascontiguousarray(np.asarray(m, np.float64).reshape(6))
+    dst = np.empty((dh, dw, c), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_warp_affine_u8(src.ctypes.data, sh, sw, c,
+                                     mat.ctypes.data, dh, dw,
+                                     dst.ctypes.data, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return dst[..., 0] if np.ndim(img) == 2 else dst

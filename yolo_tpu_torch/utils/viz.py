@@ -13,16 +13,17 @@ cv2 anti-aliases its Hershey glyphs.
 
 save_image writes PNG (data/png.py, zlib) or baseline JPEG (the port's
 encoder, native/jpeg_enc.c: q95 4:2:0, cv2.imwrite's defaults) by the
-file's extension.
+file's extension (encode_jpeg lives in native/preproc.py).
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Sequence
 
 import numpy as np
+
+from yolo_tpu_torch.native.preproc import encode_jpeg
 
 # advance of each printable ASCII character (32..126) in
 # FONT_HERSHEY_SIMPLEX at scale 0.5: cv2.getTextSize(text, simplex, 0.5,
@@ -155,28 +156,6 @@ def draw_detections(image_rgb: np.ndarray, boxes_xyxy, scores, classes,
         _fill(out, x1, max(y1 - th - 6, 0), x1 + tw + 2, y1, color)
         draw_text(out, label, x1 + 1, y1 - 4)
     return out
-
-
-def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
-    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> baseline JPEG bytes,
-    the file cv2.imwrite writes at this quality (native/jpeg_enc.c)."""
-    from yolo_tpu_torch.native.build import library
-
-    img = np.asarray(image, np.uint8)
-    if img.ndim == 2:
-        img = img[..., None]
-    img = np.ascontiguousarray(img)
-    h, w, c = img.shape
-    lib = library()
-    out, n = ctypes.c_void_p(), ctypes.c_size_t()
-    err = ctypes.create_string_buffer(256)
-    if lib.yolo_jpeg_encode(img.ctypes.data, h, w, c, int(quality),
-                            ctypes.byref(out), ctypes.byref(n), err, 256):
-        raise ValueError(err.value.decode())
-    try:
-        return ctypes.string_at(out.value, n.value)
-    finally:
-        lib.yolo_native_free(out)
 
 
 def save_image(path: str, image_rgb: np.ndarray) -> None:
