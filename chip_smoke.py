@@ -304,6 +304,33 @@ JSON lines; any failed check raises and the script exits non-zero:
               `train --imagefolder` of darknet19 at 224 with angle=7
               aspect=.75 min_crop=224 max_crop=448: the command reports
               the geometry crop, every loss finite
+ 21. parallel data parallelism, the grain loader and the host letterbox
+              in C, on phase 4's seeded YOLOv2-COCO and phase 10's
+              YOLOv2-VOC: (a) make_dp_detector over make_mesh() (this
+              card) and over two replicas on it (DP_REPLICAS) at batch
+              DP_BATCH, bf16 and fp32, default route and conv_impl="cuda":
+              one NMS launch and ROUTE_CONVS conv launches (on that
+              route) a shard, fp32 detections equal make_detector's on
+              each shard's frames within rtol 1e-4 / atol 1e-5, and
+              both precisions agree at box level with make_detector on
+              the whole batch; img/s of both meshes beside
+              make_detector's; (b) a DetectionServer
+              on the two-replica mesh answers DP_HTTP concurrent requests
+              as direct calls, /stats' buckets multiples of 2; (c) one
+              fp32 YOLOv2-VOC step (TF32 off) at batch DP_TRAIN_BATCH and
+              grad_accum DP_ACCUM on the two-replica mesh, and through an
+              NCCL group of one (maybe_init_distributed), against
+              make_train_step's: loss to a relative 1e-5, the largest
+              update error (relative L2) within DP_NOISE_FACTOR of the
+              single step's own on reordered rows, the rolling
+              statistics within STAT_BOUND, the share of elements
+              within rtol 1e-4 / atol 1e-6 printed; (d) `train --loader grain
+              --loader-workers GRAIN_WORKERS`, stopped at step 2 and
+              --resume'd: steps 3-4 log the uninterrupted run's losses
+              and a loader restored from step_2.grain gives its batches;
+              grain batches/s beside train_batches'; (e) ms a 480x640
+              frame letterboxed to 416 on the host, letterbox_batch (C)
+              against the torch letterbox, on 1 and 8 threads
 
 Phase 10's training scenes are PNGs whose rows cycle through all five
 filters (Paeth and Average included), and its held-out scenes are JPEGs.
@@ -396,12 +423,17 @@ from yolo_tpu_torch.models.graph import Darknet, fold_params
 from yolo_tpu_torch.models.predict import (detect_raw, make_detector,
                                            make_detector_preprocessed)
 from yolo_tpu_torch.native import build as native_build
-from yolo_tpu_torch.native.preproc import decode_image, decode_image_bytes
+from yolo_tpu_torch.native.preproc import (decode_image, decode_image_bytes,
+                                           letterbox_batch)
 from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops import nms as nms_mod
 from yolo_tpu_torch.ops.letterbox import letterbox
 from yolo_tpu_torch.ops.nms import _geom, _suppress_torch, _suppress_torch_rows
+from yolo_tpu_torch.parallel.sharding import (make_dp_detector,
+                                              make_dp_train_step, make_mesh,
+                                              maybe_init_distributed,
+                                              replicate, shard_batch)
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        train_config_from_cfg,
@@ -555,6 +587,21 @@ COCO_REL = 1e-3           # each of the 12 cells, card against CPU
 # are also scored against ground truth made from the CPU's detections
 PSEUDO_GT, PSEUDO_JITTER = 20, 0.15
 HTTP_BODIES = 8
+
+# phase 21: data parallelism (parallel/sharding.py), the grain loader
+# and the host letterbox in C
+DP_BATCH = 32             # (a) raw frames a call, split over the mesh
+DP_REPLICAS = ("cuda:0", "cuda:0")   # two replicas on the one card
+DP_TIMED = 10             # (a) timed calls of each detector
+DP_HTTP = 8               # (b) concurrent requests
+DP_TRAIN_BATCH, DP_ACCUM = 16, 2     # (c) one step, rows 8 a shard
+# (c): a DP step's largest update error against the single step, at
+# most this many times the single step's own on reordered rows (on the
+# CPU, tiny-voc at 160: 1.3e-2 against 1.0e-2, a gamma and a beta)
+DP_NOISE_FACTOR = 4.0
+GRAIN_SCENES, GRAIN_BATCH = 32, 16   # (d) two steps an epoch, 2 epochs
+GRAIN_WORKERS = 2         # (d) --loader-workers
+LETTERBOX_FRAMES = 32     # (e) frames of the 8-thread timing
 
 # phase 16: the command line (python -m yolo_tpu_torch.cli) on the card
 CLI_PREDICT = {"coco": "yolov2-coco-seed.weights",
@@ -3273,7 +3320,8 @@ def phase_cli(seeded: str, coco: dict, card: str) -> dict:
     cli_train(seeded, card)
     cli_serve(seeded, coco, card, launches)
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2",
+                                            "grain"))
     check(not foreign, f"the command line loaded {foreign}")
     emit({"phase": "cli", "seconds": time.perf_counter() - t0,
           "nms_launches": launches["nms"], "card": card})
@@ -3839,7 +3887,8 @@ def phase_tree(root: str, coco_paths: list, gen, card: str) -> dict:
     cls_train = classifier_train(root, card)
     classify_commands(root, card)
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2",
+                                            "grain"))
     check(not foreign, f"phase 17 loaded {foreign}")
     emit({"phase": "tree", "seconds": time.perf_counter() - t0,
           "serve_eval_seconds": t1 - t0, "train_step_seconds": t2 - t1,
@@ -4890,6 +4939,404 @@ def phase_video(seeded: str, card: str) -> dict:
     return launches
 
 
+def dp_detect(model, model32, card: str) -> dict:
+    """Phase 21 (a): make_dp_detector over make_mesh() (this card) and
+    over DP_REPLICAS (two replicas on it) at DP_BATCH raw frames, bf16
+    and fp32, on the default route and conv_impl="cuda": each shard
+    launches the NMS kernel once and the conv kernel ROUTE_CONVS times
+    (on conv_impl="cuda"), counts set to 0 just before and read just
+    after; fp32 detections equal make_detector's on each shard's frames
+    within tests/test_parallel.py's rtol 1e-4 / atol 1e-5 (cuDNN picks
+    its conv algorithms by batch size: a batch of 16 sums otherwise than
+    one of 32), and agree at phase 4's box level with make_detector's on
+    the whole batch, bf16 and fp32; img/s of both meshes beside
+    make_detector's."""
+    cfg = model.cfg
+    names, conf = cfg.detection_names(), cfg.conf_threshold
+    x = frames(SEED + 21, DP_BATCH)
+    meshes = {"this_card": make_mesh(), "two_replicas": make_mesh(
+        devices=DP_REPLICAS)}
+    check(len(meshes["this_card"]) == torch.cuda.device_count(),
+          f"make_mesh() over {meshes['this_card']}")
+    launches = {"nms": 0, "conv": 0}
+    rows = []
+    for net, precision in ((model32.params, "fp32"), (model.params, "bf16")):
+        for route, kw, n_conv in (("default", {}, 0),
+                                  ("conv_impl=cuda", {"conv_impl": "cuda"},
+                                   ROUTE_CONVS)):
+            whole = detect_raw(cfg, net, x, **kw)
+            for tag, mesh in meshes.items():
+                # make_detector on each shard's frames: cuDNN picks its
+                # conv algorithms by batch size, so only same-shaped
+                # calls compare exactly; the whole batch at box level
+                rows_ = DP_BATCH // len(mesh)
+                want = {k: torch.cat([
+                    detect_raw(cfg, net, x[i:i + rows_], **kw)[k]
+                    for i in range(0, DP_BATCH, rows_)]) for k in whole}
+                fn = make_dp_detector(cfg, mesh, **kw)
+                reps, shards = replicate(mesh, net), shard_batch(mesh, x)
+                conv_kernel.launches = nms_kernel.launches = 0
+                out = fn(reps, shards)
+                torch.cuda.synchronize()
+                got = (conv_kernel.launches, nms_kernel.launches)
+                what = f"dp {tag} {route} {precision}"
+                check(got == (n_conv * len(mesh), len(mesh)),
+                      f"{what}: (conv, NMS) launches {got}, want "
+                      f"{(n_conv * len(mesh), len(mesh))}")
+                launches["conv"] += got[0]
+                launches["nms"] += got[1]
+                check(tuple(out["boxes"].shape) == (DP_BATCH, 100, 4)
+                      and out["boxes"].device == torch.device("cuda", 0),
+                      f"{what}: boxes {tuple(out['boxes'].shape)} on "
+                      f"{out['boxes'].device}")
+                row = {"mesh": tag, "devices": len(mesh), "route": route,
+                       "precision": precision, "conv_launches": got[0],
+                       "nms_launches": got[1]}
+                if precision == "fp32":
+                    err = {}
+                    for key in ("boxes", "scores", "classes", "valid"):
+                        a = out[key].float().cpu().numpy()
+                        b = want[key].float().cpu().numpy()
+                        check(np.allclose(a, b, rtol=1e-4, atol=1e-5),
+                              f"{what}: {key} differs from make_detector's "
+                              f"on the shards' frames by "
+                              f"{np.abs(a - b).max()}")
+                        err[key] = float(np.abs(a - b).max())
+                    row["max_abs_diff_vs_make_detector_per_shard"] = err
+                row["vs_make_detector_whole_batch"] = check_agree(
+                    detections_to_json(whole, names),
+                    detections_to_json(out, names), conf, what)
+                rows.append(row)
+    # img/s at DP_BATCH, bf16, default route
+    net = model.params
+    det = make_detector(cfg)
+    rates = {}
+    for tag, fn, args in (
+            ("make_detector", det, (net, x)),
+            *((f"dp_{t}", make_dp_detector(cfg, m),
+               (replicate(m, net), shard_batch(m, x)))
+              for t, m in meshes.items())):
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            fn(*args)
+        torch.cuda.synchronize()
+        rates[tag] = DP_BATCH * DP_TIMED / (time.perf_counter() - t0)
+    emit({"phase": "parallel", "check": "dp_detector", "model": cfg.name,
+          "batch": DP_BATCH, "rows": rows, "img_per_s_bf16": rates,
+          "card": card})
+    return launches
+
+
+def dp_serve(model, card: str) -> dict:
+    """Phase 21 (b): DetectionServer(mesh=two replicas on this card) at
+    max_batch 2 answers DP_HTTP concurrent requests: every answer equals
+    a direct call (a device call is at most 2 frames, one a shard, as a
+    direct call's batch of one), /stats' buckets are multiples of 2."""
+    cfg = model.cfg
+    names = cfg.detection_names()
+    images = np.random.default_rng(SEED + 22).integers(
+        0, 256, (DP_HTTP, *SRC_HW, 3), dtype=np.uint8)
+    server = DetectionServer(cfg, model.params, port=0, max_batch=2,
+                             mesh=make_mesh(devices=DP_REPLICAS))
+    server.start()
+    try:
+        nms_kernel.launches = 0
+        with cf.ThreadPoolExecutor(DP_HTTP) as pool:
+            answers = list(pool.map(lambda im: post_npy(server.port, im),
+                                    images))
+        launches = nms_kernel.launches
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        server.stop()
+    direct = [detections_to_json(model(images[i:i + 1]), names)[0]
+              for i in range(DP_HTTP)]
+    check(answers == direct, "a --dp server's answer differs from the "
+          "direct call")
+    check(stats["errors"] == 0 and stats["requests"] == DP_HTTP
+          and stats["buckets"] and all(int(k) % 2 == 0
+                                       for k in stats["buckets"]),
+          f"--dp server stats {stats}")
+    check(launches == 2 * sum(stats["buckets"].values()),
+          f"{launches} NMS launches for buckets {stats['buckets']}")
+    emit({"phase": "parallel", "check": "serve_dp", "requests": DP_HTTP,
+          "buckets": stats["buckets"], "nms_launches": launches,
+          "answers_equal_direct": True,
+          "detections_per_image": [len(d) for d in direct], "card": card})
+    return {"nms": launches, "conv": 0}
+
+
+def dp_step_close(params, a, b, noise, what: str) -> dict:
+    """Phase 21 (c): state a's step against state b's, both from params.
+    A step's fp32 sums in another order move the updates of the BN
+    gammas and betas (small differences of large sums) by up to ~1% and
+    more (relative L2): ``noise`` is that distance for the single step
+    on the batch with its rows reordered (reordered_step), the loss
+    unchanged. The trained tensors' largest update error must stay
+    within DP_NOISE_FACTOR of it (or within STEP_BOUND), the rolling
+    statistics' within STAT_BOUND; printed beside them, the share of
+    elements within rtol 1e-4 / atol 1e-6 and the worst element."""
+    pa, pb = a.net.to_numpy(), b.net.to_numpy()
+    upd = update_err(params, pa, pb, {"kernel", "gamma", "beta", "bias"})
+    stat = update_err(params, pa, pb, {"mean", "var"})
+    check(upd[0] <= max(DP_NOISE_FACTOR * noise[0], STEP_BOUND)
+          and stat[0] <= STAT_BOUND,
+          f"{what}: update {upd} (reordered single step {noise}), "
+          f"statistics {stat} against {STAT_BOUND}")
+    worst, close, total = (0.0, ""), 0, 0
+    for i, (p, q) in enumerate(zip(pa, pb)):
+        for k in p:
+            ok = np.isclose(p[k], q[k], rtol=1e-4, atol=1e-6)
+            close, total = close + int(ok.sum()), total + ok.size
+            worst = max(worst, (float(np.abs(p[k] - q[k]).max()),
+                                f"{i}.{k}"))
+    return {"update_rel_l2": upd, "statistics_rel_l2": stat,
+            "share_within_rtol_1e-4_atol_1e-6": close / total,
+            "max_abs_diff": worst}
+
+
+def dp_train(tmp: str, card: str) -> dict:
+    """Phase 21 (c): one fp32 YOLOv2-VOC step (TF32 off) at
+    DP_TRAIN_BATCH with grad_accum DP_ACCUM on the two-replica mesh, and
+    through an NCCL group of one joined by maybe_init_distributed
+    (torchrun's variables set in this process), against
+    make_train_step's on the whole batch: the loss to a relative 1e-5,
+    the updates as close as the same step's on reordered rows
+    (dp_step_close)."""
+    import socket
+
+    import torch.distributed as dist
+
+    cfg = get_variant(TRAIN_VARIANT)
+    tcfg = TrainConfig(learning_rate=1e-3, momentum=0.9,
+                       weight_decay=5e-4, grad_accum=DP_ACCUM,
+                       loss=region_loss_config(cfg))
+    params = fine_tune_init(cfg, tmp)
+    pairs = write_voc_root(os.path.join(tmp, "dp_voc"), DP_TRAIN_BATCH,
+                           SEED + 23)
+    host = next(host_batches(cfg, pairs, DP_TRAIN_BATCH, SEED + 23,
+                             augment_cfg=NET_AUGMENT))
+    single = init_state(cfg, params, tcfg, device="cuda")
+    m1 = make_train_step(cfg, tcfg)(
+        single, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+    # the yardstick: the same step with the rows reordered within each
+    # sub-batch (rows i::DP_ACCUM stay sub-batch i), the same loss in
+    # other orders of summation
+    order = np.arange(DP_TRAIN_BATCH).reshape(-1, DP_ACCUM)[::-1].reshape(-1)
+    reordered = init_state(cfg, params, tcfg, device="cuda")
+    m0 = make_train_step(cfg, tcfg)(
+        reordered, {k: torch.from_numpy(v[order]).cuda()
+                    for k, v in host.items()})
+    check(abs(float(m0["loss"]) - float(m1["loss"]))
+          <= 1e-5 * abs(float(m1["loss"])), "the reordered step's loss")
+    noise = update_err(params, reordered.net.to_numpy(),
+                       single.net.to_numpy(),
+                       {"kernel", "gamma", "beta", "bias"})
+    mesh = make_mesh(devices=DP_REPLICAS)
+    out = {"reordered_single_step": {
+        "loss": float(m0["loss"]),
+        **dp_step_close(params, reordered, single, noise, "reordered")}}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port), "LOCAL_RANK": "0"}
+    for tag in ("two_replicas", "nccl_group_of_one"):
+        if tag == "nccl_group_of_one":
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            check(maybe_init_distributed() and dist.get_backend() == "nccl"
+                  and dist.get_world_size() == 1,
+                  "maybe_init_distributed did not join an NCCL group")
+        try:
+            dp = init_state(cfg, params, tcfg, device="cuda")
+            m2 = make_dp_train_step(cfg, tcfg, mesh)(
+                dp, shard_batch(mesh, host))
+        finally:
+            if tag == "nccl_group_of_one":
+                dist.destroy_process_group()
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        loss1, loss2 = float(m1["loss"]), float(m2["loss"])
+        check(abs(loss2 - loss1) <= 1e-5 * abs(loss1),
+              f"{tag}: loss {loss2} against {loss1}")
+        check(dp.seen == single.seen == DP_TRAIN_BATCH and dp.step == 1,
+              f"{tag}: seen {dp.seen} step {dp.step}")
+        out[tag] = {"loss": loss2, "single_loss": loss1,
+                    **dp_step_close(params, dp, single, noise, tag)}
+    emit({"phase": "parallel", "check": "dp_train_step", "model": cfg.name,
+          "precision": "fp32, TF32 off", "batch": DP_TRAIN_BATCH,
+          "grad_accum": DP_ACCUM, "mesh": list(DP_REPLICAS), **out,
+          "card": card})
+
+
+def grain_cli(tmp: str, card: str) -> None:
+    """Phase 21 (d): `train --loader grain --loader-workers
+    GRAIN_WORKERS` on YOLOv2-VOC 416 over GRAIN_SCENES seeded scenes,
+    two epochs of two steps, a checkpoint (and its .grain position) at
+    step 2: stopped there (--fail-after-step 2) and --resume'd, steps 3-4
+    log the losses of the uninterrupted run (cuDNN made deterministic for
+    both), and a loader restored from step_2.grain gives the batches the
+    uninterrupted loader gave at pulls 3-4, byte for byte; the grain
+    loader's batches/s beside train_batches' on the same scenes."""
+    from yolo_tpu_torch.data.augment import config_from_net_params
+    from yolo_tpu_torch.data.grain_pipeline import grain_train_batches
+    from yolo_tpu_torch.data.voc import list_split
+
+    cfg = get_variant(TRAIN_VARIANT)
+    root = os.path.join(tmp, "grain_voc")
+    write_voc_root(root, GRAIN_SCENES, SEED + 24)
+    backbone = write_backbone(cfg, tmp)
+    steps = 2 * GRAIN_SCENES // GRAIN_BATCH
+
+    def argv(ck, log):
+        return ["train", "--model", TRAIN_VARIANT, "--weights", backbone,
+                "--voc-root", root, "--split", "train", "--batch",
+                str(GRAIN_BATCH), "--epochs", "2", "--augment", "--loader",
+                "grain", "--loader-workers", str(GRAIN_WORKERS),
+                "--checkpoint-every", "2", "--log-every", "1",
+                "--checkpoint-dir", ck, "--log-file", log]
+
+    def losses(log):
+        with open(log) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f)
+                    if "loss" in r}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full_log, res_log = (os.path.join(tmp, f) for f in ("g.jsonl",
+                                                            "gr.jsonl"))
+        full_ck, res_ck = (os.path.join(tmp, d) for d in ("gck", "gck_r"))
+        _, _, wall, _ = cli_run(argv(full_ck, full_log))
+        try:
+            cli_run(argv(res_ck, os.path.join(tmp, "g0.jsonl"))
+                    + ["--fail-after-step", "2"])
+            check(False, "--fail-after-step 2 did not stop the run")
+        except SystemExit as e:
+            check("fail-after-step" in str(e), f"the stopped run: {e}")
+        grain_file = os.path.join(res_ck, "step_2.grain")
+        check(os.path.exists(grain_file), "no step_2.grain beside step_2")
+        _, err, wall_r, _ = cli_run(argv(res_ck, res_log) + [
+            "--resume", os.path.join(res_ck, "step_2")])
+        check("restored grain data-iterator position" in err,
+              "train --resume did not restore the grain position")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    full, res = losses(full_log), losses(res_log)
+    check(sorted(full) == list(range(1, steps + 1))
+          and sorted(res) == [3, 4] and all(res[k] == full[k] for k in res),
+          f"resumed losses {res} against {full}")
+
+    # the batches: the command's loader, uninterrupted and restored
+    pairs = list_split(root, "train")
+    kw = dict(class_names=cfg.class_names, anchors=cfg.anchors,
+              num_classes=cfg.num_classes, net_size=cfg.input_hw,
+              batch_size=GRAIN_BATCH, seed=0, num_epochs=2,
+              worker_count=GRAIN_WORKERS, model_cfg=cfg,
+              augment_cfg=config_from_net_params({}, force_defaults=True))
+    it = grain_train_batches(pairs, **kw)
+    t0 = time.perf_counter()
+    first = next(it)
+    t1 = time.perf_counter()
+    first_s = t1 - t0
+    want = [first] + [next(it) for _ in range(steps - 1)]
+    grain_rate = (steps - 1) / (time.perf_counter() - t1)
+    it.close()
+    again = grain_train_batches(pairs, **kw)
+    with open(grain_file, "rb") as f:
+        again.set_state(f.read())
+    got = [next(again) for _ in range(steps - 2)]
+    again.close()
+    for g, w in zip(got, want[2:]):
+        check(set(g) == set(w) and all(np.array_equal(g[k], w[k])
+                                       for k in g),
+              "a restored grain loader's batch differs")
+    threads = host_batches(cfg, pairs, GRAIN_BATCH, 0, epochs=2,
+                           augment_cfg=kw["augment_cfg"])
+    next(threads)
+    t2 = time.perf_counter()
+    n = sum(1 for _ in threads)
+    threads_rate = n / (time.perf_counter() - t2)
+    emit({"phase": "parallel", "check": "train_loader_grain",
+          "model": cfg.name, "batch": GRAIN_BATCH, "steps": steps,
+          "loader_workers": GRAIN_WORKERS, "losses": full,
+          "resumed_losses": res, "seconds": wall, "resume_seconds": wall_r,
+          "grain_first_batch_s": first_s,
+          "grain_batches_per_s": grain_rate,
+          "threads_batches_per_s": threads_rate,
+          "threads_workers": PIPELINE_WORKERS, "host_cores": os.cpu_count(),
+          "card": card})
+
+
+def letterbox_rates(card: str) -> None:
+    """Phase 21 (e): ms a 480x640 frame letterboxed to 416 on the host,
+    native/letterbox.c (letterbox_batch) against the torch letterbox
+    that data/pipeline.py::_host_resize ran before it (ops/letterbox.py
+    in fp32), on one thread and on 8 (a batch of LETTERBOX_FRAMES; the
+    torch one on a pool of 8 workers); the two agree within 5e-6.
+    Phase 14 (d)'s files-to-boxes ran with the C letterbox."""
+    rng = np.random.default_rng(SEED + 25)
+    batch = np.stack([coco_scene(rng, *SRC_HW)[0]
+                      for _ in range(LETTERBOX_FRAMES)])
+
+    def torch_lb(img):
+        return letterbox(torch.from_numpy(img)[None], 416,
+                         dtype=torch.float32)[0].numpy()
+
+    c_out = letterbox_batch(batch, 416, n_threads=8)
+    check(all(np.abs(c_out[i] - torch_lb(batch[i])).max() <= 5e-6
+              for i in range(0, LETTERBOX_FRAMES, 8)),
+          "the C letterbox is not within 5e-6 of the torch one")
+    one = {"c": host_ms(lambda: letterbox_batch(batch[:1], 416,
+                                                n_threads=1)),
+           "torch": host_ms(lambda: torch_lb(batch[0]))}
+
+    def torch_pool():
+        with _Pool(8) as pool:
+            list(pool.map(torch_lb, batch))
+
+    runs = {"c": lambda: letterbox_batch(batch, 416, n_threads=8),
+            "torch": torch_pool}
+    eight = {"c": [], "torch": []}
+    for tag in ("c", "torch", "c", "torch"):
+        runs[tag]()
+        t0 = time.perf_counter()
+        runs[tag]()
+        eight[tag].append((time.perf_counter() - t0) * 1e3
+                          / LETTERBOX_FRAMES)
+    emit({"phase": "parallel", "check": "host_letterbox",
+          "src_hw": list(SRC_HW), "net": 416,
+          "ms_per_frame_one_thread": one,
+          "ms_per_frame_8_threads": {k: min(v) for k, v in eight.items()},
+          "frames": LETTERBOX_FRAMES, "host_cores": os.cpu_count(),
+          "card": card})
+
+
+def phase_parallel(model, model32, card: str) -> dict:
+    """Phase 21: data parallelism, the grain loader and the host
+    letterbox; returns the NMS and conv kernels' launches of (a)-(b)."""
+    t0 = time.perf_counter()
+    launches = dp_detect(model, model32, card)
+    served = dp_serve(model, card)
+    launches["nms"] += served["nms"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_train(tmp, card)
+        grain_cli(tmp, card)
+    letterbox_rates(card)
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0,
+          **launches, "card": card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5002,10 +5449,13 @@ def run(seeded: str) -> int:
 
     video = phase_video(seeded, card)
 
+    dp = phase_parallel(model, model32, card)
+
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2"))
-    check(not foreign, f"the port loaded JAX, the JAX package or OpenCV: "
-          f"{foreign}")
+                     if m.split(".")[0] in ("jax", "yolo_tpu", "cv2",
+                                            "grain"))
+    check(not foreign, f"the port loaded JAX, the JAX package, OpenCV or "
+          f"grain: {foreign}")
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
     nms = timed[TIMED_SHAPE]
     conv_t = kernel_times["conv"]
@@ -5019,7 +5469,7 @@ def run(seeded: str) -> int:
          + yolo_eval_launches + coco_launches["nms"]
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
          + tree["launches"]["nms"] + v1["launches"]["nms"]
-         + int8["launches"]["nms"] + video["nms"],
+         + int8["launches"]["nms"] + video["nms"] + dp["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -5047,7 +5497,8 @@ def run(seeded: str) -> int:
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
          "launches": route_launches["conv"] + yolo_launches["conv"]
          + coco_launches["conv"] + cfg_run["launches"]["conv"]
-         + tree["launches"]["conv"] + v1["launches"]["conv"],
+         + tree["launches"]["conv"] + v1["launches"]["conv"]
+         + dp["conv"],
          "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"],
                             tree["conv_worst"], v1["conv_worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],

@@ -292,10 +292,40 @@ def test_server_answers_npy_and_png_like_direct_calls(tmp_path):
 
 
 def test_server_rejects_what_is_not_ported(tmp_path):
+    """Multi-device serving (ROADMAP A12b) is ported: a mesh that is not
+    a parallel.sharding.Mesh is refused; a 2-entry CPU mesh answers
+    concurrent requests as direct calls do, in buckets that are multiples
+    of its size (an odd batch padded with its last image)."""
+    import concurrent.futures as cf
+
+    from yolo_tpu_torch.parallel.sharding import make_mesh
+
     cfg = get_variant("tiny-voc", input_size=64)
     path = str(tmp_path / "w.weights")
     _he_weights(cfg, path)
     model = yolo_tpu_torch.load(path, "tiny-voc", device="cpu",
-                                input_size=64)
-    with pytest.raises(NotImplementedError, match="A12"):
+                                precision="fp32", input_size=64,
+                                conf_threshold=0.3)
+    with pytest.raises(TypeError, match="Mesh"):
         DetectionServer(model.cfg, model.params, mesh=object())
+    server = DetectionServer(model.cfg, model.params, port=0,
+                             conf_threshold=0.3, max_batch=1,
+                             mesh=make_mesh(devices=["cpu", "cpu"]))
+    assert server.max_batch == 2
+    imgs = _images(5, 5)
+    server.start()
+    try:
+        with cf.ThreadPoolExecutor(5) as pool:
+            responses = list(pool.map(
+                lambda im: _request(server.port, "POST", "/detect", _npy(im),
+                                    "application/x-npy"), imgs))
+        status, stats = _request(server.port, "GET", "/stats")
+    finally:
+        server.stop()
+    assert all(code == 200 for code, _ in responses)
+    direct = [detections_to_json(model(img[None]), cfg.class_names)[0]
+              for img in imgs]
+    assert [body["detections"] for _, body in responses] == direct
+    assert stats["requests"] == 5 and stats["errors"] == 0, stats
+    assert stats["buckets"] and all(int(k) % 2 == 0
+                                    for k in stats["buckets"])

@@ -1,7 +1,7 @@
 """Every public top-level name of each yolo_tpu module has its
 counterpart in the port's module of the same path (yolo_tpu_torch/...),
-read from the sources by AST on the CPU; what is not ported yet, and
-what has nothing to port, is listed here by name, and the lists must be
+read from the sources by AST on the CPU; what is not ported yet (now
+nothing), and what has nothing to port, is listed here by name, and the lists must be
 exact: a name ported later leaves them.
 
 A JAX module's public names are the functions, classes and assignments
@@ -17,13 +17,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# not ported yet, by ROADMAP item
-NOT_PORTED = {
-    "parallel/__init__.py": "*",                         # A9g/A12b
-    "parallel/sharding.py": "*",                         # A9g/A12b
-    "data/grain_pipeline.py": "*",                       # A9g/A12b
-    "native/preproc.py": {"letterbox_batch", "available"},   # A9h
-}
+# not ported yet, by ROADMAP item: nothing since A9g/A12b and A9h
+NOT_PORTED: dict = {}
 # nothing to port: JAX-only machinery, TPU workarounds and test oracles
 NOTHING_TO_PORT = {
     "ops/numpy_ref.py": "*",          # the numpy oracle of the tests

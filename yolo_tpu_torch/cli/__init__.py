@@ -9,9 +9,11 @@ lines, on the card by default; ``--device cpu`` only when asked for):
   python -m yolo_tpu_torch.cli classify --model darknet53 --weights d.weights --image cat.jpg
   python -m yolo_tpu_torch.cli predict --model coco --weights y.weights --image dog.jpg --precision int8
 
-Commands whose parts are not ported yet raise naming their ROADMAP
-item: detect --video (int8 or not) and serve --dp (A12), bench (A13),
---loader grain (A9g).
+  python -m yolo_tpu_torch.cli serve   --model coco --weights y.weights --dp
+  python -m yolo_tpu_torch.cli train   --model voc --voc-root VOC2007 --weights init.weights --loader grain --loader-workers 4
+
+What is not ported raises naming its ROADMAP item: a webcam index for
+detect --video under the native decoder (A12a), bench (A13).
 """
 
 from yolo_tpu_torch.cli._main import main  # noqa: E402  (the public entry)

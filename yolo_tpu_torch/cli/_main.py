@@ -223,7 +223,7 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--loader", default="threads",
                    choices=["threads", "grain"],
                    help="grain = deterministic multiprocess pipeline "
-                        "(not ported yet, ROADMAP A9g)")
+                        "whose data position resumes with --resume")
     p.add_argument("--loader-workers", type=int, default=0,
                    help="grain worker processes (0 = in-process)")
     p.add_argument("--seed", type=int, default=0)
@@ -344,8 +344,7 @@ def main(argv: Optional[list] = None) -> None:
                    help="always wait the full window (default: skip it "
                         "when recent traffic is single-client)")
     p.add_argument("--dp", action="store_true",
-                   help="shard micro-batches over all visible devices "
-                        "(not ported yet, ROADMAP A12)")
+                   help="shard micro-batches over all visible devices")
     p.add_argument("--calibration-image", default=None)
     p.add_argument("--prewarm-shape", default=None, metavar="HxW",
                    help="compile all batch buckets for this input shape "

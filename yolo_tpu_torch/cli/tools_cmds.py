@@ -157,9 +157,6 @@ def cmd_serve(args) -> None:
     from yolo_tpu_torch.models.predict import make_detector
     from yolo_tpu_torch.serve import DetectionServer
 
-    if args.dp:
-        raise SystemExit("serve --dp (data-parallel serving over several "
-                         "devices) is not ported yet (ROADMAP A12)")
     cfg = _get_cfg(args)
     classifier = cfg.head_kind == "softmax"
     if classifier and (args.use_tree_map or args.hier_thresh is not None):
@@ -168,11 +165,19 @@ def cmd_serve(args) -> None:
                          "masked absolute probs with no threshold")
     tree_kw = {} if classifier else _tree_kw(args, cfg)
     net = _serve_net(args, cfg, classifier)
+    mesh = None
+    if args.dp:
+        from yolo_tpu_torch.parallel import sharding as shd
+
+        # every card of this process; --device cpu: a mesh of the CPU
+        mesh = (shd.make_mesh() if net.device.type == "cuda"
+                else shd.make_mesh(devices=[net.device]))
+        print(f"DP serving over {len(mesh)} devices", file=sys.stderr)
     server = DetectionServer(
         cfg, net, host=args.host, port=args.port, max_batch=args.max_batch,
         batch_window_ms=args.batch_window_ms,
         adaptive_window=not args.no_adaptive_window,
-        conf_threshold=args.conf, resize=args.resize, **tree_kw)
+        conf_threshold=args.conf, resize=args.resize, mesh=mesh, **tree_kw)
     if args.prewarm_shape and not classifier:
         # eager PyTorch compiles nothing; one call at batch 1 and at
         # --max-batch settles cuDNN's algorithm choice for the shape

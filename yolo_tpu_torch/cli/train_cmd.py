@@ -1,14 +1,16 @@
 """`train`: detector fine-tuning with the region (YOLO9000 trees too) or
 [yolo] loss, and classifier training on an imagefolder
 (train_helpers._train_classifier) (port of yolo_tpu/cli/train_cmd.py),
-on one device.
+data-parallel over this process's cards (parallel/sharding.py; one card
+steps as train.loop.make_train_step does).
 
 Checkpoints (--checkpoint-dir: step_N every --checkpoint-every steps,
 best on a better --eval-every mAP, final at the end) are written by
 io.checkpoint.AsyncSaver. --resume restores the model, optimizer, step
-and seen counters and then runs --epochs epochs of the data from the
-first, as the JAX package's threads loader does (its grain loader,
-which keeps the data position, is ROADMAP A9g here).
+and seen counters. The threads loader then runs --epochs epochs of the
+data from the first; --loader grain (data/grain_pipeline.py) spans all
+epochs in one iterator whose position is written beside each checkpoint
+(<checkpoint>.grain) and restored with it.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import numpy as np
 from yolo_tpu_torch.cli._common import (_compute_dtype, _dataset_samples,
                                         _device, _get_cfg, _resolve_weights)
 from yolo_tpu_torch.cli.train_helpers import (_batch_accum_from,
-                                              _lr_schedule_from,
+                                              _lr_schedule_from, _net_size,
                                               _optimizer_from,
                                               _restore_adapt_ema,
-                                              _train_classifier)
+                                              _train_classifier,
+                                              _train_mesh)
 
 
 def _fmt_sizes(sizes) -> str:
@@ -155,6 +158,45 @@ def _augment_config(args, net_hp):
     return aug_cfg
 
 
+def _grain_iterator(args, cfg, tcfg, pairs, aug_cfg, start_step: int):
+    """--loader grain: one checkpointable iterator over every epoch,
+    its position restored from <--resume>.grain; under multi-scale the
+    size of every step comes from (--seed, step) alone
+    (pick_scale_indexed), so a resumed run keeps the ladder."""
+    from yolo_tpu_torch.data.grain_pipeline import grain_train_batches
+
+    size_at = None
+    if args.multi_scale:
+        from yolo_tpu_torch.train.loop import pick_scale_indexed
+
+        def size_at(bi):
+            return pick_scale_indexed(bi, args.seed, tcfg.multi_scale_every,
+                                      tcfg.multi_scale_sizes)
+
+    it = grain_train_batches(
+        pairs, class_names=cfg.class_names, anchors=cfg.anchors,
+        num_classes=cfg.num_classes, net_size=cfg.input_hw,
+        batch_size=args.batch, seed=args.seed, num_epochs=args.epochs,
+        worker_count=args.loader_workers, model_cfg=cfg,
+        augment_cfg=aug_cfg, resize=args.resize, channels=cfg.in_channels,
+        size_for_batch=size_at)
+    if args.resume:
+        gpath = args.resume.rstrip("/") + ".grain"
+        if os.path.exists(gpath):
+            with open(gpath, "rb") as f:
+                it.set_state(f.read())
+            print(f"restored grain data-iterator position from {gpath}",
+                  file=sys.stderr)
+        else:
+            print(f"no {gpath}: grain iterator restarts from the "
+                  f"beginning (model state still resumed)", file=sys.stderr)
+        if size_at is not None:
+            # pulls after the restore are the absolute steps start_step,
+            # start_step + 1, ...: the ladder follows the model's step
+            it.base = start_step
+    return it
+
+
 def _eval_samples(args, cfg, pairs):
     if args.eval_split or args.eval_coco_json or args.eval_image_list:
         import argparse
@@ -183,9 +225,10 @@ def cmd_train(args) -> None:
     from yolo_tpu_torch.data.pipeline import DevicePrefetcher, train_batches
     from yolo_tpu_torch.io import checkpoint as ckpt
     from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.parallel.sharding import (batch_sharding,
+                                                  make_dp_train_step)
     from yolo_tpu_torch.train.loop import (TrainConfig, init_state,
-                                           make_train_step, pick_scale,
-                                           state_to_tree)
+                                           pick_scale, state_to_tree)
     from yolo_tpu_torch.train.loss import (region_loss_config,
                                            yolo_loss_config)
     from yolo_tpu_torch.utils.metrics import MetricsLogger
@@ -206,11 +249,6 @@ def cmd_train(args) -> None:
     if cfg.head_kind == "softmax":
         _train_classifier(args, cfg)
         return
-    if args.loader == "grain":
-        raise SystemExit("--loader grain (a resumable multiprocess loader) "
-                         "is not ported yet (ROADMAP A9g); the threads "
-                         "loader restarts the data at the first epoch on "
-                         "--resume")
     if not args.weights and not args.resume:
         raise SystemExit("--weights is required for detector training "
                          "(a full .weights file or a darknet `partial` "
@@ -295,7 +333,8 @@ def cmd_train(args) -> None:
         state = init_state(cfg, params, tcfg,
                            seen=header["seen"] if args.keep_seen else 0,
                            device=device)
-    step_fn = make_train_step(cfg, tcfg, compute_dtype=dtype)
+    mesh = _train_mesh(args, state.net.device)
+    step_fn = make_dp_train_step(cfg, tcfg, mesh, compute_dtype=dtype)
 
     pairs = _dataset_samples(args, cfg)
     eval_samples = (_eval_samples(args, cfg, pairs) if args.eval_every
@@ -319,16 +358,34 @@ def cmd_train(args) -> None:
             augment_cfg=aug_cfg, model_cfg=cfg, resize=args.resize,
             channels=cfg.in_channels)
 
+    start_step = state.step
+    steps_per_epoch = max(len(pairs) // args.batch, 1)
+    grain_iter = (_grain_iterator(args, cfg, tcfg, pairs, aug_cfg,
+                                  start_step)
+                  if args.loader == "grain" else None)
+
     with ckpt.AsyncSaver() as saver:
         def save_ckpt(name: str) -> None:
-            saver.save(os.path.join(args.checkpoint_dir, name),
-                       state_to_tree(state), model=cfg.name)
+            path = os.path.join(args.checkpoint_dir, name)
+            saver.save(path, state_to_tree(state), model=cfg.name)
+            if grain_iter is not None:
+                # the position that regenerates the first batch not yet
+                # trained, whatever the prefetcher pulled ahead
+                os.makedirs(args.checkpoint_dir, exist_ok=True)
+                with open(path.rstrip("/") + ".grain", "wb") as f:
+                    f.write(grain_iter.state_for_pull(state.step
+                                                      - start_step))
 
+        # grain spans every epoch in one iterator: the epoch is logged
+        # from the step
+        epoch_iters = ([(None, grain_iter)] if grain_iter is not None
+                       else ((e, epoch_batches())
+                             for e in range(args.epochs)))
         t_last = time.perf_counter()
         with maybe_trace(args.profile_dir):
-            for epoch in range(args.epochs):
-                staged = DevicePrefetcher(epoch_batches(), depth=2,
-                                          device=state.net.device)
+            for epoch, host_iter in epoch_iters:
+                staged = DevicePrefetcher(host_iter, depth=2,
+                                          sharding=batch_sharding(mesh))
                 with staged:
                     for batch in staged:
                         metrics = step_fn(state, batch)
@@ -336,8 +393,11 @@ def cmd_train(args) -> None:
                         now = time.perf_counter()
                         img_s = args.batch / max(now - t_last, 1e-9)
                         t_last = now
-                        logger.log(step, metrics, epoch=epoch,
-                                   size=batch["images"].shape[1],
+                        logger.log(step, metrics,
+                                   epoch=(epoch if epoch is not None
+                                          else (step - 1)
+                                          // steps_per_epoch),
+                                   size=_net_size(batch),
                                    img_s=round(img_s, 1))
                         if args.eval_every and step % args.eval_every == 0:
                             best_map = _validate(args, cfg, state,

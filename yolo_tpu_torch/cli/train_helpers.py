@@ -28,8 +28,10 @@ def _train_classifier(args, cfg) -> None:
     from yolo_tpu_torch.data.pipeline import DevicePrefetcher
     from yolo_tpu_torch.io import checkpoint as ckpt
     from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.parallel.sharding import (batch_sharding,
+                                                  make_dp_train_step)
     from yolo_tpu_torch.train.loop import (TrainConfig, init_state,
-                                           make_train_step, state_to_tree)
+                                           state_to_tree)
     from yolo_tpu_torch.utils.metrics import MetricsLogger
     from yolo_tpu_torch.utils.profiling import maybe_trace
 
@@ -127,7 +129,8 @@ def _train_classifier(args, cfg) -> None:
         state = init_state(cfg, params, tcfg, device=device)
         print("no --weights: training from random initialization "
               f"(seed {args.seed})", file=sys.stderr)
-    step_fn = make_train_step(cfg, tcfg, compute_dtype=dtype)
+    mesh = _train_mesh(args, state.net.device)
+    step_fn = make_dp_train_step(cfg, tcfg, mesh, compute_dtype=dtype)
 
     samples = list_imagefolder(args.imagefolder, cfg.class_names)
     print(f"{len(samples)} images, {cfg.num_classes} classes",
@@ -173,7 +176,7 @@ def _train_classifier(args, cfg) -> None:
         t_last = time.perf_counter()
         with maybe_trace(args.profile_dir), \
                 DevicePrefetcher(host_iter, depth=2,
-                                 device=state.net.device) as staged:
+                                 sharding=batch_sharding(mesh)) as staged:
             for batch in staged:
                 metrics = step_fn(state, batch)
                 step = state.step
@@ -181,7 +184,7 @@ def _train_classifier(args, cfg) -> None:
                 img_s = args.batch / max(now - t_last, 1e-9)
                 t_last = now
                 logger.log(step, metrics, epoch=(step - 1) // spe,
-                           size=batch["images"].shape[1],
+                           size=_net_size(batch),
                            img_s=round(img_s, 1))
                 if args.eval_every and step % args.eval_every == 0:
                     top1 = _validate_classifier(args, cfg, state, dtype,
@@ -231,6 +234,27 @@ def _validate_classifier(args, cfg, state, dtype, eval_arrays,
                if eval_arrays is not None else
                imagefolder_accuracy(cfg, net, eval_samples, batch=batch))
     return acc["top1"]
+
+
+def _net_size(batch) -> int:
+    """The image height of a batch, whole or sharded over a mesh."""
+    return int((batch[0] if isinstance(batch, tuple)
+                else batch)["images"].shape[1])
+
+
+def _train_mesh(args, device):
+    """The data-parallel mesh of a train command: every card of this
+    process (one mesh entry each; a mesh of one card steps as
+    make_train_step does), or the CPU under --device cpu. --batch must
+    divide by its size."""
+    from yolo_tpu_torch.parallel import sharding as shd
+
+    mesh = (shd.make_mesh() if device.type == "cuda"
+            else shd.make_mesh(devices=[device]))
+    if args.batch % len(mesh):
+        raise SystemExit(f"--batch {args.batch} not divisible by "
+                         f"{len(mesh)} devices")
+    return mesh
 
 
 def _restore_adapt_ema(resume_path: str, mcfg, tcfg, device):

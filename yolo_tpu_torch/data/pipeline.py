@@ -10,8 +10,9 @@ card ahead of the consumer.
 Images decode with the port's own decoder by default on every host
 (native/preproc.py: JPEG and PNG, the bytes cv2.imread gives), so that
 the tests run the code the card runs; set_decoder("cv2") selects OpenCV
-where it is installed. The host letterbox is the port's ops/letterbox.py in fp32 (cv2
-INTER_LINEAR semantics). Torch runs one intra-op thread in each pool
+where it is installed. The host letterbox is the C one of
+native/letterbox.c (cv2 INTER_LINEAR semantics, the JAX package's
+native letterbox byte for byte); the stretch is ops/letterbox.py in fp32. Torch runs one intra-op thread in each pool
 worker, so that the workers do not oversubscribe the cores.
 """
 
@@ -31,9 +32,9 @@ from yolo_tpu_torch.data import targets as tgt
 from yolo_tpu_torch.data.augment import augment, mosaic4
 from yolo_tpu_torch.data.voc import parse_annotation
 from yolo_tpu_torch.device import resolve as resolve_device
-from yolo_tpu_torch.native.preproc import decode_image
-from yolo_tpu_torch.ops.letterbox import (as_hw, letterbox,
-                                          letterbox_geometry, stretch_resize)
+from yolo_tpu_torch.native.preproc import decode_image, letterbox_batch
+from yolo_tpu_torch.ops.letterbox import (as_hw, letterbox_geometry,
+                                          stretch_resize)
 
 
 # Host image decoder: "native" (native/preproc.py, the default on every
@@ -103,11 +104,12 @@ def letterbox_boxes(boxes_xywh: np.ndarray, src_w: int, src_h: int,
 
 
 def _host_resize(img: np.ndarray, size, resize: str) -> np.ndarray:
-    """(H, W, C) uint8 -> (net_h, net_w, C) float32 in [0, 1]."""
-    x = torch.from_numpy(np.ascontiguousarray(img))[None]
+    """(H, W, C) uint8 -> (net_h, net_w, C) float32 in [0, 1]: the C
+    letterbox on this thread (native/preproc.py), or the torch stretch."""
     if resize == "stretch":
+        x = torch.from_numpy(np.ascontiguousarray(img))[None]
         return stretch_resize(x, size, dtype=torch.float32)[0].numpy()
-    return letterbox(x, size, dtype=torch.float32)[0].numpy()
+    return letterbox_batch(img[None], size, n_threads=1)[0]
 
 
 def _check_resize(resize: str) -> None:
@@ -149,32 +151,63 @@ class DevicePrefetcher:
     recorded on that stream), so the copies overlap the consumer's work.
     Metadata (paths, shapes, pad counts) stays on the host. device:
     "cuda" by default, raising without a card; "cpu" only when asked
-    for. close() (or a with block) stops the thread early."""
+    for. sharding (parallel/sharding.py: batch_sharding(mesh), or the
+    mesh): each batch is split into one contiguous shard per mesh device
+    and each shard staged on its device, handed over as a
+    sharding.Sharded of per-shard dicts (a mesh of one device hands over
+    the plain dict on it). close() (or a with block) stops the thread
+    early."""
 
-    def __init__(self, host_iter: Iterable, depth: int = 2, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, host_iter: Iterable, depth: int = 2, device="cuda",
+                 sharding=None):
+        mesh = getattr(sharding, "mesh", sharding)
+        self.devices = ((resolve_device(device),) if mesh is None
+                        else mesh.devices)
+        self.device = self.devices[0]
         self._q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
-        cuda = self.device.type == "cuda"
-        stream = torch.cuda.Stream(self.device) if cuda else None
+        streams = {d: torch.cuda.Stream(d) for d in set(self.devices)
+                   if d.type == "cuda"}
 
-        def stage(batch):
+        def stage_shard(batch, lo, hi, dev):
             out = {}
             for k, v in batch.items():
                 if not isinstance(v, np.ndarray):
                     out[k] = v
                     continue
-                t = torch.from_numpy(np.ascontiguousarray(v))
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        t = t.pin_memory().to(self.device, non_blocking=True)
+                t = torch.from_numpy(np.ascontiguousarray(v[lo:hi]))
+                if dev.type == "cuda":
+                    with torch.cuda.stream(streams[dev]):
+                        t = t.pin_memory().to(dev, non_blocking=True)
+                elif dev != t.device:
+                    t = t.to(dev)
                 out[k] = t
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record(stream)
-            return out, event
+            return out
+
+        def stage(batch):
+            sizes = {len(v) for v in batch.values()
+                     if isinstance(v, np.ndarray)}
+            b = sizes.pop() if len(sizes) == 1 else 0
+            n = len(self.devices)
+            if n > 1 and (sizes or not b or b % n):
+                raise ValueError(f"a batch of {b} rows does not shard over "
+                                 f"the {n} devices of the mesh")
+            if n == 1:
+                shards = [stage_shard(batch, None, None, self.device)]
+            else:
+                rows = b // n
+                shards = [stage_shard(batch, i * rows, (i + 1) * rows, d)
+                          for i, d in enumerate(self.devices)]
+            events = {}
+            for d, stream in streams.items():
+                events[d] = torch.cuda.Event()
+                events[d].record(stream)
+            if n == 1:
+                return shards[0], events
+            from yolo_tpu_torch.parallel.sharding import Sharded
+
+            return Sharded(mesh, shards), events
 
         def put(item) -> bool:
             while not self._stop.is_set():
@@ -209,13 +242,15 @@ class DevicePrefetcher:
                 if self._err is not None:
                     raise self._err
                 return
-            batch, event = item
-            if event is not None:
-                consumer = torch.cuda.current_stream(self.device)
+            batch, events = item
+            for d, event in events.items():
+                consumer = torch.cuda.current_stream(d)
                 consumer.wait_event(event)
-                for v in batch.values():
-                    if isinstance(v, torch.Tensor):
-                        v.record_stream(consumer)
+                for shard in (batch if isinstance(batch, tuple)
+                              else (batch,)):
+                    for v in shard.values():
+                        if isinstance(v, torch.Tensor) and v.device == d:
+                            v.record_stream(consumer)
             yield batch
 
     def close(self, timeout: float = 60.0) -> None:

@@ -297,18 +297,22 @@ def _softmax_head(layer: SoftmaxHead, x: torch.Tensor,
 
 
 def _dropout(idx: int, layer: Dropout, x: torch.Tensor,
-             key: Optional[np.ndarray]) -> torch.Tensor:
+             key: Optional[np.ndarray], shard=None) -> torch.Tensor:
     """darknet's inverted dropout in training: zero with probability p,
     survivors scaled by 1 / (1 - p). The mask is the JAX package's,
     bernoulli(fold_in(key, idx), 1 - p) over the NHWC shape, drawn on
     the host (utils/prng.py) and permuted to x's (B, C, H, W); no key (or
-    p = 0) is the identity."""
+    p = 0) is the identity. With a shard (DarknetTrain.forward), the mask
+    is drawn over the whole batch and this shard's rows taken."""
     if key is None or layer.prob <= 0:
         return x
     b, c, h, w = x.shape
-    keep = torch.from_numpy(prng.bernoulli(
-        prng.fold_in(key, idx), 1.0 - layer.prob, (b, h, w, c))).permute(
-            0, 3, 1, 2).to(x.device)
+    rows = slice(0, b) if shard is None else slice(shard.start,
+                                                   shard.start + b)
+    total = b if shard is None else shard.total
+    keep = torch.from_numpy(np.ascontiguousarray(prng.bernoulli(
+        prng.fold_in(key, idx), 1.0 - layer.prob, (total, h, w, c))[rows])
+    ).permute(0, 3, 1, 2).to(x.device)
     return torch.where(keep, x / (1.0 - layer.prob), torch.zeros_like(x))
 
 
@@ -691,10 +695,14 @@ def train_params_from_numpy(layers: Sequence[LayerSpec], params: NumpyParams,
 
 def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
                       spec: Conv, eps: float, compute_dtype,
-                      bn_stats_fp32: bool):
+                      bn_stats_fp32: bool, shard=None):
     """graph.py::conv_block(train=True): conv, BN on batch statistics
     (or bias), the activation, cast to the compute dtype. Returns (y,
-    new_mean, new_var); the statistics are None without BN."""
+    new_mean, new_var); the statistics are None without BN. With a shard
+    (DarknetTrain.forward), the statistics are the whole batch's: the
+    sums of y and of (y - m)^2 over every shard, through shard.all_sum,
+    divided by the whole batch's count, as jnp.mean over a sharded axis
+    gives them."""
     conv = dict(stride=spec.stride, padding=(spec.size // 2) * spec.dilation,
                 dilation=spec.dilation, groups=spec.groups)
     if compute_dtype == torch.float32:
@@ -702,7 +710,17 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
     else:
         y = F.conv2d(x.to(compute_dtype), kernel.to(compute_dtype), **conv)
     new_mean = new_var = None
-    if gamma is not None:
+    if gamma is not None and shard is not None:
+        n = shard.total * y.shape[2] * y.shape[3]
+        yf = y.float()
+        mf = shard.all_sum(yf.sum(dim=(0, 2, 3))) / n
+        v = shard.all_sum((yf - mf[None, :, None, None]).square().sum(
+            dim=(0, 2, 3))) / n
+        if bn_stats_fp32 or compute_dtype == torch.float32:
+            y, m = yf, mf
+        else:
+            m, v = mf.to(y.dtype), v.to(y.dtype)
+    elif gamma is not None:
         n = y.shape[0] * y.shape[2] * y.shape[3]
         if bn_stats_fp32 or compute_dtype == torch.float32:
             y = y.float()
@@ -716,6 +734,7 @@ def _train_conv_block(x, kernel, gamma, beta, mean, var, bias, *,
             m = mf.to(y.dtype)
             v = (yf - mf[None, :, None, None]).square().mean(
                 dim=(0, 2, 3)).to(y.dtype)
+    if gamma is not None:
         # darknet variance_cpu: 1/(n - 1) (Bessel), in the step and in
         # the rolling variance alike
         v = v * (n / max(n - 1, 1))
@@ -769,7 +788,7 @@ class DarknetTrain(torch.nn.Module):
     def forward(self, x: torch.Tensor, *, compute_dtype=torch.float32,
                 bn_stats_fp32: bool = True, remat: bool = False,
                 softmax_logits: bool = False,
-                dropout_key: Optional[np.ndarray] = None):
+                dropout_key: Optional[np.ndarray] = None, shard=None):
         """x (B, H, W, C) in [0, 1] -> (logits (B, H/32, W/32,
         A*(5+C)) fp32, bn_updates). remat re-runs each conv block in the
         backward instead of keeping its intermediates. A classifier
@@ -777,10 +796,19 @@ class DarknetTrain(torch.nn.Module):
         training forward). dropout_key, the step's (and sub-batch's)
         jax.random key (utils/prng.py), draws the [dropout] masks and the
         [crop] jitter as the JAX package does; None keeps dropout the
-        identity and crops the center."""
+        identity and crops the center. shard: x is rows [shard.start,
+        shard.start + B) of a batch of shard.total rows that other
+        shards forward at the same time (parallel/sharding.py): BN takes
+        the whole batch's statistics through shard.all_sum (a
+        differentiable sum over every shard) and dropout its rows of the
+        whole batch's masks."""
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
+        if remat and shard is not None:
+            raise ValueError("remat with a sharded batch: the recomputed "
+                             "blocks would sum the statistics over the "
+                             "shards a second time")
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         if not isinstance(self.layers[0], Crop):
             # a [crop] input layer maps the images in their own dtype
@@ -799,7 +827,7 @@ class DarknetTrain(torch.nn.Module):
                             getattr(b, "var", None), getattr(b, "bias", None))
                     kw = dict(spec=layer, eps=self.eps,
                               compute_dtype=compute_dtype,
-                              bn_stats_fp32=bn_stats_fp32)
+                              bn_stats_fp32=bn_stats_fp32, shard=shard)
                     if remat:
                         x, mean, var = torch.utils.checkpoint.checkpoint(
                             _train_conv_block, *args, use_reentrant=False,
@@ -822,7 +850,7 @@ class DarknetTrain(torch.nn.Module):
                     x = fn(layer, x, b.kernel, b.bias)
                     conv_i += 1
                 elif isinstance(layer, Dropout):
-                    x = _dropout(idx, layer, x, dropout_key)
+                    x = _dropout(idx, layer, x, dropout_key, shard)
                 elif isinstance(layer, Crop):
                     x = _crop(idx, layer, x, dropout_key).to(compute_dtype)
                 elif isinstance(layer, SoftmaxHead):

@@ -1,9 +1,9 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
-JPEG decoder and encoder, the PNG unfilter and the blur and warp
-resamplers) and load it with ctypes.
+JPEG decoder and encoder, the PNG unfilter, the blur and warp
+resamplers and the letterbox) and load it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
-``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared`` and ``-lm``: no fast-math, no
+``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``, ``-lm`` and ``-lpthread``: no fast-math, no
 ``-march=native`` and (in ISO C mode) no contraction of multiply-adds,
 since the code must give the same bytes on every machine. The library is named by a hash of the
 sources, the flags and the compiler, and written to
@@ -35,7 +35,7 @@ NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(NATIVE_DIR)),
                          "build", "yolo_tpu_torch", "native")
 CC_FLAGS = ("-O2", "-std=c11", "-fPIC", "-shared")
-LIBS = ("-lm",)
+LIBS = ("-lm", "-lpthread")
 
 
 def compiler() -> str:
@@ -122,6 +122,10 @@ def library() -> ctypes.CDLL:
     # src, sh, sw, channels, m (6 doubles), dh, dw, dst, err, errlen
     lib.yolo_warp_affine_u8.argtypes = [ptr, i32, i32, i32, ptr, i32, i32,
                                         ptr, ctypes.c_char_p, size]
+    lib.yolo_letterbox_batch.restype = i32
+    # src, batch, src_h, src_w, c, dst, net_h, net_w, threads, err, errlen
+    lib.yolo_letterbox_batch.argtypes = [ptr, i32, i32, i32, i32, ptr, i32,
+                                         i32, i32, ctypes.c_char_p, size]
     lib.yolo_native_free.restype = None
     lib.yolo_native_free.argtypes = [ptr]
     return lib

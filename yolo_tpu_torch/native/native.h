@@ -1,4 +1,4 @@
-/* The host image decoders' and resamplers' C interface (ctypes: native/preproc.py).
+/* The host image decoders', resamplers' and letterbox's C interface (ctypes: native/preproc.py).
  * Each function returns 0, or -1 with a message in err; no function
  * keeps state between calls. */
 #ifndef YOLO_TPU_TORCH_NATIVE_H
@@ -38,6 +38,13 @@ int yolo_gaussian_blur_u8(const uint8_t *src, int h, int w, int c,
 int yolo_warp_affine_u8(const uint8_t *src, int sh, int sw, int c,
                         const double *m, int dh, int dw, uint8_t *dst,
                         char *err, size_t errlen);
+
+/* The letterbox of (batch, src_h, src_w, c) uint8 images, c = 1 or 3,
+ * onto a gray (0.5) (net_h, net_w) canvas -> dst (batch, net_h, net_w, c)
+ * float32 in [0, 1], on min(n_threads, batch) threads (letterbox.c). */
+int yolo_letterbox_batch(const uint8_t *src, int batch, int src_h,
+                         int src_w, int c, float *dst, int net_h, int net_w,
+                         int n_threads, char *err, size_t errlen);
 
 /* The standard Huffman tables of Annex K.3 (jpeg_enc.c): code counts of
  * lengths 1..16, then the symbols. */

@@ -8,9 +8,10 @@ they do not decode: progressive, lossless, arithmetic, hierarchical,
 12-bit, CMYK/YCCK or multi-scan JPEGs, corrupt or truncated data,
 interlaced PNGs, and other formats.
 
-decode_letterbox_batch decodes a list of files on a thread pool (each C
-call releases the interpreter lock) and letterboxes them with the
-pipeline's host letterbox (data/pipeline.py::_host_resize).
+letterbox_batch is the host letterbox of the loaders (native/letterbox.c):
+the bytes the JAX package's native letterbox_batch gives, on threads of
+its own. decode_letterbox_batch decodes a list of files on a thread pool
+(each C call releases the interpreter lock) and letterboxes each with it.
 
 encode_jpeg writes the JPEG cv2.imwrite writes (native/jpeg_enc.c);
 gaussian_blur_u8 and warp_affine_u8 are cv2.GaussianBlur and
@@ -85,13 +86,48 @@ def decode_image(path: str, channels: int = 3) -> np.ndarray:
     return decode_image_bytes(data, channels, name=os.fspath(path))
 
 
+def available() -> bool:
+    """Whether the host library builds and loads here (it needs a C
+    compiler the first time); the functions of this module raise where
+    it does not, having no other implementation to fall back on."""
+    try:
+        library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def letterbox_batch(images_u8: np.ndarray, net,
+                    n_threads: int = 8) -> np.ndarray:
+    """(B, H, W, C) uint8, C = 1 (gray) or 3 (RGB) -> (B, net_h, net_w, C)
+    float32 in [0, 1] on a gray (0.5) canvas; net: int (square) or
+    (net_h, net_w). cv2.INTER_LINEAR with half-pixel centres, the bytes
+    of the JAX package's native letterbox_batch, on min(n_threads, B)
+    threads. Any other C raises ValueError."""
+    from yolo_tpu_torch.ops.letterbox import as_hw
+
+    net_h, net_w = as_hw(net)
+    src = np.ascontiguousarray(images_u8, dtype=np.uint8)
+    if src.ndim != 4:
+        raise ValueError(f"expected (B, H, W, C) uint8 images, got shape "
+                         f"{src.shape}")
+    b, h, w, c = src.shape
+    out = np.empty((b, net_h, net_w, c), np.float32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_letterbox_batch(src.ctypes.data, b, h, w, c,
+                                      out.ctypes.data, net_h, net_w,
+                                      int(n_threads), err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
 def decode_letterbox_batch(paths, net, n_threads: int = 8,
                            channels: int = 3):
     """Decode N files and letterbox each to net (int or (net_h, net_w))
     on n_threads threads -> (batch (N, net_h, net_w, channels) float32 in
     [0, 1], dims (N, 2) int32 source (h, w), ok (N,) bool). A file that
     does not decode leaves ok False, dims 0 and its slot zero."""
-    from yolo_tpu_torch.data.pipeline import _Pool, _host_resize
+    from yolo_tpu_torch.data.pipeline import _Pool
     from yolo_tpu_torch.ops.letterbox import as_hw
 
     _check_channels(channels)
@@ -106,7 +142,7 @@ def decode_letterbox_batch(paths, net, n_threads: int = 8,
             img = decode_image(paths[i], channels)
         except (OSError, ValueError):
             return
-        batch[i] = _host_resize(img, (net_h, net_w), "letterbox")
+        batch[i] = letterbox_batch(img[None], (net_h, net_w), 1)[0]
         dims[i] = img.shape[:2]
         ok[i] = True
 

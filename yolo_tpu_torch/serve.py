@@ -1,4 +1,4 @@
-"""Serving endpoint for one device: HTTP in, boxes or labels out (port
+"""Serving endpoint for one device or a mesh of them: HTTP in, boxes or labels out (port
 of yolo_tpu/serve.py).
 
 POST /detect with an image body -> JSON detections (a detector); POST
@@ -15,7 +15,7 @@ kernels' launches in this process). Bodies are
 
 Requests are micro-batched: a collector thread groups same-shape images
 arriving within ``batch_window_ms`` (up to ``max_batch``) into one device
-call. The window adapts to load: queued backlog is drained without
+call; with a mesh (serve --dp) each call is split over its devices. The window adapts to load: queued backlog is drained without
 waiting, and the timed wait engages only when the recent average batch
 size (EWMA) says traffic is concurrent, so a lone client keeps batch-1
 latency. PyTorch runs eagerly, so batches are not padded to compile
@@ -114,15 +114,25 @@ class DetectionServer:
                  hier_thresh: Optional[float] = None):
         """``params``: the Darknet module (yolo_tpu_torch.load(...).params);
         the compute dtype is its own. use_tree_map / hier_thresh: a
-        YOLO9000 tree detector's decode."""
+        YOLO9000 tree detector's decode. mesh (parallel/sharding.py's
+        make_mesh): each batch is split over the mesh's devices, one
+        replica of the params on each; batches are padded to a multiple
+        of the mesh size by repeating their last image, so that every
+        shard is equal and non-empty, and max_batch is at least that
+        size."""
         from yolo_tpu_torch.models.classify import make_classifier
         from yolo_tpu_torch.models.predict import make_detector
+        from yolo_tpu_torch.parallel import sharding as shd
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP A12)")
+        if mesh is not None and not isinstance(mesh, shd.Mesh):
+            raise TypeError(f"mesh must be a parallel.sharding.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        # batches are padded to a multiple of this (the mesh size)
+        self._min_bucket = 1 if mesh is None else len(mesh)
+        max_batch = max(max_batch, self._min_bucket)
+        self.params = params if mesh is None else shd.replicate(mesh, params)
         self.host, self.port = host, port
         self.batch_window = batch_window_ms / 1000.0
         self.max_batch = max_batch
@@ -130,19 +140,22 @@ class DetectionServer:
         self._ewma_batch = 1.0  # recent average batch size
         self.request_timeout = request_timeout
         self.is_classifier = cfg.head_kind == "softmax"
+        det_kw = dict(conf_threshold=conf_threshold, resize=resize,
+                      use_tree_map=use_tree_map, hier_thresh=hier_thresh)
         if self.is_classifier:
-            self._classifier = make_classifier(cfg)
+            self._classifier = (make_classifier(cfg) if mesh is None else
+                                shd.make_dp_classifier(cfg, mesh))
+        elif mesh is None:
+            self._detector = make_detector(cfg, **det_kw)
         else:
-            self._detector = make_detector(
-                cfg, conf_threshold=conf_threshold, resize=resize,
-                use_tree_map=use_tree_map, hier_thresh=hier_thresh)
+            self._detector = shd.make_dp_detector(cfg, mesh, **det_kw)
         self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._stop = threading.Event()
         self._det_names = cfg.detection_names(use_tree_map)
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
                       "max_batch_seen": 0, "window_skips": 0,
-                      "ewma_batch": 1.0}
+                      "ewma_batch": 1.0, "buckets": {}}
 
     # -- batching ----------------------------------------------------------
 
@@ -206,14 +219,22 @@ class DetectionServer:
                     item.event.set()
 
     def _run_batch(self, items: List[_Pending]) -> None:
-        images = torch.from_numpy(np.stack([i.image for i in items])) \
-            .to(self.params.device)
+        arrays = [i.image for i in items]
+        # under a mesh: a multiple of its size, the last image repeated
+        arrays += [arrays[-1]] * (-len(arrays) % self._min_bucket)
+        bucket = str(len(arrays))
+        self.stats["buckets"][bucket] = self.stats["buckets"].get(bucket,
+                                                                  0) + 1
+        images = torch.from_numpy(np.stack(arrays))
+        if self.mesh is None:
+            images = images.to(self.params.device)
         if self.is_classifier:
             from yolo_tpu_torch.models.classify import (hierarchy_leaf_probs,
                                                         top_k)
 
             with torch.no_grad():
                 probs = self._classifier(self.params, images).cpu().numpy()
+            probs = probs[:len(items)]
             if self.cfg.softmax_tree is not None:
                 probs = hierarchy_leaf_probs(probs, self.cfg.softmax_tree)
             for item, p in zip(items, probs):

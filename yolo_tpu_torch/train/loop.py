@@ -379,20 +379,28 @@ def ema_params_of(state: TrainState):
 
 def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int,
              dropout_key: np.ndarray, *, mcfg: ModelConfig, tcfg: TrainConfig,
-             compute_dtype):
+             compute_dtype, net: Optional[DarknetTrain] = None, shard=None):
+    """The loss of one (sub-)batch on ``net`` (the state's by default).
+    shard: ``sub`` is one shard of a batch that other shards forward at
+    the same time (DarknetTrain.forward); the loss then divides by the
+    whole batch, shard.total, and the shards' losses sum to its loss."""
     classifier = mcfg.head_kind == "softmax"
-    logits, bn_updates = state.net(
+    net = state.net if net is None else net
+    total_b = None if shard is None else shard.total
+    logits, bn_updates = net(
         sub["images"], compute_dtype=compute_dtype,
         bn_stats_fp32=tcfg.bn_stats_fp32, remat=tcfg.remat,
-        softmax_logits=classifier, dropout_key=dropout_key)
+        softmax_logits=classifier, dropout_key=dropout_key, shard=shard)
     if classifier:
         # the SoftmaxHead layer holds the tree and temperature that
         # inference applies, so training reads them there too
         head = next(l for l in mcfg.layers if isinstance(l, SoftmaxHead))
         total, parts = classifier_loss(logits, sub["labels"], tree=head.tree,
-                                       temperature=head.temperature)
+                                       temperature=head.temperature,
+                                       batch_total=total_b)
     elif mcfg.head_kind == "detection":
-        total, parts = detection_loss(logits, sub, mcfg.detection_head)
+        total, parts = detection_loss(logits, sub, mcfg.detection_head,
+                                      batch_total=total_b)
     elif mcfg.head_kind == "yolo":
         if mcfg.objectness_smooth:
             # as the JAX package's train_step: no reference source pins
@@ -407,11 +415,11 @@ def _loss_fn(state: TrainState, sub: Dict[str, torch.Tensor], seen: int,
             max_deltas=[h.max_delta for h in heads],
             smooth_eps=[h.label_smooth_eps for h in heads],
             new_coords=[h.new_coords for h in heads],
-            gaussian=[h.gaussian for h in heads])
+            gaussian=[h.gaussian for h in heads], batch_total=total_b)
     else:
         total, parts = region_loss(logits, sub, mcfg.anchors,
                                    mcfg.num_classes, tcfg.loss, seen,
-                                   tree=mcfg.tree)
+                                   tree=mcfg.tree, batch_total=total_b)
     return total, parts, bn_updates
 
 
@@ -455,6 +463,19 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
             apply_bn_updates(net, bn_updates)
             losses.append(loss.detach())
             parts_list.append({k: v.detach() for k, v in parts.items()})
+    return finish_step(state, tcfg, batch_size, losses, parts_list)
+
+
+def finish_step(state: TrainState, tcfg: TrainConfig, batch_size: int,
+                losses: List[torch.Tensor],
+                parts_list: List[Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """The end of a step, once the net's gradients hold the sum of the
+    sub-batches': their mean, the optimizer at this step's rate, the EMA
+    track, the counters (batch_size images seen) and the metrics, the
+    means over the sub-batches of each loss and part."""
+    net = state.net
+    accum = len(losses)
     if accum > 1:
         # each sub-loss is a mean over its sub-batch: the mean of the
         # per-sub gradients is the whole-batch gradient

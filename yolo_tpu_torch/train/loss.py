@@ -122,7 +122,8 @@ def _diag_iou(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def detection_loss(flat: torch.Tensor, targets: Dict[str, torch.Tensor],
-                   head) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   head, batch_total: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """YOLOv1's loss, eq. 3 of arXiv:1506.02640 with the [detection]
     scale keys (loss.py::detection_loss):
 
@@ -138,9 +139,11 @@ def detection_loss(flat: torch.Tensor, targets: Dict[str, torch.Tensor],
     truth (darknet's min-RMSE fallback). flat (B, side²(classes +
     num(1+coords))) raw activations (any trailing shape); targets of
     data.targets.encode_v1. Parts and total are divided by the batch
-    size; the rescore target carries no gradient."""
+    size (batch_total: the whole batch's, where flat is a shard of it);
+    the rescore target carries no gradient."""
     s, n, c = head.side, head.num, head.classes
     b = flat.shape[0]
+    nb = b if batch_total is None else batch_total
     t = flat.to(torch.float32).reshape(b, -1)
     probs = t[:, :s * s * c].reshape(b, s * s, c)
     conf = t[:, s * s * c:s * s * (c + n)].reshape(b, s * s, n)
@@ -172,19 +175,20 @@ def detection_loss(flat: torch.Tensor, targets: Dict[str, torch.Tensor],
     ctarget = iou.detach() if head.rescore else torch.ones_like(iou)
     onehot = F.one_hot(tcls, c).float()
     parts = {
-        "coord": head.coord_scale * (resp * sq).sum() / b,
+        "coord": head.coord_scale * (resp * sq).sum() / nb,
         "obj": head.object_scale * (resp * (ctarget - conf).square()).sum()
-        / b,
+        / nb,
         "noobj": head.noobject_scale * ((1.0 - resp) * conf.square()).sum()
-        / b,
+        / nb,
         "class": head.class_scale * (obj[..., None]
-                                     * (probs - onehot).square()).sum() / b,
+                                     * (probs - onehot).square()).sum() / nb,
     }
     return sum(parts.values()), parts
 
 
 def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
-                    temperature: float = 1.0
+                    temperature: float = 1.0,
+                    batch_total: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Softmax cross-entropy of classifier training (loss.py::
     classifier_loss; darknet softmax_x_ent: error -log p(truth), delta
@@ -199,7 +203,11 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
     logits (B, C) before the softmax (Darknet*(softmax_logits=True));
     labels (B,) int. Returns (mean CE, {"ce", "top1"}); top1 is the
     batch's accuracy (with a tree: the leaf-masked absolute argmax, an
-    internal-node label counted when it lies on that leaf's path)."""
+    internal-node label counted when it lies on that leaf's path).
+    batch_total: the whole batch, where logits are a shard of it (the
+    means become this shard's sums over it)."""
+    mean = ((lambda v: v.mean()) if batch_total is None
+            else (lambda v: v.sum() / batch_total))
     logits = logits.to(torch.float32)
     labels = labels.long()
     if temperature != 1.0:
@@ -209,8 +217,8 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
         logp = torch.log_softmax(logits, dim=-1)
         ce = -torch.gather(logp, 1, labels[:, None])[:, 0]
         pred = torch.argmax(logits, dim=-1)
-        mean_ce = ce.mean()
-        top1 = (pred == labels).to(torch.float32).mean()
+        mean_ce = mean(ce)
+        top1 = mean((pred == labels).to(torch.float32))
         return mean_ce, {"ce": mean_ce, "top1": top1}
     consts = _tree_consts(tree, logits.device)
     logc = tree_log_conditional(logits, tree)
@@ -225,8 +233,8 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor, tree=None,
         pred = torch.argmax(torch.where(consts["leaf"], absolute,
                                         torch.zeros_like(absolute)), dim=-1)
         hit = torch.any(paths[pred] == labels[:, None], dim=-1)
-    mean_ce = ce.mean()
-    return mean_ce, {"ce": mean_ce, "top1": hit.to(torch.float32).mean()}
+    mean_ce = mean(ce)
+    return mean_ce, {"ce": mean_ce, "top1": mean(hit.to(torch.float32))}
 
 
 def _tree_class_sq(logits_c: torch.Tensor, tcls: torch.Tensor,
@@ -255,14 +263,17 @@ def _tree_class_sq(logits_c: torch.Tensor, tcls: torch.Tensor,
 
 def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
                 anchors, num_classes: int, cfg: LossConfig, seen,
-                tree=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                tree=None, batch_total: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """logits (B, S, S, A*(5+C)); targets from data.targets.encode_batch
     as tensors on the logits' device; seen: images trained on before
     this batch (int). Returns (total loss per image, parts dict with
     coord / obj / noobj / class / warmup). A YOLO9000 tree swaps the
     class term for _tree_class_sq's: the squared error within each
-    sibling group on the target's root path only."""
+    sibling group on the target's root path only. batch_total: the
+    batch the parts divide by, where logits are a shard of it."""
     b, sh, sw, _ = logits.shape
+    nb = b if batch_total is None else batch_total
     a = len(anchors)
     c = num_classes
     t = logits.to(torch.float32).reshape(b, sh, sw, a, 5 + c)
@@ -312,11 +323,11 @@ def region_loss(logits: torch.Tensor, targets: Dict[str, torch.Tensor],
     loss_warm = warm * cfg.warmup_scale * torch.sum((1.0 - obj) * sq_warm)
 
     parts = {
-        "coord": loss_coord / b,
-        "obj": loss_obj / b,
-        "noobj": loss_noobj / b,
-        "class": loss_cls / b,
-        "warmup": loss_warm / b,
+        "coord": loss_coord / nb,
+        "obj": loss_obj / nb,
+        "noobj": loss_noobj / nb,
+        "class": loss_cls / nb,
+        "warmup": loss_warm / nb,
     }
     total = sum(parts.values())
     return total, parts
@@ -421,7 +432,8 @@ def _ignore_gate(best_iou: torch.Tensor, thresh: float) -> torch.Tensor:
 def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
               masks, num_classes: int, net_size, cfg: YoloLossConfig,
               scales=None, max_deltas=None, smooth_eps=None,
-              new_coords=None, gaussian=None
+              new_coords=None, gaussian=None,
+              batch_total: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Multi-head [yolo] loss. head_logits: the tuple of (B, S, S,
     A*(5+C)) raw outputs (DarknetTrain's; A*(9+C) for a Gaussian head);
@@ -431,11 +443,14 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
     where != 1). max_deltas / smooth_eps: per-head overrides of
     cfg.max_delta / cfg.label_smooth_eps (None falls back to the cfg; an
     explicit 0 disables). new_coords / gaussian: per-head flags of the
-    scaled-yolov4 and Gaussian heads (YoloLossConfig). Returns (total
-    loss per image, parts dict with coord / obj / noobj / class)."""
+    scaled-yolov4 and Gaussian heads (YoloLossConfig). batch_total: the
+    batch the parts and the max_delta clip divide by, where the logits
+    are a shard of it. Returns (total loss per image, parts dict with
+    coord / obj / noobj / class)."""
     net_h, net_w = as_hw(net_size)
     c = num_classes
     b = head_logits[0].shape[0]
+    nb = b if batch_total is None else batch_total
     dev = head_logits[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     parts = {"coord": zero, "obj": zero, "noobj": zero, "class": zero}
@@ -492,7 +507,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
         md = None if ga else (max_deltas[h] if max_deltas[h] is not None
                               else cfg.max_delta)
         # the clamp reaches the box terms only; obj and class keep t
-        t_box = (torch.cat([_clip_grad(t[..., :4], md / b), t[..., 4:]],
+        t_box = (torch.cat([_clip_grad(t[..., :4], md / nb), t[..., 4:]],
                            dim=-1) if md else t)
         obj = targets[f"obj_mask_{h}"]
         tc = targets[f"tcoord_{h}"]
@@ -522,9 +537,9 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
         else:
             obj_bce = _bce(t[..., 4], 1.0)
             noobj_bce = _bce(t[..., 4], 0.0)
-        parts["obj"] = parts["obj"] + on * torch.sum(obj * obj_bce) / b
+        parts["obj"] = parts["obj"] + on * torch.sum(obj * obj_bce) / nb
         parts["noobj"] = (parts["noobj"]
-                          + on * torch.sum(noobj_mask * noobj_bce) / b)
+                          + on * torch.sum(noobj_mask * noobj_bce) / nb)
 
         if ga:
             mu_x = torch.sigmoid(t_box[..., 0]) * s_xy - off
@@ -534,12 +549,12 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
                    + gaussian_nll(tc[..., 2], t_box[..., 2], sig[..., 2])
                    + gaussian_nll(tc[..., 3], t_box[..., 3], sig[..., 3]))
             parts["coord"] = parts["coord"] + torch.sum(
-                obj * coord_w * nll) / b
+                obj * coord_w * nll) / nb
         elif cfg.iou_loss != "mse":
             iou_k = _diag_iou_variant(pred_boxes, targets[f"tbox_{h}"],
                                       cfg.iou_loss)
             parts["coord"] = parts["coord"] + cfg.iou_normalizer * torch.sum(
-                obj * (1.0 - iou_k)) / b
+                obj * (1.0 - iou_k)) / nb
         else:
             if s_xy == 1.0:
                 xy = _bce(t_box[..., 0], tc[..., 0]) \
@@ -551,7 +566,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
             wh = 0.5 * ((t_box[..., 2] - tc[..., 2]) ** 2
                         + (t_box[..., 3] - tc[..., 3]) ** 2)
             parts["coord"] = parts["coord"] + torch.sum(
-                obj * coord_w * (xy + wh)) / b
+                obj * coord_w * (xy + wh)) / nb
 
         def cls_elem(onehot):
             if nc:
@@ -568,7 +583,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
         if eps:
             onehot = onehot * (1.0 - eps) + 0.5 * eps
         parts["class"] = parts["class"] + cls_n * torch.sum(
-            obj[..., None] * cls_elem(onehot)) / b
+            obj[..., None] * cls_elem(onehot)) / nb
 
         if mt is not None:
             # positives toward the best truth, at the anchor's own cell
@@ -577,16 +592,16 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
                                ).reshape(b, sh, sw, a, 4).detach()
             gtc = torch.gather(targets["gt_cls"].long(), 1,
                                best_g).reshape(b, sh, sw, a)
-            parts["obj"] = parts["obj"] + on * torch.sum(mt * obj_bce) / b
+            parts["obj"] = parts["obj"] + on * torch.sum(mt * obj_bce) / nb
             onehot_mt = F.one_hot(gtc, c).to(torch.float32)
             if eps:
                 onehot_mt = onehot_mt * (1.0 - eps) + 0.5 * eps
             parts["class"] = parts["class"] + cls_n * torch.sum(
-                mt[..., None] * cls_elem(onehot_mt)) / b
+                mt[..., None] * cls_elem(onehot_mt)) / nb
             if cfg.iou_loss != "mse":
                 iou_mt = _diag_iou_variant(pred_boxes, gtb, cfg.iou_loss)
                 parts["coord"] = (parts["coord"] + cfg.iou_normalizer
-                                  * torch.sum(mt * (1.0 - iou_mt)) / b)
+                                  * torch.sum(mt * (1.0 - iou_mt)) / nb)
             else:
                 cxi = torch.arange(sw, dtype=torch.float32,
                                    device=dev)[None, None, :, None]
@@ -611,7 +626,7 @@ def yolo_loss(head_logits, targets: Dict[str, torch.Tensor], anchors_px,
                                + (t_box[..., 3] - thm) ** 2)
                 w_mt = 2.0 - gtb[..., 2] * gtb[..., 3]
                 parts["coord"] = parts["coord"] + torch.sum(
-                    mt * w_mt * (xy_mt + wh_mt)) / b
+                    mt * w_mt * (xy_mt + wh_mt)) / nb
 
     total = sum(parts.values())
     return total, parts
