@@ -114,10 +114,17 @@ JSON lines; any failed check raises and the script exits non-zero:
               (yolo_tpu_torch/native/: JPEG and PNG in C, built by the
               host C compiler in phase 2): (a) no OpenCV loaded; (b) the
               fixtures of tests/data/torch_jpeg/ decode to the sha256 of
-              cv2's output recorded beside them; (c) decode rates of a
-              480x640 4:2:0 q90 JPEG, ms an image on one thread and img/s
-              on IMAGE_THREADS threads (8 threads at least twice one,
-              where the host has 4 cores), the host letterbox of the
+              cv2's output recorded beside them, and the fixtures of the
+              kinds beyond one baseline scan (progressive, multi-scan,
+              arithmetic, CMYK, YCCK, interlaced and gamma PNG) go
+              through `detect --images` (YOLOv2-COCO 416, one file a
+              batch, --conf FIXTURE_CONF) and POST /detect: every file
+              yields boxes, one NMS launch a file, the lines equal
+              detect_raw on the decoded arrays and the answers direct
+              calls; (c) decode rates of a 480x640 4:2:0 q90 JPEG and of
+              the 480x640 progressive fixture, ms an image on one thread
+              and img/s on IMAGE_THREADS threads (8 threads at least twice
+              one, where the host has 4 cores), the host letterbox of the
               frame to 416 on one thread, and a 480x640 Paeth PNG's
               unfilter in C against the Python version; (d) yolov3 @416,
               COCO-80, seeded weights (as phase 12), on COCO_SCENES
@@ -574,6 +581,12 @@ YOLO_OVERFIT = "yolov4-tiny"
 # COCO mAP@[.5:.95] on COCO-format JPEG scenes
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data", "torch_jpeg")
+# the fixtures of the decoder's buffered path, by name prefix, and the
+# 480x640 progressive frame of phase 14 (c) (tools/jpeg_fixtures.py)
+NEW_KIND_FIXTURES = ("prog_", "multiscan_", "arith_", "cmyk_", "ycck_",
+                     "adam7_", "srgb_")
+PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
+FIXTURE_CONF = 0.005      # a score threshold at which every fixture has boxes
 IMAGE_THREADS = (1, 4, 8)
 IMAGE_DECODES = 128       # decodes a timed thread-pool run
 COCO_VARIANT = "yolov3"   # 416, COCO-80
@@ -2213,6 +2226,75 @@ def phase_fixtures() -> int:
     return len(recorded["files"])
 
 
+def phase_fixture_detect(weights: str, card: str) -> int:
+    """Phase 14 (b): the new kinds' fixtures through `detect --images` on
+    the default route and through POST /detect; returns the NMS
+    launches of both runs."""
+    from yolo_tpu_torch.cli.detect_cmds import _det_json
+
+    names = sorted(n for n in os.listdir(FIXTURES)
+                   if n.startswith(NEW_KIND_FIXTURES))
+    check(len(names) >= 10, f"new-kind fixtures {names}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in names:
+            os.symlink(os.path.join(FIXTURES, n), os.path.join(tmp, n))
+        out, _, wall, nms = cli_run(["detect", "--model", VARIANT,
+                                     "--weights", weights, "--images", tmp,
+                                     "--batch", "1", "--conf",
+                                     str(FIXTURE_CONF)])
+    recs = cli_lines(out)
+    check([os.path.basename(r["image"]) for r in recs] == names
+          and nms == len(names), f"detect --images over the fixtures: "
+          f"{len(recs)} lines, {nms} NMS launches, want {len(names)}")
+    cfg = dataclasses.replace(get_variant(VARIANT),
+                              conf_threshold=FIXTURE_CONF)
+    net = Darknet(cfg.layers, fold_params(
+        cfg.layers, dw.load(weights, cfg.layers)[0], cfg.bn_eps),
+        device="cuda", dtype=torch.bfloat16)
+    labels = cfg.detection_names()
+    boxes = {}
+    for r, name in zip(recs, names):
+        frame = decode_image(os.path.join(FIXTURES, name))
+        with torch.no_grad():
+            o = detect_raw(cfg, net, torch.from_numpy(frame[None]).cuda())
+        o = {k: v[0].cpu().numpy() for k, v in o.items()}
+        keep = np.nonzero(o["valid"])[0]
+        direct = _det_json(labels, o["classes"], o["scores"],
+                           o["boxes"][keep].astype(np.float64), keep)
+        check(r["detections"] == direct, f"detect --images {name}: the "
+              f"lines differ from detect_raw on the decoded array")
+        check(len(direct) > 0, f"{name}: no boxes at conf {FIXTURE_CONF}")
+        boxes[name] = len(direct)
+    model = yolo_tpu_torch.load(weights, VARIANT, device="cuda",
+                                conf_threshold=FIXTURE_CONF)
+    server = DetectionServer(model.cfg, model.params, port=0,
+                             conf_threshold=FIXTURE_CONF)
+    server.start()
+    try:
+        served = 0
+        for name in names:
+            with open(os.path.join(FIXTURES, name), "rb") as f:
+                body = f.read()
+            ctype = "image/png" if name.endswith(".png") else "image/jpeg"
+            nms_kernel.launches = 0
+            answer = post_body(server.port, body, ctype)
+            served += nms_kernel.launches     # the direct call's apart
+            direct = detections_to_json(
+                model(decode_image_bytes(body)[None]), labels)[0]
+            check(answer == direct and answer, f"POST /detect {name}: "
+                  f"the answer differs from a direct call")
+    finally:
+        server.stop()
+    check(served == len(names), f"POST /detect: {served} NMS launches for "
+          f"{len(names)} bodies")
+    emit({"phase": "images", "check": "new_kinds_to_boxes",
+          "files": len(names), "boxes": boxes, "conf": FIXTURE_CONF,
+          "detect_nms_launches": nms, "served_nms_launches": served,
+          "detect_seconds": wall, "lines_equal_detect_raw": True,
+          "answers_equal_direct": True, "card": card})
+    return nms + served
+
+
 def host_ms(fn, reps: int = 20) -> float:
     """Median ms of fn on a pipeline worker thread (one torch thread)."""
     def timed():
@@ -2228,26 +2310,38 @@ def host_ms(fn, reps: int = 20) -> float:
         return pool.submit(timed).result()
 
 
+def decode_rates(path: str) -> tuple:
+    """(ms an image on one pipeline thread, {threads: img/s}) of
+    decode_image on one file."""
+    one = host_ms(lambda: decode_image(path))
+    rates = {}
+    for n in IMAGE_THREADS:
+        with cf.ThreadPoolExecutor(n) as pool:
+            list(pool.map(decode_image, [path] * n))
+            t0 = time.perf_counter()
+            list(pool.map(decode_image, [path] * IMAGE_DECODES))
+            rates[n] = IMAGE_DECODES / (time.perf_counter() - t0)
+    return one, rates
+
+
 def phase_decode_rates(card: str) -> dict:
-    """Phase 14 (c): a 480x640 4:2:0 q90 JPEG decoded on one thread and
-    on thread pools, beside the host letterbox of its frame to 416; a
-    480x640 Paeth PNG's unfilter in C and in Python."""
+    """Phase 14 (c): a 480x640 4:2:0 q90 JPEG and the 480x640
+    progressive fixture decoded on one thread and on thread pools,
+    beside the host letterbox of a frame to 416; a 480x640 Paeth PNG's
+    unfilter in C and in Python."""
     img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
     cores = os.cpu_count()
+    progressive = os.path.join(FIXTURES, PROGRESSIVE_FRAME)
+    check(decode_image(progressive).shape == (*SRC_HW, 3),
+          f"{PROGRESSIVE_FRAME} is not a 480x640 frame")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "scene.jpg")
         with open(path, "wb") as f:
             f.write(encode_jpeg(img, 90, "420"))
-        one = host_ms(lambda: decode_image(path))
+        one, rates = decode_rates(path)
+        prog_one, prog_rates = decode_rates(progressive)
         letterbox_ms = host_ms(lambda: _host_resize(img, (416, 416),
                                                     "letterbox"))
-        rates = {}
-        for n in IMAGE_THREADS:
-            with cf.ThreadPoolExecutor(n) as pool:
-                list(pool.map(decode_image, [path] * n))
-                t0 = time.perf_counter()
-                list(pool.map(decode_image, [path] * IMAGE_DECODES))
-                rates[n] = IMAGE_DECODES / (time.perf_counter() - t0)
         png = encode_png(img, filters=(4,))
     raw = zlib.decompress(b"".join(
         png[i + 8:i + 8 + int.from_bytes(png[i:i + 4], "big")]
@@ -2265,14 +2359,19 @@ def phase_decode_rates(card: str) -> dict:
     out = {"jpeg_ms_one_thread": one,
            "host_letterbox_416_ms_one_thread": letterbox_ms,
            "jpeg_img_per_s": {str(n): r for n, r in rates.items()},
+           "progressive_jpeg": PROGRESSIVE_FRAME,
+           "progressive_ms_one_thread": prog_one,
+           "progressive_img_per_s": {str(n): r
+                                     for n, r in prog_rates.items()},
            "host_cores": cores, "paeth_png_unfilter_c_ms": c_ms,
            "paeth_png_unfilter_python_ms": py_ms}
     emit({"phase": "images", "check": "decode_rates", "src_hw":
           list(SRC_HW), "jpeg": "4:2:0 q90", **out, "card": card})
     if cores >= 4:
-        check(rates[8] >= 2 * rates[1], f"8 decode threads reach "
-              f"{rates[8]:.1f} img/s against {rates[1]:.1f} on one: the "
-              f"decoder holds the interpreter lock")
+        for what, r in (("baseline", rates), ("progressive", prog_rates)):
+            check(r[8] >= 2 * r[1], f"8 {what} decode threads reach "
+                  f"{r[8]:.1f} img/s against {r[1]:.1f} on one: the "
+                  f"decoder holds the interpreter lock")
     return out
 
 
@@ -5428,6 +5527,7 @@ def run(seeded: str) -> int:
     t0 = time.perf_counter()
     check(get_decoder() == "native", f"decoder {get_decoder()}")
     phase_fixtures()
+    fixture_launches = phase_fixture_detect(weights, card)
     phase_decode_rates(card)
     coco_launches, coco_grid, coco_shape, coco = phase_coco(
         card, os.path.join(seeded, "coco"))
@@ -5469,7 +5569,8 @@ def run(seeded: str) -> int:
          + yolo_eval_launches + coco_launches["nms"]
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
          + tree["launches"]["nms"] + v1["launches"]["nms"]
-         + int8["launches"]["nms"] + video["nms"] + dp["nms"],
+         + int8["launches"]["nms"] + video["nms"] + dp["nms"]
+         + fixture_launches,
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,

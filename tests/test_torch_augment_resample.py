@@ -7,11 +7,11 @@ Tolerances: every comparison is exact. gaussian_blur_u8 and
 warp_affine_u8 equal cv2.GaussianBlur and cv2.warpAffine byte for byte,
 so apply_blur, rotate_scale_crop, random_augment_classifier and mosaic4
 equal the JAX functions byte for byte, at 1 and 3 channels; train_batches
-with mosaic equals JAX's images and targets exactly, with mixup its
-targets exactly and its images within 1e-5 (the letterbox's tolerance,
-tests/test_torch_data.py). The train_batches cases turn HSV off: the
-port's 8-bit HSV -> RGB differs from cv2's by one level on at most 0.1%
-of the pixels, which tests/test_torch_data.py holds.
+with mosaic, mixup or blur equals JAX's images and targets exactly,
+letterboxed (the JAX package's native letterbox loaded through
+tests/torch_port.py::jax_native_library) or stretched. The train_batches
+cases turn HSV off; tests/test_torch_data.py holds the port's 8-bit
+HSV -> RGB to cv2's.
 """
 
 import numpy as np
@@ -199,8 +199,10 @@ def _voc(tmp_path, n=6):
 @pytest.mark.parametrize("resize", ["letterbox", "stretch"])
 def test_train_batches_match_jax(mode, resize, tmp_path):
     """train_batches with mosaic, mixup or blur on, HSV off: the same
-    targets as JAX's on the same seed and images (exact with mosaic,
-    which resize does not touch; within the letterbox's 1e-5 else)."""
+    targets and images as JAX's on the same seed, byte for byte."""
+    from tests.torch_port import jax_native_library
+
+    jax_native_library()
     pairs = _voc(tmp_path)
     kw = dict(flip=True, jitter=0.2, hue=0.0, saturation=1.0,
               exposure=1.0)
@@ -221,10 +223,7 @@ def test_train_batches_match_jax(mode, resize, tmp_path):
         for k in g:
             if k == "images":
                 assert g[k].dtype == np.float32
-                atol = 0.0 if mode == "mosaic" else 1e-5
-                np.testing.assert_allclose(g[k], w[k], rtol=0, atol=atol)
-            else:
-                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 JAX_AUGMENT_TESTS = [

@@ -313,9 +313,12 @@ def _folder(tmp_path, n=(5, 2), size=(20, 24)):
 def test_classifier_train_batches_match_jax(augment, tmp_path):
     """list_imagefolder equals JAX's; classifier_train_batches gives its
     labels exactly and its images within 1e-6 (the preprocess's resize),
-    or with the HSV distortion within one grey level on at most 0.5% of
-    the values (the port's 8-bit HSV->RGB, data/augment.py), over three
-    epochs with wrapping batches, and from start_step alike."""
+    with the HSV distortion too where this host's cv2 converts HSV -> RGB
+    in the AVX2 build data/augment.py reproduces (else within one grey
+    level on at most 0.5% of the values), over three epochs with
+    wrapping batches, and from start_step alike."""
+    from tests.torch_port import cv2_hsv_is_avx2
+
     root = _folder(tmp_path)
     samples = timagefolder.list_imagefolder(root, ("red", "green"))
     assert samples == jimagefolder.list_imagefolder(root, ("red", "green"))
@@ -334,7 +337,7 @@ def test_classifier_train_batches_match_jax(augment, tmp_path):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g["labels"], w["labels"])
             d = np.abs(g["images"] - w["images"])
-            if augment:
+            if augment and not cv2_hsv_is_avx2():
                 assert d.max() <= 1 / 255 + 1e-6
                 assert (d > 1e-6).mean() <= 5e-3
             else:
@@ -344,8 +347,11 @@ def test_classifier_train_batches_match_jax(augment, tmp_path):
 def test_classifier_geometry_augment_raises(tmp_path):
     """The classifier geometry crop, once refused here, now runs: on a
     square net the batches equal JAX's (the crop byte for byte, then HSV
-    within one level on at most 0.5% of the values, as above); on a
-    rectangular net both packages raise the same ValueError."""
+    byte for byte on the AVX2 build, else within one level on at most
+    0.5% of the values, as above); on a rectangular net both packages
+    raise the same ValueError."""
+    from tests.torch_port import cv2_hsv_is_avx2
+
     samples = timagefolder.list_imagefolder(_folder(tmp_path), ("red",
                                                                 "green"))
     kw = dict(angle=7.0, aspect=0.75, min_crop=28, max_crop=48)
@@ -361,7 +367,7 @@ def test_classifier_geometry_augment_raises(tmp_path):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g["labels"], w["labels"])
             d = np.abs(g["images"] - w["images"])
-            if hsv["hue"] == 0.0:
+            if hsv["hue"] == 0.0 or cv2_hsv_is_avx2():
                 assert d.max() == 0.0
             else:
                 assert d.max() <= 1 / 255 + 1e-6

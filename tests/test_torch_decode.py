@@ -22,7 +22,6 @@ import os
 import struct
 import subprocess
 import sys
-import time
 import zlib
 
 import cv2
@@ -33,6 +32,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
+from tests.torch_port import jax_native_library
 from yolo_tpu.native import preproc as jpreproc
 from yolo_tpu_torch.data import pipeline as tpipe
 from yolo_tpu_torch.data.png import (_unfilter_sequential, decode_png,
@@ -204,7 +204,7 @@ def test_fixtures_match_recorded_hashes():
 
 def test_fixtures_match_cv2():
     for name in sorted(os.listdir(FIXTURES)):
-        if name.endswith(".jpg"):
+        if name.endswith((".jpg", ".png")):
             with open(os.path.join(FIXTURES, name), "rb") as f:
                 _same_as_cv2(f.read(), jax_too=False)
 
@@ -221,30 +221,46 @@ def _patch_marker(data, old, new):
 
 
 def _unsupported_files():
+    """What cv2 gives no image for, and the damage the decoder refuses
+    (a missing restart marker, which libjpeg resyncs past). Progressive,
+    arithmetic, CMYK and multi-scan files decode now:
+    tests/test_torch_jpeg_kinds.py holds them to cv2."""
+    from tests.jpeg_writer import Frame, random_coefficients, write_jpeg
+
     img = _picture(np.random.default_rng(1), 24, 40)
-    b = io.BytesIO()
-    Image.fromarray(img).save(b, "JPEG", progressive=True)
-    progressive = b.getvalue()
-    b = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(b, "JPEG")
-    cmyk = b.getvalue()
     base = _baseline()
     sof = base.index(b"\xff\xc0")
     twelve = base[:sof + 4] + b"\x0c" + base[sof + 5:]
     sos = base.index(b"\xff\xda")
-    # a scan of one of the three components (a multi-scan file)
-    one_scan = (base[:sos] + b"\xff\xda\x00\x08\x01\x01\x00\x00\x3f\x00"
-                + base[sos + 14:])
+    ok, prog = cv2.imencode(".jpg", img[..., ::-1],
+                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    prog = prog.tobytes()
+    rng = np.random.default_rng(2)
+    fr12 = Frame(16, 8, [(1, 1)], precision=12)
+    fr2 = Frame(16, 8, [(1, 1)] * 2)
+    fr5 = Frame(16, 8, [(1, 1)] * 5)
+    fr3 = Frame(24, 16, [(2, 2), (1, 1), (1, 1)])
+    arith = write_jpeg(fr3, random_coefficients(rng, fr3), arithmetic=True,
+                       progressive=True)
     return {
-        "progressive": (progressive, "progressive"),
-        "arithmetic": (_patch_marker(base, 0xC0, 0xC9), "arithmetic"),
         "lossless": (_patch_marker(base, 0xC0, 0xC3), "lossless"),
+        "arithmetic lossless": (_patch_marker(base, 0xC0, 0xCB),
+                                "arithmetic-coded lossless"),
         "hierarchical": (_patch_marker(base, 0xC0, 0xC5), "hierarchical"),
-        "cmyk": (cmyk, "CMYK"),
         "12-bit": (twelve, "12-bit"),
-        "multi-scan": (one_scan, "multi-scan"),
+        "12-bit written": (write_jpeg(fr12, random_coefficients(rng, fr12)),
+                           "12-bit"),
+        "2 components": (write_jpeg(fr2, random_coefficients(rng, fr2)),
+                         "2 components"),
+        "5 components": (write_jpeg(fr5, random_coefficients(rng, fr5)),
+                         "5 components"),
+        "baseline scan in a progressive frame": (
+            _patch_marker(base, 0xC0, 0xC2), "invalid progressive scan"),
         "truncated scan": (base[:len(base) * 2 // 3], "truncated"),
         "truncated header": (base[:sos - 20], "truncated"),
+        "truncated progressive": (prog[:len(prog) * 2 // 3], "truncated"),
+        "progressive without EOI": (prog[:-2], "truncated"),
+        "truncated arithmetic": (arith[:len(arith) * 2 // 3], "truncated"),
         "missing RST": (_cv2_jpeg(img, 90, "420", restart=1).replace(
             b"\xff\xd1", b"\xff\xd3", 1), "RST"),
         "not an image": (b"GIF89a" + bytes(40), "not a JPEG or PNG"),
@@ -254,6 +270,10 @@ def _unsupported_files():
 @pytest.mark.parametrize("case", sorted(_unsupported_files()))
 def test_unsupported_and_corrupt_files_raise_with_path(tmp_path, case):
     data, reason = _unsupported_files()[case]
+    if case != "missing RST":   # libjpeg resyncs; the decoder refuses
+        for channels in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                                channels) is None
     path = str(tmp_path / f"{case.replace(' ', '_')}.jpg")
     with open(path, "wb") as f:
         f.write(data)
@@ -332,24 +352,31 @@ def test_gray_png_matches_the_jax_native_decoder():
 
 
 def test_png_raises_for_interlaced_and_gamma_gray(tmp_path):
+    """Interlaced files and colour files with a gamma at channels=1 read
+    as cv2 reads them now (tests/test_torch_png_kinds.py holds every
+    type); an unknown interlace method and a bad CRC still raise, with
+    the file named."""
     rng = np.random.default_rng(2)
     data = _png(rng, 8, 8, 2, 8, (0,))
-    ihdr = bytearray(data[16:29])
-    ihdr[12] = 1   # interlace method Adam7
-    chunk = b"IHDR" + bytes(ihdr)
-    laced = (data[:12] + chunk + struct.pack(
-        ">I", zlib.crc32(chunk) & 0xFFFFFFFF) + data[33:])
-    path = str(tmp_path / "laced.png")
-    with open(path, "wb") as f:
-        f.write(laced)
-    with pytest.raises(ValueError, match=f"{path}.*interlaced"):
-        decode_image(path)
+
+    def with_interlace(method):
+        ihdr = bytearray(data[16:29])
+        ihdr[12] = method
+        chunk = b"IHDR" + bytes(ihdr)
+        return (data[:12] + chunk + struct.pack(
+            ">I", zlib.crc32(chunk) & 0xFFFFFFFF) + data[33:])
+
     rows = rng.integers(0, 256, (8, 24), dtype=np.uint8)
     srgb = encode_png_rows(rows, 8, 8, 2, chunks=[(b"sRGB", b"\0")])
-    np.testing.assert_array_equal(decode_image_bytes(srgb),
-                                  _cv2_decode(srgb, 3))
-    with pytest.raises(ValueError, match="linear light"):
-        decode_image_bytes(srgb, 1)
+    for c in (1, 3):
+        np.testing.assert_array_equal(decode_image_bytes(srgb, c),
+                                      _cv2_decode(srgb, c))
+    path = str(tmp_path / "laced.png")
+    with open(path, "wb") as f:
+        f.write(with_interlace(2))
+    assert cv2.imread(path) is None
+    with pytest.raises(ValueError, match=f"{path}.*interlace method 2"):
+        decode_image(path)
     bad_crc = data[:30] + bytes((data[30] ^ 1,)) + data[31:]
     with pytest.raises(ValueError, match="CRC"):
         decode_image_bytes(bad_crc)
@@ -406,29 +433,11 @@ def test_eight_threads_decode_the_same_bytes():
                 np.testing.assert_array_equal(g, w)
 
 
-def _jax_native_library(seconds: float = 300.0) -> None:
-    """Loads the JAX package's native library, waiting out a concurrent
-    build. yolo_tpu/native/preproc.py runs `make` on first use when
-    native/libyolopreproc.so is missing (a fresh checkout), and the
-    Makefile links the library in place: a pytest worker that loads it
-    while another worker's link is still writing it fails, and the
-    module keeps that failure for the life of the process
-    (decode_letterbox_batch then returns None; ROADMAP C12). So clear the
-    kept failure and load again until the file is whole."""
-    deadline = time.monotonic() + seconds
-    while jpreproc._load() is None:
-        assert time.monotonic() < deadline, (
-            "the JAX package's native library did not load")
-        time.sleep(0.5)
-        with jpreproc._lock:
-            jpreproc._tried = False
-
-
 def test_decode_letterbox_batch_semantics(tmp_path):
     """(batch, dims, ok) as the JAX package's native batch loader gives
     them; a file that does not decode leaves its slot zero with ok
     False; each image is the pipeline's own letterbox of the decode."""
-    _jax_native_library()
+    jax_native_library()
     rng = np.random.default_rng(6)
     paths = []
     for i, (h, w) in enumerate([(48, 80), (97, 61), (30, 30)]):

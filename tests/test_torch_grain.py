@@ -6,8 +6,9 @@ imports no grain) against the JAX package's, which runs grain 0.2.15:
   * the same pairs and seed give bit-equal batches (images and every
     target), plain and multi-scale; with augment, mosaic and mixup, and
     with worker_count=2 (worker processes, under a timeout of its own),
-    the targets are bit-equal and the images too but where the port's
-    HSV -> RGB lies one level from cv2's (ROADMAP C14);
+    bit-equal too where this host's cv2 converts HSV -> RGB in its AVX2
+    build, which the port reproduces (else the images may differ by one
+    level where the conversion does);
   * grain's (C++) index_shuffle value for value, at sizes whose walks
     are long (n - 1 < 2^16) and at n - 1 a power of two, and the
     sampler's checks;
@@ -106,17 +107,20 @@ def test_sampler_is_grains():
 
 
 def _equal_batches(a, b, hsv_levels=False):
-    """Bit-equal batches. hsv_levels: the augmented images may differ
-    where the port's HSV -> RGB conversion lies one level from cv2's
-    (tests/test_torch_data.py: at most 0.1% of the pixels, by one level
-    of 255), a level at most after the letterbox's weights or the mixup
-    blend; targets stay exact."""
+    """Bit-equal batches. hsv_levels: augmented images, bit-equal where
+    this host's cv2 converts HSV -> RGB in the AVX2 build the port
+    reproduces; on another build they may differ where the conversion
+    does (tests/test_torch_data.py: at most 0.1% of the pixels, by one
+    level of 255), a level at most after the letterbox's weights or the
+    mixup blend. Targets are always exact."""
+    from tests.torch_port import cv2_hsv_is_avx2
+
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert set(x) == set(y)
         for k in x:
             assert x[k].dtype == y[k].dtype, k
-            if hsv_levels and k == "images":
+            if hsv_levels and k == "images" and not cv2_hsv_is_avx2():
                 diff = np.abs(x[k] - y[k])
                 assert diff.max() <= 1 / 255 + 1e-7
                 assert np.mean(diff > 0) <= 2e-3

@@ -358,7 +358,7 @@ def test_train_batches_encode_for_a_yolo_model_as_jax(dataset):
     kw = dict(class_names=VOC_NAMES, anchors=cfg.anchors, num_classes=20,
               net_size=96, batch_size=3, workers=2)
     # jitter and flip; the HSV distortion is held against cv2's in
-    # tests/test_torch_data.py (within one level on <= 0.1% of pixels)
+    # tests/test_torch_data.py
     aug = dict(jitter=0.3, hue=0.0, saturation=1.0, exposure=1.0)
     got = list(tpipe.train_batches(
         dataset, rng=np.random.default_rng(1), model_cfg=cfg,

@@ -178,3 +178,34 @@ def jax_test_names(module) -> list:
         elif name.startswith("Test") and inspect.isclass(obj):
             names += [f"{name}.{m}" for m in vars(obj) if m.startswith("test_")]
     return names
+
+
+def jax_native_library(seconds: float = 300.0) -> None:
+    """Loads the JAX package's native library, waiting out a concurrent
+    build. yolo_tpu/native/preproc.py runs `make` on first use when
+    native/libyolopreproc.so is missing (a fresh checkout), and the
+    Makefile links the library in place: a pytest worker that loads it
+    while another worker's link is still writing it fails, and the
+    module keeps that failure for the life of the process (its loaders
+    then fall back to numpy; ROADMAP C12). So clear the kept failure and
+    load again until the file is whole."""
+    import time
+
+    from yolo_tpu.native import preproc as jpreproc
+
+    deadline = time.monotonic() + seconds
+    while jpreproc._load() is None:
+        assert time.monotonic() < deadline, (
+            "the JAX package's native library did not load")
+        time.sleep(0.5)
+        with jpreproc._lock:
+            jpreproc._tried = False
+
+
+def cv2_hsv_is_avx2() -> bool:
+    """Whether this host's cv2 converts HSV -> RGB in its AVX2 build (AVX2
+    and FMA3 present), the one data/augment.py reproduces byte for byte;
+    OpenCV dispatches that module to no wider instruction set."""
+    import cv2
+
+    return bool(cv2.checkHardwareSupport(11) and cv2.checkHardwareSupport(12))

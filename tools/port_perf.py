@@ -58,6 +58,23 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         --heads csp-swish | gaussian takes phase 15 (e)'s nets instead
         (V's topology with yolov4-csp-swish heads at 640x384, or with
         Gaussian heads) on its micro-batch
+    python3 tools/port_perf.py decode [--tree DIR] [--reps N]
+        the host JPEG decoder (native/jpeg.c) on chip_smoke.py phase
+        14 (c)'s 480x640 4:2:0 q90 frame and on the 480x640 progressive
+        fixture (tests/data/torch_jpeg/prog_420_q85_480x640.jpg): ms an
+        image on one thread (median of N after 10 warm-ups) and img/s on
+        8 threads; --tree DIR decodes with another checkout's package (an
+        A/B: run parent, change, change, parent in one machine session;
+        a tree that cannot read the progressive file reports its error)
+    python3 tools/port_perf.py files [--tree DIR] [--reps N]
+        chip_smoke.py phase 14 (d)'s files to boxes: yolov3 @416 (seeded
+        weights, bf16, batch 32) over 256 COCO-format JPEG scenes,
+        inference_batches (8 workers: decode + the C letterbox) ->
+        DevicePrefetcher -> make_detector_preprocessed, on the default
+        route and on conv_impl="cuda"; img/s from files and of the host
+        pipeline alone, N passes each; --tree DIR runs another
+        checkout's package (an A/B: parent, change, change, parent in
+        one machine session)
     python3 tools/port_perf.py stepcheck
         chip_smoke.py's card-against-CPU fp32 step (phase 10 (a)), tensor
         by tensor: each update's relative error, card against the CPU on
@@ -725,6 +742,101 @@ def cmd_tiles_s8(args, card) -> None:
                    "card": card})
 
 
+def cmd_decode(args, card) -> None:
+    import concurrent.futures as cf
+    import time
+
+    from yolo_tpu_torch.data.synthetic import coco_scene, encode_jpeg
+    from yolo_tpu_torch.native.preproc import decode_image
+
+    img, _ = coco_scene(np.random.default_rng(14), *SRC_HW)
+    progressive = os.path.join(REPO, "tests", "data", "torch_jpeg",
+                               "prog_420_q85_480x640.jpg")
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline = os.path.join(tmp, "scene.jpg")
+        with open(baseline, "wb") as f:
+            f.write(encode_jpeg(img, 90, "420"))
+        for name, path in (("baseline", baseline),
+                           ("progressive", progressive)):
+            try:
+                for _ in range(10):
+                    decode_image(path)
+            except ValueError as e:
+                _emit({"decode": name, "tree": args.tree or REPO,
+                       "error": str(e), "card": card})
+                continue
+            times = []
+            for _ in range(args.reps):
+                t0 = time.perf_counter()
+                decode_image(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            with cf.ThreadPoolExecutor(8) as pool:
+                list(pool.map(decode_image, [path] * 8))
+                t0 = time.perf_counter()
+                list(pool.map(decode_image, [path] * args.reps))
+                rate8 = args.reps / (time.perf_counter() - t0)
+            q = statistics.quantiles(times, n=4)
+            _emit({"decode": name, "tree": args.tree or REPO,
+                   "src_hw": list(SRC_HW), "ms_one_thread": q[1],
+                   "ms_quartiles": [q[0], q[2]], "img_per_s_8_threads":
+                   rate8, "reps": args.reps, "host_cores": os.cpu_count(),
+                   "card": card})
+
+
+def cmd_files(args, card) -> None:
+    import time
+
+    import torch
+
+    from yolo_tpu_torch.configs import get_variant
+    from yolo_tpu_torch.data.coco import load_coco
+    from yolo_tpu_torch.data.pipeline import (DevicePrefetcher,
+                                              inference_batches)
+    from yolo_tpu_torch.data.synthetic import write_coco_scenes
+    from yolo_tpu_torch.io import darknet_weights as dw
+    from yolo_tpu_torch.models.graph import Darknet, fold_params
+    from yolo_tpu_torch.models.predict import make_detector_preprocessed
+
+    cfg = get_variant("yolov3")
+    folded = fold_params(cfg.layers, dw.synthetic_detector_params(cfg, 0),
+                         cfg.bn_eps)
+    net = Darknet(cfg.layers, folded, device="cuda", dtype=torch.bfloat16)
+    # chip_smoke.py's COCO_SIZES, COCO_SCENES and seed
+    sizes = ((480, 640),) * 5 + ((640, 480), (427, 640), (375, 500))
+    with tempfile.TemporaryDirectory() as tmp:
+        json_path = write_coco_scenes(
+            tmp, [sizes[i % len(sizes)] for i in range(256)], 14)
+        paths = [p for p, _ in load_coco(json_path, cfg.class_names, tmp)]
+
+        def host():
+            return inference_batches(paths, 32, net_size=cfg.input_hw,
+                                     workers=8)
+
+        for route in ("torch", "cuda"):
+            det = make_detector_preprocessed(cfg, conv_impl=route)
+            det(net, torch.zeros((32, *cfg.input_hw, 3), device="cuda"))
+            torch.cuda.synchronize()
+            for _ in range(args.reps):
+                t0 = time.perf_counter()
+                for _b in host():
+                    pass
+                host_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                n = 0
+                with DevicePrefetcher(host(), depth=2) as staged:
+                    for b in staged:
+                        det(net, b["images"])
+                        n += len(b["paths"])
+                torch.cuda.synchronize()
+                files_s = time.perf_counter() - t0
+                _emit({"files": f"conv_impl={route}",
+                       "tree": args.tree or REPO, "model": cfg.name,
+                       "batch": 32, "images": n,
+                       "files_img_per_s": n / files_s,
+                       "host_pipeline_img_per_s": n / host_s,
+                       "host_cores": os.cpu_count(), "card": card})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -742,6 +854,12 @@ def main() -> int:
     prof.add_argument("--variant", default="coco")
     prof.add_argument("--cfg", default=None)
     prof.add_argument("--batches", type=int, nargs="+", default=BATCHES)
+    dec = sub.add_parser("decode")
+    dec.add_argument("--tree", default=None)
+    dec.add_argument("--reps", type=int, default=200)
+    fil = sub.add_parser("files")
+    fil.add_argument("--tree", default=None)
+    fil.add_argument("--reps", type=int, default=3)
     sub.add_parser("sweep")
     sub.add_parser("tiles")
     sub.add_parser("tiles_s8")
@@ -752,7 +870,8 @@ def main() -> int:
     s64.add_argument("--heads", choices=("variant", "csp-swish",
                                          "gaussian"), default="variant")
     args = ap.parse_args()
-    # the package under test: another checkout's for `time --tree`
+    # the package under test: another checkout's for `time --tree`,
+    # `decode --tree` and `files --tree`
     sys.path.insert(0, os.path.abspath(getattr(args, "tree", None) or REPO))
     if getattr(args, "tree", None):
         sys.path.insert(1, REPO)
@@ -763,7 +882,9 @@ def main() -> int:
         return 2
     card = _card()
     {"weights": cmd_weights, "time": cmd_time, "profile": cmd_profile,
-     "sweep": cmd_sweep, "tiles": cmd_tiles, "tiles_s8": cmd_tiles_s8,
+     "decode": cmd_decode, "files": cmd_files, "sweep": cmd_sweep,
+     "tiles": cmd_tiles,
+     "tiles_s8": cmd_tiles_s8,
      "train": cmd_train, "stepcheck": cmd_stepcheck,
      "step64": cmd_step64}[args.cmd](args, card)
     return 0

@@ -8,11 +8,10 @@ replaced by
   * cv2.copyMakeBorder(BORDER_REPLICATE) -> np.pad(mode="edge"), exact;
   * cv2's 8-bit RGB -> HSV -> rgb2hsv_u8, cv2's fixed-point division
     tables (hsv_shift 12), byte for byte;
-  * cv2's 8-bit HSV -> RGB -> hsv2rgb_u8, its float32 sector formula,
-    truncated in the vectorized blocks of a row and rounded in the
-    row's tail as cv2 does; cv2 orders a few float operations otherwise,
-    so a few pixels differ by one level (tests/test_torch_data.py
-    states how many);
+  * cv2's 8-bit HSV -> RGB -> hsv2rgb_u8 (native.preproc, in
+    native/resample.c): OpenCV 5's AVX2 float32 sector formula with its
+    fused multiply-adds, truncated in the vectorized blocks of a row and
+    rounded in the row's tail, byte for byte;
   * cv2.GaussianBlur(ksize, 0) -> native.preproc.gaussian_blur_u8 and
     cv2.warpAffine(INTER_LINEAR | WARP_INVERSE_MAP, BORDER_REPLICATE) ->
     native.preproc.warp_affine_u8 (native/resample.c), byte for byte.
@@ -28,7 +27,8 @@ from typing import Tuple
 import numpy as np
 
 from yolo_tpu_torch.data.targets import _as_hw
-from yolo_tpu_torch.native.preproc import gaussian_blur_u8, warp_affine_u8
+from yolo_tpu_torch.native.preproc import (gaussian_blur_u8, hsv2rgb_u8,
+                                           warp_affine_u8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,44 +98,6 @@ def rgb2hsv_u8(img: np.ndarray) -> np.ndarray:
     h[h < 0] += 180
     out[..., 0] = h
     return out
-
-
-# cv2 HSV2RGB: sector -> which tab entry is (b, g, r)
-_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1],
-                    [0, 2, 1], [0, 1, 3], [2, 1, 0]], np.int32)
-# cv2's vectorized HSV2RGB body takes each row in blocks of this many
-# pixels (AVX2 builds) and truncates; the rest of the row goes through
-# its scalar path, which rounds half to even
-_CV2_BLOCK = 32
-
-
-def hsv2rgb_u8(hsv: np.ndarray) -> np.ndarray:
-    """cv2.cvtColor(hsv, COLOR_HSV2RGB) for (H, W, 3) uint8, hue range
-    180: cv2's float32 sector formula (s and v scaled by 1/255, the
-    result by 255), truncated in the vectorized blocks of each row and
-    rounded in the row's tail."""
-    f32 = np.float32
-    one = f32(1.0)
-    h = hsv[..., 0].astype(f32) * f32(f32(6.0) / f32(180.0))
-    s = hsv[..., 1].astype(f32) * f32(one / f32(255.0))
-    v = hsv[..., 2].astype(f32) * f32(one / f32(255.0))
-    h = np.fmod(h, f32(6.0))
-    sector = np.floor(h)
-    h = h - sector
-    tab = np.stack([v, v * (one - s), v * (one - s * h),
-                    v * (one - s * (one - h))], axis=-1)
-    # gather each pixel's (b, g, r) from its 4 tab entries: flat index
-    # 4 * pixel + _SECTOR[sector]
-    at = np.arange(0, 4 * sector.size, 4, dtype=np.int32)
-    bgr = np.take(tab.reshape(-1), _SECTOR[sector.astype(np.int8)]
-                  + at.reshape(sector.shape)[..., None])
-    scaled = bgr * f32(255.0)
-    body = hsv.shape[1] // _CV2_BLOCK * _CV2_BLOCK
-    tail = np.where((s == 0)[..., None], v[..., None], bgr)[:, body:]
-    out = np.concatenate([np.trunc(scaled[:, :body]),
-                          np.rint(tail * f32(255.0))], axis=1)
-    out = np.clip(out, 0, 255).astype(np.uint8)
-    return np.ascontiguousarray(out[..., ::-1])
 
 
 def distort_hsv(img_u8: np.ndarray, rng: np.random.Generator,

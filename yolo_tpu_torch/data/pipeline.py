@@ -12,8 +12,10 @@ Images decode with the port's own decoder by default on every host
 the tests run the code the card runs; set_decoder("cv2") selects OpenCV
 where it is installed. The host letterbox is the C one of
 native/letterbox.c (cv2 INTER_LINEAR semantics, the JAX package's
-native letterbox byte for byte); the stretch is ops/letterbox.py in fp32. Torch runs one intra-op thread in each pool
-worker, so that the workers do not oversubscribe the cores.
+native letterbox byte for byte); the stretch is the C one beside it (the
+JAX package's numpy_ref.stretch_resize byte for byte). Torch runs one
+intra-op thread in each pool worker, so that the workers do not
+oversubscribe the cores.
 """
 
 from __future__ import annotations
@@ -32,14 +34,15 @@ from yolo_tpu_torch.data import targets as tgt
 from yolo_tpu_torch.data.augment import augment, mosaic4
 from yolo_tpu_torch.data.voc import parse_annotation
 from yolo_tpu_torch.device import resolve as resolve_device
-from yolo_tpu_torch.native.preproc import decode_image, letterbox_batch
-from yolo_tpu_torch.ops.letterbox import (as_hw, letterbox_geometry,
-                                          stretch_resize)
+from yolo_tpu_torch.native.preproc import (decode_image, letterbox_batch,
+                                           stretch)
+from yolo_tpu_torch.ops.letterbox import as_hw, letterbox_geometry
 
 
 # Host image decoder: "native" (native/preproc.py, the default on every
-# host) or "cv2" (OpenCV, only when asked for; it reads the progressive,
-# CMYK, 12-bit and arithmetic JPEGs the native decoder raises for)
+# host: every JPEG and PNG cv2 reads, with cv2's bytes) or "cv2"
+# (OpenCV, only when asked for; it also reads BMP, PNM, TIFF, WebP,
+# JPEG 2000 and AVIF files, which the native decoder raises for)
 _DECODER = "native"
 
 
@@ -105,10 +108,9 @@ def letterbox_boxes(boxes_xywh: np.ndarray, src_w: int, src_h: int,
 
 def _host_resize(img: np.ndarray, size, resize: str) -> np.ndarray:
     """(H, W, C) uint8 -> (net_h, net_w, C) float32 in [0, 1]: the C
-    letterbox on this thread (native/preproc.py), or the torch stretch."""
+    letterbox or the C stretch on this thread (native/preproc.py)."""
     if resize == "stretch":
-        x = torch.from_numpy(np.ascontiguousarray(img))[None]
-        return stretch_resize(x, size, dtype=torch.float32)[0].numpy()
+        return stretch(img, size)
     return letterbox_batch(img[None], size, n_threads=1)[0]
 
 

@@ -1,6 +1,7 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
-JPEG decoder and encoder, the PNG unfilter, the blur and warp
-resamplers and the letterbox) and load it with ctypes.
+JPEG decoder and encoder, the PNG unfilter and pixel conversion, the
+blur, warp and HSV -> RGB of the augmentation, the letterbox and the
+stretch) and load it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
 ``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``, ``-lm`` and ``-lpthread``: no fast-math, no
@@ -106,9 +107,10 @@ def library() -> ctypes.CDLL:
     lib.yolo_png_unfilter.argtypes = [ptr, i32, size, i32, ptr,
                                       ctypes.c_char_p, size]
     lib.yolo_png_decode_rows.restype = i32
-    # raw, rawlen, h, w, depth, color, palette, channels, out, err, errlen
+    # raw, rawlen, h, w, depth, color, palette, channels, gamma, out, err,
+    # errlen
     lib.yolo_png_decode_rows.argtypes = [ptr, size, i32, i32, i32, i32, ptr,
-                                         i32, ptr, ctypes.c_char_p, size]
+                                         i32, i32, ptr, ctypes.c_char_p, size]
     lib.yolo_jpeg_encode.restype = i32
     # pixels, h, w, channels, quality, &out, &len, err, errlen
     lib.yolo_jpeg_encode.argtypes = [
@@ -122,10 +124,18 @@ def library() -> ctypes.CDLL:
     # src, sh, sw, channels, m (6 doubles), dh, dw, dst, err, errlen
     lib.yolo_warp_affine_u8.argtypes = [ptr, i32, i32, i32, ptr, i32, i32,
                                         ptr, ctypes.c_char_p, size]
+    lib.yolo_hsv2rgb_u8.restype = i32
+    # src, h, w, dst, err, errlen
+    lib.yolo_hsv2rgb_u8.argtypes = [ptr, i32, i32, ptr, ctypes.c_char_p,
+                                    size]
     lib.yolo_letterbox_batch.restype = i32
     # src, batch, src_h, src_w, c, dst, net_h, net_w, threads, err, errlen
     lib.yolo_letterbox_batch.argtypes = [ptr, i32, i32, i32, i32, ptr, i32,
                                          i32, i32, ctypes.c_char_p, size]
+    lib.yolo_stretch.restype = i32
+    # src, src_h, src_w, c, dst, net_h, net_w, err, errlen
+    lib.yolo_stretch.argtypes = [ptr, i32, i32, i32, ptr, i32, i32,
+                                 ctypes.c_char_p, size]
     lib.yolo_native_free.restype = None
     lib.yolo_native_free.argtypes = [ptr]
     return lib

@@ -19,6 +19,21 @@
  *   The batch is split over min(n_threads, batch) threads, thread t
  *   taking images t, t + threads, ...
  *
+ * int yolo_stretch(const uint8_t *src, int src_h, int src_w, int c,
+ *                  float *dst, int net_h, int net_w, char *err,
+ *                  size_t errlen)
+ *   src (src_h, src_w, c) -> dst (net_h, net_w, c), aspect ratio not
+ *   kept: the stretch of the JAX package's host loaders,
+ *   numpy_ref.stretch_resize, which is cv2.resize of the image / 255 in
+ *   float32 to (net_w, net_h), INTER_LINEAR, as OpenCV hands it to
+ *   Intel IPP: source x = (o + 0.5) * in / out - 0.5 in double, outside
+ *   the image clamped to the edge pixel with fraction 0, the fraction
+ *   rounded to float a; per channel, in float, the row pass
+ *   fmaf(p1 - p0, a, p0) and then the column pass likewise, each with
+ *   one rounding. (OpenCV runs its own code instead for sources of one
+ *   row or one column, whose taps are float; the stretch differs there
+ *   by a float ulp or two.)
+ *
  * Returns 0, or -1 with a message in err. The library is built with
  * -std=c11, which contracts no expression, so every multiply and add
  * rounds on its own as in the reference build.
@@ -158,6 +173,79 @@ int yolo_letterbox_batch(const uint8_t *src, int batch, int src_h,
     free(jobs);
     free(threads);
     free(started);
+    free_axis(&ay);
+    free_axis(&ax);
+    return rc;
+}
+
+/* the taps of the stretch: a = (float) of the fraction in double;
+ * outside the image the edge pixel with a = 0 */
+static int make_stretch_axis(int in_size, int out_size, Axis *ax) {
+    ax->i0 = malloc(sizeof(int) * (size_t)out_size);
+    ax->i1 = malloc(sizeof(int) * (size_t)out_size);
+    ax->w1 = malloc(sizeof(float) * (size_t)out_size);
+    if (!ax->i0 || !ax->i1 || !ax->w1) return -1;
+    const double scale = (double)in_size / out_size;
+    for (int o = 0; o < out_size; ++o) {
+        const double c = (o + 0.5) * scale - 0.5;
+        const double f = floor(c);
+        int i0 = (int)f;
+        double frac = c - f;
+        if (i0 < 0 || i0 >= in_size - 1) {
+            i0 = i0 < 0 ? 0 : in_size - 1;
+            frac = 0.0;
+        }
+        ax->i0[o] = i0;
+        ax->i1[o] = i0 + 1 < in_size ? i0 + 1 : in_size - 1;
+        ax->w1[o] = (float)frac;
+    }
+    return 0;
+}
+
+/* rows: two row passes of net_w * c floats */
+static void stretch_rows(const uint8_t *src, int src_w, int c, float *dst,
+                         int net_h, int net_w, const Axis *ay,
+                         const Axis *ax, float *rows) {
+    float *row0 = rows, *row1 = rows + (size_t)net_w * c;
+    for (int oy = 0; oy < net_h; ++oy) {
+        const float b = ay->w1[oy];
+        const uint8_t *rs[2] = {src + (size_t)ay->i0[oy] * src_w * c,
+                                src + (size_t)ay->i1[oy] * src_w * c};
+        float *pass[2] = {row0, row1};
+        for (int k = 0; k < 2; ++k)
+            for (int ox = 0; ox < net_w; ++ox) {
+                const float a = ax->w1[ox];
+                const int x0 = ax->i0[ox] * c, x1 = ax->i1[ox] * c;
+                for (int ch = 0; ch < c; ++ch) {
+                    const float p0 = rs[k][x0 + ch] / 255.0f;
+                    const float p1 = rs[k][x1 + ch] / 255.0f;
+                    pass[k][ox * c + ch] = fmaf(p1 - p0, a, p0);
+                }
+            }
+        float *out = dst + (size_t)oy * net_w * c;
+        for (int k = 0; k < net_w * c; ++k)
+            out[k] = fmaf(row1[k] - row0[k], b, row0[k]);
+    }
+}
+
+int yolo_stretch(const uint8_t *src, int src_h, int src_w, int c,
+                 float *dst, int net_h, int net_w, char *err,
+                 size_t errlen) {
+    if (c != 1 && c != 3)
+        return fail(err, errlen, "stretch: %d channels (1 or 3 are "
+                    "supported)", c);
+    if (src_h <= 0 || src_w <= 0 || net_h <= 0 || net_w <= 0)
+        return fail(err, errlen, "stretch: empty shape (image %dx%d, net "
+                    "%dx%d)", src_h, src_w, net_h, net_w);
+    Axis ay = {0}, ax = {0};
+    float *rows = malloc(sizeof(float) * 2 * (size_t)net_w * c);
+    int rc = 0;
+    if (!rows || make_stretch_axis(src_h, net_h, &ay) ||
+        make_stretch_axis(src_w, net_w, &ax))
+        rc = fail(err, errlen, "stretch: out of memory");
+    else
+        stretch_rows(src, src_w, c, dst, net_h, net_w, &ay, &ax, rows);
+    free(rows);
     free_axis(&ay);
     free_axis(&ax);
     return rc;

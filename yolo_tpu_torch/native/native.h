@@ -20,10 +20,12 @@ int yolo_png_unfilter(const uint8_t *raw, int h, size_t stride, int bpp,
 
 /* Inflated PNG rows of an h x w image of the given bit depth and colour
  * type -> out, (h, w, channels) uint8 as cv2.imread gives them; palette:
- * 256 RGB entries, zero past the PLTE chunk's. */
+ * 256 RGB entries, zero past the PLTE chunk's; gamma: the file's gamma
+ * in libpng's fixed point (100000 = 1.0), 0 for none, which a colour
+ * image's gray is computed through. */
 int yolo_png_decode_rows(const uint8_t *raw, size_t rawlen, int h, int w,
                          int depth, int color, const uint8_t *palette,
-                         int channels, uint8_t *out, char *err,
+                         int channels, int gamma, uint8_t *out, char *err,
                          size_t errlen);
 
 /* cv2.GaussianBlur(src, (ksize, ksize), 0) of an (h, w, c) uint8 image,
@@ -39,12 +41,25 @@ int yolo_warp_affine_u8(const uint8_t *src, int sh, int sw, int c,
                         const double *m, int dh, int dw, uint8_t *dst,
                         char *err, size_t errlen);
 
+/* cv2.cvtColor(src, COLOR_HSV2RGB) of an (h, w, 3) uint8 image, hue range
+ * 180 -> dst (h, w, 3) RGB, as OpenCV 5's AVX2 build gives it. */
+int yolo_hsv2rgb_u8(const uint8_t *src, int h, int w, uint8_t *dst,
+                    char *err, size_t errlen);
+
 /* The letterbox of (batch, src_h, src_w, c) uint8 images, c = 1 or 3,
  * onto a gray (0.5) (net_h, net_w) canvas -> dst (batch, net_h, net_w, c)
  * float32 in [0, 1], on min(n_threads, batch) threads (letterbox.c). */
 int yolo_letterbox_batch(const uint8_t *src, int batch, int src_h,
                          int src_w, int c, float *dst, int net_h, int net_w,
                          int n_threads, char *err, size_t errlen);
+
+/* The stretch of one (src_h, src_w, c) uint8 image to (net_h, net_w),
+ * aspect ratio not kept -> dst (net_h, net_w, c) float32 in [0, 1]:
+ * cv2.resize INTER_LINEAR of image / 255 as OpenCV's Intel IPP path
+ * computes it (letterbox.c). */
+int yolo_stretch(const uint8_t *src, int src_h, int src_w, int c,
+                 float *dst, int net_h, int net_w, char *err,
+                 size_t errlen);
 
 /* The standard Huffman tables of Annex K.3 (jpeg_enc.c): code counts of
  * lengths 1..16, then the symbols. */

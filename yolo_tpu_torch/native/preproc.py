@@ -1,22 +1,30 @@
 """Host image decoding for the port (the counterpart of
 yolo_tpu/native/preproc.py), with no OpenCV and no system image library:
 JPEG through the port's own decoder (native/jpeg.c), PNG through zlib and
-the C unfilter (data/png.py, native/png.c). Both give the bytes
-cv2.imread / cv2.imdecode give after COLOR_BGR2RGB (EXIF orientation
-applied), and raise ValueError, naming the file and the reason, for what
-they do not decode: progressive, lossless, arithmetic, hierarchical,
-12-bit, CMYK/YCCK or multi-scan JPEGs, corrupt or truncated data,
-interlaced PNGs, and other formats.
+the C unfilter (data/png.py, native/png.c). Every JPEG and PNG that
+cv2.imread / cv2.imdecode read decodes to the bytes they give after
+COLOR_BGR2RGB (EXIF orientation applied): baseline, multi-scan,
+progressive and arithmetic-coded JPEGs, CMYK and YCCK, 8-bit lossless
+ones where libjpeg-turbo converts them; PNGs of every type, interlaced
+or not, gray computed in linear light where a gamma is stated. What
+cv2 gives no image for raises ValueError naming the file and cv2's own
+refusal: hierarchical or 12-bit JPEGs, 2 or 5+ components, lossless
+restart intervals that are not whole MCU rows, truncated files; so do
+damaged Huffman scans and lost restart markers, which libjpeg warns of
+and decodes on, and other formats (BMP, PNM, TIFF, WebP, JPEG 2000,
+AVIF). No path hands a file to cv2 or PIL.
 
-letterbox_batch is the host letterbox of the loaders (native/letterbox.c):
-the bytes the JAX package's native letterbox_batch gives, on threads of
-its own. decode_letterbox_batch decodes a list of files on a thread pool
-(each C call releases the interpreter lock) and letterboxes each with it.
+letterbox_batch and stretch are the host resizes of the loaders
+(native/letterbox.c): the bytes of the JAX package's native
+letterbox_batch, on threads of its own, and of its
+numpy_ref.stretch_resize. decode_letterbox_batch decodes a list of
+files on a thread pool (each C call releases the interpreter lock) and
+letterboxes each.
 
 encode_jpeg writes the JPEG cv2.imwrite writes (native/jpeg_enc.c);
-gaussian_blur_u8 and warp_affine_u8 are cv2.GaussianBlur and
-cv2.warpAffine as the training augmentation calls them
-(native/resample.c).
+gaussian_blur_u8, warp_affine_u8 and hsv2rgb_u8 are cv2.GaussianBlur,
+cv2.warpAffine and cv2.cvtColor(COLOR_HSV2RGB) as the training
+augmentation calls them (native/resample.c).
 """
 
 from __future__ import annotations
@@ -121,6 +129,27 @@ def letterbox_batch(images_u8: np.ndarray, net,
     return out
 
 
+def stretch(image_u8: np.ndarray, net) -> np.ndarray:
+    """(H, W, C) uint8, C = 1 or 3 -> (net_h, net_w, C) float32 in [0, 1],
+    aspect ratio not kept: the bytes of the JAX package's host stretch
+    (numpy_ref.stretch_resize, cv2.resize INTER_LINEAR of the image / 255
+    on OpenCV's Intel IPP path; native/letterbox.c)."""
+    from yolo_tpu_torch.ops.letterbox import as_hw
+
+    net_h, net_w = as_hw(net)
+    src = np.ascontiguousarray(image_u8, dtype=np.uint8)
+    if src.ndim != 3:
+        raise ValueError(f"expected an (H, W, C) uint8 image, got shape "
+                         f"{src.shape}")
+    h, w, c = src.shape
+    out = np.empty((net_h, net_w, c), np.float32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_stretch(src.ctypes.data, h, w, c, out.ctypes.data,
+                              net_h, net_w, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
 def decode_letterbox_batch(paths, net, n_threads: int = 8,
                            channels: int = 3):
     """Decode N files and letterbox each to net (int or (net_h, net_w))
@@ -195,6 +224,23 @@ def gaussian_blur_u8(img: np.ndarray, ksize: int) -> np.ndarray:
                                        _ERR_LEN):
         raise ValueError(err.value.decode())
     return dst.reshape(np.shape(img))
+
+
+def hsv2rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(hsv, COLOR_HSV2RGB) for (H, W, 3) uint8, hue range
+    180, byte for byte as OpenCV 5's AVX2 build computes it
+    (native/resample.c)."""
+    src = np.ascontiguousarray(hsv, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got shape "
+                         f"{src.shape}")
+    h, w, _ = src.shape
+    dst = np.empty_like(src)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().yolo_hsv2rgb_u8(src.ctypes.data, h, w, dst.ctypes.data,
+                                 err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return dst
 
 
 def warp_affine_u8(img: np.ndarray, m: np.ndarray, size) -> np.ndarray:

@@ -31,7 +31,19 @@
  *   both blend as v0 = fma(ax, p01 - p00, p00), v1 likewise, v =
  *   fma(ay, v1 - v0, v0). Neighbours past the edge are clamped to it.
  *
- * Both return 0, or -1 with a message in err. The library is built with
+ * int yolo_hsv2rgb_u8(const uint8_t *src, int h, int w, uint8_t *dst,
+ *                     char *err, size_t errlen)
+ *   cv2.cvtColor(src, COLOR_HSV2RGB) of an (h, w, 3) uint8 HSV image,
+ *   hue range 180, as OpenCV 5's AVX2 build computes it
+ *   (color_hsv.simd.hpp, compiled with FMA contraction): hue times
+ *   6.0f / 180, s and v times 1.0f / 255; the sector table v,
+ *   v (1 - s), v fma(-s, f, 1), v fma(-s, 1 - f, 1) in float; the
+ *   colour times 255. Each row in blocks of kHsvBlock pixels through
+ *   the vector body, whose sector is trunc arithmetic and whose result
+ *   truncates; the rest through the scalar code (fmod, floor), which
+ *   rounds half to even.
+ *
+ * Each returns 0, or -1 with a message in err. The library is built with
  * -std=c11, which contracts no expression: every fused operation is an
  * explicit fmaf/fma call, and the warp is compiled a second time for
  * processors with FMA instructions (target_clones), which compute the
@@ -48,6 +60,8 @@
 
 /* OpenCV's AVX2 warp kernel: two vectors of 8 floats a step. */
 enum { kWarpBlock = 16 };
+/* OpenCV's AVX2 HSV2RGB_b body: four vectors of 8 floats a step. */
+enum { kHsvBlock = 32 };
 
 static int fail(char *err, size_t errlen, const char *fmt, ...) {
     va_list ap;
@@ -191,6 +205,54 @@ int yolo_warp_affine_u8(const uint8_t *src, int sh, int sw, int c,
                 float v1 = fmaf(ax, p11 - p10, p10);
                 int v = (int)lrintf(fmaf(ay, v1 - v0, v0));
                 o[x * c + k] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+            }
+        }
+    }
+    return 0;
+}
+
+static inline uint8_t sat_u8(int v) {
+    return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+int yolo_hsv2rgb_u8(const uint8_t *src, int h, int w, uint8_t *dst,
+                    char *err, size_t errlen) {
+    static const int sector_data[6][3] = {{1, 3, 0}, {1, 0, 2}, {3, 0, 1},
+                                          {0, 2, 1}, {0, 1, 3}, {2, 1, 0}};
+    if (h < 0 || w < 0)
+        return fail(err, errlen, "hsv2rgb: shape %dx%d", h, w);
+    const float hscale = 6.0f / 180, inv255 = 1.0f / 255.0f;
+    const int body = w / kHsvBlock * kHsvBlock;
+    for (int y = 0; y < h; y++) {
+        const uint8_t *in = src + (size_t)y * w * 3;
+        uint8_t *out = dst + (size_t)y * w * 3;
+        for (int x = 0; x < w; x++) {
+            const float s = in[3 * x + 1] * inv255, v = in[3 * x + 2] * inv255;
+            float hue = in[3 * x] * hscale, tab[4];
+            int sector;
+            if (x < body) {
+                const float pre = truncf(hue);
+                hue -= pre;
+                sector = (int)(pre - truncf(pre * (1.0f / 6.0f)) * 6.0f);
+            } else {
+                hue = fmodf(hue, 6.0f);
+                sector = (int)floorf(hue);
+                hue -= (float)sector;
+                if ((unsigned)sector >= 6u) {
+                    sector = 0;
+                    hue = 0.0f;
+                }
+            }
+            tab[0] = v;
+            tab[1] = v * (1.0f - s);
+            tab[2] = v * fmaf(-s, hue, 1.0f);
+            tab[3] = v * fmaf(-s, 1.0f - hue, 1.0f);
+            /* cv2 writes b, g, r; the output is r, g, b */
+            for (int k = 0; k < 3; k++) {
+                const float c = (x >= body && s == 0.0f
+                                     ? v : tab[sector_data[sector][2 - k]])
+                                * 255.0f;
+                out[3 * x + k] = sat_u8(x < body ? (int)c : (int)lrintf(c));
             }
         }
     }
