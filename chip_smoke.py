@@ -111,20 +111,26 @@ JSON lines; any failed check raises and the script exits non-zero:
               CPU held at box level as in phase 11
 
   14. images  real image files through the port's own host decoder
-              (yolo_tpu_torch/native/: JPEG and PNG in C, built by the
-              host C compiler in phase 2): (a) no OpenCV loaded; (b) the
-              fixtures of tests/data/torch_jpeg/ decode to the sha256 of
-              cv2's output recorded beside them, and the fixtures of the
-              kinds beyond one baseline scan (progressive, multi-scan,
-              arithmetic, CMYK, YCCK, interlaced and gamma PNG) go
-              through `detect --images` (YOLOv2-COCO 416, one file a
-              batch, --conf FIXTURE_CONF) and POST /detect: every file
-              yields boxes, one NMS launch a file, the lines equal
-              detect_raw on the decoded arrays and the answers direct
-              calls; (c) decode rates of a 480x640 4:2:0 q90 JPEG and of
-              the 480x640 progressive fixture, ms an image on one thread
-              and img/s on IMAGE_THREADS threads (8 threads at least twice
-              one, where the host has 4 cores), the host letterbox of the
+              (yolo_tpu_torch/native/: JPEG, PNG, BMP, PNM, TIFF and WebP,
+              built by the host C compiler in phase 2): (a) no OpenCV
+              loaded; (b) the fixtures of tests/data/torch_jpeg/ decode to
+              the sha256 of cv2's output recorded beside them, and the
+              fixtures of the kinds beyond one baseline scan (progressive,
+              multi-scan, arithmetic, CMYK, YCCK, interlaced and gamma
+              PNG) go through `detect --images` (YOLOv2-COCO 416, one file
+              a batch, --conf FIXTURE_CONF) and POST /detect; the BMP,
+              PNM, TIFF and WebP fixtures and the damaged and overflowing
+              JPEGs through `predict --image` and POST /detect, the BMPs
+              also through `detect --images`, a TIFF and a WebP also on
+              conv_impl="cuda": every file yields boxes, one NMS launch a
+              file, the lines equal detect_raw on the decoded arrays and
+              the answers direct calls; (c) decode rates of a 480x640
+              4:2:0 q90 JPEG, of the 480x640 progressive fixture, of a
+              24-bit BMP of the frame (the port's writer) and of the
+              480x640 LZW TIFF, q80 and lossless WebP fixtures, ms an
+              image on one thread and img/s on IMAGE_THREADS threads (8
+              threads at least twice one for the JPEGs, where the host
+              has 4 cores), the host letterbox of the
               frame to 416 on one thread, and a 480x640 Paeth PNG's
               unfilter in C against the Python version; (d) yolov3 @416,
               COCO-80, seeded weights (as phase 12), on COCO_SCENES
@@ -442,6 +448,7 @@ from yolo_tpu_torch.parallel.sharding import (make_dp_detector,
                                               maybe_init_distributed,
                                               replicate, shard_batch)
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+from yolo_tpu_torch.utils.viz import save_image
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        train_config_from_cfg,
                                        init_state, make_train_step,
@@ -586,6 +593,13 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 NEW_KIND_FIXTURES = ("prog_", "multiscan_", "arith_", "cmyk_", "ycck_",
                      "adam7_", "srgb_")
 PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
+# the other formats' fixtures (and the damaged and overflowing JPEGs),
+# by name prefix, and their 480x640 frames of phase 14 (c)
+FORMAT_FIXTURES = ("bmp_", "pgm_", "ppm_", "tiff_", "webp_", "damaged_",
+                   "overflow_")
+TIFF_FRAME = "frame_lzw_pred_480x640.tif"
+WEBP_FRAME = "frame_webp_q80_480x640.webp"
+WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
 FIXTURE_CONF = 0.005      # a score threshold at which every fixture has boxes
 IMAGE_THREADS = (1, 4, 8)
 IMAGE_DECODES = 128       # decodes a timed thread-pool run
@@ -2295,6 +2309,103 @@ def phase_fixture_detect(weights: str, card: str) -> int:
     return nms + served
 
 
+def phase_format_detect(weights: str, card: str) -> dict:
+    """Phase 14 (b): every BMP, PNM, TIFF and WebP fixture and the
+    damaged and overflowing JPEGs through `predict --image` and POST
+    /detect, the BMPs also through `detect --images`: one NMS launch a
+    file, the lines equal detect_raw on the decoded array; a TIFF and a
+    WebP also on conv_impl="cuda". Returns {kernel: launches}."""
+    from yolo_tpu_torch.cli.detect_cmds import _det_json
+
+    names = sorted(n for n in os.listdir(FIXTURES)
+                   if n.startswith(FORMAT_FIXTURES))
+    check(len(names) >= 12, f"format fixtures {names}")
+    cfg = dataclasses.replace(get_variant(VARIANT),
+                              conf_threshold=FIXTURE_CONF)
+    net = Darknet(cfg.layers, fold_params(
+        cfg.layers, dw.load(weights, cfg.layers)[0], cfg.bn_eps),
+        device="cuda", dtype=torch.bfloat16)
+    labels = cfg.detection_names()
+    launches = {"nms": 0, "conv": 0}
+
+    def direct(name, **kw):
+        frame = decode_image(os.path.join(FIXTURES, name))
+        with torch.no_grad():
+            o = detect_raw(cfg, net, torch.from_numpy(frame[None]).cuda(),
+                           **kw)
+        o = {k: v[0].cpu().numpy() for k, v in o.items()}
+        keep = np.nonzero(o["valid"])[0]
+        return _det_json(labels, o["classes"], o["scores"],
+                         o["boxes"][keep].astype(np.float64), keep)
+
+    boxes, seconds = {}, {}
+    for name in names:
+        out, _, wall, nms = cli_run(["predict", "--model", VARIANT,
+                                     "--weights", weights, "--image",
+                                     os.path.join(FIXTURES, name), "--conf",
+                                     str(FIXTURE_CONF)])
+        want = direct(name)
+        check(cli_lines(out) == want and want, f"predict --image {name}: "
+              f"the lines differ from detect_raw on the decoded array")
+        check(nms == 1, f"predict --image {name}: {nms} NMS launches")
+        launches["nms"] += nms
+        boxes[name], seconds[name] = len(want), wall
+    bmps = [n for n in names if n.endswith(".bmp")]
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in bmps:
+            os.symlink(os.path.join(FIXTURES, n), os.path.join(tmp, n))
+        out, _, _, nms = cli_run(["detect", "--model", VARIANT, "--weights",
+                                  weights, "--images", tmp, "--batch", "1",
+                                  "--conf", str(FIXTURE_CONF)])
+    recs = cli_lines(out)
+    check([os.path.basename(r["image"]) for r in recs] == bmps
+          and nms == len(bmps) and all(r["detections"] == direct(n)
+                                       for r, n in zip(recs, bmps)),
+          f"detect --images over the BMPs: {len(recs)} lines, {nms} NMS "
+          f"launches, want {len(bmps)} equal to detect_raw")
+    launches["nms"] += nms
+    cuda_route = {}
+    for name in ("tiff_lzw_pred_31x45.tif", "webp_lossless_37x53.webp"):
+        nms_kernel.launches = conv_kernel.launches = 0
+        got = direct(name, conv_impl="cuda")
+        check(got and (nms_kernel.launches, conv_kernel.launches)
+              == (1, ROUTE_CONVS), f"{name} on conv_impl=cuda: {len(got)} "
+              f"boxes, (NMS, conv) launches ({nms_kernel.launches}, "
+              f"{conv_kernel.launches})")
+        launches["nms"] += nms_kernel.launches
+        launches["conv"] += conv_kernel.launches
+        cuda_route[name] = len(got)
+    model = yolo_tpu_torch.load(weights, VARIANT, device="cuda",
+                                conf_threshold=FIXTURE_CONF)
+    server = DetectionServer(model.cfg, model.params, port=0,
+                             conf_threshold=FIXTURE_CONF)
+    server.start()
+    try:
+        served = 0
+        for name in names:
+            with open(os.path.join(FIXTURES, name), "rb") as f:
+                body = f.read()
+            nms_kernel.launches = 0
+            answer = post_body(server.port, body, "application/octet-stream")
+            served += nms_kernel.launches     # the direct call's apart
+            want = detections_to_json(
+                model(decode_image_bytes(body)[None]), labels)[0]
+            check(answer == want and answer, f"POST /detect {name}: the "
+                  f"answer differs from a direct call")
+    finally:
+        server.stop()
+    check(served == len(names), f"POST /detect: {served} NMS launches for "
+          f"{len(names)} bodies")
+    launches["nms"] += served
+    emit({"phase": "images", "check": "formats_to_boxes",
+          "files": len(names), "boxes": boxes, "conf": FIXTURE_CONF,
+          "predict_seconds": seconds, "bmps_through_detect": len(bmps),
+          "conv_route_boxes": cuda_route, "served_nms_launches": served,
+          "launches": launches, "lines_equal_detect_raw": True,
+          "answers_equal_direct": True, "card": card})
+    return launches
+
+
 def host_ms(fn, reps: int = 20) -> float:
     """Median ms of fn on a pipeline worker thread (one torch thread)."""
     def timed():
@@ -2327,7 +2438,9 @@ def decode_rates(path: str) -> tuple:
 def phase_decode_rates(card: str) -> dict:
     """Phase 14 (c): a 480x640 4:2:0 q90 JPEG and the 480x640
     progressive fixture decoded on one thread and on thread pools,
-    beside the host letterbox of a frame to 416; a 480x640 Paeth PNG's
+    beside the host letterbox of a frame to 416; a 24-bit BMP of the
+    same frame (the port's own writer), the LZW TIFF and q80 WebP
+    fixtures and a lossless WebP likewise; a 480x640 Paeth PNG's
     unfilter in C and in Python."""
     img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
     cores = os.cpu_count()
@@ -2340,6 +2453,22 @@ def phase_decode_rates(card: str) -> dict:
             f.write(encode_jpeg(img, 90, "420"))
         one, rates = decode_rates(path)
         prog_one, prog_rates = decode_rates(progressive)
+        formats = {}
+        bmp = os.path.join(tmp, "scene.bmp")
+        save_image(bmp, img)
+        check(np.array_equal(decode_image(bmp), img),
+              "the 24-bit BMP does not read back")
+        for what, fpath in (("bmp24", bmp),
+                            ("tiff_lzw", os.path.join(FIXTURES, TIFF_FRAME)),
+                            ("webp_q80", os.path.join(FIXTURES, WEBP_FRAME)),
+                            ("webp_lossless", os.path.join(
+                                FIXTURES, WEBP_LOSSLESS_FRAME))):
+            check(decode_image(fpath).shape == (*SRC_HW, 3),
+                  f"{what}: not a 480x640 frame")
+            f_one, f_rates = decode_rates(fpath)
+            formats[what] = {"ms_one_thread": f_one,
+                             "img_per_s": {str(n): r
+                                           for n, r in f_rates.items()}}
         letterbox_ms = host_ms(lambda: _host_resize(img, (416, 416),
                                                     "letterbox"))
         png = encode_png(img, filters=(4,))
@@ -2363,6 +2492,7 @@ def phase_decode_rates(card: str) -> dict:
            "progressive_ms_one_thread": prog_one,
            "progressive_img_per_s": {str(n): r
                                      for n, r in prog_rates.items()},
+           "formats": formats,
            "host_cores": cores, "paeth_png_unfilter_c_ms": c_ms,
            "paeth_png_unfilter_python_ms": py_ms}
     emit({"phase": "images", "check": "decode_rates", "src_hw":
@@ -5528,6 +5658,7 @@ def run(seeded: str) -> int:
     check(get_decoder() == "native", f"decoder {get_decoder()}")
     phase_fixtures()
     fixture_launches = phase_fixture_detect(weights, card)
+    format_launches = phase_format_detect(weights, card)
     phase_decode_rates(card)
     coco_launches, coco_grid, coco_shape, coco = phase_coco(
         card, os.path.join(seeded, "coco"))
@@ -5570,7 +5701,7 @@ def run(seeded: str) -> int:
          + cfg_run["launches"]["nms"] + cli_launches["nms"]
          + tree["launches"]["nms"] + v1["launches"]["nms"]
          + int8["launches"]["nms"] + video["nms"] + dp["nms"]
-         + fixture_launches,
+         + fixture_launches + format_launches["nms"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -5599,7 +5730,7 @@ def run(seeded: str) -> int:
          "launches": route_launches["conv"] + yolo_launches["conv"]
          + coco_launches["conv"] + cfg_run["launches"]["conv"]
          + tree["launches"]["conv"] + v1["launches"]["conv"]
-         + dp["conv"],
+         + dp["conv"] + format_launches["conv"],
          "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"],
                             tree["conv_worst"], v1["conv_worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],

@@ -32,6 +32,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
+from tests.jpeg_writer import (Frame, random_coefficients, sequential_script,
+                               write_jpeg)
 from tests.torch_port import jax_native_library
 from yolo_tpu.native import preproc as jpreproc
 from yolo_tpu_torch.data import pipeline as tpipe
@@ -220,13 +222,17 @@ def _patch_marker(data, old, new):
     return data[:i + 1] + bytes((new,)) + data[i + 2:]
 
 
-def _unsupported_files():
-    """What cv2 gives no image for, and the damage the decoder refuses
-    (a missing restart marker, which libjpeg resyncs past). Progressive,
-    arithmetic, CMYK and multi-scan files decode now:
-    tests/test_torch_jpeg_kinds.py holds them to cv2."""
-    from tests.jpeg_writer import Frame, random_coefficients, write_jpeg
+def _patch_dri(data):
+    """The DRI segment's length said as 5 (libjpeg: JERR_BAD_LENGTH)."""
+    i = data.index(b"\xff\xdd")
+    return data[:i + 2] + b"\x00\x05" + data[i + 4:i + 6] + b"\x00" + \
+        data[i + 6:]
 
+
+def _unsupported_files():
+    """What cv2 gives no image for. Progressive, arithmetic, CMYK,
+    multi-scan and damaged files decode: tests/test_torch_jpeg_kinds.py
+    and the restart tests below hold them to cv2."""
     img = _picture(np.random.default_rng(1), 24, 40)
     base = _baseline()
     sof = base.index(b"\xff\xc0")
@@ -261,19 +267,17 @@ def _unsupported_files():
         "truncated progressive": (prog[:len(prog) * 2 // 3], "truncated"),
         "progressive without EOI": (prog[:-2], "truncated"),
         "truncated arithmetic": (arith[:len(arith) * 2 // 3], "truncated"),
-        "missing RST": (_cv2_jpeg(img, 90, "420", restart=1).replace(
-            b"\xff\xd1", b"\xff\xd3", 1), "RST"),
-        "not an image": (b"GIF89a" + bytes(40), "not a JPEG or PNG"),
+        "DRI of 5 bytes": (_patch_dri(_cv2_jpeg(img, 90, "420", restart=1)),
+                           "DRI"),
+        "not an image": (b"GIF89a" + bytes(40), "not an image format"),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_unsupported_files()))
 def test_unsupported_and_corrupt_files_raise_with_path(tmp_path, case):
     data, reason = _unsupported_files()[case]
-    if case != "missing RST":   # libjpeg resyncs; the decoder refuses
-        for channels in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
-            assert cv2.imdecode(np.frombuffer(data, np.uint8),
-                                channels) is None
+    for channels in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), channels) is None
     path = str(tmp_path / f"{case.replace(' ', '_')}.jpg")
     with open(path, "wb") as f:
         f.write(data)
@@ -285,23 +289,87 @@ def test_unsupported_and_corrupt_files_raise_with_path(tmp_path, case):
         decode_image_bytes(data)
 
 
+def _same_as_cv2_or_both_refuse(data, shape):
+    """cv2's bytes at 3 and 1 channels where cv2 gives an image, a
+    ValueError where it gives none; True if cv2 gave one."""
+    decoded = False
+    for channels, flag in ((3, cv2.IMREAD_COLOR), (1, cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+        if want is None:
+            with pytest.raises(ValueError):
+                decode_image_bytes(data, channels)
+            continue
+        want = want[..., ::-1] if channels == 3 else want[..., None]
+        got = decode_image_bytes(data, channels)
+        assert got.shape == shape[:2] + (channels,)
+        np.testing.assert_array_equal(got, want)
+        decoded = True
+    return decoded
+
+
 def test_corrupt_scan_bytes_raise_or_decode_like_libjpeg():
-    """Random damage to the entropy-coded bytes: the decoder raises or
-    decodes; it never crashes (libjpeg itself warns and fills)."""
+    """Random damage to the entropy-coded bytes decodes as libjpeg
+    decodes it (bad codes read as symbol 0, data cut by a marker reads
+    zeros): the port gives cv2's bytes wherever cv2 gives an image."""
     base = _baseline(64, 64)
     start = base.index(b"\xff\xda") + 14
     rng = np.random.default_rng(0)
-    raised = 0
+    decoded = 0
     for _ in range(50):
         data = bytearray(base)
         for i in rng.integers(start, len(base) - 2, 4):
             data[i] = int(rng.integers(0, 256))
-        try:
-            out = decode_image_bytes(bytes(data))
-            assert out.shape == (64, 64, 3)
-        except ValueError:
-            raised += 1
-    assert raised > 0
+        decoded += _same_as_cv2_or_both_refuse(bytes(data), (64, 64))
+    assert decoded > 0
+
+
+def _rst_damage():
+    """Restart markers lost, repeated, out of order or replaced, in
+    cv2's baseline (restart every MCU or every 3) and progressive files
+    and in an arithmetic file: each of jpeg_resync_to_restart's three
+    actions."""
+    img = _picture(np.random.default_rng(1), 40, 56)
+    base1 = _cv2_jpeg(img, 90, "420", restart=1)
+    base3 = _cv2_jpeg(img, 90, "gray", restart=3)
+    ok, prog = cv2.imencode(".jpg", img[..., ::-1],
+                            [cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                             cv2.IMWRITE_JPEG_RST_INTERVAL, 1])
+    fr = Frame(56, 40, [(2, 2), (1, 1), (1, 1)])
+    arith = write_jpeg(fr, random_coefficients(np.random.default_rng(2), fr),
+                       sequential_script(fr, restart=2), arithmetic=True)
+
+    def cut(data, n):   # drop the n-th RST marker (and its two bytes)
+        i = -1
+        for _ in range(n):
+            i = min(j for j in (data.find(bytes((0xFF, m)), i + 1)
+                                for m in range(0xD0, 0xD8)) if j >= 0)
+        return data[:i] + data[i + 2:]
+
+    return {
+        "missing RST": base1.replace(b"\xff\xd1", b"\xff\xd3", 1),
+        "RST one ahead": base1.replace(b"\xff\xd2", b"\xff\xd3", 1),
+        "RST two behind": base1.replace(b"\xff\xd4", b"\xff\xd2", 1),
+        "RST far off": base1.replace(b"\xff\xd2", b"\xff\xd6", 1),
+        "lost RST": cut(base1, 3),
+        "lost RST gray": cut(base3, 2),
+        "RST as a reserved marker": base3.replace(b"\xff\xd1", b"\xff\x02", 1),
+        "RST as COM": base3.replace(b"\xff\xd1", b"\xff\xfe", 1),
+        "progressive lost RST": cut(prog.tobytes(), 5),
+        "progressive RST one ahead": prog.tobytes().replace(
+            b"\xff\xd2", b"\xff\xd3", 1),
+        "arithmetic lost RST": cut(arith, 2),
+        "arithmetic RST two ahead": arith.replace(b"\xff\xd1", b"\xff\xd3",
+                                                  1),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_rst_damage()))
+def test_damaged_restart_markers_match_cv2(case):
+    """Where libjpeg warns of a restart marker and resyncs (discard the
+    marker; scan forward; or leave it for a later restart, the interval
+    reading as empty), the port gives cv2's bytes."""
+    data = _rst_damage()[case]
+    assert _same_as_cv2_or_both_refuse(data, (40, 56))
 
 
 def test_missing_file_raises_file_not_found(tmp_path):

@@ -11,7 +11,8 @@ with (yolo_tpu/utils/viz.py):
   * PNG: cv2.imread reads the written file back bit for bit;
   * JPEG (q95, 4:2:0, cv2.imwrite's defaults): the file decodes, by cv2,
     within 1 grey level of cv2.imwrite's own file of the same array, and
-    the two files are the same bytes."""
+    the two files are the same bytes;
+  * BMP and binary PGM / PPM / PNM: cv2.imwrite's bytes."""
 
 import os
 
@@ -120,8 +121,33 @@ def test_jpeg_matches_cv2_imwrite(tmp_path, shape, smooth):
 
 def test_save_image_refuses_what_it_cannot_write(tmp_path):
     img = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(OSError, match="bmp"):
-        viz.save_image(str(tmp_path / "a.bmp"), img)
+    with pytest.raises(OSError, match="webp"):
+        viz.save_image(str(tmp_path / "a.webp"), img)
     with pytest.raises(OSError):
         viz.save_image(str(tmp_path / "missing" / "a.png"), img)
-    assert not os.path.exists(tmp_path / "a.bmp")
+    assert not os.path.exists(tmp_path / "a.webp")
+
+
+@pytest.mark.parametrize("ext", [".bmp", ".ppm", ".pgm", ".pnm"])
+@pytest.mark.parametrize("shape", [(1, 1, 3), (7, 13, 3), (16, 16, 3),
+                                   (5, 9, 1), (6, 8)])
+def test_bmp_and_pnm_match_cv2_imwrite(tmp_path, ext, shape):
+    """save_image's BMP (24-bit bottom-up, or 8-bit with cv2's gray
+    palette) and binary PGM / PPM are cv2.imwrite's bytes; a colour .pgm
+    or a gray .ppm is refused as cv2 refuses it."""
+    img = np.random.default_rng(5).integers(0, 256, shape, np.uint8)
+    colour = len(shape) == 3 and shape[2] == 3
+    want_path, got_path = str(tmp_path / f"cv2{ext}"), str(tmp_path /
+                                                           f"p{ext}")
+    try:
+        wrote = cv2.imwrite(want_path, img[..., ::-1] if colour
+                            else img.reshape(shape[:2]))
+    except cv2.error:
+        wrote = False
+    if not wrote:
+        with pytest.raises(OSError, match="cv2.imwrite refuses"):
+            viz.save_image(got_path, img)
+        return
+    viz.save_image(got_path, img)
+    with open(got_path, "rb") as a, open(want_path, "rb") as b:
+        assert a.read() == b.read()

@@ -209,3 +209,21 @@ def cv2_hsv_is_avx2() -> bool:
     import cv2
 
     return bool(cv2.checkHardwareSupport(11) and cv2.checkHardwareSupport(12))
+
+
+def cv2_idct_saturates() -> bool:
+    """Whether this host's cv2 runs libjpeg-turbo's SIMD islow IDCT (its
+    16-bit lanes saturate where coefficients overflow), the one
+    native/jpeg.c reproduces: a gray block whose DC alone overflows pass
+    1 reads 255 there, where the C IDCT's range-limit table wraps it."""
+    import cv2
+    import numpy as np
+
+    from tests.jpeg_writer import Frame, write_jpeg
+
+    fr = Frame(8, 8, qt=[np.full(64, 255)], qt_of=[0])
+    blk = np.zeros((1, 1, 64), np.int64)
+    blk[0, 0, 0], blk[0, 0, 8] = 100, 1
+    img = cv2.imdecode(np.frombuffer(write_jpeg(fr, [blk]), np.uint8),
+                       cv2.IMREAD_GRAYSCALE)
+    return bool(img is not None and img[0, 0] == 255)

@@ -13,8 +13,12 @@ hashes.json records, for each file, the sha256 and shape of
 cv2.imread(IMREAD_COLOR) after COLOR_BGR2RGB ("rgb") and of
 cv2.imread(IMREAD_GRAYSCALE) ("gray"). tests/test_torch_decode.py and
 chip_smoke.py hold the port's decoder to those hashes;
-PROGRESSIVE_FRAME is the 480x640 progressive file whose decode rate
-chip_smoke.py's phase 14 (c) reads.
+PROGRESSIVE_FRAME, TIFF_FRAME, WEBP_FRAME and WEBP_LOSSLESS_FRAME are the
+480x640 files whose decode rates chip_smoke.py's phase 14 (c) reads.
+The BMP, PNM, TIFF and
+WebP files (tests/bmp_writer.py and PIL write the ones cv2 does not),
+two damaged JPEGs and one whose coefficients overflow the IDCT come
+from format_kinds.
 """
 
 import argparse
@@ -33,10 +37,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from tests import jpeg_writer as jw  # noqa: E402
+from tests.bmp_writer import rle_encode, write_bmp  # noqa: E402
 from tests.png_writer import write_png  # noqa: E402
 
 SEED = 7
 PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
+# the 480x640 frames of the other formats' decode rates (phase 14 (c))
+TIFF_FRAME = "frame_lzw_pred_480x640.tif"
+WEBP_FRAME = "frame_webp_q80_480x640.webp"
+WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
 
 
 def picture(rng, h, w):
@@ -172,6 +181,92 @@ def new_kinds():
     return out
 
 
+def smooth_frame(rng, h, w, noisy_rows):
+    """Ramps and filled shapes, noise of +-2 in the first noisy_rows
+    rows only: a 480x640 LZW TIFF of the noisy picture() would weigh
+    800 KB, this one 200."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
+                    (xx + yy) * 127 // (w + h - 2)], -1).astype(np.int64)
+    for _ in range(12):
+        y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+        img[y0:y0 + h // 5, x0:x0 + w // 5] = rng.integers(0, 256, 3)
+    img[:noisy_rows] += rng.integers(-2, 3, img[:noisy_rows].shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def damaged_jpegs(rng):
+    """Files libjpeg decodes with a warning, and the IDCT's overflow."""
+    base = cv2_jpeg(picture(rng, 48, 64), 90, "420", restart=1)
+    cut = cv2_jpeg(picture(rng, 48, 64), 90, "420")
+    sos = cut.index(b"\xff\xda") + 12
+    f = jw.Frame(32, 32)
+    coefs = [np.clip(c * 40, -1023, 1023)
+             for c in jw.random_coefficients(np.random.default_rng(3), f)]
+    return {
+        "damaged_missing_rst_48x64.jpg": base.replace(b"\xff\xd2",
+                                                      b"\xff\xd4", 1),
+        "damaged_cut_by_marker_48x64.jpg": cut[:sos + (len(cut) - sos) // 2]
+        + b"\xff\xd9",
+        "overflow_gray_32x32.jpg": jw.write_jpeg(f, coefs),
+    }
+
+
+def format_kinds():
+    """BMP, PNM, TIFF and WebP files (and the damaged and overflowing
+    JPEGs) that the port's other decoders read, and the 480x640 TIFF and
+    WebP frames of phase 14 (c)."""
+    rng = np.random.default_rng(SEED + 2)
+    runs = np.repeat(rng.integers(0, 256, (29, 15)), 3, 1)[:, :43]
+    pal = rng.integers(0, 256, (256, 3))
+    out = {
+        "bmp_rle8_escapes_29x43.bmp": write_bmp(
+            runs, 8, palette=pal, rle=rle_encode(runs, 8, rng)),
+        "bmp_565_bitfields_21x37.bmp": write_bmp(
+            rng.integers(0, 65536, (21, 37)), 16,
+            masks=(0xF800, 0x7E0, 0x1F)),
+        "pgm_maxval100_17x23.pgm": b"P5\n# maxval 100, kept raw\n23 17\n100\n"
+        + rng.integers(0, 101, (17, 23)).astype(np.uint8).tobytes(),
+        "ppm_16bit_19x27.ppm": b"P6 27 19 65535\n" + rng.integers(
+            0, 65536, (19, 27, 3)).astype(">u2").tobytes(),
+    }
+    b = io.BytesIO()
+    Image.fromarray(picture(rng, 31, 45)).save(
+        b, "TIFF", compression="tiff_lzw", tiffinfo={317: 2})
+    out["tiff_lzw_pred_31x45.tif"] = b.getvalue()
+    b = io.BytesIO()
+    Image.fromarray(picture(rng, 40, 56)).save(b, "TIFF", compression="jpeg",
+                                               quality=85)
+    out["tiff_jpeg_ycbcr_40x56.tif"] = b.getvalue()
+    rgba = np.concatenate([picture(rng, 30, 41),
+                           rng.integers(0, 256, (30, 41, 1), np.uint8)], 2)
+    b = io.BytesIO()
+    Image.fromarray(rgba, "RGBA").save(b, "WEBP", quality=80)
+    out["webp_lossy_alpha_30x41.webp"] = b.getvalue()
+    b = io.BytesIO()
+    Image.fromarray(picture(rng, 37, 53)).save(b, "WEBP", lossless=True)
+    out["webp_lossless_37x53.webp"] = b.getvalue()
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    b = io.BytesIO()
+    Image.fromarray(picture(rng, 24, 40)).save(b, "WEBP", quality=90,
+                                               exif=exif.tobytes())
+    out["webp_exif6_24x40.webp"] = b.getvalue()
+    out.update(damaged_jpegs(rng))
+    b = io.BytesIO()
+    Image.fromarray(smooth_frame(rng, 480, 640, 160)).save(
+        b, "TIFF", compression="tiff_lzw", tiffinfo={317: 2})
+    out[TIFF_FRAME] = b.getvalue()
+    b = io.BytesIO()
+    Image.fromarray(picture(rng, 480, 640)).save(b, "WEBP", quality=80)
+    out[WEBP_FRAME] = b.getvalue()
+    b = io.BytesIO()
+    Image.fromarray(smooth_frame(rng, 480, 640, 80)).save(b, "WEBP",
+                                                          lossless=True)
+    out[WEBP_LOSSLESS_FRAME] = b.getvalue()
+    return out
+
+
 def digest(img: np.ndarray) -> dict:
     return {"sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
             .hexdigest(), "shape": list(img.shape)}
@@ -184,7 +279,8 @@ def main() -> None:
     out = ap.parse_args().out
     os.makedirs(out, exist_ok=True)
     hashes = {}
-    for name, data in {**fixtures(), **new_kinds()}.items():
+    for name, data in {**fixtures(), **new_kinds(),
+                       **format_kinds()}.items():
         path = os.path.join(out, name)
         with open(path, "wb") as f:
             f.write(data)

@@ -59,13 +59,17 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         (V's topology with yolov4-csp-swish heads at 640x384, or with
         Gaussian heads) on its micro-batch
     python3 tools/port_perf.py decode [--tree DIR] [--reps N]
-        the host JPEG decoder (native/jpeg.c) on chip_smoke.py phase
-        14 (c)'s 480x640 4:2:0 q90 frame and on the 480x640 progressive
-        fixture (tests/data/torch_jpeg/prog_420_q85_480x640.jpg): ms an
-        image on one thread (median of N after 10 warm-ups) and img/s on
-        8 threads; --tree DIR decodes with another checkout's package (an
-        A/B: run parent, change, change, parent in one machine session;
-        a tree that cannot read the progressive file reports its error)
+                                      [--format F]
+        the host decoder (native/) on chip_smoke.py phase 14 (c)'s
+        480x640 4:2:0 q90 frame and the 480x640 progressive fixture
+        (--format jpeg, the default), a 24-bit BMP of the frame (bmp),
+        the 480x640 LZW TIFF, q80 WebP and lossless WebP fixtures of
+        tests/data/torch_jpeg/ (tiff, webp, webp-lossless) or all of
+        them (all): ms an image on one thread (median of N after 10
+        warm-ups) and img/s on 8 threads; --tree DIR decodes with another
+        checkout's package (an A/B: run parent, change, change, parent in
+        one machine session; a tree that cannot read a file reports its
+        error)
     python3 tools/port_perf.py files [--tree DIR] [--reps N]
         chip_smoke.py phase 14 (d)'s files to boxes: yolov3 @416 (seeded
         weights, bf16, batch 32) over 256 COCO-format JPEG scenes,
@@ -96,6 +100,7 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -750,14 +755,32 @@ def cmd_decode(args, card) -> None:
     from yolo_tpu_torch.native.preproc import decode_image
 
     img, _ = coco_scene(np.random.default_rng(14), *SRC_HW)
-    progressive = os.path.join(REPO, "tests", "data", "torch_jpeg",
-                               "prog_420_q85_480x640.jpg")
+    fixtures = os.path.join(REPO, "tests", "data", "torch_jpeg")
     with tempfile.TemporaryDirectory() as tmp:
         baseline = os.path.join(tmp, "scene.jpg")
         with open(baseline, "wb") as f:
             f.write(encode_jpeg(img, 90, "420"))
-        for name, path in (("baseline", baseline),
-                           ("progressive", progressive)):
+        bmp = os.path.join(tmp, "scene.bmp")
+        with open(bmp, "wb") as f:       # 24-bit, bottom-up, as cv2 writes
+            step = (SRC_HW[1] * 3 + 3) & -4
+            rows = np.zeros((SRC_HW[0], step), np.uint8)
+            rows[:, :SRC_HW[1] * 3] = img[::-1, :, ::-1].reshape(SRC_HW[0],
+                                                                  -1)
+            f.write(b"BM" + struct.pack("<IIIIiiHHIIIIII", 54 + rows.size, 0,
+                                        54, 40, SRC_HW[1], SRC_HW[0], 1, 24,
+                                        0, 0, 0, 0, 0, 0) + rows.tobytes())
+        files = {"baseline": baseline,
+                 "progressive": os.path.join(fixtures,
+                                             "prog_420_q85_480x640.jpg"),
+                 "bmp": bmp,
+                 "tiff": os.path.join(fixtures, "frame_lzw_pred_480x640.tif"),
+                 "webp": os.path.join(fixtures,
+                                      "frame_webp_q80_480x640.webp"),
+                 "webp-lossless": os.path.join(
+                     fixtures, "frame_webp_lossless_480x640.webp")}
+        chosen = {"jpeg": ("baseline", "progressive"),
+                  "all": tuple(files)}.get(args.format, (args.format,))
+        for name, path in ((n, files[n]) for n in chosen):
             try:
                 for _ in range(10):
                     decode_image(path)
@@ -857,6 +880,9 @@ def main() -> int:
     dec = sub.add_parser("decode")
     dec.add_argument("--tree", default=None)
     dec.add_argument("--reps", type=int, default=200)
+    dec.add_argument("--format", default="jpeg",
+                     choices=("jpeg", "bmp", "tiff", "webp", "webp-lossless",
+                              "all"))
     fil = sub.add_parser("files")
     fil.add_argument("--tree", default=None)
     fil.add_argument("--reps", type=int, default=3)

@@ -40,9 +40,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--decoder", default="native",
                    choices=["cv2", "native"],
                    help="host image decoder: native = the port's own "
-                        "JPEG/PNG decoder (yolo_tpu_torch/native/, the "
-                        "bytes cv2.imread gives); cv2 where OpenCV is "
-                        "installed")
+                        "JPEG/PNG/BMP/PNM/TIFF/WebP decoder "
+                        "(yolo_tpu_torch/native/, the bytes cv2.imread "
+                        "gives); cv2 where OpenCV is installed")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--hier-thresh", type=float, default=None,

@@ -219,7 +219,7 @@ def _run(cmd) -> str:
 def cmd_doctor(args) -> None:
     """One JSON report of what the port depends on: torch and CUDA
     versions, the card's name and power limit, nvcc, a build and load of
-    the CUDA kernels and of the host C library (the JPEG/PNG decoders
+    the CUDA kernels and of the host C library (the image decoders
     and the JPEG encoder), optional packages and the zoo's local files.
     Each failure is reported, not raised."""
     import importlib.util

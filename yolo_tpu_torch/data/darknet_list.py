@@ -184,19 +184,18 @@ def image_dims(path: str) -> Tuple[int, int]:
     orientation tag is parsed and orientations 5..8 swap the SOF dims,
     matching the decoders' auto-rotation (the pipeline's loader applies
     it, so its post-rotation view is the authoritative geometry); BMP by
-    its header too. Other formats (and unparseable headers) fall back to
-    a full decode through
+    its header too. Other formats (PNM, TIFF, WebP) and unparseable
+    headers fall back to a full decode through
     data.pipeline.load_image (the port's own decoder unless cv2 is
-    selected)."""
+    selected), as the JAX package's falls back to cv2.imread."""
     with open(path, "rb") as f:
         head = f.read(26)
         if head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR":
             w, h = struct.unpack(">II", head[16:24])
             return int(w), int(h)
         if head[:2] == b"BM" and len(head) == 26:
-            # BMP: the port decodes no BMP, its header holds the dims
-            # (BITMAPCOREHEADER: 16-bit; later headers: 32-bit, a
-            # negative height for top-down rows)
+            # BMP: its header holds the dims (BITMAPCOREHEADER: 16-bit;
+            # later headers: 32-bit, a negative height for top-down rows)
             if struct.unpack("<I", head[14:18])[0] == 12:
                 w, h = struct.unpack("<HH", head[18:22])
             else:

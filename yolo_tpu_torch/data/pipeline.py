@@ -8,7 +8,8 @@ card ahead of the consumer.
              every source size (inference_batches)
 
 Images decode with the port's own decoder by default on every host
-(native/preproc.py: JPEG and PNG, the bytes cv2.imread gives), so that
+(native/preproc.py: JPEG, PNG, BMP, PNM, TIFF and WebP, the bytes
+cv2.imread gives), so that
 the tests run the code the card runs; set_decoder("cv2") selects OpenCV
 where it is installed. The host letterbox is the C one of
 native/letterbox.c (cv2 INTER_LINEAR semantics, the JAX package's
@@ -40,9 +41,10 @@ from yolo_tpu_torch.ops.letterbox import as_hw, letterbox_geometry
 
 
 # Host image decoder: "native" (native/preproc.py, the default on every
-# host: every JPEG and PNG cv2 reads, with cv2's bytes) or "cv2"
-# (OpenCV, only when asked for; it also reads BMP, PNM, TIFF, WebP,
-# JPEG 2000 and AVIF files, which the native decoder raises for)
+# host: the JPEG, PNG, BMP, PNM, TIFF and WebP files cv2 reads, with
+# cv2's bytes) or "cv2" (OpenCV, only when asked for; it also reads
+# JPEG 2000, AVIF, GIF, Sun raster, PFM and HDR files, which the native
+# decoder raises for)
 _DECODER = "native"
 
 

@@ -35,6 +35,9 @@ import time
 NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(NATIVE_DIR)),
                          "build", "yolo_tpu_torch", "native")
+# the whole-file decoders: bytes -> a malloc'd (h, w, channels) image
+DECODERS = ("yolo_jpeg_decode", "yolo_jpeg_decode_ycc", "yolo_jpeg_decode_raw",
+            "yolo_bmp_decode", "yolo_webp_decode_vp8l", "yolo_webp_decode_vp8")
 CC_FLAGS = ("-O2", "-std=c11", "-fPIC", "-shared")
 LIBS = ("-lm", "-lpthread")
 
@@ -97,11 +100,17 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     i32p = ctypes.POINTER(ctypes.c_int)
-    lib.yolo_jpeg_decode.restype = i32
-    # data, len, channels, &out, &h, &w, err, errlen
-    lib.yolo_jpeg_decode.argtypes = [
-        ptr, size, i32, ctypes.POINTER(ctypes.c_void_p), i32p, i32p,
-        ctypes.c_char_p, size]
+    for name in DECODERS:
+        fn = getattr(lib, name)
+        fn.restype = i32
+        # data, len, channels, &out, &h, &w, err, errlen
+        fn.argtypes = [ptr, size, i32, ctypes.POINTER(ctypes.c_void_p), i32p,
+                       i32p, ctypes.c_char_p, size]
+    for name in ("yolo_tiff_lzw_decode", "yolo_tiff_packbits_decode"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        # in, inlen, out, outlen, err, errlen
+        fn.argtypes = [ptr, size, ptr, size, ctypes.c_char_p, size]
     lib.yolo_png_unfilter.restype = i32
     # raw, h, stride, bpp, out, err, errlen
     lib.yolo_png_unfilter.argtypes = [ptr, i32, size, i32, ptr,

@@ -19,9 +19,11 @@
  *     any sampling factors, the components split over scans any way,
  *     restart intervals of whole MCU rows; gray read as gray and RGB as
  *     RGB, the only lossless outputs libjpeg-turbo converts;
- *   - dequantization and the islow integer IDCT of jidctint.c
- *     (CONST_BITS 13, PASS1_BITS 2), its rounding and its post-IDCT
- *     range-limit table (jdmaster.c prepare_range_limit_table);
+ *   - dequantization and the islow integer IDCT as libjpeg-turbo's SIMD
+ *     code runs it (jidctint-avx2.asm: jidctint.c's CONST_BITS 13,
+ *     PASS1_BITS 2 and rounding in 16-bit lanes, which wrap in the
+ *     dequantization and a few sums and saturate at each pack), so
+ *     coefficients that overflow give cv2's bytes;
  *   - upsampling as jdsample.c selects it: h2v1 and h2v2 "fancy"
  *     (triangle) filters where the downsampled width exceeds 2, h1v2
  *     fancy always, box replication for the narrow cases, for any
@@ -42,11 +44,12 @@
  * components, colour conversions of lossless frames libjpeg-turbo does
  * not make, lossless restart intervals that are not whole MCU rows,
  * truncated files (cv2.imdecode suspends at the end of the
- * buffer). Damaged entropy-coded data of Huffman scans and a lost
- * restart marker in any scan also fail (libjpeg warns and decodes on
- * there); arithmetic scans decode other damage as libjpeg does, but
- * where a coefficient overflows the IDCT: the range-limit table wraps
- * as libjpeg's C IDCT does, where its SIMD IDCT saturates.
+ * buffer). Damaged entropy-coded data decodes as libjpeg-turbo decodes
+ * it, warnings aside: a bad Huffman code reads as symbol 0, data cut by
+ * a marker reads zeros and leaves the MCUs up to the next restart zero,
+ * a lost or wrong restart marker is resynced as jdmarker.c resyncs it;
+ * and a frame of one scan is given when that scan ends, whatever
+ * follows it.
  *
  * Plain C11, integer arithmetic only. Every call owns its state, so
  * calls on different threads run in parallel.
@@ -66,10 +69,6 @@
 #define CV2_TOO "; cv2 gives no image either (libjpeg-turbo: "
 /* libjpeg-turbo stops at these header faults (ERREXIT) */
 #define CV2_STOPS "; cv2 gives no image either (libjpeg-turbo stops there)"
-/* where libjpeg warns and decodes on, filling or resyncing */
-#define CV2_WARNS "; libjpeg warns and decodes on, and cv2 gives an image, " \
-                  "but damaged data is refused here"
-
 #define CONST_BITS 13
 #define PASS1_BITS 2
 #define FIX_0_298631336 2446
@@ -144,6 +143,8 @@ typedef struct {
     int sof, progressive, arithmetic, lossless;
     component comp[MAX_COMPS];
     int saw_jfif, saw_adobe, adobe_transform, orientation, saw_app1;
+    int transform;            /* -1: the file's colour space; 0 / 1:
+                               * components as they are / YCbCr (TIFF) */
 
     /* the current scan */
     component *scan[MAX_COMPS];
@@ -162,7 +163,10 @@ typedef struct {
     uint64_t bits;
     int nbits;                /* bits in the buffer, fill bits included */
     int fill;                 /* zero bits appended past a marker / end */
-    int marker_hit;
+    int marker_hit;           /* an unread marker: pos on its last FF */
+    int insufficient;         /* jdhuff.c insufficient_data: bits were
+                               * read past a marker; MCUs up to the next
+                               * restart stay zero */
 } decoder;
 
 static void fail(decoder *d, const char *fmt, ...) {
@@ -455,7 +459,7 @@ static inline int get_bits(decoder *d, int n) {
 }
 
 static inline int decode_huff(decoder *d, const huff_table *t) {
-    if (d->nbits < 16) fill_bits(d);
+    if (d->nbits < 17) fill_bits(d);
     int look = (int)(d->bits >> (64 - 9));
     int nb = t->look_nbits[look];
     if (nb) {
@@ -469,9 +473,9 @@ static inline int decode_huff(decoder *d, const huff_table *t) {
         l++;
         code = (int32_t)(d->bits >> (64 - l));
     }
-    if (l > 16) fail(d, "corrupt scan data: bad Huffman code" CV2_WARNS);
-    d->bits <<= l;
+    d->bits <<= l;             /* 17 bits of a bad code */
     d->nbits -= l;
+    if (l > 16) return 0;      /* jpeg_huff_decode: a zero, with a warning */
     return t->huffval[(code + t->valoffset[l]) & 0xFF];
 }
 
@@ -479,32 +483,26 @@ static inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+/* after an MCU: were bits read past the data? Cut by a marker, libjpeg
+ * (jpeg_fill_bit_buffer) has read zeros and warns, and the MCUs up to
+ * the next restart stay zero; at the end of the buffer cv2.imdecode
+ * suspends and gives no image */
 static void check_not_past_end(decoder *d) {
-    if (d->nbits < d->fill)
-        fail(d, "truncated or corrupt scan data: the entropy-coded "
-                "segment ends before the last MCU (truncated: cv2.imdecode "
-                "gives no image either; cut by a marker: libjpeg fills "
-                "zeros and cv2 gives an image)");
+    if (d->nbits >= d->fill) return;
+    if (!d->marker_hit)
+        fail(d, "truncated: the entropy-coded segment ends before the "
+                "last MCU" CV2_TOO "cv2.imdecode suspends at the end of the "
+                "buffer)");
+    d->insufficient = 1;
 }
 
 /* --------------------------------------------------------------- IDCT */
 
-static uint8_t idct_limit[1024];   /* jdmaster.c's post-IDCT table */
 static int cr_r[256], cb_b[256];   /* jdcolor.c build_ycc_rgb_table */
 static int32_t cr_g[256], cb_g[256];
 
 /* filled when the library loads, before any call can read them */
 __attribute__((constructor)) static void init_tables(void) {
-    /* v & 1023 -> sample: [0,128) -> v + 128, [128,512) -> 255,
-     * [512,896) -> 0, [896,1024) -> v - 896 */
-    for (int i = 0; i < 1024; i++) {
-        int v;
-        if (i < 128) v = i + 128;
-        else if (i < 512) v = 255;
-        else if (i < 896) v = 0;
-        else v = i - 896;
-        idct_limit[i] = (uint8_t)v;
-    }
     /* SCALEBITS 16, x = i - 128 */
     for (int i = 0; i < 256; i++) {
         int32_t x = i - 128;
@@ -515,120 +513,123 @@ __attribute__((constructor)) static void init_tables(void) {
     }
 }
 
+/* 16-bit lanes of libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm,
+ * whose arithmetic jidctint-sse2.asm shares): dequantization by pmullw
+ * and the sums in0 +- in4, in7 + in3, in5 + in1 wrap at 16 bits, pass 1
+ * packs to 16 bits with signed saturation (packssdw), pass 2 saturates
+ * to 8 bits (packssdw, packsswb) before adding 128 */
+static inline int32_t wrap16(int32_t v) { return (int16_t)(uint16_t)v; }
+
+static inline int32_t sat16(int32_t v) {
+    return v < -32768 ? -32768 : v > 32767 ? 32767 : v;
+}
+
+/* the 32-bit lanes add and shift as two's complement */
+static inline int32_t descale32(int32_t x, int n) {
+    return (int32_t)((uint32_t)x + ((uint32_t)1 << (n - 1))) >> n;
+}
+
+/* the 32-bit lanes add as two's complement */
+#define ADDW(a, b) ((int32_t)((uint32_t)(a) + (uint32_t)(b)))
+#define SUBW(a, b) ((int32_t)((uint32_t)(a) - (uint32_t)(b)))
+
+/* the 1-D transform of the eight 16-bit lanes L(0)..L(7), each of the
+ * eight 32-bit sums handed to S(j, sum) before its descale: jidctint.c's
+ * products, which the SIMD code's pmaddwd pairs give exactly, from the
+ * lanes' 16-bit sums where it forms them */
+#define IDCT_1D(L, S)                                                       \
+    do {                                                                    \
+        const int32_t e2 = L(2), e6 = L(6);                                 \
+        const int32_t z1 = (e2 + e6) * FIX_0_541196100;                     \
+        const int32_t tmp2 = z1 - e6 * FIX_1_847759065;                     \
+        const int32_t tmp3 = z1 + e2 * FIX_0_765366865;                     \
+        const int32_t e0 = L(0), e4 = L(4);                                 \
+        const int32_t tmp0 = wrap16(e0 + e4) * (1 << CONST_BITS);          \
+        const int32_t tmp1 = wrap16(e0 - e4) * (1 << CONST_BITS);          \
+        const int32_t t10 = ADDW(tmp0, tmp3), t13 = SUBW(tmp0, tmp3);       \
+        const int32_t t11 = ADDW(tmp1, tmp2), t12 = SUBW(tmp1, tmp2);       \
+        const int32_t i1 = L(1), i3 = L(3), i5 = L(5), i7 = L(7);          \
+        const int32_t s3 = wrap16(i7 + i3), s4 = wrap16(i5 + i1);          \
+        const int32_t z5 = (s3 + s4) * FIX_1_175875602;                     \
+        const int32_t z3o = z5 - s3 * FIX_1_961570560;                      \
+        const int32_t z4o = z5 - s4 * FIX_0_390180644;                      \
+        const int32_t za = (i7 + i1) * -FIX_0_899976223;                    \
+        const int32_t zb = (i5 + i3) * -FIX_2_562915447;                    \
+        const int32_t b3 = ADDW(i1 * FIX_1_501321110 + za, z4o);           \
+        S(0, ADDW(t10, b3));                                                \
+        S(7, SUBW(t10, b3));                                                \
+        const int32_t b2 = ADDW(i3 * FIX_3_072711026 + zb, z3o);           \
+        S(1, ADDW(t11, b2));                                                \
+        S(6, SUBW(t11, b2));                                                \
+        const int32_t b1 = ADDW(i5 * FIX_2_053119869 + zb, z4o);           \
+        S(2, ADDW(t12, b1));                                                \
+        S(5, SUBW(t12, b1));                                                \
+        const int32_t b0 = ADDW(i7 * FIX_0_298631336 + za, z3o);           \
+        S(3, ADDW(t13, b0));                                                \
+        S(4, SUBW(t13, b0));                                                \
+    } while (0)
+
+/* pass 2's last step: descale by 18, saturate to [-128, 127], add 128;
+ * pass-1 lanes are int16, so the descaled sums lie in (-8192, 8192) */
+static uint8_t idct_out[16384];
+
+__attribute__((constructor)) static void init_idct_out(void) {
+    for (int i = 0; i < 16384; i++) {
+        const int v = i - 8192;
+        idct_out[i] = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+    }
+}
+
+#define OUT(v) idct_out[(descale32((v), CONST_BITS + PASS1_BITS + 3) + 8192) \
+                        & 16383]
+
 static void idct_islow(const int16_t *in, const int16_t *qt, uint8_t *out,
                        int stride) {
     int32_t ws[64];
-    for (int c = 0; c < 8; c++) {
-        const int16_t *ip = in + c;
-        const int16_t *qp = qt + c;
-        int32_t *wp = ws + c;
-        if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] &&
-            !ip[48] && !ip[56]) {
-            int32_t dc = ((int32_t)ip[0] * qp[0]) * (1 << PASS1_BITS);
-            for (int r = 0; r < 8; r++) wp[r * 8] = dc;
-            continue;
+    uint64_t rows[14], ac = 0;
+    memcpy(rows, in + 8, sizeof rows);
+    for (int k = 0; k < 14; k++) ac |= rows[k];
+    if (!ac) {   /* rows 1-7 all zero: the DC row shifted in 16 bits */
+        for (int c = 0; c < 8; c++) {
+            int32_t v = wrap16((int32_t)((uint32_t)wrap16(in[c] * qt[c])
+                                         << PASS1_BITS));
+            for (int r = 0; r < 8; r++) ws[r * 8 + c] = v;
         }
-        int32_t z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-        z2 = (int32_t)ip[16] * qp[16];
-        z3 = (int32_t)ip[48] * qp[48];
-        z1 = (z2 + z3) * FIX_0_541196100;
-        t2 = z1 + z3 * (-FIX_1_847759065);
-        t3 = z1 + z2 * FIX_0_765366865;
-        z2 = (int32_t)ip[0] * qp[0];
-        z3 = (int32_t)ip[32] * qp[32];
-        t0 = (z2 + z3) * (1 << CONST_BITS);
-        t1 = (z2 - z3) * (1 << CONST_BITS);
-        t10 = t0 + t3;
-        t13 = t0 - t3;
-        t11 = t1 + t2;
-        t12 = t1 - t2;
-        t0 = (int32_t)ip[56] * qp[56];
-        t1 = (int32_t)ip[40] * qp[40];
-        t2 = (int32_t)ip[24] * qp[24];
-        t3 = (int32_t)ip[8] * qp[8];
-        z1 = t0 + t3;
-        z2 = t1 + t2;
-        z3 = t0 + t2;
-        z4 = t1 + t3;
-        z5 = (z3 + z4) * FIX_1_175875602;
-        t0 *= FIX_0_298631336;
-        t1 *= FIX_2_053119869;
-        t2 *= FIX_3_072711026;
-        t3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        t0 += z1 + z3;
-        t1 += z2 + z4;
-        t2 += z2 + z3;
-        t3 += z1 + z4;
-        wp[0] = DESCALE(t10 + t3, CONST_BITS - PASS1_BITS);
-        wp[56] = DESCALE(t10 - t3, CONST_BITS - PASS1_BITS);
-        wp[8] = DESCALE(t11 + t2, CONST_BITS - PASS1_BITS);
-        wp[48] = DESCALE(t11 - t2, CONST_BITS - PASS1_BITS);
-        wp[16] = DESCALE(t12 + t1, CONST_BITS - PASS1_BITS);
-        wp[40] = DESCALE(t12 - t1, CONST_BITS - PASS1_BITS);
-        wp[24] = DESCALE(t13 + t0, CONST_BITS - PASS1_BITS);
-        wp[32] = DESCALE(t13 - t0, CONST_BITS - PASS1_BITS);
+    } else {
+        for (int c = 0; c < 8; c++) {
+            const int16_t *ip = in + c;
+            const int16_t *qp = qt + c;
+            int32_t *wp = ws + c;
+            if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] &&
+                !ip[48] && !ip[56]) {    /* what the sums give the DC alone */
+                const int32_t v = sat16(wrap16(ip[0] * qp[0]) *
+                                        (1 << PASS1_BITS));
+                for (int r = 0; r < 8; r++) wp[r * 8] = v;
+                continue;
+            }
+#define DEQ(j) wrap16(ip[(j) * 8] * qp[(j) * 8])
+#define WS(j, v) wp[(j) * 8] = sat16(descale32((v), CONST_BITS - PASS1_BITS))
+            IDCT_1D(DEQ, WS);
+#undef DEQ
+#undef WS
+        }
     }
     for (int r = 0; r < 8; r++) {
-        const int32_t *wp = ws + r * 8;
         uint8_t *op = out + (size_t)r * stride;
+        const int32_t *wp = ws + r * 8;
         if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] &&
-            !wp[7]) {
-            uint8_t v = idct_limit[DESCALE(wp[0], PASS1_BITS + 3) & 1023];
-            memset(op, v, 8);
+            !wp[7]) {                            /* likewise, a row */
+            memset(op, OUT((int32_t)((uint32_t)wp[0] << CONST_BITS)), 8);
             continue;
         }
-        int32_t z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-        z2 = wp[2];
-        z3 = wp[6];
-        z1 = (z2 + z3) * FIX_0_541196100;
-        t2 = z1 + z3 * (-FIX_1_847759065);
-        t3 = z1 + z2 * FIX_0_765366865;
-        t0 = (wp[0] + wp[4]) * (1 << CONST_BITS);
-        t1 = (wp[0] - wp[4]) * (1 << CONST_BITS);
-        t10 = t0 + t3;
-        t13 = t0 - t3;
-        t11 = t1 + t2;
-        t12 = t1 - t2;
-        t0 = wp[7];
-        t1 = wp[5];
-        t2 = wp[3];
-        t3 = wp[1];
-        z1 = t0 + t3;
-        z2 = t1 + t2;
-        z3 = t0 + t2;
-        z4 = t1 + t3;
-        z5 = (z3 + z4) * FIX_1_175875602;
-        t0 *= FIX_0_298631336;
-        t1 *= FIX_2_053119869;
-        t2 *= FIX_3_072711026;
-        t3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        t0 += z1 + z3;
-        t1 += z2 + z4;
-        t2 += z2 + z3;
-        t3 += z1 + z4;
-        const int n = CONST_BITS + PASS1_BITS + 3;
-        op[0] = idct_limit[DESCALE(t10 + t3, n) & 1023];
-        op[7] = idct_limit[DESCALE(t10 - t3, n) & 1023];
-        op[1] = idct_limit[DESCALE(t11 + t2, n) & 1023];
-        op[6] = idct_limit[DESCALE(t11 - t2, n) & 1023];
-        op[2] = idct_limit[DESCALE(t12 + t1, n) & 1023];
-        op[5] = idct_limit[DESCALE(t12 - t1, n) & 1023];
-        op[3] = idct_limit[DESCALE(t13 + t0, n) & 1023];
-        op[4] = idct_limit[DESCALE(t13 - t0, n) & 1023];
+#define ROW(j) wp[j]
+#define PIX(j, v) op[j] = OUT(v)
+        IDCT_1D(ROW, PIX);
+#undef ROW
+#undef PIX
     }
 }
+
 
 /* --------------------------------------------------------------- scan */
 
@@ -644,9 +645,7 @@ static void decode_block(decoder *d, component *c, int16_t blk[64]) {
         int r = rs >> 4;
         s = rs & 15;
         if (s) {
-            k += r;
-            if (k > 63)
-                fail(d, "corrupt scan data: AC index past 63" CV2_WARNS);
+            k += r;     /* past 63 on damaged data: coefficient 63 */
             blk[natural_order[k]] = (int16_t)extend(get_bits(d, s), s);
         } else {
             if (r != 15) break;
@@ -658,24 +657,49 @@ static void decode_block(decoder *d, component *c, int16_t blk[64]) {
 
 static void arith_reset(decoder *d);
 
+static int next_marker(decoder *d);
+
+/* jdhuff.c / jdarith.c process_restart: the bits left are dropped and
+ * the marker read as jdmarker.c read_restart_marker and
+ * jpeg_resync_to_restart read it: the marker the scan stopped at, else
+ * the next one after any bytes (which libjpeg skips with a warning). The
+ * expected RSTn is read. Of the others, a marker below SOF0 or one of
+ * the two restarts before the expected one is passed over and the next
+ * marker judged; another marker, or one of the next two restarts, is
+ * left unread, and the interval then reads as empty (zero bits); any
+ * other restart is read in place of the expected one. */
 static void restart(decoder *d, int *expected_rst) {
-    /* drop the partial byte's padding and any bytes before the next
-     * marker (libjpeg skips them with a warning), then read RSTn */
+    const int want = *expected_rst;
+    int m, unread;
+    if (d->marker_hit) {
+        m = d->data[d->pos + 1];
+        d->pos += 2;
+    } else {
+        m = next_marker(d);
+    }
+    for (;;) {
+        const int rst = m >= 0xD0 && m <= 0xD7 ? m - 0xD0 : -1;
+        if (rst == want || (rst >= 0 && rst != ((want + 1) & 7) &&
+                            rst != ((want + 2) & 7) &&
+                            rst != ((want + 7) & 7) &&
+                            rst != ((want + 6) & 7))) {
+            unread = 0;               /* action 1: read it */
+            break;
+        }
+        if (m >= 0xC0 && (rst < 0 || rst == ((want + 1) & 7) ||
+                          rst == ((want + 2) & 7))) {
+            unread = 1;               /* action 3: leave it */
+            d->pos -= 2;
+            break;
+        }
+        m = next_marker(d);           /* action 2: scan on */
+    }
+    *expected_rst = (want + 1) & 7;
     d->bits = 0;
     d->nbits = 0;
     d->fill = 0;
-    d->marker_hit = 0;
-    while (d->pos + 1 < d->len &&
-           (d->data[d->pos] != 0xFF || d->data[d->pos + 1] == 0x00 ||
-            d->data[d->pos + 1] == 0xFF))
-        d->pos++;
-    if (d->pos + 1 >= d->len || d->data[d->pos] != 0xFF ||
-        d->data[d->pos + 1] != 0xD0 + *expected_rst)
-        fail(d, "corrupt scan data: missing or out-of-order RST%d marker"
-                CV2_WARNS,
-             *expected_rst);
-    d->pos += 2;
-    *expected_rst = (*expected_rst + 1) & 7;
+    d->marker_hit = unread;
+    if (!unread) d->insufficient = 0;
     for (int i = 0; i < d->ncomp; i++) d->comp[i].dc_pred = 0;
     d->eobrun = 0;
     if (d->arithmetic) arith_reset(d);
@@ -695,7 +719,8 @@ static void decode_scan(decoder *d, component **sc, int ns) {
                     }
                     left--;
                 }
-                decode_block(d, c, blk);
+                if (d->insufficient) memset(blk, 0, sizeof blk);
+                else decode_block(d, c, blk);
                 idct_islow(blk, c->qt,
                            c->plane + (size_t)by * 8 * c->stride + bx * 8,
                            c->stride);
@@ -713,11 +738,13 @@ static void decode_scan(decoder *d, component **sc, int ns) {
                 }
                 left--;
             }
+            const int skip = d->insufficient;   /* zero blocks */
             for (int i = 0; i < ns; i++) {
                 component *c = sc[i];
                 for (int v = 0; v < c->v; v++)
                     for (int h = 0; h < c->h; h++) {
-                        decode_block(d, c, blk);
+                        if (skip) memset(blk, 0, sizeof blk);
+                        else decode_block(d, c, blk);
                         size_t y = (size_t)(my * c->v + v) * 8;
                         size_t x = (size_t)(mx * c->h + h) * 8;
                         idct_islow(blk, c->qt,
@@ -1125,11 +1152,13 @@ static void start_scan(decoder *d) {
     d->nbits = 0;
     d->fill = 0;
     d->marker_hit = 0;
+    d->insufficient = 0;
     if (d->arithmetic) arith_reset(d);
 }
 
 static void decode_mcu(decoder *d, int16_t **blk, component **own,
                        int nb) {
+    if (d->insufficient) return;          /* the blocks stay as they are */
     if (d->arithmetic) {
         arith_mcu(d, blk, own, nb);
     } else if (!d->progressive) {
@@ -1430,6 +1459,18 @@ static void decode_lossless_scan(decoder *d, int32_t **diffs,
                 for (int i = 0; i < ns; i++) first[i] = 1;
                 to_go = per;
             }
+            if (d->insufficient) {
+                /* jdlhuff.c decode_mcus past a marker: zero differences
+                 * and the predictors reset, so the row reads 128 */
+                for (int i = 0; i < ns; i++) {
+                    const int v = ns > 1 ? d->scan[i]->v : 1;
+                    memset(diff[i] + (size_t)k * width[i], 0,
+                           sizeof(int32_t) * (size_t)v * width[i]);
+                    first[i] = 1;
+                }
+                if (per) to_go--;
+                continue;
+            }
             for (int mx = 0; mx < across; mx++) {
                 for (int i = 0; i < ns; i++) {
                     component *c = d->scan[i];
@@ -1627,7 +1668,7 @@ static int read_marker(decoder *d, int m) {
     } else if (m == 0xDB) {
         read_dqt(d, end);
     } else if (m == 0xDD) {
-        if (seg < 4) fail(d, "corrupt: DRI segment" CV2_STOPS);
+        if (seg != 4) fail(d, "corrupt: DRI segment" CV2_STOPS);
         d->restart_interval = u16be(d);
     } else if (m == 0xCC) {
         read_dac(d, end);
@@ -1654,13 +1695,21 @@ static int after_scan(decoder *d) {
     return r;
 }
 
+/* whether the frame is one scan of every component (jdinput.c: no
+ * multiple scans): libjpeg then gives the image when that scan ends, and
+ * cv2 gives it whatever follows (a fault there is met only in
+ * jpeg_finish_decompress) */
+static int one_pass(const decoder *d) {
+    return !d->progressive && d->ns == d->ncomp;
+}
+
 /* every scan of a buffered frame (the first one's header read), then
  * the IDCT after EOI */
 static void decode_buffered(decoder *d) {
     do {
         start_scan(d);
         decode_scan_buffered(d);
-    } while (after_scan(d) == 1);
+    } while (!one_pass(d) && after_scan(d) == 1);
     const int smooth = smoothing_ok(d);
     for (int i = 0; i < d->ncomp; i++)
         output_component(d, &d->comp[i], smooth);
@@ -1678,7 +1727,8 @@ static void decode_lossless(decoder *d) {
         rows[2 * k] = alloc(d, sizeof(int32_t) * (size_t)c->dw);
         rows[2 * k + 1] = alloc(d, sizeof(int32_t) * (size_t)c->dw);
     }
-    do decode_lossless_scan(d, diffs, rows); while (after_scan(d) == 1);
+    do decode_lossless_scan(d, diffs, rows);
+    while (!one_pass(d) && after_scan(d) == 1);
 }
 
 /* jdcolor.c ycck_cmyk_convert, in place on the first three planes */
@@ -1714,7 +1764,9 @@ static uint8_t *decode(decoder *d, int channels, int *out_h, int *out_w) {
 
     /* colour space: jdapimin.c default_decompress_parms */
     int rgb_source = 0, ycck = 0;
-    if (d->ncomp == 3) {
+    if (d->ncomp == 3 && d->transform >= 0) {
+        rgb_source = !d->transform;
+    } else if (d->ncomp == 3) {
         if (d->saw_jfif) rgb_source = 0;
         else if (d->saw_adobe) rgb_source = d->adobe_transform == 0;
         else rgb_source = d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
@@ -1780,23 +1832,7 @@ static uint8_t *decode(decoder *d, int channels, int *out_h, int *out_w) {
         if (d->ns > 1 && blocks > 10)
             fail(d, "corrupt: %d blocks in an MCU (at most 10)" CV2_STOPS,
                     blocks);
-        decode_scan(d, d->scan, d->ns);
-        /* after the scan: EOI, or markers before it. A complete scan
-         * without EOI is accepted. */
-        d->bits = 0;
-        d->nbits = 0;
-        while (d->pos + 1 < d->len) {
-            if (d->data[d->pos] != 0xFF) {
-                d->pos++;
-                continue;
-            }
-            int m = d->data[d->pos + 1];
-            if (m == 0xD9) break;
-            if (m == 0xDA)
-                fail(d, "corrupt: a second scan in a single-scan sequential "
-                        "JPEG" CV2_TOO "\"Didn't expect more than one scan\")");
-            d->pos += 2;
-        }
+        decode_scan(d, d->scan, d->ns);   /* one_pass: nothing after */
     } else if (d->lossless) {
         decode_lossless(d);
     } else {
@@ -1851,7 +1887,7 @@ static uint8_t *decode(decoder *d, int channels, int *out_h, int *out_w) {
             img[i] = (uint8_t)((19595 * full[0][i] + 38470 * full[1][i] +
                                 7471 * full[2][i] + 32768) >> 16);
     }
-    int o = d->orientation;
+    int o = d->transform >= 0 ? 1 : d->orientation;
     if (o >= 2 && o <= 8) {
         uint8_t *dst = alloc(d, npix * channels);
         orient(img, H, W, channels, o, dst);
@@ -1865,9 +1901,9 @@ static uint8_t *decode(decoder *d, int channels, int *out_h, int *out_w) {
     return img;
 }
 
-int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
-                     uint8_t **out, int *out_h, int *out_w, char *err,
-                     size_t errlen) {
+static int decode_as(const uint8_t *data, size_t len, int channels,
+                     int transform, uint8_t **out, int *out_h, int *out_w,
+                     char *err, size_t errlen) {
     decoder *d = calloc(1, sizeof *d);
     if (!d) {
         snprintf(err, errlen, "out of memory");
@@ -1878,6 +1914,7 @@ int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
     d->err = err;
     d->errlen = errlen;
     d->orientation = 1;
+    d->transform = transform;
     if (channels != 1 && channels != 3) {
         snprintf(err, errlen, "channels=%d (1 or 3)", channels);
         free(d);
@@ -1893,6 +1930,24 @@ int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
     free(d);
     *out = img;
     return 0;
+}
+
+int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
+                     uint8_t **out, int *out_h, int *out_w, char *err,
+                     size_t errlen) {
+    return decode_as(data, len, channels, -1, out, out_h, out_w, err, errlen);
+}
+
+int yolo_jpeg_decode_ycc(const uint8_t *data, size_t len, int channels,
+                         uint8_t **out, int *out_h, int *out_w, char *err,
+                         size_t errlen) {
+    return decode_as(data, len, channels, 1, out, out_h, out_w, err, errlen);
+}
+
+int yolo_jpeg_decode_raw(const uint8_t *data, size_t len, int channels,
+                         uint8_t **out, int *out_h, int *out_w, char *err,
+                         size_t errlen) {
+    return decode_as(data, len, channels, 0, out, out_h, out_w, err, errlen);
 }
 
 void yolo_native_free(void *p) { free(p); }

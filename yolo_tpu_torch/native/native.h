@@ -13,6 +13,39 @@ int yolo_jpeg_decode(const uint8_t *data, size_t len, int channels,
                      uint8_t **out, int *h, int *w, char *err,
                      size_t errlen);
 
+/* A TIFF strip or tile's JPEG stream, its colour space not read from
+ * the file: 3 components converted from YCbCr (_ycc) or kept as they
+ * are (_raw), as libtiff sets libjpeg's; no EXIF orientation. */
+int yolo_jpeg_decode_ycc(const uint8_t *data, size_t len, int channels,
+                         uint8_t **out, int *h, int *w, char *err,
+                         size_t errlen);
+int yolo_jpeg_decode_raw(const uint8_t *data, size_t len, int channels,
+                         uint8_t **out, int *h, int *w, char *err,
+                         size_t errlen);
+
+/* TIFF LZW (tif_lzw.c) and PackBits data -> out, outlen bytes; returns
+ * outlen, or -1 with a message (tiff.c). */
+long yolo_tiff_lzw_decode(const uint8_t *in, size_t inlen, uint8_t *out,
+                          size_t outlen, char *err, size_t errlen);
+long yolo_tiff_packbits_decode(const uint8_t *in, size_t inlen, uint8_t *out,
+                               size_t outlen, char *err, size_t errlen);
+
+/* A WebP file's VP8L chunk -> *out, (h, w, 4) RGBA, alpha not
+ * premultiplied; channels must be 4 (webp_lossless.c). */
+int yolo_webp_decode_vp8l(const uint8_t *data, size_t len, int channels,
+                          uint8_t **out, int *h, int *w, char *err,
+                          size_t errlen);
+
+/* A WebP file's "VP8 " chunk -> *out, (h, w, 3) RGB through libwebp's
+ * fancy upsampling; channels must be 3 (webp_lossy.c). */
+int yolo_webp_decode_vp8(const uint8_t *data, size_t len, int channels,
+                         uint8_t **out, int *h, int *w, char *err,
+                         size_t errlen);
+
+/* BMP bytes -> *out, as yolo_jpeg_decode (bmp.c). */
+int yolo_bmp_decode(const uint8_t *data, size_t len, int channels,
+                    uint8_t **out, int *h, int *w, char *err, size_t errlen);
+
 /* PNG rows after inflate (h rows of a filter byte + stride bytes) ->
  * out, h * stride unfiltered bytes; bpp is the filter's byte distance. */
 int yolo_png_unfilter(const uint8_t *raw, int h, size_t stride, int bpp,

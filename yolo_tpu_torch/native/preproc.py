@@ -1,18 +1,31 @@
 """Host image decoding for the port (the counterpart of
-yolo_tpu/native/preproc.py), with no OpenCV and no system image library:
-JPEG through the port's own decoder (native/jpeg.c), PNG through zlib and
-the C unfilter (data/png.py, native/png.c). Every JPEG and PNG that
-cv2.imread / cv2.imdecode read decodes to the bytes they give after
-COLOR_BGR2RGB (EXIF orientation applied): baseline, multi-scan,
-progressive and arithmetic-coded JPEGs, CMYK and YCCK, 8-bit lossless
-ones where libjpeg-turbo converts them; PNGs of every type, interlaced
-or not, gray computed in linear light where a gamma is stated. What
-cv2 gives no image for raises ValueError naming the file and cv2's own
-refusal: hierarchical or 12-bit JPEGs, 2 or 5+ components, lossless
-restart intervals that are not whole MCU rows, truncated files; so do
-damaged Huffman scans and lost restart markers, which libjpeg warns of
-and decodes on, and other formats (BMP, PNM, TIFF, WebP, JPEG 2000,
-AVIF). No path hands a file to cv2 or PIL.
+yolo_tpu/native/preproc.py), with no OpenCV and no system image library.
+The decoder is chosen by the file's signature, as cv2 chooses it (never
+by the extension), and gives the bytes cv2.imread / cv2.imdecode give
+after COLOR_BGR2RGB (IMREAD_COLOR) or those of IMREAD_GRAYSCALE:
+
+  * JPEG (native/jpeg.c): baseline, multi-scan, progressive and
+    arithmetic-coded, CMYK and YCCK, 8-bit lossless where libjpeg-turbo
+    converts it, EXIF orientation applied; coefficients that overflow
+    the IDCT saturate as libjpeg-turbo's SIMD IDCT saturates them, and
+    damaged scans decode as libjpeg decodes them (bad codes, data cut by
+    a marker, lost or wrong restart markers);
+  * PNG (data/png.py, native/png.c): every type, interlaced or not, gray
+    in linear light where a gamma is stated;
+  * BMP (native/bmp.c): 1-32 bits, palettes, RLE4 / RLE8, bit fields,
+    core and V4 / V5 headers;
+  * PNM and PAM (data/pnm.py): P1-P7, ASCII and binary;
+  * TIFF (data/tiff.py, native/tiff.c): libtiff's RGBA reading of the
+    first page, strips or tiles, none / PackBits / LZW / Deflate / JPEG;
+  * WebP (data/webp.py, native/webp_lossless.c, native/webp_lossy.c):
+    lossless and lossy, alpha dropped, an animation's first frame, EXIF
+    orientation.
+
+What cv2 gives no image for raises ValueError naming the file and
+saying so (hierarchical or 12-bit JPEGs, truncated files, ...), as do
+the formats not ported (JPEG 2000, AVIF, GIF, Sun raster, PFM, HDR) and
+the few kinds each decoder names where cv2 gives an image that is not
+reproduced here. No path hands a file to cv2 or PIL.
 
 letterbox_batch and stretch are the host resizes of the loaders
 (native/letterbox.c): the bytes of the JAX package's native
@@ -36,6 +49,9 @@ import numpy as np
 
 from yolo_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from yolo_tpu_torch.data.png import decode_png
+from yolo_tpu_torch.data.pnm import decode_pnm, is_pnm
+from yolo_tpu_torch.data.tiff import decode_tiff, is_tiff
+from yolo_tpu_torch.data.webp import decode_webp, is_webp
 from yolo_tpu_torch.native.build import library
 
 JPEG_SOI = b"\xff\xd8"
@@ -48,16 +64,17 @@ def _check_channels(channels: int) -> None:
                          f"(grayscale) or 3 (RGB)")
 
 
-def decode_jpeg(data: bytes, channels: int = 3) -> np.ndarray:
-    """JPEG bytes -> (H, W, channels) uint8; ValueError on failure."""
+def _decode_c(fn: str, data: bytes, channels: int) -> np.ndarray:
+    """One of the C whole-file decoders (build.DECODERS) -> (H, W,
+    channels) uint8; ValueError with its message on failure."""
     lib = library()
     src = np.frombuffer(data, np.uint8)
     out = ctypes.c_void_p()
     h, w = ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if lib.yolo_jpeg_decode(src.ctypes.data, len(data), channels,
-                            ctypes.byref(out), ctypes.byref(h),
-                            ctypes.byref(w), err, _ERR_LEN):
+    if getattr(lib, fn)(src.ctypes.data, len(data), channels,
+                        ctypes.byref(out), ctypes.byref(h), ctypes.byref(w),
+                        err, _ERR_LEN):
         raise ValueError(err.value.decode())
     try:
         n = h.value * w.value * channels
@@ -69,11 +86,30 @@ def decode_jpeg(data: bytes, channels: int = 3) -> np.ndarray:
     return img
 
 
-def decode_image_bytes(data: bytes, channels: int = 3,
-                       name: str = "image bytes") -> np.ndarray:
-    """In-memory JPEG/PNG decode (serving uploads) -> (H, W, channels)
-    uint8: RGB at channels=3, gray at channels=1 (cv2.IMREAD_GRAYSCALE's
-    gray). Raises ValueError naming ``name`` and the reason."""
+def decode_jpeg(data: bytes, channels: int = 3) -> np.ndarray:
+    """JPEG bytes -> (H, W, channels) uint8; ValueError on failure."""
+    return _decode_c("yolo_jpeg_decode", data, channels)
+
+
+def decode_bmp(data: bytes, channels: int = 3) -> np.ndarray:
+    """BMP bytes -> (H, W, channels) uint8 (native/bmp.c); ValueError on
+    failure."""
+    return _decode_c("yolo_bmp_decode", data, channels)
+
+
+def decode_jpeg_components(data: bytes, ycbcr: bool) -> np.ndarray:
+    """A TIFF strip or tile's JPEG stream -> (H, W, 3) uint8, libjpeg
+    converting from YCbCr only where ycbcr is set (libtiff's colour
+    modes); a 1-component stream repeats its samples."""
+    return _decode_c("yolo_jpeg_decode_ycc" if ycbcr
+                     else "yolo_jpeg_decode_raw", data, 3)
+
+
+def _decode(data: bytes, channels: int, name: str,
+            from_file: bool) -> np.ndarray:
+    """The decoder the file's signature names, as cv2 chooses it (never
+    by the extension); from_file: as cv2.imread (rather than imdecode)
+    gives it, which differs for TIFF orientations 5-8."""
     _check_channels(channels)
     data = bytes(data)
     try:
@@ -81,17 +117,38 @@ def decode_image_bytes(data: bytes, channels: int = 3,
             return decode_jpeg(data, channels)
         if data[:8] == PNG_SIGNATURE:
             return decode_png(data, channels)
+        if data[:2] == b"BM":
+            return decode_bmp(data, channels)
+        if is_pnm(data):
+            return decode_pnm(data, channels)
+        if is_tiff(data):
+            return decode_tiff(data, channels, from_file)
+        if is_webp(data):
+            return decode_webp(data, channels)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
-    raise ValueError(f"{name}: not a JPEG or PNG file")
+    raise ValueError(f"{name}: not an image format the decoder reads "
+                     f"(JPEG, PNG, BMP, PNM, TIFF, WebP)")
+
+
+def decode_image_bytes(data: bytes, channels: int = 3,
+                       name: str = "image bytes") -> np.ndarray:
+    """In-memory decode (serving uploads) of JPEG, PNG, BMP, PNM, TIFF or
+    WebP bytes -> (H, W, channels) uint8: RGB at channels=3, gray at
+    channels=1, the bytes cv2.imdecode gives (IMREAD_COLOR then
+    COLOR_BGR2RGB, or IMREAD_GRAYSCALE). Raises ValueError naming
+    ``name`` and the reason."""
+    return _decode(data, channels, name, from_file=False)
 
 
 def decode_image(path: str, channels: int = 3) -> np.ndarray:
-    """JPEG/PNG file -> (H, W, channels) uint8, as decode_image_bytes.
-    A missing file raises FileNotFoundError."""
+    """An image file -> (H, W, channels) uint8, the bytes cv2.imread
+    gives, as decode_image_bytes (a TIFF of orientation 5-8, which
+    OpenCV 5.0.0's imread gives no image for, raises). A missing file
+    raises FileNotFoundError."""
     with open(path, "rb") as f:
         data = f.read()
-    return decode_image_bytes(data, channels, name=os.fspath(path))
+    return _decode(data, channels, os.fspath(path), from_file=True)
 
 
 def available() -> bool:

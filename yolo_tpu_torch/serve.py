@@ -8,7 +8,8 @@ liveness, GET /stats for counters (requests, batches, and the CUDA
 kernels' launches in this process). Bodies are
   * ``Content-Type: application/x-npy``: a uint8 (H, W, C) array in .npy
     format, the form that needs no image decoder on the host;
-  * anything else: JPEG/PNG bytes, decoded by the host decoder that
+  * anything else: image bytes (JPEG, PNG, BMP, PNM, TIFF, WebP),
+    decoded by the host decoder that
     data.pipeline.set_decoder selects (the port's own by default,
     native/preproc.py; cv2 when asked for). A body that does not decode
     gets a 400.
@@ -60,8 +61,9 @@ def _decode_npy(data: bytes, channels: int) -> np.ndarray:
 
 
 def _decode_image(data: bytes, gray: bool) -> Optional[np.ndarray]:
-    """JPEG/PNG bytes -> RGB (or gray) uint8 through the selected host
-    decoder; None when the bytes do not decode. Raises ImportError when
+    """Image bytes (JPEG, PNG, BMP, PNM, TIFF, WebP) -> RGB (or gray)
+    uint8 through the selected host decoder, as cv2.imdecode gives them;
+    None when the bytes do not decode. Raises ImportError when
     the cv2 decoder is selected and cv2 is missing."""
     from yolo_tpu_torch.data import pipeline
     from yolo_tpu_torch.native.preproc import decode_image_bytes

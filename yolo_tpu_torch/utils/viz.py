@@ -19,6 +19,7 @@ file's extension (encode_jpeg lives in native/preproc.py).
 from __future__ import annotations
 
 import os
+import struct
 from typing import Sequence
 
 import numpy as np
@@ -158,9 +159,54 @@ def draw_detections(image_rgb: np.ndarray, boxes_xyxy, scores, classes,
     return out
 
 
+def encode_bmp(image: np.ndarray) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> the BMP cv2.imwrite
+    writes (grfmt_bmp.cpp BmpEncoder): a BITMAPINFOHEADER, rows bottom-up
+    padded to 4 bytes, 24-bit BGR, or 8-bit with a gray palette."""
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    gray = img.ndim == 2
+    h, w = img.shape[:2]
+    ch = 1 if gray else 3
+    step = (w * ch + 3) & -4
+    palette = b""
+    if gray:
+        pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, 1)
+        pal[:, 3] = 0
+        palette = pal.tobytes()
+    header_size = 14 + 40 + len(palette)
+    rows = img[::-1] if gray else img[::-1, :, ::-1]
+    body = np.zeros((h, step), np.uint8)
+    body[:, :w * ch] = rows.reshape(h, w * ch)
+    head = b"BM" + struct.pack("<IIIIiiHHIIIIII", step * h + header_size, 0,
+                               header_size, 40, w, h, 1, ch * 8, 0, 0, 0, 0,
+                               0, 0)
+    return head + palette + body.tobytes()
+
+
+def encode_pnm(image: np.ndarray, ext: str) -> bytes:
+    """The binary PGM (gray) or PPM (RGB) cv2.imwrite writes for ext
+    ".pgm", ".ppm" or ".pnm" (either, by the image): "P5" or "P6", the
+    size, maxval 255, the samples. OSError for a colour .pgm or a gray
+    .ppm, which cv2 refuses too."""
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    gray = img.ndim == 2
+    if (ext == ".pgm" and not gray) or (ext == ".ppm" and gray):
+        raise OSError(f"cannot write a {'gray' if gray else 'colour'} image "
+                      f"as {ext} (cv2.imwrite refuses it too)")
+    h, w = img.shape[:2]
+    return f"P{5 if gray else 6}\n{w} {h}\n255\n".encode() + \
+        np.ascontiguousarray(img).tobytes()
+
+
 def save_image(path: str, image_rgb: np.ndarray) -> None:
-    """Write an RGB (or gray) uint8 image as PNG or JPEG by the path's
-    extension; OSError for another extension or a missing directory."""
+    """Write an RGB (or gray) uint8 image by the path's extension, the
+    bytes cv2.imwrite writes: PNG, JPEG, BMP, or binary PGM / PPM / PNM;
+    OSError for another extension (TIFF, WebP, ...) or a missing
+    directory."""
     from yolo_tpu_torch.data.png import encode_png
 
     ext = os.path.splitext(path)[1].lower()
@@ -168,8 +214,12 @@ def save_image(path: str, image_rgb: np.ndarray) -> None:
         data = encode_png(image_rgb)
     elif ext in (".jpg", ".jpeg", ".jpe"):
         data = encode_jpeg(image_rgb)
+    elif ext in (".bmp", ".dib"):
+        data = encode_bmp(image_rgb)
+    elif ext in (".pgm", ".ppm", ".pnm"):
+        data = encode_pnm(image_rgb, ext)
     else:
-        raise OSError(f"cannot write {path}: the port writes .png and "
-                      f".jpg/.jpeg only")
+        raise OSError(f"cannot write {path}: the port writes .png, "
+                      f".jpg/.jpeg, .bmp and .pgm/.ppm/.pnm only")
     with open(path, "wb") as f:
         f.write(data)
