@@ -111,24 +111,31 @@ JSON lines; any failed check raises and the script exits non-zero:
               CPU held at box level as in phase 11
 
   14. images  real image files through the port's own host decoder
-              (yolo_tpu_torch/native/: JPEG, PNG, BMP, PNM, TIFF and WebP,
-              built by the host C compiler in phase 2): (a) no OpenCV
+              (yolo_tpu_torch/native/: JPEG, PNG, BMP, PNM, TIFF, WebP,
+              GIF, Sun raster, PFM and HDR, built by the host C compiler
+              in phase 2): (a) no OpenCV
               loaded; (b) the fixtures of tests/data/torch_jpeg/ decode to
               the sha256 of cv2's output recorded beside them, and the
               fixtures of the kinds beyond one baseline scan (progressive,
               multi-scan, arithmetic, CMYK, YCCK, interlaced and gamma
               PNG) go through `detect --images` (YOLOv2-COCO 416, one file
               a batch, --conf FIXTURE_CONF) and POST /detect; the BMP,
-              PNM, TIFF and WebP fixtures and the damaged and overflowing
-              JPEGs through `predict --image` and POST /detect, the BMPs
-              also through `detect --images`, a TIFF and a WebP also on
+              PNM, TIFF, WebP, GIF, Sun raster, PFM and HDR fixtures of an
+              RGB image and the damaged and overflowing JPEGs through
+              `predict --image` and POST /detect, the BMPs also through
+              `detect --images --output-dir`, a TIFF and a WebP also on
               conv_impl="cuda": every file yields boxes, one NMS launch a
               file, the lines equal detect_raw on the decoded arrays and
-              the answers direct calls; (c) decode rates of a 480x640
+              the answers direct calls; `predict --output` of a 480x640
+              frame as TIFF and WebP reads back as draw_detections of its
+              boxes, that frame saved as PAM, Sun raster, PFM and HDR
+              alike; (c) decode rates of a 480x640
               4:2:0 q90 JPEG, of the 480x640 progressive fixture, of a
               24-bit BMP of the frame (the port's writer) and of the
-              480x640 LZW TIFF, q80 and lossless WebP fixtures, ms an
-              image on one thread and img/s on IMAGE_THREADS threads (8
+              480x640 LZW TIFF, q80 and lossless WebP, GIF and HDR
+              fixtures, ms an image on one thread and img/s on
+              IMAGE_THREADS threads, the TIFF and lossless WebP writers'
+              ms a frame on one thread (8
               threads at least twice one for the JPEGs, where the host
               has 4 cores), the host letterbox of the
               frame to 416 on one thread, and a 480x640 Paeth PNG's
@@ -308,7 +315,9 @@ JSON lines; any failed check raises and the script exits non-zero:
               launch a batch, and for int8 INT8_CONVS s8 and INT8_POOLS
               int8-pool launches a batch, no plain block on the card;
               the annotated copy read back by the port's reader (frames,
-              size, fps / stride); frames/s of the command and of its
+              size, fps / stride), the bf16 one written in OpenDML parts
+              of VIDEO_PART_SIZE bytes (three or more RIFFs, every frame
+              read back); frames/s of the command and of its
               stream loop alone; (c) `train` of yolov4-tiny 416 with VOC
               heads from a seeded partial file, its cfg carrying
               yolov4-tiny.cfg's HSV keys, plain and with mosaic=1,
@@ -437,7 +446,7 @@ from yolo_tpu_torch.models.predict import (detect_raw, make_detector,
                                            make_detector_preprocessed)
 from yolo_tpu_torch.native import build as native_build
 from yolo_tpu_torch.native.preproc import (decode_image, decode_image_bytes,
-                                           letterbox_batch)
+                                           decode_jpeg, letterbox_batch)
 from yolo_tpu_torch.ops import conv, entry, precision
 from yolo_tpu_torch.ops.cuda import build, conv_kernel, entry_kernel, nms_kernel
 from yolo_tpu_torch.ops import nms as nms_mod
@@ -448,6 +457,8 @@ from yolo_tpu_torch.parallel.sharding import (make_dp_detector,
                                               maybe_init_distributed,
                                               replicate, shard_batch)
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+from yolo_tpu_torch.data.tiff import encode_tiff
+from yolo_tpu_torch.data.webp import encode_webp
 from yolo_tpu_torch.utils.viz import save_image
 from yolo_tpu_torch.train.loop import (TrainConfig, ema_params_of,
                                        train_config_from_cfg,
@@ -503,8 +514,10 @@ NET_SCHEDULE = dict(learning_rate=0.001, momentum=0.9, weight_decay=0.0005,
                     lr_decay_scales=(0.1, 0.1))
 NET_AUGMENT = AugmentConfig(jitter=0.3, hue=0.1, saturation=1.5,
                             exposure=1.5, flip=True)
-TRAIN_STEPS = 20          # per precision, through the prefetcher
-ALONE_STEPS = 5           # then timed on the last batch, no pipeline
+# per precision, through the prefetcher (the loop is host-bound: 20
+# steps of yolov4 at batch 64 took ~120 s of the script)
+TRAIN_STEPS = 4
+ALONE_STEPS = 3           # then timed on the last batch, no pipeline
 PIPELINE_WORKERS = 8      # the card machine's cores
 CHECK_BATCH = 2           # (a): the card's step against the CPU's
 # (a), per tensor ||update - CPU update|| / ||CPU update||, the largest
@@ -581,7 +594,7 @@ YOLO_OVERFIT_STEPS, YOLO_OVERFIT_COORD = 600, 0.3
 YOLO_STEP_BOUND = {"yolov3": STEP_BOUND, "yolov4": 1e-3}
 YOLO_AUGMENT = AugmentConfig(jitter=0.3, hue=0.1, saturation=1.5,
                              exposure=1.5, flip=True)
-YOLO_TIMED = "yolov4"     # 20 timed steps at the cfg's batch, 608
+YOLO_TIMED = "yolov4"     # TRAIN_STEPS steps at the cfg's batch, 608
 YOLO_OVERFIT = "yolov4-tiny"
 
 # phase 14: real images through the port's host decoder, and yolov3's
@@ -596,15 +609,22 @@ PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
 # the other formats' fixtures (and the damaged and overflowing JPEGs),
 # by name prefix, and their 480x640 frames of phase 14 (c)
 FORMAT_FIXTURES = ("bmp_", "pgm_", "ppm_", "tiff_", "webp_", "damaged_",
-                   "overflow_")
+                   "overflow_", "gif_", "sunras_", "pfm_", "hdr_")
 TIFF_FRAME = "frame_lzw_pred_480x640.tif"
 WEBP_FRAME = "frame_webp_q80_480x640.webp"
 WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
+GIF_FRAME = "frame_gif_480x640.gif"
+HDR_FRAME = "frame_hdr_480x640.hdr"
+# save_image's TIFF and WebP writers through predict --output from a
+# 480x640 fixture frame, its PAM, Sun raster, PFM and HDR writers from
+# that annotated frame
+PREDICT_FORMATS = (".tif", ".webp")
+SAVED_FORMATS = (".pam", ".ras", ".pfm", ".hdr")
 FIXTURE_CONF = 0.005      # a score threshold at which every fixture has boxes
 IMAGE_THREADS = (1, 4, 8)
-IMAGE_DECODES = 128       # decodes a timed thread-pool run
+IMAGE_DECODES = 64        # decodes a timed thread-pool run
 COCO_VARIANT = "yolov3"   # 416, COCO-80
-COCO_SCENES = 256
+COCO_SCENES = 96          # 3 batches of COCO_BATCH
 # source sizes, cycled: mostly 480x640, as COCO's most common size
 COCO_SIZES = ((480, 640),) * 5 + ((640, 480), (427, 640), (375, 500))
 COCO_BATCH = 32
@@ -2228,6 +2248,13 @@ def phase_fixtures() -> int:
         recorded = json.load(f)
     for name, want in sorted(recorded["files"].items()):
         for key, channels in (("rgb", 3), ("gray", 1)):
+            if want[key] is None:     # cv2 gives no image of these channels
+                try:
+                    decode_image(os.path.join(FIXTURES, name), channels)
+                except ValueError:
+                    continue
+                check(False, f"fixture {name} ({key}): decoded where cv2 "
+                      f"gives no image")
             img = decode_image(os.path.join(FIXTURES, name), channels)
             digest = hashlib.sha256(img.tobytes()).hexdigest()
             check(list(img.shape) == want[key]["shape"]
@@ -2309,17 +2336,26 @@ def phase_fixture_detect(weights: str, card: str) -> int:
     return nms + served
 
 
+def rgb_fixtures(prefixes) -> list:
+    """The fixtures of these name prefixes that cv2 reads at 3 channels
+    (a gray PFM's "rgb" hash is null: no RGB image in cv2 or the port)."""
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        files = json.load(f)["files"]
+    return sorted(n for n, h in files.items()
+                  if n.startswith(prefixes) and h["rgb"] is not None)
+
+
 def phase_format_detect(weights: str, card: str) -> dict:
-    """Phase 14 (b): every BMP, PNM, TIFF and WebP fixture and the
-    damaged and overflowing JPEGs through `predict --image` and POST
-    /detect, the BMPs also through `detect --images`: one NMS launch a
-    file, the lines equal detect_raw on the decoded array; a TIFF and a
-    WebP also on conv_impl="cuda". Returns {kernel: launches}."""
+    """Phase 14 (b): every BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM and
+    HDR fixture of an RGB image and the damaged and overflowing JPEGs
+    through `predict --image` and POST /detect, the BMPs also through
+    `detect --images --output-dir`: one NMS launch a file, the lines
+    equal detect_raw on the decoded array; a TIFF and a WebP also on
+    conv_impl="cuda". Returns {kernel: launches}."""
     from yolo_tpu_torch.cli.detect_cmds import _det_json
 
-    names = sorted(n for n in os.listdir(FIXTURES)
-                   if n.startswith(FORMAT_FIXTURES))
-    check(len(names) >= 12, f"format fixtures {names}")
+    names = rgb_fixtures(FORMAT_FIXTURES)
+    check(len(names) >= 28, f"format fixtures {names}")
     cfg = dataclasses.replace(get_variant(VARIANT),
                               conf_threshold=FIXTURE_CONF)
     net = Darknet(cfg.layers, fold_params(
@@ -2351,12 +2387,18 @@ def phase_format_detect(weights: str, card: str) -> dict:
         launches["nms"] += nms
         boxes[name], seconds[name] = len(want), wall
     bmps = [n for n in names if n.endswith(".bmp")]
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as written:
         for n in bmps:
             os.symlink(os.path.join(FIXTURES, n), os.path.join(tmp, n))
         out, _, _, nms = cli_run(["detect", "--model", VARIANT, "--weights",
                                   weights, "--images", tmp, "--batch", "1",
-                                  "--conf", str(FIXTURE_CONF)])
+                                  "--conf", str(FIXTURE_CONF),
+                                  "--output-dir", written])
+        check(sorted(os.listdir(written)) == bmps and all(
+            decode_image(os.path.join(written, n)).shape ==
+            decode_image(os.path.join(FIXTURES, n)).shape for n in bmps),
+            f"detect --output-dir wrote {sorted(os.listdir(written))}")
     recs = cli_lines(out)
     check([os.path.basename(r["image"]) for r in recs] == bmps
           and nms == len(bmps) and all(r["detections"] == direct(n)
@@ -2397,13 +2439,69 @@ def phase_format_detect(weights: str, card: str) -> dict:
     check(served == len(names), f"POST /detect: {served} NMS launches for "
           f"{len(names)} bodies")
     launches["nms"] += served
+    written = predict_outputs(weights, cfg, net, labels)
+    launches["nms"] += len(PREDICT_FORMATS)
     emit({"phase": "images", "check": "formats_to_boxes",
           "files": len(names), "boxes": boxes, "conf": FIXTURE_CONF,
           "predict_seconds": seconds, "bmps_through_detect": len(bmps),
           "conv_route_boxes": cuda_route, "served_nms_launches": served,
+          "written_formats": written,
           "launches": launches, "lines_equal_detect_raw": True,
           "answers_equal_direct": True, "card": card})
     return launches
+
+
+def read_written(path: str, shape) -> np.ndarray:
+    """A file save_image wrote, read back by the port; a PAM (cv2's has no
+    TUPLTYPE, which the port's reader refuses) by its B, G, R samples."""
+    if not path.endswith(".pam"):
+        return decode_image(path)
+    with open(path, "rb") as f:
+        body = f.read().split(b"ENDHDR\n", 1)[1]
+    return np.frombuffer(body, np.uint8).reshape(shape)[..., ::-1]
+
+
+def predict_outputs(weights: str, cfg, net, labels) -> dict:
+    """Phase 14 (b): `predict --image <480x640 frame> --output Y` for Y of
+    PREDICT_FORMATS (the TIFF fixture frame for .tif, the lossless WebP
+    one for .webp): one NMS launch each, and Y, read back by the port,
+    equals draw_detections of the boxes make_detector gives that frame
+    on the same net (the command's path); that annotated frame saved as
+    each of SAVED_FORMATS reads back alike (HDR within 2 levels: its
+    RGBE keeps value / 255). Returns {format: bytes written}."""
+    from yolo_tpu_torch.utils.viz import draw_detections
+
+    det = make_detector(cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in PREDICT_FORMATS:
+            src = os.path.join(FIXTURES, TIFF_FRAME if ext == ".tif"
+                               else WEBP_LOSSLESS_FRAME)
+            dst = os.path.join(tmp, "annotated" + ext)
+            text, _, _, nms = cli_run(["predict", "--model", VARIANT,
+                                       "--weights", weights, "--image", src,
+                                       "--conf", str(FIXTURE_CONF),
+                                       "--output", dst])
+            frame = decode_image(src)
+            with torch.no_grad():
+                o = det(net, torch.from_numpy(frame[None]).cuda())
+            o = {k: v[0].cpu().numpy() for k, v in o.items()}
+            want = draw_detections(frame, o["boxes"], o["scores"],
+                                   o["classes"], labels, o["valid"])
+            check(nms == 1 and len(cli_lines(text)) == int(o["valid"].sum())
+                  and np.array_equal(decode_image(dst), want),
+                  f"predict --output {ext}: {nms} NMS launches; the file "
+                  f"is not draw_detections of the frame's boxes")
+            out[ext] = os.path.getsize(dst)
+        for ext in SAVED_FORMATS:
+            dst = os.path.join(tmp, "annotated" + ext)
+            save_image(dst, want)
+            diff = np.abs(read_written(dst, want.shape).astype(int) -
+                          want.astype(int)).max()
+            check(diff <= (2 if ext == ".hdr" else 0), f"save_image {ext}: "
+                  f"read back {diff} levels from the annotated frame")
+            out[ext] = os.path.getsize(dst)
+    return out
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -2439,8 +2537,9 @@ def phase_decode_rates(card: str) -> dict:
     """Phase 14 (c): a 480x640 4:2:0 q90 JPEG and the 480x640
     progressive fixture decoded on one thread and on thread pools,
     beside the host letterbox of a frame to 416; a 24-bit BMP of the
-    same frame (the port's own writer), the LZW TIFF and q80 WebP
-    fixtures and a lossless WebP likewise; a 480x640 Paeth PNG's
+    same frame (the port's own writer), the LZW TIFF, q80 WebP, GIF and
+    HDR fixtures and a lossless WebP likewise; the TIFF and lossless
+    WebP writers' ms a frame on one thread; a 480x640 Paeth PNG's
     unfilter in C and in Python."""
     img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
     cores = os.cpu_count()
@@ -2462,7 +2561,9 @@ def phase_decode_rates(card: str) -> dict:
                             ("tiff_lzw", os.path.join(FIXTURES, TIFF_FRAME)),
                             ("webp_q80", os.path.join(FIXTURES, WEBP_FRAME)),
                             ("webp_lossless", os.path.join(
-                                FIXTURES, WEBP_LOSSLESS_FRAME))):
+                                FIXTURES, WEBP_LOSSLESS_FRAME)),
+                            ("gif", os.path.join(FIXTURES, GIF_FRAME)),
+                            ("hdr_rle", os.path.join(FIXTURES, HDR_FRAME))):
             check(decode_image(fpath).shape == (*SRC_HW, 3),
                   f"{what}: not a 480x640 frame")
             f_one, f_rates = decode_rates(fpath)
@@ -2471,6 +2572,14 @@ def phase_decode_rates(card: str) -> dict:
                                            for n, r in f_rates.items()}}
         letterbox_ms = host_ms(lambda: _host_resize(img, (416, 416),
                                                     "letterbox"))
+        encode = {}
+        for what, fn in (("tiff_lzw", encode_tiff),
+                         ("webp_lossless", encode_webp)):
+            data = fn(img)
+            check(np.array_equal(decode_image_bytes(data), img),
+                  f"the {what} writer's frame does not read back")
+            encode[what] = {"ms_one_thread": host_ms(lambda: fn(img), 5),
+                            "bytes": len(data)}
         png = encode_png(img, filters=(4,))
     raw = zlib.decompress(b"".join(
         png[i + 8:i + 8 + int.from_bytes(png[i:i + 4], "big")]
@@ -2492,7 +2601,7 @@ def phase_decode_rates(card: str) -> dict:
            "progressive_ms_one_thread": prog_one,
            "progressive_img_per_s": {str(n): r
                                      for n, r in prog_rates.items()},
-           "formats": formats,
+           "formats": formats, "encode": encode,
            "host_cores": cores, "paeth_png_unfilter_c_ms": c_ms,
            "paeth_png_unfilter_python_ms": py_ms}
     emit({"phase": "images", "check": "decode_rates", "src_hw":
@@ -4911,6 +5020,7 @@ def phase_int8(seeded: str, model, model32, images, ref, gen,
 # phase 20: video input and the cv2-free resamplers
 VIDEO_FRAMES, VIDEO_FPS = 48, 30.0   # a seeded 640x480 MJPG AVI (SRC_HW)
 VIDEO_STRIDE, VIDEO_BATCH = 2, 8     # detect --video --stride --batch
+VIDEO_PART_SIZE = 100_000            # --save-video's OpenDML part, lowered
 AUG_VARIANT = "yolov4-tiny"          # 416, its VOC-head trainer
 AUG_SCENES, AUG_BATCH = 48, 16       # 3 steps an epoch
 # yolov4-tiny.cfg's [net] HSV keys; each mode adds its own
@@ -4955,6 +5065,7 @@ def video_detect(seeded: str, path: str, card: str) -> dict:
     reader; the kernels' launches; detect frames/s of the command and of
     its stream loop alone (reader -> DevicePrefetcher -> detector)."""
     from yolo_tpu_torch.cli._common import _maybe_quantize
+    from yolo_tpu_torch.data import video as video_mod
     from yolo_tpu_torch.data.video import AviFile, video_batches
 
     cfg = get_variant(VARIANT)
@@ -4968,8 +5079,14 @@ def video_detect(seeded: str, path: str, card: str) -> dict:
                 "--video", path, "--stride", str(VIDEO_STRIDE), "--batch",
                 str(VIDEO_BATCH), "--precision", precision, "--save-video",
                 out_path]
-        (out, err, wall, _), counts = int8_launch_counts(
-            lambda: cli_run(argv))
+        part_size = video_mod.PART_SIZE
+        if precision == "bf16":   # OpenDML parts of VIDEO_PART_SIZE bytes
+            video_mod.PART_SIZE = VIDEO_PART_SIZE
+        try:
+            (out, err, wall, _), counts = int8_launch_counts(
+                lambda: cli_run(argv))
+        finally:
+            video_mod.PART_SIZE = part_size
         lines = cli_lines(out)
         check([l["frame"] for l in lines] == sampled,
               f"detect --video {precision}: frames "
@@ -5004,6 +5121,13 @@ def video_detect(seeded: str, path: str, card: str) -> dict:
               f"--save-video {precision}: {len(saved.frames)} frames of "
               f"{saved.width}x{saved.height} at {saved.fps} fps")
         check(f"wrote {out_path}" in err, "--save-video did not report")
+        with open(out_path, "rb") as f:
+            parts = f.read().count(b"RIFF")
+        payloads = list(saved.payloads(range(len(saved.frames))))
+        check(all(decode_jpeg(p).shape == (*SRC_HW, 3) for p in payloads)
+              and (parts >= 3 if precision == "bf16" else parts == 1),
+              f"--save-video {precision}: {parts} RIFF parts, "
+              f"{len(payloads)} frames read back")
 
         def stream():
             n = 0
@@ -5029,7 +5153,11 @@ def video_detect(seeded: str, path: str, card: str) -> dict:
               "command_frames_per_s": len(lines) / wall,
               "loop_frames_per_s": n / loop_s,
               "save_video": {"frames": len(saved.frames),
-                             "fps": saved.fps}, "card": card})
+                             "fps": saved.fps, "riff_parts": parts,
+                             "part_size": (VIDEO_PART_SIZE
+                                           if precision == "bf16" else
+                                           video_mod.PART_SIZE)},
+              "card": card})
     return launches
 
 
@@ -5619,6 +5747,15 @@ def run(seeded: str) -> int:
           f"spill: {usage}")
 
     rng = np.random.default_rng(SEED)
+    timeline, mark = {}, [STARTED]
+
+    def lap(name: str) -> None:
+        """Wall seconds since the previous lap, recorded under name."""
+        now = time.perf_counter()
+        timeline[name] = now - mark[0]
+        mark[0] = now
+
+    lap("start, build")
     worst = phase_kernel(rng)
 
     weights = os.path.join(seeded, "yolov2-coco-seed.weights")
@@ -5641,8 +5778,10 @@ def run(seeded: str) -> int:
         0, 256, (TIMED_BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
     kernel_times = phase_kernel_times(gen, shapes, timed_images, card)
     phase_route_times(model, model32, card)
+    lap("1-9 kernels, serve, routes, times")
 
     voc_launches, eval_grid = phase_fine_tune(card)
+    lap("10-11 fine-tune, eval")
 
     t0 = time.perf_counter()
     yolo_launches, kept = phase_yolo_serve(seeded, card)
@@ -5653,6 +5792,7 @@ def run(seeded: str) -> int:
     yolo_eval_launches = phase_yolo_train(card)
     emit({"phase": "yolo", "serve_seconds": t1 - t0,
           "train_seconds": time.perf_counter() - t1})
+    lap("12-13 yolo")
 
     t0 = time.perf_counter()
     check(get_decoder() == "native", f"decoder {get_decoder()}")
@@ -5663,30 +5803,39 @@ def run(seeded: str) -> int:
     coco_launches, coco_grid, coco_shape, coco = phase_coco(
         card, os.path.join(seeded, "coco"))
     emit({"phase": "images", "seconds": time.perf_counter() - t0})
+    lap("14 images")
 
     cfg_run = phase_cfg(gen, {
         v: os.path.join(seeded, "yolov2-coco-seed.weights" if v == VARIANT
                         else f"{v}-seed.weights") for v in CFG_ROUND_TRIP},
         card)
+    lap("15 cfg")
 
     cli_launches = phase_cli(seeded, coco, card)
+    lap("16 cli")
 
     tree = phase_tree(os.path.join(seeded, "tree"), coco["paths"], gen,
                       card)
+    lap("17 tree")
 
     v1 = phase_yolov1(os.path.join(seeded, "yolov1"), gen, card)
+    lap("18 yolov1")
 
     int8 = phase_int8(seeded, model, model32, images, ref, gen, card)
+    lap("19 int8")
 
     video = phase_video(seeded, card)
+    lap("20 video")
 
     dp = phase_parallel(model, model32, card)
+    lap("21 parallel")
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "yolo_tpu", "cv2",
                                             "grain"))
     check(not foreign, f"the port loaded JAX, the JAX package, OpenCV or "
           f"grain: {foreign}")
+    emit({"phase": "timeline", "seconds": timeline})
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
     nms = timed[TIMED_SHAPE]
     conv_t = kernel_times["conv"]

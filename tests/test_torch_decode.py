@@ -192,12 +192,17 @@ def test_jpeg_random_sizes_match_cv2(h, w, sampling, quality, seed):
 
 def test_fixtures_match_recorded_hashes():
     """tests/data/torch_jpeg/hashes.json records cv2's output for each
-    fixture (tools/jpeg_fixtures.py); the port gives the same bytes."""
+    fixture (tools/jpeg_fixtures.py); the port gives the same bytes, and
+    raises where cv2 gives no image of those channels (null)."""
     with open(os.path.join(FIXTURES, "hashes.json")) as f:
         files = json.load(f)["files"]
     assert len(files) >= 10
     for name, want in files.items():
         for key, channels in (("rgb", 3), ("gray", 1)):
+            if want[key] is None:
+                with pytest.raises(ValueError):
+                    decode_image(os.path.join(FIXTURES, name), channels)
+                continue
             img = decode_image(os.path.join(FIXTURES, name), channels)
             assert list(img.shape) == want[key]["shape"], name
             assert hashlib.sha256(img.tobytes()).hexdigest() == \
@@ -269,7 +274,9 @@ def _unsupported_files():
         "truncated arithmetic": (arith[:len(arith) * 2 // 3], "truncated"),
         "DRI of 5 bytes": (_patch_dri(_cv2_jpeg(img, 90, "420", restart=1)),
                            "DRI"),
-        "not an image": (b"GIF89a" + bytes(40), "not an image format"),
+        # a JPEG 2000 signature box: a format the port does not read
+        "not an image": (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40),
+                         "not an image format"),
     }
 
 

@@ -14,7 +14,17 @@ for byte as cv2 gives them, at 3 channels (after COLOR_BGR2RGB) and 1
     meets them;
   * WebP (data/webp.py, native/webp_lossless.c, native/webp_lossy.c):
     lossless and lossy, with alpha, EXIF orientation, an animation's first
-    frame.
+    frame;
+  * GIF (data/gif.py, native/gif.c): PIL's and cv2's files and
+    tests/gif_writer.py's (canvases, local tables, interlace,
+    transparency, animations, LZW edge cases), the first frame as
+    OpenCV 5's own decoder composes it;
+  * Sun raster (data/sunras.py): depths 1, 8, 24, 32, the old and
+    standard types, colour maps (tests/sunras_writer.py, cv2's files);
+  * PFM (data/pfm.py): RGB and gray, both byte orders, scales, the float
+    conversion's special values;
+  * Radiance HDR (data/hdr.py, native/hdr.c): flat, old and new
+    run-length scanlines, cv2's files.
 
 Where cv2 gives no image the port raises ValueError naming the file.
 The decoder is chosen by signature, not extension. At the slice's
@@ -37,6 +47,9 @@ import torch
 from PIL import Image
 
 from tests.bmp_writer import rle_encode, write_bmp
+from tests.gif_writer import lzw_encode, write_gif
+from tests.sunras_writer import (RT_BYTE_ENCODED, RT_FORMAT_RGB, RT_OLD,
+                                 RT_STANDARD, write_sunras)
 from tests.tiff_writer import DEFLATE, LZW, NONE, PACKBITS, write_tiff
 from yolo_tpu.data import pipeline as jpipe
 from yolo_tpu_torch.data.png import apply_orientation
@@ -542,6 +555,360 @@ def test_webp_cv2_refuses_raise_naming_the_file(tmp_path, case):
     refused_naming_the_file(data, tmp_path, ".webp", "cv2")
 
 
+# --- GIF -----------------------------------------------------------------------
+
+def _pil_gif(frames, **kw):
+    ims = []
+    for idx, pal in frames:
+        im = Image.fromarray(np.asarray(idx, np.uint8), "P")
+        im.putpalette(np.asarray(pal, np.uint8).ravel().tolist())
+        ims.append(im)
+    b = io.BytesIO()
+    ims[0].save(b, format="GIF", save_all=len(ims) > 1,
+                append_images=ims[1:], **kw)
+    return b.getvalue()
+
+
+def _gif_kinds():
+    rng = np.random.default_rng(30)
+    pal = rng.integers(0, 256, (16, 3))
+    pal256 = rng.integers(0, 256, (256, 3))
+
+    def idx(h, w, n=16):
+        return rng.integers(0, n, (h, w))
+
+    out = {
+        "PIL": _pil_gif([(idx(17, 29), pal)]),
+        "PIL interlaced": _pil_gif([(idx(23, 31), pal)], interlace=True),
+        "PIL transparent": _pil_gif([(idx(19, 26), pal)], transparency=4),
+        "PIL 256 colours": _pil_gif([(idx(40, 50, 256), pal256)]),
+        "PIL animation with disposal": _pil_gif(
+            [(idx(16, 20), pal) for _ in range(3)], duration=80,
+            disposal=2, loop=0),
+        "local table over a global one": write_gif(30, 20, [
+            {"idx": idx(20, 30), "palette": rng.integers(0, 256, (16, 3))}],
+            palette=pal, background=7),
+        "local table only": write_gif(30, 20, [
+            {"idx": idx(12, 17), "x": 4, "y": 3,
+             "palette": rng.integers(0, 256, (16, 3))}], background=9),
+        "no table at all": write_gif(16, 16, [
+            {"idx": np.arange(256).reshape(16, 16)}], min_code_size=8),
+        "frame smaller than the canvas": write_gif(40, 30, [
+            {"idx": idx(11, 13), "x": 20, "y": 15}], palette=pal,
+            background=3),
+        "transparent interlaced subframe": write_gif(40, 30, [
+            {"idx": idx(13, 21), "x": 5, "y": 9, "interlace": True,
+             "transparent": 1, "disposal": 3},
+            {"idx": idx(30, 40)}], palette=pal, background=2),
+        "table full, no clear code": write_gif(
+            300, 200, [{"idx": idx(200, 300)}], palette=pal,
+            defer_clear=True),
+        "clear codes every 50 codes": write_gif(
+            60, 40, [{"idx": idx(40, 60)}], palette=pal, clear_every=50),
+        "no end code": write_gif(30, 20, [{"idx": idx(20, 30)}],
+                                 palette=pal, end_code=False),
+        "code size 11": write_gif(30, 20, [{"idx": idx(20, 30)}],
+                                  palette=pal, min_code_size=11),
+        "GIF87a": write_gif(30, 20, [{"idx": idx(20, 30)}], palette=pal,
+                            version=b"87a"),
+    }
+    plain = write_gif(30, 20, [{"idx": idx(20, 30)}], palette=pal)
+    out["comment, plain text and unknown extensions"] = (
+        plain[:61] + b"\x21\xfe\x03abc\x00\x21\x01\x0c" + bytes(12) +
+        b"\x02ab\x00\x21\x99\x02ab\x00" + plain[61:])
+    for i, shape in enumerate([(20, 28, 3), (9, 7, 3)]):
+        ok, buf = cv2.imencode(".gif", rng.integers(0, 256, shape, np.uint8))
+        out[f"cv2 {i}"] = buf.tobytes()
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(_gif_kinds()))
+def test_gif_kinds_match_cv2(tmp_path, jax_cv2_decoder, kind):
+    same_as_cv2(_gif_kinds()[kind], tmp_path, jax_cv2_decoder, ".gif")
+
+
+def _gif_refusals():
+    rng = np.random.default_rng(31)
+    pal = rng.integers(0, 256, (16, 3))
+    img = rng.integers(0, 16, (10, 12))
+    good = write_gif(12, 10, [{"idx": img}], palette=pal)
+    return {
+        "background past the table": write_gif(12, 10, [{"idx": img}],
+                                               palette=pal, background=20),
+        "frame past the canvas": write_gif(12, 10, [
+            {"idx": img, "x": 3}], palette=pal),
+        "no trailer": good[:-1],
+        "short data": write_gif(12, 10, [{"idx": img[:5]}], palette=pal)
+        .replace(b"\x0c\x00\x05\x00", b"\x0c\x00\x0a\x00", 1),
+        "index past the table": write_gif(12, 10, [{"idx": img}],
+                                          palette=pal[:4]),
+        "code size 1": write_gif(12, 10, [{"idx": img % 2}], palette=pal,
+                                 min_code_size=1),
+        "control extension of 5 bytes": good[:61] +
+        b"\x21\xf9\x05\x01\x00\x00\x03\x00\x00" + good[61:],
+        "first frame's disposal method 5": write_gif(
+            12, 10, [{"idx": img, "disposal": 5}], palette=pal),
+        "XMP application extension": good[:61] +
+        b"\x21\xff\x0bXMP DataXMP\x03\x01\x00\x00\x00" + good[61:],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_gif_refusals()))
+def test_gif_cv2_refuses_raise_naming_the_file(tmp_path, case):
+    refused_naming_the_file(_gif_refusals()[case], tmp_path, ".gif", "cv2")
+
+
+@pytest.mark.parametrize("case", ["two bytes past the end code",
+                                  "end code before the last pixel"])
+def test_gif_kinds_not_reproduced_raise(case):
+    """LZW data beyond an end code and its padding: cv2 5 keeps or
+    refuses such streams by rules of its own (ROADMAP C20); the port
+    raises saying so, whatever cv2 gives."""
+    rng = np.random.default_rng(32)
+    pal = rng.integers(0, 256, (16, 3))
+    img = rng.integers(0, 16, (8, 8))
+    if case == "two bytes past the end code":
+        data = lzw_encode(img, 4) + b"\x00\x00"
+    else:   # a clear code before each pixel: 5-bit codes throughout
+        codes = [c for v in img.ravel() for c in (16, int(v))]
+        codes = codes[:40] + [17] + codes[40:]
+        acc = sum(c << (5 * i) for i, c in enumerate(codes))
+        data = acc.to_bytes((5 * len(codes) + 7) // 8, "little")
+    head = write_gif(8, 8, [{"idx": img}], palette=pal)
+    start = head.index(b"\x2c") + 10
+    gif = head[:start] + bytes([4, len(data)]) + data + b"\x00\x3b"
+    for c in (3, 1):
+        with pytest.raises(ValueError, match="unsupported here"):
+            decode_image_bytes(gif, c)
+
+
+# --- Sun raster ----------------------------------------------------------------
+
+def _sunras_kinds():
+    rng = np.random.default_rng(33)
+    out = {}
+    for depth in (1, 8, 24, 32):
+        for typ in (RT_OLD, RT_STANDARD):
+            for h, w in ((7, 11), (4, 16)):
+                px = (rng.integers(0, 2, (h, w)) if depth == 1 else
+                      rng.integers(0, 256, (h, w)) if depth == 8 else
+                      rng.integers(0, 256, (h, w, depth // 8)))
+                out[f"{depth}-bit type {typ} {w} wide"] = write_sunras(
+                    px, depth, typ)
+                if depth <= 8:
+                    n = 1 << depth
+                    out[f"{depth}-bit type {typ} {w} wide, colour map"] = \
+                        write_sunras(px, depth, typ,
+                                     rng.integers(0, 256, (n, 3)))
+    px = rng.integers(0, 256, (6, 9))
+    out["8-bit, a short colour map"] = write_sunras(
+        px, 8, colormap=rng.integers(0, 256, (40, 3)))
+    out["8-bit, a gray colour map"] = write_sunras(
+        px, 8, colormap=np.repeat(rng.integers(0, 256, (256, 1)), 3, 1))
+    for i, shape in enumerate([(9, 13, 3), (8, 11)]):
+        ok, buf = cv2.imencode(".ras", rng.integers(0, 256, shape, np.uint8))
+        out[f"cv2 {i}"] = buf.tobytes()
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(_sunras_kinds()))
+def test_sunras_kinds_match_cv2(tmp_path, jax_cv2_decoder, kind):
+    same_as_cv2(_sunras_kinds()[kind], tmp_path, jax_cv2_decoder, ".ras")
+
+
+def _sunras_refusals():
+    rng = np.random.default_rng(34)
+    px8, px24 = rng.integers(0, 256, (6, 9)), rng.integers(0, 256, (6, 9, 3))
+    good = write_sunras(px24, 24)
+    return {
+        # OpenCV 5 checks these two types against its unset image type
+        "byte-encoded (RLE) type": write_sunras(px8, 8, RT_BYTE_ENCODED),
+        "RGB type": write_sunras(px24, 24, RT_FORMAT_RGB),
+        "depth 4": good[:12] + struct.pack(">I", 4) + good[16:],
+        "colour map on a 24-bit file": write_sunras(
+            px24, 24, colormap=rng.integers(0, 256, (4, 3))),
+        "colour map past 3 << depth": write_sunras(
+            px8 % 2, 1, colormap=rng.integers(0, 256, (3, 3))),
+        "truncated rows": good[:-5],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_sunras_refusals()))
+def test_sunras_cv2_refuses_raise_naming_the_file(tmp_path, case):
+    refused_naming_the_file(_sunras_refusals()[case], tmp_path, ".ras",
+                            "cv2")
+
+
+# --- PFM -----------------------------------------------------------------------
+
+def _pfm(values, scale, header=None):
+    tag = b"PF" if values.ndim == 3 else b"Pf"
+    h, w = values.shape[:2]
+    head = header or tag + f"\n{w} {h}\n{scale}\n".encode()
+    return head + np.ascontiguousarray(values[::-1]).astype(
+        "<f4" if scale < 0 else ">f4").tobytes()
+
+
+_SPECIAL = np.array([0, 0.49, 0.5, 0.51, 1.5, 2.5, 254.5, 255.5, 300, -0.5,
+                     -3, np.nan, np.inf, -np.inf, 1e10, 2.0 ** 31,
+                     2.0 ** 31 - 128, 127.5], np.float32)
+
+
+def _pfm_kinds():
+    rng = np.random.default_rng(35)
+    rgb = rng.normal(120, 100, (9, 21, 3)).astype(np.float32)
+    rgb[0, :len(_SPECIAL), 0] = _SPECIAL
+    gray = rng.normal(120, 100, (11, 19)).astype(np.float32)
+    gray[1, :len(_SPECIAL)] = _SPECIAL
+    return {
+        "RGB little-endian": (_pfm(rgb, -1.0), 3),
+        "RGB big-endian": (_pfm(rgb, 1.0), 3),
+        "RGB scale 3": (_pfm(rgb, -3.0), 3),
+        "RGB scale 0.25, big-endian": (_pfm(rgb, 0.25), 3),
+        "gray little-endian": (_pfm(gray, -1.0), 1),
+        "gray big-endian scale 2": (_pfm(gray, 2.0), 1),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_pfm_kinds()))
+def test_pfm_kinds_match_cv2(tmp_path, kind):
+    """At the file's own channel count the port gives cv2's bytes (the
+    float conversion's rounding, saturation, NaN and Inf included); at
+    the other, where cv2 gives an image of the file's channels (imdecode)
+    or none (imread), the port raises."""
+    data, nch = _pfm_kinds()[kind]
+    path = str(tmp_path / "kind.pfm")
+    with open(path, "wb") as f:
+        f.write(data)
+    want = _cv2(data, nch)
+    np.testing.assert_array_equal(decode_image_bytes(data, nch), want)
+    np.testing.assert_array_equal(decode_image(path, nch), want)
+    other = 4 - nch
+    assert cv2.imread(path, cv2.IMREAD_COLOR if other == 3
+                      else cv2.IMREAD_GRAYSCALE) is None
+    with pytest.raises(ValueError, match="unsupported here"):
+        decode_image(path, other)
+    with pytest.raises(ValueError, match="unsupported here"):
+        decode_image_bytes(data, other)
+
+
+@pytest.mark.parametrize("case", ["scale 0", "width 0", "truncated",
+                                  "two blanks between numbers",
+                                  "no line break after PF"])
+def test_pfm_cv2_refuses_raise_naming_the_file(tmp_path, case):
+    v = np.ones((3, 4, 3), np.float32)
+    data = {"scale 0": _pfm(v, -1.0, b"PF\n4 3\n0\n"),
+            "width 0": _pfm(v, -1.0, b"PF\n0 3\n-1\n"),
+            "truncated": _pfm(v, -1.0)[:-7],
+            "two blanks between numbers": _pfm(v, -1.0, b"PF\n4  3\n-1\n"),
+            "no line break after PF": _pfm(v, -1.0, b"PF 4 3\n-1\n")}[case]
+    path = str(tmp_path / "bad.pfm")
+    with open(path, "wb") as f:
+        f.write(data)
+    for c in (3, 1):
+        try:   # a size of 0 fails an assertion in cv2 (cv2.error)
+            assert _cv2(data, c) is None
+        except cv2.error:
+            pass
+        with pytest.raises(ValueError) as err:
+            decode_image(path, c)
+        assert path in str(err.value)
+        assert "cv2 gives no image either" in str(err.value)
+
+
+# --- Radiance HDR --------------------------------------------------------------
+
+def _hdr(rgbe_bytes, w, h, header=None):
+    head = header or (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                      + f"-Y {h} +X {w}\n".encode())
+    return head + rgbe_bytes
+
+
+def _rgbe(rng, h, w):
+    px = rng.integers(0, 256, (h, w, 4))
+    px[..., 3] = rng.integers(118, 140, (h, w))
+    px[rng.random((h, w)) < 0.1] = 0
+    return px.astype(np.uint8)
+
+
+def _rle_line(line):
+    """One new-RLE scanline of (w, 4) RGBE: runs of 4+, literals."""
+    out = bytearray([2, 2, line.shape[0] >> 8, line.shape[0] & 0xFF])
+    for c in range(4):
+        v = line[:, c].tobytes()
+        i = 0
+        while i < len(v):
+            n = 1
+            while i + n < len(v) and v[i + n] == v[i] and n < 127:
+                n += 1
+            if n >= 4:
+                out += bytes([128 + n, v[i]])
+            else:
+                j = i
+                while j < len(v) and j - i < 128 and not (
+                        j + 3 < len(v) and v[j] == v[j + 1] == v[j + 2]
+                        == v[j + 3]):
+                    j += 1
+                n = max(j - i, 1)
+                out += bytes([n]) + v[i:i + n]
+            i += n
+    return bytes(out)
+
+
+def _hdr_kinds():
+    rng = np.random.default_rng(36)
+    flat = _rgbe(rng, 5, 7)
+    runs = np.repeat(_rgbe(rng, 6, 5), 4, 1)
+    old = _rgbe(rng, 6, 12)
+    old[rng.random((6, 12)) < 0.2] = [1, 1, 1, 2]
+    out = {
+        "flat, 7 wide": _hdr(flat.tobytes(), 7, 5),
+        "flat, 20 wide": _hdr(_rgbe(rng, 3, 20).tobytes(), 20, 3),
+        "old run-length pixels": _hdr(old.tobytes(), 12, 6),
+        "new run-length": _hdr(b"".join(_rle_line(r) for r in runs), 20, 6),
+        "run-length, then flat": _hdr(_rle_line(runs[0]) +
+                                      runs[1:].tobytes(), 20, 6),
+        "#?RGBE and lines after FORMAT": _hdr(
+            flat.tobytes(), 7, 5, b"#?RGBE\n# made by hand\nFORMAT=32-bit_"
+            b"rle_rgbe\nEXPOSURE=2.0\nGAMMA=2.2\n\n-Y 5 +X 7\n"),
+    }
+    for i, shape in enumerate([(9, 13, 3), (8, 11), (4, 5, 3)]):
+        ok, buf = cv2.imencode(".hdr", rng.integers(0, 256, shape, np.uint8))
+        out[f"cv2 {i}"] = buf.tobytes()
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(_hdr_kinds()))
+def test_hdr_kinds_match_cv2(tmp_path, jax_cv2_decoder, kind):
+    same_as_cv2(_hdr_kinds()[kind], tmp_path, jax_cv2_decoder, ".hdr")
+
+
+@pytest.mark.parametrize("case", [
+    "no FORMAT line", "XYZE format", "+Y orientation", "CRLF lines",
+    "truncated run-length", "truncated flat", "scanline of another width",
+    "run past the scanline", "zero count"])
+def test_hdr_cv2_refuses_raise_naming_the_file(tmp_path, case):
+    rng = np.random.default_rng(37)
+    line = _rle_line(np.repeat(_rgbe(rng, 1, 3), 4, 1)[0])
+    good = _hdr(line * 2, 12, 2)
+    data = {
+        "no FORMAT line": _hdr(line, 12, 1, b"#?RADIANCE\n\n-Y 1 +X 12\n"),
+        "XYZE format": _hdr(line, 12, 1, b"#?RADIANCE\nFORMAT=32-bit_rle_"
+                            b"xyze\n\n-Y 1 +X 12\n"),
+        "+Y orientation": _hdr(line, 12, 1, b"#?RADIANCE\nFORMAT=32-bit_"
+                               b"rle_rgbe\n\n+Y 1 +X 12\n"),
+        "CRLF lines": _hdr(line, 12, 1, b"#?RADIANCE\r\nFORMAT=32-bit_rle_"
+                           b"rgbe\r\n\r\n-Y 1 +X 12\r\n"),
+        "truncated run-length": good[:-3],
+        "truncated flat": _hdr(bytes(4 * 5), 3, 2),
+        "scanline of another width": _hdr(line + b"\x02\x02\x00\x0d"
+                                          + line[4:], 12, 2),
+        "run past the scanline": _hdr(b"\x02\x02\x00\x0c\x8d\x05", 12, 1),
+        "zero count": _hdr(b"\x02\x02\x00\x0c\x00\x05", 12, 1),
+    }[case]
+    refused_naming_the_file(data, tmp_path, ".hdr", "cv2")
+
+
 # --- dispatch ----------------------------------------------------------------
 
 def test_the_signature_chooses_the_decoder(tmp_path, jax_cv2_decoder):
@@ -555,10 +922,27 @@ def test_the_signature_chooses_the_decoder(tmp_path, jax_cv2_decoder):
                 jax_cv2_decoder, ".png")
     path = str(tmp_path / "x.bmp")
     with open(path, "wb") as f:
-        f.write(b"GIF89a" + bytes(40))
+        f.write(b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40))   # JPEG 2000
     with pytest.raises(ValueError, match="not an image format") as err:
         decode_image(path)
     assert path in str(err.value)
+
+
+@pytest.mark.parametrize("ext", [".avif", ".jp2"])
+def test_avif_and_jpeg2000_raise_as_not_ported(tmp_path, ext):
+    """cv2 writes and reads AVIF (libavif) and JPEG 2000 (OpenJPEG); the
+    port reads neither (ROADMAP A9a) and says so, naming the file (cv2's
+    JPEG 2000 encoder refused a 16x24 image, so the image is 32x40)."""
+    img = _picture(np.random.default_rng(13), 32, 40)
+    ok, buf = cv2.imencode(ext, img[..., ::-1])
+    assert ok and _cv2(buf.tobytes(), 3) is not None
+    path = str(tmp_path / f"x{ext}")
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+    for c in (3, 1):
+        with pytest.raises(ValueError, match="AVIF are not ported") as err:
+            decode_image(path, c)
+        assert path in str(err.value)
 
 
 # --- the slice ---------------------------------------------------------------
@@ -725,3 +1109,90 @@ def test_image_dims_of_the_new_formats(scene):
 
     for path in scene["files"].values():
         assert image_dims(path) == (120, 90)
+
+
+def _cli_rc(argv, capsys, port):
+    """_cli, or the SystemExit's message where the command exits."""
+    try:
+        return _cli(argv, capsys, port)
+    except SystemExit as e:
+        capsys.readouterr()
+        return str(e)
+
+
+def _outside_labels(shape, dets):
+    """Pixels outside the label texts of a command's detection lines
+    (tests/test_torch_viz.py's glyph boxes, grown by a pixel: the lines
+    round the boxes to 0.1 px, the drawings take them unrounded)."""
+    from tests.test_torch_viz import _glyph_mask
+    from yolo_tpu_torch.configs import get_variant
+
+    names = get_variant("tiny-voc").class_names
+    mask = _glyph_mask(shape, [d["box_xyxy"] for d in dets],
+                       [d["score"] for d in dets],
+                       [names.index(d["class"]) for d in dets], names)
+    grown = mask.copy()
+    grown[1:] |= mask[:-1]
+    grown[:-1] |= mask[1:]
+    grown[:, 1:] |= grown[:, :-1].copy()
+    grown[:, :-1] |= grown[:, 1:].copy()
+    return ~grown
+
+
+@pytest.mark.parametrize("ext", [".tif", ".webp"])
+def test_predict_output_tif_and_webp_match_jax(scene, capsys, tmp_path, ext):
+    """predict --image X --output Y.tif / Y.webp: JAX writes through
+    cv2.imwrite, the port through its own writers. Decoded, the two files
+    agree outside the label texts (whose glyphs are the port's own font,
+    tests/test_torch_viz.py), and cv2 and the port read the port's file
+    alike."""
+    src = scene["files"]["scene.tif" if ext == ".tif" else "scene.webp"]
+    outs = {}
+    for port in (False, True):
+        out = str(tmp_path / f"{'port' if port else 'jax'}{ext}")
+        argv = ["predict", "--model", "tiny-voc", "--input-size", "96",
+                "--weights", scene["weights"], "--precision", "fp32",
+                "--image", src, "--conf", "0.1", "--output", out]
+        outs[port] = (_cli(argv, capsys, port), out)
+    (want, jpath), (got, ppath) = outs[False], outs[True]
+    assert len(want) >= 1
+    _same_dets(want, got)
+    jax_img = cv2.imread(jpath)[..., ::-1]
+    port_img = decode_image(ppath)
+    np.testing.assert_array_equal(cv2.imread(ppath)[..., ::-1], port_img)
+    outside = _outside_labels(jax_img.shape, got)
+    assert outside.mean() > 0.4
+    np.testing.assert_array_equal(port_img[outside], jax_img[outside])
+
+
+def test_detect_images_output_dir_lists_the_same_files(scene, capsys,
+                                                       tmp_path):
+    """detect --images --output-dir: both CLIs list .jpg/.jpeg/.png/.bmp
+    only (yolo_tpu/cli/detect_cmds.py), so a folder of a .tif and a .webp
+    ends both with 'no images found'; beside a .bmp, both annotate the
+    .bmp alone, under its own name, to the same pixels outside the label
+    texts."""
+    images = tmp_path / "images"
+    images.mkdir()
+    shutil.copy(scene["files"]["scene.tif"], images / "a.tif")
+    shutil.copy(scene["files"]["scene.webp"], images / "b.webp")
+    base = ["detect", "--model", "tiny-voc", "--input-size", "96",
+            "--weights", scene["weights"], "--precision", "fp32",
+            "--images", str(images), "--conf", "0.1"]
+    refusals = [_cli_rc(base + ["--output-dir", str(tmp_path / f"o{p}")],
+                        capsys, p) for p in (False, True)]
+    assert refusals[0] == refusals[1] and "no images found" in refusals[0]
+    shutil.copy(scene["files"]["scene.bmp"], images / "c.bmp")
+    lines = {}
+    for port in (False, True):
+        lines[port] = _cli(base + ["--output-dir", str(tmp_path /
+                                                       f"o{port}")],
+                           capsys, port)
+        assert sorted(os.listdir(tmp_path / f"o{port}")) == ["c.bmp"]
+    assert [os.path.basename(r["image"]) for r in lines[True]] == ["c.bmp"]
+    _same_dets(lines[False][0]["detections"], lines[True][0]["detections"])
+    jax_img = cv2.imread(str(tmp_path / "oFalse" / "c.bmp"))[..., ::-1]
+    port_img = decode_image(str(tmp_path / "oTrue" / "c.bmp"))
+    outside = _outside_labels(jax_img.shape, lines[True][0]["detections"])
+    assert outside.mean() > 0.4
+    np.testing.assert_array_equal(port_img[outside], jax_img[outside])

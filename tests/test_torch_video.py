@@ -12,7 +12,10 @@ Tolerances:
     mean 2.1; uniform noise at most 90, mean 13;
   * under set_decoder("cv2"): video_batches and video_info equal JAX's;
   * the writer's files read back through cv2.VideoCapture with the fps,
-    size and frame count of the JAX writer's files;
+    size and frame count of the JAX writer's files; under PART_SIZE byte
+    for byte as before OpenDML output, past it (lowered) in three or more
+    OpenDML parts that the port's reader and cv2.VideoCapture read back
+    frame for frame;
   * detect --video: each frame's JSON line as the port's detect tests
     hold the JAX CLI's (fp32: scores within 1e-4, boxes within 0.1 px;
     int8: 2e-3 and 1 px), on the same frames (--decoder cv2), and the
@@ -327,6 +330,98 @@ def test_writer_reads_back_as_the_jax_writers_file(fps, tmp_path):
     info = tvideo.video_info(str(tmp_path / "t.avi"))
     assert (info["width"], info["height"], info["frames"]) == (56, 40, 3)
     assert info["fps"] == pytest.approx(props[1][0], abs=1e-9)
+
+
+def _write_avi(path, payloads, fps=25.0, size=(64, 48)):
+    writer = tvideo.AviWriter(str(path), fps, *size)
+    for p in payloads:
+        writer.write_jpeg(p)
+    opendml, parts = writer.opendml, len(writer._super)
+    writer.close()
+    return opendml, parts
+
+
+def test_writer_under_the_part_size_is_unchanged(tmp_path):
+    """Under PART_SIZE the file is plain AVI 1.0, byte for byte what the
+    writer wrote before OpenDML parts existed (its sha256 then)."""
+    import hashlib
+
+    from yolo_tpu_torch.native.preproc import encode_jpeg
+
+    path = tmp_path / "v.avi"
+    opendml, _ = _write_avi(path, [encode_jpeg(f) for f in
+                                   video_frames(7, 48, 64, 3)], fps=29.97)
+    assert not opendml
+    assert hashlib.sha256(path.read_bytes()).hexdigest() == (
+        "1b7cda21d9bfa20097cbdbc473193010c6e3f859f1266ec446803ac419a99b63")
+
+
+def _hold_opendml_indexes(data: bytes, avi, parts: int) -> None:
+    """The OpenDML indexes against the frames AviFile found by walking the
+    chunks: the super index's entries point at each part's ix00 (its
+    offset, size and entry count), each ix00's entries (offset from its
+    base, size) at that part's frames in order; dmlh and strh count every
+    frame, avih the first RIFF's (which idx1 indexes)."""
+    def u32(at):
+        return struct.unpack_from("<I", data, at)[0]
+
+    indx = data.index(b"indx")
+    n = u32(indx + 12)
+    assert n == parts and data[indx + 16:indx + 20] == b"00dc"
+    frames = iter(avi.frames)
+    for k in range(n):
+        off, size, count = struct.unpack_from("<QII", data, indx + 32 + 16 * k)
+        assert data[off:off + 4] == b"ix00" and u32(off + 4) + 8 == size
+        assert u32(off + 12) == count and data[off + 16:off + 20] == b"00dc"
+        base = struct.unpack_from("<Q", data, off + 20)[0]
+        assert data[base:base + 4] == b"movi"
+        for e in range(count):
+            rel, sz = struct.unpack_from("<II", data, off + 32 + 8 * e)
+            assert (base + rel, sz) == next(frames)
+            assert data[base + rel - 8:base + rel - 4] == b"00dc"
+            assert u32(base + rel - 4) == sz
+    assert next(frames, None) is None
+    dmlh = data.index(b"dmlh")
+    assert u32(dmlh + 8) == len(avi.frames)
+    strh = data.index(b"strh")
+    assert u32(strh + 8 + 32) == len(avi.frames)
+    first = u32(data.index(b"idx1") + 4) // 16
+    assert u32(data.index(b"avih") + 8 + 16) == first < len(avi.frames)
+
+
+@pytest.mark.parametrize("part_size", [12_000, 30_000])
+def test_writer_past_the_part_size_writes_opendml_parts(part_size, tmp_path,
+                                                        monkeypatch):
+    """With PART_SIZE lowered, the writer's file takes three or more
+    OpenDML parts (RIFF AVI with indx, odml and idx1, then RIFF AVIX,
+    each with its ix00): the port's reader gives back every payload in
+    order, and cv2.VideoCapture (FFmpeg) counts and reads every frame, in
+    order: the frames of the same payloads in one RIFF, and within
+    ROADMAP C13's bound of the port's decode."""
+    import cv2
+
+    from yolo_tpu_torch.native.preproc import encode_jpeg
+
+    frames = video_frames(40, 64, 96, 1)
+    payloads = [encode_jpeg(f) for f in frames]
+    one = str(tmp_path / "one.avi")
+    _write_avi(one, payloads, size=(96, 64))
+    monkeypatch.setattr(tvideo, "PART_SIZE", part_size)
+    path = str(tmp_path / "v.avi")
+    opendml, ended = _write_avi(path, payloads, size=(96, 64))
+    assert opendml and ended + 1 >= 3
+    data = open(path, "rb").read()
+    assert data.count(b"AVIX") == ended and data.count(b"ix00") == ended + 1
+    avi = tvideo.AviFile(path)
+    _hold_opendml_indexes(data, avi, ended + 1)
+    assert list(avi.payloads(range(len(avi.frames)))) == payloads
+    cap = cv2.VideoCapture(path)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == len(frames)
+    cap.release()
+    got = _capture(path)
+    np.testing.assert_array_equal(got, _capture(one))
+    d = np.abs(got.astype(int) - _native(path).astype(int))
+    assert d.max() <= 72 and d.mean() <= 2.1
 
 
 @pytest.fixture(scope="module")

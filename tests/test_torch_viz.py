@@ -12,7 +12,11 @@ with (yolo_tpu/utils/viz.py):
   * JPEG (q95, 4:2:0, cv2.imwrite's defaults): the file decodes, by cv2,
     within 1 grey level of cv2.imwrite's own file of the same array, and
     the two files are the same bytes;
-  * BMP and binary PGM / PPM / PNM: cv2.imwrite's bytes."""
+  * BMP and binary PGM / PPM / PNM: cv2.imwrite's bytes;
+  * TIFF, PAM, Sun raster, PFM and HDR: cv2.imwrite's bytes (a Sun
+    raster's last pad byte aside: cv2 copies it from past its image);
+  * WebP: lossless, read back exactly by cv2 and the port, at most 1.5x
+    the size of cv2.imwrite's file on an annotated 480x640 frame."""
 
 import os
 
@@ -120,12 +124,15 @@ def test_jpeg_matches_cv2_imwrite(tmp_path, shape, smooth):
 
 
 def test_save_image_refuses_what_it_cannot_write(tmp_path):
+    """GIF, AVIF and JPEG 2000, which cv2 writes through lossy encoders,
+    are refused saying so; so is a missing directory."""
     img = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(OSError, match="webp"):
-        viz.save_image(str(tmp_path / "a.webp"), img)
+    for ext in (".gif", ".avif", ".jp2"):
+        with pytest.raises(OSError, match=f"{ext}.*lossy encoder"):
+            viz.save_image(str(tmp_path / f"a{ext}"), img)
+        assert not os.path.exists(tmp_path / f"a{ext}")
     with pytest.raises(OSError):
         viz.save_image(str(tmp_path / "missing" / "a.png"), img)
-    assert not os.path.exists(tmp_path / "a.webp")
 
 
 @pytest.mark.parametrize("ext", [".bmp", ".ppm", ".pgm", ".pnm"])
@@ -151,3 +158,104 @@ def test_bmp_and_pnm_match_cv2_imwrite(tmp_path, ext, shape):
     viz.save_image(got_path, img)
     with open(got_path, "rb") as a, open(want_path, "rb") as b:
         assert a.read() == b.read()
+
+
+WRITER_SHAPES = [(1, 1, 3), (7, 13, 3), (16, 16, 3), (5, 9, 1), (6, 8),
+                 (480, 640, 3)]
+
+
+def _cv2_writes(path, img):
+    colour = img.ndim == 3 and img.shape[2] == 3
+    return cv2.imwrite(path, img[..., ::-1] if colour
+                       else img.reshape(img.shape[:2]))
+
+
+@pytest.mark.parametrize("ext", [".tif", ".tiff", ".pam", ".ras", ".sr",
+                                 ".pfm", ".hdr"])
+@pytest.mark.parametrize("shape", WRITER_SHAPES)
+def test_tiff_pam_sunras_pfm_hdr_match_cv2_imwrite(tmp_path, ext, shape):
+    """save_image's TIFF (libtiff's LZW and layout), PAM, Sun raster, PFM
+    and HDR (rgbe.c's run-length scanlines) are cv2.imwrite's bytes. cv2
+    pads an odd-length Sun raster row with the byte after it in memory:
+    the next row's first, and for the last row a byte past the image,
+    which the port writes as 0 and the comparison leaves out."""
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 256, shape, np.uint8)
+    if shape[0] > 100:   # a frame's smooth regions as well as noise
+        img = cv2.GaussianBlur(img, (9, 9), 3)
+    want_path, got_path = str(tmp_path / f"cv2{ext}"), str(tmp_path /
+                                                           f"p{ext}")
+    assert _cv2_writes(want_path, img)
+    viz.save_image(got_path, img)
+    with open(got_path, "rb") as a, open(want_path, "rb") as b:
+        got, want = a.read(), b.read()
+    if ext in (".ras", ".sr") and (shape[1] * (shape[2] if len(shape) == 3
+                                               else 1)) % 2:
+        assert len(got) == len(want) and got[-1] == 0
+        got, want = got[:-1], want[:-1]
+    assert got == want
+
+
+@pytest.mark.parametrize("kind", ["noise", "flat, then four levels"])
+def test_tiff_strips_past_lzw_checkpoint_match_cv2(tmp_path, kind):
+    """Rows of more than 8 KiB make strips of one row: noise fills
+    libtiff's LZW table (a clear code each time), and a flat run then
+    four levels drops the compression ratio at a checkpoint (every 10000
+    input bytes), so that libtiff clears there too."""
+    rng = np.random.default_rng(9)
+    if kind == "noise":
+        img = rng.integers(0, 256, (3, 4000, 3), np.uint8)
+    else:
+        img = np.full((1, 30000), 7, np.uint8)
+        img[0, 11000:] = rng.integers(0, 4, 19000)
+    want_path, got_path = str(tmp_path / "cv2.tif"), str(tmp_path / "p.tif")
+    assert _cv2_writes(want_path, img)
+    viz.save_image(got_path, img)
+    with open(got_path, "rb") as a, open(want_path, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("mode", range(14))
+def test_webp_every_predictor_mode_reads_back(mode):
+    """Each of VP8L's 14 predictor modes, forced on every tile of a
+    smooth picture, reads back exactly in cv2 and in the port."""
+    from yolo_tpu_torch.data.webp import decode_webp, encode_webp
+
+    img = cv2.GaussianBlur(np.random.default_rng(mode).integers(
+        0, 256, (37, 53, 3), np.uint8), (5, 5), 2)
+    data = encode_webp(img, predictor=mode)
+    np.testing.assert_array_equal(
+        cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        [..., ::-1], img)
+    np.testing.assert_array_equal(decode_webp(data), img)
+
+
+@pytest.mark.parametrize("shape", WRITER_SHAPES[:-1] + ["smooth",
+                                                         "annotated"])
+def test_webp_is_lossless_and_near_cv2s_size(tmp_path, shape):
+    """save_image's .webp is a lossless VP8L file that cv2.imread and the
+    port read back to the written pixels; on the annotated 480x640 frame
+    it is at most 1.5x cv2.imwrite's file (PERF.md records the ratio)."""
+    from yolo_tpu_torch.native.preproc import decode_image
+
+    if shape == "annotated":   # the frame tools/writer_sizes.py measures
+        from tools.writer_sizes import annotated_frame
+
+        img = annotated_frame()
+    elif shape == "smooth":   # every predictor mode, the colour cache
+        img = cv2.GaussianBlur(np.random.default_rng(8).integers(
+            0, 256, (120, 160, 3), np.uint8), (9, 9), 3)
+        img[40:80:2, 30:90] = img[:20, :60]
+    else:
+        img = np.random.default_rng(8).integers(0, 256, shape, np.uint8)
+    path, ref = str(tmp_path / "p.webp"), str(tmp_path / "cv2.webp")
+    viz.save_image(path, img)
+    with open(path, "rb") as f:
+        assert f.read()[12:16] == b"VP8L"
+    rgb = img if img.ndim == 3 and img.shape[2] == 3 else np.repeat(
+        img.reshape(img.shape[0], img.shape[1], 1), 3, 2)
+    np.testing.assert_array_equal(cv2.imread(path)[..., ::-1], rgb)
+    np.testing.assert_array_equal(decode_image(path), rgb)
+    if shape == "annotated":
+        assert _cv2_writes(ref, img)
+        assert os.path.getsize(path) <= 1.5 * os.path.getsize(ref)

@@ -11,14 +11,18 @@ from seeded coefficient blocks by the tests' own writers
 arithmetic-coded JPEGs; tests/png_writer.py: an interlaced PNG), and
 hashes.json records, for each file, the sha256 and shape of
 cv2.imread(IMREAD_COLOR) after COLOR_BGR2RGB ("rgb") and of
-cv2.imread(IMREAD_GRAYSCALE) ("gray"). tests/test_torch_decode.py and
-chip_smoke.py hold the port's decoder to those hashes;
-PROGRESSIVE_FRAME, TIFF_FRAME, WEBP_FRAME and WEBP_LOSSLESS_FRAME are the
-480x640 files whose decode rates chip_smoke.py's phase 14 (c) reads.
+cv2.imread(IMREAD_GRAYSCALE) ("gray"), null where cv2 gives no image of
+those channels (a PFM read at the other channel count: the port raises
+there). tests/test_torch_decode.py and chip_smoke.py hold the port's
+decoder to those hashes; PROGRESSIVE_FRAME, TIFF_FRAME, WEBP_FRAME,
+WEBP_LOSSLESS_FRAME, GIF_FRAME and HDR_FRAME are the 480x640 files
+whose decode rates chip_smoke.py's phase 14 (c) reads.
 The BMP, PNM, TIFF and
 WebP files (tests/bmp_writer.py and PIL write the ones cv2 does not),
 two damaged JPEGs and one whose coefficients overflow the IDCT come
-from format_kinds.
+from format_kinds; the GIF, Sun raster, PFM and Radiance HDR files
+(tests/gif_writer.py and tests/sunras_writer.py write the ones cv2 and
+PIL do not) from decoder_kinds.
 """
 
 import argparse
@@ -38,7 +42,9 @@ sys.path.insert(0, REPO)
 
 from tests import jpeg_writer as jw  # noqa: E402
 from tests.bmp_writer import rle_encode, write_bmp  # noqa: E402
+from tests.gif_writer import write_gif  # noqa: E402
 from tests.png_writer import write_png  # noqa: E402
+from tests.sunras_writer import RT_OLD, write_sunras  # noqa: E402
 
 SEED = 7
 PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
@@ -46,6 +52,9 @@ PROGRESSIVE_FRAME = "prog_420_q85_480x640.jpg"
 TIFF_FRAME = "frame_lzw_pred_480x640.tif"
 WEBP_FRAME = "frame_webp_q80_480x640.webp"
 WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
+# the 480x640 GIF and HDR frames whose decode rates phase 14 (c) reads
+GIF_FRAME = "frame_gif_480x640.gif"
+HDR_FRAME = "frame_hdr_480x640.hdr"
 
 
 def picture(rng, h, w):
@@ -267,9 +276,112 @@ def format_kinds():
     return out
 
 
+def pil_gif(frames, **kw) -> bytes:
+    """A PIL GIF of palette frames ((idx, (n, 3) palette) pairs)."""
+    ims = []
+    for idx, pal in frames:
+        im = Image.fromarray(idx.astype(np.uint8), "P")
+        im.putpalette(np.asarray(pal, np.uint8).ravel().tolist())
+        ims.append(im)
+    b = io.BytesIO()
+    ims[0].save(b, "GIF", save_all=len(ims) > 1, append_images=ims[1:], **kw)
+    return b.getvalue()
+
+
+def pfm(values: np.ndarray, scale: float) -> bytes:
+    """A PFM of float values ((h, w, 3) RGB or (h, w) gray), rows
+    bottom-up, little-endian for a negative scale."""
+    tag = b"PF" if values.ndim == 3 else b"Pf"
+    h, w = values.shape[:2]
+    return tag + f"\n{w} {h}\n{scale}\n".encode() + np.ascontiguousarray(
+        values[::-1]).astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+def rgbe_rows(rgbe: np.ndarray) -> bytes:
+    """(h, w, 4) RGBE bytes -> a Radiance header and flat pixels."""
+    h, w = rgbe.shape[:2]
+    return (f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n"
+            .encode() + rgbe.astype(np.uint8).tobytes())
+
+
+def decoder_kinds():
+    """GIF, Sun raster, PFM and Radiance HDR files (cv2's, PIL's and the
+    tests' writers'), and the 480x640 GIF and HDR frames of phase 14
+    (c)."""
+    rng = np.random.default_rng(SEED + 3)
+    pal = rng.integers(0, 256, (16, 3))
+    idx = [rng.integers(0, 16, (24, 32)) for _ in range(3)]
+    out = {
+        "gif_pil_interlaced_23x37.gif": pil_gif(
+            [(rng.integers(0, 16, (23, 37)), pal)], interlace=True),
+        "gif_pil_transparent_21x30.gif": pil_gif(
+            [(rng.integers(0, 16, (21, 30)), pal)], transparency=5),
+        "gif_anim3_disposal_24x32.gif": pil_gif(
+            [(i, pal) for i in idx], duration=100, disposal=2, loop=0),
+        "gif_local_palette_26x34.gif": write_gif(34, 26, [
+            {"idx": rng.integers(0, 16, (26, 34)),
+             "palette": rng.integers(0, 256, (16, 3))}], palette=pal,
+            background=3),
+        "gif_small_frame_30x40.gif": write_gif(40, 30, [
+            {"idx": rng.integers(0, 16, (12, 17)), "x": 9, "y": 7,
+             "transparent": 2, "disposal": 2, "interlace": True},
+            {"idx": rng.integers(0, 16, (30, 40))}], palette=pal,
+            background=6),
+        "sunras_cmap8_19x27.ras": write_sunras(
+            rng.integers(0, 256, (19, 27)), 8,
+            colormap=rng.integers(0, 256, (200, 3))),
+        "sunras_1bit_13x21.ras": write_sunras(
+            rng.integers(0, 2, (13, 21)), 1),
+        "sunras_1bit_cmap_old_11x17.ras": write_sunras(
+            rng.integers(0, 2, (11, 17)), 1, typ=RT_OLD,
+            colormap=rng.integers(0, 256, (2, 3))),
+        "sunras_32bit_15x22.ras": write_sunras(
+            rng.integers(0, 256, (15, 22, 4)), 32),
+        "pfm_rgb_le_13x17.pfm": pfm(rng.normal(120, 90, (13, 17, 3)), -1.0),
+        "pfm_rgb_be_scale2_11x19.pfm": pfm(
+            rng.normal(200, 150, (11, 19, 3)), 2.0),
+        "pfm_gray_15x21.pfm": pfm(rng.normal(100, 80, (15, 21)), -1.0),
+        "hdr_flat_7x9.hdr": rgbe_rows(np.concatenate(
+            [rng.integers(0, 256, (7, 9, 3)),
+             rng.integers(120, 136, (7, 9, 1))], 2)),
+        "hdr_old_rle_12x16.hdr": rgbe_rows(np.where(
+            rng.random((12, 16, 1)) < 0.2, [1, 1, 1, 3], np.concatenate(
+                [rng.integers(0, 256, (12, 16, 3)),
+                 rng.integers(125, 131, (12, 16, 1))], 2))),
+    }
+    img = picture(rng, 20, 28)
+    for name, ext in (("gif_cv2_20x28.gif", ".gif"),
+                      ("sunras_cv2_20x28.ras", ".ras"),
+                      ("hdr_cv2_rle_20x28.hdr", ".hdr")):
+        ok, buf = cv2.imencode(ext, img[..., ::-1])
+        assert ok
+        out[name] = buf.tobytes()
+    frame = Image.fromarray(smooth_frame(rng, 480, 640, 40)).quantize(256)
+    b = io.BytesIO()
+    frame.save(b, "GIF")
+    out[GIF_FRAME] = b.getvalue()
+    ok, buf = cv2.imencode(".hdr", smooth_frame(rng, 480, 640, 0)[..., ::-1])
+    assert ok
+    out[HDR_FRAME] = buf.tobytes()
+    return out
+
+
 def digest(img: np.ndarray) -> dict:
     return {"sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
             .hexdigest(), "shape": list(img.shape)}
+
+
+def cv2_digest(path: str, flag: int):
+    """The digest of cv2.imread(path, flag) (RGB at IMREAD_COLOR), or None
+    where cv2 gives no image of that flag's channels (a PFM's other
+    channel count): the port raises there."""
+    img = cv2.imread(path, flag)
+    channels = 3 if flag == cv2.IMREAD_COLOR else 1
+    if img is None or (img.ndim == 3) != (channels == 3):
+        return None
+    if channels == 3:
+        return digest(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+    return digest(img[..., None])
 
 
 def main() -> None:
@@ -279,15 +391,14 @@ def main() -> None:
     out = ap.parse_args().out
     os.makedirs(out, exist_ok=True)
     hashes = {}
-    for name, data in {**fixtures(), **new_kinds(),
-                       **format_kinds()}.items():
+    for name, data in {**fixtures(), **new_kinds(), **format_kinds(),
+                       **decoder_kinds()}.items():
         path = os.path.join(out, name)
         with open(path, "wb") as f:
             f.write(data)
-        rgb = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
-                           cv2.COLOR_BGR2RGB)
-        gray = cv2.imread(path, cv2.IMREAD_GRAYSCALE)[..., None]
-        hashes[name] = {"rgb": digest(rgb), "gray": digest(gray)}
+        hashes[name] = {"rgb": cv2_digest(path, cv2.IMREAD_COLOR),
+                        "gray": cv2_digest(path, cv2.IMREAD_GRAYSCALE)}
+        assert hashes[name]["rgb"] or hashes[name]["gray"], name
     with open(os.path.join(out, "hashes.json"), "w") as f:
         json.dump({"decoder": f"OpenCV {cv2.__version__}",
                    "files": hashes}, f, indent=1, sort_keys=True)

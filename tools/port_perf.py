@@ -63,9 +63,10 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         the host decoder (native/) on chip_smoke.py phase 14 (c)'s
         480x640 4:2:0 q90 frame and the 480x640 progressive fixture
         (--format jpeg, the default), a 24-bit BMP of the frame (bmp),
-        the 480x640 LZW TIFF, q80 WebP and lossless WebP fixtures of
-        tests/data/torch_jpeg/ (tiff, webp, webp-lossless) or all of
-        them (all): ms an image on one thread (median of N after 10
+        the 480x640 LZW TIFF, q80 WebP, lossless WebP, GIF and RLE HDR
+        fixtures of tests/data/torch_jpeg/ (tiff, webp, webp-lossless,
+        gif, hdr) or all of them (all): ms an image on one thread
+        (median of N after 10
         warm-ups) and img/s on 8 threads; --tree DIR decodes with another
         checkout's package (an A/B: run parent, change, change, parent in
         one machine session; a tree that cannot read a file reports its
@@ -777,7 +778,9 @@ def cmd_decode(args, card) -> None:
                  "webp": os.path.join(fixtures,
                                       "frame_webp_q80_480x640.webp"),
                  "webp-lossless": os.path.join(
-                     fixtures, "frame_webp_lossless_480x640.webp")}
+                     fixtures, "frame_webp_lossless_480x640.webp"),
+                 "gif": os.path.join(fixtures, "frame_gif_480x640.gif"),
+                 "hdr": os.path.join(fixtures, "frame_hdr_480x640.hdr")}
         chosen = {"jpeg": ("baseline", "progressive"),
                   "all": tuple(files)}.get(args.format, (args.format,))
         for name, path in ((n, files[n]) for n in chosen):
@@ -824,7 +827,7 @@ def cmd_files(args, card) -> None:
     folded = fold_params(cfg.layers, dw.synthetic_detector_params(cfg, 0),
                          cfg.bn_eps)
     net = Darknet(cfg.layers, folded, device="cuda", dtype=torch.bfloat16)
-    # chip_smoke.py's COCO_SIZES, COCO_SCENES and seed
+    # chip_smoke.py's COCO_SIZES and seed, 256 scenes
     sizes = ((480, 640),) * 5 + ((640, 480), (427, 640), (375, 500))
     with tempfile.TemporaryDirectory() as tmp:
         json_path = write_coco_scenes(
@@ -882,7 +885,7 @@ def main() -> int:
     dec.add_argument("--reps", type=int, default=200)
     dec.add_argument("--format", default="jpeg",
                      choices=("jpeg", "bmp", "tiff", "webp", "webp-lossless",
-                              "all"))
+                              "gif", "hdr", "all"))
     fil = sub.add_parser("files")
     fil.add_argument("--tree", default=None)
     fil.add_argument("--reps", type=int, default=3)

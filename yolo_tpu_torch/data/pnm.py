@@ -18,6 +18,10 @@ at 1. Header and copy only, in numpy:
 
 Files that cv2 gives no image for (a bad header, a maxval of 0 or
 above 65535, data that ends early) raise ValueError saying so.
+
+encode_pam writes cv2.imwrite's .pam: a P7 header of WIDTH, HEIGHT,
+DEPTH and MAXVAL 255 and no TUPLTYPE (OpenCV writes one only when
+asked), then the samples in cv2's channel order (B, G, R).
 """
 
 from __future__ import annotations
@@ -184,3 +188,17 @@ def decode_pnm(data: bytes, channels: int = 3) -> np.ndarray:
     if data[1:2] == b"7":
         return _decode_pam(data, channels)
     return _decode_pxm(data, channels)
+
+
+def encode_pam(image: np.ndarray) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> the PAM cv2.imwrite
+    writes (module docstring). Without a TUPLTYPE the port's own reader
+    refuses it, as cv2 reads such a file by an earlier file's type."""
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    depth = 1 if img.ndim == 2 else 3
+    h, w = img.shape[:2]
+    body = img if depth == 1 else img[..., ::-1]
+    return (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL 255\n"
+            f"ENDHDR\n").encode() + np.ascontiguousarray(body).tobytes()

@@ -27,6 +27,10 @@ What libtiff or OpenCV refuses at 8 bits (32-bit, float and signed
 samples, old-style JPEG and LZW, uncompressed YCbCr, other codecs,
 damaged or missing strips) raises ValueError saying that cv2 gives no
 image either, or, where cv2 does give one, that it is not decoded here.
+
+encode_tiff writes the bytes of cv2.imwrite's TIFF (OpenCV 5's
+TiffEncoder on libtiff 4.7): LZW with horizontal differencing, strips of
+8 KiB of rows, the IFD after the strips and its arrays after it.
 """
 
 from __future__ import annotations
@@ -393,3 +397,85 @@ def decode_tiff(data: bytes, channels: int = 3,
         rgb = rgb[:, ::-1]
     rgb = apply_orientation(rgb, o)
     return rgb if channels == 3 else icv_gray(rgb)
+
+
+def _entry(tag: int, typ: int, values, out_of_line: dict) -> tuple:
+    """An IFD entry of SHORT (3) or LONG (4) values -> (tag, type,
+    count, value field); arrays past 4 bytes go to out_of_line[tag]."""
+    code = "H" if typ == 3 else "I"
+    raw = struct.pack(f"<{len(values)}{code}", *values)
+    if len(raw) > 4:
+        out_of_line[tag] = raw
+        return tag, typ, len(values), None
+    return tag, typ, len(values), raw + bytes(4 - len(raw))
+
+
+def encode_tiff(image: np.ndarray) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> the TIFF cv2.imwrite
+    writes: little-endian, one IFD of twelve tags, PlanarConfig 1,
+    RowsPerStrip max(1, min(H, 8192 // (W * channels))), each strip
+    horizontally differenced and LZW-coded as libtiff codes it
+    (native/tiff.c), the strips from byte 8, the IFD at the next even
+    offset, then (each at an even offset) BitsPerSample, StripByteCounts,
+    StripOffsets and SampleFormat where they do not fit in their
+    entries."""
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3):
+        raise ValueError(f"encode_tiff takes (H, W, 3) or (H, W) images, "
+                         f"got shape {image.shape}")
+    h, w, spp = img.shape
+    rows_per_strip = max(1, min(h, 8192 // (w * spp)))
+    rows = img.reshape(h, w * spp).astype(np.int16)
+    diff = rows.copy()
+    diff[:, spp:] -= rows[:, :-spp]
+    diff = (diff & 0xFF).astype(np.uint8)
+    lib = _lib()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    strips = []
+    for y in range(0, h, rows_per_strip):
+        src = np.ascontiguousarray(diff[y:y + rows_per_strip])
+        out = np.empty(2 * src.size + 16, np.uint8)
+        n = lib.yolo_tiff_lzw_encode(src.ctypes.data, src.size,
+                                     out.ctypes.data, out.size, err,
+                                     _ERR_LEN)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        strips.append(out[:n].tobytes())
+    offsets, pos = [], 8
+    for st in strips:
+        offsets.append(pos)
+        pos += len(st)
+    ifd_at = (pos + 1) & ~1
+
+    def short_or_long(tag, v):
+        return _entry(tag, 3 if v <= 0xFFFF else 4, [v], extra)
+
+    extra: dict = {}
+    entries = [short_or_long(WIDTH, w), short_or_long(HEIGHT, h),
+               _entry(BPS, 3, [8] * spp, extra),
+               _entry(COMPRESSION, 3, [5], extra),
+               _entry(PHOTOMETRIC, 3, [2 if spp == 3 else 1], extra),
+               _entry(STRIP_OFFSETS, 4, offsets, extra),
+               _entry(SPP, 3, [spp], extra),
+               short_or_long(ROWS_PER_STRIP, rows_per_strip),
+               _entry(STRIP_COUNTS, 4, [len(st) for st in strips], extra),
+               _entry(PLANAR, 3, [1], extra),
+               _entry(PREDICTOR, 3, [2], extra),
+               _entry(SAMPLE_FORMAT, 3, [1] * spp, extra)]
+    at = ifd_at + 2 + 12 * len(entries) + 4
+    where, tail = {}, b""
+    for tag in (BPS, STRIP_COUNTS, STRIP_OFFSETS, SAMPLE_FORMAT):
+        if tag in extra:
+            where[tag] = at + len(tail)
+            tail += extra[tag] + b"\0" * (len(extra[tag]) & 1)
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, typ, n) + (
+            val if val is not None else struct.pack("<I", where[tag]))
+        for tag, typ, n, val in entries) + b"\0\0\0\0"
+    body = b"".join(strips)
+    return (b"II*\0" + struct.pack("<I", ifd_at) + body
+            + b"\0" * (ifd_at - pos) + ifd + tail)

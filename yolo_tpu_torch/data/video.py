@@ -24,7 +24,9 @@ it).
 
 VideoAnnotator writes the annotated copy (detect --save-video) as an
 MJPG AVI with the port's JPEG writer (native/jpeg_enc.c), its frame rate
-the rational OpenCV's FFmpeg writer stores for the same float fps.
+the rational OpenCV's FFmpeg writer stores for the same float fps; past
+1 GiB (PART_SIZE) the file goes on in OpenDML parts as FFmpeg's muxer
+writes them (AviWriter).
 """
 
 from __future__ import annotations
@@ -40,7 +42,11 @@ import numpy as np
 from yolo_tpu_torch.native.preproc import decode_jpeg, encode_jpeg
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg")
-_RIFF_LIMIT = 0xFFFFFFFF
+# FFmpeg's AVI_MAX_RIFF_SIZE: a RIFF part ends once a frame would start
+# this far past its start (tests lower it)
+PART_SIZE = 1 << 30
+# FFmpeg's AVI_MASTER_INDEX_SIZE_DEFAULT: the super index's entries
+MAX_PARTS = 256
 
 
 def _is_webcam(path) -> bool:
@@ -366,62 +372,158 @@ def ffmpeg_time_base(fps: float) -> Tuple[int, int]:
 
 
 class AviWriter:
-    """A Motion JPEG AVI 1.0 file (hdrl, movi, idx1), written as frames
-    come. Raises ValueError past the 4 GiB a RIFF chunk can hold."""
+    """A Motion JPEG AVI file (hdrl, movi, idx1), written as frames come.
+    Past PART_SIZE bytes it becomes an OpenDML file as FFmpeg's avienc
+    writes one (OpenCV's VideoWriter backend): when a frame would start
+    more than PART_SIZE bytes past its RIFF's start, the first RIFF AVI
+    gains an ``indx`` super index in its strl and ``LIST odml`` /
+    ``dmlh`` (the total frame count) in its hdrl (its movi data moves
+    down by the header's growth, once), each part ends its movi with an
+    ``ix00`` standard index, the first keeps its idx1, and the frames go
+    on in ``RIFF AVIX`` parts of their own. A file that stays under the
+    part size is plain AVI 1.0, byte for byte the same either way."""
 
     def __init__(self, path: str, fps: float, width: int, height: int):
         if fps <= 0 or width < 1 or height < 1:
             raise ValueError(f"an AVI at fps={fps} of {width}x{height}")
         self.width, self.height = int(width), int(height)
         self.scale, self.rate = ffmpeg_time_base(float(fps))
-        self._f = open(path, "wb")
-        self._index: List[Tuple[int, int]] = []
+        self._f = open(path, "w+b")    # read back when a header grows
+        self._index: List[Tuple[int, int]] = []    # the first RIFF's
+        self._part = self._index                   # the current RIFF's
+        self._super: List[Tuple[int, int, int]] = []   # ix00 pos, size, n
+        self._frames = 0
         self._max = 0
+        self._riff_start = 8                       # after its size field
+        self._first_riff_size = 0
         self._f.write(self._header())
         self._movi = self._f.tell()          # the LIST header of movi
         self._f.write(b"LIST\0\0\0\0movi")
 
-    def _header(self) -> bytes:
+    @property
+    def opendml(self) -> bool:
+        return bool(self._super)
+
+    def _header(self, opendml: bool = False) -> bytes:
         n, w, h = len(self._index), self.width, self.height
         usec = (1_000_000 * self.scale + self.rate // 2) // self.rate
         buf = max(self._max, 1 << 20)
         avih = struct.pack("<10I4I", usec, 0, 0, 0x910, n, 0, 1, buf, w,
                            h, 0, 0, 0, 0)
         strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"MJPG", 0, 0,
-                           0, 0, self.scale, self.rate, 0, n, buf,
-                           0xFFFFFFFF, 0, 0, 0, w, h)
+                           0, 0, self.scale, self.rate, 0, self._frames,
+                           buf, 0xFFFFFFFF, 0, 0, 0, w, h)
         strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG",
                            w * h * 3, 0, 0, 0, 0)
         strl = (b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf))
-        hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
+        odml = b""
+        if opendml:
+            entries = b"".join(struct.pack("<QII", pos, size, count)
+                               for pos, size, count in self._super)
+            indx = struct.pack("<HBBI4s3I", 4, 0, 0, len(self._super),
+                               b"00dc", 0, 0, 0) + entries + bytes(
+                16 * (MAX_PARTS - len(self._super)))
+            strl += _chunk(b"indx", indx)
+            odml = _chunk(b"LIST", b"odml" + _chunk(
+                b"dmlh", struct.pack("<I", self._frames) + bytes(244)))
+        hdrl = (b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
+                + odml)
         return b"RIFF\0\0\0\0AVI " + _chunk(b"LIST", hdrl)
 
     def write_jpeg(self, payload: bytes) -> None:
+        if self._f.tell() - self._riff_start > PART_SIZE:
+            self._next_part()
         at = self._f.tell()
         size = len(payload)
-        if at + 8 + size + 1 + 16 * (len(self._index) + 1) + 8 > _RIFF_LIMIT:
-            raise ValueError("the AVI would pass 4 GiB, the size of one "
-                             "RIFF chunk")
         self._f.write(struct.pack("<4sI", b"00dc", size) + payload
                       + b"\0" * (size & 1))
-        self._index.append((at - self._movi - 8, size))
+        self._part.append((at - self._movi - 8, size))
+        self._frames += 1
         self._max = max(self._max, size)
+
+    def _to_opendml(self) -> None:
+        """Grow the first RIFF's header: move its movi data down by the
+        size of indx and LIST odml, from the end backwards."""
+        f, end = self._f, self._f.tell()
+        grow = len(self._header(True)) - self._movi
+        src = end
+        while src > self._movi:
+            n = min(src - self._movi, 1 << 24)
+            src -= n
+            f.seek(src)
+            block = f.read(n)
+            f.seek(src + grow)
+            f.write(block)
+        f.seek(0)
+        f.write(self._header(True))
+        self._movi += grow
+        f.seek(end + grow)
+
+    def _end_part(self) -> None:
+        """The current RIFF's ix00 (offsets from its movi fourcc), the
+        sizes of its movi and RIFF, and the first RIFF's idx1."""
+        f = self._f
+        base = self._movi + 8
+        ix_at = f.tell()
+        ix = struct.pack("<HBBI4sQI", 2, 0, 1, len(self._part), b"00dc",
+                         base, 0) + b"".join(
+            struct.pack("<II", off + 8, size) for off, size in self._part)
+        f.write(_chunk(b"ix00", ix))
+        self._super.append((ix_at, 8 + len(ix), len(self._part)))
+        end = f.tell()
+        f.seek(self._movi + 4)
+        f.write(struct.pack("<I", end - self._movi - 8))
+        f.seek(end)
+        if self._part is self._index:
+            self._write_idx1()
+        end = f.tell()
+        if self._part is self._index:
+            self._first_riff_size = end - self._riff_start
+        f.seek(self._riff_start - 4)
+        f.write(struct.pack("<I", end - self._riff_start))
+        f.seek(end)
+
+    def _next_part(self) -> None:
+        if len(self._super) + 1 >= MAX_PARTS:
+            raise ValueError(f"an OpenDML AVI of more than {MAX_PARTS} parts "
+                             f"of {PART_SIZE} bytes")
+        if not self.opendml:
+            self._to_opendml()
+        self._end_part()
+        f = self._f
+        f.write(b"RIFF\0\0\0\0AVIX")
+        self._riff_start = f.tell() - 4
+        self._movi = f.tell()
+        f.write(b"LIST\0\0\0\0movi")
+        self._part = []
+
+    def _write_idx1(self) -> None:
+        f = self._f
+        f.write(struct.pack("<4sI", b"idx1", 16 * len(self._index)))
+        for off, size in self._index:
+            f.write(struct.pack("<4sIII", b"00dc", 0x10, off, size))
 
     def close(self) -> None:
         if self._f is None:
             return
-        f, end = self._f, self._f.tell()
-        f.seek(self._movi + 4)
-        f.write(struct.pack("<I", end - self._movi - 8))
-        f.seek(end)
-        f.write(struct.pack("<4sI", b"idx1", 16 * len(self._index)))
-        for off, size in self._index:
-            f.write(struct.pack("<4sIII", b"00dc", 0x10, off, size))
-        total = f.tell()
-        f.seek(0)
-        f.write(self._header())
-        f.seek(4)
-        f.write(struct.pack("<I", total - 8))
+        f = self._f
+        if self.opendml:
+            self._end_part()
+            f.seek(0)
+            f.write(self._header(True))
+            f.seek(4)
+            f.write(struct.pack("<I", self._first_riff_size))
+        else:
+            end = f.tell()
+            f.seek(self._movi + 4)
+            f.write(struct.pack("<I", end - self._movi - 8))
+            f.seek(end)
+            self._write_idx1()
+            total = f.tell()
+            f.seek(0)
+            f.write(self._header())
+            f.seek(4)
+            f.write(struct.pack("<I", total - 8))
         f.close()
         self._f = None
 

@@ -18,10 +18,15 @@ YUV -> RGB):
 
 A file libwebp refuses raises ValueError saying that cv2 gives no image
 either.
+
+encode_webp writes what cv2.imwrite writes for .webp by default, a
+lossless (VP8L) file, through the port's own encoder
+(native/webp_lossless_enc.c): the same pixels, not libwebp's bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -127,3 +132,33 @@ def decode_webp(data: bytes, channels: int = 3) -> np.ndarray:
     s = rgb.astype(np.int32)
     return ((s[..., 0] * 9798 + s[..., 1] * 19235 + s[..., 2] * 3735 + 16384)
             >> 15).astype(np.uint8)[..., None]
+
+
+def encode_webp(image: np.ndarray, predictor: int = -1) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> a lossless WebP file
+    (RIFF, one VP8L chunk) of exactly these pixels; gray is written as
+    RGB of three equal channels, as cv2.imwrite writes it. predictor
+    0..13 forces every tile's predictor mode (-1: each tile's cheapest)."""
+    from yolo_tpu_torch.native.build import library
+
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, 2)
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    lib = library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(256)
+    if lib.yolo_webp_encode_vp8l(img.ctypes.data, w, h, predictor,
+                                 ctypes.byref(out), ctypes.byref(n), err,
+                                 256):
+        raise ValueError(err.value.decode())
+    try:
+        payload = ctypes.string_at(out.value, n.value)
+    finally:
+        lib.yolo_native_free(out)
+    chunk = b"VP8L" + struct.pack("<I", len(payload)) + payload + \
+        b"\0" * (len(payload) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk

@@ -1,7 +1,8 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
 JPEG decoder and encoder, the PNG unfilter and pixel conversion, the
-blur, warp and HSV -> RGB of the augmentation, the letterbox and the
-stretch) and load it with ctypes.
+BMP, GIF, HDR, TIFF and WebP codecs, the blur, warp and HSV -> RGB of
+the augmentation, the letterbox and the stretch) and load it with
+ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
 ``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``, ``-lm`` and ``-lpthread``: no fast-math, no
@@ -106,11 +107,24 @@ def library() -> ctypes.CDLL:
         # data, len, channels, &out, &h, &w, err, errlen
         fn.argtypes = [ptr, size, i32, ctypes.POINTER(ctypes.c_void_p), i32p,
                        i32p, ctypes.c_char_p, size]
-    for name in ("yolo_tiff_lzw_decode", "yolo_tiff_packbits_decode"):
+    for name in ("yolo_tiff_lzw_decode", "yolo_tiff_packbits_decode",
+                 "yolo_tiff_lzw_encode"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_long
         # in, inlen, out, outlen, err, errlen
         fn.argtypes = [ptr, size, ptr, size, ctypes.c_char_p, size]
+    lib.yolo_gif_lzw_decode.restype = i32
+    # data, len, min_code_size, out, n, err, errlen
+    lib.yolo_gif_lzw_decode.argtypes = [ptr, size, i32, ptr, size,
+                                        ctypes.c_char_p, size]
+    lib.yolo_hdr_decode_pixels.restype = i32
+    # data, len, w, h, rgb, err, errlen
+    lib.yolo_hdr_decode_pixels.argtypes = [ptr, size, i32, i32, ptr,
+                                           ctypes.c_char_p, size]
+    lib.yolo_hdr_encode_pixels.restype = ctypes.c_long
+    # rgb, w, h, out, outcap, err, errlen
+    lib.yolo_hdr_encode_pixels.argtypes = [ptr, i32, i32, ptr, size,
+                                           ctypes.c_char_p, size]
     lib.yolo_png_unfilter.restype = i32
     # raw, h, stride, bpp, out, err, errlen
     lib.yolo_png_unfilter.argtypes = [ptr, i32, size, i32, ptr,
@@ -120,6 +134,11 @@ def library() -> ctypes.CDLL:
     # errlen
     lib.yolo_png_decode_rows.argtypes = [ptr, size, i32, i32, i32, i32, ptr,
                                          i32, i32, ptr, ctypes.c_char_p, size]
+    lib.yolo_webp_encode_vp8l.restype = i32
+    # rgb, w, h, mode, &out, &len, err, errlen
+    lib.yolo_webp_encode_vp8l.argtypes = [
+        ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(size), ctypes.c_char_p, size]
     lib.yolo_jpeg_encode.restype = i32
     # pixels, h, w, channels, quality, &out, &len, err, errlen
     lib.yolo_jpeg_encode.argtypes = [

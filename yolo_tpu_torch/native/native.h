@@ -30,10 +30,23 @@ long yolo_tiff_lzw_decode(const uint8_t *in, size_t inlen, uint8_t *out,
 long yolo_tiff_packbits_decode(const uint8_t *in, size_t inlen, uint8_t *out,
                                size_t outlen, char *err, size_t errlen);
 
+/* One TIFF strip -> out, its LZW stream as libtiff 4's encoder writes
+ * it (outcap >= 2 * inlen + 16); returns the bytes written, or -1 with
+ * a message (tiff.c). */
+long yolo_tiff_lzw_encode(const uint8_t *in, size_t inlen, uint8_t *out,
+                          size_t outcap, char *err, size_t errlen);
+
 /* A WebP file's VP8L chunk -> *out, (h, w, 4) RGBA, alpha not
  * premultiplied; channels must be 4 (webp_lossless.c). */
 int yolo_webp_decode_vp8l(const uint8_t *data, size_t len, int channels,
                           uint8_t **out, int *h, int *w, char *err,
+                          size_t errlen);
+
+/* (h, w, 3) RGB -> *out, a malloc'd "VP8L" chunk payload of *outlen
+ * bytes, lossless; mode -1 chooses each tile's predictor, 0..13 forces
+ * one (webp_lossless_enc.c). */
+int yolo_webp_encode_vp8l(const uint8_t *rgb, int w, int h, int mode,
+                          uint8_t **out, size_t *outlen, char *err,
                           size_t errlen);
 
 /* A WebP file's "VP8 " chunk -> *out, (h, w, 3) RGB through libwebp's
@@ -41,6 +54,24 @@ int yolo_webp_decode_vp8l(const uint8_t *data, size_t len, int channels,
 int yolo_webp_decode_vp8(const uint8_t *data, size_t len, int channels,
                          uint8_t **out, int *h, int *w, char *err,
                          size_t errlen);
+
+/* Radiance RGBE pixel data (after the header) of a w x h image -> rgb,
+ * (h, w, 3) uint8 as cv2 converts them, in the file's channel order
+ * (hdr.c). */
+int yolo_hdr_decode_pixels(const uint8_t *data, size_t len, int w, int h,
+                           uint8_t *rgb, char *err, size_t errlen);
+
+/* (h, w, 3) uint8 -> out, the RGBE pixel data cv2.imwrite writes
+ * (outcap >= 5 * w * h + 4 * h + 16); returns the bytes written, or -1
+ * with a message (hdr.c). */
+long yolo_hdr_encode_pixels(const uint8_t *rgb, int w, int h, uint8_t *out,
+                            size_t outcap, char *err, size_t errlen);
+
+/* The joined sub-block data of one GIF image -> out, its n colour
+ * indices in stored row order; 0, -1 with a message where cv2 gives no
+ * image, -2 where cv2's result is not reproduced (gif.c). */
+int yolo_gif_lzw_decode(const uint8_t *data, size_t len, int min_code_size,
+                        uint8_t *out, size_t n, char *err, size_t errlen);
 
 /* BMP bytes -> *out, as yolo_jpeg_decode (bmp.c). */
 int yolo_bmp_decode(const uint8_t *data, size_t len, int channels,

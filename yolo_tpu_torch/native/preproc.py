@@ -19,13 +19,19 @@ after COLOR_BGR2RGB (IMREAD_COLOR) or those of IMREAD_GRAYSCALE:
     first page, strips or tiles, none / PackBits / LZW / Deflate / JPEG;
   * WebP (data/webp.py, native/webp_lossless.c, native/webp_lossy.c):
     lossless and lossy, alpha dropped, an animation's first frame, EXIF
-    orientation.
+    orientation;
+  * GIF (data/gif.py, native/gif.c): GIF87a / GIF89a, the first frame
+    on its canvas, global and local tables, interlace, transparency;
+  * Sun raster (data/sunras.py): depths 1, 8, 24 and 32, colour maps;
+  * PFM (data/pfm.py): RGB and gray, both byte orders, the scale;
+  * Radiance HDR (data/hdr.py, native/hdr.c): flat and run-length
+    scanlines, converted to 8 bits as cv2 converts them.
 
 What cv2 gives no image for raises ValueError naming the file and
 saying so (hierarchical or 12-bit JPEGs, truncated files, ...), as do
-the formats not ported (JPEG 2000, AVIF, GIF, Sun raster, PFM, HDR) and
-the few kinds each decoder names where cv2 gives an image that is not
-reproduced here. No path hands a file to cv2 or PIL.
+the formats not ported (JPEG 2000 and AVIF) and the few kinds each
+decoder names where cv2 gives an image that is not reproduced here. No
+path hands a file to cv2 or PIL.
 
 letterbox_batch and stretch are the host resizes of the loaders
 (native/letterbox.c): the bytes of the JAX package's native
@@ -47,9 +53,13 @@ import os
 
 import numpy as np
 
+from yolo_tpu_torch.data.gif import decode_gif, is_gif
+from yolo_tpu_torch.data.hdr import decode_hdr, is_hdr
+from yolo_tpu_torch.data.pfm import decode_pfm, is_pfm
 from yolo_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from yolo_tpu_torch.data.png import decode_png
 from yolo_tpu_torch.data.pnm import decode_pnm, is_pnm
+from yolo_tpu_torch.data.sunras import decode_sunras, is_sunras
 from yolo_tpu_torch.data.tiff import decode_tiff, is_tiff
 from yolo_tpu_torch.data.webp import decode_webp, is_webp
 from yolo_tpu_torch.native.build import library
@@ -125,16 +135,26 @@ def _decode(data: bytes, channels: int, name: str,
             return decode_tiff(data, channels, from_file)
         if is_webp(data):
             return decode_webp(data, channels)
+        if is_gif(data):
+            return decode_gif(data, channels)
+        if is_sunras(data):
+            return decode_sunras(data, channels)
+        if is_pfm(data):
+            return decode_pfm(data, channels)
+        if is_hdr(data):
+            return decode_hdr(data, channels)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     raise ValueError(f"{name}: not an image format the decoder reads "
-                     f"(JPEG, PNG, BMP, PNM, TIFF, WebP)")
+                     f"(JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, "
+                     f"PFM, HDR; JPEG 2000 and AVIF are not ported)")
 
 
 def decode_image_bytes(data: bytes, channels: int = 3,
                        name: str = "image bytes") -> np.ndarray:
-    """In-memory decode (serving uploads) of JPEG, PNG, BMP, PNM, TIFF or
-    WebP bytes -> (H, W, channels) uint8: RGB at channels=3, gray at
+    """In-memory decode (serving uploads) of JPEG, PNG, BMP, PNM, TIFF,
+    WebP, GIF, Sun raster, PFM or HDR bytes -> (H, W, channels) uint8:
+    RGB at channels=3, gray at
     channels=1, the bytes cv2.imdecode gives (IMREAD_COLOR then
     COLOR_BGR2RGB, or IMREAD_GRAYSCALE). Raises ValueError naming
     ``name`` and the reason."""

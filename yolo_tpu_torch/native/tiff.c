@@ -1,12 +1,19 @@
 /* The byte-level codecs of TIFF strips and tiles for the host decoder
- * (data/tiff.py parses the file and inflates Deflate data with zlib):
+ * and writer (data/tiff.py parses and writes the file and inflates
+ * Deflate data with zlib):
  *
  *   - LZW as libtiff 4's tif_lzw.c LZWDecode decodes it: MSB-first codes
  *     of 9 to 12 bits, the width growing one code early (at 511, 1023,
  *     2047), ClearCode 256, EndOfInformation 257, output cut at the
  *     chunk's size;
  *   - PackBits as tif_packbits.c decodes it: -128 skipped, runs and
- *     literals cut at the chunk's size.
+ *     literals cut at the chunk's size;
+ *   - LZW as libtiff 4's LZWEncode / LZWPostEncode write one strip (what
+ *     cv2.imwrite's TIFF holds): a clear code first, codes found through
+ *     libtiff's open-addressed hash (9001 slots, xor hashing, secondary
+ *     probe by HSIZE - h), the width growing one code early, a clear
+ *     code when the table fills or when the compression ratio, checked
+ *     every 10000 input bytes, has not improved, the end code last.
  *
  * Each returns the bytes written, or -1 with a message in err where
  * libtiff fails too (then cv2 gives no image). Plain C11, no state
@@ -146,4 +153,135 @@ long yolo_tiff_packbits_decode(const uint8_t *in, size_t inlen, uint8_t *out,
         }
     }
     return (long)o;
+}
+
+/* libtiff's tif_lzw.c encoder constants */
+enum { BITS_MIN = 9, BITS_MAX = 12, HSIZE = 9001, HSHIFT = 13 - 8,
+       CHECK_GAP = 10000, CODE_CLEAR = 256, CODE_EOI = 257, CODE_FIRST = 258,
+       CODE_MAX = (1 << BITS_MAX) - 1 };
+
+typedef struct {
+    uint8_t *op;
+    uint64_t nextdata;
+    long nextbits;
+    long outcount;
+} lzw_out;
+
+static void put_code(lzw_out *o, int nbits, int c) {
+    o->nextdata = (o->nextdata << nbits) | (uint64_t)c;
+    o->nextbits += nbits;
+    *o->op++ = (uint8_t)((o->nextdata >> (o->nextbits - 8)) & 0xff);
+    o->nextbits -= 8;
+    if (o->nextbits >= 8) {
+        *o->op++ = (uint8_t)((o->nextdata >> (o->nextbits - 8)) & 0xff);
+        o->nextbits -= 8;
+    }
+    o->outcount += nbits;
+}
+
+long yolo_tiff_lzw_encode(const uint8_t *in, size_t inlen, uint8_t *out,
+                          size_t outcap, char *err, size_t errlen) {
+    /* 12 bits a byte and a clear code every 253 codes at worst */
+    if (outcap < inlen * 2 + 16) {
+        snprintf(err, errlen, "LZW output buffer of %zu bytes for %zu",
+                 outcap, inlen);
+        return -1;
+    }
+    long *hash = malloc(sizeof(long) * HSIZE);
+    uint16_t *hcode = malloc(sizeof(uint16_t) * HSIZE);
+    if (!hash || !hcode) {
+        free(hash);
+        free(hcode);
+        snprintf(err, errlen, "out of memory");
+        return -1;
+    }
+    for (int i = 0; i < HSIZE; i++) hash[i] = -1;
+    lzw_out o = {out, 0, 0, 0};
+    long incount = 0, checkpoint = CHECK_GAP, ratio = 0;
+    int free_ent = CODE_FIRST, nbits = BITS_MIN, maxcode = (1 << BITS_MIN) - 1;
+    int ent = -1;
+    size_t pos = 0;
+    if (inlen > 0) {
+        put_code(&o, nbits, CODE_CLEAR);
+        ent = in[pos++];
+        incount++;
+    }
+    while (pos < inlen) {
+        int c = in[pos++];
+        incount++;
+        long fcode = ((long)c << BITS_MAX) + ent;
+        int h = (c << HSHIFT) ^ ent;
+        if (hash[h] == fcode) {
+            ent = hcode[h];
+            continue;
+        }
+        if (hash[h] >= 0) {
+            int disp = h == 0 ? 1 : HSIZE - h;
+            int found = 0;
+            do {
+                if ((h -= disp) < 0) h += HSIZE;
+                if (hash[h] == fcode) {
+                    ent = hcode[h];
+                    found = 1;
+                    break;
+                }
+            } while (hash[h] >= 0);
+            if (found) continue;
+        }
+        put_code(&o, nbits, ent);
+        ent = c;
+        hcode[h] = (uint16_t)free_ent++;
+        hash[h] = fcode;
+        if (free_ent == CODE_MAX - 1) {
+            for (int i = 0; i < HSIZE; i++) hash[i] = -1;
+            ratio = 0;
+            incount = 0;
+            o.outcount = 0;
+            free_ent = CODE_FIRST;
+            put_code(&o, nbits, CODE_CLEAR);
+            nbits = BITS_MIN;
+            maxcode = (1 << BITS_MIN) - 1;
+        } else if (free_ent > maxcode) {
+            nbits++;
+            maxcode = (1 << nbits) - 1;
+        } else if (incount >= checkpoint) {
+            long rat;
+            checkpoint = incount + CHECK_GAP;
+            if (incount > 0x007fffff) {
+                rat = o.outcount >> 8;
+                rat = rat == 0 ? 0x7fffffff : incount / rat;
+            } else {
+                rat = (incount << 8) / o.outcount;
+            }
+            if (rat <= ratio) {
+                for (int i = 0; i < HSIZE; i++) hash[i] = -1;
+                ratio = 0;
+                incount = 0;
+                o.outcount = 0;
+                free_ent = CODE_FIRST;
+                put_code(&o, nbits, CODE_CLEAR);
+                nbits = BITS_MIN;
+                maxcode = (1 << BITS_MIN) - 1;
+            } else {
+                ratio = rat;
+            }
+        }
+    }
+    if (ent != -1) {                        /* LZWPostEncode */
+        put_code(&o, nbits, ent);
+        free_ent++;
+        if (free_ent == CODE_MAX - 1) {
+            o.outcount = 0;
+            put_code(&o, nbits, CODE_CLEAR);
+            nbits = BITS_MIN;
+        } else if (free_ent > maxcode) {
+            nbits++;
+        }
+    }
+    put_code(&o, nbits, CODE_EOI);
+    if (o.nextbits > 0)
+        *o.op++ = (uint8_t)((o.nextdata << (8 - o.nextbits)) & 0xff);
+    free(hash);
+    free(hcode);
+    return (long)(o.op - out);
 }

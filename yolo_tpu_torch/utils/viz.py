@@ -11,9 +11,14 @@ advance at that scale; height 14). The text itself is drawn in black by
 the port's own small stroke font (STROKES) inside that background, where
 cv2 anti-aliases its Hershey glyphs.
 
-save_image writes PNG (data/png.py, zlib) or baseline JPEG (the port's
-encoder, native/jpeg_enc.c: q95 4:2:0, cv2.imwrite's defaults) by the
-file's extension (encode_jpeg lives in native/preproc.py).
+save_image writes by the file's extension what cv2.imwrite writes:
+PNG (data/png.py, zlib), baseline JPEG (native/jpeg_enc.c: q95 4:2:0,
+cv2.imwrite's defaults; encode_jpeg lives in native/preproc.py), BMP,
+PGM / PPM / PNM and PAM, TIFF (data/tiff.py: LZW), Sun raster
+(data/sunras.py), PFM (data/pfm.py) and Radiance HDR (data/hdr.py), each
+with cv2's bytes, and lossless WebP (data/webp.py) with cv2's pixels.
+GIF, AVIF and JPEG 2000, which cv2 writes through lossy encoders, are
+not ported.
 """
 
 from __future__ import annotations
@@ -202,24 +207,41 @@ def encode_pnm(image: np.ndarray, ext: str) -> bytes:
         np.ascontiguousarray(img).tobytes()
 
 
+# cv2.imwrite's lossy encoders that the port does not reproduce
+LOSSY_NOT_PORTED = (".gif", ".avif", ".jp2")
+
+
 def save_image(path: str, image_rgb: np.ndarray) -> None:
-    """Write an RGB (or gray) uint8 image by the path's extension, the
-    bytes cv2.imwrite writes: PNG, JPEG, BMP, or binary PGM / PPM / PNM;
-    OSError for another extension (TIFF, WebP, ...) or a missing
-    directory."""
+    """Write an RGB (or gray) uint8 image by the path's extension, what
+    cv2.imwrite writes (module docstring): .png, .jpg/.jpeg/.jpe,
+    .bmp/.dib, .pgm/.ppm/.pnm, .pam, .tif/.tiff, .ras/.sr, .pfm, .hdr
+    and .webp. OSError for .gif, .avif and .jp2 (lossy encoders, not
+    ported), another extension, or a missing directory."""
+    from yolo_tpu_torch.data.hdr import encode_hdr
+    from yolo_tpu_torch.data.pfm import encode_pfm
     from yolo_tpu_torch.data.png import encode_png
+    from yolo_tpu_torch.data.pnm import encode_pam
+    from yolo_tpu_torch.data.sunras import encode_sunras
+    from yolo_tpu_torch.data.tiff import encode_tiff
+    from yolo_tpu_torch.data.webp import encode_webp
 
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        data = encode_png(image_rgb)
-    elif ext in (".jpg", ".jpeg", ".jpe"):
-        data = encode_jpeg(image_rgb)
-    elif ext in (".bmp", ".dib"):
-        data = encode_bmp(image_rgb)
-    elif ext in (".pgm", ".ppm", ".pnm"):
+    writers = {".png": encode_png, ".bmp": encode_bmp, ".dib": encode_bmp,
+               ".pam": encode_pam, ".tif": encode_tiff, ".tiff": encode_tiff,
+               ".ras": encode_sunras, ".sr": encode_sunras,
+               ".pfm": encode_pfm, ".hdr": encode_hdr, ".webp": encode_webp}
+    for e in (".jpg", ".jpeg", ".jpe"):
+        writers[e] = encode_jpeg
+    if ext in (".pgm", ".ppm", ".pnm"):
         data = encode_pnm(image_rgb, ext)
+    elif ext in writers:
+        data = writers[ext](image_rgb)
+    elif ext in LOSSY_NOT_PORTED:
+        raise OSError(f"cannot write {path}: cv2.imwrite writes {ext} with a "
+                      f"lossy encoder that the port does not reproduce")
     else:
         raise OSError(f"cannot write {path}: the port writes .png, "
-                      f".jpg/.jpeg, .bmp and .pgm/.ppm/.pnm only")
+                      f".jpg/.jpeg, .bmp, .pgm/.ppm/.pnm, .pam, .tif/.tiff, "
+                      f".ras/.sr, .pfm, .hdr and .webp only")
     with open(path, "wb") as f:
         f.write(data)
