@@ -615,6 +615,16 @@ WEBP_FRAME = "frame_webp_q80_480x640.webp"
 WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
 GIF_FRAME = "frame_gif_480x640.gif"
 HDR_FRAME = "frame_hdr_480x640.hdr"
+# JPEG 2000 (data/jp2.py, native/j2k*.c): the six fixtures of phase 14
+# (b)'s predict --image and POST /detect (9/7, 5/3, a raw J2K codestream,
+# odd tiles, RGBA, 16-bit gray) and the 480x640 frames of phase 14 (c);
+# every JP2 fixture is held to its hash by phase_fixtures
+JP2_DETECT_FIXTURES = ("jp2_97_mct1_40x56.jp2", "jp2_53_mct1_40x56.jp2",
+                       "j2k_raw_codestream_45x67.j2k",
+                       "jp2_tiles_odd_97_45x67.jp2", "jp2_mode_rgba_40x56.jp2",
+                       "jp2_mode_i16_40x56.jp2")
+JP2_FRAME = "frame_jp2_97_480x640.jp2"
+JP2_LOSSLESS_FRAME = "frame_jp2_53_480x640.jp2"
 # save_image's TIFF and WebP writers through predict --output from a
 # 480x640 fixture frame, its PAM, Sun raster, PFM and HDR writers from
 # that annotated frame
@@ -2347,15 +2357,16 @@ def rgb_fixtures(prefixes) -> list:
 
 def phase_format_detect(weights: str, card: str) -> dict:
     """Phase 14 (b): every BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM and
-    HDR fixture of an RGB image and the damaged and overflowing JPEGs
-    through `predict --image` and POST /detect, the BMPs also through
+    HDR fixture of an RGB image, the damaged and overflowing JPEGs and six
+    JPEG 2000 files (JP2_DETECT_FIXTURES) through `predict --image` and
+    POST /detect, the BMPs also through
     `detect --images --output-dir`: one NMS launch a file, the lines
     equal detect_raw on the decoded array; a TIFF and a WebP also on
     conv_impl="cuda". Returns {kernel: launches}."""
     from yolo_tpu_torch.cli.detect_cmds import _det_json
 
-    names = rgb_fixtures(FORMAT_FIXTURES)
-    check(len(names) >= 28, f"format fixtures {names}")
+    names = rgb_fixtures(FORMAT_FIXTURES) + list(JP2_DETECT_FIXTURES)
+    check(len(names) >= 34, f"format fixtures {names}")
     cfg = dataclasses.replace(get_variant(VARIANT),
                               conf_threshold=FIXTURE_CONF)
     net = Darknet(cfg.layers, fold_params(
@@ -2537,10 +2548,10 @@ def phase_decode_rates(card: str) -> dict:
     """Phase 14 (c): a 480x640 4:2:0 q90 JPEG and the 480x640
     progressive fixture decoded on one thread and on thread pools,
     beside the host letterbox of a frame to 416; a 24-bit BMP of the
-    same frame (the port's own writer), the LZW TIFF, q80 WebP, GIF and
-    HDR fixtures and a lossless WebP likewise; the TIFF and lossless
-    WebP writers' ms a frame on one thread; a 480x640 Paeth PNG's
-    unfilter in C and in Python."""
+    same frame (the port's own writer), the LZW TIFF, q80 WebP, GIF,
+    HDR and JPEG 2000 (9/7 and 5/3) fixtures and a lossless WebP
+    likewise; the TIFF and lossless WebP writers' ms a frame on one
+    thread; a 480x640 Paeth PNG's unfilter in C and in Python."""
     img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
     cores = os.cpu_count()
     progressive = os.path.join(FIXTURES, PROGRESSIVE_FRAME)
@@ -2563,7 +2574,10 @@ def phase_decode_rates(card: str) -> dict:
                             ("webp_lossless", os.path.join(
                                 FIXTURES, WEBP_LOSSLESS_FRAME)),
                             ("gif", os.path.join(FIXTURES, GIF_FRAME)),
-                            ("hdr_rle", os.path.join(FIXTURES, HDR_FRAME))):
+                            ("hdr_rle", os.path.join(FIXTURES, HDR_FRAME)),
+                            ("jp2_97", os.path.join(FIXTURES, JP2_FRAME)),
+                            ("jp2_53_lossless", os.path.join(
+                                FIXTURES, JP2_LOSSLESS_FRAME))):
             check(decode_image(fpath).shape == (*SRC_HW, 3),
                   f"{what}: not a 480x640 frame")
             f_one, f_rates = decode_rates(fpath)
@@ -2607,7 +2621,10 @@ def phase_decode_rates(card: str) -> dict:
     emit({"phase": "images", "check": "decode_rates", "src_hw":
           list(SRC_HW), "jpeg": "4:2:0 q90", **out, "card": card})
     if cores >= 4:
-        for what, r in (("baseline", rates), ("progressive", prog_rates)):
+        for what, r in (("baseline", rates), ("progressive", prog_rates),
+                        *((k, {int(n): v for n, v in
+                               formats[k]["img_per_s"].items()})
+                          for k in ("jp2_97", "jp2_53_lossless"))):
             check(r[8] >= 2 * r[1], f"8 {what} decode threads reach "
                   f"{r[8]:.1f} img/s against {r[1]:.1f} on one: the "
                   f"decoder holds the interpreter lock")
@@ -5835,8 +5852,37 @@ def run(seeded: str) -> int:
                                             "grain"))
     check(not foreign, f"the port loaded JAX, the JAX package, OpenCV or "
           f"grain: {foreign}")
-    emit({"phase": "timeline", "seconds": timeline})
+    # each kernel's launches on the main path, by the phase that drove
+    # them (the timeline's names); the kernels line sums them
+    by_phase = {
+        "nms_suppress": {
+            "1-9 kernels, serve, routes, times": launches,
+            "10-11 fine-tune, eval": voc_launches,
+            "12-13 yolo": yolo_launches["nms"] + yolo_eval_launches,
+            "14 images": fixture_launches + format_launches["nms"]
+            + coco_launches["nms"],
+            "15 cfg": cfg_run["launches"]["nms"],
+            "16 cli": cli_launches["nms"],
+            "17 tree": tree["launches"]["nms"],
+            "18 yolov1": v1["launches"]["nms"],
+            "19 int8": int8["launches"]["nms"],
+            "20 video": video["nms"], "21 parallel": dp["nms"]},
+        "conv_bias_act": {
+            "1-9 kernels, serve, routes, times": route_launches["conv"],
+            "12-13 yolo": yolo_launches["conv"],
+            "14 images": coco_launches["conv"] + format_launches["conv"],
+            "15 cfg": cfg_run["launches"]["conv"],
+            "17 tree": tree["launches"]["conv"],
+            "18 yolov1": v1["launches"]["conv"], "21 parallel": dp["conv"]},
+        "entry_conv_pool": {
+            "1-9 kernels, serve, routes, times": route_launches["entry"]},
+        "conv_s8_bias_act": {"19 int8": int8["launches"]["conv_s8"],
+                             "20 video": video["conv_s8"]},
+        "maxpool_s8": {"19 int8": int8["launches"]["maxpool_s8"],
+                       "20 video": video["maxpool_s8"]}}
+    emit({"phase": "timeline", "seconds": timeline, "launches": by_phase})
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
+    total = {k: sum(v.values()) for k, v in by_phase.items()}
     nms = timed[TIMED_SHAPE]
     conv_t = kernel_times["conv"]
     conv32 = kernel_times["conv_fp32"]
@@ -5845,12 +5891,7 @@ def run(seeded: str) -> int:
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolo_tpu/ops/pallas/nms_kernel.py:86",
-         "launches": launches + voc_launches + yolo_launches["nms"]
-         + yolo_eval_launches + coco_launches["nms"]
-         + cfg_run["launches"]["nms"] + cli_launches["nms"]
-         + tree["launches"]["nms"] + v1["launches"]["nms"]
-         + int8["launches"]["nms"] + video["nms"] + dp["nms"]
-         + fixture_launches + format_launches["nms"],
+         "launches": total["nms_suppress"],
          "max_abs_err": worst,
          "ms": nms[0], "plain_ms": nms[1], "bound_ms": nms[2],
          "bound_by": nms[3], "library_ms": None,
@@ -5876,10 +5917,7 @@ def run(seeded: str) -> int:
         {"name": "conv_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_bias_act.cu",
          "replaces": "yolo_tpu/ops/pallas/conv_kernel.py:91",
-         "launches": route_launches["conv"] + yolo_launches["conv"]
-         + coco_launches["conv"] + cfg_run["launches"]["conv"]
-         + tree["launches"]["conv"] + v1["launches"]["conv"]
-         + dp["conv"] + format_launches["conv"],
+         "launches": total["conv_bias_act"],
          "max_abs_err": max(conv_worst, yolo_worst, cfg_run["worst"],
                             tree["conv_worst"], v1["conv_worst"]),
          "ms": conv_t[0], "plain_ms": conv_t[1], "bound_ms": conv_t[3],
@@ -5903,13 +5941,13 @@ def run(seeded: str) -> int:
         {"name": "entry_conv_pool", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/entry_conv_pool.cu",
          "replaces": "yolo_tpu/ops/pallas/entry_kernel.py:92",
-         "launches": route_launches["entry"], "max_abs_err": entry_worst,
+         "launches": total["entry_conv_pool"], "max_abs_err": entry_worst,
          "ms": entry_t[0], "plain_ms": entry_t[1], "bound_ms": entry_t[2],
          "bound_by": entry_t[3], "library_ms": None},
         {"name": "conv_s8_bias_act", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/conv_s8_bias_act.cu",
          "replaces": "yolo_tpu/models/quantize.py:234",
-         "launches": int8["launches"]["conv_s8"] + video["conv_s8"],
+         "launches": total["conv_s8_bias_act"],
          "max_abs_err": int8["worst"],
          "ms": int8["ms"][TIMED_BATCH][0],
          "plain_ms": int8["ms"][TIMED_BATCH][1],
@@ -5924,8 +5962,7 @@ def run(seeded: str) -> int:
         {"name": "maxpool_s8", "route": "cuda",
          "source": "yolo_tpu_torch/csrc/maxpool_s8.cu",
          "replaces": "yolo_tpu/ops/pool.py:17",
-         "launches": int8["launches"]["maxpool_s8"]
-         + video["maxpool_s8"],
+         "launches": total["maxpool_s8"],
          "max_abs_err": int8["worst"],
          "ms": int8["pool_ms"][TIMED_BATCH][0],
          "plain_ms": int8["pool_ms"][TIMED_BATCH][1],

@@ -274,8 +274,8 @@ def _unsupported_files():
         "truncated arithmetic": (arith[:len(arith) * 2 // 3], "truncated"),
         "DRI of 5 bytes": (_patch_dri(_cv2_jpeg(img, 90, "420", restart=1)),
                            "DRI"),
-        # a JPEG 2000 signature box: a format the port does not read
-        "not an image": (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40),
+        # a box like JPEG 2000's signature but of no format
+        "not an image": (b"\0\0\0\x0cjX  \r\n\x87\n" + bytes(40),
                          "not an image format"),
     }
 

@@ -22,7 +22,13 @@ WebP files (tests/bmp_writer.py and PIL write the ones cv2 does not),
 two damaged JPEGs and one whose coefficients overflow the IDCT come
 from format_kinds; the GIF, Sun raster, PFM and Radiance HDR files
 (tests/gif_writer.py and tests/sunras_writer.py write the ones cv2 and
-PIL do not) from decoder_kinds.
+PIL do not) from decoder_kinds; the JPEG 2000 files (PIL's writer;
+tests/j2k_writer.py's rewrites of it for POC, EPH, PPM / PPT,
+tile-parts, RGN, palettes, channel definitions and colour spaces; its
+encoder for the code-block styles, SOP and a real ROI, which PIL 12's
+writer does not set) from jp2_kinds, with JP2_FRAME (cv2.imwrite's default, 9/7) and
+JP2_LOSSLESS_FRAME (5/3), the 480x640 frames of phase 14 (c). Files
+named *_refused_* are ones cv2 gives no image for (null hashes).
 """
 
 import argparse
@@ -40,6 +46,7 @@ from PIL import Image
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from tests import j2k_writer as j2w  # noqa: E402
 from tests import jpeg_writer as jw  # noqa: E402
 from tests.bmp_writer import rle_encode, write_bmp  # noqa: E402
 from tests.gif_writer import write_gif  # noqa: E402
@@ -55,6 +62,9 @@ WEBP_LOSSLESS_FRAME = "frame_webp_lossless_480x640.webp"
 # the 480x640 GIF and HDR frames whose decode rates phase 14 (c) reads
 GIF_FRAME = "frame_gif_480x640.gif"
 HDR_FRAME = "frame_hdr_480x640.hdr"
+# the 480x640 JPEG 2000 frames whose decode rates phase 14 (c) reads
+JP2_FRAME = "frame_jp2_97_480x640.jp2"
+JP2_LOSSLESS_FRAME = "frame_jp2_53_480x640.jp2"
 
 
 def picture(rng, h, w):
@@ -366,6 +376,102 @@ def decoder_kinds():
     return out
 
 
+def pil_j2k(img, mode=None, **kw) -> bytes:
+    """PIL's JPEG 2000 writer (OpenJPEG): a JP2 file, or a raw codestream
+    with no_jp2=True; mode I;16 takes a uint16 array."""
+    if mode == "I;16":
+        im = Image.frombytes("I;16", img.shape[::-1],
+                             img.astype("<u2").tobytes())
+    else:
+        im = Image.fromarray(img, mode)
+    b = io.BytesIO()
+    im.save(b, "JPEG2000", **kw)
+    return b.getvalue()
+
+
+def jp2_kinds():
+    """JPEG 2000 files: PIL's options (progression orders, 5/3 and 9/7
+    with and without MCT, odd tiles, PLT, one resolution, precincts and
+    layers, a raw codestream, the L, LA, RGBA and I;16 modes),
+    tests/j2k_writer.py's rewrites and its encoder (each code-block
+    style, SOP with EPH, an ROI), the two kinds cv2 refuses (an image
+    origin, signed samples), a damaged codestream, and the 480x640
+    frames of phase 14 (c)."""
+    rng = np.random.default_rng(SEED + 4)
+    img = picture(rng, 40, 56)
+    odd = picture(rng, 45, 67)
+    rgba = np.concatenate([img, rng.integers(0, 256, (40, 56, 1), np.uint8)],
+                          2)
+    layers = dict(quality_layers=[30, 10], quality_mode="rates")
+    out = {}
+    for prg in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        out[f"jp2_prog_{prg.lower()}_40x56.jp2"] = pil_j2k(
+            img, progression=prg, precinct_size=(32, 32), num_resolutions=4,
+            **layers)
+    for style, bit in (("bypass", j2w.LAZY), ("reset", j2w.RESET),
+                       ("termall", j2w.TERMALL), ("vertical", j2w.VSC),
+                       ("predictable", j2w.PTERM), ("segmark", j2w.SEGSYM)):
+        out[f"jp2_cblk_{style}_40x56.jp2"] = j2w.jp2(j2w.encode(
+            img, levels=3, cblk=(3, 4), style=bit))
+    for irr in (False, True):
+        for mct in (1, 0):
+            out[f"jp2_{'97' if irr else '53'}_mct{mct}_40x56.jp2"] = pil_j2k(
+                img, irreversible=irr, mct=mct)
+        out[f"jp2_tiles_odd_{'97' if irr else '53'}_45x67.jp2"] = pil_j2k(
+            odd, tile_size=(17, 29), irreversible=irr)
+    out["jp2_plt_40x56.jp2"] = pil_j2k(img, plt=True)
+    out["j2k_sop_eph_all_styles_40x56.j2k"] = j2w.encode(
+        img, cblk=(4, 3), style=0x3F, sop=True, eph=True)
+    out["jp2_roi_maxshift_40x56.jp2"] = j2w.jp2(j2w.encode(
+        img, roi=(0.25, 0.75, 0.2, 0.6)))
+    out["jp2_one_resolution_40x56.jp2"] = pil_j2k(img, num_resolutions=1)
+    out["jp2_precincts_layers_45x67.jp2"] = pil_j2k(
+        odd, precinct_size=(16, 16), codeblock_size=(8, 8),
+        quality_layers=[40, 15, 5], quality_mode="rates")
+    out["j2k_raw_codestream_45x67.j2k"] = pil_j2k(odd, no_jp2=True,
+                                                  irreversible=True)
+    out["jp2_mode_l_40x56.jp2"] = pil_j2k(img[..., 0])
+    out["jp2_mode_la_40x56.jp2"] = pil_j2k(rgba[..., :2], "LA")
+    out["jp2_mode_rgba_40x56.jp2"] = pil_j2k(rgba, "RGBA", irreversible=True)
+    out["jp2_mode_i16_40x56.jp2"] = pil_j2k(
+        img[..., 0].astype(np.uint16) * 257 + rng.integers(0, 257, (40, 56)),
+        "I;16")
+    out["jp2_refused_origin_40x56.jp2"] = pil_j2k(
+        img, offset=(3, 5), tile_offset=(0, 0), tile_size=(32, 32))
+    out["jp2_refused_signed_40x56.jp2"] = pil_j2k(img, signed=True)
+    # the rewrites (tests/j2k_writer.py) of codestreams PIL wrote
+    tiled = pil_j2k(odd, no_jp2=True, tile_size=(32, 32), **layers)
+    tiled97 = pil_j2k(odd, no_jp2=True, tile_size=(32, 40), irreversible=True)
+    gray = pil_j2k(img[..., 0] // 16, no_jp2=True)
+    out["jp2_poc_45x67.jp2"] = j2w.jp2(j2w.restate_poc(pil_j2k(
+        odd, no_jp2=True, progression="RLCP", **layers)))
+    out["jp2_eph_45x67.jp2"] = j2w.jp2(j2w.with_eph(tiled))
+    out["jp2_ppm_tileparts_45x67.jp2"] = j2w.jp2(j2w.packed_headers(
+        j2w.tile_parts(tiled, 2, False), "ppm"))
+    out["jp2_ppt_45x67.jp2"] = j2w.jp2(j2w.packed_headers(tiled97, "ppt"))
+    out["j2k_tileparts_interleaved_45x67.j2k"] = j2w.tile_parts(tiled97, 3,
+                                                                True)
+    out["jp2_markers_rgn_45x67.jp2"] = j2w.jp2(j2w.with_markers(tiled97, 5))
+    pal = rng.integers(0, 256, (16, 3))
+    out["jp2_palette_40x56.jp2"] = j2w.jp2(
+        gray, pclr=(pal.tolist(), [8, 8, 8]),
+        cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    out["jp2_cdef_swap_40x56.jp2"] = j2w.jp2(
+        pil_j2k(img, no_jp2=True), cdef=[(0, 0, 3), (1, 0, 2), (2, 0, 1)])
+    out["jp2_sycc_40x56.jp2"] = j2w.jp2(pil_j2k(img, no_jp2=True, mct=0), 18)
+    out["jp2_prec12_40x56.jp2"] = j2w.jp2(j2w.set_precision(
+        pil_j2k(img, no_jp2=True), 12))
+    damaged = bytearray(pil_j2k(odd, irreversible=True))
+    for pos in (len(damaged) // 2, 2 * len(damaged) // 3):
+        damaged[pos] ^= 0x5A
+    out["jp2_damaged_45x67.jp2"] = bytes(damaged)
+    ok, buf = cv2.imencode(".jp2", picture(rng, 480, 640)[..., ::-1])
+    assert ok
+    out[JP2_FRAME] = buf.tobytes()
+    out[JP2_LOSSLESS_FRAME] = pil_j2k(smooth_frame(rng, 480, 640, 80))
+    return out
+
+
 def digest(img: np.ndarray) -> dict:
     return {"sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
             .hexdigest(), "shape": list(img.shape)}
@@ -392,13 +498,14 @@ def main() -> None:
     os.makedirs(out, exist_ok=True)
     hashes = {}
     for name, data in {**fixtures(), **new_kinds(), **format_kinds(),
-                       **decoder_kinds()}.items():
+                       **decoder_kinds(), **jp2_kinds()}.items():
         path = os.path.join(out, name)
         with open(path, "wb") as f:
             f.write(data)
         hashes[name] = {"rgb": cv2_digest(path, cv2.IMREAD_COLOR),
                         "gray": cv2_digest(path, cv2.IMREAD_GRAYSCALE)}
-        assert hashes[name]["rgb"] or hashes[name]["gray"], name
+        assert (hashes[name]["rgb"] or hashes[name]["gray"]) != \
+            ("_refused_" in name), name
     with open(os.path.join(out, "hashes.json"), "w") as f:
         json.dump({"decoder": f"OpenCV {cv2.__version__}",
                    "files": hashes}, f, indent=1, sort_keys=True)

@@ -63,11 +63,12 @@ beyond chip_smoke.py's. Run from the repo root on a CUDA machine:
         the host decoder (native/) on chip_smoke.py phase 14 (c)'s
         480x640 4:2:0 q90 frame and the 480x640 progressive fixture
         (--format jpeg, the default), a 24-bit BMP of the frame (bmp),
-        the 480x640 LZW TIFF, q80 WebP, lossless WebP, GIF and RLE HDR
-        fixtures of tests/data/torch_jpeg/ (tiff, webp, webp-lossless,
-        gif, hdr) or all of them (all): ms an image on one thread
-        (median of N after 10
-        warm-ups) and img/s on 8 threads; --tree DIR decodes with another
+        the 480x640 LZW TIFF, q80 WebP, lossless WebP, GIF, RLE HDR and
+        JPEG 2000 fixtures of tests/data/torch_jpeg/ (tiff, webp,
+        webp-lossless, gif, hdr; jp2: the 9/7 and 5/3 frames) or all
+        of them (all): ms an image on
+        one thread (median of N after 10 warm-ups) and img/s on 4 and 8
+        threads; --tree DIR decodes with another
         checkout's package (an A/B: run parent, change, change, parent in
         one machine session; a tree that cannot read a file reports its
         error)
@@ -780,8 +781,12 @@ def cmd_decode(args, card) -> None:
                  "webp-lossless": os.path.join(
                      fixtures, "frame_webp_lossless_480x640.webp"),
                  "gif": os.path.join(fixtures, "frame_gif_480x640.gif"),
-                 "hdr": os.path.join(fixtures, "frame_hdr_480x640.hdr")}
+                 "hdr": os.path.join(fixtures, "frame_hdr_480x640.hdr"),
+                 "jp2": os.path.join(fixtures, "frame_jp2_97_480x640.jp2"),
+                 "jp2-lossless": os.path.join(fixtures,
+                                              "frame_jp2_53_480x640.jp2")}
         chosen = {"jpeg": ("baseline", "progressive"),
+                  "jp2": ("jp2", "jp2-lossless"),
                   "all": tuple(files)}.get(args.format, (args.format,))
         for name, path in ((n, files[n]) for n in chosen):
             try:
@@ -796,16 +801,19 @@ def cmd_decode(args, card) -> None:
                 t0 = time.perf_counter()
                 decode_image(path)
                 times.append((time.perf_counter() - t0) * 1e3)
-            with cf.ThreadPoolExecutor(8) as pool:
-                list(pool.map(decode_image, [path] * 8))
-                t0 = time.perf_counter()
-                list(pool.map(decode_image, [path] * args.reps))
-                rate8 = args.reps / (time.perf_counter() - t0)
+            rates = {}
+            for n in (4, 8):
+                with cf.ThreadPoolExecutor(n) as pool:
+                    list(pool.map(decode_image, [path] * n))
+                    t0 = time.perf_counter()
+                    list(pool.map(decode_image, [path] * args.reps))
+                    rates[n] = args.reps / (time.perf_counter() - t0)
             q = statistics.quantiles(times, n=4)
             _emit({"decode": name, "tree": args.tree or REPO,
                    "src_hw": list(SRC_HW), "ms_one_thread": q[1],
-                   "ms_quartiles": [q[0], q[2]], "img_per_s_8_threads":
-                   rate8, "reps": args.reps, "host_cores": os.cpu_count(),
+                   "ms_quartiles": [q[0], q[2]], "img_per_s_4_threads":
+                   rates[4], "img_per_s_8_threads": rates[8],
+                   "reps": args.reps, "host_cores": os.cpu_count(),
                    "card": card})
 
 
@@ -885,7 +893,7 @@ def main() -> int:
     dec.add_argument("--reps", type=int, default=200)
     dec.add_argument("--format", default="jpeg",
                      choices=("jpeg", "bmp", "tiff", "webp", "webp-lossless",
-                              "gif", "hdr", "all"))
+                              "gif", "hdr", "jp2", "all"))
     fil = sub.add_parser("files")
     fil.add_argument("--tree", default=None)
     fil.add_argument("--reps", type=int, default=3)

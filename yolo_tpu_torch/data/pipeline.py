@@ -41,10 +41,10 @@ from yolo_tpu_torch.ops.letterbox import as_hw, letterbox_geometry
 
 
 # Host image decoder: "native" (native/preproc.py, the default on every
-# host: the JPEG, PNG, BMP, PNM, TIFF and WebP files cv2 reads, with
-# cv2's bytes) or "cv2" (OpenCV, only when asked for; it also reads
-# JPEG 2000, AVIF, GIF, Sun raster, PFM and HDR files, which the native
-# decoder raises for)
+# host: the JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM, HDR
+# and JPEG 2000 files cv2 reads, with cv2's bytes) or "cv2" (OpenCV, only
+# when asked for; it also reads AVIF files, which the native decoder
+# raises for)
 _DECODER = "native"
 
 

@@ -127,8 +127,12 @@ def decode_webp(data: bytes, channels: int = 3) -> np.ndarray:
     else:
         rgb = _bitstream(chunks[:1])
     rgb = apply_orientation(rgb, o)
-    if channels == 3:
-        return rgb
+    return rgb if channels == 3 else cvt_gray(rgb)
+
+
+def cvt_gray(rgb: np.ndarray) -> np.ndarray:
+    """(h, w, 3) RGB uint8 -> (h, w, 1): cv2.cvtColor(COLOR_BGR2GRAY) of
+    the BGR image, weights 9798, 19235, 3735 of 1 << 15, rounded."""
     s = rgb.astype(np.int32)
     return ((s[..., 0] * 9798 + s[..., 1] * 19235 + s[..., 2] * 3735 + 16384)
             >> 15).astype(np.uint8)[..., None]

@@ -113,6 +113,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_long
         # in, inlen, out, outlen, err, errlen
         fn.argtypes = [ptr, size, ptr, size, ctypes.c_char_p, size]
+    lib.yolo_j2k_decode.restype = i32
+    # data, len, &out (int32 samples), info, maxcomps, err, errlen
+    lib.yolo_j2k_decode.argtypes = [ptr, size, ctypes.POINTER(ctypes.c_void_p),
+                                    ptr, i32, ctypes.c_char_p, size]
     lib.yolo_gif_lzw_decode.restype = i32
     # data, len, min_code_size, out, n, err, errlen
     lib.yolo_gif_lzw_decode.argtypes = [ptr, size, i32, ptr, size,

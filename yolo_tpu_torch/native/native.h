@@ -73,6 +73,15 @@ long yolo_hdr_encode_pixels(const uint8_t *rgb, int w, int h, uint8_t *out,
 int yolo_gif_lzw_decode(const uint8_t *data, size_t len, int min_code_size,
                         uint8_t *out, size_t n, char *err, size_t errlen);
 
+/* A JPEG 2000 codestream (FF4F FF51 ...) -> *out, a malloc'd int32 array
+ * of every component's samples in turn, as OpenJPEG 2.5 decodes them
+ * (level-shifted and clamped to their precision); info receives [ncomp,
+ * x0, y0, x1, y1] and per component [prec, sgnd, dx, dy, x0, y0, w, h]
+ * (5 + 8 * maxcomps ints). Fails, with a message, beyond maxcomps
+ * components (j2k.c). */
+int yolo_j2k_decode(const uint8_t *data, size_t len, int32_t **out,
+                    int32_t *info, int maxcomps, char *err, size_t errlen);
+
 /* BMP bytes -> *out, as yolo_jpeg_decode (bmp.c). */
 int yolo_bmp_decode(const uint8_t *data, size_t len, int channels,
                     uint8_t **out, int *h, int *w, char *err, size_t errlen);

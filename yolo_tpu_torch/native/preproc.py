@@ -25,11 +25,16 @@ after COLOR_BGR2RGB (IMREAD_COLOR) or those of IMREAD_GRAYSCALE:
   * Sun raster (data/sunras.py): depths 1, 8, 24 and 32, colour maps;
   * PFM (data/pfm.py): RGB and gray, both byte orders, the scale;
   * Radiance HDR (data/hdr.py, native/hdr.c): flat and run-length
-    scanlines, converted to 8 bits as cv2 converts them.
+    scanlines, converted to 8 bits as cv2 converts them;
+  * JPEG 2000 (data/jp2.py, native/j2k.c, j2k_t2.c, j2k_t1.c,
+    j2k_dwt.c): JP2 files and raw J2K codestreams, Part 1 whole (every
+    progression order, code-block style, tiling, POC, PPM / PPT, ROI,
+    5/3 and 9/7), converted to 8 bits as OpenCV converts OpenJPEG's
+    components.
 
 What cv2 gives no image for raises ValueError naming the file and
 saying so (hierarchical or 12-bit JPEGs, truncated files, ...), as do
-the formats not ported (JPEG 2000 and AVIF) and the few kinds each
+the format not ported (AVIF) and the few kinds each
 decoder names where cv2 gives an image that is not reproduced here. No
 path hands a file to cv2 or PIL.
 
@@ -55,6 +60,7 @@ import numpy as np
 
 from yolo_tpu_torch.data.gif import decode_gif, is_gif
 from yolo_tpu_torch.data.hdr import decode_hdr, is_hdr
+from yolo_tpu_torch.data.jp2 import decode_jp2, is_jp2
 from yolo_tpu_torch.data.pfm import decode_pfm, is_pfm
 from yolo_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from yolo_tpu_torch.data.png import decode_png
@@ -65,6 +71,8 @@ from yolo_tpu_torch.data.webp import decode_webp, is_webp
 from yolo_tpu_torch.native.build import library
 
 JPEG_SOI = b"\xff\xd8"
+READ_FORMATS = ("JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM, HDR, "
+                "JPEG 2000")
 _ERR_LEN = 256
 
 
@@ -143,17 +151,19 @@ def _decode(data: bytes, channels: int, name: str,
             return decode_pfm(data, channels)
         if is_hdr(data):
             return decode_hdr(data, channels)
+        if is_jp2(data):
+            return decode_jp2(data, channels)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     raise ValueError(f"{name}: not an image format the decoder reads "
-                     f"(JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, "
-                     f"PFM, HDR; JPEG 2000 and AVIF are not ported)")
+                     f"({READ_FORMATS}; AVIF is not ported)")
 
 
 def decode_image_bytes(data: bytes, channels: int = 3,
                        name: str = "image bytes") -> np.ndarray:
     """In-memory decode (serving uploads) of JPEG, PNG, BMP, PNM, TIFF,
-    WebP, GIF, Sun raster, PFM or HDR bytes -> (H, W, channels) uint8:
+    WebP, GIF, Sun raster, PFM, HDR or JPEG 2000 bytes -> (H, W,
+    channels) uint8:
     RGB at channels=3, gray at
     channels=1, the bytes cv2.imdecode gives (IMREAD_COLOR then
     COLOR_BGR2RGB, or IMREAD_GRAYSCALE). Raises ValueError naming
