@@ -429,7 +429,8 @@ from yolo_tpu_torch.data.png import (SIGNATURE, encode_png, unfilter,
                                      unfilter_plain)
 from yolo_tpu_torch.data.imagefolder import (classifier_train_batches,
                                              list_imagefolder)
-from yolo_tpu_torch.data.synthetic import (coco_scene, encode_jpeg, scene,
+from yolo_tpu_torch.data.synthetic import (coco_scene, encode_jpeg,
+                                           gradient_frame, scene,
                                            write_coco_scenes, write_map,
                                            write_tree, write_voc_scenes)
 from yolo_tpu_torch.data.targets import encode_batch_for
@@ -457,6 +458,7 @@ from yolo_tpu_torch.parallel.sharding import (make_dp_detector,
                                               maybe_init_distributed,
                                               replicate, shard_batch)
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+from yolo_tpu_torch.data.jp2 import encode_jp2
 from yolo_tpu_torch.data.tiff import encode_tiff
 from yolo_tpu_torch.data.webp import encode_webp
 from yolo_tpu_torch.utils.viz import save_image
@@ -625,14 +627,20 @@ JP2_DETECT_FIXTURES = ("jp2_97_mct1_40x56.jp2", "jp2_53_mct1_40x56.jp2",
                        "jp2_mode_i16_40x56.jp2")
 JP2_FRAME = "frame_jp2_97_480x640.jp2"
 JP2_LOSSLESS_FRAME = "frame_jp2_53_480x640.jp2"
-# save_image's TIFF and WebP writers through predict --output from a
-# 480x640 fixture frame, its PAM, Sun raster, PFM and HDR writers from
-# that annotated frame
-PREDICT_FORMATS = (".tif", ".webp")
-SAVED_FORMATS = (".pam", ".ras", ".pfm", ".hdr")
+# save_image's TIFF, JPEG 2000 and WebP writers through predict --output
+# from a 480x640 fixture frame, its PAM, Sun raster, PFM, HDR, .apng (PNG)
+# and .pic (HDR) writers from the last annotated frame. The JP2 file is
+# lossy at OpenJPEG's rate 4: the TIFF frame fits whole (137,208 bytes)
+# with the few boxes of JP2_CONF, not with FIXTURE_CONF's 100 labels
+PREDICT_FORMATS = (".tif", ".jp2", ".webp")
+JP2_CONF = 0.5
+SAVED_FORMATS = (".pam", ".ras", ".pfm", ".hdr", ".apng", ".pic")
+# the JPEG 2000 writer's cut path, pinned by the hash of cv2.imwrite's
+# file of a seeded noisy gradient (tests/test_torch_jp2_write.py)
+WRITTEN_HASHES = "written_hashes.json"
 FIXTURE_CONF = 0.005      # a score threshold at which every fixture has boxes
 IMAGE_THREADS = (1, 4, 8)
-IMAGE_DECODES = 64        # decodes a timed thread-pool run
+IMAGE_DECODES = 32        # decodes a timed thread-pool run
 COCO_VARIANT = "yolov3"   # 416, COCO-80
 COCO_SCENES = 96          # 3 batches of COCO_BATCH
 # source sizes, cycled: mostly 480x640, as COCO's most common size
@@ -2472,30 +2480,41 @@ def read_written(path: str, shape) -> np.ndarray:
     return np.frombuffer(body, np.uint8).reshape(shape)[..., ::-1]
 
 
+def pinned_cut_frame() -> tuple:
+    """The JPEG 2000 writer's pinned cut frame and its record (the bytes
+    and sha256 of cv2.imwrite's file of it)."""
+    with open(os.path.join(FIXTURES, WRITTEN_HASHES)) as f:
+        pin = json.load(f)["jp2"]
+    return gradient_frame(*pin["shape"], pin["noise"], pin["seed"]), pin
+
+
 def predict_outputs(weights: str, cfg, net, labels) -> dict:
     """Phase 14 (b): `predict --image <480x640 frame> --output Y` for Y of
-    PREDICT_FORMATS (the TIFF fixture frame for .tif, the lossless WebP
-    one for .webp): one NMS launch each, and Y, read back by the port,
-    equals draw_detections of the boxes make_detector gives that frame
-    on the same net (the command's path); that annotated frame saved as
-    each of SAVED_FORMATS reads back alike (HDR within 2 levels: its
-    RGBE keeps value / 255). Returns {format: bytes written}."""
+    PREDICT_FORMATS (the TIFF fixture frame for .tif and .jp2, the
+    lossless WebP one for .webp): one NMS launch each, and Y, read back
+    by the port, equals draw_detections of the boxes make_detector gives
+    that frame on the same net (the command's path; .jp2 at JP2_CONF,
+    where the annotated frame fits whole, and its bytes encode_jp2's of
+    that frame); the last annotated frame saved as each of SAVED_FORMATS
+    reads back alike (HDR and .pic within 2 levels: its RGBE keeps value
+    / 255); the JPEG 2000 writer's cut frame has the hash of cv2's file.
+    Returns {format: bytes written}."""
     from yolo_tpu_torch.utils.viz import draw_detections
 
-    det = make_detector(cfg)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for ext in PREDICT_FORMATS:
-            src = os.path.join(FIXTURES, TIFF_FRAME if ext == ".tif"
-                               else WEBP_LOSSLESS_FRAME)
+            src = os.path.join(FIXTURES, WEBP_LOSSLESS_FRAME
+                               if ext == ".webp" else TIFF_FRAME)
             dst = os.path.join(tmp, "annotated" + ext)
+            conf = JP2_CONF if ext == ".jp2" else FIXTURE_CONF
             text, _, _, nms = cli_run(["predict", "--model", VARIANT,
                                        "--weights", weights, "--image", src,
-                                       "--conf", str(FIXTURE_CONF),
-                                       "--output", dst])
+                                       "--conf", str(conf), "--output", dst])
             frame = decode_image(src)
             with torch.no_grad():
-                o = det(net, torch.from_numpy(frame[None]).cuda())
+                o = make_detector(cfg, conf_threshold=conf)(
+                    net, torch.from_numpy(frame[None]).cuda())
             o = {k: v[0].cpu().numpy() for k, v in o.items()}
             want = draw_detections(frame, o["boxes"], o["scores"],
                                    o["classes"], labels, o["valid"])
@@ -2503,15 +2522,28 @@ def predict_outputs(weights: str, cfg, net, labels) -> dict:
                   and np.array_equal(decode_image(dst), want),
                   f"predict --output {ext}: {nms} NMS launches; the file "
                   f"is not draw_detections of the frame's boxes")
+            if ext == ".jp2":
+                with open(dst, "rb") as f:
+                    check(f.read() == encode_jp2(want), "predict --output "
+                          ".jp2: not save_image's bytes of that frame")
+                out["jp2_boxes"] = int(o["valid"].sum())
             out[ext] = os.path.getsize(dst)
         for ext in SAVED_FORMATS:
             dst = os.path.join(tmp, "annotated" + ext)
             save_image(dst, want)
             diff = np.abs(read_written(dst, want.shape).astype(int) -
                           want.astype(int)).max()
-            check(diff <= (2 if ext == ".hdr" else 0), f"save_image {ext}: "
-                  f"read back {diff} levels from the annotated frame")
+            check(diff <= (2 if ext in (".hdr", ".pic") else 0),
+                  f"save_image {ext}: read back {diff} levels from the "
+                  f"annotated frame")
             out[ext] = os.path.getsize(dst)
+    frame, pin = pinned_cut_frame()
+    data = encode_jp2(frame)
+    digest = hashlib.sha256(data).hexdigest()
+    check(digest == pin["sha256"] and len(data) == pin["bytes"],
+          f"the cut JPEG 2000 frame: {len(data)} bytes, sha256 {digest}; "
+          f"cv2 wrote {pin['bytes']}, {pin['sha256']}")
+    out["jp2_cut_pinned"] = len(data)
     return out
 
 
@@ -2551,7 +2583,10 @@ def phase_decode_rates(card: str) -> dict:
     same frame (the port's own writer), the LZW TIFF, q80 WebP, GIF,
     HDR and JPEG 2000 (9/7 and 5/3) fixtures and a lossless WebP
     likewise; the TIFF and lossless WebP writers' ms a frame on one
-    thread; a 480x640 Paeth PNG's unfilter in C and in Python."""
+    thread, and the JPEG 2000 writer's on a frame that fits whole (the
+    TIFF fixture's) and on one its rate allocation cuts (the pinned
+    noisy gradient); a 480x640 Paeth PNG's unfilter in C and in
+    Python."""
     img, _ = coco_scene(np.random.default_rng(SEED + 14), *SRC_HW)
     cores = os.cpu_count()
     progressive = os.path.join(FIXTURES, PROGRESSIVE_FRAME)
@@ -2593,6 +2628,17 @@ def phase_decode_rates(card: str) -> dict:
             check(np.array_equal(decode_image_bytes(data), img),
                   f"the {what} writer's frame does not read back")
             encode[what] = {"ms_one_thread": host_ms(lambda: fn(img), 5),
+                            "bytes": len(data)}
+        whole = decode_image(os.path.join(FIXTURES, TIFF_FRAME))
+        for what, frame in (("jp2_fits_whole", whole),
+                            ("jp2_cut", pinned_cut_frame()[0])):
+            data = encode_jp2(frame)
+            lossless = np.array_equal(decode_image_bytes(data), frame)
+            check(lossless == (what == "jp2_fits_whole"),
+                  f"{what}: the JPEG 2000 file reads back "
+                  f"{'exactly' if lossless else 'cut'}")
+            encode[what] = {"ms_one_thread":
+                            host_ms(lambda: encode_jp2(frame), 5),
                             "bytes": len(data)}
         png = encode_png(img, filters=(4,))
     raw = zlib.decompress(b"".join(

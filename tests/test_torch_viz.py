@@ -16,7 +16,10 @@ with (yolo_tpu/utils/viz.py):
   * TIFF, PAM, Sun raster, PFM and HDR: cv2.imwrite's bytes (a Sun
     raster's last pad byte aside: cv2 copies it from past its image);
   * WebP: lossless, read back exactly by cv2 and the port, at most 1.5x
-    the size of cv2.imwrite's file on an annotated 480x640 frame."""
+    the size of cv2.imwrite's file on an annotated 480x640 frame;
+  * .apng: the port's .png file (cv2's .apng is its .png file); .pic:
+    cv2.imwrite's bytes, the port's .hdr file (JPEG 2000:
+    tests/test_torch_jp2_write.py)."""
 
 import os
 
@@ -124,15 +127,56 @@ def test_jpeg_matches_cv2_imwrite(tmp_path, shape, smooth):
 
 
 def test_save_image_refuses_what_it_cannot_write(tmp_path):
-    """GIF, AVIF and JPEG 2000, which cv2 writes through lossy encoders,
-    are refused saying so; so is a missing directory."""
+    """GIF and AVIF, which cv2 writes through lossy encoders, are refused
+    saying so; so are .j2k (cv2 5 has no encoder for it either) and a
+    missing directory. JPEG 2000 (.jp2) is written since its encoder was
+    ported (tests/test_torch_jp2_write.py)."""
     img = np.zeros((4, 4, 3), np.uint8)
-    for ext in (".gif", ".avif", ".jp2"):
+    for ext in (".gif", ".avif"):
         with pytest.raises(OSError, match=f"{ext}.*lossy encoder"):
             viz.save_image(str(tmp_path / f"a{ext}"), img)
         assert not os.path.exists(tmp_path / f"a{ext}")
+    with pytest.raises(OSError, match="the port writes"):
+        viz.save_image(str(tmp_path / "a.j2k"), img)
+    assert not os.path.exists(tmp_path / "a.j2k")
     with pytest.raises(OSError):
         viz.save_image(str(tmp_path / "missing" / "a.png"), img)
+
+
+@pytest.mark.parametrize("shape", [(7, 5, 3), (48, 64, 3), (480, 640, 3),
+                                   (9, 11, 1)])
+def test_apng_is_the_png_file(tmp_path, shape):
+    """cv2.imwrite writes one image as .apng with its PNG encoder (the
+    .apng and .png files are the same bytes); save_image's .apng is its
+    own .png file, which cv2 reads back bit for bit (the port's PNG
+    writer gives cv2's pixels, not libpng's deflate bytes)."""
+    img = np.random.default_rng(11).integers(0, 256, shape, np.uint8)
+    bgr = img[..., ::-1] if shape[2] == 3 else img[..., 0]
+    assert cv2.imwrite(str(tmp_path / "cv2.apng"), bgr)
+    assert cv2.imwrite(str(tmp_path / "cv2.png"), bgr)
+    assert (tmp_path / "cv2.apng").read_bytes() == \
+        (tmp_path / "cv2.png").read_bytes()
+    viz.save_image(str(tmp_path / "p.apng"), img)
+    viz.save_image(str(tmp_path / "p.png"), img)
+    assert (tmp_path / "p.apng").read_bytes() == \
+        (tmp_path / "p.png").read_bytes()
+    back = cv2.imread(str(tmp_path / "p.apng"), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(back, bgr)
+
+
+@pytest.mark.parametrize("shape", [(7, 5, 3), (48, 64, 3), (480, 640, 3),
+                                   (9, 11, 1)])
+def test_pic_is_cv2s_hdr_file(tmp_path, shape):
+    """cv2.imwrite writes .pic with its Radiance encoder: save_image gives
+    cv2's bytes, which are the port's own .hdr file."""
+    img = np.random.default_rng(12).integers(0, 256, shape, np.uint8)
+    assert cv2.imwrite(str(tmp_path / "cv2.pic"), img[..., ::-1]
+                       if shape[2] == 3 else img[..., 0])
+    viz.save_image(str(tmp_path / "p.pic"), img)
+    viz.save_image(str(tmp_path / "p.hdr"), img)
+    data = (tmp_path / "p.pic").read_bytes()
+    assert data == (tmp_path / "cv2.pic").read_bytes()
+    assert data == (tmp_path / "p.hdr").read_bytes()
 
 
 @pytest.mark.parametrize("ext", [".bmp", ".ppm", ".pgm", ".pnm"])

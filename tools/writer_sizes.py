@@ -30,7 +30,7 @@ from yolo_tpu_torch.configs import VARIANTS  # noqa: E402
 from yolo_tpu_torch.native.preproc import decode_image  # noqa: E402
 from yolo_tpu_torch.utils.viz import draw_detections, save_image  # noqa
 
-FORMATS = (".webp", ".tif", ".png", ".pam", ".ras", ".pfm", ".hdr")
+FORMATS = (".webp", ".tif", ".png", ".pam", ".ras", ".pfm", ".hdr", ".jp2")
 FIXTURES = os.path.join(REPO, "tests", "data", "torch_jpeg")
 
 

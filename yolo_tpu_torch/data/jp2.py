@@ -30,6 +30,11 @@ tiers, the samples OpenJPEG decodes):
 The Part 2 and Part 15 extensions (multiple component transforms,
 other wavelets, high-throughput blocks) raise naming the marker: OpenJPEG
 reads some of them, the port does not.
+
+encode_jp2 writes the JP2 file cv2.imwrite writes (OpenCV 5 through
+OpenJPEG 2.5.3, one layer at a compression ratio of 4): the boxes here,
+the codestream in C (native/j2k_enc.c, whose docstring lists what it
+reproduces).
 """
 
 from __future__ import annotations
@@ -309,6 +314,45 @@ def decode_jp2(data: bytes, channels: int = 3) -> np.ndarray:
     if channels == 3:
         return rgb
     return cvt_gray(rgb)
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + kind + body
+
+
+def encode_jp2(image: np.ndarray) -> bytes:
+    """(H, W, 3) RGB or (H, W[, 1]) gray uint8 -> the JP2 file
+    cv2.imwrite writes for it (module docstring): the signature, ftyp
+    (brand and compatibility "jp2 "), jp2h (ihdr: 8-bit unsigned, type
+    7; colr: enumerated sRGB or gray), then the codestream in jp2c.
+    OSError, as cv2.imwrite refuses it, for an image under 32 pixels a
+    side (too small for OpenJPEG's 5 decomposition levels)."""
+    from yolo_tpu_torch.native.build import library
+    from yolo_tpu_torch.native.preproc import _image_u8
+
+    img = _image_u8(image)
+    h, w, c = img.shape
+    if h < 32 or w < 32:
+        raise OSError(f"cannot write a {w}x{h} image as JPEG 2000: OpenJPEG "
+                      f"needs 32 pixels a side for its 5 resolutions "
+                      f"(cv2.imwrite refuses it too)")
+    ihdr = _box(b"ihdr", struct.pack(">IIHBBBB", h, w, c, 7, 7, 0, 0))
+    colr = _box(b"colr", struct.pack(">BBBI", 1, 0, 0, 16 if c == 3 else 17))
+    head = SIGNATURE + _box(b"ftyp", b"jp2 \0\0\0\0jp2 ") + \
+        _box(b"jp2h", ihdr + colr)
+    lib = library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    # the bytes ahead of the codestream count against its budget
+    if lib.yolo_j2k_encode(img.ctypes.data, h, w, c, len(head) + 8,
+                           ctypes.byref(out), ctypes.byref(n), err,
+                           _ERR_LEN):
+        raise ValueError(err.value.decode())
+    try:
+        cs = ctypes.string_at(out.value, n.value)
+    finally:
+        lib.yolo_native_free(out)
+    return head + _box(b"jp2c", cs)
 
 
 def _yuv_to_rgb(y, u, v) -> np.ndarray:

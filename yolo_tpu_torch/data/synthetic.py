@@ -6,7 +6,9 @@ training and evaluation paths, written without OpenCV:
   * COCO-style: JPEG images with an instances JSON in the COCO schema
     (write_coco_scenes);
   * video: an MJPG AVI of moving rectangles (write_video), its frames
-    written by the port's JPEG writer (native.preproc.encode_jpeg).
+    written by the port's JPEG writer (native.preproc.encode_jpeg);
+  * gradient_frame: three ramps with seeded uniform noise, the image
+    whose JPEG 2000 file is pinned by hash for the writer's cut path.
 
 A VOC scene is a smooth background (a horizontal and a vertical ramp and
 one flat channel) with 1-4 filled rectangles, each labelled with a VOC
@@ -53,6 +55,18 @@ def _background(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     return np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
                      np.full((h, w), int(rng.integers(0, 256)))],
                     -1).astype(np.uint8)
+
+
+def gradient_frame(h: int, w: int, noise: int, seed: int) -> np.ndarray:
+    """(H, W, 3) uint8: a horizontal, a vertical and a diagonal ramp, plus
+    uniform integer noise in [-noise, noise] from
+    np.random.default_rng(seed), clipped (the same bytes on every host)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramps = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                      (xx + yy) * 255 // max(w + h - 2, 1)], -1)
+    rng = np.random.default_rng(seed)
+    return np.clip(ramps + rng.integers(-noise, noise + 1, (h, w, 3)), 0,
+                   255).astype(np.uint8)
 
 
 def scene(rng: np.random.Generator, h: int, w: int, *,

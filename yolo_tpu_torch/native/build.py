@@ -1,8 +1,8 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
 JPEG decoder and encoder, the PNG unfilter and pixel conversion, the
-BMP, GIF, HDR, TIFF and WebP codecs, the blur, warp and HSV -> RGB of
-the augmentation, the letterbox and the stretch) and load it with
-ctypes.
+BMP, GIF, HDR, TIFF, WebP and JPEG 2000 codecs, the blur, warp and
+HSV -> RGB of the augmentation, the letterbox and the stretch) and load
+it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
 ``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``, ``-lm`` and ``-lpthread``: no fast-math, no
@@ -117,6 +117,12 @@ def library() -> ctypes.CDLL:
     # data, len, &out (int32 samples), info, maxcomps, err, errlen
     lib.yolo_j2k_decode.argtypes = [ptr, size, ctypes.POINTER(ctypes.c_void_p),
                                     ptr, i32, ctypes.c_char_p, size]
+    lib.yolo_j2k_encode.restype = i32
+    # pixels, h, w, channels, bytes before the codestream, &out, &len,
+    # err, errlen
+    lib.yolo_j2k_encode.argtypes = [
+        ptr, i32, i32, i32, size, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(size), ctypes.c_char_p, size]
     lib.yolo_gif_lzw_decode.restype = i32
     # data, len, min_code_size, out, n, err, errlen
     lib.yolo_gif_lzw_decode.argtypes = [ptr, size, i32, ptr, size,

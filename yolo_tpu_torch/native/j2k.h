@@ -1,14 +1,17 @@
 /* The JPEG 2000 Part 1 decoder's shared types (j2k.c: markers, tiles and
  * the image; j2k_t2.c: packets; j2k_t1.c: code-blocks; j2k_dwt.c: the
- * inverse transforms). The arithmetic follows OpenJPEG 2.5, the library
- * OpenCV reads JPEG 2000 through, so that the decoded samples are the
- * ones cv2 sees. Not part of native.h's interface. */
+ * inverse transforms), and the tier-1 tables and sample states the
+ * encoder (j2k_enc.c) shares with it. The arithmetic follows OpenJPEG
+ * 2.5, the library OpenCV reads and writes JPEG 2000 through, so that
+ * the samples and bytes are the ones cv2 sees. Not part of native.h's
+ * interface. */
 #ifndef YOLO_TPU_TORCH_J2K_H
 #define YOLO_TPU_TORCH_J2K_H
 
 #include <setjmp.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #define J2K_MAXRES 33
 #define J2K_MAXBANDS (3 * J2K_MAXRES - 2)
@@ -158,6 +161,87 @@ typedef struct {
     int x0, y0, x1, y1;         /* on the reference grid */
     j2k_tilec *comps;
 } j2k_tile;
+
+/* --- tier 1, shared by the decoder (j2k_t1.c) and the encoder
+ * (j2k_enc.c) ------------------------------------------------------- */
+
+typedef struct { uint16_t qe; uint8_t nmps, nlps, sw; } j2k_qe;
+extern const j2k_qe J2K_QE[47];
+
+
+/* contexts: 0-8 zero coding, 9-13 sign, 14-16 magnitude, run, uniform */
+#define CX_SC 9
+#define CX_MAG 14
+#define CX_AGG 17
+#define CX_UNI 18
+#define NCX 19
+
+/* sample state: the significance of the 8 neighbours, the signs of the
+ * 4 direct ones, and the sample's own bits. A sample that becomes
+ * significant sets its bits in its neighbours' states (as OpenJPEG's
+ * opj_t1_update_flags): under VSC a stripe's first row does not tell the
+ * row above it, so that a stripe's last row sees the next stripe as
+ * insignificant in every context. */
+#define N_N 0x0001
+#define N_S 0x0002
+#define N_W 0x0004
+#define N_E 0x0008
+#define N_NW 0x0010
+#define N_NE 0x0020
+#define N_SW 0x0040
+#define N_SE 0x0080
+#define NEG_N 0x0100
+#define NEG_S 0x0200
+#define NEG_W 0x0400
+#define NEG_E 0x0800
+#define F_SIG 0x1000
+#define F_NEG 0x2000
+#define F_VISIT 0x4000
+#define F_REFINED 0x8000
+#define N_ANY 0x00ff
+
+/* a code-block's states: a border stripe above and below, a border
+ * column each side; the state of sample (x, y) is at stripe y / 4 + 1,
+ * column x + 1, row y % 4 (cols = w + 2) */
+static inline uint16_t *j2k_t1_state(uint16_t *f, int cols, int x, int y) {
+    return f + (((size_t)(y >> 2) + 1) * (size_t)cols + (size_t)x + 1) * 4 +
+           (size_t)(y & 3);
+}
+
+/* the four states of a stripe column as one word */
+static inline uint64_t j2k_t1_column(const uint16_t *f) {
+    uint64_t v;
+    memcpy(&v, f, sizeof v);
+    return v;
+}
+
+#define J2K_X4(m) ((uint64_t)(m) * 0x0001000100010001ull)
+
+/* the sign-coding table's index: the direct neighbours' significance
+ * and signs */
+static inline int j2k_t1_sc_index(uint16_t f) {
+    return (f & 0xf) | ((f >> 4) & 0xf0);
+}
+
+/* sample f (row r of its stripe) becomes significant */
+static inline void j2k_t1_set_sig(uint16_t *f, int r, int cols, int neg,
+                                  int vsc) {
+    ptrdiff_t col = 4, up = r ? -1 : -4 * (ptrdiff_t)cols + 3;
+    ptrdiff_t down = r < 3 ? 1 : 4 * (ptrdiff_t)cols - 3;
+    *f |= (uint16_t)(F_SIG | (neg ? F_NEG : 0));
+    f[-col] |= (uint16_t)(N_E | (neg ? NEG_E : 0));
+    f[col] |= (uint16_t)(N_W | (neg ? NEG_W : 0));
+    if (!(vsc && r == 0)) {
+        uint16_t *n = f + up;
+        *n |= (uint16_t)(N_S | (neg ? NEG_S : 0));
+        n[-col] |= N_SE;
+        n[col] |= N_SW;
+    }
+    uint16_t *s = f + down;
+    *s |= (uint16_t)(N_N | (neg ? NEG_N : 0));
+    s[-col] |= N_NE;
+    s[col] |= N_NW;
+}
 
 /* j2k_t2.c */
 void j2k_t2_decode(j2k_ctx *c, j2k_cp *cp, j2k_tcp *tcp, j2k_tile *tile,

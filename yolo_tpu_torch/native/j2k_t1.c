@@ -22,7 +22,7 @@
 #include "j2k.h"
 
 /* T.800 Table C.2: Qe, NMPS, NLPS, SWITCH */
-static const struct { uint16_t qe; uint8_t nmps, nlps, sw; } QE[47] = {
+const j2k_qe J2K_QE[47] = {
     {0x5601, 1, 1, 1},   {0x3401, 2, 6, 0},   {0x1801, 3, 9, 0},
     {0x0AC1, 4, 12, 0},  {0x0521, 5, 29, 0},  {0x0221, 38, 33, 0},
     {0x5601, 7, 6, 1},   {0x5401, 8, 14, 0},  {0x4801, 9, 14, 0},
@@ -40,13 +40,6 @@ static const struct { uint16_t qe; uint8_t nmps, nlps, sw; } QE[47] = {
     {0x0015, 43, 40, 0}, {0x0009, 44, 41, 0}, {0x0005, 45, 42, 0},
     {0x0001, 45, 43, 0}, {0x5601, 46, 46, 0},
 };
-
-/* contexts: 0-8 zero coding, 9-13 sign, 14-16 magnitude, run, uniform */
-#define CX_SC 9
-#define CX_MAG 14
-#define CX_AGG 17
-#define CX_UNI 18
-#define NCX 19
 
 typedef struct {
     const uint8_t *bp;
@@ -97,16 +90,16 @@ __attribute__((always_inline))
 #endif
 static inline int mq_decode(mqc *m, int cx) {
     int i = m->idx[cx], d;
-    uint32_t qe = QE[i].qe;
+    uint32_t qe = J2K_QE[i].qe;
     m->a -= qe;
     if ((m->c >> 16) < qe) {
         if (m->a < qe) {
             d = m->mps[cx];
-            m->idx[cx] = QE[i].nmps;
+            m->idx[cx] = J2K_QE[i].nmps;
         } else {
             d = 1 - m->mps[cx];
-            if (QE[i].sw) m->mps[cx] = (uint8_t)(1 - m->mps[cx]);
-            m->idx[cx] = QE[i].nlps;
+            if (J2K_QE[i].sw) m->mps[cx] = (uint8_t)(1 - m->mps[cx]);
+            m->idx[cx] = J2K_QE[i].nlps;
         }
         m->a = qe;
     } else {
@@ -114,11 +107,11 @@ static inline int mq_decode(mqc *m, int cx) {
         if (m->a & 0x8000) return m->mps[cx];
         if (m->a < qe) {
             d = 1 - m->mps[cx];
-            if (QE[i].sw) m->mps[cx] = (uint8_t)(1 - m->mps[cx]);
-            m->idx[cx] = QE[i].nlps;
+            if (J2K_QE[i].sw) m->mps[cx] = (uint8_t)(1 - m->mps[cx]);
+            m->idx[cx] = J2K_QE[i].nlps;
         } else {
             d = m->mps[cx];
-            m->idx[cx] = QE[i].nmps;
+            m->idx[cx] = J2K_QE[i].nmps;
         }
     }
     do {
@@ -154,30 +147,6 @@ static inline int raw_decode(mqc *m) {
     m->ct--;
     return (int)((m->c >> m->ct) & 1);
 }
-
-/* sample state: the significance of the 8 neighbours, the signs of the
- * 4 direct ones, and the sample's own bits. A sample that becomes
- * significant sets its bits in its neighbours' states (as OpenJPEG's
- * opj_t1_update_flags): under VSC a stripe's first row does not tell the
- * row above it, so that a stripe's last row sees the next stripe as
- * insignificant in every context. */
-#define N_N 0x0001
-#define N_S 0x0002
-#define N_W 0x0004
-#define N_E 0x0008
-#define N_NW 0x0010
-#define N_NE 0x0020
-#define N_SW 0x0040
-#define N_SE 0x0080
-#define NEG_N 0x0100
-#define NEG_S 0x0200
-#define NEG_W 0x0400
-#define NEG_E 0x0800
-#define F_SIG 0x1000
-#define F_NEG 0x2000
-#define F_VISIT 0x4000
-#define F_REFINED 0x8000
-#define N_ANY 0x00ff
 
 typedef struct {
     int w, h, cols, vsc;
@@ -231,49 +200,18 @@ static uint16_t sc_context(int bits) {
     return (uint16_t)(cx[h + 1][v + 1] | (flip << 8));
 }
 
-static inline int sc_index(uint16_t f) {
-    return (f & 0xf) | ((f >> 4) & 0xf0);
-}
-
-/* the state of sample (x, y): stripe y / 4 + 1, column x + 1, row y % 4 */
 static inline uint16_t *fl(const t1 *t, int x, int y) {
-    return t->f + (((size_t)(y >> 2) + 1) * (size_t)t->cols + (size_t)x + 1) *
-                      4 + (size_t)(y & 3);
+    return j2k_t1_state(t->f, t->cols, x, y);
 }
-
-/* the four states of a stripe column as one word */
-static inline uint64_t column(const uint16_t *f) {
-    uint64_t v;
-    memcpy(&v, f, sizeof v);
-    return v;
-}
-
-#define X4(m) ((uint64_t)(m) * 0x0001000100010001ull)
 
 static void set_sig(t1 *t, int x, int y, int neg, int32_t oneplushalf) {
-    uint16_t *f = fl(t, x, y);
-    int r = y & 3;
-    ptrdiff_t col = 4, up = r ? -1 : -4 * (ptrdiff_t)t->cols + 3;
-    ptrdiff_t down = r < 3 ? 1 : 4 * (ptrdiff_t)t->cols - 3;
-    *f |= (uint16_t)(F_SIG | (neg ? F_NEG : 0));
-    f[-col] |= (uint16_t)(N_E | (neg ? NEG_E : 0));
-    f[col] |= (uint16_t)(N_W | (neg ? NEG_W : 0));
-    if (!(t->vsc && r == 0)) {
-        uint16_t *n = f + up;
-        *n |= (uint16_t)(N_S | (neg ? NEG_S : 0));
-        n[-col] |= N_SE;
-        n[col] |= N_SW;
-    }
-    uint16_t *s = f + down;
-    *s |= (uint16_t)(N_N | (neg ? NEG_N : 0));
-    s[-col] |= N_NE;
-    s[col] |= N_NW;
+    j2k_t1_set_sig(fl(t, x, y), y & 3, t->cols, neg, t->vsc);
     t->d[y * t->w + x] = neg ? -oneplushalf : oneplushalf;
 }
 
 static inline void decode_sign(t1 *t, uint16_t *f, int x, int y,
                                int32_t oneplushalf) {
-    uint16_t cs = t->sc[sc_index(*f)];
+    uint16_t cs = t->sc[j2k_t1_sc_index(*f)];
     int v = mq_decode(&t->m, cs & 0xff) ^ (cs >> 8);
     set_sig(t, x, y, v, oneplushalf);
 }
@@ -284,7 +222,7 @@ static void sigpass(t1 *t, int bpno, int raw) {
         int stop = k + 4 < t->h ? k + 4 : t->h;
         for (int x = 0; x < t->w; x++) {
             uint16_t *f = fl(t, x, k);
-            if (!(column(f) & X4(N_ANY))) continue;
+            if (!(j2k_t1_column(f) & J2K_X4(N_ANY))) continue;
             for (int y = k; y < stop; y++, f++) {
                 if ((*f & (F_SIG | F_VISIT)) || !(*f & N_ANY)) continue;
                 if (raw) {
@@ -305,7 +243,7 @@ static void refpass(t1 *t, int bpno, int raw) {
         int stop = k + 4 < t->h ? k + 4 : t->h;
         for (int x = 0; x < t->w; x++) {
             uint16_t *f = fl(t, x, k);
-            if (!(column(f) & X4(F_SIG))) continue;
+            if (!(j2k_t1_column(f) & J2K_X4(F_SIG))) continue;
             for (int y = k; y < stop; y++, f++) {
                 if ((*f & (F_SIG | F_VISIT)) != F_SIG) continue;
                 int v;
@@ -334,7 +272,7 @@ static void clnpass(t1 *t, int bpno, int segsym) {
             /* the run mode: four samples, none significant or visited,
              * none with a significant neighbour */
             if (stop - k == 4 &&
-                !(column(f) & X4(F_SIG | F_VISIT | N_ANY))) {
+                !(j2k_t1_column(f) & J2K_X4(F_SIG | F_VISIT | N_ANY))) {
                 if (!mq_decode(&t->m, CX_AGG)) continue;
                 int r = mq_decode(&t->m, CX_UNI) << 1;
                 r |= mq_decode(&t->m, CX_UNI);

@@ -15,9 +15,11 @@ save_image writes by the file's extension what cv2.imwrite writes:
 PNG (data/png.py, zlib), baseline JPEG (native/jpeg_enc.c: q95 4:2:0,
 cv2.imwrite's defaults; encode_jpeg lives in native/preproc.py), BMP,
 PGM / PPM / PNM and PAM, TIFF (data/tiff.py: LZW), Sun raster
-(data/sunras.py), PFM (data/pfm.py) and Radiance HDR (data/hdr.py), each
+(data/sunras.py), PFM (data/pfm.py), Radiance HDR (data/hdr.py) and JPEG
+2000 (data/jp2.py: OpenJPEG's rate allocation at a ratio of 4), each
 with cv2's bytes, and lossless WebP (data/webp.py) with cv2's pixels.
-GIF, AVIF and JPEG 2000, which cv2 writes through lossy encoders, are
+.apng is the .png file and .pic the .hdr file, as cv2 writes them for
+one image. GIF and AVIF, which cv2 writes through lossy encoders, are
 not ported.
 """
 
@@ -208,16 +210,19 @@ def encode_pnm(image: np.ndarray, ext: str) -> bytes:
 
 
 # cv2.imwrite's lossy encoders that the port does not reproduce
-LOSSY_NOT_PORTED = (".gif", ".avif", ".jp2")
+LOSSY_NOT_PORTED = (".gif", ".avif")
 
 
 def save_image(path: str, image_rgb: np.ndarray) -> None:
     """Write an RGB (or gray) uint8 image by the path's extension, what
-    cv2.imwrite writes (module docstring): .png, .jpg/.jpeg/.jpe,
-    .bmp/.dib, .pgm/.ppm/.pnm, .pam, .tif/.tiff, .ras/.sr, .pfm, .hdr
-    and .webp. OSError for .gif, .avif and .jp2 (lossy encoders, not
-    ported), another extension, or a missing directory."""
+    cv2.imwrite writes (module docstring): .png/.apng, .jpg/.jpeg/.jpe,
+    .bmp/.dib, .pgm/.ppm/.pnm, .pam, .tif/.tiff, .ras/.sr, .pfm,
+    .hdr/.pic, .webp and .jp2. OSError for .gif and .avif (lossy
+    encoders, not ported), another extension, an image cv2 refuses to
+    write (a .jp2 under 32 pixels a side), or a missing directory; no
+    file is written then."""
     from yolo_tpu_torch.data.hdr import encode_hdr
+    from yolo_tpu_torch.data.jp2 import encode_jp2
     from yolo_tpu_torch.data.pfm import encode_pfm
     from yolo_tpu_torch.data.png import encode_png
     from yolo_tpu_torch.data.pnm import encode_pam
@@ -226,10 +231,11 @@ def save_image(path: str, image_rgb: np.ndarray) -> None:
     from yolo_tpu_torch.data.webp import encode_webp
 
     ext = os.path.splitext(path)[1].lower()
-    writers = {".png": encode_png, ".bmp": encode_bmp, ".dib": encode_bmp,
-               ".pam": encode_pam, ".tif": encode_tiff, ".tiff": encode_tiff,
-               ".ras": encode_sunras, ".sr": encode_sunras,
-               ".pfm": encode_pfm, ".hdr": encode_hdr, ".webp": encode_webp}
+    writers = {".png": encode_png, ".apng": encode_png, ".bmp": encode_bmp,
+               ".dib": encode_bmp, ".pam": encode_pam, ".tif": encode_tiff,
+               ".tiff": encode_tiff, ".ras": encode_sunras,
+               ".sr": encode_sunras, ".pfm": encode_pfm, ".hdr": encode_hdr,
+               ".pic": encode_hdr, ".webp": encode_webp, ".jp2": encode_jp2}
     for e in (".jpg", ".jpeg", ".jpe"):
         writers[e] = encode_jpeg
     if ext in (".pgm", ".ppm", ".pnm"):
@@ -240,8 +246,8 @@ def save_image(path: str, image_rgb: np.ndarray) -> None:
         raise OSError(f"cannot write {path}: cv2.imwrite writes {ext} with a "
                       f"lossy encoder that the port does not reproduce")
     else:
-        raise OSError(f"cannot write {path}: the port writes .png, "
+        raise OSError(f"cannot write {path}: the port writes .png/.apng, "
                       f".jpg/.jpeg, .bmp, .pgm/.ppm/.pnm, .pam, .tif/.tiff, "
-                      f".ras/.sr, .pfm, .hdr and .webp only")
+                      f".ras/.sr, .pfm, .hdr/.pic, .webp and .jp2 only")
     with open(path, "wb") as f:
         f.write(data)
