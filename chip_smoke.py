@@ -128,14 +128,16 @@ JSON lines; any failed check raises and the script exits non-zero:
               file, the lines equal detect_raw on the decoded arrays and
               the answers direct calls; `predict --output` of a 480x640
               frame as TIFF and WebP reads back as draw_detections of its
-              boxes, that frame saved as PAM, Sun raster, PFM and HDR
-              alike; (c) decode rates of a 480x640
+              boxes, as GIF has encode_gif's bytes of them, that frame
+              saved as PAM, Sun raster, PFM and HDR alike, the GIF
+              writer's bytes of a seeded gradient frame hash as cv2's;
+              (c) decode rates of a 480x640
               4:2:0 q90 JPEG, of the 480x640 progressive fixture, of a
               24-bit BMP of the frame (the port's writer) and of the
               480x640 LZW TIFF, q80 and lossless WebP, GIF and HDR
               fixtures, ms an image on one thread and img/s on
-              IMAGE_THREADS threads, the TIFF and lossless WebP writers'
-              ms a frame on one thread (8
+              IMAGE_THREADS threads, the TIFF, lossless WebP and GIF
+              writers' ms a frame on one thread (8
               threads at least twice one for the JPEGs, where the host
               has 4 cores), the host letterbox of the
               frame to 416 on one thread, and a 480x640 Paeth PNG's
@@ -458,6 +460,7 @@ from yolo_tpu_torch.parallel.sharding import (make_dp_detector,
                                               maybe_init_distributed,
                                               replicate, shard_batch)
 from yolo_tpu_torch.serve import DetectionServer, detections_to_json
+from yolo_tpu_torch.data.gif import PALETTE, encode_gif
 from yolo_tpu_torch.data.jp2 import encode_jp2
 from yolo_tpu_torch.data.tiff import encode_tiff
 from yolo_tpu_torch.data.webp import encode_webp
@@ -627,19 +630,21 @@ JP2_DETECT_FIXTURES = ("jp2_97_mct1_40x56.jp2", "jp2_53_mct1_40x56.jp2",
                        "jp2_mode_i16_40x56.jp2")
 JP2_FRAME = "frame_jp2_97_480x640.jp2"
 JP2_LOSSLESS_FRAME = "frame_jp2_53_480x640.jp2"
-# save_image's TIFF, JPEG 2000 and WebP writers through predict --output
-# from a 480x640 fixture frame, its PAM, Sun raster, PFM, HDR, .apng (PNG)
-# and .pic (HDR) writers from the last annotated frame. The JP2 file is
-# lossy at OpenJPEG's rate 4: the TIFF frame fits whole (137,208 bytes)
-# with the few boxes of JP2_CONF, not with FIXTURE_CONF's 100 labels
-PREDICT_FORMATS = (".tif", ".jp2", ".webp")
+# save_image's TIFF, JPEG 2000, WebP and GIF writers through predict
+# --output from a 480x640 fixture frame, its PAM, Sun raster, PFM, HDR,
+# .apng (PNG) and .pic (HDR) writers from the last annotated frame. The
+# JP2 file is lossy at OpenJPEG's rate 4: the TIFF frame fits whole
+# (137,208 bytes) with the few boxes of JP2_CONF, not with FIXTURE_CONF's
+# 100 labels. The GIF file is always lossy (a fixed 3-3-2 palette)
+PREDICT_FORMATS = (".tif", ".jp2", ".webp", ".gif")
 JP2_CONF = 0.5
 SAVED_FORMATS = (".pam", ".ras", ".pfm", ".hdr", ".apng", ".pic")
-# the JPEG 2000 writer's cut path, pinned by the hash of cv2.imwrite's
-# file of a seeded noisy gradient (tests/test_torch_jp2_write.py)
+# the JPEG 2000 writer's cut path and the GIF writer, each pinned by the
+# hash of cv2.imwrite's file of a seeded noisy gradient
+# (tests/test_torch_jp2_write.py, tests/test_torch_gif_write.py)
 WRITTEN_HASHES = "written_hashes.json"
 FIXTURE_CONF = 0.005      # a score threshold at which every fixture has boxes
-IMAGE_THREADS = (1, 4, 8)
+IMAGE_THREADS = (1, 8)
 IMAGE_DECODES = 32        # decodes a timed thread-pool run
 COCO_VARIANT = "yolov3"   # 416, COCO-80
 COCO_SCENES = 96          # 3 batches of COCO_BATCH
@@ -2480,12 +2485,42 @@ def read_written(path: str, shape) -> np.ndarray:
     return np.frombuffer(body, np.uint8).reshape(shape)[..., ::-1]
 
 
-def pinned_cut_frame() -> tuple:
-    """The JPEG 2000 writer's pinned cut frame and its record (the bytes
-    and sha256 of cv2.imwrite's file of it)."""
+def pinned_frame(fmt: str) -> tuple:
+    """A writer's pinned frame and its record (the bytes and sha256 of
+    cv2.imwrite's file of it): "jp2", the JPEG 2000 writer's cut frame,
+    or "gif"."""
     with open(os.path.join(FIXTURES, WRITTEN_HASHES)) as f:
-        pin = json.load(f)["jp2"]
+        pin = json.load(f)[fmt]
     return gradient_frame(*pin["shape"], pin["noise"], pin["seed"]), pin
+
+
+def check_pinned(fmt: str, encode) -> int:
+    """encode's bytes of fmt's pinned frame have cv2's hash; returns
+    their length."""
+    frame, pin = pinned_frame(fmt)
+    data = encode(frame)
+    digest = hashlib.sha256(data).hexdigest()
+    check(digest == pin["sha256"] and len(data) == pin["bytes"],
+          f"the pinned {fmt} frame: {len(data)} bytes, sha256 {digest}; "
+          f"cv2 wrote {pin['bytes']}, {pin['sha256']}")
+    return len(data)
+
+
+def gif_read_back(path: str, frame: np.ndarray) -> bool:
+    """A GIF save_image wrote of frame: its bytes are encode_gif's, and
+    the port reads it back to palette colours, not to the frame itself
+    (the palette is 3-3-2), each channel on average within half a level's
+    step of the frame's (the diffusion's noise; near-white areas carry
+    their error on without bound, as cv2's do, so no pixel bound)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    got = decode_image(path)
+    return (data == encode_gif(frame) and got.shape == frame.shape
+            and np.isin(got.reshape(-1, 3).view("V3"),
+                        PALETTE.view("V3")).all()
+            and (np.abs(got.astype(int) - frame).mean((0, 1))
+                 < [18, 18, 42.5]).all()
+            and not np.array_equal(got, frame))
 
 
 def predict_outputs(weights: str, cfg, net, labels) -> dict:
@@ -2495,10 +2530,12 @@ def predict_outputs(weights: str, cfg, net, labels) -> dict:
     by the port, equals draw_detections of the boxes make_detector gives
     that frame on the same net (the command's path; .jp2 at JP2_CONF,
     where the annotated frame fits whole, and its bytes encode_jp2's of
-    that frame); the last annotated frame saved as each of SAVED_FORMATS
-    reads back alike (HDR and .pic within 2 levels: its RGBE keeps value
-    / 255); the JPEG 2000 writer's cut frame has the hash of cv2's file.
-    Returns {format: bytes written}."""
+    that frame; .gif, lossy, has encode_gif's bytes of that frame and
+    reads back to its palette colours: gif_read_back); the last
+    annotated frame saved as each of SAVED_FORMATS reads back alike (HDR
+    and .pic within 2 levels: its RGBE keeps value / 255); the JPEG 2000
+    writer's cut frame and the GIF writer's gradient frame have the
+    hashes of cv2's files. Returns {format: bytes written}."""
     from yolo_tpu_torch.utils.viz import draw_detections
 
     out = {}
@@ -2519,7 +2556,8 @@ def predict_outputs(weights: str, cfg, net, labels) -> dict:
             want = draw_detections(frame, o["boxes"], o["scores"],
                                    o["classes"], labels, o["valid"])
             check(nms == 1 and len(cli_lines(text)) == int(o["valid"].sum())
-                  and np.array_equal(decode_image(dst), want),
+                  and (gif_read_back(dst, want) if ext == ".gif" else
+                       np.array_equal(decode_image(dst), want)),
                   f"predict --output {ext}: {nms} NMS launches; the file "
                   f"is not draw_detections of the frame's boxes")
             if ext == ".jp2":
@@ -2537,13 +2575,8 @@ def predict_outputs(weights: str, cfg, net, labels) -> dict:
                   f"save_image {ext}: read back {diff} levels from the "
                   f"annotated frame")
             out[ext] = os.path.getsize(dst)
-    frame, pin = pinned_cut_frame()
-    data = encode_jp2(frame)
-    digest = hashlib.sha256(data).hexdigest()
-    check(digest == pin["sha256"] and len(data) == pin["bytes"],
-          f"the cut JPEG 2000 frame: {len(data)} bytes, sha256 {digest}; "
-          f"cv2 wrote {pin['bytes']}, {pin['sha256']}")
-    out["jp2_cut_pinned"] = len(data)
+    out["jp2_cut_pinned"] = check_pinned("jp2", encode_jp2)
+    out["gif_pinned"] = check_pinned("gif", encode_gif)
     return out
 
 
@@ -2582,7 +2615,7 @@ def phase_decode_rates(card: str) -> dict:
     beside the host letterbox of a frame to 416; a 24-bit BMP of the
     same frame (the port's own writer), the LZW TIFF, q80 WebP, GIF,
     HDR and JPEG 2000 (9/7 and 5/3) fixtures and a lossless WebP
-    likewise; the TIFF and lossless WebP writers' ms a frame on one
+    likewise; the TIFF, lossless WebP and GIF writers' ms a frame on one
     thread, and the JPEG 2000 writer's on a frame that fits whole (the
     TIFF fixture's) and on one its rate allocation cuts (the pinned
     noisy gradient); a 480x640 Paeth PNG's unfilter in C and in
@@ -2629,9 +2662,14 @@ def phase_decode_rates(card: str) -> dict:
                   f"the {what} writer's frame does not read back")
             encode[what] = {"ms_one_thread": host_ms(lambda: fn(img), 5),
                             "bytes": len(data)}
+        data = encode_gif(img)
+        check(decode_image_bytes(data).shape == img.shape,
+              "the GIF writer's frame does not read back")
+        encode["gif"] = {"ms_one_thread": host_ms(lambda: encode_gif(img), 5),
+                         "bytes": len(data)}
         whole = decode_image(os.path.join(FIXTURES, TIFF_FRAME))
         for what, frame in (("jp2_fits_whole", whole),
-                            ("jp2_cut", pinned_cut_frame()[0])):
+                            ("jp2_cut", pinned_frame("jp2")[0])):
             data = encode_jp2(frame)
             lossless = np.array_equal(decode_image_bytes(data), frame)
             check(lossless == (what == "jp2_fits_whole"),

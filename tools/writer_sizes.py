@@ -30,7 +30,8 @@ from yolo_tpu_torch.configs import VARIANTS  # noqa: E402
 from yolo_tpu_torch.native.preproc import decode_image  # noqa: E402
 from yolo_tpu_torch.utils.viz import draw_detections, save_image  # noqa
 
-FORMATS = (".webp", ".tif", ".png", ".pam", ".ras", ".pfm", ".hdr", ".jp2")
+FORMATS = (".webp", ".tif", ".png", ".pam", ".ras", ".pfm", ".hdr", ".jp2",
+           ".gif")
 FIXTURES = os.path.join(REPO, "tests", "data", "torch_jpeg")
 
 

@@ -26,6 +26,12 @@ LZW codes in C (native/gif.c):
 A stream whose data after the last pixel is more than an end code and
 padding raises ValueError saying it is not reproduced here (native/
 gif.c), as does an end code before the image is whole.
+
+encode_gif writes what cv2.imwrite / cv2.imencode write at their
+defaults (OpenCV 5's own encoder, IMWRITE_GIF_FAST_FLOYD_DITHER), byte
+for byte: the blocks here, the error diffusion onto the fixed 3-3-2
+palette and the LZW stream in C (native/gif_enc.c). cv2 refuses gray
+images (an assertion in its ditheringKernel), and so does encode_gif.
 """
 
 from __future__ import annotations
@@ -38,6 +44,19 @@ import numpy as np
 NO_IMAGE = "; cv2 gives no image either"
 SIGNATURES = (b"GIF87a", b"GIF89a")
 _ERR_LEN = 256
+
+# what cv2.imwrite writes around the image data, whatever the image: the
+# logical screen's flags (a global table of 256 entries, 8-bit colour
+# resolution), background 0 and aspect 0; the fixed 3-3-2 table (R and
+# G at 36 k, B at 85 k; entry r << 5 | g << 2 | b); NETSCAPE2.0 looping
+# forever; a graphic control extension of disposal 3, a delay of 100 and
+# no transparency; the image descriptor's flags (no local table)
+_SCREEN_TAIL = bytes((0xF7, 0, 0))
+PALETTE = np.array([((i >> 5) * 36, (i >> 2 & 7) * 36, (i & 3) * 85)
+                    for i in range(256)], np.uint8)
+_LOOP = b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+_CONTROL = b"\x21\xf9\x04\x0c\x64\x00\x00\x00"
+_DESCRIPTOR_FLAGS = 0x07
 
 
 def is_gif(data: bytes) -> bool:
@@ -195,3 +214,33 @@ def decode_gif(data: bytes, channels: int = 3) -> np.ndarray:
     s = canvas.astype(np.int32)
     return ((s[..., 0] * 9798 + s[..., 1] * 19235 + s[..., 2] * 3735 + 16384)
             >> 15).astype(np.uint8)[..., None]
+
+
+def encode_gif(image: np.ndarray) -> bytes:
+    """(H, W, 3) RGB uint8 -> the GIF file that cv2.imencode('.gif',
+    image[..., ::-1]) gives at its defaults (module docstring). OSError
+    for a gray image or a side past 65535, which cv2 refuses too."""
+    from yolo_tpu_torch.native.build import library
+    from yolo_tpu_torch.native.preproc import _image_u8
+
+    img = _image_u8(image)
+    h, w, c = img.shape
+    if c != 3:
+        raise OSError("cannot write a gray image as GIF: OpenCV's GIF "
+                      "encoder takes colour only (cv2.imwrite refuses it "
+                      "too)")
+    lib = library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.yolo_gif_encode(img.ctypes.data, h, w, ctypes.byref(out),
+                           ctypes.byref(n), err, _ERR_LEN):
+        raise OSError(err.value.decode())
+    try:
+        data = ctypes.string_at(out.value, n.value)
+    finally:
+        lib.yolo_native_free(out)
+    screen = b"GIF89a" + struct.pack("<HH", w, h) + _SCREEN_TAIL
+    descriptor = b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h,
+                                        _DESCRIPTOR_FLAGS)
+    return screen + PALETTE.tobytes() + _LOOP + _CONTROL + descriptor + \
+        data + b"\x3b"

@@ -127,6 +127,12 @@ def library() -> ctypes.CDLL:
     # data, len, min_code_size, out, n, err, errlen
     lib.yolo_gif_lzw_decode.argtypes = [ptr, size, i32, ptr, size,
                                         ctypes.c_char_p, size]
+    lib.yolo_gif_encode.restype = i32
+    # rgb, h, w, &out, &len, err, errlen
+    lib.yolo_gif_encode.argtypes = [ptr, i32, i32,
+                                    ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(size), ctypes.c_char_p,
+                                    size]
     lib.yolo_hdr_decode_pixels.restype = i32
     # data, len, w, h, rgb, err, errlen
     lib.yolo_hdr_decode_pixels.argtypes = [ptr, size, i32, i32, ptr,

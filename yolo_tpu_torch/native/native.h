@@ -73,6 +73,13 @@ long yolo_hdr_encode_pixels(const uint8_t *rgb, int w, int h, uint8_t *out,
 int yolo_gif_lzw_decode(const uint8_t *data, size_t len, int min_code_size,
                         uint8_t *out, size_t n, char *err, size_t errlen);
 
+/* (h, w, 3) RGB -> *out, a malloc'd GIF image data block (the LZW
+ * minimum code size, the sub-blocks, the terminator) of *outlen bytes,
+ * as cv2.imwrite writes it: OpenCV 5's fixed 3-3-2 palette and its
+ * Floyd-Steinberg diffusion (gif_enc.c). */
+int yolo_gif_encode(const uint8_t *rgb, int h, int w, uint8_t **out,
+                    size_t *outlen, char *err, size_t errlen);
+
 /* A JPEG 2000 codestream (FF4F FF51 ...) -> *out, a malloc'd int32 array
  * of every component's samples in turn, as OpenJPEG 2.5 decodes them
  * (level-shifted and clamped to their precision); info receives [ncomp,

@@ -16,10 +16,11 @@ PNG (data/png.py, zlib), baseline JPEG (native/jpeg_enc.c: q95 4:2:0,
 cv2.imwrite's defaults; encode_jpeg lives in native/preproc.py), BMP,
 PGM / PPM / PNM and PAM, TIFF (data/tiff.py: LZW), Sun raster
 (data/sunras.py), PFM (data/pfm.py), Radiance HDR (data/hdr.py) and JPEG
-2000 (data/jp2.py: OpenJPEG's rate allocation at a ratio of 4), each
-with cv2's bytes, and lossless WebP (data/webp.py) with cv2's pixels.
-.apng is the .png file and .pic the .hdr file, as cv2 writes them for
-one image. GIF and AVIF, which cv2 writes through lossy encoders, are
+2000 (data/jp2.py: OpenJPEG's rate allocation at a ratio of 4) and GIF
+(data/gif.py: OpenCV's fixed 3-3-2 palette, Floyd-Steinberg diffusion),
+each with cv2's bytes, and lossless WebP (data/webp.py) with cv2's
+pixels. .apng is the .png file and .pic the .hdr file, as cv2 writes
+them for one image. AVIF, which cv2 writes through a lossy encoder, is
 not ported.
 """
 
@@ -210,17 +211,14 @@ def encode_pnm(image: np.ndarray, ext: str) -> bytes:
 
 
 # cv2.imwrite's lossy encoders that the port does not reproduce
-LOSSY_NOT_PORTED = (".gif", ".avif")
+LOSSY_NOT_PORTED = (".avif",)
 
 
-def save_image(path: str, image_rgb: np.ndarray) -> None:
-    """Write an RGB (or gray) uint8 image by the path's extension, what
-    cv2.imwrite writes (module docstring): .png/.apng, .jpg/.jpeg/.jpe,
-    .bmp/.dib, .pgm/.ppm/.pnm, .pam, .tif/.tiff, .ras/.sr, .pfm,
-    .hdr/.pic, .webp and .jp2. OSError for .gif and .avif (lossy
-    encoders, not ported), another extension, an image cv2 refuses to
-    write (a .jp2 under 32 pixels a side), or a missing directory; no
-    file is written then."""
+def _writers() -> tuple:
+    """save_image's table: (extensions, writer) pairs in the order its
+    messages list them; each writer takes the image (encode_pnm also the
+    extension) and returns the file's bytes."""
+    from yolo_tpu_torch.data.gif import encode_gif
     from yolo_tpu_torch.data.hdr import encode_hdr
     from yolo_tpu_torch.data.jp2 import encode_jp2
     from yolo_tpu_torch.data.pfm import encode_pfm
@@ -230,24 +228,35 @@ def save_image(path: str, image_rgb: np.ndarray) -> None:
     from yolo_tpu_torch.data.tiff import encode_tiff
     from yolo_tpu_torch.data.webp import encode_webp
 
+    return (((".png", ".apng"), encode_png),
+            ((".jpg", ".jpeg", ".jpe"), encode_jpeg),
+            ((".bmp", ".dib"), encode_bmp),
+            ((".pgm", ".ppm", ".pnm"), encode_pnm), ((".pam",), encode_pam),
+            ((".tif", ".tiff"), encode_tiff), ((".ras", ".sr"), encode_sunras),
+            ((".pfm",), encode_pfm), ((".hdr", ".pic"), encode_hdr),
+            ((".webp",), encode_webp), ((".jp2",), encode_jp2),
+            ((".gif",), encode_gif))
+
+
+def save_image(path: str, image_rgb: np.ndarray) -> None:
+    """Write an RGB (or gray) uint8 image by the path's extension, what
+    cv2.imwrite writes (module docstring; the extensions: _writers).
+    OSError for .avif (a lossy encoder, not ported), another extension,
+    an image cv2 refuses to write (a gray .gif, a .jp2 under 32 pixels a
+    side), or a missing directory; no file is written then."""
     ext = os.path.splitext(path)[1].lower()
-    writers = {".png": encode_png, ".apng": encode_png, ".bmp": encode_bmp,
-               ".dib": encode_bmp, ".pam": encode_pam, ".tif": encode_tiff,
-               ".tiff": encode_tiff, ".ras": encode_sunras,
-               ".sr": encode_sunras, ".pfm": encode_pfm, ".hdr": encode_hdr,
-               ".pic": encode_hdr, ".webp": encode_webp, ".jp2": encode_jp2}
-    for e in (".jpg", ".jpeg", ".jpe"):
-        writers[e] = encode_jpeg
-    if ext in (".pgm", ".ppm", ".pnm"):
+    table = _writers()
+    writer = next((fn for exts, fn in table if ext in exts), None)
+    if writer is encode_pnm:
         data = encode_pnm(image_rgb, ext)
-    elif ext in writers:
-        data = writers[ext](image_rgb)
+    elif writer is not None:
+        data = writer(image_rgb)
     elif ext in LOSSY_NOT_PORTED:
         raise OSError(f"cannot write {path}: cv2.imwrite writes {ext} with a "
                       f"lossy encoder that the port does not reproduce")
     else:
-        raise OSError(f"cannot write {path}: the port writes .png/.apng, "
-                      f".jpg/.jpeg, .bmp, .pgm/.ppm/.pnm, .pam, .tif/.tiff, "
-                      f".ras/.sr, .pfm, .hdr/.pic, .webp and .jp2 only")
+        names = ["/".join(exts) for exts, _ in table]
+        raise OSError(f"cannot write {path}: the port writes "
+                      f"{', '.join(names[:-1])} and {names[-1]} only")
     with open(path, "wb") as f:
         f.write(data)
