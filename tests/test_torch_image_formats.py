@@ -931,9 +931,10 @@ def test_the_signature_chooses_the_decoder(tmp_path, jax_cv2_decoder):
 @pytest.mark.parametrize("ext", [".avif", ".jp2"])
 def test_avif_and_jpeg2000_raise_as_not_ported(tmp_path, ext):
     """cv2 writes and reads AVIF (libavif) and JPEG 2000 (OpenJPEG); the
-    port reads JPEG 2000 (data/jp2.py) to cv2's bytes, and says AVIF is
-    not ported (ROADMAP A9a), naming the file (cv2's JPEG 2000 encoder
-    refused a 16x24 image, so the image is 32x40)."""
+    port reads both to cv2's bytes (data/avif.py, data/jp2.py) through a
+    file at 3 and 1 channels (cv2's JPEG 2000 encoder refused a 16x24
+    image, so the image is 32x40). The name is older than the port's
+    AVIF reading, which once raised here."""
     img = _picture(np.random.default_rng(13), 32, 40)
     ok, buf = cv2.imencode(ext, img[..., ::-1])
     assert ok and _cv2(buf.tobytes(), 3) is not None
@@ -941,22 +942,17 @@ def test_avif_and_jpeg2000_raise_as_not_ported(tmp_path, ext):
     with open(path, "wb") as f:
         f.write(buf.tobytes())
     for c in (3, 1):
-        if ext == ".jp2":
-            np.testing.assert_array_equal(decode_image(path, c),
-                                          _cv2(buf.tobytes(), c))
-            continue
-        with pytest.raises(ValueError, match="AVIF is not ported") as err:
-            decode_image(path, c)
-        assert path in str(err.value)
+        np.testing.assert_array_equal(decode_image(path, c),
+                                      _cv2(buf.tobytes(), c))
 
 
 # --- the slice ---------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    """A seeded scene as BMP, PGM, TIFF (LZW) and WebP (lossless and
-    lossy) files, seeded tiny-voc weights shaped like a trained
-    detector's."""
+    """A seeded scene as BMP, PGM, TIFF (LZW), WebP (lossless and lossy)
+    and AVIF (cv2's default) files, seeded tiny-voc weights shaped like a
+    trained detector's."""
     from tests.torch_port import he_weights
     from yolo_tpu_torch.configs import get_variant
     from yolo_tpu_torch.data.synthetic import write_voc_scenes
@@ -972,7 +968,9 @@ def scene(tmp_path_factory):
                 rgb, cv2.COLOR_RGB2GRAY).tobytes(),
             "scene.tif": _pil_tiff(Image.fromarray(rgb), "tiff_lzw"),
             "scene.webp": _webp(Image.fromarray(rgb), lossless=True),
-            "lossy.webp": _webp(Image.fromarray(rgb), quality=80)}.items():
+            "lossy.webp": _webp(Image.fromarray(rgb), quality=80),
+            "scene.avif": cv2.imencode(".avif", rgb[..., ::-1])[1]
+            .tobytes()}.items():
         files[name] = str(d / name)
         with open(files[name], "wb") as f:
             f.write(data)
@@ -983,8 +981,9 @@ def scene(tmp_path_factory):
 
 
 def test_slice_detections_match_jax_on_cv2s_decode(scene):
-    """BMP, TIFF and WebP-lossless: the port's decode + detect_raw give
-    the JAX detector's boxes on cv2's decode of the same file (fp32)."""
+    """BMP, TIFF, WebP-lossless and AVIF: the port's decode + detect_raw
+    give the JAX detector's boxes on cv2's decode of the same file
+    (fp32)."""
     import jax.numpy as jnp
 
     from tests.torch_port import to_jax_config
@@ -1002,7 +1001,7 @@ def test_slice_detections_match_jax_on_cv2s_decode(scene):
                                                       jcfg.bn_eps))
     detector = jax_make_detector(jcfg, compute_dtype=jnp.float32,
                                  head="fused")
-    for name in ("scene.bmp", "scene.tif", "scene.webp"):
+    for name in ("scene.bmp", "scene.tif", "scene.webp", "scene.avif"):
         path = scene["files"][name]
         frame = decode_image(path)
         ref = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
@@ -1041,7 +1040,7 @@ def _same_dets(want, got):
 
 
 @pytest.mark.parametrize("name", ["scene.bmp", "scene.pgm", "scene.tif",
-                                  "scene.webp", "lossy.webp"])
+                                  "scene.webp", "lossy.webp", "scene.avif"])
 def test_predict_image_matches_jax(scene, capsys, name):
     argv = ["predict", "--model", "tiny-voc", "--input-size", "96",
             "--weights", scene["weights"], "--precision", "fp32",
@@ -1073,7 +1072,7 @@ def test_detect_images_with_a_bmp_matches_jax(scene, capsys, tmp_path):
 
 
 def test_server_bodies_of_every_format_equal_direct_calls(scene):
-    """POST /detect with BMP, PGM, TIFF and WebP bodies: the port's
+    """POST /detect with BMP, PGM, TIFF, WebP and AVIF bodies: the port's
     answer is its detection on cv2.imdecode's frame, the one the JAX
     server decodes."""
     import http.client

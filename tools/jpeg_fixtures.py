@@ -27,8 +27,13 @@ tests/j2k_writer.py's rewrites of it for POC, EPH, PPM / PPT,
 tile-parts, RGN, palettes, channel definitions and colour spaces; its
 encoder for the code-block styles, SOP and a real ROI, which PIL 12's
 writer does not set) from jp2_kinds, with JP2_FRAME (cv2.imwrite's default, 9/7) and
-JP2_LOSSLESS_FRAME (5/3), the 480x640 frames of phase 14 (c). Files
-named *_refused_* are ones cv2 gives no image for (null hashes).
+JP2_LOSSLESS_FRAME (5/3), the 480x640 frames of phase 14 (c); the AVIF
+files (cv2's and PIL's writers at their defaults: odd sizes, both
+transform modes, past 64 a side, PIL's palettes, intra block copy, two
+tile columns and 128x128 superblocks) from avif_kinds, with AVIF_FRAME, the 480x640 frame
+of phase 14 (c). Files named *_refused_* are ones cv2 gives no image
+for (null hashes). --kinds writes only the named steps' files and
+replaces only their entries in hashes.json.
 """
 
 import argparse
@@ -65,6 +70,8 @@ HDR_FRAME = "frame_hdr_480x640.hdr"
 # the 480x640 JPEG 2000 frames whose decode rates phase 14 (c) reads
 JP2_FRAME = "frame_jp2_97_480x640.jp2"
 JP2_LOSSLESS_FRAME = "frame_jp2_53_480x640.jp2"
+# the 480x640 AVIF frame whose decode rates phase 14 (c) reads
+AVIF_FRAME = "frame_avif_480x640.avif"
 
 
 def picture(rng, h, w):
@@ -472,6 +479,58 @@ def jp2_kinds():
     return out
 
 
+def screen(rng, h, w, ncol):
+    """Screen content: rows of six seeded 8x6 glyphs of ncol colours,
+    which PIL's AVIF writer codes with palettes and intra block copy."""
+    pal = rng.integers(0, 256, (ncol, 3))
+    glyphs = [rng.integers(0, ncol, (8, 6)) for _ in range(6)]
+    idx = np.zeros((h, w), np.int64)
+    for y in range(0, h, 10):
+        for x in range(0, w, 7):
+            g = glyphs[int(rng.integers(0, len(glyphs)))]
+            idx[y:y + 8, x:x + 6] = g[:min(8, h - y), :min(6, w - x)]
+    return pal[idx].astype(np.uint8)
+
+
+def pil_avif(img) -> bytes:
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, "AVIF")
+    return b.getvalue()
+
+
+def avif_kinds():
+    """AVIF files as cv2.imwrite and PIL write them at their defaults
+    (cv2: quantizer matrices, delta q, CDEF, one transform size a block
+    at some sizes and selected ones at others; PIL: no CDEF, palettes on
+    few-colour frames, intra block copy on screen content, two tile
+    columns from about 512x512 samples, 128x128 superblocks above 480 a
+    side), and AVIF_FRAME, the 480x640 frame of phase 14 (c)."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for h, w in ((37, 53), (65, 130), (70, 140)):
+        ok, buf = cv2.imencode(".avif", picture(rng, h, w)[..., ::-1])
+        assert ok
+        out[f"avif_cv2_{h}x{w}.avif"] = buf.tobytes()
+    out["avif_pil_45x67.avif"] = pil_avif(picture(rng, 45, 67))
+    dots = ((rng.random((48, 72, 3)) < 0.05) * 255).astype(np.uint8)
+    out["avif_pil_palette_48x72.avif"] = pil_avif(dots)
+    # its own generator, so that the later fixtures do not move with it
+    out["avif_pil_intrabc_150x120.avif"] = pil_avif(
+        screen(np.random.default_rng(SEED + 6), 150, 120, 3))
+    out["avif_pil_tiles_300x900.avif"] = pil_avif(
+        smooth_frame(rng, 300, 900, 20))
+    out["avif_pil_sb128_520x520.avif"] = pil_avif(
+        smooth_frame(rng, 520, 520, 20))
+    ok, buf = cv2.imencode(".avif", picture(rng, 480, 640)[..., ::-1])
+    assert ok
+    out[AVIF_FRAME] = buf.tobytes()
+    return out
+
+
+KINDS = {"fixtures": fixtures, "new": new_kinds, "format": format_kinds,
+         "decoder": decoder_kinds, "jp2": jp2_kinds, "avif": avif_kinds}
+
+
 def digest(img: np.ndarray) -> dict:
     return {"sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
             .hexdigest(), "shape": list(img.shape)}
@@ -494,11 +553,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "tests", "data",
                                                   "torch_jpeg"))
-    out = ap.parse_args().out
+    ap.add_argument("--kinds", nargs="+", choices=sorted(KINDS),
+                    default=sorted(KINDS))
+    args = ap.parse_args()
+    out = args.out
     os.makedirs(out, exist_ok=True)
     hashes = {}
-    for name, data in {**fixtures(), **new_kinds(), **format_kinds(),
-                       **decoder_kinds(), **jp2_kinds()}.items():
+    if set(args.kinds) != set(KINDS):
+        with open(os.path.join(out, "hashes.json")) as f:
+            hashes = json.load(f)["files"]
+    files = {}
+    for kind in args.kinds:
+        files.update(KINDS[kind]())
+    for name, data in files.items():
         path = os.path.join(out, name)
         with open(path, "wb") as f:
             f.write(data)

@@ -41,10 +41,9 @@ from yolo_tpu_torch.ops.letterbox import as_hw, letterbox_geometry
 
 
 # Host image decoder: "native" (native/preproc.py, the default on every
-# host: the JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM, HDR
-# and JPEG 2000 files cv2 reads, with cv2's bytes) or "cv2" (OpenCV, only
-# when asked for; it also reads AVIF files, which the native decoder
-# raises for)
+# host: the files of every format of preproc.FORMATS that cv2 reads, with
+# cv2's bytes; AVIF's kinds beyond part 1 raise there) or "cv2" (OpenCV,
+# only when asked for)
 _DECODER = "native"
 
 

@@ -1,8 +1,8 @@
 """Build the port's host C library (``yolo_tpu_torch/native/*.c``: the
 JPEG decoder and encoder, the PNG unfilter and pixel conversion, the
-BMP, GIF, HDR, TIFF, WebP and JPEG 2000 codecs, the blur, warp and
-HSV -> RGB of the augmentation, the letterbox and the stretch) and load
-it with ctypes.
+BMP, GIF, HDR, TIFF, WebP and JPEG 2000 codecs, the AV1 decoder of AVIF
+files, the blur, warp and HSV -> RGB of the augmentation, the letterbox
+and the stretch) and load it with ctypes.
 
 The sources are compiled by the host C compiler (``cc``, else ``gcc``;
 ``CC`` overrides) with ``-O2 -std=c11 -fPIC -shared``, ``-lm`` and ``-lpthread``: no fast-math, no
@@ -117,6 +117,14 @@ def library() -> ctypes.CDLL:
     # data, len, &out (int32 samples), info, maxcomps, err, errlen
     lib.yolo_j2k_decode.argtypes = [ptr, size, ctypes.POINTER(ctypes.c_void_p),
                                     ptr, i32, ctypes.c_char_p, size]
+    lib.yolo_av1_decode.restype = i32
+    # data, len, &out (Y, U, V planes), info (9 ints), err, errlen
+    lib.yolo_av1_decode.argtypes = [ptr, size, ctypes.POINTER(ctypes.c_void_p),
+                                    ptr, ctypes.c_char_p, size]
+    lib.yolo_avif_yuv_to_rgb.restype = i32
+    # y, u, v, w, h, matrix, full_range, rgb, err, errlen
+    lib.yolo_avif_yuv_to_rgb.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                         ptr, ctypes.c_char_p, size]
     lib.yolo_j2k_encode.restype = i32
     # pixels, h, w, channels, bytes before the codestream, &out, &len,
     # err, errlen

@@ -89,6 +89,22 @@ int yolo_gif_encode(const uint8_t *rgb, int h, int w, uint8_t **out,
 int yolo_j2k_decode(const uint8_t *data, size_t len, int32_t **out,
                     int32_t *info, int maxcomps, char *err, size_t errlen);
 
+/* An AVIF item's AV1 OBUs (one key frame, profile 0, 8-bit 4:2:0) ->
+ * *out, a malloc'd block of the cropped Y (w * h), U and V (cw * ch
+ * each) planes libaom 3.14.1 decodes; info receives [w, h, cw, ch,
+ * colour_description_present, primaries, transfer, matrix, full_range]
+ * (9 ints). What the decoder leaves out fails naming it (av1_obu.c). */
+int yolo_av1_decode(const uint8_t *data, size_t len, uint8_t **out,
+                    int32_t *info, char *err, size_t errlen);
+
+/* 8-bit 4:2:0 planes (y w * h, u and v ((w + 1) / 2) * ((h + 1) / 2)) ->
+ * rgb (h, w, 3) as libavif 1.4.2 converts them through libyuv (BT.601 at
+ * full range); other matrices and limited range fail (av1_filter.c). */
+int yolo_avif_yuv_to_rgb(const uint8_t *y, const uint8_t *u,
+                         const uint8_t *v, int w, int h, int matrix,
+                         int full_range, uint8_t *rgb, char *err,
+                         size_t errlen);
+
 /* BMP bytes -> *out, as yolo_jpeg_decode (bmp.c). */
 int yolo_bmp_decode(const uint8_t *data, size_t len, int channels,
                     uint8_t **out, int *h, int *w, char *err, size_t errlen);

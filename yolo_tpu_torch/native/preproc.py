@@ -30,13 +30,18 @@ after COLOR_BGR2RGB (IMREAD_COLOR) or those of IMREAD_GRAYSCALE:
     j2k_dwt.c): JP2 files and raw J2K codestreams, Part 1 whole (every
     progression order, code-block style, tiling, POC, PPM / PPT, ROI,
     5/3 and 9/7), converted to 8 bits as OpenCV converts OpenJPEG's
-    components.
+    components;
+  * AVIF (data/avif.py, native/av1_obu.c, av1_entropy.c, av1_block.c,
+    av1_recon.c, av1_filter.c): a still image's 8-bit 4:2:0 AV1 key
+    frame with every intra tool, as libaom 3.14.1 decodes it, converted
+    to RGB as libavif 1.4.2 converts it (BT.601 at full range).
 
-What cv2 gives no image for raises ValueError naming the file and
-saying so (hierarchical or 12-bit JPEGs, truncated files, ...), as do
-the format not ported (AVIF) and the few kinds each
-decoder names where cv2 gives an image that is not reproduced here. No
-path hands a file to cv2 or PIL.
+FORMATS lists them in the order their signatures are tried; READ_FORMATS
+names them. What cv2 gives no image for raises ValueError naming the
+file and saying so (hierarchical or 12-bit JPEGs, truncated files, ...),
+as do a file of no listed signature and the few kinds each decoder names
+where cv2 gives an image that is not reproduced here. No path hands a
+file to cv2 or PIL.
 
 letterbox_batch and stretch are the host resizes of the loaders
 (native/letterbox.c): the bytes of the JAX package's native
@@ -58,6 +63,7 @@ import os
 
 import numpy as np
 
+from yolo_tpu_torch.data.avif import decode_avif, is_avif
 from yolo_tpu_torch.data.gif import decode_gif, is_gif
 from yolo_tpu_torch.data.hdr import decode_hdr, is_hdr
 from yolo_tpu_torch.data.jp2 import decode_jp2, is_jp2
@@ -71,8 +77,6 @@ from yolo_tpu_torch.data.webp import decode_webp, is_webp
 from yolo_tpu_torch.native.build import library
 
 JPEG_SOI = b"\xff\xd8"
-READ_FORMATS = ("JPEG, PNG, BMP, PNM, TIFF, WebP, GIF, Sun raster, PFM, HDR, "
-                "JPEG 2000")
 _ERR_LEN = 256
 
 
@@ -123,6 +127,27 @@ def decode_jpeg_components(data: bytes, ycbcr: bool) -> np.ndarray:
                      else "yolo_jpeg_decode_raw", data, 3)
 
 
+# (name, signature test, decoder(data, channels, from_file)), in the
+# order the signatures are tried, as cv2 tries its decoders
+FORMATS = (
+    ("JPEG", lambda b: b[:2] == JPEG_SOI,
+     lambda b, c, f: decode_jpeg(b, c)),
+    ("PNG", lambda b: b[:8] == PNG_SIGNATURE,
+     lambda b, c, f: decode_png(b, c)),
+    ("BMP", lambda b: b[:2] == b"BM", lambda b, c, f: decode_bmp(b, c)),
+    ("PNM", is_pnm, lambda b, c, f: decode_pnm(b, c)),
+    ("TIFF", is_tiff, decode_tiff),
+    ("WebP", is_webp, lambda b, c, f: decode_webp(b, c)),
+    ("GIF", is_gif, lambda b, c, f: decode_gif(b, c)),
+    ("Sun raster", is_sunras, lambda b, c, f: decode_sunras(b, c)),
+    ("PFM", is_pfm, lambda b, c, f: decode_pfm(b, c)),
+    ("HDR", is_hdr, lambda b, c, f: decode_hdr(b, c)),
+    ("JPEG 2000", is_jp2, lambda b, c, f: decode_jp2(b, c)),
+    ("AVIF", is_avif, lambda b, c, f: decode_avif(b, c)),
+)
+READ_FORMATS = ", ".join(name for name, _, _ in FORMATS)
+
+
 def _decode(data: bytes, channels: int, name: str,
             from_file: bool) -> np.ndarray:
     """The decoder the file's signature names, as cv2 chooses it (never
@@ -130,44 +155,23 @@ def _decode(data: bytes, channels: int, name: str,
     gives it, which differs for TIFF orientations 5-8."""
     _check_channels(channels)
     data = bytes(data)
-    try:
-        if data[:2] == JPEG_SOI:
-            return decode_jpeg(data, channels)
-        if data[:8] == PNG_SIGNATURE:
-            return decode_png(data, channels)
-        if data[:2] == b"BM":
-            return decode_bmp(data, channels)
-        if is_pnm(data):
-            return decode_pnm(data, channels)
-        if is_tiff(data):
-            return decode_tiff(data, channels, from_file)
-        if is_webp(data):
-            return decode_webp(data, channels)
-        if is_gif(data):
-            return decode_gif(data, channels)
-        if is_sunras(data):
-            return decode_sunras(data, channels)
-        if is_pfm(data):
-            return decode_pfm(data, channels)
-        if is_hdr(data):
-            return decode_hdr(data, channels)
-        if is_jp2(data):
-            return decode_jp2(data, channels)
-    except ValueError as e:
-        raise ValueError(f"{name}: {e}") from None
+    for _, matches, decoder in FORMATS:
+        if matches(data):
+            try:
+                return decoder(data, channels, from_file)
+            except ValueError as e:
+                raise ValueError(f"{name}: {e}") from None
     raise ValueError(f"{name}: not an image format the decoder reads "
-                     f"({READ_FORMATS}; AVIF is not ported)")
+                     f"({READ_FORMATS})")
 
 
 def decode_image_bytes(data: bytes, channels: int = 3,
                        name: str = "image bytes") -> np.ndarray:
-    """In-memory decode (serving uploads) of JPEG, PNG, BMP, PNM, TIFF,
-    WebP, GIF, Sun raster, PFM, HDR or JPEG 2000 bytes -> (H, W,
-    channels) uint8:
-    RGB at channels=3, gray at
-    channels=1, the bytes cv2.imdecode gives (IMREAD_COLOR then
-    COLOR_BGR2RGB, or IMREAD_GRAYSCALE). Raises ValueError naming
-    ``name`` and the reason."""
+    """In-memory decode (serving uploads) of any format of FORMATS ->
+    (H, W, channels) uint8: RGB at channels=3, gray at channels=1, the
+    bytes cv2.imdecode gives (IMREAD_COLOR then COLOR_BGR2RGB, or
+    IMREAD_GRAYSCALE). Raises ValueError naming ``name`` and the
+    reason."""
     return _decode(data, channels, name, from_file=False)
 
 
